@@ -1,0 +1,44 @@
+"""Load the JAX package's parameter tree into a port model.
+
+The tree is what ``GraphModel.init_params()`` returns in the JAX package and
+what ``nequip-package`` pickles (``params.pkl``): nested dicts of arrays
+keyed like ``layer1_convnet.conv.edge_mlp.w1`` (a flat dict keyed by those
+dotted paths, as stored in an ``.npz``, is taken as well).  Every leaf is written by
+dotted path into the port model's parameter or persistent buffer of the
+same path and shape; a missing or extra key, or a shape mismatch, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..nn.module import GraphModule
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+@torch.no_grad()
+def load_jax_params(model: GraphModule, tree: Mapping) -> GraphModule:
+    flat = flatten_tree(tree)
+    targets = dict(model.jax_named_tensors())
+    missing = sorted(set(targets) - set(flat))
+    extra = sorted(set(flat) - set(targets))
+    if missing or extra:
+        raise KeyError(f"parameter trees differ: missing {missing}, unexpected {extra}")
+    for name, t in targets.items():
+        value = flat[name]
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {value.shape} != {tuple(t.shape)}")
+        t.copy_(torch.as_tensor(np.array(value), dtype=t.dtype))
+    return model
