@@ -5,20 +5,33 @@
 
 Phases (each prints a line; any failure exits non-zero):
   0. device: require CUDA, print the card's name and power limit, TF32 off;
-  1. build the CUDA kernels with nvcc from nequip_tpu_torch/csrc;
-  2. K1/K2/K3 against their plain PyTorch versions on the card, at the three
+  1. build the CUDA kernels with nvcc from nequip_tpu_torch/csrc (one nvcc
+     per source, all at once);
+  2. every kernel against its plain PyTorch version on the card, at the three
      conv-layer shapes of the flagship on the 23k-atom fcc Cu graph, f32 and
-     f64, with median kernel and plain times (CUDA events);
+     f64, with median kernel and plain times (CUDA events): K1 conv_fwd, K2
+     conv_bwd (inference) and conv_bwd_train (all five outputs, dw1/dw2
+     bitwise equal on a repeat call), the dW reduction dw_reduce, K3
+     scatter_rows, K4 tri_fwd and K5 tri_bwd;
   3. the port in f64, kernels on the card, against the golden E/F/stress the
      JAX package wrote (tests/data/torch_port_golden.npz);
   4. serving: the flagship in f32 with tp_impl="fused" answers three
-     calculator requests on the 23k-atom frame; the kernel launch counts of
-     those requests are reported, and one request is checked against
-     tp_impl="torch".
+     calculator requests on the 23k-atom frame; the launch counts of those
+     requests are reported (K2's inference variant only), and one request is
+     checked against tp_impl="torch";
+  5. golden training: the flagship's rr force loss and every parameter
+     gradient in f64 through the kernels against the JAX package's
+     (tests/data/torch_port_train_golden.npz);
+  6. training: Trainer.fit runs the flagship in f32 with tp_impl="fused",
+     EnergyForceLoss and Adam for 2 epochs over three LJ-labelled 23k-atom
+     frames (2 train, 1 val, batch 1); per-step times, peak memory, losses
+     and launches; the first step's gradients are checked against
+     tp_impl="torch" on the same batch.
 The second-to-last line is the kernel report as JSON ("launches": the
-kernel's launches during the phase-4 requests; "ms"/"plain_ms": phase-2 f32
-medians summed over the three layer shapes; "max_abs_err": the largest f32
-difference from plain); the last line is {"ok": true, "device": {...}}.
+kernel's launches during the phase-6 training run, the path that runs every
+kernel; "ms"/"plain_ms": phase-2 f32 medians summed over the three layer
+shapes; "max_abs_err": the largest f32 difference from plain); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,12 +47,19 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
+TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_port_train_golden.npz"
 # the TPU kernels the CUDA kernels replace (pl.pallas_call sites)
 REPLACES = {
     "conv_fwd": "nequip_tpu/ops/pallas/tp_scatter.py:1649",
     "conv_bwd": "nequip_tpu/ops/pallas/tp_scatter.py:1733",
+    "conv_bwd_train": "nequip_tpu/ops/pallas/tp_scatter.py:1733",
+    "dw_reduce": "nequip_tpu/ops/pallas/tp_scatter.py:1733",
     "scatter_rows": "nequip_tpu/ops/pallas/tp_scatter.py:1059",
+    "tri_fwd": "nequip_tpu/ops/pallas/tp_scatter.py:949",
+    "tri_bwd": "nequip_tpu/ops/pallas/tp_scatter.py:1210",
 }
+SERVING_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows")
+TRAINING_KERNELS = ("conv_fwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd")
 FLAGSHIP = dict(
     type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2, parity=False, num_features=32,
     avg_num_neighbors=18.0, per_type_energy_shifts={"Cu": -3.5},
@@ -156,6 +176,8 @@ def phase2_kernels(n_atoms: int, reps: int):
 
             x, sh, emb = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, n_emb)
             w1, w2, g = t(n_emb, hidden), t(hidden, plan.weight_numel), t(N, plan.mid_dim)
+            w = t(E, plan.weight_numel)  # per-edge TP weights of K4/K5
+            h_e, dw_e = t(layout.n_real, hidden), t(layout.n_real, plan.weight_numel)  # dW2's factors
             calls = {
                 "conv_fwd": (
                     lambda: K.conv_fwd(plan, x, sh, emb, w1, w2, a0, a1, layout),
@@ -164,6 +186,22 @@ def phase2_kernels(n_atoms: int, reps: int):
                 "conv_bwd": (
                     lambda: K.conv_bwd(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
                     lambda: K.conv_bwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
+                ),
+                "conv_bwd_train": (
+                    lambda: K.conv_bwd_train(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
+                    lambda: K.conv_bwd_train_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
+                ),
+                "dw_reduce": (
+                    lambda: K.dw_reduce(h_e, dw_e, a1, layout.n_real),
+                    lambda: K.dw_reduce_plain(h_e, dw_e, a1, layout.n_real),
+                ),
+                "tri_fwd": (
+                    lambda: K.tri_fwd(plan, x, sh, w, layout),
+                    lambda: K.tri_fwd_plain(plan, x, sh, w, layout),
+                ),
+                "tri_bwd": (
+                    lambda: K.tri_bwd(plan, x, sh, w, layout, g),
+                    lambda: K.tri_bwd_plain(plan, x, sh, w, layout, g),
                 ),
             }
             dx_edge = K.conv_bwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g)[0]
@@ -179,6 +217,12 @@ def phase2_kernels(n_atoms: int, reps: int):
                     raise RuntimeError(f"phase 2: {name} launch counter did not move")
                 got = got if isinstance(got, tuple) else (got,)
                 ref = ref if isinstance(ref, tuple) else (ref,)
+                if name in ("conv_bwd_train", "dw_reduce"):
+                    again = kern()
+                    again = again if isinstance(again, tuple) else (again,)
+                    reduced = got[-2:] if name == "conv_bwd_train" else got
+                    if not all(torch.equal(a, b) for a, b in zip(reduced, again[-len(reduced):])):
+                        raise RuntimeError(f"phase 2: {name} weight gradients differ on a repeat call")
                 err = 0.0
                 for out_i, (a, b) in enumerate(zip(got, ref)):
                     scale = float(b.abs().max())
@@ -201,7 +245,7 @@ def phase2_kernels(n_atoms: int, reps: int):
                     r["max_abs_err"] = max(r["max_abs_err"], err)
                     r["ms"] += ms
                     r["plain_ms"] += plain_ms
-            del x, sh, emb, w1, w2, g, dx_edge, calls
+            del x, sh, emb, w1, w2, g, w, h_e, dw_e, dx_edge, calls
             torch.cuda.empty_cache()
     return report
 
@@ -261,9 +305,11 @@ def phase4_serve(n_atoms: int, n_requests: int = 3):
     launches = {k: fn.launches for k, fn in K.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 4 launches {launches}, max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
-    for name, count in launches.items():
-        if count == 0:
-            raise RuntimeError(f"phase 4: kernel {name} was not launched on the main path")
+    for name in SERVING_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"phase 4: kernel {name} was not launched on the serving path")
+    if any(launches[k] for k in launches if k not in SERVING_KERNELS):
+        raise RuntimeError("phase 4: serving launched a training kernel")
     for i, res in enumerate(results):
         F = res["forces"]
         n = F.shape[0]
@@ -289,16 +335,149 @@ def phase4_serve(n_atoms: int, n_requests: int = 3):
     return launches
 
 
-def main() -> int:
-    sys.path.insert(0, str(ROOT))
-    phase0_device()
+def _grad_errors(got: dict, want: dict) -> float:
+    """Largest per-tensor max |diff| / max |want| over the port's gradients
+    (``want`` may hold more: the JAX tree has the frozen leaves too)."""
+    if not got or not set(got) <= set(want):
+        raise RuntimeError(f"gradients without a reference: {sorted(set(got) - set(want))}")
+    return max(float(np.abs(got[k] - want[k]).max()) / max(float(np.abs(want[k]).max()), 1e-300) for k in got)
+
+
+def phase5_train_golden():
     import torch
 
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up, to_tensors
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.model import NequIPGNNModel, jax_named_grads, load_jax_params
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    if not TRAIN_GOLDEN.exists():
+        raise RuntimeError(f"phase 5: training golden file {TRAIN_GOLDEN} is missing")
+    z, params = np.load(TRAIN_GOLDEN), np.load(GOLDEN)
+    model = NequIPGNNModel(seed=0, model_dtype="float64", tp_impl="fused", **FLAGSHIP)
+    load_jax_params(model, {k[len("params/"):]: params[k] for k in params.files if k.startswith("params/")})
+    model = model.to("cuda")
+    frame = {k: z[k] for k in ("pos", "cell", "pbc", "atomic_numbers", "total_energy", "forces")}
+    data = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame)), 4.0)
+    n_edges = data["edge_index"].shape[1]
+    batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(n_edges, 256), 2), "cuda")
+    module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]))
+    K.reset_launch_counts()
+    loss, _, _ = module.compute_loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    loss_err = abs(float(loss.detach()) - float(z["loss"])) / abs(float(z["loss"]))
+    grad_err = _grad_errors(jax_named_grads(model), {k[len("grads/"):]: z[k] for k in z.files if k.startswith("grads/")})
+    print(
+        f"phase 5 training golden (f64, kernels): loss {float(loss.detach()):.10e} rel err {loss_err:.3e}, "
+        f"grads max err / max|grad| {grad_err:.3e}, launches {launches}",
+        flush=True,
+    )
+    for name in TRAINING_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"phase 5: kernel {name} was not launched")
+    if not (loss_err <= 1e-10 and grad_err <= 1e-8):
+        raise RuntimeError("phase 5: the port's rr loss or gradients disagree with the JAX golden")
+    del model, module, loss
+    torch.cuda.empty_cache()
+
+
+def phase6_train(smi: str, supercell: int = 18, epochs: int = 2):
+    """Trainer.fit of the flagship at full width on 23k-atom LJ frames."""
+    import torch
+
+    from nequip_tpu_torch.data import DataLoader, NequIPDataModule
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
+    from nequip_tpu_torch.model import NequIPGNNModel, jax_named_grads
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, EnergyForceMetrics, NequIPTrainModule, Trainer
+
+    t0 = time.perf_counter()
+    ds = LJTestDataset(supercell=(supercell,) * 3, num_frames=3, seed=0,
+                       transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]), NeighborListTransform(4.0)])
+    dm = NequIPDataModule(seed=0, split_dataset={"dataset": ds, "train": 2, "val": 1},
+                          train_dataloader={"batch_size": 1}, val_dataloader={"batch_size": 1}, device="cuda")
+    dm.setup("fit")
+    print(f"phase 6 data: 3 LJ frames of {len(ds.frames[0]['pos'])} atoms in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def make(tp_impl):
+        model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **FLAGSHIP).to("cuda")
+        return NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), val_metrics=EnergyForceMetrics(),
+                                 optimizer={"_target_": "optax.adam", "learning_rate": 1e-3})
+
+    module = make("fused")
+    # the first step's gradients, fused against plain, on the trainer's first batch
+    first = next(iter(DataLoader(dm.datasets["train"][0], batch_size=1, shuffle=True, seed=dm.seed, device="cuda")))
+    grads = {}
+    for impl, m in (("fused", module), ("torch", make("torch"))):
+        if impl == "torch":
+            m.model.load_state_dict(module.model.state_dict())
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, _ = m.compute_loss(first)
+        loss.backward()
+        grads[impl] = jax_named_grads(m.model)
+        m.optimizer.zero_grad(set_to_none=True)
+        print(f"phase 6 first-step grads {impl}: loss {float(loss.detach()):.6e}, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+        del loss
+    grad_err = _grad_errors(grads["fused"], grads["torch"])
+    print(f"phase 6 first-step grads fused vs torch (f32, card): max err / max|grad| {grad_err:.3e}", flush=True)
+    if not grad_err <= 1e-4:
+        raise RuntimeError("phase 6: fused and torch first-step gradients disagree")
+    del grads, m
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(max_epochs=epochs, ckpt_dir=str(ROOT / "chiprun_out" / "chip_smoke_train"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    trainer.fit(module, dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = np.asarray(trainer.step_seconds[1:]) * 1e3
+    print(
+        f"phase 6 train ({smi}): {trainer.global_step} steps in {fit_s:.1f} s, first step "
+        f"{trainer.step_seconds[0] * 1e3:.1f} ms, later steps median {np.median(steps):.1f} ms "
+        f"(min {steps.min():.1f}, max {steps.max():.1f}), max_memory_allocated {peak / 2**30:.3f} GiB",
+        flush=True,
+    )
+    for row in trainer.metrics_rows:
+        print(
+            f"phase 6 epoch {row['epoch']}: train loss {row['train_loss_epoch/weighted_sum']:.6e}, "
+            f"val loss {row['val0_epoch/weighted_sum']:.6e} (forces rmse {row['val0_epoch/forces_rmse']:.4e})",
+            flush=True,
+        )
+    print(f"phase 6 launches {launches}", flush=True)
+    for name in TRAINING_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"phase 6: kernel {name} was not launched on the training path")
+    for row in trainer.metrics_rows:
+        if not all(math.isfinite(row[k]) for k in ("train_loss_epoch/weighted_sum", "val0_epoch/weighted_sum")):
+            raise RuntimeError("phase 6: non-finite training or validation loss")
+    if len(trainer.metrics_rows) != epochs or trainer.global_step != 2 * epochs:
+        raise RuntimeError("phase 6: the trainer did not run 2 steps per epoch")
+    return launches
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    smi = phase0_device()
     t0 = time.perf_counter()
     phase1_build()
     report = phase2_kernels(n_atoms=23000, reps=10)
     phase3_golden()
-    launches = phase4_serve(n_atoms=23000)
+    phase4_serve(n_atoms=23000)
+    phase5_train_golden()
+    launches = phase6_train(smi)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

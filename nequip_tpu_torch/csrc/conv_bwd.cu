@@ -1,5 +1,6 @@
-// K2: first-order backward of the fused convolution (K1), inference variant:
-// the per-edge cotangents that the forces need.
+// K2: first-order backward of the fused convolution (K1): the per-edge
+// cotangents that the forces need and, in the training variant, the per-edge
+// factors of the radial-MLP weight gradients.
 //
 // Replaces the TPU kernel nequip_tpu/ops/pallas/tp_scatter.py,
 // _make_fused_mlp.kernel_bwd (kernel body _bwd_mlp_kernel_T, CG-VJP block
@@ -14,7 +15,12 @@
 // dx_e goes to an [E, dim_in] buffer that K3 (scatter_rows.cu) sums onto the
 // source nodes.  The TPU kernel also accumulates dW1/dW2 over all edges by
 // carrying them across its sequential grid; Hopper's blocks run in no order,
-// so those training-only sums need a second pass and are not computed here.
+// so the training variant (nequip_conv_bwd_train) instead writes the per-edge
+// dW_e [E, WN], h_e [E, hidden] and dh_pre_e [E, hidden] it already holds in
+// shared memory, and dw_reduce.cu forms
+//   dW2 = alpha1 * sum_e h_e (x) dW_e,   dW1 = alpha0 * sum_e emb_e (x) dh_pre_e
+// in a second, fixed-order pass.  The inference variant passes null
+// pointers and writes nothing more.
 //
 // What bounds it on an H100: its bytes are K1's plus the [E, dim_in] dx
 // write (484 MB at 23k atoms, layer 1, f32) and a W2^T pass from L2 per
@@ -45,6 +51,7 @@ __global__ void __launch_bounds__(kThreads) conv_bwd_kernel(
     const int32_t* __restrict__ paths, const int32_t* __restrict__ path_terms,
     const T* __restrict__ path_coef, int n_paths,
     T* __restrict__ dx_edge, T* __restrict__ dsh, T* __restrict__ demb,
+    T* __restrict__ dw_edge, T* __restrict__ h_edge, T* __restrict__ dh_edge,
     int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,
     T alpha0, T alpha1) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -226,6 +233,14 @@ __global__ void __launch_bounds__(kThreads) conv_bwd_kernel(
       for (int t = 0; t < hidden; ++t) acc += s_dh[e * hidden + t] * w1[c * hidden + t];
       demb[static_cast<int64_t>(base + e) * n_emb + c] = alpha0 * acc;
     }
+    if (dw_edge != nullptr) {  // training variant: the factors of dW1/dW2
+      for (int i = tid; i < cnt * wn; i += blockDim.x)
+        dw_edge[static_cast<int64_t>(base) * wn + i] = s_dw[i];
+      for (int i = tid; i < cnt * hidden; i += blockDim.x) {
+        h_edge[static_cast<int64_t>(base) * hidden + i] = s_h[i];
+        dh_edge[static_cast<int64_t>(base) * hidden + i] = s_dh[i];
+      }
+    }
   }
 }
 
@@ -235,7 +250,8 @@ int launch_conv_bwd(const void* x, const void* sh, const void* emb, const void* 
                     const void* dst_ptr, const void* g, const void* dx_groups,
                     const void* dx_terms, const void* dx_coef, const void* dx_col_group,
                     const void* paths, const void* path_terms, const void* path_coef,
-                    void* dx_edge, void* dsh, void* demb, int n_paths, int n_nodes,
+                    void* dx_edge, void* dsh, void* demb, void* dw_edge, void* h_edge,
+                    void* dh_edge, int n_paths, int n_nodes,
                     int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,
                     double alpha0, double alpha1, void* stream) {
   const size_t smem =
@@ -253,7 +269,8 @@ int launch_conv_bwd(const void* x, const void* sh, const void* emb, const void* 
         static_cast<const int32_t*>(dx_terms), static_cast<const T*>(dx_coef),
         static_cast<const int32_t*>(dx_col_group), static_cast<const int32_t*>(paths),
         static_cast<const int32_t*>(path_terms), static_cast<const T*>(path_coef), n_paths,
-        static_cast<T*>(dx_edge), static_cast<T*>(dsh), static_cast<T*>(demb), dim_in,
+        static_cast<T*>(dx_edge), static_cast<T*>(dsh), static_cast<T*>(demb),
+        static_cast<T*>(dw_edge), static_cast<T*>(h_edge), static_cast<T*>(dh_edge), dim_in,
         sh_dim, n_emb, hidden, wn, mid_dim, static_cast<T>(alpha0), static_cast<T>(alpha1));
   }
   return static_cast<int>(cudaGetLastError());
@@ -272,9 +289,24 @@ int launch_conv_bwd(const void* x, const void* sh, const void* emb, const void* 
       double alpha1, void* stream) {                                                          \
     return nequip::launch_conv_bwd<T>(x, sh, emb, w1, w2, w2t, edge_src, dst_ptr, g,          \
                                       dx_groups, dx_terms, dx_coef, dx_col_group, paths,      \
-                                      path_terms, path_coef, dx_edge, dsh, demb, n_paths,     \
-                                      n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim,    \
-                                      alpha0, alpha1, stream);                                \
+                                      path_terms, path_coef, dx_edge, dsh, demb, nullptr,     \
+                                      nullptr, nullptr, n_paths, n_nodes, dim_in, sh_dim,     \
+                                      n_emb, hidden, wn, mid_dim, alpha0, alpha1, stream);    \
+  }                                                                                           \
+  extern "C" int nequip_conv_bwd_train_##SUFFIX(                                              \
+      const void* x, const void* sh, const void* emb, const void* w1, const void* w2,         \
+      const void* w2t, const void* edge_src, const void* dst_ptr, const void* g,              \
+      const void* dx_groups, const void* dx_terms, const void* dx_coef,                       \
+      const void* dx_col_group, const void* paths, const void* path_terms,                    \
+      const void* path_coef, void* dx_edge, void* dsh, void* demb, void* dw_edge,             \
+      void* h_edge, void* dh_edge, int n_paths, int n_nodes, int dim_in, int sh_dim,          \
+      int n_emb, int hidden, int wn, int mid_dim, double alpha0, double alpha1,               \
+      void* stream) {                                                                         \
+    return nequip::launch_conv_bwd<T>(x, sh, emb, w1, w2, w2t, edge_src, dst_ptr, g,          \
+                                      dx_groups, dx_terms, dx_coef, dx_col_group, paths,      \
+                                      path_terms, path_coef, dx_edge, dsh, demb, dw_edge,     \
+                                      h_edge, dh_edge, n_paths, n_nodes, dim_in, sh_dim,      \
+                                      n_emb, hidden, wn, mid_dim, alpha0, alpha1, stream);    \
   }
 
 NEQUIP_CONV_BWD(f32, float)

@@ -1,4 +1,5 @@
-"""Host-side data path: field names, padding contract, neighbour list."""
+"""Host-side data path: field names, padding contract, neighbour list,
+datasets, loaders, statistics and the datamodule."""
 
 from . import _keys
 from .atomic_data_dict import (
@@ -8,9 +9,21 @@ from .atomic_data_dict import (
     round_up,
     to_tensors,
 )
+from .datamodule import NequIPDataModule
+from .loader import DataLoader
+from .modifier import BaseModifier, NumNeighbors, PerAtomModifier
 from .neighborlist import compute_neighborlist_, neighbor_list
+from .stats_manager import CommonDataStatisticsManager, DataStatisticsManager, EnergyOnlyDataStatisticsManager
 
 __all__ = [
+    "BaseModifier",
+    "CommonDataStatisticsManager",
+    "DataLoader",
+    "DataStatisticsManager",
+    "EnergyOnlyDataStatisticsManager",
+    "NequIPDataModule",
+    "NumNeighbors",
+    "PerAtomModifier",
     "_keys",
     "batched_from_list",
     "compute_neighborlist_",

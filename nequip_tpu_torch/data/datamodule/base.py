@@ -1,0 +1,96 @@
+"""Datamodule: datasets, their train/val/test split, loaders and statistics.
+
+Port of ``nequip_tpu/data/datamodule/base.py`` (``NequIPDataModule``) without
+the config system (datasets are objects), the predict split and the
+restart state.  ``split_dataset`` is a dict (or a
+list of dicts) ``{"dataset": AtomicDataset, "train": n_or_fraction, "val":
+..., "test": ..., "seed": optional}``, split by ``RandomSplitDataset`` with
+the datamodule's seed, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Union
+
+from ..dataset.base import AtomicDataset, RandomSplitDataset
+from ..loader import DataLoader
+from ..stats_manager import DataStatisticsManager
+
+SPLITS = ("train", "val", "test")
+
+
+class NequIPDataModule:
+    def __init__(
+        self,
+        seed: int = 0,
+        train_dataset: Optional[Union[AtomicDataset, Sequence[AtomicDataset]]] = None,
+        val_dataset: Optional[Union[AtomicDataset, Sequence[AtomicDataset]]] = None,
+        test_dataset: Optional[Union[AtomicDataset, Sequence[AtomicDataset]]] = None,
+        split_dataset: Optional[Union[dict, List[dict]]] = None,
+        train_dataloader: Optional[dict] = None,
+        val_dataloader: Optional[dict] = None,
+        test_dataloader: Optional[dict] = None,
+        stats_manager: Optional[DataStatisticsManager] = None,
+        device="cpu",
+    ):
+        self.seed = int(seed)
+        self.device = device
+        self._given = dict(zip(SPLITS, (train_dataset, val_dataset, test_dataset)))
+        self._split_config = split_dataset
+        self._loader_kwargs = dict(
+            zip(SPLITS, (dict(c or {}) for c in (train_dataloader, val_dataloader, test_dataloader)))
+        )
+        self.stats_manager = stats_manager
+        self.datasets: Dict[str, List[AtomicDataset]] = {}
+        self._loaders: Dict[str, List[DataLoader]] = {}
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        if self.datasets:
+            return
+        datasets: Dict[str, List[AtomicDataset]] = {s: [] for s in SPLITS}
+        for split, ds in self._given.items():
+            if ds is not None:
+                datasets[split].extend(ds if isinstance(ds, (list, tuple)) else [ds])
+        if self._split_config is not None:
+            cfgs = self._split_config if isinstance(self._split_config, (list, tuple)) else [self._split_config]
+            for sc in cfgs:
+                sc = dict(sc)
+                base = sc.pop("dataset")
+                seed = int(sc.pop("seed", self.seed))
+                for name, sub in RandomSplitDataset(base, sc, seed=seed).items():
+                    datasets[name].append(sub)
+        if not any(datasets.values()):
+            raise ValueError("the datamodule has no datasets")
+        self.datasets = datasets
+
+    def _make_loaders(self, split: str) -> List[DataLoader]:
+        if split not in self._loaders:
+            kwargs = dict(self._loader_kwargs[split])
+            kwargs.setdefault("batch_size", 1)
+            if split == "train":
+                kwargs.setdefault("shuffle", True)
+            kwargs.setdefault("seed", self.seed)
+            kwargs.setdefault("device", self.device)
+            self._loaders[split] = [DataLoader(ds, **kwargs) for ds in self.datasets.get(split, [])]
+        return self._loaders[split]
+
+    def train_dataloader(self) -> DataLoader:
+        loaders = self._make_loaders("train")
+        if len(loaders) != 1:
+            raise ValueError("exactly one train dataset is supported")
+        return loaders[0]
+
+    def val_dataloaders(self) -> List[DataLoader]:
+        return self._make_loaders("val")
+
+    def test_dataloaders(self) -> List[DataLoader]:
+        return self._make_loaders("test")
+
+    def get_statistics(self, dataset: str = "train"):
+        """Statistics of the first dataset of a split (host batches)."""
+        if self.stats_manager is None:
+            raise ValueError("no stats_manager configured")
+        self.setup("fit")
+        kwargs = dict(self.stats_manager.dataloader_kwargs)
+        kwargs.setdefault("batch_size", 8)
+        return self.stats_manager.get_statistics(DataLoader(self.datasets[dataset][0], **kwargs))

@@ -1,3 +1,4 @@
+from .neighborlist import NeighborListTransform
 from .type_mapper import ChemicalSpeciesToAtomTypeMapper
 
-__all__ = ["ChemicalSpeciesToAtomTypeMapper"]
+__all__ = ["ChemicalSpeciesToAtomTypeMapper", "NeighborListTransform"]

@@ -6,6 +6,9 @@ keyed like ``layer1_convnet.conv.edge_mlp.w1`` (a flat dict keyed by those
 dotted paths, as stored in an ``.npz``, is taken as well).  Every leaf is written by
 dotted path into the port model's parameter or persistent buffer of the
 same path and shape; a missing or extra key, or a shape mismatch, raises.
+``jax_named_grads`` goes the other way for gradients: the port's parameter
+gradients keyed by the JAX dotted paths, to hold against a JAX gradient
+tree flattened the same way.
 """
 
 from __future__ import annotations
@@ -42,3 +45,13 @@ def load_jax_params(model: GraphModule, tree: Mapping) -> GraphModule:
             raise ValueError(f"{name}: shape {value.shape} != {tuple(t.shape)}")
         t.copy_(torch.as_tensor(np.array(value), dtype=t.dtype))
     return model
+
+
+def jax_named_grads(model: GraphModule) -> Dict[str, np.ndarray]:
+    """The gradients of the model's trainable parameters by JAX dotted path
+    (parameters without a gradient are left out)."""
+    return {
+        name: t.grad.detach().cpu().numpy()
+        for name, t in model.jax_named_tensors()
+        if isinstance(t, torch.nn.Parameter) and t.grad is not None
+    }

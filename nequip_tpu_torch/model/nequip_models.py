@@ -7,8 +7,10 @@ arguments,
     -> x(2*pi/r_max^2) -> N x ConvNetLayer -> scalar readout MLP
     -> per-type scale/shift -> per-frame sum -> ForceStressOutput
 
-``tp_impl`` is ``"torch"`` (plain PyTorch) or ``"fused"`` (the CUDA
-kernels).  Weights come from a seeded ``torch.Generator``; they differ from
+``tp_impl`` is ``"torch"`` (plain PyTorch, JAX ``"xla"``), ``"fused"``
+(the fused CUDA kernels with the radial MLP inside, JAX ``"pallas_fused"``)
+or ``"fused_tp"`` (the trilinear CUDA kernels after a plain radial MLP, JAX
+``"pallas"``).  Weights come from a seeded ``torch.Generator``; they differ from
 the JAX package's initialisation, and ``model/jax_params.py`` loads a JAX
 parameter tree instead.
 """

@@ -6,10 +6,14 @@ strain-displacement trick,
 
     forces = -dE/dpos,   stress = (dE/ddisplacement) / V,   virial = -dE/ddisplacement.
 
-Inference only: one ``torch.autograd.grad`` with ``create_graph=False``.
-The gradients flow through every module, including the fused-kernel
-Function's ``dsh``/``demb`` outputs back to the edge vectors; nothing is
-detached on the way.
+Serving (parameters frozen, or grad mode off) takes one
+``torch.autograd.grad`` with ``create_graph=False`` and detaches the
+outputs.  Training (grad mode on and a parameter that requires grad)
+builds the graph of that gradient (``create_graph=True``) and detaches
+nothing, so a force or stress loss differentiates through it (reverse over
+reverse; the fused kernels' autograd Functions are closed under it).  The
+gradients flow through every module, including the kernels' ``dsh``/``demb``
+outputs back to the edge vectors.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ class ForceStressOutput(GraphModule):
             return self.func(data)
         if _keys.EDGE_VECTORS_KEY in data:
             raise NotImplementedError("the edge-vector force branch is not ported")
+        training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
         pos = data[_keys.POSITIONS_KEY].detach()
         has_cell = _keys.CELL_KEY in data
         num_frames = data[_keys.NUM_NODES_KEY].shape[0]
@@ -61,9 +66,12 @@ class ForceStressOutput(GraphModule):
             energy = out[_keys.TOTAL_ENERGY_KEY].reshape(-1)
             if _keys.FRAME_MASK_KEY in data:
                 energy = torch.where(data[_keys.FRAME_MASK_KEY], energy, torch.zeros_like(energy))
-            dE_dpos, dE_ddisp = torch.autograd.grad(energy.sum(), (pos_in, displacement))
+            dE_dpos, dE_ddisp = torch.autograd.grad(
+                energy.sum(), (pos_in, displacement), create_graph=training
+            )
 
-        out = {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in out.items()}
+        if not training:
+            out = {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in out.items()}
         out[_keys.POSITIONS_KEY] = data[_keys.POSITIONS_KEY]
         if has_cell:
             out[_keys.CELL_KEY] = orig_cell

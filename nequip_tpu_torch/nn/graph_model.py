@@ -17,6 +17,7 @@ from ..utils.dtype import dtype_to_name
 from .embedding.utils import cutoff_dict_to_matrix
 from .interaction_block import InteractionBlock
 from .module import GraphModule
+from .tp_scatter import KERNEL_IMPLS
 
 _ALWAYS_INPUT_FIELDS = (
     _keys.POSITIONS_KEY,
@@ -53,7 +54,7 @@ class GraphModel(GraphModule):
         self._init_irreps(irreps_in=dict(model.irreps_in), irreps_out=dict(model.irreps_out))
         self.input_fields = tuple(dict.fromkeys(list(_ALWAYS_INPUT_FIELDS) + list(model.irreps_in)))
         self.uses_fused_kernels = any(
-            isinstance(m, InteractionBlock) and m.tp_scatter.impl == "fused" for m in self.modules()
+            isinstance(m, InteractionBlock) and m.tp_scatter.impl in KERNEL_IMPLS for m in self.modules()
         )
 
     @property

@@ -6,7 +6,9 @@ Port of ``InteractionBlock.__call__`` (``nequip_tpu/nn/interaction_block.py``):
     weights -> merge of same-irrep mid chunks -> linear_2 -> + self-connection
 
 With ``tp_impl="fused"`` the radial MLP runs inside the fused kernel and
-the ``[E, weight_numel]`` radial weights never exist in device memory.
+the ``[E, weight_numel]`` radial weights never exist in device memory; with
+``tp_impl="fused_tp"`` the MLP runs in plain PyTorch and the trilinear
+kernel (K4) takes its ``[E, weight_numel]`` output.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch import nn
 
 from ..data import _keys
 from ..ops.irreps import Irreps
-from ..ops.kernels.tp_scatter import LAYOUT_KEY, fused_tp_scatter_mlp
+from ..ops.kernels.tp_scatter import LAYOUT_KEY, fused_tp_scatter, fused_tp_scatter_mlp
 from ..ops.linear import Linear
 from ..ops.mlp import ScalarMLP as ScalarMLPFunction
 from ..ops.tensor_product import fully_connected_tensor_product, uvu_instructions
@@ -145,6 +147,11 @@ class InteractionBlock(GraphModule):
                 self.edge_mlp.w0.to(x.dtype), self.edge_mlp.w1.to(x.dtype),
                 self.edge_mlp.alphas[0], self.edge_mlp.alphas[1],
                 data[LAYOUT_KEY],
+            )
+        elif self.tp_scatter.impl == "fused_tp":
+            x = fused_tp_scatter(
+                self.tp_scatter.plan, x, data[_keys.EDGE_ATTRS_KEY],
+                self.edge_mlp(data[_keys.EDGE_EMBEDDING_KEY]), data[LAYOUT_KEY],
             )
         else:
             x = self.tp_scatter.forward_tp_scatter(

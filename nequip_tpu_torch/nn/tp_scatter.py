@@ -1,10 +1,14 @@
 """TensorProductScatter: gather -> CG tensor product -> scatter-sum.
 
-Port of ``nequip_tpu/nn/tp_scatter.py``.  ``impl="torch"`` is the plain
-path (gather, unfused TP, masked ``index_add``), the counterpart of the JAX
-``xla`` path; ``impl="fused"`` builds the kernel plan for the fused CUDA
-convolution (``ops/kernels/tp_scatter.py``), the counterpart of
-``pallas_fused``.
+Port of ``nequip_tpu/nn/tp_scatter.py``.  The implementations and their
+JAX counterparts:
+
+* ``"torch"`` <-> ``"xla"``: the plain path (gather, unfused TP, masked
+  ``index_add``);
+* ``"fused"`` <-> ``"pallas_fused"``: the fully fused CUDA convolution with
+  the radial MLP in the kernel (``ops/kernels/tp_scatter.py``, K1/K2);
+* ``"fused_tp"`` <-> ``"pallas"``: the radial MLP in plain PyTorch and the
+  trilinear CUDA convolution with the resulting per-edge weights (K4/K5).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from ..ops.kernels.tp_scatter import TPPlan
 from ..ops.scatter import scatter_sum
 from ..ops.tensor_product import TensorProduct
 
-TP_IMPLS = ("torch", "fused")
+TP_IMPLS = ("torch", "fused", "fused_tp")
+KERNEL_IMPLS = ("fused", "fused_tp")
 
 
 class TensorProductScatter:
@@ -33,7 +38,7 @@ class TensorProductScatter:
             shared_weights=False,
         )
         self.impl = impl
-        self.plan = TPPlan(self.tp) if impl == "fused" else None
+        self.plan = TPPlan(self.tp) if impl in KERNEL_IMPLS else None
 
     @property
     def weight_numel(self) -> int:

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``nequip_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first CUDA
-use, into ``nequip_tpu_torch/_build/`` (named by a hash of the sources, so a
+``sm_90a``, one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, at first CUDA use,
+into ``nequip_tpu_torch/_build/`` (named by a hash of the sources, so a
 changed source rebuilds).  Importing this module needs no ``nvcc``.
 
 Each C entry point launches on the stream it is given, allocates nothing,
@@ -32,14 +33,22 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES: Dict[str, List] = {
     "nequip_conv_fwd": [_P] * 12 + [_I] * 7 + [_D, _D, _P],
     "nequip_conv_bwd": [_P] * 19 + [_I] * 8 + [_D, _D, _P],
+    "nequip_conv_bwd_train": [_P] * 22 + [_I] * 8 + [_D, _D, _P],
+    "nequip_dw_reduce": [_P] * 4 + [_I] * 4 + [_D, _P],
     "nequip_scatter_rows": [_P] * 4 + [_I, _I, _P],
+    "nequip_tri_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    "nequip_tri_bwd": [_P] * 16 + [_I] * 6 + [_P],
 }
 
 # which source file holds each kernel (reported by chip_smoke.py)
 KERNEL_SOURCES = {
     "conv_fwd": "nequip_tpu_torch/csrc/conv_fwd.cu",
     "conv_bwd": "nequip_tpu_torch/csrc/conv_bwd.cu",
+    "conv_bwd_train": "nequip_tpu_torch/csrc/conv_bwd.cu",
+    "dw_reduce": "nequip_tpu_torch/csrc/dw_reduce.cu",
     "scatter_rows": "nequip_tpu_torch/csrc/scatter_rows.cu",
+    "tri_fwd": "nequip_tpu_torch/csrc/tri_fwd.cu",
+    "tri_bwd": "nequip_tpu_torch/csrc/tri_bwd.cu",
 }
 
 
@@ -70,26 +79,32 @@ def build() -> Tuple[Path, float]:
     if lib_path.exists():
         return lib_path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [
-        _find_nvcc(),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        f"-I{CSRC}",
-    ]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _find_nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            cmd + ["-o", tmp] + [str(s) for s in sources],
-            capture_output=True, text=True,
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *flags, f"-I{CSRC}", "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        failed = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib_tmp = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, "-shared", *map(str, objs), "-o", str(lib_tmp)], capture_output=True, text=True
         )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(lib_tmp, lib_path)
     return lib_path, time.perf_counter() - t0
 
 

@@ -1,18 +1,32 @@
 """Fused gather -> radial MLP -> CG tensor product -> scatter convolution.
 
-Counterpart of ``nequip_tpu/ops/pallas/tp_scatter.py``.  Three hand-written
-CUDA kernels (``nequip_tpu_torch/csrc/``) carry the energy+forces path:
+Counterpart of ``nequip_tpu/ops/pallas/tp_scatter.py``.  Hand-written CUDA
+kernels (``nequip_tpu_torch/csrc/``) carry the energy+forces path and its
+force-loss training:
 
 * K1 ``conv_fwd``: the fused forward, ``[N, mid_dim]`` messages summed per
   destination node, with the radial MLP computed in-kernel;
 * K2 ``conv_bwd``: its first-order backward, per-edge ``dx``, ``dsh`` and
-  ``demb`` (the inputs of the force computation);
-* K3 ``scatter_rows``: the row scatter-sum of K2's per-edge ``dx`` onto the
-  source nodes.
+  ``demb`` (the inputs of the force computation), and ``conv_bwd_train``,
+  its training variant, which also returns the radial-MLP weight gradients
+  ``dw1``/``dw2`` through ``dw_reduce``, a deterministic two-pass reduction
+  over the edges;
+* K3 ``scatter_rows``: the row scatter-sum of per-edge ``dx`` onto the
+  source nodes;
+* K4 ``tri_fwd`` and K5 ``tri_bwd``: the trilinear family
+  ``F(x, y, w) = scatter_dst(TP(x[src], y, w))`` with given per-edge
+  weights, and its per-edge VJP.
 
 Each wrapper runs its plain PyTorch twin (``*_plain``) when its tensors lie
 on the CPU, launches its kernel when they lie on a CUDA device, and raises
 for any other device.  Each counts its kernel launches in ``.launches``.
+
+Autograd (as ``_make_fused_mlp`` and ``_make_fused_uncached`` in JAX):
+``FusedConv`` (K1) has the backward ``FusedConvBwd`` (K2, then K3), whose
+own backward is the composition of the radial MLP with the trilinear
+family; ``TriConv`` (K4) and ``TriConvBwd`` (K5, then K3) are written in
+terms of each other, so the family is closed under differentiation to all
+orders and a force loss trains through the kernels (reverse over reverse).
 
 Edge stream contract (built once per neighbour list by
 ``relayout_edge_stream``): the real edges come first, sorted by destination
@@ -30,7 +44,6 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from ...data import _keys
 from ...data._key_registry import get_field_type
@@ -40,6 +53,7 @@ from . import build
 
 LAYOUT_KEY = _keys.EDGE_LAYOUT_KEY_PREFIX + "csr"
 _MAX_YDIM = 9  # kMaxYDim in csrc/tp_common.cuh
+_REDUCE_CHUNK = 4096  # edges per partial sum of dw_reduce (csrc/dw_reduce.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +258,7 @@ def conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout)
     return x.new_zeros(layout.num_nodes, plan.mid_dim).index_add_(0, dst, msg)
 
 
-def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
+def _conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g, train: bool):
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
@@ -252,15 +266,47 @@ def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout,
         xs = x[src].detach().requires_grad_(True)
         ys = sh[:n_real].detach().requires_grad_(True)
         es = emb[:n_real].detach().requires_grad_(True)
-        msg = plan.tp(xs, ys, radial_weights(es, w1.detach(), w2.detach(), alpha0, alpha1))
-        dxs, dys, des = torch.autograd.grad(msg, (xs, ys, es), g[dst])
+        ws = (w1.detach().requires_grad_(train), w2.detach().requires_grad_(train))
+        msg = plan.tp(xs, ys, radial_weights(es, *ws, alpha0, alpha1))
+        grads = torch.autograd.grad(msg, (xs, ys, es) + (ws if train else ()), g[dst])
     dx_edge = x.new_zeros(sh.shape[0], plan.dim_in)
-    dx_edge[:n_real] = dxs
+    dx_edge[:n_real] = grads[0]
     dsh = torch.zeros_like(sh)
-    dsh[:n_real] = dys
+    dsh[:n_real] = grads[1]
     demb = torch.zeros_like(emb)
-    demb[:n_real] = des
-    return dx_edge, dsh, demb
+    demb[:n_real] = grads[2]
+    return (dx_edge, dsh, demb) + tuple(grads[3:])
+
+
+def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
+    return _conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=False)
+
+
+def conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
+    return _conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=True)
+
+
+def dw_reduce_plain(a, b, scale: float, n: int):
+    return scale * (a[:n].t() @ b[:n])
+
+
+def tri_fwd_plain(plan, x, y, w, layout: EdgeLayout):
+    n_real = layout.n_real
+    dst = _segment_rows(layout.dst_ptr)
+    src = layout.edge_src[:n_real].long()
+    msg = plan.tp(torch.index_select(x, 0, src), y[:n_real], w[:n_real])
+    return x.new_zeros(layout.num_nodes, plan.mid_dim).index_add_(0, dst, msg)
+
+
+def tri_bwd_plain(plan, x, y, w, layout: EdgeLayout, g):
+    n_real = layout.n_real
+    dst = _segment_rows(layout.dst_ptr)
+    src = layout.edge_src[:n_real].long()
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_(True) for t in (x[src], y[:n_real], w[:n_real]))
+        grads = torch.autograd.grad(plan.tp(*ins), ins, g[dst])
+    # per-edge outputs over all slots, zero at masked ones
+    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n_real)) for gr in grads)
 
 
 def scatter_rows_plain(values, perm, ptr):
@@ -316,12 +362,7 @@ def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
     return out
 
 
-def conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout, g):
-    """K2: per-edge ``(dx [E, dim_in], dsh [E, sh_dim], demb [E, n_emb])``
-    of K1 for the node cotangent ``g`` (see ``csrc/conv_bwd.cu``); zero rows
-    at masked slots."""
-    if not _route("conv_bwd", x, sh, emb, w1, w2, g):
-        return conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
+def _launch_conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g, train: bool):
     _check_layout(layout, x.device)
     n_emb, hidden = w1.shape
     tab = plan.device_tables(x.device, x.dtype)
@@ -330,19 +371,123 @@ def conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
     dx_edge[layout.n_real :].zero_()  # the kernel writes the real slots only
     dsh = torch.zeros_like(sh)
     demb = torch.zeros_like(emb)
-    err = build.entry_point("nequip_conv_bwd", x.dtype)(
+    args = [
         x.data_ptr(), sh.data_ptr(), emb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         w2t.data_ptr(), layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(), g.data_ptr(),
         tab["dx_groups"].data_ptr(), tab["dx_terms"].data_ptr(), tab["dx_coef"].data_ptr(),
         tab["dx_col"].data_ptr(), tab["paths"].data_ptr(), tab["path_terms"].data_ptr(),
         tab["path_coef"].data_ptr(), dx_edge.data_ptr(), dsh.data_ptr(), demb.data_ptr(),
+    ]
+    per_edge = ()
+    if train:
+        # per-edge factors of dW2 / dW1 over the real slots, reduced by dw_reduce
+        per_edge = tuple(
+            torch.empty(layout.n_real, width, dtype=x.dtype, device=x.device)
+            for width in (plan.weight_numel, hidden, hidden)
+        )
+        args += [t.data_ptr() for t in per_edge]
+    args += [
         len(plan.paths), layout.num_nodes, plan.dim_in, plan.sh_dim, n_emb, hidden,
         plan.weight_numel, plan.mid_dim, alpha0, alpha1,
         torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, "conv_bwd")
+    ]
+    name = "conv_bwd_train" if train else "conv_bwd"
+    build.check(build.entry_point(f"nequip_{name}", x.dtype)(*args), name)
+    return (dx_edge, dsh, demb), per_edge
+
+
+def conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout, g):
+    """K2, inference variant: per-edge ``(dx [E, dim_in], dsh [E, sh_dim],
+    demb [E, n_emb])`` of K1 for the node cotangent ``g`` (see
+    ``csrc/conv_bwd.cu``); zero rows at masked slots."""
+    if not _route("conv_bwd", x, sh, emb, w1, w2, g):
+        return conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
+    outs, _ = _launch_conv_bwd(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=False)
     conv_bwd.launches += 1
-    return dx_edge, dsh, demb
+    return outs
+
+
+def conv_bwd_train(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout, g):
+    """K2, training variant: ``conv_bwd``'s three outputs and the radial-MLP
+    weight gradients ``dw1 [n_emb, hidden]``, ``dw2 [hidden, WN]``.  The
+    kernel writes the per-edge ``dW_e``, ``h_e`` and ``dh_pre_e``;
+    ``dw_reduce`` sums them over the edges."""
+    if not _route("conv_bwd_train", x, sh, emb, w1, w2, g):
+        return conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
+    outs, (dw_e, h_e, dh_e) = _launch_conv_bwd(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=True)
+    conv_bwd_train.launches += 1
+    n = layout.n_real
+    return outs + (dw_reduce(emb, dh_e, alpha0, n), dw_reduce(h_e, dw_e, alpha1, n))
+
+
+def dw_reduce(a, b, scale: float, n: int):
+    """``scale * a[:n]^T b[:n]`` (``[P, Q]``) in a fixed summation order (see
+    ``csrc/dw_reduce.cu``): two calls give bitwise equal results."""
+    if not _route("dw_reduce", a, b):
+        return dw_reduce_plain(a, b, scale, n)
+    if a.dim() != 2 or b.dim() != 2 or not (n <= a.shape[0] and n <= b.shape[0]):
+        raise ValueError("dw_reduce: a [M, P] and b [M, Q] need at least n rows")
+    P, Q = a.shape[1], b.shape[1]
+    n_chunks = max(1, -(-n // _REDUCE_CHUNK))
+    partial = torch.empty(n_chunks, P, Q, dtype=a.dtype, device=a.device)
+    out = torch.empty(P, Q, dtype=a.dtype, device=a.device)
+    err = build.entry_point("nequip_dw_reduce", a.dtype)(
+        a.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(), n, P, Q, _REDUCE_CHUNK,
+        scale, torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    build.check(err, "dw_reduce")
+    dw_reduce.launches += 1
+    return out
+
+
+def tri_fwd(plan: TPPlan, x, y, w, layout: EdgeLayout):
+    """K4: ``[N, mid_dim]`` trilinear conv with per-edge weights ``w [E, WN]``
+    (see ``csrc/tri_fwd.cu``)."""
+    if not _route("tri_fwd", x, y, w):
+        return tri_fwd_plain(plan, x, y, w, layout)
+    _check_layout(layout, x.device)
+    tab = plan.device_tables(x.device, x.dtype)
+    out = torch.empty(layout.num_nodes, plan.mid_dim, dtype=x.dtype, device=x.device)
+    err = build.entry_point("nequip_tri_fwd", x.dtype)(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), layout.edge_src.data_ptr(),
+        layout.dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
+        tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(),
+        layout.num_nodes, plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "tri_fwd")
+    tri_fwd.launches += 1
+    return out
+
+
+def tri_bwd(plan: TPPlan, x, y, w, layout: EdgeLayout, g):
+    """K5: per-edge ``(dx [E, dim_in], dy [E, sh_dim], dw [E, WN])`` of K4 for
+    the node cotangent ``g`` (see ``csrc/tri_bwd.cu``); zero rows at masked
+    slots."""
+    if not _route("tri_bwd", x, y, w, g):
+        return tri_bwd_plain(plan, x, y, w, layout, g)
+    _check_layout(layout, x.device)
+    tab = plan.device_tables(x.device, x.dtype)
+    n_real = layout.n_real
+    outs = tuple(
+        torch.empty(y.shape[0], width, dtype=x.dtype, device=x.device)
+        for width in (plan.dim_in, plan.sh_dim, plan.weight_numel)
+    )
+    for t in outs:
+        t[n_real:].zero_()  # the kernel writes the real slots only
+    dx_edge, dy, dw = outs
+    err = build.entry_point("nequip_tri_bwd", x.dtype)(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), layout.edge_src.data_ptr(),
+        layout.dst_ptr.data_ptr(), g.data_ptr(), tab["dx_groups"].data_ptr(),
+        tab["dx_terms"].data_ptr(), tab["dx_coef"].data_ptr(), tab["dx_col"].data_ptr(),
+        tab["paths"].data_ptr(), tab["path_terms"].data_ptr(), tab["path_coef"].data_ptr(),
+        dx_edge.data_ptr(), dy.data_ptr(), dw.data_ptr(), len(plan.paths), layout.num_nodes,
+        plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "tri_bwd")
+    tri_bwd.launches += 1
+    return outs
 
 
 def scatter_rows(values, perm, ptr):
@@ -366,10 +511,15 @@ def scatter_rows(values, perm, ptr):
     return out
 
 
-conv_fwd.launches = 0
-conv_bwd.launches = 0
-scatter_rows.launches = 0
-KERNELS = {"conv_fwd": conv_fwd, "conv_bwd": conv_bwd, "scatter_rows": scatter_rows}
+KERNELS = {
+    "conv_fwd": conv_fwd,
+    "conv_bwd": conv_bwd,
+    "conv_bwd_train": conv_bwd_train,
+    "dw_reduce": dw_reduce,
+    "scatter_rows": scatter_rows,
+    "tri_fwd": tri_fwd,
+    "tri_bwd": tri_bwd,
+}
 
 
 def reset_launch_counts() -> None:
@@ -377,15 +527,27 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+reset_launch_counts()
+
+
 # ---------------------------------------------------------------------------
-# autograd: forward K1; backward K2 then K3
+# autograd: the fused conv and the trilinear family, closed under AD
 # ---------------------------------------------------------------------------
+def _add(*terms):
+    """Sum of the terms that are not None (None if all are)."""
+    terms = [t for t in terms if t is not None]
+    return sum(terms[1:], terms[0]) if terms else None
+
+
+def _dx_nodes(dx_edge, layout: EdgeLayout):
+    return scatter_rows(dx_edge, layout.src_perm, layout.src_ptr)
+
+
 class FusedConv(torch.autograd.Function):
-    """``out = scatter_dst(TP(x[src], sh, MLP(emb; w1, w2)))`` with the
-    kernels as forward and backward.  Gradients flow to ``x``, ``sh`` and
-    ``emb`` (hence to the edge vectors and positions); ``w1``/``w2``
-    gradients need a cross-block reduction K2 does not do, so asking for
-    them raises."""
+    """``out = scatter_dst(TP(x[src], sh, MLP(emb; w1, w2)))`` with K1 as
+    forward.  Its backward is ``FusedConvBwd`` (K2's training variant) when
+    the radial-MLP weights need gradients or a graph is being built (force
+    losses); otherwise, as in serving, K2's inference variant and K3."""
 
     @staticmethod
     def forward(ctx, x, sh, emb, w1, w2, plan, alpha0, alpha1, layout):
@@ -394,22 +556,146 @@ class FusedConv(torch.autograd.Function):
         return conv_fwd(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
-            raise NotImplementedError(
-                "FusedConv computes no radial-MLP weight gradients: dW1/dW2 need a "
-                "cross-block reduction that comes with the port of training (K2's "
-                "training variant, then K4-K7); freeze the weights for inference"
-            )
         x, sh, emb, w1, w2 = ctx.saved_tensors
-        layout = ctx.layout
-        dx_edge, dsh, demb = conv_bwd(ctx.plan, x, sh, emb, w1, w2, *ctx.alphas, layout, g.contiguous())
-        dx = scatter_rows(dx_edge, layout.src_perm, layout.src_ptr) if ctx.needs_input_grad[0] else None
+        layout, need = ctx.layout, ctx.needs_input_grad
+        g = g.contiguous()
+        if need[3] or need[4] or torch.is_grad_enabled():
+            grads = FusedConvBwd.apply(x, sh, emb, w1, w2, g, ctx.plan, *ctx.alphas, layout)
+            return tuple(gr if nd else None for gr, nd in zip(grads, need[:5])) + (None,) * 4
+        dx_edge, dsh, demb = conv_bwd(ctx.plan, x, sh, emb, w1, w2, *ctx.alphas, layout, g)
+        dx = _dx_nodes(dx_edge, layout) if need[0] else None
         return dx, dsh, demb, None, None, None, None, None, None
+
+
+def _conv_bwd_composition(plan, x, sh, emb, w1, w2, g, alpha0, alpha1, layout: EdgeLayout):
+    """K2 (with K3) as a differentiable composition, the JAX ``_bwd_ref``:
+    ``W = MLP(emb)`` in plain torch, ``(dx, dsh, dW) = TriConvBwd(x, sh, W, g)``
+    and ``(demb, dw1, dw2)`` the MLP's VJP at ``dW``.  The MLP runs on the
+    real slots only; ``W`` and ``demb`` are zero at masked slots."""
+    n, n_pad = layout.n_real, emb.shape[0] - layout.n_real
+    e = emb[:n]
+    a = e @ (w1 * alpha0)
+    s = torch.sigmoid(a)
+    h = a * s
+    W = F.pad(h @ (w2 * alpha1), (0, 0, 0, n_pad))
+    dx, dsh, dW = TriConvBwd.apply(x, sh, W, g, plan, layout)
+    dW = dW[:n]
+    dh_pre = (dW @ (w2 * alpha1).t()) * (s * (1 + a * (1 - s)))
+    demb = F.pad(dh_pre @ (w1 * alpha0).t(), (0, 0, 0, n_pad))
+    return dx, dsh, demb, alpha0 * (e.t() @ dh_pre), alpha1 * (h.t() @ dW)
+
+
+class FusedConvBwd(torch.autograd.Function):
+    """``(dx, dsh, demb, dw1, dw2)`` of ``FusedConv`` for the node cotangent
+    ``g``: K2's training variant, then K3 for ``dx``.  Its backward (the JAX
+    ``kernel_bwd_bwd``) differentiates ``_conv_bwd_composition``, whose
+    trilinear part runs K4 and K5."""
+
+    @staticmethod
+    def forward(ctx, x, sh, emb, w1, w2, g, plan, alpha0, alpha1, layout):
+        ctx.plan, ctx.alphas, ctx.layout = plan, (alpha0, alpha1), layout
+        ctx.save_for_backward(x, sh, emb, w1, w2, g)
+        ctx.set_materialize_grads(False)
+        dx_edge, dsh, demb, dw1, dw2 = conv_bwd_train(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
+        return _dx_nodes(dx_edge, layout), dsh, demb, dw1, dw2
+
+    @staticmethod
+    def backward(ctx, *cts):
+        wrt = [i for i, nd in enumerate(ctx.needs_input_grad[:6]) if nd]
+        used = [i for i, c in enumerate(cts) if c is not None]
+        grads = [None] * 6
+        if wrt and used:
+            create = torch.is_grad_enabled()  # a graph of this backward is asked for
+            with torch.enable_grad():
+                # views keep the inputs' history when a graph is built
+                ins = [
+                    t.view_as(t) if create and t.requires_grad else t.detach().requires_grad_(True)
+                    for t in ctx.saved_tensors
+                ]
+                outs = _conv_bwd_composition(ctx.plan, *ins, *ctx.alphas, ctx.layout)
+                found = torch.autograd.grad(
+                    [outs[i] for i in used], [ins[i] for i in wrt], [cts[i] for i in used],
+                    allow_unused=True, create_graph=create,
+                )
+            for i, gr in zip(wrt, found):
+                grads[i] = gr
+        return (*grads, None, None, None, None)
+
+
+class TriConv(torch.autograd.Function):
+    """``F(x, y, w) = scatter_dst(TP(x[src], y, w))`` with K4 as forward and
+    ``TriConvBwd`` as backward."""
+
+    @staticmethod
+    def forward(ctx, x, y, w, plan, layout):
+        ctx.plan, ctx.layout = plan, layout
+        ctx.save_for_backward(x, y, w)
+        return tri_fwd(plan, x, y, w, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, w = ctx.saved_tensors
+        grads = TriConvBwd.apply(x, y, w, g.contiguous(), ctx.plan, ctx.layout)
+        return tuple(gr if nd else None for gr, nd in zip(grads, ctx.needs_input_grad[:3])) + (None, None)
+
+
+class TriConvBwd(torch.autograd.Function):
+    """``B(x, y, w, g) = (dx, dy, dw)``, the VJP of ``F``: K5, then K3 for
+    ``dx``.  As ``F`` is trilinear, ``B``'s VJP is three ``F`` and three ``B``
+    calls (JAX ``bwd_bwd``): for cotangents ``(cx, cy, cw)``,
+    ``dg = F(cx, y, w) + F(x, cy, w) + F(x, y, cw)``, and each input's
+    cotangent collects the ``B`` calls that substitute another operand."""
+
+    @staticmethod
+    def forward(ctx, x, y, w, g, plan, layout):
+        ctx.plan, ctx.layout = plan, layout
+        ctx.save_for_backward(x, y, w, g)
+        ctx.set_materialize_grads(False)
+        dx_edge, dy, dw = tri_bwd(plan, x, y, w, layout, g)
+        return _dx_nodes(dx_edge, layout), dy, dw
+
+    @staticmethod
+    def backward(ctx, cx, cy, cw):
+        x, y, w, g = ctx.saved_tensors
+        plan, layout = ctx.plan, ctx.layout
+        need_x, need_y, need_w, need_g = ctx.needs_input_grad[:4]
+        cx, cy, cw = (None if c is None else c.contiguous() for c in (cx, cy, cw))
+
+        def fwd(a, b, c):
+            return TriConv.apply(a, b, c, plan, layout)
+
+        def bwd(a, b, c):
+            return TriConvBwd.apply(a, b, c, g, plan, layout)
+
+        dg = None
+        if need_g:
+            dg = _add(
+                None if cx is None else fwd(cx, y, w),
+                None if cy is None else fwd(x, cy, w),
+                None if cw is None else fwd(x, y, cw),
+            )
+        b1 = bwd(cx, y, w) if cx is not None and (need_y or need_w) else None  # x -> cx
+        b2 = bwd(x, cy, w) if cy is not None and (need_x or need_w) else None  # y -> cy
+        b3 = bwd(x, y, cw) if cw is not None and (need_x or need_y) else None  # w -> cw
+        dx = _add(*(b[0] for b in (b2, b3) if b is not None)) if need_x else None
+        dy = _add(*(b[1] for b in (b1, b3) if b is not None)) if need_y else None
+        dw = _add(*(b[2] for b in (b1, b2) if b is not None)) if need_w else None
+        return dx, dy, dw, dg, None, None
 
 
 def fused_tp_scatter_mlp(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float,
                          layout: EdgeLayout) -> torch.Tensor:
     """Fully fused conv; ``w1``/``w2`` are the radial MLP's ``w0``/``w1``."""
     return FusedConv.apply(x, sh, emb, w1, w2, plan, alpha0, alpha1, layout)
+
+
+def fused_tp_scatter(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout) -> torch.Tensor:
+    """The trilinear conv ``F(x, edge_attr, edge_weight)`` (K4 forward)."""
+    return TriConv.apply(x, edge_attr, edge_weight, plan, layout)
+
+
+def fused_tp_scatter_bwd(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout, g):
+    """``(dx, dy, dw)`` of ``F`` for the node cotangent ``g`` (K5, then K3),
+    differentiable to all orders."""
+    return TriConvBwd.apply(x, edge_attr, edge_weight, g, plan, layout)

@@ -59,15 +59,29 @@ def _problem(device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", ["conv_fwd", "conv_bwd", "scatter_rows"])
+@pytest.mark.parametrize(
+    "name", ["conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd"]
+)
 def test_cuda_kernel_matches_plain(cuda, name, dtype):
     args, g, v = _problem(cuda, dtype)
-    lay = args[-1]
+    plan, x, sh, emb, lay = args[0], args[1], args[2], args[3], args[-1]
+    w = torch.as_tensor(np.random.RandomState(7).standard_normal((N_SLOTS, plan.weight_numel)),
+                        dtype=dtype, device=cuda)
     before = K.KERNELS[name].launches
     if name == "conv_fwd":
         got, want = K.conv_fwd(*args), K.conv_fwd_plain(*args)
     elif name == "conv_bwd":
         got, want = K.conv_bwd(*args, g), K.conv_bwd_plain(*args, g)
+    elif name == "conv_bwd_train":
+        got, want = K.conv_bwd_train(*args, g), K.conv_bwd_train_plain(*args, g)
+    elif name == "dw_reduce":
+        got, want = K.dw_reduce(v, w, 0.5, lay.n_real), K.dw_reduce_plain(v, w, 0.5, lay.n_real)
+        assert torch.equal(got, K.dw_reduce(v, w, 0.5, lay.n_real))  # deterministic
+        before += 1
+    elif name == "tri_fwd":
+        got, want = K.tri_fwd(plan, x, sh, w, lay), K.tri_fwd_plain(plan, x, sh, w, lay)
+    elif name == "tri_bwd":
+        got, want = K.tri_bwd(plan, x, sh, w, lay, g), K.tri_bwd_plain(plan, x, sh, w, lay, g)
     else:
         got, want = K.scatter_rows(v, lay.src_perm, lay.src_ptr), K.scatter_rows_plain(v, lay.src_perm, lay.src_ptr)
     torch.cuda.synchronize()
@@ -101,3 +115,33 @@ def test_cuda_fused_model_matches_torch_model(cuda):
     torch.testing.assert_close(got[_keys.TOTAL_ENERGY_KEY], ref[_keys.TOTAL_ENERGY_KEY], rtol=1e-10, atol=0)
     for k in (_keys.FORCE_KEY, _keys.STRESS_KEY):
         torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp_impl", ["fused", "fused_tp"])
+def test_cuda_force_loss_grads_match_torch_model(cuda, tp_impl):
+    """rr force-loss parameter gradients through the kernels (K1-K5, the
+    reduction) against tp_impl="torch" on the card, float64."""
+    from nequip_tpu_torch.model import NequIPGNNModel
+
+    cfg = dict(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=2, l_max=2,
+               parity=False, num_features=8, radial_mlp_width=16, avg_num_neighbors=18.0)
+    r = np.random.RandomState(1)
+    a = 3.61
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]]) * a
+    pos = np.concatenate([base + np.array([i, j, k]) * a for i in range(2) for j in range(2) for k in range(2)])
+    frame = compute_neighborlist_(from_dict({
+        "pos": pos + r.normal(0, 0.1, pos.shape), "cell": np.diag([2 * a] * 3),
+        "pbc": np.array([True] * 3), "atom_types": np.zeros(len(pos), dtype=int),
+    }), 4.0)
+    n_edges = frame[_keys.EDGE_INDEX_KEY].shape[1]
+    batch = to_tensors(pad_batch(batched_from_list([frame]), 64, round_up(n_edges, 256), 2), cuda)
+    f_ref = torch.as_tensor(r.standard_normal((64, 3)), device=cuda)
+    grads = []
+    for impl in ("torch", tp_impl):
+        model = NequIPGNNModel(tp_impl=impl, **cfg).to(cuda)
+        out = model(batch)
+        loss = out[_keys.TOTAL_ENERGY_KEY][0, 0] ** 2 + ((out[_keys.FORCE_KEY] - f_ref) ** 2).sum()
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    for ref, got in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-9 * float(ref.abs().max()))

@@ -192,16 +192,20 @@ def test_layout_rejects_unordered_stream():
 
 
 def test_weight_gradients_raise():
+    """Asking for the radial-MLP weight gradients no longer raises: K2's
+    training variant gives them, equal to plain autograd through the
+    unfused conv."""
     p = _problem(unsorted=False)
     data, _ = _port_stream(p)
     plan = K.TPPlan(p["tp"])
-    w0 = _t(p["mlp_params"]["w0"]).requires_grad_(True)
-    out = K.fused_tp_scatter_mlp(
-        plan, _t(p["x"]), data[_keys.EDGE_ATTRS_KEY], data[_keys.EDGE_EMBEDDING_KEY],
-        w0, _t(p["mlp_params"]["w1"]), *p["mlp"].alphas, data[K.LAYOUT_KEY],
-    )
-    with pytest.raises(NotImplementedError, match="radial-MLP weight gradients"):
-        out.sum().backward()
+    a0, a1 = p["mlp"].alphas
+    ws = [_t(p["mlp_params"][k]).requires_grad_(True) for k in ("w0", "w1")]
+    sh, emb, lay = data[_keys.EDGE_ATTRS_KEY], data[_keys.EDGE_EMBEDDING_KEY], data[K.LAYOUT_KEY]
+    out = K.fused_tp_scatter_mlp(plan, _t(p["x"]), sh, emb, *ws, a0, a1, lay)
+    got = torch.autograd.grad(out.sum(), ws)
+    want = torch.autograd.grad(K.conv_fwd_plain(plan, _t(p["x"]), sh, emb, *ws, a0, a1, lay).sum(), ws)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():

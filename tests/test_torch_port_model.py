@@ -105,7 +105,7 @@ def _check(got, want):
 
 @pytest.mark.parametrize("config", list(CONFIGS))
 @pytest.mark.parametrize("jax_impl", ["xla", "pallas_fused"])
-@pytest.mark.parametrize("tp_impl", ["torch", "fused"])
+@pytest.mark.parametrize("tp_impl", ["torch", "fused", "fused_tp"])
 def test_model_matches_jax(request, config, tp_impl, jax_impl):
     fixture = {"flagship": "jax_reference", "two_species": "jax_two_species"}[config]
     params, frame, want = request.getfixturevalue(fixture)
@@ -143,18 +143,23 @@ def test_jax_param_loader_checks_keys_and_shapes(jax_reference):
 
 
 def test_fused_model_needs_frozen_weights(jax_reference):
-    """Inference only: the fused backward computes no radial-MLP weight grads."""
+    """Frozen weights are no longer needed: with trainable weights the fused
+    model gives the frozen model's outputs, differentiable for a force loss."""
     params, frame, _ = jax_reference
+    batch = to_tensors(_padded(frame, compute_neighborlist_, batched_from_list, pad_batch, from_dict))
     model = NequIPGNNModel(tp_impl="fused", **CONFIG)
     load_jax_params(model, params)
-    batch = _padded(frame, compute_neighborlist_, batched_from_list, pad_batch, from_dict)
-    with pytest.raises(NotImplementedError, match="radial-MLP weight gradients"):
-        model(to_tensors(batch))
+    out = model(batch)
+    frozen = _port_model("fused", params)(batch)
+    for k in OUTPUTS:
+        torch.testing.assert_close(out[k].detach(), frozen[k], rtol=0, atol=1e-12)
+    assert out[jkeys.FORCE_KEY].requires_grad and not frozen[jkeys.FORCE_KEY].requires_grad
 
 
 def test_metadata_names_the_model():
     model = NequIPGNNModel(tp_impl="fused", **CONFIG)
     md = model.metadata
     assert md["r_max"] == "4.0" and md["type_names"] == "Cu" and md["model_dtype"] == "float64"
-    assert model.uses_fused_kernels and not NequIPGNNModel(tp_impl="torch", **CONFIG).uses_fused_kernels
+    assert model.uses_fused_kernels and NequIPGNNModel(tp_impl="fused_tp", **CONFIG).uses_fused_kernels
+    assert not NequIPGNNModel(tp_impl="torch", **CONFIG).uses_fused_kernels
     assert all(p.dtype == torch.float64 for p in model.parameters())
