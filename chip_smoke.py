@@ -12,7 +12,14 @@ Phases (each prints a line; any failure exits non-zero):
      f64, with median kernel and plain times (CUDA events): K1 conv_fwd, K2
      conv_bwd (inference) and conv_bwd_train (all five outputs, dw1/dw2
      bitwise equal on a repeat call), the dW reduction dw_reduce, K3
-     scatter_rows, K4 tri_fwd and K5 tri_bwd;
+     scatter_rows, K4 tri_fwd and K5 tri_bwd on the whole stream; K4-acc
+     tri_fwd_acc, K6 jvp_fwd (with and without accumulators) and K7 jvp_bwd
+     on one of 4 edge slices whose first destination segment the slice
+     boundary splits (the shapes the fr sweep gives them), each bitwise
+     equal on a repeat call.  Beside each time: the kernel's bound (bytes
+     over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger)
+     and, where one PyTorch call computes the same function, that call's
+     time (library_ms: torch.mm for the dW reduction, index_add_ for K3);
   3. the port in f64, kernels on the card, against the golden E/F/stress the
      JAX package wrote (tests/data/torch_port_golden.npz);
   4. serving: the flagship in f32 with tp_impl="fused" answers three
@@ -21,17 +28,24 @@ Phases (each prints a line; any failure exits non-zero):
      checked against tp_impl="torch";
   5. golden training: the flagship's rr force loss and every parameter
      gradient in f64 through the kernels against the JAX package's
-     (tests/data/torch_port_train_golden.npz);
+     (tests/data/torch_port_train_golden.npz); 5b: the same for fr with
+     fr_edge_chunks 0 and 4 (fr's gradients are rr's), K6/K7/K4-acc
+     launched only when chunked;
   6. training: Trainer.fit runs the flagship in f32 with tp_impl="fused",
      EnergyForceLoss and Adam for 2 epochs over three LJ-labelled 23k-atom
      frames (2 train, 1 val, batch 1); per-step times, peak memory, losses
      and launches; the first step's gradients are checked against
-     tp_impl="torch" on the same batch.
+     tp_impl="torch" on the same batch;
+  7. fr training: the same Trainer.fit with force_grad_mode="fr" and
+     fr_edge_chunks=4 on phase 6's data; step times, peak memory and losses
+     beside phase 6's rr numbers; the first step's gradients against rr
+     "fused" on the same batch; K6, K7, K4-acc, K5 and K3 must launch.
 The second-to-last line is the kernel report as JSON ("launches": the
-kernel's launches during the phase-6 training run, the path that runs every
-kernel; "ms"/"plain_ms": phase-2 f32 medians summed over the three layer
-shapes; "max_abs_err": the largest f32 difference from plain); the last line
-is {"ok": true, "device": {...}}.
+kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
+train, the dW reduction and K4, phase 7 (fr, chunked) for the others;
+"ms"/"plain_ms"/"bound_ms"/"library_ms": phase-2 f32 medians and bounds
+summed over the three layer shapes; "max_abs_err": the largest f32
+difference from plain); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -56,10 +70,18 @@ REPLACES = {
     "dw_reduce": "nequip_tpu/ops/pallas/tp_scatter.py:1733",
     "scatter_rows": "nequip_tpu/ops/pallas/tp_scatter.py:1059",
     "tri_fwd": "nequip_tpu/ops/pallas/tp_scatter.py:949",
+    "tri_fwd_acc": "nequip_tpu/ops/pallas/tp_scatter.py:949",
     "tri_bwd": "nequip_tpu/ops/pallas/tp_scatter.py:1210",
+    "jvp_fwd": "nequip_tpu/ops/pallas/tp_scatter.py:2118",
+    "jvp_bwd": "nequip_tpu/ops/pallas/tp_scatter.py:2306",
 }
 SERVING_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows")
 TRAINING_KERNELS = ("conv_fwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd")
+FR_CHUNKED_KERNELS = ("tri_fwd_acc", "jvp_fwd", "jvp_bwd", "tri_bwd", "scatter_rows")
+RR_REPORTED = ("conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "tri_fwd")  # launches from phase 6
+N_CHUNKS = 4
+# published peaks of one H100 SXM (700 W): HBM bytes/s, f32 FLOP/s outside the tensor cores
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 FLAGSHIP = dict(
     type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2, parity=False, num_features=32,
     avg_num_neighbors=18.0, per_type_energy_shifts={"Cu": -3.5},
@@ -148,6 +170,64 @@ def cuda_median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def work(name: str, plan, n_edges: int, n_dst: int, n_src: int, n_nodes: int, hidden: int, n_emb: int,
+         itemsize: int):
+    """(operations, bytes) of one call: each input read once, each output
+    written once.  ``n_edges`` real edges, ``n_dst`` destination rows the
+    call touches, ``n_src`` distinct source rows it reads, ``n_nodes`` rows
+    of a whole node array it writes; int32 indices count 4 bytes.  CG work:
+    TC = sum over paths of (terms x channels), PY = sum of (SH width x
+    channels); a multiply-add is 2 operations."""
+    D, S, M, W, H, B = plan.dim_in, plan.sh_dim, plan.mid_dim, plan.weight_numel, hidden, n_emb
+    TC = sum(len(p["terms"]) * p["mul"] for p in plan.paths)
+    PY = sum(p["y_dim"] * p["mul"] for p in plan.paths)
+    E, b = n_edges, itemsize
+    idx = 4 * (E + n_dst + 1)
+    mlp_fwd = 2 * B * H + 2 * H * W + 4 * H
+    mlp_bwd = 2 * H * W + 2 * B * H + 6 * H
+    ops, nbytes = {
+        "conv_fwd": (E * (3 * TC + 2 * M + mlp_fwd), b * (n_src * D + E * (S + B) + B * H + H * W + n_nodes * M)),
+        "conv_bwd": (E * (7 * TC + 4 * PY + mlp_fwd + mlp_bwd),
+                     b * (n_src * D + n_dst * M + B * H + H * W + 2 * E * (D + S + B))),
+        "conv_bwd_train": (E * (7 * TC + 4 * PY + mlp_fwd + mlp_bwd + 2 * B * H + 2 * H * W),
+                           b * (n_src * D + n_dst * M + 2 * (B * H + H * W) + 2 * E * (S + B) + E * D)),
+        "dw_reduce": (2 * E * H * W, b * (E * (H + W) + H * W)),
+        "scatter_rows": (E * D, b * (E * D + n_nodes * D) + idx),
+        "tri_fwd": (E * (3 * TC + 2 * M), b * (n_src * D + E * (S + W) + n_nodes * M)),
+        "tri_fwd_acc": (E * (3 * TC + 2 * M), b * (n_src * D + E * (S + W) + 2 * n_dst * M)),
+        "tri_bwd": (E * (7 * TC + 4 * PY), b * (n_src * D + n_dst * M + 2 * E * (S + W) + E * D)),
+        "jvp_fwd": (E * (8 * TC + 6 * M), b * (2 * n_src * D + 2 * E * (S + W) + 2 * n_nodes * M)),
+        "jvp_bwd": (E * (20 * TC + 12 * PY), b * (2 * n_src * D + 2 * n_dst * M + 4 * E * (S + W) + 2 * E * D)),
+    }[name]
+    return ops, nbytes + (0 if name == "dw_reduce" else idx)
+
+
+def _bound_ms(ops: float, nbytes: float):
+    """The f32 bound of a call (the f64 peak is not the table's)."""
+    t_ops, t_bytes = ops / F32_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _check(name, got, ref, rtol, atol_rel, where):
+    """Largest |got - ref| over the outputs; raises beyond rtol |ref| +
+    atol_rel max|ref| or on a non-finite value."""
+    err = 0.0
+    for out_i, (a, b) in enumerate(zip(got, ref)):
+        scale = float(b.abs().max())
+        diff = (a - b).abs()
+        if not bool(a.isfinite().all()) or bool((diff > rtol * b.abs() + atol_rel * scale).any()):
+            raise RuntimeError(
+                f"phase 2: {name} output {out_i} {where} disagrees with plain: "
+                f"max |diff| {float(diff.max()):.3e}, max |ref| {scale:.3e}"
+            )
+        err = max(err, float(diff.max()))
+    return err
+
+
+def _tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
 def phase2_kernels(n_atoms: int, reps: int):
     """Each kernel against its plain version at the flagship's layer shapes."""
     import torch
@@ -160,11 +240,25 @@ def phase2_kernels(n_atoms: int, reps: int):
     data, n, e = graph(n_atoms, dev)
     layout = data[K.LAYOUT_KEY]
     N, E = data["pos"].shape[0], data["edge_index"].shape[1]
-    print(f"phase 2 graph: {n} atoms, {e} edges, padded to {N} nodes, {E} edges", flush=True)
+    n_real = layout.n_real
+    # 4 slices of the fr sweep, every interior boundary moved 7 edges into a
+    # destination segment (the fcc graph's 18-edge segments align with n/4)
+    bounds = [0] + [s * n_real // N_CHUNKS + 7 for s in range(1, N_CHUNKS)] + [n_real]
+    sl = K.edge_slices(layout, N_CHUNKS, bounds)[1]
+    if sl.start in set(layout.dst_ptr.tolist()):
+        raise RuntimeError("phase 2: the slice boundary does not split a destination segment")
+    lay_s, rows = sl.layout, slice(sl.start, sl.stop)
+    n_touched_s = int((lay_s.dst_ptr[1:] > lay_s.dst_ptr[:-1]).sum())
+    n_src_s = int(torch.unique(lay_s.edge_src).numel())
+    n_src = int(torch.unique(layout.edge_src[:n_real]).numel())
+    n_dst = int((layout.dst_ptr[1:] > layout.dst_ptr[:-1]).sum())
+    print(f"phase 2 graph: {n} atoms, {e} edges, padded to {N} nodes, {E} edges; slice 1 of {N_CHUNKS}: "
+          f"edges [{sl.start}, {sl.stop}), {n_touched_s} destinations, {n_src_s} sources", flush=True)
     model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP)
     blocks = [m for m in model.modules() if isinstance(m, InteractionBlock)]
     rng = np.random.RandomState(0)
-    report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in K.KERNELS}
+    report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
+                  "library_ms": None} for k in K.KERNELS}
     for dtype, rtol, atol_rel in ((torch.float32, 1e-4, 1e-5), (torch.float64, 1e-10, 1e-10)):
         for li, blk in enumerate(blocks):
             plan = blk.tp_scatter.plan
@@ -177,7 +271,12 @@ def phase2_kernels(n_atoms: int, reps: int):
             x, sh, emb = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, n_emb)
             w1, w2, g = t(n_emb, hidden), t(hidden, plan.weight_numel), t(N, plan.mid_dim)
             w = t(E, plan.weight_numel)  # per-edge TP weights of K4/K5
-            h_e, dw_e = t(layout.n_real, hidden), t(layout.n_real, plan.weight_numel)  # dW2's factors
+            h_e, dw_e = t(n_real, hidden), t(n_real, plan.weight_numel)  # dW2's factors
+            # the fr operands: tangents, the slice's rows, tmsg's cotangent, accumulators
+            tx, tsh, dw, gt = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel), t(N, plan.mid_dim)
+            s_ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows], lay_s)
+            acc, tacc = t(N, plan.mid_dim), t(N, plan.mid_dim)
+            acc_t = acc.clone()  # the timed K4-acc calls keep adding onto it
             calls = {
                 "conv_fwd": (
                     lambda: K.conv_fwd(plan, x, sh, emb, w1, w2, a0, a1, layout),
@@ -192,8 +291,8 @@ def phase2_kernels(n_atoms: int, reps: int):
                     lambda: K.conv_bwd_train_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
                 ),
                 "dw_reduce": (
-                    lambda: K.dw_reduce(h_e, dw_e, a1, layout.n_real),
-                    lambda: K.dw_reduce_plain(h_e, dw_e, a1, layout.n_real),
+                    lambda: K.dw_reduce(h_e, dw_e, a1, n_real),
+                    lambda: K.dw_reduce_plain(h_e, dw_e, a1, n_real),
                 ),
                 "tri_fwd": (
                     lambda: K.tri_fwd(plan, x, sh, w, layout),
@@ -203,41 +302,69 @@ def phase2_kernels(n_atoms: int, reps: int):
                     lambda: K.tri_bwd(plan, x, sh, w, layout, g),
                     lambda: K.tri_bwd_plain(plan, x, sh, w, layout, g),
                 ),
+                "tri_fwd_acc": (
+                    lambda: K.tri_fwd(plan, x, sh[rows], w[rows], lay_s, acc=acc_t),
+                    lambda: K.tri_fwd_plain(plan, x, sh[rows], w[rows], lay_s, acc_t),
+                ),
+                "jvp_fwd": (lambda: K.jvp_fwd(plan, *s_ops), lambda: K.jvp_fwd_plain(plan, *s_ops)),
+                "jvp_bwd": (lambda: K.jvp_bwd(plan, *s_ops, g, gt), lambda: K.jvp_bwd_plain(plan, *s_ops, g, gt)),
+            }
+            # checked once, not timed: the accumulating forms on fresh accumulators
+            checks = {
+                "tri_fwd_acc": (
+                    lambda: K.tri_fwd(plan, x, sh[rows], w[rows], lay_s, acc=acc.clone()),
+                    lambda: K.tri_fwd_plain(plan, x, sh[rows], w[rows], lay_s, acc.clone()),
+                ),
+                "jvp_fwd": (
+                    lambda: K.jvp_fwd(plan, *s_ops, acc=(acc.clone(), tacc.clone())),
+                    lambda: K.jvp_fwd_plain(plan, *s_ops, (acc.clone(), tacc.clone())),
+                ),
             }
             dx_edge = K.conv_bwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g)[0]
             calls["scatter_rows"] = (
                 lambda: K.scatter_rows(dx_edge, layout.src_perm, layout.src_ptr),
                 lambda: K.scatter_rows_plain(dx_edge, layout.src_perm, layout.src_ptr),
             )
+            src_idx = layout.edge_src[:n_real].long()
+            buf = torch.zeros(N, plan.dim_in, dtype=dtype, device=dev)
+            library = {
+                "dw_reduce": lambda: torch.mm(h_e.t(), dw_e),
+                "scatter_rows": lambda: buf.index_add_(0, src_idx, dx_edge[:n_real]),
+            }
+            repeat_equal = ("conv_bwd_train", "dw_reduce", "tri_fwd_acc", "jvp_fwd", "jvp_bwd")
             for name, (kern, plain) in calls.items():
-                before = K.KERNELS[name].launches
-                got, ref = kern(), plain()
-                torch.cuda.synchronize()
-                if K.KERNELS[name].launches != before + 1:
-                    raise RuntimeError(f"phase 2: {name} launch counter did not move")
-                got = got if isinstance(got, tuple) else (got,)
-                ref = ref if isinstance(ref, tuple) else (ref,)
-                if name in ("conv_bwd_train", "dw_reduce"):
-                    again = kern()
-                    again = again if isinstance(again, tuple) else (again,)
-                    reduced = got[-2:] if name == "conv_bwd_train" else got
-                    if not all(torch.equal(a, b) for a, b in zip(reduced, again[-len(reduced):])):
-                        raise RuntimeError(f"phase 2: {name} weight gradients differ on a repeat call")
+                where = f"layer {li} {dtype}"
+                counter = K.KERNELS[name]
                 err = 0.0
-                for out_i, (a, b) in enumerate(zip(got, ref)):
-                    scale = float(b.abs().max())
-                    diff = (a - b).abs()
-                    if not bool(torch.isfinite(a).all()) or bool((diff > rtol * b.abs() + atol_rel * scale).any()):
-                        raise RuntimeError(
-                            f"phase 2: {name} output {out_i} layer {li} {dtype} disagrees with plain: "
-                            f"max |diff| {float(diff.max()):.3e}, max |ref| {scale:.3e}"
-                        )
-                    err = max(err, float(diff.max()))
+                checked = [checks[name]] if name in checks else []
+                if name != "tri_fwd_acc":  # its timed form keeps adding onto acc_t: checked only above
+                    checked.append((kern, plain))
+                for run, ref_run in checked:
+                    before = counter.launches
+                    got = _tuple(run())
+                    torch.cuda.synchronize()
+                    if counter.launches != before + 1:
+                        raise RuntimeError(f"phase 2: {name} launch counter did not move")
+                    err = max(err, _check(name, got, _tuple(ref_run()), rtol, atol_rel, where))
+                    if name in repeat_equal:
+                        again = _tuple(run())
+                        reduced = got[-2:] if name == "conv_bwd_train" else got
+                        if not all(torch.equal(a, b) for a, b in zip(reduced, again[-len(reduced):])):
+                            raise RuntimeError(f"phase 2: {name} differs on a repeat call")
                 ms = cuda_median_ms(kern, reps)
                 plain_ms = cuda_median_ms(plain, reps)
+                lib_ms = cuda_median_ms(library[name], reps) if name in library else None
+                sliced = name in ("tri_fwd_acc", "jvp_fwd", "jvp_bwd")
+                ops, nbytes = work(
+                    name, plan, lay_s.n_real if sliced else n_real, n_touched_s if sliced else n_dst,
+                    n_src_s if sliced else n_src, N, hidden, n_emb, torch.finfo(dtype).bits // 8,
+                )
+                bound, by = _bound_ms(ops, nbytes)
                 print(
                     f"phase 2 {name} layer {li} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e}, "
-                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
+                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                    + (f", bound {bound:.3f} ms ({by})" if dtype == torch.float32 else "")
+                    + ("" if lib_ms is None else f", library {lib_ms:.3f} ms"),
                     flush=True,
                 )
                 if dtype == torch.float32:
@@ -245,8 +372,16 @@ def phase2_kernels(n_atoms: int, reps: int):
                     r["max_abs_err"] = max(r["max_abs_err"], err)
                     r["ms"] += ms
                     r["plain_ms"] += plain_ms
-            del x, sh, emb, w1, w2, g, w, h_e, dw_e, dx_edge, calls
+                    r["bound_ms"] += bound
+                    r["ops"] += ops
+                    r["bytes"] += nbytes
+                    if lib_ms is not None:
+                        r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+            del x, sh, emb, w1, w2, g, w, h_e, dw_e, dx_edge, calls, checks, tx, tsh, dw, gt, acc, tacc, acc_t
+            del s_ops, library, buf
             torch.cuda.empty_cache()
+    for r in report.values():
+        r["bound_by"] = "operations" if r.pop("ops") / F32_FLOP_S > r.pop("bytes") / HBM_BYTES_S else "bytes"
     return report
 
 
@@ -344,6 +479,8 @@ def _grad_errors(got: dict, want: dict) -> float:
 
 
 def phase5_train_golden():
+    """rr (phase 5) and fr with 0 and N_CHUNKS edge slices (5b) against the
+    rr training golden, f64, kernels."""
     import torch
 
     from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up, to_tensors
@@ -362,25 +499,39 @@ def phase5_train_golden():
     data = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame)), 4.0)
     n_edges = data["edge_index"].shape[1]
     batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(n_edges, 256), 2), "cuda")
-    module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]))
-    K.reset_launch_counts()
-    loss, _, _ = module.compute_loss(batch)
-    loss.backward()
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
-    loss_err = abs(float(loss.detach()) - float(z["loss"])) / abs(float(z["loss"]))
-    grad_err = _grad_errors(jax_named_grads(model), {k[len("grads/"):]: z[k] for k in z.files if k.startswith("grads/")})
-    print(
-        f"phase 5 training golden (f64, kernels): loss {float(loss.detach()):.10e} rel err {loss_err:.3e}, "
-        f"grads max err / max|grad| {grad_err:.3e}, launches {launches}",
-        flush=True,
-    )
-    for name in TRAINING_KERNELS:
-        if launches[name] == 0:
-            raise RuntimeError(f"phase 5: kernel {name} was not launched")
-    if not (loss_err <= 1e-10 and grad_err <= 1e-8):
-        raise RuntimeError("phase 5: the port's rr loss or gradients disagree with the JAX golden")
-    del model, module, loss
+    want = {k[len("grads/"):]: z[k] for k in z.files if k.startswith("grads/")}
+    for label, mode, n_chunks in (("5", "rr", 0), ("5b", "fr", 0), ("5b", "fr", N_CHUNKS)):
+        module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), force_grad_mode=mode,
+                                   fr_edge_chunks=n_chunks)
+        K.reset_launch_counts()
+        if mode == "rr":
+            loss, _, _ = module.compute_loss(batch)
+            loss.backward()
+        else:
+            loss, _, _ = module.compute_grads_fr(batch)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+        loss_err = abs(float(loss.detach()) - float(z["loss"])) / abs(float(z["loss"]))
+        grad_err = _grad_errors(jax_named_grads(model), want)
+        model.zero_grad(set_to_none=True)
+        print(
+            f"phase {label} training golden ({mode}, fr_edge_chunks {n_chunks}, f64, kernels): "
+            f"loss {float(loss.detach()):.10e} rel err {loss_err:.3e}, grads max err / max|grad| {grad_err:.3e}, "
+            f"launches {launches}",
+            flush=True,
+        )
+        expected = TRAINING_KERNELS if mode == "rr" else FR_CHUNKED_KERNELS if n_chunks else (
+            "conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd")
+        for name in expected:
+            if launches[name] == 0:
+                raise RuntimeError(f"phase {label}: kernel {name} was not launched ({mode}, {n_chunks} slices)")
+        chunked = [name for name in ("tri_fwd_acc", "jvp_fwd", "jvp_bwd") if launches[name]]
+        if bool(chunked) != bool(n_chunks):
+            raise RuntimeError(f"phase {label}: the chunked kernels' launches {chunked} do not match {n_chunks} slices")
+        if not (loss_err <= 1e-10 and grad_err <= 1e-8):
+            raise RuntimeError(f"phase {label}: the port's {mode} loss or gradients disagree with the JAX golden")
+        del module, loss
+    del model
     torch.cuda.empty_cache()
 
 
@@ -458,11 +609,93 @@ def phase6_train(smi: str, supercell: int = 18, epochs: int = 2):
     for name in TRAINING_KERNELS:
         if launches[name] == 0:
             raise RuntimeError(f"phase 6: kernel {name} was not launched on the training path")
+    _check_fit("phase 6", trainer, epochs)
+    summary = dict(median_ms=float(np.median(steps)), peak_gib=peak / 2**30,
+                   losses=[row["train_loss_epoch/weighted_sum"] for row in trainer.metrics_rows])
+    return launches, dm, summary
+
+
+def _check_fit(phase: str, trainer, epochs: int) -> None:
     for row in trainer.metrics_rows:
         if not all(math.isfinite(row[k]) for k in ("train_loss_epoch/weighted_sum", "val0_epoch/weighted_sum")):
-            raise RuntimeError("phase 6: non-finite training or validation loss")
+            raise RuntimeError(f"{phase}: non-finite training or validation loss")
     if len(trainer.metrics_rows) != epochs or trainer.global_step != 2 * epochs:
-        raise RuntimeError("phase 6: the trainer did not run 2 steps per epoch")
+        raise RuntimeError(f"{phase}: the trainer did not run 2 steps per epoch")
+
+
+def phase7_train_fr(smi: str, dm, rr: dict, epochs: int = 2):
+    """Trainer.fit with fr force-loss gradients over N_CHUNKS edge slices,
+    beside phase 6's rr numbers."""
+    import torch
+
+    from nequip_tpu_torch.data import DataLoader
+    from nequip_tpu_torch.model import NequIPGNNModel, jax_named_grads
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, EnergyForceMetrics, NequIPTrainModule, Trainer
+
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP).to("cuda")
+
+    def make(mode, n_chunks=0):
+        return NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), val_metrics=EnergyForceMetrics(),
+                                 optimizer={"_target_": "optax.adam", "learning_rate": 1e-3},
+                                 force_grad_mode=mode, fr_edge_chunks=n_chunks)
+
+    module = make("fr", N_CHUNKS)
+    # the first step's gradients, fr over slices against rr, on the trainer's first batch
+    first = next(iter(DataLoader(dm.datasets["train"][0], batch_size=1, shuffle=True, seed=dm.seed, device="cuda")))
+    grads = {}
+    for mode, m in (("rr", make("rr")), ("fr", module)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if mode == "rr":
+            loss, _, _ = m.compute_loss(first)
+            loss.backward()
+        else:
+            loss, _, _ = m.compute_grads_fr(first)
+        torch.cuda.synchronize()
+        grads[mode] = jax_named_grads(model)
+        model.zero_grad(set_to_none=True)
+        print(f"phase 7 first-step grads {mode}: loss {float(loss.detach()):.6e}, {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+        del loss
+    grad_err = _grad_errors(grads["fr"], grads["rr"])
+    print(f"phase 7 first-step grads fr ({N_CHUNKS} slices) vs rr (f32, card): max err / max|grad| {grad_err:.3e}",
+          flush=True)
+    if not grad_err <= 1e-4:
+        raise RuntimeError("phase 7: fr and rr first-step gradients disagree")
+    del grads
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(max_epochs=epochs, ckpt_dir=str(ROOT / "chiprun_out" / "chip_smoke_train_fr"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    trainer.fit(module, dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = np.asarray(trainer.step_seconds[1:]) * 1e3
+    print(
+        f"phase 7 train fr, {N_CHUNKS} edge slices ({smi}): {trainer.global_step} steps in {fit_s:.1f} s, first step "
+        f"{trainer.step_seconds[0] * 1e3:.1f} ms, later steps median {np.median(steps):.1f} ms "
+        f"(min {steps.min():.1f}, max {steps.max():.1f}), max_memory_allocated {peak / 2**30:.3f} GiB; "
+        f"rr (phase 6): median {rr['median_ms']:.1f} ms, {rr['peak_gib']:.3f} GiB",
+        flush=True,
+    )
+    for row, rr_loss in zip(trainer.metrics_rows, rr["losses"]):
+        print(
+            f"phase 7 epoch {row['epoch']}: train loss {row['train_loss_epoch/weighted_sum']:.6e} (rr {rr_loss:.6e}), "
+            f"val loss {row['val0_epoch/weighted_sum']:.6e} (forces rmse {row['val0_epoch/forces_rmse']:.4e})",
+            flush=True,
+        )
+    print(f"phase 7 launches {launches}", flush=True)
+    for name in FR_CHUNKED_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"phase 7: kernel {name} was not launched on the fr training path")
+    _check_fit("phase 7", trainer, epochs)
     return launches
 
 
@@ -477,7 +710,8 @@ def main() -> int:
     phase3_golden()
     phase4_serve(n_atoms=23000)
     phase5_train_golden()
-    launches = phase6_train(smi)
+    rr_launches, dm, rr = phase6_train(smi)
+    fr_launches = phase7_train_fr(smi, dm, rr)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 
@@ -487,13 +721,18 @@ def main() -> int:
             "route": "cuda",
             "source": KERNEL_SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": (rr_launches if name in RR_REPORTED else fr_launches)[name],
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
+            "bound_ms": report[name]["bound_ms"],
+            "bound_by": report[name]["bound_by"],
+            "library_ms": report[name]["library_ms"],
         }
         for name in REPLACES
     ]
+    if any(k["launches"] == 0 for k in kernels):
+        raise RuntimeError(f"a kernel was not launched on its path: {[k['name'] for k in kernels if not k['launches']]}")
     print(f"total {time.perf_counter() - t0:.1f} s after phase 0", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,4 +1,4 @@
-// Shared constants and helpers of the fused-convolution kernels (K1, K2, K3).
+// Shared constants and helpers of the convolution kernels (K1-K7).
 //
 // The term tables the kernels loop over are built on the host from the
 // tensor product's instruction list (nequip_tpu_torch/ops/kernels/tp_scatter.py,

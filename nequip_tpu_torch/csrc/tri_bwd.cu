@@ -56,6 +56,7 @@ __global__ void __launch_bounds__(kThreads) tri_bwd_kernel(
   const int n_warps = blockDim.x >> 5;
   const int e_begin = dst_ptr[n];
   const int e_end = dst_ptr[n + 1];
+  if (e_begin == e_end) return;  // no edge of this node in the stream (or slice)
   for (int o = tid; o < mid_dim; o += blockDim.x)
     s_g[o] = g[static_cast<int64_t>(n) * mid_dim + o];
 

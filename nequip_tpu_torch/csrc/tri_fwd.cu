@@ -18,6 +18,16 @@
 // the dst-sorted stream, kEdgeTile edges at a time staged in shared memory;
 // each thread owns output columns, so the row sums in shared memory without
 // atomics and in a fixed order.
+//
+// K4-acc (nequip_tri_fwd_acc): the same kernel with out += ..., in place on
+// an [N, mid_dim] accumulator.  Replaces _forward(acc=...) (kernel body
+// _kernel_from_acc, pallas_call at tp_scatter.py:949), which folds one slice
+// of the edge stream into running messages in the edge-chunked fr sweep.
+// The wrapper hands it a slice's clipped CSR (dst_ptr relative to the
+// slice's first edge) and the slice's y/w rows; a block whose node has no
+// edge in the slice returns at once and leaves its row untouched, and a
+// node whose segment two slices split gets the second part added to the
+// first, slice after slice on one stream: deterministic, no atomics.
 #include "tp_common.cuh"
 
 namespace nequip {
@@ -25,7 +35,7 @@ namespace nequip {
 // groups: int32 [G, 4] = (out_row, w_off, t_begin, t_end), one per (path, m3)
 // terms:  int32 [T, 2] = (x_row, y_index) with coef[T] = cg * path_weight
 // col_group: int32 [mid_dim], the group owning each output column
-template <typename T>
+template <typename T, bool kAcc>
 __global__ void __launch_bounds__(kThreads) tri_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ w,
     const int32_t* __restrict__ edge_src, const int32_t* __restrict__ dst_ptr,
@@ -42,7 +52,9 @@ __global__ void __launch_bounds__(kThreads) tri_fwd_kernel(
   const int tid = threadIdx.x;
   const int e_begin = dst_ptr[n];
   const int e_end = dst_ptr[n + 1];
-  for (int o = tid; o < mid_dim; o += blockDim.x) s_acc[o] = T(0);
+  if (kAcc && e_begin == e_end) return;  // block-uniform: no barrier is skipped
+  for (int o = tid; o < mid_dim; o += blockDim.x)
+    s_acc[o] = kAcc ? out[static_cast<int64_t>(n) * mid_dim + o] : T(0);
 
   for (int base = e_begin; base < e_end; base += kEdgeTile) {
     const int cnt = min(kEdgeTile, e_end - base);
@@ -79,17 +91,17 @@ __global__ void __launch_bounds__(kThreads) tri_fwd_kernel(
     out[static_cast<int64_t>(n) * mid_dim + o] = s_acc[o];
 }
 
-template <typename T>
+template <typename T, bool kAcc>
 int launch_tri_fwd(const void* x, const void* y, const void* w, const void* edge_src,
                    const void* dst_ptr, const void* groups, const void* terms,
                    const void* coef, const void* col_group, void* out, int n_nodes,
                    int dim_in, int sh_dim, int wn, int mid_dim, void* stream) {
   const size_t smem = sizeof(T) * (static_cast<size_t>(mid_dim) +
                                    static_cast<size_t>(kEdgeTile) * (dim_in + sh_dim + wn));
-  cudaError_t err = allow_dynamic_smem(tri_fwd_kernel<T>, smem);
+  cudaError_t err = allow_dynamic_smem(tri_fwd_kernel<T, kAcc>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_nodes > 0) {
-    tri_fwd_kernel<T><<<n_nodes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    tri_fwd_kernel<T, kAcc><<<n_nodes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(w),
         static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),
         static_cast<const int32_t*>(groups), static_cast<const int32_t*>(terms),
@@ -101,16 +113,18 @@ int launch_tri_fwd(const void* x, const void* y, const void* w, const void* edge
 
 }  // namespace nequip
 
-#define NEQUIP_TRI_FWD(SUFFIX, T)                                                            \
-  extern "C" int nequip_tri_fwd_##SUFFIX(                                                   \
+#define NEQUIP_TRI_FWD(NAME, SUFFIX, T, ACC)                                                 \
+  extern "C" int NAME##_##SUFFIX(                                                           \
       const void* x, const void* y, const void* w, const void* edge_src,                    \
       const void* dst_ptr, const void* groups, const void* terms, const void* coef,         \
       const void* col_group, void* out, int n_nodes, int dim_in, int sh_dim, int wn,        \
       int mid_dim, void* stream) {                                                          \
-    return nequip::launch_tri_fwd<T>(x, y, w, edge_src, dst_ptr, groups, terms, coef,       \
-                                     col_group, out, n_nodes, dim_in, sh_dim, wn, mid_dim,  \
-                                     stream);                                               \
+    return nequip::launch_tri_fwd<T, ACC>(x, y, w, edge_src, dst_ptr, groups, terms, coef,  \
+                                          col_group, out, n_nodes, dim_in, sh_dim, wn,      \
+                                          mid_dim, stream);                                 \
   }
 
-NEQUIP_TRI_FWD(f32, float)
-NEQUIP_TRI_FWD(f64, double)
+NEQUIP_TRI_FWD(nequip_tri_fwd, f32, float, false)
+NEQUIP_TRI_FWD(nequip_tri_fwd, f64, double, false)
+NEQUIP_TRI_FWD(nequip_tri_fwd_acc, f32, float, true)
+NEQUIP_TRI_FWD(nequip_tri_fwd_acc, f64, double, true)

@@ -5,7 +5,9 @@ the config system (datasets are objects), the predict split and the
 restart state.  ``split_dataset`` is a dict (or a
 list of dicts) ``{"dataset": AtomicDataset, "train": n_or_fraction, "val":
 ..., "test": ..., "seed": optional}``, split by ``RandomSplitDataset`` with
-the datamodule's seed, as in the JAX package.
+the datamodule's seed, as in the JAX package.  Its loaders put batches on
+the card (``device="cuda"``, raising without one) unless the caller asks
+for the CPU; statistics read the host batches.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 from ..dataset.base import AtomicDataset, RandomSplitDataset
 from ..loader import DataLoader
+from ...utils.device import resolve_device
 from ..stats_manager import DataStatisticsManager
 
 SPLITS = ("train", "val", "test")
@@ -31,10 +34,10 @@ class NequIPDataModule:
         val_dataloader: Optional[dict] = None,
         test_dataloader: Optional[dict] = None,
         stats_manager: Optional[DataStatisticsManager] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.seed = int(seed)
-        self.device = device
+        self.device = None if device is None else resolve_device(device)
         self._given = dict(zip(SPLITS, (train_dataset, val_dataset, test_dataset)))
         self._split_config = split_dataset
         self._loader_kwargs = dict(
@@ -93,4 +96,5 @@ class NequIPDataModule:
         self.setup("fit")
         kwargs = dict(self.stats_manager.dataloader_kwargs)
         kwargs.setdefault("batch_size", 8)
+        kwargs.setdefault("device", None)
         return self.stats_manager.get_statistics(DataLoader(self.datasets[dataset][0], **kwargs))

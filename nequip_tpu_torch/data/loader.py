@@ -19,12 +19,13 @@ import numpy as np
 
 from . import _keys
 from ._sampler import PartialSampler
+from ..utils.device import resolve_device
 from .atomic_data_dict import batched_from_list, pad_batch, round_up, to_tensors
 
 
 class DataLoader:
-    """``device``: where ``__iter__`` puts the padded tensors (None keeps
-    the padded numpy dicts)."""
+    """``device``: where ``__iter__`` puts the padded tensors, the card by
+    default (raising without one); None keeps the padded numpy dicts."""
 
     def __init__(
         self,
@@ -34,7 +35,7 @@ class DataLoader:
         seed: int = 0,
         pad_multiple: int = 64,
         drop_last: bool = False,
-        device="cpu",
+        device="cuda",
         num_samples_per_epoch: Optional[int] = None,
     ):
         self.dataset = dataset
@@ -43,7 +44,7 @@ class DataLoader:
         self.seed = int(seed)
         self.drop_last = drop_last
         self.pad_multiple = int(pad_multiple)
-        self.device = device
+        self.device = None if device is None else resolve_device(device)
         self._epoch = 0
         self._capacity: Optional[Dict[str, int]] = None
         self._real_slots = 0

@@ -22,25 +22,29 @@ import torch
 from ..data import _keys, batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up, to_tensors
 from ..data.transforms import ChemicalSpeciesToAtomTypeMapper
 from ..ops.kernels.tp_scatter import relayout_edge_stream
+from ..utils.device import resolve_device
 
 PAD_MULTIPLE = 128
 
 
 class NequIPCalculator:
-    """``type_names`` are chemical symbols: ``atomic_numbers`` map onto them."""
+    """``type_names`` are chemical symbols: ``atomic_numbers`` map onto them.
+    Runs on the card (``device="cuda"``, raising without one) unless the
+    caller asks for the CPU."""
 
-    def __init__(self, predictor: Callable[[dict], dict], r_max: float, type_names: List[str], device="cpu"):
+    def __init__(self, predictor: Callable[[dict], dict], r_max: float, type_names: List[str], device="cuda"):
         self.predictor = predictor
         self.r_max = float(r_max)
         self.type_names = list(type_names)
         self.type_mapper = ChemicalSpeciesToAtomTypeMapper(self.type_names)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.capacities: Optional[Dict[str, int]] = None
         self.timings: Dict[str, float] = {}
 
     @classmethod
-    def from_model(cls, model, device="cpu") -> "NequIPCalculator":
+    def from_model(cls, model, device="cuda") -> "NequIPCalculator":
         """Serve a port ``GraphModel`` (weights frozen: inference only)."""
+        device = resolve_device(device)
         model = model.to(device).requires_grad_(False)
         md = model.metadata
         return cls(model, r_max=float(md["r_max"]), type_names=md["type_names"].split(), device=device)

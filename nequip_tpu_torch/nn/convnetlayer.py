@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
+
 from ..data import _keys
 from ..ops.gate import Gate
 from ..ops.irreps import Irrep, Irreps, tp_path_exists
@@ -67,3 +69,29 @@ class ConvNetLayer(GraphModule):
             x = old_x + x
         data[_keys.NODE_FEATURES_KEY] = x
         return data
+
+    def jvp(self, data: dict, tangents: dict):
+        """Dual-number step of the layer (JAX ``ConvNetLayer._jvp_apply``):
+        the block's hand-written rule, then the gate's jvp and the resnet
+        tangent."""
+        old_x = data[_keys.NODE_FEATURES_KEY]
+        t_old = tangents.get(_keys.NODE_FEATURES_KEY)
+        data, tangents = self.conv.jvp(data, tangents)
+        x = data[_keys.NODE_FEATURES_KEY]
+        tx = tangents.get(_keys.NODE_FEATURES_KEY)
+        if tx is None:
+            x = self.equivariant_nonlin(x)
+        else:
+            x, tx = torch.func.jvp(self.equivariant_nonlin, (x,), (tx,))
+        if self.resnet:
+            x = old_x + x
+            if t_old is not None:
+                tx = t_old if tx is None else tx + t_old
+        data = dict(data)
+        data[_keys.NODE_FEATURES_KEY] = x
+        tangents = dict(tangents)
+        if tx is not None:
+            tangents[_keys.NODE_FEATURES_KEY] = tx
+        else:
+            tangents.pop(_keys.NODE_FEATURES_KEY, None)
+        return data, tangents

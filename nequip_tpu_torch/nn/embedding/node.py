@@ -41,6 +41,13 @@ class NodeTypeEmbed(GraphModule):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.type_embed.copy_(torch.randn(self.type_embed.shape, generator=generator, dtype=torch.float64))
 
+    def jvp(self, data: dict, tangents: dict):
+        """The outputs read only the integer atom types, so they carry no
+        tangent: overriding the default keeps tangents of the node attrs and
+        features out of the dual sweep (JAX ``NodeTypeEmbed.jvp``)."""
+        t_out = {k: v for k, v in tangents.items() if k not in (_keys.NODE_ATTRS_KEY, _keys.NODE_FEATURES_KEY)}
+        return self(data), t_out
+
     def forward(self, data: dict) -> dict:
         types = data[_keys.ATOM_TYPE_KEY].reshape(-1)
         emb = self.type_embed[types]

@@ -14,6 +14,10 @@ nothing, so a force or stress loss differentiates through it (reverse over
 reverse; the fused kernels' autograd Functions are closed under it).  The
 gradients flow through every module, including the kernels' ``dsh``/``demb``
 outputs back to the edge vectors.
+
+``loss_surrogate`` is the other route to the same parameter gradients
+(reverse over forward, ``force_grad_mode="fr"``): a scalar whose gradient
+is the loss gradient, built from one dual-number sweep of the energy graph.
 """
 
 from __future__ import annotations
@@ -82,3 +86,72 @@ class ForceStressOutput(GraphModule):
         out[_keys.FORCE_KEY] = -dE_dpos
         out[_keys.VIRIAL_KEY] = -dE_ddisp
         return out
+
+    def loss_surrogate(self, data: dict, cotangents: dict) -> torch.Tensor:
+        """Scalar ``S(params)`` with ``grad S == sum_k <cotangents[k], out_k>``
+        (JAX ``ForceStressOutput.loss_surrogate``).
+
+        For the derivative outputs the inner product is a jvp of the energy,
+
+            <v_F, F> = -jvp_pos(sum E; v_F),  <v_V, virial> = -jvp_disp(sum E; v_V),
+            <v_S, stress> = jvp_disp(sum E; v_S / vol),
+
+        so ``S.backward()`` is one first-order reverse pass over the
+        jvp-augmented energy graph (``GraphModule.jvp``): no force VJP and
+        none of its residuals.  ``cotangents`` maps output fields to
+        dL/d(field), detached; any other field must be an output of the
+        energy graph.
+        """
+        if _keys.EDGE_VECTORS_KEY in data:
+            raise NotImplementedError("loss_surrogate supports the positions/strain branch only")
+        pos = data[_keys.POSITIONS_KEY].detach()
+        has_cell = _keys.CELL_KEY in data
+        batch = data.get(_keys.BATCH_KEY)
+        if batch is None:
+            batch = torch.zeros(pos.shape[0], dtype=torch.long, device=pos.device)
+        orig_cell = data.get(_keys.CELL_KEY)
+        deriv_keys = (_keys.FORCE_KEY, _keys.STRESS_KEY, _keys.VIRIAL_KEY)
+
+        t_pos = torch.zeros_like(pos)
+        t_disp = None
+        if _keys.FORCE_KEY in cotangents:  # F = -dE/dpos
+            t_pos = t_pos - cotangents[_keys.FORCE_KEY].to(pos.dtype)
+        if _keys.VIRIAL_KEY in cotangents:  # virial = -dE/ddisp
+            t_disp = -cotangents[_keys.VIRIAL_KEY].to(pos.dtype)
+        if _keys.STRESS_KEY in cotangents:  # stress = (dE/ddisp) / vol
+            if not has_cell:
+                raise ValueError("a stress cotangent needs a cell")
+            vol = torch.abs(torch.linalg.det(orig_cell.reshape(-1, 3, 3)))
+            if _keys.FRAME_MASK_KEY in data:
+                vol = torch.where(data[_keys.FRAME_MASK_KEY], vol, torch.ones_like(vol))
+            ts = (cotangents[_keys.STRESS_KEY] / vol[:, None, None]).to(pos.dtype)
+            t_disp = ts if t_disp is None else t_disp + ts
+
+        # the strain parametrisation of forward, linearised at displacement 0:
+        # d pos = t_pos + pos . sym(t_disp), d cell = cell . sym(t_disp)
+        tangents = {}
+        if t_disp is not None:
+            sym_t = 0.5 * (t_disp + t_disp.transpose(-1, -2))
+            t_pos = t_pos + per_frame_matmul(pos, sym_t, batch)
+            if has_cell:
+                cell = orig_cell.reshape(-1, 3, 3)
+                tangents[_keys.CELL_KEY] = torch.einsum("fij,fjk->fik", cell, sym_t).reshape(orig_cell.shape)
+        tangents[_keys.POSITIONS_KEY] = t_pos
+
+        inner = dict(data)
+        inner[_keys.POSITIONS_KEY] = pos
+        out, t_out = self.func.jvp(inner, tangents)
+        d_e = t_out[_keys.TOTAL_ENERGY_KEY].reshape(-1)
+        if _keys.FRAME_MASK_KEY in data:
+            d_e = torch.where(data[_keys.FRAME_MASK_KEY], d_e, torch.zeros_like(d_e))
+        surrogate = d_e.sum()
+        for k, v in cotangents.items():
+            if k in deriv_keys:
+                continue
+            if k not in out:
+                raise ValueError(
+                    f"loss field {k!r} is not an output of the energy graph; fr supports losses on "
+                    "energy-graph outputs and on forces, stress and virial"
+                )
+            surrogate = surrogate + (v * out[k]).sum()
+        return surrogate

@@ -71,9 +71,17 @@ class GraphModel(GraphModule):
         md.update(self.model.metadata())
         return md
 
-    def forward(self, data: dict) -> dict:
+    def _inputs(self, data: dict) -> dict:
         inputs = {k: data[k] for k in self.input_fields if k in data}
         inputs.update({k: v for k, v in data.items() if k.startswith(_keys.EDGE_LAYOUT_KEY_PREFIX)})
         if self.uses_fused_kernels:
             inputs = relayout_edge_stream(inputs)
-        return self.model(inputs)
+        return inputs
+
+    def forward(self, data: dict) -> dict:
+        return self.model(self._inputs(data))
+
+    def loss_surrogate(self, data: dict, cotangents: dict):
+        """The fr surrogate of the wrapped ``ForceStressOutput`` on the same
+        inputs as ``forward``."""
+        return self.model.loss_surrogate(self._inputs(data), cotangents)

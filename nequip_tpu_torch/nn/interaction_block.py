@@ -9,6 +9,12 @@ With ``tp_impl="fused"`` the radial MLP runs inside the fused kernel and
 the ``[E, weight_numel]`` radial weights never exist in device memory; with
 ``tp_impl="fused_tp"`` the MLP runs in plain PyTorch and the trilinear
 kernel (K4) takes its ``[E, weight_numel]`` output.
+
+fr (reverse-over-forward) training hands the block ``fr_edge_chunks = C``
+(``train/training_module.py``, ``edge_chunks``); with ``C > 1`` and either
+kernel impl, ``forward`` runs the conv over C slices of the edge stream
+(``ChunkedConv``: K4-acc, backward K5 + K3) and ``jvp`` runs the dual
+sweep over them (``ChunkedJvpConv``: K6, backward K7 + K3).
 """
 
 from __future__ import annotations
@@ -21,13 +27,19 @@ from torch import nn
 
 from ..data import _keys
 from ..ops.irreps import Irreps
-from ..ops.kernels.tp_scatter import LAYOUT_KEY, fused_tp_scatter, fused_tp_scatter_mlp
+from ..ops.kernels.tp_scatter import (
+    LAYOUT_KEY,
+    chunked_conv,
+    chunked_jvp_conv,
+    fused_tp_scatter,
+    fused_tp_scatter_mlp,
+)
 from ..ops.linear import Linear
 from ..ops.mlp import ScalarMLP as ScalarMLPFunction
 from ..ops.tensor_product import fully_connected_tensor_product, uvu_instructions
 from .module import GraphModule
 from .norm import AvgNumNeighborsNorm
-from .tp_scatter import TensorProductScatter
+from .tp_scatter import KERNEL_IMPLS, TensorProductScatter
 
 
 def merge_mid_permutation(irreps_mid: Irreps) -> np.ndarray:
@@ -118,6 +130,8 @@ class InteractionBlock(GraphModule):
         )
         if self.sc_tp is not None:
             self.sc = nn.Parameter(torch.empty(self.sc_tp.weight_numel, dtype=self.model_dtype))
+        # edge slices of the fr sweep; set by the fr train step, 0 otherwise
+        self.fr_edge_chunks = 0
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -140,7 +154,12 @@ class InteractionBlock(GraphModule):
         data = self.avg_num_neighbors_norm(data)
         x = data[_keys.NODE_FEATURES_KEY]
 
-        if self.tp_scatter.impl == "fused":
+        if self._chunked():
+            x = chunked_conv(
+                self.tp_scatter.plan, self.edge_mlp, x, data[_keys.EDGE_ATTRS_KEY],
+                data[_keys.EDGE_EMBEDDING_KEY], data[LAYOUT_KEY], self.fr_edge_chunks,
+            )
+        elif self.tp_scatter.impl == "fused":
             x = fused_tp_scatter_mlp(
                 self.tp_scatter.plan, x,
                 data[_keys.EDGE_ATTRS_KEY], data[_keys.EDGE_EMBEDDING_KEY],
@@ -168,3 +187,105 @@ class InteractionBlock(GraphModule):
             x = x + sc
         data[_keys.NODE_FEATURES_KEY] = x
         return data
+
+    def _chunked(self) -> bool:
+        return self.fr_edge_chunks > 1 and self.tp_scatter.impl in KERNEL_IMPLS
+
+    def _feature_maps(self, data: dict, feats: torch.Tensor) -> torch.Tensor:
+        """The neighbour norm, linear in the features (applied to tangents too)."""
+        return self.avg_num_neighbors_norm(dict(data, **{_keys.NODE_FEATURES_KEY: feats}))[_keys.NODE_FEATURES_KEY]
+
+    def jvp(self, data: dict, tangents: dict):
+        """Hand-written forward-mode rule (JAX ``InteractionBlock.jvp``).
+
+        The conv is trilinear in (node features, SH, radial weights), so its
+        tangent is three calls of the same kernels that compute the primal,
+
+            d msg = F(tx, sh, w) + F(x, tsh, w) + F(x, sh, dw),
+            (w, dw) = jvp(MLP)(emb; temb)  (plain torch),
+
+        each a ``torch.autograd.Function`` that reverse mode differentiates;
+        with ``fr_edge_chunks > 1`` the whole sweep runs over edge slices in
+        ``ChunkedJvpConv`` (K6/K7).  The linears, the norm and the
+        self-connection are linear in the features and take the tangent
+        through the same maps.  Forward mode never enters a kernel.
+        """
+        x = data[_keys.NODE_FEATURES_KEY]
+        tx = tangents.get(_keys.NODE_FEATURES_KEY)
+        n_attrs = data[_keys.NODE_ATTRS_KEY]
+        t_attrs = tangents.get(_keys.NODE_ATTRS_KEY)
+        t_sc = None
+        if self.sc_tp is not None:
+            w_sc = self.sc.to(x.dtype)
+            sc = self.sc_tp(x, n_attrs, w_sc)
+            terms = ([self.sc_tp(tx, n_attrs, w_sc)] if tx is not None else []) + (
+                [self.sc_tp(x, t_attrs, w_sc)] if t_attrs is not None else [])
+            t_sc = _sum(terms)
+
+        x = self._feature_maps(data, self.linear_1(x))
+        if tx is not None:
+            tx = self._feature_maps(data, self.linear_1(tx))
+        sh, tsh = data[_keys.EDGE_ATTRS_KEY], tangents.get(_keys.EDGE_ATTRS_KEY)
+        emb, temb = data[_keys.EDGE_EMBEDDING_KEY], tangents.get(_keys.EDGE_EMBEDDING_KEY)
+        impl, plan = self.tp_scatter.impl, self.tp_scatter.plan
+        weights = [w.to(x.dtype) for w in self.edge_mlp.weights()]
+
+        if self._chunked():
+            # a missing tangent is zero (the JAX sweep sees dense zeros there)
+            tx_, tsh_, temb_ = (torch.zeros_like(p) if t is None else t
+                                for p, t in ((x, tx), (sh, tsh), (emb, temb)))
+            msg, tmsg = chunked_jvp_conv(plan, self.edge_mlp, x, tx_, sh, tsh_, emb, temb_,
+                                         data[LAYOUT_KEY], self.fr_edge_chunks)
+        else:
+            if impl == "fused":
+                a0, a1 = self.edge_mlp.alphas
+
+                def K(xx, ss, ww=None):
+                    if ww is not None:  # the dw term: the trilinear kernel (K4)
+                        return fused_tp_scatter(plan, xx, ss, ww, data[LAYOUT_KEY])
+                    return fused_tp_scatter_mlp(plan, xx, ss, emb, *weights, a0, a1, data[LAYOUT_KEY])
+            elif impl == "fused_tp":
+                w = self.edge_mlp.with_weights(emb, weights)
+
+                def K(xx, ss, ww=None):
+                    return fused_tp_scatter(plan, xx, ss, w if ww is None else ww, data[LAYOUT_KEY])
+            else:
+                w = self.edge_mlp.with_weights(emb, weights)
+
+                def K(xx, ss, ww=None):
+                    return self.tp_scatter.forward_tp_scatter(
+                        x=xx, edge_attr=ss, edge_weight=w if ww is None else ww,
+                        edge_dst=data[_keys.EDGE_INDEX_KEY][0], edge_src=data[_keys.EDGE_INDEX_KEY][1],
+                        edge_mask=data.get(_keys.EDGE_MASK_KEY), num_nodes=x.shape[0],
+                    )
+
+            msg = K(x, sh)
+            terms = []
+            if tx is not None:
+                terms.append(K(tx, sh))
+            if tsh is not None:
+                terms.append(K(x, tsh))
+            if temb is not None:
+                _, dw = torch.func.jvp(lambda e: self.edge_mlp.with_weights(e, weights), (emb,), (temb,))
+                terms.append(K(x, sh, dw.contiguous()))
+            tmsg = _sum(terms)
+
+        x_out = self.linear_2(self._merge_mid(msg))
+        tx_out = None if tmsg is None else self.linear_2(self._merge_mid(tmsg))
+        if self.sc_tp is not None:
+            x_out = x_out + sc
+            if t_sc is not None:
+                tx_out = t_sc if tx_out is None else tx_out + t_sc
+        out = dict(data)
+        out[_keys.NODE_FEATURES_KEY] = x_out
+        t_out = dict(tangents)
+        if tx_out is not None:
+            t_out[_keys.NODE_FEATURES_KEY] = tx_out
+        else:
+            t_out.pop(_keys.NODE_FEATURES_KEY, None)
+        return out, t_out
+
+
+def _sum(terms):
+    """Sum of a list of tensors in order (None if empty)."""
+    return sum(terms[1:], terms[0]) if terms else None

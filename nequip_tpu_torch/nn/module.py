@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch import nn
 
 from ..ops.irreps import Irreps
@@ -68,6 +69,36 @@ class GraphModule(nn.Module):
     def metadata(self) -> Dict[str, str]:
         return {}
 
+    def jvp(self, data: dict, tangents: dict) -> Tuple[dict, dict]:
+        """``(out, tangent_out)``: one dual-number step of this module (the
+        JAX ``GraphModule.jvp``).
+
+        ``tangents`` maps some float fields of ``data`` to tangents (a
+        missing key is a zero tangent).  The default runs ``forward`` on
+        forward-mode dual tensors (``torch.autograd.forward_ad``), which is
+        right for any module built from plain torch ops; reverse mode then
+        differentiates the tangents with respect to the parameters
+        (reverse over forward).  Modules that call the CUDA kernels override
+        it with a hand-written rule (``InteractionBlock.jvp``), so forward
+        mode never enters a kernel.  Outputs that do not depend on the
+        tangents get no tangent (JAX returns dense zeros there).
+        """
+        keys = [k for k in data if k in tangents]
+        if not keys:
+            return self(data), {}
+        with fwAD.dual_level():
+            inner = dict(data)
+            inner.update({k: fwAD.make_dual(data[k], tangents[k]) for k in keys})
+            out, t_out = {}, {}
+            for k, v in self(inner).items():
+                if isinstance(v, torch.Tensor) and v.is_floating_point():
+                    out[k], t = fwAD.unpack_dual(v)
+                    if t is not None:
+                        t_out[k] = t
+                else:
+                    out[k] = v
+        return out, t_out
+
     def jax_named_tensors(self, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
         """(JAX dotted path, tensor) for every parameter and persistent buffer."""
         for name, p in self.named_parameters(recurse=False):
@@ -116,6 +147,12 @@ class SequentialGraphNetwork(GraphModule):
         for module in self.children():
             data = module(data)
         return data
+
+    def jvp(self, data: dict, tangents: dict) -> Tuple[dict, dict]:
+        tangents = dict(tangents)
+        for module in self.children():
+            data, tangents = module.jvp(data, tangents)
+        return data, tangents
 
     def metadata(self) -> Dict[str, str]:
         out: Dict[str, str] = {}

@@ -37,7 +37,11 @@ _SIGNATURES: Dict[str, List] = {
     "nequip_dw_reduce": [_P] * 4 + [_I] * 4 + [_D, _P],
     "nequip_scatter_rows": [_P] * 4 + [_I, _I, _P],
     "nequip_tri_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    "nequip_tri_fwd_acc": [_P] * 10 + [_I] * 5 + [_P],
     "nequip_tri_bwd": [_P] * 16 + [_I] * 6 + [_P],
+    "nequip_jvp_fwd": [_P] * 14 + [_I] * 5 + [_P],
+    "nequip_jvp_fwd_acc": [_P] * 14 + [_I] * 5 + [_P],
+    "nequip_jvp_bwd": [_P] * 23 + [_I] * 6 + [_P],
 }
 
 # which source file holds each kernel (reported by chip_smoke.py)
@@ -48,7 +52,10 @@ KERNEL_SOURCES = {
     "dw_reduce": "nequip_tpu_torch/csrc/dw_reduce.cu",
     "scatter_rows": "nequip_tpu_torch/csrc/scatter_rows.cu",
     "tri_fwd": "nequip_tpu_torch/csrc/tri_fwd.cu",
+    "tri_fwd_acc": "nequip_tpu_torch/csrc/tri_fwd.cu",
     "tri_bwd": "nequip_tpu_torch/csrc/tri_bwd.cu",
+    "jvp_fwd": "nequip_tpu_torch/csrc/jvp_fwd.cu",
+    "jvp_bwd": "nequip_tpu_torch/csrc/jvp_bwd.cu",
 }
 
 

@@ -15,7 +15,12 @@ force-loss training:
   source nodes;
 * K4 ``tri_fwd`` and K5 ``tri_bwd``: the trilinear family
   ``F(x, y, w) = scatter_dst(TP(x[src], y, w))`` with given per-edge
-  weights, and its per-edge VJP.
+  weights, and its per-edge VJP; K4-acc ``tri_fwd(acc=...)`` (counted as
+  ``tri_fwd_acc``) adds one edge slice onto ``[N, mid_dim]`` accumulators
+  in place;
+* K6 ``jvp_fwd`` and K7 ``jvp_bwd``: the fr dual sweep, ``F`` and its
+  three tangent terms in one pass (optionally onto accumulators), and
+  its per-edge VJP for both node cotangents.
 
 Each wrapper runs its plain PyTorch twin (``*_plain``) when its tensors lie
 on the CPU, launches its kernel when they lie on a CUDA device, and raises
@@ -27,6 +32,9 @@ own backward is the composition of the radial MLP with the trilinear
 family; ``TriConv`` (K4) and ``TriConvBwd`` (K5, then K3) are written in
 terms of each other, so the family is closed under differentiation to all
 orders and a force loss trains through the kernels (reverse over reverse).
+fr training (reverse over forward) runs the first-order ``ChunkedConv``
+(K4/K4-acc, backward K5 + K3) and ``ChunkedJvpConv`` (K6, backward K7 +
+K3) over the slices of ``EdgeLayout.slices(C)``.
 
 Edge stream contract (built once per neighbour list by
 ``relayout_edge_stream``): the real edges come first, sorted by destination
@@ -38,12 +46,14 @@ segment, so nothing reads them.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ...data import _keys
 from ...data._key_registry import get_field_type
@@ -175,10 +185,29 @@ class EdgeLayout:
     src_perm: torch.Tensor  # int32 [n_real], real slots sorted (stably) by source
     src_ptr: torch.Tensor   # int32 [N+1], CSR of src_perm
     n_real: int             # real edges: slots [0, n_real) of the stream
+    _slices: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def num_nodes(self) -> int:
         return self.dst_ptr.shape[0] - 1
+
+    def slices(self, n_chunks: int) -> Tuple["EdgeSlice", ...]:
+        """The slice table of the edge-chunked fr sweep (``edge_slices``),
+        built once per ``n_chunks`` and kept with the layout."""
+        if n_chunks not in self._slices:
+            self._slices[n_chunks] = edge_slices(self, n_chunks)
+        return self._slices[n_chunks]
+
+
+class EdgeSlice(NamedTuple):
+    """Real edges ``[start, stop)`` of the stream and their own layout:
+    ``edge_src`` a view of the slice, ``dst_ptr`` the destination CSR clipped
+    to the slice (relative to ``start``), and the slice's stable source CSR.
+    Per-edge operands of a slice are the rows ``[start, stop)``."""
+
+    start: int
+    stop: int
+    layout: EdgeLayout
 
 
 def _ptr(keys: torch.Tensor, num_nodes: int) -> torch.Tensor:
@@ -201,6 +230,42 @@ def build_edge_layout(edge_index: torch.Tensor, edge_mask: torch.Tensor, num_nod
         src_ptr=_ptr(real_src, num_nodes),
         n_real=n_real,
     )
+
+
+def check_edge_chunks(n_chunks: int, n_real: int) -> None:
+    if not (isinstance(n_chunks, int) and 2 <= n_chunks <= n_real):
+        raise ValueError(
+            f"fr_edge_chunks={n_chunks!r}: the edge stream of {n_real} real edges splits into "
+            f"2 to {n_real} slices (0 turns chunking off)"
+        )
+
+
+def edge_slices(layout: EdgeLayout, n_chunks: int, bounds=None) -> Tuple[EdgeSlice, ...]:
+    """``n_chunks`` contiguous, near-equal ranges of the real, dst-sorted
+    edges (counterpart of the ``stk`` dict of the JAX ``chunked_jvp_conv``),
+    or the ranges between the given ``bounds`` (``0 = b_0 < ... < b_C =
+    n_real``).  The CSR stream splits at any edge: a destination whose
+    segment crosses a boundary appears in both slices, and the accumulating
+    kernels add its second part onto the first."""
+    n = layout.n_real
+    check_edge_chunks(n_chunks, n)
+    if bounds is None:
+        bounds = [s * n // n_chunks for s in range(n_chunks + 1)]
+    bounds = [int(b) for b in bounds]
+    if len(bounds) != n_chunks + 1 or bounds[0] != 0 or bounds[-1] != n or any(
+            a >= b for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(f"slice bounds must rise strictly from 0 to {n}, {n_chunks} slices: {bounds}")
+    out = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        src = layout.edge_src[lo:hi]
+        out.append(EdgeSlice(lo, hi, EdgeLayout(
+            edge_src=src,
+            dst_ptr=(layout.dst_ptr.clamp(lo, hi) - lo).to(torch.int32),
+            src_perm=torch.argsort(src, stable=True).to(torch.int32),
+            src_ptr=_ptr(src.long(), layout.num_nodes),
+            n_real=hi - lo,
+        )))
+    return tuple(out)
 
 
 def relayout_edge_stream(data: dict) -> dict:
@@ -290,12 +355,46 @@ def dw_reduce_plain(a, b, scale: float, n: int):
     return scale * (a[:n].t() @ b[:n])
 
 
-def tri_fwd_plain(plan, x, y, w, layout: EdgeLayout):
+def tri_fwd_plain(plan, x, y, w, layout: EdgeLayout, acc=None):
+    """K4 (``acc`` None) or K4-acc (adds onto ``acc`` in place, returns it)."""
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
     msg = plan.tp(torch.index_select(x, 0, src), y[:n_real], w[:n_real])
-    return x.new_zeros(layout.num_nodes, plan.mid_dim).index_add_(0, dst, msg)
+    out = x.new_zeros(layout.num_nodes, plan.mid_dim) if acc is None else acc
+    return out.index_add_(0, dst, msg)
+
+
+def _jvp_terms(plan, x, tx, y, ty, w, dw):
+    """Per-edge ``(TP(x, y, w), TP(tx, y, w) + TP(x, ty, w) + TP(x, y, dw))``."""
+    return plan.tp(x, y, w), plan.tp(tx, y, w) + plan.tp(x, ty, w) + plan.tp(x, y, dw)
+
+
+def jvp_fwd_plain(plan, x, tx, y, ty, w, dw, layout: EdgeLayout, acc=None):
+    """K6: ``(msg, tmsg)``, added onto ``acc = (msg_acc, tmsg_acc)`` in place
+    when it is given."""
+    n_real = layout.n_real
+    dst = _segment_rows(layout.dst_ptr)
+    src = layout.edge_src[:n_real].long()
+    msg, tmsg = _jvp_terms(
+        plan, torch.index_select(x, 0, src), torch.index_select(tx, 0, src),
+        y[:n_real], ty[:n_real], w[:n_real], dw[:n_real],
+    )
+    if acc is None:
+        acc = tuple(x.new_zeros(layout.num_nodes, plan.mid_dim) for _ in range(2))
+    return acc[0].index_add_(0, dst, msg), acc[1].index_add_(0, dst, tmsg)
+
+
+def jvp_bwd_plain(plan, x, tx, y, ty, w, dw, layout: EdgeLayout, g, gt):
+    """K7: per-edge ``(dx, dtx, dy, dty, cw, cdw)`` of K6 for ``(g, gt)``."""
+    n_real = layout.n_real
+    dst = _segment_rows(layout.dst_ptr)
+    src = layout.edge_src[:n_real].long()
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_(True)
+                    for t in (x[src], tx[src], y[:n_real], ty[:n_real], w[:n_real], dw[:n_real]))
+        grads = torch.autograd.grad(_jvp_terms(plan, *ins), ins, (g[dst], gt[dst]))
+    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n_real)) for gr in grads)
 
 
 def tri_bwd_plain(plan, x, y, w, layout: EdgeLayout, g):
@@ -325,6 +424,8 @@ def _route(name: str, *tensors: torch.Tensor) -> bool:
     for t in tensors:
         if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name}: inputs must share one device and dtype")
+        if fwAD.unpack_dual(t).tangent is not None:
+            raise RuntimeError(f"{name}: a forward-mode dual tensor reached a kernel (use the module jvp rules)")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
@@ -440,24 +541,106 @@ def dw_reduce(a, b, scale: float, n: int):
     return out
 
 
-def tri_fwd(plan: TPPlan, x, y, w, layout: EdgeLayout):
+def _check_acc(name: str, acc, layout: EdgeLayout, plan: TPPlan, ref: torch.Tensor) -> None:
+    for a in acc:
+        if (a.shape != (layout.num_nodes, plan.mid_dim) or a.device != ref.device
+                or a.dtype != ref.dtype or not a.is_contiguous()):
+            raise ValueError(f"{name}: accumulators must be contiguous [N, mid_dim] of the inputs' device and dtype")
+
+
+def tri_fwd(plan: TPPlan, x, y, w, layout: EdgeLayout, acc=None):
     """K4: ``[N, mid_dim]`` trilinear conv with per-edge weights ``w [E, WN]``
-    (see ``csrc/tri_fwd.cu``)."""
+    (see ``csrc/tri_fwd.cu``).  With ``acc`` (K4-acc, counted as
+    ``tri_fwd_acc``) the messages are added onto ``acc`` in place and ``acc``
+    is returned: one slice of the edge-chunked sweep."""
+    if acc is not None:
+        return tri_fwd_acc(plan, x, y, w, layout, acc)
     if not _route("tri_fwd", x, y, w):
         return tri_fwd_plain(plan, x, y, w, layout)
+    out = torch.empty(layout.num_nodes, plan.mid_dim, dtype=x.dtype, device=x.device)
+    _launch_tri_fwd("nequip_tri_fwd", plan, x, y, w, layout, out)
+    tri_fwd.launches += 1
+    return out
+
+
+def tri_fwd_acc(plan: TPPlan, x, y, w, layout: EdgeLayout, acc):
+    """K4-acc: ``acc += F(x, y, w)`` in place over one edge slice."""
+    if not _route("tri_fwd_acc", x, y, w, acc):
+        return tri_fwd_plain(plan, x, y, w, layout, acc)
+    _check_acc("tri_fwd_acc", (acc,), layout, plan, x)
+    _launch_tri_fwd("nequip_tri_fwd_acc", plan, x, y, w, layout, acc)
+    tri_fwd_acc.launches += 1
+    return acc
+
+
+def _launch_tri_fwd(entry: str, plan: TPPlan, x, y, w, layout: EdgeLayout, out) -> None:
     _check_layout(layout, x.device)
     tab = plan.device_tables(x.device, x.dtype)
-    out = torch.empty(layout.num_nodes, plan.mid_dim, dtype=x.dtype, device=x.device)
-    err = build.entry_point("nequip_tri_fwd", x.dtype)(
+    err = build.entry_point(entry, x.dtype)(
         x.data_ptr(), y.data_ptr(), w.data_ptr(), layout.edge_src.data_ptr(),
         layout.dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
         tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(),
         layout.num_nodes, plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(err, "tri_fwd")
-    tri_fwd.launches += 1
-    return out
+    build.check(err, entry)
+
+
+def jvp_fwd(plan: TPPlan, x, tx, y, ty, w, dw, layout: EdgeLayout, acc=None):
+    """K6: ``(msg, tmsg) = (F(x, y, w), F(tx, y, w) + F(x, ty, w) + F(x, y, dw))``
+    in one pass (see ``csrc/jvp_fwd.cu``).  With ``acc = (msg_acc,
+    tmsg_acc)`` both are added onto the accumulators in place, which are
+    returned."""
+    if not _route("jvp_fwd", x, tx, y, ty, w, dw, *(acc or ())):
+        return jvp_fwd_plain(plan, x, tx, y, ty, w, dw, layout, acc)
+    _check_layout(layout, x.device)
+    if acc is None:
+        acc = tuple(torch.empty(layout.num_nodes, plan.mid_dim, dtype=x.dtype, device=x.device)
+                    for _ in range(2))
+        entry = "nequip_jvp_fwd"
+    else:
+        _check_acc("jvp_fwd", acc, layout, plan, x)
+        entry = "nequip_jvp_fwd_acc"
+    tab = plan.device_tables(x.device, x.dtype)
+    err = build.entry_point(entry, x.dtype)(
+        x.data_ptr(), tx.data_ptr(), y.data_ptr(), ty.data_ptr(), w.data_ptr(), dw.data_ptr(),
+        layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(),
+        tab["fwd_terms"].data_ptr(), tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(),
+        acc[0].data_ptr(), acc[1].data_ptr(), layout.num_nodes, plan.dim_in, plan.sh_dim,
+        plan.weight_numel, plan.mid_dim, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, entry)
+    jvp_fwd.launches += 1
+    return tuple(acc)
+
+
+def jvp_bwd(plan: TPPlan, x, tx, y, ty, w, dw, layout: EdgeLayout, g, gt):
+    """K7: per-edge ``(dx [E, dim_in], dtx [E, dim_in], dy [E, sh_dim],
+    dty [E, sh_dim], cw [E, WN], cdw [E, WN])`` of K6 for the node cotangents
+    ``g`` of msg and ``gt`` of tmsg (see ``csrc/jvp_bwd.cu``); zero rows at
+    masked slots."""
+    if not _route("jvp_bwd", x, tx, y, ty, w, dw, g, gt):
+        return jvp_bwd_plain(plan, x, tx, y, ty, w, dw, layout, g, gt)
+    _check_layout(layout, x.device)
+    tab = plan.device_tables(x.device, x.dtype)
+    outs = tuple(
+        torch.empty(y.shape[0], width, dtype=x.dtype, device=x.device)
+        for width in (plan.dim_in, plan.dim_in, plan.sh_dim, plan.sh_dim, plan.weight_numel, plan.weight_numel)
+    )
+    for t in outs:
+        t[layout.n_real:].zero_()  # the kernel writes the real slots only
+    err = build.entry_point("nequip_jvp_bwd", x.dtype)(
+        x.data_ptr(), tx.data_ptr(), y.data_ptr(), ty.data_ptr(), w.data_ptr(), dw.data_ptr(),
+        layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(), g.data_ptr(), gt.data_ptr(),
+        tab["dx_groups"].data_ptr(), tab["dx_terms"].data_ptr(), tab["dx_coef"].data_ptr(),
+        tab["dx_col"].data_ptr(), tab["paths"].data_ptr(), tab["path_terms"].data_ptr(),
+        tab["path_coef"].data_ptr(), *(t.data_ptr() for t in outs), len(plan.paths),
+        layout.num_nodes, plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "jvp_bwd")
+    jvp_bwd.launches += 1
+    return outs
 
 
 def tri_bwd(plan: TPPlan, x, y, w, layout: EdgeLayout, g):
@@ -518,7 +701,10 @@ KERNELS = {
     "dw_reduce": dw_reduce,
     "scatter_rows": scatter_rows,
     "tri_fwd": tri_fwd,
+    "tri_fwd_acc": tri_fwd_acc,
     "tri_bwd": tri_bwd,
+    "jvp_fwd": jvp_fwd,
+    "jvp_bwd": jvp_bwd,
 }
 
 
@@ -699,3 +885,150 @@ def fused_tp_scatter_bwd(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLa
     """``(dx, dy, dw)`` of ``F`` for the node cotangent ``g`` (K5, then K3),
     differentiable to all orders."""
     return TriConvBwd.apply(x, edge_attr, edge_weight, g, plan, layout)
+
+
+# ---------------------------------------------------------------------------
+# the edge-chunked convolutions of fr training (first order only)
+# ---------------------------------------------------------------------------
+def _mlp_jvp(mlp, weights, emb, temb):
+    """``(w, dw) = jvp(MLP)(emb; temb)`` in plain torch.  ``torch.func.jvp``
+    works inside an autograd Function's forward (where forward-mode dual
+    tensors do not), and reverse mode differentiates through both outputs."""
+    w, dw = torch.func.jvp(lambda e: mlp.with_weights(e, weights), (emb,), (temb,))
+    return w.contiguous(), dw.contiguous()
+
+
+def _slice_inputs(need, ts, weights, rows):
+    """Slice rows of per-edge ``ts`` and the MLP weights as graph leaves,
+    each requiring grad where ``need`` says so."""
+    return (
+        [t[rows].detach().requires_grad_(nd) for t, nd in zip(ts, need)],
+        [w.detach().requires_grad_(nd) for w, nd in zip(weights, need[len(ts):])],
+    )
+
+
+def _mlp_vjp(outs, cts, leaves, grads):
+    """Add the VJP of ``outs`` at ``cts`` into ``grads`` (in place, leaf by
+    leaf; None where a leaf needs no grad)."""
+    wrt = [(i, t) for i, t in enumerate(leaves) if t.requires_grad]
+    if not wrt:
+        return
+    found = torch.autograd.grad(outs, [t for _, t in wrt], cts, allow_unused=True)
+    for (i, _), gr in zip(wrt, found):
+        if gr is not None:
+            grads[i].add_(gr)
+
+
+class ChunkedConv(torch.autograd.Function):
+    """The primal conv ``scatter_dst(TP(x[src], sh, MLP(emb)))`` over the
+    slices of ``layout.slices(C)`` (JAX ``chunked_conv``): per slice, the
+    radial MLP in plain torch, then K4 for the first slice and K4-acc for
+    the others, so ``[E, WN]`` weights exist one slice at a time.  Backward,
+    per slice: recompute the slice's weights, K5, K3 for ``dx``, and the
+    MLP's VJP; node cotangents and weight gradients are summed in place in
+    slice order.  First order only, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, sh, emb, plan, mlp, slices, *weights):
+        ctx.plan, ctx.mlp, ctx.slices = plan, mlp, slices
+        ctx.save_for_backward(x, sh, emb, *weights)
+        msg = None
+        for sl in slices:
+            rows = slice(sl.start, sl.stop)
+            w_s = mlp.with_weights(emb[rows], weights).contiguous()
+            msg = tri_fwd(plan, x, sh[rows], w_s, sl.layout, acc=msg)
+        return msg
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, sh, emb, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        plan, g = ctx.plan, g.contiguous()
+        dx, dsh, demb = torch.zeros_like(x), torch.zeros_like(sh), torch.zeros_like(emb)
+        dws = [torch.zeros_like(w) for w in weights]
+        for sl in ctx.slices:
+            rows = slice(sl.start, sl.stop)
+            with torch.enable_grad():
+                (e_s,), ws = _slice_inputs((need[2],) + need[6:], (emb,), weights, rows)
+                w_s = ctx.mlp.with_weights(e_s, ws)
+            dx_e, dsh_s, dw_s = tri_bwd(plan, x, sh[rows], w_s.detach().contiguous(), sl.layout, g)
+            if need[0]:
+                dx.add_(scatter_rows(dx_e, sl.layout.src_perm, sl.layout.src_ptr))
+            dsh[rows] = dsh_s
+            demb_s = torch.zeros_like(e_s)
+            _mlp_vjp(w_s, dw_s, [e_s] + ws, [demb_s] + dws)
+            demb[rows] = demb_s
+        return (dx if need[0] else None, dsh if need[1] else None, demb if need[2] else None,
+                None, None, None, *(d if nd else None for d, nd in zip(dws, need[6:])))
+
+
+class ChunkedJvpConv(torch.autograd.Function):
+    """The conv and its tangent over the slices of ``layout.slices(C)`` (JAX
+    ``chunked_jvp_conv``, the edge-chunked dual sweep of fr training):
+
+        msg  = F(x, sh, w),  tmsg = F(tx, sh, w) + F(x, tsh, w) + F(x, sh, dw),
+        (w, dw) = jvp(MLP)(emb; temb)
+
+    Forward, per slice: ``(w_s, dw_s)`` in plain torch, then K6 (its
+    accumulating form after the first slice).  Backward, per slice:
+    recompute ``(w_s, dw_s)``, K7, K3 for ``dx`` and for ``dtx``, and the
+    reverse of the MLP jvp with respect to ``emb``, ``temb`` and the MLP
+    weights.  Node cotangents and weight gradients are summed in place in
+    slice order; per-edge cotangents fill their slice's rows.  First order
+    only, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, tx, sh, tsh, emb, temb, plan, mlp, slices, *weights):
+        ctx.plan, ctx.mlp, ctx.slices = plan, mlp, slices
+        ctx.save_for_backward(x, tx, sh, tsh, emb, temb, *weights)
+        acc = None
+        for sl in slices:
+            rows = slice(sl.start, sl.stop)
+            w_s, dw_s = _mlp_jvp(mlp, weights, emb[rows], temb[rows])
+            acc = jvp_fwd(plan, x, tx, sh[rows], tsh[rows], w_s, dw_s, sl.layout, acc=acc)
+        return acc
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, gt):
+        x, tx, sh, tsh, emb, temb, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        plan, g, gt = ctx.plan, g.contiguous(), gt.contiguous()
+        dx, dtx = torch.zeros_like(x), torch.zeros_like(tx)
+        dsh, dtsh = torch.zeros_like(sh), torch.zeros_like(tsh)
+        demb, dtemb = torch.zeros_like(emb), torch.zeros_like(temb)
+        dws = [torch.zeros_like(w) for w in weights]
+        for sl in ctx.slices:
+            rows = slice(sl.start, sl.stop)
+            with torch.enable_grad():
+                (e_s, te_s), ws = _slice_inputs((need[4], need[5]) + need[9:], (emb, temb), weights, rows)
+                w_s, dw_s = _mlp_jvp(ctx.mlp, ws, e_s, te_s)
+            dx_e, dtx_e, dsh[rows], dtsh[rows], cw, cdw = jvp_bwd(
+                plan, x, tx, sh[rows], tsh[rows], w_s.detach(), dw_s.detach(), sl.layout, g, gt
+            )
+            lay = sl.layout
+            if need[0]:
+                dx.add_(scatter_rows(dx_e, lay.src_perm, lay.src_ptr))
+            if need[1]:
+                dtx.add_(scatter_rows(dtx_e, lay.src_perm, lay.src_ptr))
+            demb_s, dtemb_s = torch.zeros_like(e_s), torch.zeros_like(te_s)
+            _mlp_vjp((w_s, dw_s), (cw, cdw), [e_s, te_s] + ws, [demb_s, dtemb_s] + dws)
+            demb[rows], dtemb[rows] = demb_s, dtemb_s
+        grads = (dx, dtx, dsh, dtsh, demb, dtemb)
+        return (*(gr if nd else None for gr, nd in zip(grads, need[:6])), None, None, None,
+                *(d if nd else None for d, nd in zip(dws, need[9:])))
+
+
+def chunked_conv(plan: TPPlan, mlp, x, sh, emb, layout: EdgeLayout, n_chunks: int) -> torch.Tensor:
+    """``ChunkedConv`` over ``n_chunks`` slices of the stream; ``mlp`` is the
+    block's radial ``ops.mlp.ScalarMLP``."""
+    weights = [w.to(x.dtype) for w in mlp.weights()]
+    return ChunkedConv.apply(x, sh, emb, plan, mlp, layout.slices(n_chunks), *weights)
+
+
+def chunked_jvp_conv(plan: TPPlan, mlp, x, tx, sh, tsh, emb, temb, layout: EdgeLayout, n_chunks: int):
+    """``ChunkedJvpConv`` over ``n_chunks`` slices of the stream:
+    ``(msg, tmsg)``."""
+    weights = [w.to(x.dtype) for w in mlp.weights()]
+    return ChunkedJvpConv.apply(x, tx, sh, tsh, emb, temb, plan, mlp, layout.slices(n_chunks), *weights)

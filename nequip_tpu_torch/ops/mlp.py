@@ -11,7 +11,7 @@ gain plays the variance-preserving role.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -61,9 +61,17 @@ class ScalarMLP(nn.Module):
             w = self.weight(layer)
             w.copy_(torch.rand(w.shape, generator=generator, dtype=torch.float64) * (2 * _SQRT3) - _SQRT3)
 
+    def weights(self) -> List[torch.Tensor]:
+        return [self.weight(layer) for layer in range(self.num_layers)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in range(self.num_layers):
-            x = x @ (self.weight(layer).to(x.dtype) * self.alphas[layer])
+        return self.with_weights(x, self.weights())
+
+    def with_weights(self, x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The MLP with the given weight tensors in place of its own (the
+        edge-chunked convolutions differentiate it with respect to them)."""
+        for layer, w in enumerate(weights):
+            x = x @ (w.to(x.dtype) * self.alphas[layer])
             if self._act is not None and layer != self.num_layers - 1:
                 x = self._act(x)
         return x

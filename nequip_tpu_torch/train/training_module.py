@@ -15,9 +15,19 @@ for param groups.  The JAX package's frozen leaves (``frozen_param_paths``:
 fixed per-type scales and shifts, fixed Bessel weights) are persistent
 buffers here, so no optimizer sees them; ``frozen_paths`` lists them.
 
-``force_grad_mode="rr"`` (reverse over reverse) is the only mode ported;
-``"fr"`` needs the dual-sweep kernels K6/K7 and ``InteractionBlock.jvp`` and
-raises.  Not ported yet: LR schedulers, gradient clipping, optimizers other
+``force_grad_mode="rr"`` (the default) is the step above.
+``force_grad_mode="fr"`` (reverse over forward, JAX ``_make_train_step_fr``)
+computes the same gradients to float associativity in two passes:
+
+    out = model(batch)                      # weights frozen: E+F, no graph
+    v = dL/dout                             # the loss's output cotangents
+    model.loss_surrogate(batch, v).backward()   # one reverse pass over a jvp
+
+so no residual of a force VJP is ever kept.  With ``fr_edge_chunks = C > 1``
+(any ``2 <= C <=`` the batch's real edges; a kernel ``tp_impl``) both
+passes run each conv over C slices of the edge stream (``ChunkedConv``,
+``ChunkedJvpConv``), so the ``[E, *]`` transients shrink to 1/C.
+Not ported yet: LR schedulers, gradient clipping, optimizers other
 than Adam, multi-model modules.
 """
 
@@ -29,7 +39,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ..ops.kernels.tp_scatter import relayout_edge_stream
+from ..nn.interaction_block import InteractionBlock
+from ..ops.kernels.tp_scatter import LAYOUT_KEY, check_edge_chunks, relayout_edge_stream
 from .ema import ema_update
 from .metrics_manager import MetricsManager
 
@@ -73,6 +84,20 @@ def frozen_weights(model: torch.nn.Module):
             p.requires_grad_(True)
 
 
+@contextlib.contextmanager
+def edge_chunks(model: torch.nn.Module, n_chunks: int):
+    """Hand ``n_chunks`` edge slices to every interaction block of the
+    model for the duration of an fr step (0 afterwards)."""
+    blocks = [m for m in model.modules() if isinstance(m, InteractionBlock)]
+    for b in blocks:
+        b.fr_edge_chunks = n_chunks
+    try:
+        yield model
+    finally:
+        for b in blocks:
+            b.fr_edge_chunks = 0
+
+
 class NequIPTrainModule:
     def __init__(
         self,
@@ -81,16 +106,19 @@ class NequIPTrainModule:
         val_metrics: Optional[MetricsManager] = None,
         optimizer: Optional[dict] = None,
         force_grad_mode: str = "rr",
+        fr_edge_chunks: int = 0,
     ):
-        if force_grad_mode == "fr":
-            raise NotImplementedError(
-                "force_grad_mode='fr' (reverse over forward) needs the dual-sweep kernels K6/K7 "
-                "(_jvp_forward, _jvp_backward_kernel_call) and InteractionBlock.jvp, not ported yet; "
-                "use force_grad_mode='rr'"
-            )
-        if force_grad_mode != "rr":
+        if force_grad_mode not in ("rr", "fr"):
             raise ValueError(f"force_grad_mode must be 'rr' or 'fr', got {force_grad_mode!r}")
+        if fr_edge_chunks != 0 and (force_grad_mode != "fr" or not isinstance(fr_edge_chunks, int)
+                                    or fr_edge_chunks < 2):
+            raise ValueError("fr_edge_chunks requires force_grad_mode='fr' and an int >= 2 (0 turns it off)")
+        if fr_edge_chunks and not getattr(model, "uses_fused_kernels", False):
+            raise ValueError("fr_edge_chunks needs a kernel tp_impl ('fused' or 'fused_tp')")
+        if force_grad_mode == "fr" and not hasattr(model, "loss_surrogate"):
+            raise ValueError("force_grad_mode='fr' needs a GraphModel wrapping a ForceStressOutput")
         self.force_grad_mode = force_grad_mode
+        self.fr_edge_chunks = fr_edge_chunks
         self.model = model
         self.loss = loss
         self.val_metrics = val_metrics
@@ -135,11 +163,48 @@ class NequIPTrainModule:
         loss, values = self.loss.values(bs, self.loss.coeff_vector())
         return loss, bs, values
 
+    def _loss_output_fields(self, out: dict) -> List[str]:
+        """Float output fields the loss reads (through each entry's modifier)."""
+        fields = []
+        for e in self.loss.entries:
+            mod = e["mod"]
+            f = getattr(mod, "mapped_field", None) or getattr(mod, "field", None)
+            if f and f in out and isinstance(out[f], torch.Tensor) and out[f].is_floating_point() \
+                    and f not in fields:
+                fields.append(f)
+        return fields
+
+    def compute_grads_fr(self, batch: dict):
+        """fr: ``(loss, batch loss sums, loss values)`` with the parameter
+        gradients of the loss accumulated into ``.grad`` (JAX
+        ``_make_train_step_fr``)."""
+        batch = self._prepare(batch)
+        if self.fr_edge_chunks:
+            check_edge_chunks(self.fr_edge_chunks, batch[LAYOUT_KEY].n_real)
+        with edge_chunks(self.model, self.fr_edge_chunks):
+            # pass 1: the model's own first-order E+F (serving kernels unchunked)
+            with frozen_weights(self.model) as model:
+                out = model(batch)
+            # the output cotangents v = dL/dout (a small elementwise graph)
+            fields = {f: out[f].detach().requires_grad_(True) for f in self._loss_output_fields(out)}
+            with torch.enable_grad():
+                bs = self.loss.batch_state(dict(out, **fields), batch)
+                loss, values = self.loss.values(bs, self.loss.coeff_vector())
+            grads = torch.autograd.grad(loss, list(fields.values()), allow_unused=True)
+            v = {f: g for f, g in zip(fields, grads) if g is not None}
+            # pass 2: one reverse pass over the jvp-augmented energy graph
+            self.model.loss_surrogate(batch, v).backward()
+        return loss.detach(), bs, values
+
     def training_step(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """One rr step on a padded batch; returns the step's loss values."""
+        """One step on a padded batch (``force_grad_mode``); returns the
+        step's loss values."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, bs, values = self.compute_loss(batch)
-        loss.backward()
+        if self.force_grad_mode == "fr":
+            loss, bs, values = self.compute_grads_fr(batch)
+        else:
+            loss, bs, values = self.compute_loss(batch)
+            loss.backward()
         self.optimizer.step()
         self.loss_state = self.loss.accumulate(self.loss_state, bs)
         self._post_optimizer_step()

@@ -59,6 +59,44 @@ def _problem(device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["tri_fwd_acc", "jvp_fwd", "jvp_fwd_acc", "jvp_bwd"])
+def test_cuda_fr_kernel_matches_plain(cuda, name, dtype):
+    """K4-acc, K6 (with and without accumulators) and K7 on the third of
+    four edge slices, whose first destination segment the slice boundary
+    splits; bitwise equal on a repeat call."""
+    args, g, _ = _problem(cuda, dtype)
+    plan, x, sh, lay = args[0], args[1], args[2], args[-1]
+    r = np.random.RandomState(8)
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=dtype, device=cuda)
+    tx, tsh, w, dw, gt = t(*x.shape), t(*sh.shape), t(N_SLOTS, plan.weight_numel), t(N_SLOTS, plan.weight_numel), t(*g.shape)
+    sl = lay.slices(4)[2]
+    assert lay.dst_ptr.tolist().count(sl.start) == 0  # the boundary falls inside a segment
+    rows = slice(sl.start, sl.stop)
+    ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows], sl.layout)
+    acc = (t(N_NODES, plan.mid_dim), t(N_NODES, plan.mid_dim))
+    if name == "tri_fwd_acc":
+        run = lambda: (K.tri_fwd(plan, x, sh[rows], w[rows], sl.layout, acc=acc[0].clone()),)
+        plain = lambda: (K.tri_fwd_plain(plan, x, sh[rows], w[rows], sl.layout, acc[0].clone()),)
+    elif name == "jvp_fwd":
+        run, plain = lambda: K.jvp_fwd(plan, *ops), lambda: K.jvp_fwd_plain(plan, *ops)
+    elif name == "jvp_fwd_acc":
+        run = lambda: K.jvp_fwd(plan, *ops, acc=tuple(a.clone() for a in acc))
+        plain = lambda: K.jvp_fwd_plain(plan, *ops, tuple(a.clone() for a in acc))
+    else:
+        run, plain = lambda: K.jvp_bwd(plan, *ops, g, gt), lambda: K.jvp_bwd_plain(plan, *ops, g, gt)
+    counter = K.KERNELS[name.replace("jvp_fwd_acc", "jvp_fwd")]
+    before = counter.launches
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, b, c in zip(got, want, run()):
+        rtol, atol = _tol(dtype, b)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize(
     "name", ["conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd"]
 )
@@ -145,3 +183,36 @@ def test_cuda_force_loss_grads_match_torch_model(cuda, tp_impl):
         grads.append(torch.autograd.grad(loss, list(model.parameters())))
     for ref, got in zip(*grads):
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-9 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp_impl,n_chunks", [("fused", 0), ("fused", 3), ("fused_tp", 0), ("fused_tp", 4)])
+def test_cuda_fr_grads_match_rr(cuda, tp_impl, n_chunks):
+    """fr force-loss gradients through the kernels (K6/K7/K4-acc when
+    chunked) against the rr step of the same model on the card, float64."""
+    from nequip_tpu_torch.data import DataLoader
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
+    from nequip_tpu_torch.model import NequIPGNNModel, jax_named_grads
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    cfg = dict(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=2, l_max=2,
+               parity=False, num_features=8, radial_mlp_width=16, avg_num_neighbors=18.0)
+    ds = LJTestDataset(num_frames=1, seed=3, transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]), NeighborListTransform(4.0)])
+    batch = next(iter(DataLoader(ds, batch_size=1, device=cuda)))
+    model = NequIPGNNModel(tp_impl=tp_impl, **cfg).to(cuda)
+    grads = []
+    for mode, c in (("rr", 0), ("fr", n_chunks)):
+        K.reset_launch_counts()
+        module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), force_grad_mode=mode, fr_edge_chunks=c)
+        if mode == "rr":
+            loss, _, _ = module.compute_loss(batch)
+            loss.backward()
+        else:
+            module.compute_grads_fr(batch)
+        grads.append(jax_named_grads(model))
+        model.zero_grad(set_to_none=True)
+    chunked = {k: K.KERNELS[k].launches > 0 for k in ("jvp_fwd", "jvp_bwd", "tri_fwd_acc")}
+    assert all(chunked.values()) == bool(n_chunks) and any(chunked.values()) == bool(n_chunks)
+    for k, ref in grads[0].items():
+        np.testing.assert_allclose(grads[1][k], ref, rtol=0, atol=1e-9 * float(np.abs(ref).max()), err_msg=k)

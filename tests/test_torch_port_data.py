@@ -92,7 +92,7 @@ def test_statistics_match_jax(managers):
         "common": (CommonDataStatisticsManager, JCommonStats),
         "energy_only": (EnergyOnlyDataStatisticsManager, JEnergyStats),
     }[managers]
-    got = pm(type_names=["Cu"]).get_statistics(DataLoader(port, batch_size=4))
+    got = pm(type_names=["Cu"]).get_statistics(DataLoader(port, batch_size=4, device="cpu"))
     want = jm(type_names=["Cu"]).get_statistics(JLoader(ref, batch_size=4))
     assert set(got) == set(want)
     for k, v in want.items():

@@ -10,7 +10,7 @@
   ``tests/integration/lj_config.yaml`` (EMA, stats-derived neighbour norm,
   shifts and scales, Adam): per-epoch train and val losses equal the JAX
   trainer's to 1e-8 relative.  The JAX side runs ``tp_impl="xla"``.
-* ``force_grad_mode="fr"`` raises.
+  (fr training is held against JAX in ``tests/test_torch_port_fr.py``.)
 
 Tolerances: float64 sums in another order through two layers and their
 second derivatives, and for the trainer six Adam steps on top.
@@ -70,7 +70,7 @@ def test_rr_step_matches_jax(jax_step, tp_impl):
     model = load_jax_params(NequIPGNNModel(tp_impl=tp_impl, **SMALL), params)
     module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]))
     batch = next(iter(DataLoader(_lj(LJTestDataset, ChemicalSpeciesToAtomTypeMapper, NeighborListTransform),
-                                 batch_size=2)))
+                                 batch_size=2, device="cpu")))
     loss, _, _ = module.compute_loss(batch)
     loss.backward()
     assert float(loss.detach()) == pytest.approx(want_loss, rel=1e-10)
@@ -82,13 +82,13 @@ def test_rr_step_matches_jax(jax_step, tp_impl):
         np.testing.assert_allclose(g, want_grads[k], rtol=0, atol=1e-8 * scale, err_msg=k)
 
 
-def _lj_config_data(LJ, Mapper, NL, DataModule, Stats):
+def _lj_config_data(LJ, Mapper, NL, DataModule, Stats, **dm_kw):
     """The datamodule, statistics and model arguments of lj_config.yaml,
     built with one package's classes."""
     ds = LJ(num_frames=8, seed=123456, transforms=[Mapper(["Cu"]), NL(4.0)])
     dm = DataModule(seed=456, split_dataset={"dataset": ds, "train": 6, "val": 1, "test": 1},
                     train_dataloader={"batch_size": 2}, val_dataloader={"batch_size": 1},
-                    test_dataloader={"batch_size": 1}, stats_manager=Stats(type_names=["Cu"]))
+                    test_dataloader={"batch_size": 1}, stats_manager=Stats(type_names=["Cu"]), **dm_kw)
     stats = dm.get_statistics()
     model_kw = dict(
         seed=123, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=2, l_max=1, parity=False,
@@ -108,7 +108,7 @@ def test_trainer_fit_matches_jax_trainer(tmp_path):
     jtrainer.fit(jmodule, jdm)
 
     dm, stats, kw = _lj_config_data(LJTestDataset, ChemicalSpeciesToAtomTypeMapper, NeighborListTransform,
-                                    NequIPDataModule, CommonDataStatisticsManager)
+                                    NequIPDataModule, CommonDataStatisticsManager, device="cpu")
     assert stats["num_neighbors_mean"] == pytest.approx(jstats["num_neighbors_mean"], rel=1e-14)
     assert stats["per_type_forces_rms"]["Cu"] == pytest.approx(jstats["per_type_forces_rms"]["Cu"], rel=1e-12)
     model = load_jax_params(NequIPGNNModel(tp_impl="fused", **kw),
@@ -130,12 +130,6 @@ def test_trainer_fit_matches_jax_trainer(tmp_path):
     # a standalone validation at the final weights repeats the last epoch's
     val = trainer.validate(module, dm)
     assert val["val0_epoch/weighted_sum"] == pytest.approx(trainer.metrics_rows[1]["val0_epoch/weighted_sum"], rel=1e-12)
-
-
-def test_fr_mode_raises():
-    model = NequIPGNNModel(tp_impl="fused", **SMALL)
-    with pytest.raises(NotImplementedError, match="K6/K7"):
-        NequIPTrainModule(model, loss=EnergyForceLoss(), force_grad_mode="fr")
 
 
 def test_param_groups_and_frozen_paths():
@@ -160,7 +154,7 @@ def test_evaluation_runs_the_serving_kernels(monkeypatch):
     module = EMATrainModule(model, loss=EnergyForceLoss(), val_metrics=EnergyForceMetrics())
     monkeypatch.setattr(K, "conv_bwd_train_plain", lambda *a: pytest.fail("training variant in evaluation"))
     batch = next(iter(DataLoader(_lj(LJTestDataset, ChemicalSpeciesToAtomTypeMapper, NeighborListTransform),
-                                 batch_size=2)))
+                                 batch_size=2, device="cpu")))
     for m in (module, NequIPTrainModule(model, loss=EnergyForceLoss(), val_metrics=EnergyForceMetrics())):
         state, out = m.evaluation_step(m.val_metrics, m.val_metrics.init_state(), batch)
         assert np.isfinite(m.val_metrics.compute(state)["weighted_sum"])
