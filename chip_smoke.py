@@ -39,13 +39,26 @@ Phases (each prints a line; any failure exits non-zero):
   7. fr training: the same Trainer.fit with force_grad_mode="fr" and
      fr_edge_chunks=4 on phase 6's data; step times, peak memory and losses
      beside phase 6's rr numbers; the first step's gradients against rr
-     "fused" on the same batch; K6, K7, K4-acc, K5 and K3 must launch.
+     "fused" on the same batch; K6, K7, K4-acc, K5 and K3 must launch;
+  8. microbenchmarks (the port's tools, nequip_tpu_torch/tools): 8a every
+     T1-T4 variant at the tool's full width (G=2048 steps of one 256-edge
+     chunk, 128 rows) against its plain version, f32 HIGHEST at 1e-4
+     max|ref|, f32 DEFAULT (TF32 MLP) at 1e-4 against plain with TF32
+     rounding emulated and at 1e-2 against plain f32, f64 at G=4 at 1e-12,
+     each bitwise equal on a repeat call, with kernel, plain and bound
+     times; 8b the row gather T5 on the 23k-atom edge stream (430,080 rows
+     of 288, f32 and bf16, four index patterns), bitwise equal to
+     torch.index_select, with its time beside index_select's; 8c both
+     tools' run() at their defaults, whose launches the report counts.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
-train, the dW reduction and K4, phase 7 (fr, chunked) for the others;
-"ms"/"plain_ms"/"bound_ms"/"library_ms": phase-2 f32 medians and bounds
-summed over the three layer shapes; "max_abs_err": the largest f32
-difference from plain); the last line is {"ok": true, "device": {...}}.
+train, the dW reduction and K4, phase 7 (fr, chunked) for the other
+kernels of K3-K7, phase 8c for T1-T5; "ms"/"plain_ms"/"bound_ms"/"library_ms": phase-2 f32
+medians and bounds summed over the three layer shapes, and for T1-T5 the
+phase-8 numbers of the `full` HIGHEST (T1), `full_t` DEFAULT (T3, TF32
+bound), CG-VJP (T2/T4) and f32 random-pattern gather (T5) rows;
+"max_abs_err": the largest f32 difference from plain); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,14 +87,20 @@ REPLACES = {
     "tri_bwd": "nequip_tpu/ops/pallas/tp_scatter.py:1210",
     "jvp_fwd": "nequip_tpu/ops/pallas/tp_scatter.py:2118",
     "jvp_bwd": "nequip_tpu/ops/pallas/tp_scatter.py:2306",
+    "mb_fwd": "tools/kernel_microbench.py:142",
+    "mb_bwd": "tools/kernel_microbench.py:189",
+    "mb_fwd_t": "tools/kernel_microbench.py:271",
+    "mb_bwd_t": "tools/kernel_microbench.py:313",
+    "row_gather": "tools/gather_microbench.py:86",
 }
+MICROBENCH_KERNELS = ("mb_fwd", "mb_bwd", "mb_fwd_t", "mb_bwd_t", "row_gather")  # launches from phase 8c
 SERVING_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows")
 TRAINING_KERNELS = ("conv_fwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd")
 FR_CHUNKED_KERNELS = ("tri_fwd_acc", "jvp_fwd", "jvp_bwd", "tri_bwd", "scatter_rows")
 RR_REPORTED = ("conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "tri_fwd")  # launches from phase 6
 N_CHUNKS = 4
-# published peaks of one H100 SXM (700 W): HBM bytes/s, f32 FLOP/s outside the tensor cores
-HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# published peaks of one H100 SXM (700 W): HBM bytes/s, f32 FLOP/s outside the tensor cores, TF32 dense
+HBM_BYTES_S, F32_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 495e12
 FLAGSHIP = dict(
     type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2, parity=False, num_features=32,
     avg_num_neighbors=18.0, per_type_energy_shifts={"Cu": -3.5},
@@ -258,7 +277,7 @@ def phase2_kernels(n_atoms: int, reps: int):
     blocks = [m for m in model.modules() if isinstance(m, InteractionBlock)]
     rng = np.random.RandomState(0)
     report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
-                  "library_ms": None} for k in K.KERNELS}
+                  "library_ms": None} for k in K.KERNELS if k not in MICROBENCH_KERNELS}
     for dtype, rtol, atol_rel in ((torch.float32, 1e-4, 1e-5), (torch.float64, 1e-10, 1e-10)):
         for li, blk in enumerate(blocks):
             plan = blk.tp_scatter.plan
@@ -699,6 +718,192 @@ def phase7_train_fr(smi: str, dm, rr: dict, epochs: int = 2):
     return launches
 
 
+def mb_work(plan, variant: str, be: int, rows: int, grid: int, itemsize: int = 4,
+            n_emb: int = 8, hidden: int = 128):
+    """(f32 operations, tensor-core operations, bytes) of one T1-T4 call:
+    the function's arithmetic per chunk (not the TPU's one-hot matmul) times
+    ``grid``; the chunk stays in L2, so its operands count once and the
+    outputs once.  ``variant`` "cgvjp"/"cgvjp_t" is T2/T4."""
+    M, W, D, S = plan.mid_dim, plan.weight_numel, plan.dim_in, plan.sh_dim
+    TC = sum(len(p["terms"]) * p["mul"] for p in plan.paths)
+    PY = sum(p["y_dim"] * p["mul"] for p in plan.paths)
+    mm = be * 2 * (n_emb * hidden + hidden * W)  # the radial MLP's two products
+    silu, cg, scatter = be * 4 * hidden, be * (3 * TC + M), be * M
+    ops, mm_ops = {
+        "dot": (scatter, 0), "mlp": (silu, mm), "cg": (cg, 0), "cg_t": (cg, 0), "xpose": (0, 0),
+        "full": (silu + cg + scatter, mm), "full_t": (silu + cg + scatter, mm), "full_t_pre": (silu + cg + scatter, mm),
+        "cgvjp": (be * (7 * TC + 4 * PY), 0), "cgvjp_t": (be * (7 * TC + 4 * PY), 0),
+    }[variant]
+    widths = {
+        "dot": D + 1, "mlp": n_emb + n_emb * hidden / be + hidden * W / be, "cg": D + S, "cg_t": D + S + W,
+        "xpose": D, "cgvjp": D + S + M + W + (D + S + W), "cgvjp_t": D + S + M + W + (D + S + W),
+    }.get(variant, D + S + n_emb + 1 + (n_emb * hidden + hidden * W) / be)  # full*
+    nbytes = itemsize * be * widths + (0 if variant.startswith("cgvjp") else itemsize * rows * M)
+    return grid * ops, grid * mm_ops, nbytes
+
+
+def _mb_bound(ops: float, mm_ops: float, nbytes: float, tf32: bool):
+    t_ops = (ops / F32_FLOP_S + mm_ops / (TF32_FLOP_S if tf32 else F32_FLOP_S)) * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase8a_microbench(smi: str, reps: int = 10, grid: int = 2048, rows: int = 128, be: int = 256):
+    """T1-T4 at the tool's full width against their plain versions."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import microbench as MB
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.tools.kernel_microbench import make_inputs, to_tensors
+
+    plan, arrays = make_inputs(rows, be)
+    report = {}
+    for dtype, G in ((torch.float32, grid), (torch.float64, 4)):
+        ops = to_tensors(arrays, "cuda", dtype)
+        f64 = dtype == torch.float64
+        runs = [(v, p) for v in MB.FWD_VARIANTS for p in (("HIGHEST",) if f64 else MB.PRECISIONS)]
+        runs += [("cgvjp", "HIGHEST")] + [(v, "HIGHEST" if f64 else "DEFAULT") for v in MB.FWD_T_VARIANTS]
+        runs += [("cgvjp_t", "HIGHEST")]
+        for variant, prec in runs:
+            bwd = variant.startswith("cgvjp")
+            layout = "t" if variant in MB.FWD_T_VARIANTS or variant == "cgvjp_t" else "r"
+            tf32 = prec == "DEFAULT" and variant in MB.MLP_VARIANTS
+            counter = K.KERNELS[("mb_bwd" if bwd else "mb_fwd") + ("_t" if layout == "t" else "")]
+            if bwd:
+                kern = lambda: MB.chunk_bwd(plan, ops, G, layout)  # noqa: E731
+                plains = [(lambda: MB.chunk_bwd_plain(plan, ops, layout), 1e-12 if f64 else 1e-4)]
+            else:
+                kern = lambda: (MB.chunk_fwd(plan, variant, ops, rows, G, prec),)  # noqa: E731
+                plains = [(lambda: (MB.chunk_fwd_plain(plan, variant, ops, rows, G, tf32=tf32),), 1e-12 if f64 else 1e-4)]
+                if tf32:
+                    plains.append((lambda: (MB.chunk_fwd_plain(plan, variant, ops, rows, G),), 1e-2))
+            before = counter.launches
+            got = _tuple(kern())
+            torch.cuda.synchronize()
+            if counter.launches != before + 1:
+                raise RuntimeError(f"phase 8a: {variant} launch counter did not move")
+            err = 0.0
+            for plain, rel in plains:
+                for a, b in zip(got, _tuple(plain())):
+                    scale = float(b.abs().max())
+                    diff = float((a - b).abs().max())
+                    if not (bool(a.isfinite().all()) and diff <= rel * scale):
+                        raise RuntimeError(f"phase 8a: {variant} {prec} {dtype} disagrees with plain: "
+                                           f"max |diff| {diff:.3e}, max |ref| {scale:.3e} (bound {rel:g} max|ref|)")
+                    if rel < 1e-2:
+                        err = max(err, diff)
+            if not all(torch.equal(a, b) for a, b in zip(got, _tuple(kern()))):
+                raise RuntimeError(f"phase 8a: {variant} {prec} {dtype} differs on a repeat call")
+            name = f"{variant} {prec}" + (" f64" if f64 else "")
+            if f64:
+                print(f"phase 8a {name} G={G}: max_abs_err {err:.3e}", flush=True)
+                continue
+            ms = cuda_median_ms(kern, reps)
+            plain_ms = cuda_median_ms(plains[0][0], reps)
+            w_ops, w_mm, nbytes = mb_work(plan, variant, be, rows, G)
+            bound, by = _mb_bound(w_ops, w_mm, nbytes, tf32=False)
+            bound_tf32 = _mb_bound(w_ops, w_mm, nbytes, tf32=True)[0]
+            print(
+                f"phase 8a {name} ({smi}): max_abs_err {err:.3e}, kernel {ms:.3f} ms "
+                f"({ms / G * 1e3:.2f} us/chunk), plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}, f32)"
+                + (f", TF32 bound {bound_tf32:.4f} ms" if w_mm else ""),
+                flush=True,
+            )
+            report[(variant, prec)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_tf32 if tf32 else bound, bound_by=by)
+        del ops
+    torch.cuda.empty_cache()
+
+    def row(key, family):
+        r = dict(report[key], library_ms=None)
+        r["max_abs_err"] = max(v["max_abs_err"] for k, v in report.items() if k[0] in family)
+        return r
+
+    return {
+        "mb_fwd": row(("full", "HIGHEST"), MB.FWD_VARIANTS),
+        "mb_bwd": row(("cgvjp", "HIGHEST"), ("cgvjp",)),
+        "mb_fwd_t": row(("full_t", "DEFAULT"), MB.FWD_T_VARIANTS),
+        "mb_bwd_t": row(("cgvjp_t", "HIGHEST"), ("cgvjp_t",)),
+    }
+
+
+def phase8b_gather(smi: str, reps: int = 10, rows: int = 430080, dim: int = 288, block_e: int = 512,
+                   n_buf: int = 16):
+    """T5 on the 23k-atom edge stream against torch.index_select."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain
+    from nequip_tpu_torch.tools.gather_microbench import PATTERNS, make_idx
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    src32 = torch.randn(rows, dim, generator=gen, device="cuda")
+    report = None
+    for dtype in (torch.float32, torch.bfloat16):
+        src = src32.to(dtype)
+        for pattern in PATTERNS:
+            idx = torch.as_tensor(make_idx(pattern, rows, rows, block_e, np.random.RandomState(0)), device="cuda")
+            before = K.KERNELS["row_gather"].launches
+            got = row_gather(src, idx, block_e, n_buf)
+            torch.cuda.synchronize()
+            if K.KERNELS["row_gather"].launches != before + 1:
+                raise RuntimeError("phase 8b: row_gather launch counter did not move")
+            lib = torch.index_select(src, 0, idx)
+            if not (torch.equal(got, lib) and torch.equal(row_gather(src, idx, block_e, n_buf), got)):
+                raise RuntimeError(f"phase 8b: row_gather {pattern} {dtype} differs from index_select or itself")
+            ms = cuda_median_ms(lambda: row_gather(src, idx, block_e, n_buf), reps)
+            lib_ms = cuda_median_ms(lambda: torch.index_select(src, 0, idx), reps)
+            plain_ms = cuda_median_ms(lambda: row_gather_plain(src, idx), reps)
+            nbytes = 2 * rows * dim * src.element_size() + 4 * rows
+            bound = nbytes / HBM_BYTES_S * 1e3
+            useful = rows * dim * src.element_size()
+            print(
+                f"phase 8b row_gather {pattern} {str(dtype).split('.')[-1]} [{rows}, {dim}] ({smi}): bitwise equal, "
+                f"kernel {ms:.4f} ms ({useful / ms / 1e6:.1f} GB/s useful), index_select {lib_ms:.4f} ms "
+                f"({useful / lib_ms / 1e6:.1f} GB/s), plain src[idx] {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)",
+                flush=True,
+            )
+            if report is None:  # f32, random: the tool's defaults
+                report = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                              library_ms=lib_ms)
+    del src32, src, got, lib
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase8c_tools():
+    """Both port tools' run() at their defaults; their kernels must launch."""
+    import contextlib
+    import io
+
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.tools import gather_microbench, kernel_microbench
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for tool in (kernel_microbench, gather_microbench):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results = tool.run(tool.parse_args([]))
+        lines = out.getvalue().splitlines()
+        for ln in lines[1:]:
+            print(f"phase 8c {tool.__name__.rsplit('.', 1)[-1]}: {ln}", flush=True)
+        if any(not bool(r["out"].isfinite().all()) for r in results if r["out"].is_floating_point()):
+            raise RuntimeError(f"phase 8c: {tool.__name__} gave non-finite output")
+        del results
+    torch.cuda.synchronize()
+    launches = {k: K.KERNELS[k].launches for k in MICROBENCH_KERNELS}
+    print(f"phase 8c launches {launches} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            raise RuntimeError(f"phase 8c: kernel {name} was not launched by the tools")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -712,8 +917,17 @@ def main() -> int:
     phase5_train_golden()
     rr_launches, dm, rr = phase6_train(smi)
     fr_launches = phase7_train_fr(smi, dm, rr)
+    del dm
+    report.update(phase8a_microbench(smi))
+    report["row_gather"] = phase8b_gather(smi)
+    mb_launches = phase8c_tools()
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
+
+    def launches(name):
+        if name in MICROBENCH_KERNELS:
+            return mb_launches[name]
+        return (rr_launches if name in RR_REPORTED else fr_launches)[name]
 
     kernels = [
         {
@@ -721,7 +935,7 @@ def main() -> int:
             "route": "cuda",
             "source": KERNEL_SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": (rr_launches if name in RR_REPORTED else fr_launches)[name],
+            "launches": launches(name),
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],

@@ -42,6 +42,12 @@ _SIGNATURES: Dict[str, List] = {
     "nequip_jvp_fwd": [_P] * 14 + [_I] * 5 + [_P],
     "nequip_jvp_fwd_acc": [_P] * 14 + [_I] * 5 + [_P],
     "nequip_jvp_bwd": [_P] * 23 + [_I] * 6 + [_P],
+    "nequip_mb_fwd": [_P] * 13 + [_I] * 12 + [_P],
+    "nequip_mb_bwd": [_P] * 14 + [_I] * 9 + [_P],
+}
+# dtype-free entry points (a copy moves bytes), registered under their own names
+_BYTE_SIGNATURES: Dict[str, List] = {
+    "nequip_row_gather_bytes": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 # which source file holds each kernel (reported by chip_smoke.py)
@@ -56,6 +62,11 @@ KERNEL_SOURCES = {
     "tri_bwd": "nequip_tpu_torch/csrc/tri_bwd.cu",
     "jvp_fwd": "nequip_tpu_torch/csrc/jvp_fwd.cu",
     "jvp_bwd": "nequip_tpu_torch/csrc/jvp_bwd.cu",
+    "mb_fwd": "nequip_tpu_torch/csrc/microbench_fwd.cu",
+    "mb_fwd_t": "nequip_tpu_torch/csrc/microbench_fwd.cu",
+    "mb_bwd": "nequip_tpu_torch/csrc/microbench_bwd.cu",
+    "mb_bwd_t": "nequip_tpu_torch/csrc/microbench_bwd.cu",
+    "row_gather": "nequip_tpu_torch/csrc/row_gather.cu",
 }
 
 
@@ -125,7 +136,18 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    for name, argtypes in _BYTE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+def byte_entry_point(name: str) -> ctypes._CFuncPtr:
+    """The dtype-free C function ``name`` (see ``_BYTE_SIGNATURES``)."""
+    if name not in _BYTE_SIGNATURES:
+        raise KeyError(f"{name} is not a dtype-free entry point")
+    return getattr(load_library(), name)
 
 
 def entry_point(name: str, dtype) -> ctypes._CFuncPtr:

@@ -694,6 +694,8 @@ def scatter_rows(values, perm, ptr):
     return out
 
 
+# every kernel's launch count; ``microbench`` (T1-T4) and ``row_gather`` (T5)
+# add theirs when the package imports them (``ops/kernels/__init__.py``)
 KERNELS = {
     "conv_fwd": conv_fwd,
     "conv_bwd": conv_bwd,

@@ -216,3 +216,63 @@ def test_cuda_fr_grads_match_rr(cuda, tp_impl, n_chunks):
     assert all(chunked.values()) == bool(n_chunks) and any(chunked.values()) == bool(n_chunks)
     for k, ref in grads[0].items():
         np.testing.assert_allclose(grads[1][k], ref, rtol=0, atol=1e-9 * float(np.abs(ref).max()), err_msg=k)
+
+
+def _microbench_ops(cuda, dtype, rows=8, be=32):
+    from nequip_tpu_torch.tools.kernel_microbench import make_inputs, to_tensors
+
+    plan, arrays = make_inputs(rows, be)
+    return plan, to_tensors(arrays, cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["HIGHEST", "DEFAULT", "f64"])
+@pytest.mark.parametrize("variant", ["dot", "mlp", "cg", "full", "xpose", "cg_t", "full_t", "full_t_pre"])
+def test_cuda_microbench_fwd_matches_plain(cuda, variant, prec):
+    """T1/T3 against the plain version at G=5 (HIGHEST and f64 against plain
+    f32/f64, DEFAULT against plain with TF32 rounding emulated), 1e-4
+    max|ref| in f32 and 1e-12 in f64; bitwise equal on a repeat call."""
+    from nequip_tpu_torch.ops.kernels import microbench as MB
+
+    dtype = torch.float64 if prec == "f64" else torch.float32
+    plan, ops = _microbench_ops(cuda, dtype)
+    p = "HIGHEST" if prec == "f64" else prec
+    counter = K.KERNELS["mb_fwd_t" if variant in MB.FWD_T_VARIANTS else "mb_fwd"]
+    before = counter.launches
+    got = MB.chunk_fwd(plan, variant, ops, 8, 5, p)
+    want = MB.chunk_fwd_plain(plan, variant, ops, 8, 5, tf32=p == "DEFAULT" and variant in MB.MLP_VARIANTS)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    rel = 1e-12 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(got, want, rtol=0, atol=rel * float(want.abs().max()))
+    assert torch.equal(got, MB.chunk_fwd(plan, variant, ops, 8, 5, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["r", "t"])
+def test_cuda_microbench_bwd_matches_plain(cuda, layout, dtype):
+    from nequip_tpu_torch.ops.kernels import microbench as MB
+
+    plan, ops = _microbench_ops(cuda, dtype)
+    got = MB.chunk_bwd(plan, ops, 5, layout)
+    for a, b, c in zip(got, MB.chunk_bwd_plain(plan, ops, layout), MB.chunk_bwd(plan, ops, 5, layout)):
+        rtol, atol = _tol(dtype, b)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64, torch.int16])
+@pytest.mark.parametrize("dim", [288, 7])
+def test_cuda_row_gather_equals_index_select(cuda, dtype, dim):
+    from nequip_tpu_torch.ops.kernels.row_gather import row_gather
+
+    r = np.random.RandomState(0)
+    src = torch.as_tensor(r.standard_normal((1000, dim)) * 100, device=cuda).to(dtype)
+    idx = torch.as_tensor(r.randint(0, 1000, 3000), dtype=torch.int32, device=cuda)
+    before = K.KERNELS["row_gather"].launches
+    got = row_gather(src, idx, block_e=128, n_buf=8)
+    torch.cuda.synchronize()
+    assert K.KERNELS["row_gather"].launches == before + 1
+    assert torch.equal(got, torch.index_select(src, 0, idx))

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it and running a forward pass loads
-neither JAX nor the JAX package (the GPU machine has neither)."""
+"""The port stands alone: importing it, running a forward pass and running
+its two microbenchmark tools load neither JAX nor the JAX package (the GPU
+machine has neither)."""
 
 import json
 import os
@@ -24,6 +25,11 @@ pos = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]]) * a
 res = NequIPCalculator.from_model(model, device="cpu").calculate(
     {"pos": pos + 0.05, "cell": np.eye(3) * a, "pbc": np.ones(3, bool), "atomic_numbers": np.full(4, 29)}
 )
+import contextlib, io
+from nequip_tpu_torch.tools import gather_microbench, kernel_microbench
+with contextlib.redirect_stdout(io.StringIO()):
+    kernel_microbench.main(["--device", "cpu", "--grid", "2", "--rows", "4", "--be", "8", "--reps", "1"])
+    gather_microbench.main(["--device", "cpu", "--rows", "64", "--src-rows", "64", "--dim", "8", "--block-e", "16"])
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])),
