@@ -11,8 +11,11 @@ Phases (each prints a line; any failure exits non-zero):
      conv-layer shapes of the flagship on the 23k-atom fcc Cu graph, f32 and
      f64, with median kernel and plain times (CUDA events): K1 conv_fwd, K2
      conv_bwd (inference) and conv_bwd_train (all five outputs, dw1/dw2
-     bitwise equal on a repeat call), the dW reduction dw_reduce, K3
-     scatter_rows, K4 tri_fwd and K5 tri_bwd on the whole stream; K4-acc
+     bitwise equal on a repeat call), the dW reduction dw_reduce at both
+     of its shapes (dW2 h_e x dW_e and dW1 emb x dh_pre_e, one line each,
+     bitwise equal on a repeat call, with their f32 sums; beside the
+     one-call times, the kernel and torch.mm timed ten calls back to back),
+     K3 scatter_rows, K4 tri_fwd and K5 tri_bwd on the whole stream; K4-acc
      tri_fwd_acc, K6 jvp_fwd (with and without accumulators) and K7 jvp_bwd
      on one of 4 edge slices whose first destination segment the slice
      boundary splits (the shapes the fr sweep gives them), each bitwise
@@ -54,7 +57,8 @@ The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
 kernels of K3-K7, phase 8c for T1-T5; "ms"/"plain_ms"/"bound_ms"/"library_ms": phase-2 f32
-medians and bounds summed over the three layer shapes, and for T1-T5 the
+medians and bounds summed over the three layer shapes (for the dW
+reduction over both of its shapes too), and for T1-T5 the
 phase-8 numbers of the `full` HIGHEST (T1), `full_t` DEFAULT (T3, TF32
 bound), CG-VJP (T2/T4) and f32 random-pattern gather (T5) rows;
 "max_abs_err": the largest f32 difference from plain); the last line is
@@ -210,7 +214,6 @@ def work(name: str, plan, n_edges: int, n_dst: int, n_src: int, n_nodes: int, hi
                      b * (n_src * D + n_dst * M + B * H + H * W + 2 * E * (D + S + B))),
         "conv_bwd_train": (E * (7 * TC + 4 * PY + mlp_fwd + mlp_bwd + 2 * B * H + 2 * H * W),
                            b * (n_src * D + n_dst * M + 2 * (B * H + H * W) + 2 * E * (S + B) + E * D)),
-        "dw_reduce": (2 * E * H * W, b * (E * (H + W) + H * W)),
         "scatter_rows": (E * D, b * (E * D + n_nodes * D) + idx),
         "tri_fwd": (E * (3 * TC + 2 * M), b * (n_src * D + E * (S + W) + n_nodes * M)),
         "tri_fwd_acc": (E * (3 * TC + 2 * M), b * (n_src * D + E * (S + W) + 2 * n_dst * M)),
@@ -218,7 +221,13 @@ def work(name: str, plan, n_edges: int, n_dst: int, n_src: int, n_nodes: int, hi
         "jvp_fwd": (E * (8 * TC + 6 * M), b * (2 * n_src * D + 2 * E * (S + W) + 2 * n_nodes * M)),
         "jvp_bwd": (E * (20 * TC + 12 * PY), b * (2 * n_src * D + 2 * n_dst * M + 4 * E * (S + W) + 2 * E * D)),
     }[name]
-    return ops, nbytes + (0 if name == "dw_reduce" else idx)
+    return ops, nbytes + idx
+
+
+def dw_work(n: int, P: int, Q: int, itemsize: int):
+    """(operations, bytes) of one dw_reduce call: a [n, P] and b [n, Q] read
+    once, out [P, Q] written once."""
+    return 2 * n * P * Q, itemsize * (n * (P + Q) + P * Q)
 
 
 def _bound_ms(ops: float, nbytes: float):
@@ -276,6 +285,7 @@ def phase2_kernels(n_atoms: int, reps: int):
     model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP)
     blocks = [m for m in model.modules() if isinstance(m, InteractionBlock)]
     rng = np.random.RandomState(0)
+    dw_sums = {}  # dw_reduce f32 per shape, ms over the layers: kernel, plain, bound, torch.mm, both back to back
     report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
                   "library_ms": None} for k in K.KERNELS if k not in MICROBENCH_KERNELS}
     for dtype, rtol, atol_rel in ((torch.float32, 1e-4, 1e-5), (torch.float64, 1e-10, 1e-10)):
@@ -291,6 +301,7 @@ def phase2_kernels(n_atoms: int, reps: int):
             w1, w2, g = t(n_emb, hidden), t(hidden, plan.weight_numel), t(N, plan.mid_dim)
             w = t(E, plan.weight_numel)  # per-edge TP weights of K4/K5
             h_e, dw_e = t(n_real, hidden), t(n_real, plan.weight_numel)  # dW2's factors
+            dh_pre = t(n_real, hidden)  # dW1's: emb [E, n_emb] (its first n_real rows) x dh_pre
             # the fr operands: tangents, the slice's rows, tmsg's cotangent, accumulators
             tx, tsh, dw, gt = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel), t(N, plan.mid_dim)
             s_ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows], lay_s)
@@ -309,9 +320,13 @@ def phase2_kernels(n_atoms: int, reps: int):
                     lambda: K.conv_bwd_train(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
                     lambda: K.conv_bwd_train_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
                 ),
-                "dw_reduce": (
+                "dw_reduce dW2": (
                     lambda: K.dw_reduce(h_e, dw_e, a1, n_real),
                     lambda: K.dw_reduce_plain(h_e, dw_e, a1, n_real),
+                ),
+                "dw_reduce dW1": (
+                    lambda: K.dw_reduce(emb, dh_pre, a0, n_real),
+                    lambda: K.dw_reduce_plain(emb, dh_pre, a0, n_real),
                 ),
                 "tri_fwd": (
                     lambda: K.tri_fwd(plan, x, sh, w, layout),
@@ -347,15 +362,17 @@ def phase2_kernels(n_atoms: int, reps: int):
             src_idx = layout.edge_src[:n_real].long()
             buf = torch.zeros(N, plan.dim_in, dtype=dtype, device=dev)
             library = {
-                "dw_reduce": lambda: torch.mm(h_e.t(), dw_e),
+                "dw_reduce dW2": lambda: torch.mm(h_e.t(), dw_e),
+                "dw_reduce dW1": lambda: torch.mm(emb[:n_real].t(), dh_pre),
                 "scatter_rows": lambda: buf.index_add_(0, src_idx, dx_edge[:n_real]),
             }
             repeat_equal = ("conv_bwd_train", "dw_reduce", "tri_fwd_acc", "jvp_fwd", "jvp_bwd")
-            for name, (kern, plain) in calls.items():
+            for label, (kern, plain) in calls.items():
+                name = label.split()[0]  # the kernel; "dw_reduce dW1"/"dW2" are its two shapes
                 where = f"layer {li} {dtype}"
                 counter = K.KERNELS[name]
                 err = 0.0
-                checked = [checks[name]] if name in checks else []
+                checked = [checks[label]] if label in checks else []
                 if name != "tri_fwd_acc":  # its timed form keeps adding onto acc_t: checked only above
                     checked.append((kern, plain))
                 for run, ref_run in checked:
@@ -363,30 +380,42 @@ def phase2_kernels(n_atoms: int, reps: int):
                     got = _tuple(run())
                     torch.cuda.synchronize()
                     if counter.launches != before + 1:
-                        raise RuntimeError(f"phase 2: {name} launch counter did not move")
-                    err = max(err, _check(name, got, _tuple(ref_run()), rtol, atol_rel, where))
+                        raise RuntimeError(f"phase 2: {label} launch counter did not move")
+                    err = max(err, _check(label, got, _tuple(ref_run()), rtol, atol_rel, where))
                     if name in repeat_equal:
                         again = _tuple(run())
                         reduced = got[-2:] if name == "conv_bwd_train" else got
                         if not all(torch.equal(a, b) for a, b in zip(reduced, again[-len(reduced):])):
-                            raise RuntimeError(f"phase 2: {name} differs on a repeat call")
+                            raise RuntimeError(f"phase 2: {label} differs on a repeat call")
                 ms = cuda_median_ms(kern, reps)
                 plain_ms = cuda_median_ms(plain, reps)
-                lib_ms = cuda_median_ms(library[name], reps) if name in library else None
+                lib_ms = cuda_median_ms(library[label], reps) if label in library else None
                 sliced = name in ("tri_fwd_acc", "jvp_fwd", "jvp_bwd")
-                ops, nbytes = work(
-                    name, plan, lay_s.n_real if sliced else n_real, n_touched_s if sliced else n_dst,
-                    n_src_s if sliced else n_src, N, hidden, n_emb, torch.finfo(dtype).bits // 8,
-                )
+                itemsize = torch.finfo(dtype).bits // 8
+                if name == "dw_reduce":
+                    P, Q = (n_emb, hidden) if label.endswith("dW1") else (hidden, plan.weight_numel)
+                    ops, nbytes = dw_work(n_real, P, Q, itemsize)
+                else:
+                    ops, nbytes = work(
+                        name, plan, lay_s.n_real if sliced else n_real, n_touched_s if sliced else n_dst,
+                        n_src_s if sliced else n_src, N, hidden, n_emb, itemsize,
+                    )
                 bound, by = _bound_ms(ops, nbytes)
+                burst = ""
+                if name == "dw_reduce":  # ten calls back to back: the host's cost per call hides
+                    ms10, lib10 = (cuda_median_ms(lambda f=f: [f() for _ in range(10)], reps) / 10
+                                   for f in (kern, library[label]))
+                    burst = f"; 10 back to back, per call: kernel {ms10:.3f} ms, library {lib10:.3f} ms"
                 print(
-                    f"phase 2 {name} layer {li} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e}, "
+                    f"phase 2 {label} layer {li} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e}, "
                     f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
                     + (f", bound {bound:.3f} ms ({by})" if dtype == torch.float32 else "")
-                    + ("" if lib_ms is None else f", library {lib_ms:.3f} ms"),
+                    + ("" if lib_ms is None else f", library {lib_ms:.3f} ms") + burst,
                     flush=True,
                 )
                 if dtype == torch.float32:
+                    if name == "dw_reduce":
+                        dw_sums.setdefault(label, np.zeros(6))[:] += (ms, plain_ms, bound, lib_ms, ms10, lib10)
                     r = report[name]
                     r["max_abs_err"] = max(r["max_abs_err"], err)
                     r["ms"] += ms
@@ -396,9 +425,14 @@ def phase2_kernels(n_atoms: int, reps: int):
                     r["bytes"] += nbytes
                     if lib_ms is not None:
                         r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
-            del x, sh, emb, w1, w2, g, w, h_e, dw_e, dx_edge, calls, checks, tx, tsh, dw, gt, acc, tacc, acc_t
+            del x, sh, emb, w1, w2, g, w, h_e, dw_e, dh_pre, dx_edge, calls, checks, tx, tsh, dw, gt, acc, tacc, acc_t
             del s_ops, library, buf
             torch.cuda.empty_cache()
+    dw_sums["dw_reduce, both shapes (the report's row)"] = sum(dw_sums.values())
+    for label, (ms, plain_ms, bound, lib_ms, ms10, lib10) in dw_sums.items():
+        print(f"phase 2 {label} f32, sum of 3 layers: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound:.3f} ms, torch.mm {lib_ms:.3f} ms; 10 back to back, per call: kernel {ms10:.3f} ms, "
+              f"torch.mm {lib10:.3f} ms", flush=True)
     for r in report.values():
         r["bound_by"] = "operations" if r.pop("ops") / F32_FLOP_S > r.pop("bytes") / HBM_BYTES_S else "bytes"
     return report

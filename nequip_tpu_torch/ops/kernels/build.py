@@ -34,7 +34,7 @@ _SIGNATURES: Dict[str, List] = {
     "nequip_conv_fwd": [_P] * 12 + [_I] * 7 + [_D, _D, _P],
     "nequip_conv_bwd": [_P] * 19 + [_I] * 8 + [_D, _D, _P],
     "nequip_conv_bwd_train": [_P] * 22 + [_I] * 8 + [_D, _D, _P],
-    "nequip_dw_reduce": [_P] * 4 + [_I] * 4 + [_D, _P],
+    "nequip_dw_reduce": [_P] * 4 + [_I] * 5 + [_D, _P],
     "nequip_scatter_rows": [_P] * 4 + [_I, _I, _P],
     "nequip_tri_fwd": [_P] * 10 + [_I] * 5 + [_P],
     "nequip_tri_fwd_acc": [_P] * 10 + [_I] * 5 + [_P],

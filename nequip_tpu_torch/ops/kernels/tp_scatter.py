@@ -63,7 +63,11 @@ from . import build
 
 LAYOUT_KEY = _keys.EDGE_LAYOUT_KEY_PREFIX + "csr"
 _MAX_YDIM = 9  # kMaxYDim in csrc/tp_common.cuh
-_REDUCE_CHUNK = 4096  # edges per partial sum of dw_reduce (csrc/dw_reduce.cu)
+# dw_reduce's f32 block tiles (csrc/dw_reduce.cu): (rows, columns, resident
+# blocks per SM), the narrow one for P <= 8 (dW1), the wide one otherwise (dW2)
+_DW_NARROW, _DW_WIDE = (8, 128, 3), (128, 96, 2)
+_DW_SMS = 132  # SMs of an H100 SXM: the split fills one wave of them
+_DW_MIN_CHUNK = 64  # fewest edges in a chunk of dw_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -521,19 +525,36 @@ def conv_bwd_train(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: floa
     return outs + (dw_reduce(emb, dh_e, alpha0, n), dw_reduce(h_e, dw_e, alpha1, n))
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _dw_split(n: int, P: int, Q: int) -> Tuple[int, int]:
+    """``(S, chunk)``: ``dw_reduce`` sums the edges ``[c * chunk, min(n, (c +
+    1) * chunk))`` of each chunk ``c < S`` into a partial, then the partials
+    in chunk order, so the summation order depends on ``(n, P, Q)`` alone.
+    ``S`` times the output's block tiles fills one wave of the card's SMs,
+    with chunks of at least ``_DW_MIN_CHUNK`` edges, a multiple of 32."""
+    rows, cols, per_sm = _DW_NARROW if P <= _DW_NARROW[0] else _DW_WIDE
+    tiles = _cdiv(P, rows) * _cdiv(Q, cols)
+    chunk = max(_DW_MIN_CHUNK, 32 * _cdiv(_cdiv(n, _cdiv(_DW_SMS * per_sm, tiles)), 32))
+    return max(1, _cdiv(n, chunk)), chunk
+
+
 def dw_reduce(a, b, scale: float, n: int):
     """``scale * a[:n]^T b[:n]`` (``[P, Q]``) in a fixed summation order (see
-    ``csrc/dw_reduce.cu``): two calls give bitwise equal results."""
+    ``csrc/dw_reduce.cu`` and ``_dw_split``): two calls give bitwise equal
+    results."""
     if not _route("dw_reduce", a, b):
         return dw_reduce_plain(a, b, scale, n)
-    if a.dim() != 2 or b.dim() != 2 or not (n <= a.shape[0] and n <= b.shape[0]):
+    if a.dim() != 2 or b.dim() != 2 or not (0 <= n <= a.shape[0] and n <= b.shape[0]):
         raise ValueError("dw_reduce: a [M, P] and b [M, Q] need at least n rows")
     P, Q = a.shape[1], b.shape[1]
-    n_chunks = max(1, -(-n // _REDUCE_CHUNK))
+    n_chunks, chunk = _dw_split(n, P, Q)
     partial = torch.empty(n_chunks, P, Q, dtype=a.dtype, device=a.device)
     out = torch.empty(P, Q, dtype=a.dtype, device=a.device)
     err = build.entry_point("nequip_dw_reduce", a.dtype)(
-        a.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(), n, P, Q, _REDUCE_CHUNK,
+        a.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(), n, P, Q, chunk, n_chunks,
         scale, torch.cuda.current_stream(a.device).cuda_stream,
     )
     build.check(err, "dw_reduce")

@@ -97,9 +97,7 @@ def test_cuda_fr_kernel_matches_plain(cuda, name, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize(
-    "name", ["conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd"]
-)
+@pytest.mark.parametrize("name", ["conv_fwd", "conv_bwd", "conv_bwd_train", "scatter_rows", "tri_fwd", "tri_bwd"])
 def test_cuda_kernel_matches_plain(cuda, name, dtype):
     args, g, v = _problem(cuda, dtype)
     plan, x, sh, emb, lay = args[0], args[1], args[2], args[3], args[-1]
@@ -112,10 +110,6 @@ def test_cuda_kernel_matches_plain(cuda, name, dtype):
         got, want = K.conv_bwd(*args, g), K.conv_bwd_plain(*args, g)
     elif name == "conv_bwd_train":
         got, want = K.conv_bwd_train(*args, g), K.conv_bwd_train_plain(*args, g)
-    elif name == "dw_reduce":
-        got, want = K.dw_reduce(v, w, 0.5, lay.n_real), K.dw_reduce_plain(v, w, 0.5, lay.n_real)
-        assert torch.equal(got, K.dw_reduce(v, w, 0.5, lay.n_real))  # deterministic
-        before += 1
     elif name == "tri_fwd":
         got, want = K.tri_fwd(plan, x, sh, w, lay), K.tri_fwd_plain(plan, x, sh, w, lay)
     elif name == "tri_bwd":
@@ -127,6 +121,48 @@ def test_cuda_kernel_matches_plain(cuda, name, dtype):
     for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
         rtol, atol = _tol(dtype, b)
         torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+
+
+# dw_reduce's shapes (P, Q): the flagship's dW1 and dW2, two ragged ones
+# (masked rows and columns, two row tiles) and one staged element by element
+DW_SHAPES = [(8, 128), (128, 96), (128, 352), (24, 40), (136, 20), (5, 7)]
+DW_ROWS = 300
+DW_NS = [0, 1, K._DW_MIN_CHUNK - 1, K._DW_MIN_CHUNK + 1, DW_ROWS]
+
+
+def _dw_check(a, b, n, dtype):
+    """dw_reduce against its plain twin, bitwise equal on a repeat call, one
+    launch each."""
+    before = K.KERNELS["dw_reduce"].launches
+    got = K.dw_reduce(a, b, 0.5, n)
+    torch.cuda.synchronize()
+    assert K.KERNELS["dw_reduce"].launches == before + 1
+    want = K.dw_reduce_plain(a, b, 0.5, n)
+    rtol, atol = _tol(dtype, want)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    assert torch.equal(got, K.dw_reduce(a, b, 0.5, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", DW_NS)
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_cuda_dw_reduce_matches_plain(cuda, shape, n, dtype):
+    r = np.random.RandomState(3)
+    t = lambda *s: torch.as_tensor(r.standard_normal(s), dtype=dtype, device=cuda)
+    _dw_check(t(DW_ROWS, shape[0]), t(DW_ROWS, shape[1]), n, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_dw_reduce_unaligned_base(cuda, dtype):
+    """Operands one element past a 16-byte boundary take the element-wise
+    staging path of the same kernel."""
+    r = np.random.RandomState(4)
+    flat = lambda m: torch.as_tensor(r.standard_normal(m * 128 + 1), dtype=dtype, device=cuda)[1:]
+    a, b = flat(DW_ROWS).view(DW_ROWS, 128), flat(DW_ROWS).view(DW_ROWS, 128)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _dw_check(a, b, DW_ROWS, dtype)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,8 @@ package's Pallas kernels in interpret mode, on the small problem of
 * K4/K5 (``fused_tp_scatter``/``fused_tp_scatter_bwd``): forward 1e-10,
   cotangents 1e-9;
 * K2's ``dw1``/``dw2`` against ``jax.vjp`` of ``fused_tp_scatter_mlp``: 1e-9;
+* ``dw_reduce`` (plain on the CPU) against numpy: 1e-13; its split of the
+  edges into chunks (``_dw_split``) tiles them once, in order;
 * the second order, the VJP of ``FusedConvBwd`` and of ``TriConvBwd`` with
   random cotangents, against ``jax.vjp`` of the JAX VJP: 1e-9.
 
@@ -205,11 +207,43 @@ def test_gradcheck_fused_conv_bwd():
     assert torch.autograd.gradcheck(f, ins)
 
 
-def test_dw_reduce_plain_is_the_outer_product_sum():
+# dw_reduce's shapes: the flagship's dW1 and dW2 (P, Q), two ragged ones
+# (masked rows and columns, two row tiles) and one whose rows are not
+# 16-byte multiples; numbers of summed rows around the smallest chunk
+DW_SHAPES = [(8, 128), (128, 96), (128, 352), (24, 40), (136, 20), (5, 7)]
+DW_ROWS = 300
+DW_NS = [0, 1, K._DW_MIN_CHUNK - 1, K._DW_MIN_CHUNK + 1, DW_ROWS]
+
+
+@pytest.mark.parametrize("n", DW_NS)
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_reduce_plain_is_the_outer_product_sum(shape, n):
     r = np.random.RandomState(2)
-    a, b = r.standard_normal((50, 8)), r.standard_normal((50, 16))
-    got = K.dw_reduce(_t(a), _t(b), 0.5, 40).numpy()
-    _close(got, 0.5 * a[:40].T @ b[:40], 1e-13)
+    a, b = r.standard_normal((DW_ROWS, shape[0])), r.standard_normal((DW_ROWS, shape[1]))
+    got = K.dw_reduce(_t(a), _t(b), 0.5, n).numpy()
+    assert got.shape == shape
+    _close(got, 0.5 * a[:n].T @ b[:n], 1e-13)
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_split_covers_the_edges_once_in_order(shape):
+    """The chunks of ``_dw_split`` tile ``[0, n)`` in order, none empty; one
+    chunk for ``n = 0``; the flagship's edge count fills a wave of SMs."""
+    for n in DW_NS + [K._DW_MIN_CHUNK, 4096, 419_904, 10**7]:
+        S, chunk = K._dw_split(n, *shape)
+        assert (S, chunk) == K._dw_split(n, *shape)
+        assert chunk % 32 == 0 and chunk >= K._DW_MIN_CHUNK
+        if n == 0:
+            assert S == 1
+            continue
+        bounds = [(c * chunk, min(n, (c + 1) * chunk)) for c in range(S)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        assert all(lo < hi for lo, hi in bounds)
+        assert all(hi == lo for (_, hi), (lo, _) in zip(bounds, bounds[1:]))
+    rows, cols, per_sm = K._DW_NARROW if shape[0] <= K._DW_NARROW[0] else K._DW_WIDE
+    tiles = -(-shape[0] // rows) * -(-shape[1] // cols)
+    S, chunk = K._dw_split(419_904, *shape)
+    assert 0.95 * K._DW_SMS * per_sm <= S * tiles <= K._DW_SMS * per_sm
 
 
 def test_train_variant_runs_only_when_weights_need_grads(monkeypatch):
