@@ -23,12 +23,17 @@ Phases (each prints a line; any failure exits non-zero):
      over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger)
      and, where one PyTorch call computes the same function, that call's
      time (library_ms: torch.mm for the dW reduction, index_add_ for K3);
+     K2's f32 per-layer times beside their bounds again on one line per
+     variant;
   3. the port in f64, kernels on the card, against the golden E/F/stress the
      JAX package wrote (tests/data/torch_port_golden.npz);
   4. serving: the flagship in f32 with tp_impl="fused" answers three
      calculator requests on the 23k-atom frame; the launch counts of those
-     requests are reported (K2's inference variant only), and one request is
-     checked against tp_impl="torch";
+     requests are reported (K2's inference variant only), with the serving
+     peak of device memory and what each inference K2 call allocated, which
+     must stay within its outputs and W2^T (no per-edge [E, WN] or
+     [E, hidden] buffer), and one request is checked against
+     tp_impl="torch";
   5. golden training: the flagship's rr force loss and every parameter
      gradient in f64 through the kernels against the JAX package's
      (tests/data/torch_port_train_golden.npz); 5b: the same for fr with
@@ -51,7 +56,8 @@ Phases (each prints a line; any failure exits non-zero):
      each bitwise equal on a repeat call, with kernel, plain and bound
      times; 8b the row gather T5 on the 23k-atom edge stream (430,080 rows
      of 288, f32 and bf16, four index patterns), bitwise equal to
-     torch.index_select, with its time beside index_select's; 8c both
+     torch.index_select, with its time (at the wrapper's block shape, and
+     at the tool's) beside index_select's; 8c both
      tools' run() at their defaults, whose launches the report counts.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
@@ -103,6 +109,13 @@ TRAINING_KERNELS = ("conv_fwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "
 FR_CHUNKED_KERNELS = ("tri_fwd_acc", "jvp_fwd", "jvp_bwd", "tri_bwd", "scatter_rows")
 RR_REPORTED = ("conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "tri_fwd")  # launches from phase 6
 N_CHUNKS = 4
+# Phase 4's serving peak at 23k atoms may exceed by at most 2% the 1.179 GiB
+# measured (H100, PyTorch 2.11) while K2 was one block per destination and
+# kept W in shared memory; a per-edge [E, 96] f32 buffer would add 0.150 GiB.
+# What the peak holds: the forward's saved node and edge tensors and the
+# widest layer's K2 outputs (dx [E, 288]: 0.45 GiB); phase 2 checks K2's own
+# allocations against its outputs.
+SERVING_PEAK_LIMIT = int(1.02 * 1.179 * 2**30)
 # published peaks of one H100 SXM (700 W): HBM bytes/s, f32 FLOP/s outside the tensor cores, TF32 dense
 HBM_BYTES_S, F32_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 495e12
 FLAGSHIP = dict(
@@ -191,6 +204,14 @@ def cuda_median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def interleaved_median_ms(fns, reps: int = 10, rounds: int = 3) -> list:
+    """cuda_median_ms of each function, over rounds in which the functions
+    take turns, and the median of the rounds: a drift of the card's speed
+    during the phase falls on all of them alike."""
+    times = [[cuda_median_ms(f, reps) for f in fns] for _ in range(rounds)]
+    return [float(np.median(t)) for t in zip(*times)]
 
 
 def work(name: str, plan, n_edges: int, n_dst: int, n_src: int, n_nodes: int, hidden: int, n_emb: int,
@@ -286,6 +307,7 @@ def phase2_kernels(n_atoms: int, reps: int):
     blocks = [m for m in model.modules() if isinstance(m, InteractionBlock)]
     rng = np.random.RandomState(0)
     dw_sums = {}  # dw_reduce f32 per shape, ms over the layers: kernel, plain, bound, torch.mm, both back to back
+    k2_layers = {"conv_bwd": [], "conv_bwd_train": []}  # f32 (kernel, bound) ms per layer
     report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
                   "library_ms": None} for k in K.KERNELS if k not in MICROBENCH_KERNELS}
     for dtype, rtol, atol_rel in ((torch.float32, 1e-4, 1e-5), (torch.float64, 1e-10, 1e-10)):
@@ -377,10 +399,15 @@ def phase2_kernels(n_atoms: int, reps: int):
                     checked.append((kern, plain))
                 for run, ref_run in checked:
                     before = counter.launches
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    held = torch.cuda.memory_allocated()
                     got = _tuple(run())
                     torch.cuda.synchronize()
                     if counter.launches != before + 1:
                         raise RuntimeError(f"phase 2: {label} launch counter did not move")
+                    if name == "conv_bwd":
+                        _check_k2_allocations(torch.cuda.max_memory_allocated() - held, plan, x, sh, emb, w2, where)
                     err = max(err, _check(label, got, _tuple(ref_run()), rtol, atol_rel, where))
                     if name in repeat_equal:
                         again = _tuple(run())
@@ -414,6 +441,8 @@ def phase2_kernels(n_atoms: int, reps: int):
                     flush=True,
                 )
                 if dtype == torch.float32:
+                    if name in k2_layers:
+                        k2_layers[name].append((ms, bound))
                     if name == "dw_reduce":
                         dw_sums.setdefault(label, np.zeros(6))[:] += (ms, plain_ms, bound, lib_ms, ms10, lib10)
                     r = report[name]
@@ -428,6 +457,10 @@ def phase2_kernels(n_atoms: int, reps: int):
             del x, sh, emb, w1, w2, g, w, h_e, dw_e, dh_pre, dx_edge, calls, checks, tx, tsh, dw, gt, acc, tacc, acc_t
             del s_ops, library, buf
             torch.cuda.empty_cache()
+    for name, rows in k2_layers.items():
+        print(f"phase 2 {name} f32 per layer (kernel / bound ms): "
+              + ", ".join(f"{ms:.3f} / {bound:.3f}" for ms, bound in rows)
+              + f"; sum {sum(r[0] for r in rows):.3f} / {sum(r[1] for r in rows):.3f}", flush=True)
     dw_sums["dw_reduce, both shapes (the report's row)"] = sum(dw_sums.values())
     for label, (ms, plain_ms, bound, lib_ms, ms10, lib10) in dw_sums.items():
         print(f"phase 2 {label} f32, sum of 3 layers: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -436,6 +469,20 @@ def phase2_kernels(n_atoms: int, reps: int):
     for r in report.values():
         r["bound_by"] = "operations" if r.pop("ops") / F32_FLOP_S > r.pop("bytes") / HBM_BYTES_S else "bytes"
     return report
+
+
+def _check_k2_allocations(nbytes: int, plan, x, sh, emb, w2, where: str) -> None:
+    """The inference K2 may allocate its outputs dx [E, dim_in], dsh [E,
+    sh_dim] and demb [E, n_emb], W2^T and its term tables, with 32 MiB for
+    the allocator's rounding, and nothing per edge besides: a per-edge [E,
+    WN] or [E, hidden] buffer would pass the limit by E x 96 x 4 B = 161 MB
+    or more at the 23k-atom stream."""
+    E = sh.shape[0]
+    limit = x.element_size() * (E * (plan.dim_in + plan.sh_dim + emb.shape[1]) + w2.numel()) + 32 * 2**20
+    print(f"phase 2 conv_bwd {where}: allocated {nbytes / 2**20:.1f} MiB in one call, limit {limit / 2**20:.1f} MiB "
+          f"(outputs, W2^T and 32 MiB; no per-edge [E, WN] or [E, hidden] buffer)", flush=True)
+    if nbytes > limit:
+        raise RuntimeError(f"phase 2: the inference K2 allocated more than its outputs at {where} (a per-edge buffer?)")
 
 
 def phase3_golden():
@@ -492,7 +539,10 @@ def phase4_serve(n_atoms: int, n_requests: int = 3):
         )
     launches = {k: fn.launches for k, fn in K.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 4 launches {launches}, max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
+    print(f"phase 4 launches {launches}, max_memory_allocated (serving peak) {peak / 2**30:.3f} GiB, "
+          f"limit {SERVING_PEAK_LIMIT / 2**30:.3f} GiB", flush=True)
+    if n_atoms == 23000 and peak > SERVING_PEAK_LIMIT:
+        raise RuntimeError("phase 4: the serving peak grew (a per-edge buffer in the backward?)")
     for name in SERVING_KERNELS:
         if launches[name] == 0:
             raise RuntimeError(f"phase 4: kernel {name} was not launched on the serving path")
@@ -861,15 +911,19 @@ def phase8a_microbench(smi: str, reps: int = 10, grid: int = 2048, rows: int = 1
     }
 
 
-def phase8b_gather(smi: str, reps: int = 10, rows: int = 430080, dim: int = 288, block_e: int = 512,
-                   n_buf: int = 16):
-    """T5 on the 23k-atom edge stream against torch.index_select."""
+def phase8b_gather(smi: str, reps: int = 10, rows: int = 430080, dim: int = 288):
+    """T5 on the 23k-atom edge stream against torch.index_select: at the
+    tool's default (block_e, n_buf), which phase 8c launches and which also
+    shapes the "local" index pattern (the report's time), and at the
+    wrapper's own defaults."""
     import torch
 
     from nequip_tpu_torch.ops.kernels import tp_scatter as K
     from nequip_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain
-    from nequip_tpu_torch.tools.gather_microbench import PATTERNS, make_idx
+    from nequip_tpu_torch.tools.gather_microbench import PATTERNS, make_idx, parse_args
 
+    tool = parse_args([])
+    block_e, n_buf = tool.block_e, tool.n_buf
     gen = torch.Generator(device="cuda").manual_seed(0)
     src32 = torch.randn(rows, dim, generator=gen, device="cuda")
     report = None
@@ -878,26 +932,30 @@ def phase8b_gather(smi: str, reps: int = 10, rows: int = 430080, dim: int = 288,
         for pattern in PATTERNS:
             idx = torch.as_tensor(make_idx(pattern, rows, rows, block_e, np.random.RandomState(0)), device="cuda")
             before = K.KERNELS["row_gather"].launches
-            got = row_gather(src, idx, block_e, n_buf)
+            got = row_gather(src, idx)
             torch.cuda.synchronize()
             if K.KERNELS["row_gather"].launches != before + 1:
                 raise RuntimeError("phase 8b: row_gather launch counter did not move")
             lib = torch.index_select(src, 0, idx)
             if not (torch.equal(got, lib) and torch.equal(row_gather(src, idx, block_e, n_buf), got)):
                 raise RuntimeError(f"phase 8b: row_gather {pattern} {dtype} differs from index_select or itself")
-            ms = cuda_median_ms(lambda: row_gather(src, idx, block_e, n_buf), reps)
-            lib_ms = cuda_median_ms(lambda: torch.index_select(src, 0, idx), reps)
-            plain_ms = cuda_median_ms(lambda: row_gather_plain(src, idx), reps)
+            ms, ms_wrapper, lib_ms, plain_ms = interleaved_median_ms([
+                lambda: row_gather(src, idx, block_e, n_buf),
+                lambda: row_gather(src, idx),
+                lambda: torch.index_select(src, 0, idx),
+                lambda: row_gather_plain(src, idx),
+            ], reps)
             nbytes = 2 * rows * dim * src.element_size() + 4 * rows
             bound = nbytes / HBM_BYTES_S * 1e3
             useful = rows * dim * src.element_size()
             print(
                 f"phase 8b row_gather {pattern} {str(dtype).split('.')[-1]} [{rows}, {dim}] ({smi}): bitwise equal, "
-                f"kernel {ms:.4f} ms ({useful / ms / 1e6:.1f} GB/s useful), index_select {lib_ms:.4f} ms "
+                f"kernel (block_e {block_e}, n_buf {n_buf}) {ms:.4f} ms ({useful / ms / 1e6:.1f} GB/s useful; "
+                f"wrapper's defaults: {ms_wrapper:.4f} ms), index_select {lib_ms:.4f} ms "
                 f"({useful / lib_ms / 1e6:.1f} GB/s), plain src[idx] {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)",
                 flush=True,
             )
-            if report is None:  # f32, random: the tool's defaults
+            if report is None:  # f32, random, at the tool's defaults (the shape phase 8c launches)
                 report = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                               library_ms=lib_ms)
     del src32, src, got, lib

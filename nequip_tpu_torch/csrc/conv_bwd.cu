@@ -16,297 +16,451 @@
 // source nodes.  The TPU kernel also accumulates dW1/dW2 over all edges by
 // carrying them across its sequential grid; Hopper's blocks run in no order,
 // so the training variant (nequip_conv_bwd_train) instead writes the per-edge
-// dW_e [E, WN], h_e [E, hidden] and dh_pre_e [E, hidden] it already holds in
-// shared memory, and dw_reduce.cu forms
-//   dW2 = alpha1 * sum_e h_e (x) dW_e,   dW1 = alpha0 * sum_e emb_e (x) dh_pre_e
-// in a second, fixed-order pass.  The inference variant passes null
-// pointers and writes nothing more.
+// dW_e [E, WN], h_e [E, hidden] and dh_pre_e [E, hidden], and dw_reduce.cu
+// forms dW2 = alpha1 * sum_e h_e (x) dW_e, dW1 = alpha0 * sum_e emb_e (x)
+// dh_pre_e in a second, fixed-order pass.  The inference variant passes null
+// pointers: like the TPU kernel it keeps w, dW_e and the hidden layer in
+// shared memory and writes no per-edge [E, WN] or [E, hidden] buffer.
 //
-// What bounds it on an H100: its bytes are K1's plus the [E, dim_in] dx
-// write (484 MB at 23k atoms, layer 1, f32) and a W2^T pass from L2 per
-// edge tile; measured, it takes 5.3 / 19.7 / 5.9 ms in the three layers
-// (H100 80GB HBM3, 700 W), latency bound like K1 (six barriers per 8-edge
-// tile, the MLP loops walk hidden or WN in sequence with few warps busy).
-// Design: one block per destination node over its CSR segment, g[n] loaded
-// once into shared memory, kEdgeTile edges per step; dsh is reduced across
-// a path's channels by warp shuffles and then across paths in a fixed
-// order, so every sum is deterministic.
+// What bounds it on an H100 (flagship, 23k atoms, 419,904 edges, f32):
+// operations, the radial MLP's two products with W2 (2 x 2 x 128 x WN FMAs
+// per edge, WN = 96 / 352 / 96) and the CG-VJP, 2.03 ms over the three
+// layers at 67 TFLOP/s of FFMA; its bytes (x[src], the dx write) take less.
+// The first design, one block per destination node stepping 8 edges at a time,
+// took 30.55 ms: ~18-edge segments left its tiles 75% full, the MLP loops ran
+// half the block and re-read W2 and W2^T from L2 for every 8 edges.
+// Design (dense edge tiles):
+// - A block takes TILE = 32 consecutive real slots of the dst-sorted stream,
+//   across node boundaries, on a persistent grid of (SMs x resident blocks)
+//   that walks the ceil(n_real / TILE) tiles (n_real = dst_ptr[n_nodes] is
+//   read on the card, so the entry point needs no edge count).  Each edge's
+//   destination is its own binary search in dst_ptr, so any degree
+//   distribution (empty nodes, segments longer than a tile, a tile boundary
+//   inside a segment) is the same case; g rows are read through L1, where the
+//   tile's few destinations stay.
+// - The radial MLP is two block GEMMs on the tile (radial_mlp.cuh): h =
+//   silu(alpha0 emb . W1) straight from shared memory (K = n_emb), then
+//   w = alpha1 h . W2 and, after the CG-VJP, dh = dW_e . W2^T (from w2t) with
+//   W2 / W2^T streamed in 16-row slabs through a 3-stage cp.async ring and
+//   reused by every edge of the tile; 4 x 4 register micro-tiles per thread.
+//   h_pre is recomputed (n_emb FMAs, in the same order) where silu' needs it.
+// - The CG-VJP runs over (8-edge group, 32-column block) items for dx and
+//   (8-edge group, path) items for dW_e and dsh, lanes over channels, each
+//   term's table entry read once for 8 edges, whose x and g loads are in
+//   flight together.  TPPlan sorts each path's terms by m2, so A[p, m2] is
+//   one run of terms, folded into dW_e and into the dsh partial (a
+//   warp-shuffle sum over channels) when the run ends.
+// - dW_e overwrites w in shared memory in place (one thread reads w[e][j]
+//   before it writes dW_e[e][j]; dx is done by then), and the dsh partials
+//   share the ring's memory, so a 32-edge f32 tile of layer 1 needs ~97 KB
+//   and two blocks share an SM, registers capped at 128 for them.  Where two
+//   tiles do not fit an SM (f64 of layer 1: ~169 KB), one block an SM keeps
+//   up to 255 registers.  Tiles of 16 or 8 edges are taken when a shape does
+//   not fit one block (f64 of wide models).
+// - Every output element is written by one thread from sums in a fixed
+//   order: two calls give bitwise equal results.
+// Measured (H100 80GB HBM3, 700 W; PERF.md, K2 findings): 2.4 / 6.8 / 2.4 ms for
+// the three layers, ~5.7x its bound.  clock64 marks per phase (layer 1,
+// cycles per tile of one block, two blocks an SM): the CG-VJP ~47% (dW_e
+// and dsh 88k, dx 30k; short runs of ~2.4 terms, each ending in 8 shuffle
+// reductions, and L2 latency), the two GEMMs ~41% (~50% of FFMA issue with
+// 16 warps an SM and a barrier per 16-row slab), the hidden layer, the
+// destination search and demb the rest.  Tried and slower or no faster:
+// 64-edge tiles, 16-edge CG items (they spill), the tile's g rows and half
+// its x rows staged in shared memory (one block an SM then, or extra
+// barriers), an L2 prefetch of the tile's rows, 32-row slabs, 4 stages, and
+// the column-split GEMM layout noted in radial_mlp.cuh.
+// Registers and spills (nvcc -Xptxas -v, 32-edge tiles): f32 128 (two blocks
+// an SM), 8 bytes of spill; f64 one block an SM 255, 12 bytes (two blocks:
+// 128, 88-272 bytes); PERF.md lists every tile.
+#include "radial_mlp.cuh"
 #include "tp_common.cuh"
 
 namespace nequip {
+namespace {
 
-// dx_groups: int32 [Gx, 4] = (x_row, unused, t_begin, t_end), one per input row
-// dx_terms:  int32 [Tx, 3] = (out_row, y_index, w_off), dx_coef[Tx]
-// dx_col_group: int32 [dim_in]
-// paths:      int32 [P, 6] = (w_off, mul, y_off, y_dim, t_begin, t_end)
-// path_terms: int32 [Tp, 3] = (x_row, out_row, m2), path_coef[Tp]
+constexpr int kBwdWarps = 8;  // K2's own block: 256 threads
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdBK = 16;    // W2 rows per slab of the ring
+constexpr int kBwdStages = 3;
+constexpr int kCgEdges = 8;  // edges of one CG-VJP item: its loads per term in flight
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) conv_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ emb,
-    const T* __restrict__ w1, const T* __restrict__ w2, const T* __restrict__ w2t,
-    const int32_t* __restrict__ edge_src, const int32_t* __restrict__ dst_ptr,
-    const T* __restrict__ g,
-    const int32_t* __restrict__ dx_groups, const int32_t* __restrict__ dx_terms,
-    const T* __restrict__ dx_coef, const int32_t* __restrict__ dx_col_group,
-    const int32_t* __restrict__ paths, const int32_t* __restrict__ path_terms,
-    const T* __restrict__ path_coef, int n_paths,
-    T* __restrict__ dx_edge, T* __restrict__ dsh, T* __restrict__ demb,
-    T* __restrict__ dw_edge, T* __restrict__ h_edge, T* __restrict__ dh_edge,
-    int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,
-    T alpha0, T alpha1) {
+struct ConvBwdArgs {
+  const T *x, *sh, *emb, *w1, *w2, *w2t;
+  const int32_t *edge_src, *dst_ptr;
+  const T* g;
+  const int32_t *dx_groups, *dx_terms;
+  const T* dx_coef;
+  const int32_t *dx_col_group, *paths, *path_terms;
+  const T* path_coef;
+  T *dx_edge, *dsh, *demb, *dw_edge, *h_edge, *dh_edge;
+  int n_paths, n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim;
+  T alpha0, alpha1;
+};
+
+// Shared-memory carve-up of one tile, in elements of T from the base (every
+// region starts on 16 bytes), then two int32 [TILE] arrays.
+struct BwdSmem {
+  int ldw, ldh, ldw1;  // row strides of s_w [TILE][ldw], s_h [TILE][ldh], s_w1 [n_emb][ldw1]
+  int o_h, o_ring, o_emb, o_y, o_w1, o_idx;
+  size_t bytes;
+};
+
+template <typename T>
+__host__ __device__ inline BwdSmem bwd_smem(int tile, int wn, int hidden, int n_emb, int sh_dim, int n_paths) {
+  constexpr int V = mlp::Vec<T>::V, CW = 32 * V;
+  BwdSmem L;
+  L.ldw = mlp::round_up(wn, CW);          // whole column chunks: the w GEMM writes them
+  L.ldh = mlp::round_up(hidden, CW) + V;  // + 16 bytes: the demb loop's rows fall on other banks
+  L.ldw1 = mlp::round_up(hidden, V) + V;  // 16-byte rows; the demb loop's 8 rows of W1 fall on other banks
+  int o = tile * L.ldw;
+  L.o_h = o;
+  o += tile * L.ldh;
+  L.o_ring = o;  // the ring, or the dsh partials [TILE][n_paths][kMaxYDim] between the GEMMs
+  const int ring = mlp::ring_elems<T, kBwdBK, kBwdStages>(), part = tile * n_paths * kMaxYDim;
+  o += mlp::round_up(ring > part ? ring : part, V);
+  L.o_emb = o;
+  o += mlp::round_up(tile * n_emb, V);
+  L.o_y = o;
+  o += mlp::round_up(tile * sh_dim, V);
+  L.o_w1 = o;
+  o += mlp::round_up(n_emb * L.ldw1, V);
+  L.o_idx = o;
+  L.bytes = static_cast<size_t>(o) * sizeof(T) + 2 * sizeof(int32_t) * tile;
+  return L;
+}
+
+// the destination of real slot e: dst_ptr[n] <= e < dst_ptr[n + 1]
+__device__ __forceinline__ int find_dst(const int32_t* __restrict__ dst_ptr, int n_nodes, int e) {
+  int lo = 0, hi = n_nodes;  // dst_ptr[lo] <= e < dst_ptr[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(dst_ptr + mid) <= e)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+template <typename T, int TILE, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const ConvBwdArgs<T> a) {
+  constexpr int NW = kBwdWarps, NT = kBwdThreads, TE = TILE / 8, V = mlp::Vec<T>::V;  // TE: rows a thread owns in the GEMMs
+  constexpr int TC = TILE < kCgEdges ? TILE : kCgEdges, NG = TILE / TC;  // edges per CG item, edge groups
+  static_assert(NW == 8 && TILE % 8 == 0 && TILE % TC == 0, "tile_gemm takes 8 warps with whole rows each");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_g = reinterpret_cast<T*>(smem_raw);     // [mid_dim]
-  T* s_x = s_g + mid_dim;                      // [kEdgeTile, dim_in]
-  T* s_y = s_x + kEdgeTile * dim_in;           // [kEdgeTile, sh_dim]
-  T* s_emb = s_y + kEdgeTile * sh_dim;         // [kEdgeTile, n_emb]
-  T* s_hpre = s_emb + kEdgeTile * n_emb;       // [kEdgeTile, hidden]
-  T* s_h = s_hpre + kEdgeTile * hidden;        // [kEdgeTile, hidden]
-  T* s_dh = s_h + kEdgeTile * hidden;          // [kEdgeTile, hidden]
-  T* s_w = s_dh + kEdgeTile * hidden;          // [kEdgeTile, wn]
-  T* s_dw = s_w + kEdgeTile * wn;              // [kEdgeTile, wn]
-  T* s_dshp = s_dw + kEdgeTile * wn;           // [kEdgeTile, n_paths, kMaxYDim]
+  const int hidden = a.hidden, wn = a.wn, n_emb = a.n_emb, sh_dim = a.sh_dim, dim_in = a.dim_in;
+  const int mid_dim = a.mid_dim, n_paths = a.n_paths;
+  const BwdSmem L = bwd_smem<T>(TILE, wn, hidden, n_emb, sh_dim, n_paths);
+  T* base_t = reinterpret_cast<T*>(smem_raw);
+  T* s_w = base_t;                 // [TILE][ldw]: w, then dW_e in place
+  T* s_h = base_t + L.o_h;         // [TILE][ldh]: h, then dh_pre
+  T* s_ring = base_t + L.o_ring;   // the W2 / W2^T ring
+  T* s_dshp = s_ring;              // [TILE][n_paths][kMaxYDim], between the GEMMs
+  T* s_emb = base_t + L.o_emb;     // [TILE][n_emb]
+  T* s_y = base_t + L.o_y;         // [TILE][sh_dim]
+  T* s_w1 = base_t + L.o_w1;       // [n_emb][ldw1]
+  int32_t* s_src = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
+  int32_t* s_dst = s_src + TILE;                                  // [TILE]
 
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int e_begin = dst_ptr[n];
-  const int e_end = dst_ptr[n + 1];
-  for (int o = tid; o < mid_dim; o += blockDim.x)
-    s_g[o] = g[static_cast<int64_t>(n) * mid_dim + o];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_real = __ldg(a.dst_ptr + a.n_nodes);
+  const int n_tiles = mlp::cdiv(n_real, TILE);
+  if (static_cast<int>(blockIdx.x) >= n_tiles) return;
+  for (int i = tid; i < n_emb * hidden; i += NT) s_w1[(i / hidden) * L.ldw1 + i % hidden] = a.w1[i];
+  const int n_cb = mlp::cdiv(dim_in, 32);  // 32-column blocks of dx
 
-  for (int base = e_begin; base < e_end; base += kEdgeTile) {
-    const int cnt = min(kEdgeTile, e_end - base);
-    __syncthreads();  // s_g is loaded; readers of the previous tile are done
-    for (int i = tid; i < cnt * dim_in; i += blockDim.x) {
-      const int e = i / dim_in;
-      s_x[i] = x[static_cast<int64_t>(edge_src[base + e]) * dim_in + (i - e * dim_in)];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * TILE;
+    const int cnt = min(TILE, n_real - base);
+    __syncthreads();  // s_w1 is staged; the previous tile's readers are done
+    if (tid < TILE) {
+      const bool real = tid < cnt;  // rows past cnt compute finite values that are not written
+      s_src[tid] = real ? __ldg(a.edge_src + base + tid) : 0;
+      s_dst[tid] = real ? find_dst(a.dst_ptr, a.n_nodes, base + tid) : 0;
     }
-    for (int i = tid; i < cnt * sh_dim; i += blockDim.x)
-      s_y[i] = sh[static_cast<int64_t>(base) * sh_dim + i];
-    for (int i = tid; i < cnt * n_emb; i += blockDim.x)
-      s_emb[i] = emb[static_cast<int64_t>(base) * n_emb + i];
+    for (int i = tid; i < TILE * n_emb; i += NT)
+      s_emb[i] = i < cnt * n_emb ? a.emb[static_cast<int64_t>(base) * n_emb + i] : T(0);
+    for (int i = tid; i < TILE * sh_dim; i += NT)
+      s_y[i] = i < cnt * sh_dim ? a.sh[static_cast<int64_t>(base) * sh_dim + i] : T(0);
     __syncthreads();
 
-    // recompute the radial MLP (hidden layer, then weights)
-    for (int t = tid; t < hidden; t += blockDim.x) {
-      T acc[kEdgeTile];
+    // hidden layer h = silu(h_pre), V columns of one edge per step, zero in the padding columns
+    for (int i = tid; i < TILE * (L.ldh / V); i += NT) {
+      const int e = i / (L.ldh / V), t0 = (i - e * (L.ldh / V)) * V;
+      T hp[V] = {};
+      if (t0 < hidden) mlp::hidden_pre(s_emb + e * n_emb, s_w1 + t0, L.ldw1, n_emb, a.alpha0, hp);
 #pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e) acc[e] = T(0);
-      for (int i = 0; i < n_emb; ++i) {
-        const T wv = w1[i * hidden + t];
-#pragma unroll
-        for (int e = 0; e < kEdgeTile; ++e)
-          if (e < cnt) acc[e] += s_emb[e * n_emb + i] * wv;
-      }
-#pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e)
-        if (e < cnt) {
-          const T a = alpha0 * acc[e];
-          s_hpre[e * hidden + t] = a;
-          s_h[e * hidden + t] = a * sigmoid(a);
+      for (int j = 0; j < V; ++j) {
+        const int t = t0 + j;
+        T v = T(0);
+        if (t < hidden) {
+          v = hp[j] * sigmoid(hp[j]);
+          if (a.h_edge != nullptr && e < cnt) a.h_edge[static_cast<int64_t>(base + e) * hidden + t] = v;
         }
-    }
-    __syncthreads();
-    for (int j = tid; j < wn; j += blockDim.x) {
-      T acc[kEdgeTile];
-#pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e) acc[e] = T(0);
-      for (int t = 0; t < hidden; ++t) {
-        const T wv = w2[static_cast<int64_t>(t) * wn + j];
-#pragma unroll
-        for (int e = 0; e < kEdgeTile; ++e)
-          if (e < cnt) acc[e] += s_h[e * hidden + t] * wv;
-      }
-#pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e)
-        if (e < cnt) s_w[e * wn + j] = alpha1 * acc[e];
-    }
-    __syncthreads();
-
-    // dx: one thread per input column
-    for (int c = tid; c < dim_in; c += blockDim.x) {
-      const int32_t* gr = dx_groups + 4 * dx_col_group[c];
-      const int u = c - gr[0];
-      const int t0 = gr[2];
-      const int t1 = gr[3];
-      for (int e = 0; e < cnt; ++e) {
-        const T* ye = s_y + e * sh_dim;
-        const T* we = s_w + e * wn;
-        T acc = T(0);
-        for (int k = t0; k < t1; ++k) {
-          const int32_t* tk = dx_terms + 3 * k;
-          acc += dx_coef[k] * ye[tk[1]] * s_g[tk[0] + u] * we[tk[2] + u];
-        }
-        dx_edge[static_cast<int64_t>(base + e) * dim_in + c] = acc;
+        s_h[e * L.ldh + t] = v;
       }
     }
-
-    // dW and the per-path dsh partials: one warp per (edge, path), lanes over channels
-    for (int pe = warp; pe < cnt * n_paths; pe += n_warps) {
-      const int e = pe / n_paths;
-      const int p = pe - e * n_paths;
-      const int32_t* pt = paths + 6 * p;
-      const int w_off = pt[0], mul = pt[1], y_off = pt[2], y_dim = pt[3];
-      const int t0 = pt[4], t1 = pt[5];
-      const T* xe = s_x + e * dim_in;
-      const T* ye = s_y + e * sh_dim;
-      const T* we = s_w + e * wn;
-      T part[kMaxYDim];
+    // w = alpha1 * h . W2 (tile_gemm starts at a barrier: s_h is complete)
+    mlp::tile_gemm<T, TILE, kBwdBK, kBwdStages>(
+        s_h, L.ldh, a.w2, hidden, wn, s_ring, [&](int r0, int c0, T (&acc)[TE][V]) {
 #pragma unroll
-      for (int m = 0; m < kMaxYDim; ++m) part[m] = T(0);
+          for (int i = 0; i < TE; ++i) {
+            T v[V];
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[j] = a.alpha1 * acc[i][j];
+            mlp::store16(s_w + (r0 + i) * L.ldw + c0, v);
+          }
+        });
+
+    // dx: one warp per (TC-edge group, 32-column block), lanes over columns
+    for (int i = tid; i < TILE * n_paths * kMaxYDim; i += NT) s_dshp[i] = T(0);
+    for (int item = warp; item < NG * n_cb; item += NW) {
+      const int e0 = (item / n_cb) * TC, c = (item % n_cb) * 32 + lane;
+      if (e0 >= cnt || c >= dim_in) continue;
+      const int32_t* gr = a.dx_groups + 4 * __ldg(a.dx_col_group + c);
+      const int u = c - __ldg(gr), t0 = __ldg(gr + 2), t1 = __ldg(gr + 3);
+      int go[TC];  // g row offsets (the launcher checks n_nodes * mid_dim < 2^31)
+      T acc[TC];
+#pragma unroll
+      for (int i = 0; i < TC; ++i) {
+        go[i] = s_dst[e0 + i] * mid_dim + u;
+        acc[i] = T(0);
+      }
+#pragma unroll 2
+      for (int k = t0; k < t1; ++k) {
+        const int out_row = __ldg(a.dx_terms + 3 * k), yi = __ldg(a.dx_terms + 3 * k + 1);
+        const int wo = __ldg(a.dx_terms + 3 * k + 2) + u;
+        const T coef = __ldg(a.dx_coef + k);
+#pragma unroll
+        for (int i = 0; i < TC; ++i)
+          acc[i] += coef * s_y[(e0 + i) * sh_dim + yi] * __ldg(a.g + go[i] + out_row) * s_w[(e0 + i) * L.ldw + wo];
+      }
+#pragma unroll
+      for (int i = 0; i < TC; ++i)
+        if (e0 + i < cnt) a.dx_edge[static_cast<int64_t>(base + e0 + i) * dim_in + c] = acc[i];
+    }
+    __syncthreads();  // dx has read w; the dsh partials are zero
+
+    // dW_e (in place of w) and the dsh partials: one warp per (TC-edge group, path), lanes over channels
+    for (int item = warp; item < NG * n_paths; item += NW) {
+      const int e0 = (item / n_paths) * TC, p = item % n_paths;
+      if (e0 >= cnt) continue;
+      const int32_t* pt = a.paths + 6 * p;
+      const int w_off = __ldg(pt), mul = __ldg(pt + 1), y_off = __ldg(pt + 2);
+      const int t0 = __ldg(pt + 4), t1 = __ldg(pt + 5);
       for (int ub = 0; ub < mul; ub += 32) {  // warp-uniform trip count
         const int u = ub + lane;
-        if (u < mul) {
-          T a[kMaxYDim];
+        const bool on = u < mul;
+        int xo[TC], go[TC];  // x and g row offsets (the launcher checks they fit in int32)
+        T wv[TC], dw[TC];
 #pragma unroll
-          for (int m = 0; m < kMaxYDim; ++m) a[m] = T(0);
-          for (int k = t0; k < t1; ++k) {
-            const int32_t* tk = path_terms + 3 * k;
-            const T v = path_coef[k] * xe[tk[0] + u] * s_g[tk[1] + u];
-#pragma unroll
-            for (int m = 0; m < kMaxYDim; ++m)
-              if (m == tk[2]) a[m] += v;
-          }
-          const T wu = we[w_off + u];
-          T dw = T(0);
-#pragma unroll
-          for (int m = 0; m < kMaxYDim; ++m)
-            if (m < y_dim) {
-              dw += ye[y_off + m] * a[m];
-              part[m] += wu * a[m];
-            }
-          s_dw[e * wn + w_off + u] = dw;
+        for (int i = 0; i < TC; ++i) {
+          xo[i] = s_src[e0 + i] * dim_in + u;
+          go[i] = s_dst[e0 + i] * mid_dim + u;
+          wv[i] = on ? s_w[(e0 + i) * L.ldw + w_off + u] : T(0);
+          dw[i] = T(0);
         }
-      }
+        for (int k = t0, run_end; k < t1; k = run_end) {  // one run of terms per m2 (TPPlan sorts them)
+          const int m = __ldg(a.path_terms + 3 * k + 2);
+          for (run_end = k + 1; run_end < t1 && __ldg(a.path_terms + 3 * run_end + 2) == m;) ++run_end;
+          T am[TC];
 #pragma unroll
-      for (int m = 0; m < kMaxYDim; ++m) {
-        T v = part[m];
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        part[m] = v;
-      }
-      if (lane == 0) {
+          for (int i = 0; i < TC; ++i) am[i] = T(0);
+          if (on) {
+#pragma unroll 2
+            for (int kk = k; kk < run_end; ++kk) {
+              const int x_row = __ldg(a.path_terms + 3 * kk), out_row = __ldg(a.path_terms + 3 * kk + 1);
+              const T coef = __ldg(a.path_coef + kk);
 #pragma unroll
-        for (int m = 0; m < kMaxYDim; ++m)
-          if (m < y_dim) s_dshp[(e * n_paths + p) * kMaxYDim + m] = part[m];
+              for (int i = 0; i < TC; ++i) am[i] += coef * __ldg(a.x + xo[i] + x_row) * __ldg(a.g + go[i] + out_row);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < TC; ++i) {
+            dw[i] += s_y[(e0 + i) * sh_dim + y_off + m] * am[i];
+            T v = wv[i] * am[i];
+            for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+            if (lane == 0) s_dshp[((e0 + i) * n_paths + p) * kMaxYDim + m] += v;
+          }
+        }
+        if (on) {
+#pragma unroll
+          for (int i = 0; i < TC; ++i) {
+            s_w[(e0 + i) * L.ldw + w_off + u] = dw[i];
+            if (a.dw_edge != nullptr && e0 + i < cnt)
+              a.dw_edge[static_cast<int64_t>(base + e0 + i) * wn + w_off + u] = dw[i];
+          }
+        }
       }
     }
     __syncthreads();
 
     // dsh: sum the path partials in path order
-    for (int i = tid; i < cnt * sh_dim; i += blockDim.x) {
-      const int e = i / sh_dim;
-      const int c = i - e * sh_dim;
+    for (int i = tid; i < cnt * sh_dim; i += NT) {
+      const int e = i / sh_dim, c = i - e * sh_dim;
       T acc = T(0);
       for (int p = 0; p < n_paths; ++p) {
-        const int m = c - paths[6 * p + 2];
-        if (m >= 0 && m < paths[6 * p + 3]) acc += s_dshp[(e * n_paths + p) * kMaxYDim + m];
+        const int m = c - __ldg(a.paths + 6 * p + 2);
+        if (m >= 0 && m < __ldg(a.paths + 6 * p + 3)) acc += s_dshp[(e * n_paths + p) * kMaxYDim + m];
       }
-      dsh[static_cast<int64_t>(base + e) * sh_dim + c] = acc;
+      a.dsh[static_cast<int64_t>(base) * sh_dim + i] = acc;
     }
-    // dh_pre = alpha1 * (dW . W2^T) * silu'(h_pre), W2^T is [wn, hidden]
-    for (int t = tid; t < hidden; t += blockDim.x) {
-      T acc[kEdgeTile];
+    // dh_pre = alpha1 * (dW_e . W2^T) * silu'(h_pre), W2^T is [wn, hidden]
+    // (tile_gemm starts at a barrier: the dsh partials are read, the ring is free)
+    mlp::tile_gemm<T, TILE, kBwdBK, kBwdStages>(
+        s_w, L.ldw, a.w2t, wn, hidden, s_ring, [&](int r0, int c0, T (&acc)[TE][V]) {
 #pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e) acc[e] = T(0);
-      for (int j = 0; j < wn; ++j) {
-        const T wv = w2t[static_cast<int64_t>(j) * hidden + t];
+          for (int i = 0; i < TE; ++i) {
+            const int e = r0 + i;
+            T hp[V] = {};
+            if (c0 < hidden) mlp::hidden_pre(s_emb + e * n_emb, s_w1 + c0, L.ldw1, n_emb, a.alpha0, hp);
 #pragma unroll
-        for (int e = 0; e < kEdgeTile; ++e)
-          if (e < cnt) acc[e] += s_dw[e * wn + j] * wv;
-      }
-#pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e)
-        if (e < cnt) {
-          const T hp = s_hpre[e * hidden + t];
-          const T sg = sigmoid(hp);
-          s_dh[e * hidden + t] = alpha1 * acc[e] * (sg * (T(1) + hp * (T(1) - sg)));
-        }
-    }
-    __syncthreads();
-    // demb = alpha0 * dh_pre . W1^T, W1 is [n_emb, hidden]
-    for (int i = tid; i < cnt * n_emb; i += blockDim.x) {
-      const int e = i / n_emb;
-      const int c = i - e * n_emb;
+            for (int j = 0; j < V; ++j) {
+              const int t = c0 + j;
+              T v = T(0);
+              if (t < hidden) {
+                const T sg = sigmoid(hp[j]);
+                v = a.alpha1 * acc[i][j] * (sg * (T(1) + hp[j] * (T(1) - sg)));
+                if (a.dh_edge != nullptr && e < cnt) a.dh_edge[static_cast<int64_t>(base + e) * hidden + t] = v;
+              }
+              s_h[e * L.ldh + t] = v;
+            }
+          }
+        });
+    // demb = alpha0 * dh_pre . W1^T (tile_gemm ended at a barrier: dh_pre is complete)
+    for (int i = tid; i < cnt * n_emb; i += NT) {
+      const int e = i / n_emb, c = i - e * n_emb;
+      const T* he = s_h + e * L.ldh;
+      const T* wc = s_w1 + c * L.ldw1;
       T acc = T(0);
-      for (int t = 0; t < hidden; ++t) acc += s_dh[e * hidden + t] * w1[c * hidden + t];
-      demb[static_cast<int64_t>(base + e) * n_emb + c] = alpha0 * acc;
-    }
-    if (dw_edge != nullptr) {  // training variant: the factors of dW1/dW2
-      for (int i = tid; i < cnt * wn; i += blockDim.x)
-        dw_edge[static_cast<int64_t>(base) * wn + i] = s_dw[i];
-      for (int i = tid; i < cnt * hidden; i += blockDim.x) {
-        h_edge[static_cast<int64_t>(base) * hidden + i] = s_h[i];
-        dh_edge[static_cast<int64_t>(base) * hidden + i] = s_dh[i];
-      }
+      for (int t = 0; t < hidden; ++t) acc += he[t] * wc[t];
+      a.demb[static_cast<int64_t>(base) * n_emb + i] = a.alpha0 * acc;
     }
   }
 }
 
+// Shared memory of one device: what a block may opt in to, and what an SM
+// holds for resident blocks (each also reserves `reserved` bytes).
+struct SmemLimits {
+  int dev = -1, optin = 0, per_sm = 0, reserved = 0;
+};
+
+// The limits of the current device, read once per thread and device.
+inline cudaError_t smem_limits(SmemLimits& out) {
+  static thread_local SmemLimits cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (cache.dev != dev) {
+    SmemLimits l;
+    l.dev = dev;
+    if ((err = cudaDeviceGetAttribute(&l.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&l.per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&l.reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)) != cudaSuccess)
+      return err;
+    cache = l;
+  }
+  out = cache;
+  return cudaSuccess;
+}
+
+// One tile shape launched on a persistent grid of every block that fits on
+// the card at once.  The grid and the shared-memory opt-in are set up once
+// per thread, device and size (a model has a few layer shapes), so a repeat
+// launch makes no other CUDA call.
+template <typename T, int TILE, int MIN_BLOCKS>
+cudaError_t launch_tile(const ConvBwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = conv_bwd_kernel<T, TILE, MIN_BLOCKS>;
+  struct Grid {
+    int dev = -1, grid = 0;
+    size_t smem = 0;
+  };
+  static thread_local Grid cache[8];
+  static thread_local int next = 0;
+  const Grid* c = nullptr;
+  for (const Grid& g : cache)
+    if (g.dev == dev && g.smem == smem) c = &g;
+  if (c == nullptr) {
+    cudaError_t err = allow_dynamic_smem(kernel, smem);
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads, smem);
+    if (err != cudaSuccess) return err;
+    Grid& g = cache[next];
+    next = (next + 1) % 8;
+    g.dev = dev, g.smem = smem, g.grid = sms * (per_sm > 0 ? per_sm : 1);
+    c = &g;
+  }
+  kernel<<<c->grid, kBwdThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// The largest tile whose shared memory fits one block.  The 32-edge tile
+// caps registers at 128 for two blocks an SM only where two fit in shared
+// memory (f32 at the flagship's widths); where one fits (f64), it keeps
+// all 255 and spills nothing.
 template <typename T>
-int launch_conv_bwd(const void* x, const void* sh, const void* emb, const void* w1,
-                    const void* w2, const void* w2t, const void* edge_src,
-                    const void* dst_ptr, const void* g, const void* dx_groups,
-                    const void* dx_terms, const void* dx_coef, const void* dx_col_group,
-                    const void* paths, const void* path_terms, const void* path_coef,
-                    void* dx_edge, void* dsh, void* demb, void* dw_edge, void* h_edge,
-                    void* dh_edge, int n_paths, int n_nodes,
-                    int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,
-                    double alpha0, double alpha1, void* stream) {
-  const size_t smem =
-      sizeof(T) * (static_cast<size_t>(mid_dim) +
-                   static_cast<size_t>(kEdgeTile) *
-                       (dim_in + sh_dim + n_emb + 3 * hidden + 2 * wn + n_paths * kMaxYDim));
-  cudaError_t err = allow_dynamic_smem(conv_bwd_kernel<T>, smem);
+int launch_conv_bwd(const ConvBwdArgs<T>& args, void* stream) {
+  if (args.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
+  const int64_t rows = args.n_nodes + 1;  // x and g offsets are int32
+  if (rows * args.dim_in >= (int64_t{1} << 31) || rows * args.mid_dim >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SmemLimits lim;
+  const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_nodes > 0) {
-    conv_bwd_kernel<T><<<n_nodes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(emb),
-        static_cast<const T*>(w1), static_cast<const T*>(w2), static_cast<const T*>(w2t),
-        static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),
-        static_cast<const T*>(g), static_cast<const int32_t*>(dx_groups),
-        static_cast<const int32_t*>(dx_terms), static_cast<const T*>(dx_coef),
-        static_cast<const int32_t*>(dx_col_group), static_cast<const int32_t*>(paths),
-        static_cast<const int32_t*>(path_terms), static_cast<const T*>(path_coef), n_paths,
-        static_cast<T*>(dx_edge), static_cast<T*>(dsh), static_cast<T*>(demb),
-        static_cast<T*>(dw_edge), static_cast<T*>(h_edge), static_cast<T*>(dh_edge), dim_in,
-        sh_dim, n_emb, hidden, wn, mid_dim, static_cast<T>(alpha0), static_cast<T>(alpha1));
+  auto smem = [&](int tile) {
+    return bwd_smem<T>(tile, args.wn, args.hidden, args.n_emb, args.sh_dim, args.n_paths).bytes;
+  };
+  const size_t optin = static_cast<size_t>(lim.optin);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (smem(32) <= optin) {
+    if (2 * (smem(32) + lim.reserved) <= static_cast<size_t>(lim.per_sm))
+      return static_cast<int>(launch_tile<T, 32, 2>(args, lim.dev, smem(32), s));
+    return static_cast<int>(launch_tile<T, 32, 1>(args, lim.dev, smem(32), s));
   }
-  return static_cast<int>(cudaGetLastError());
+  if (smem(16) <= optin) return static_cast<int>(launch_tile<T, 16, 1>(args, lim.dev, smem(16), s));
+  return static_cast<int>(launch_tile<T, 8, 1>(args, lim.dev, smem(8), s));  // refused if it does not fit either
 }
 
+}  // namespace
 }  // namespace nequip
 
-#define NEQUIP_CONV_BWD(SUFFIX, T)                                                             \
-  extern "C" int nequip_conv_bwd_##SUFFIX(                                                    \
-      const void* x, const void* sh, const void* emb, const void* w1, const void* w2,         \
-      const void* w2t, const void* edge_src, const void* dst_ptr, const void* g,              \
-      const void* dx_groups, const void* dx_terms, const void* dx_coef,                       \
-      const void* dx_col_group, const void* paths, const void* path_terms,                    \
-      const void* path_coef, void* dx_edge, void* dsh, void* demb, int n_paths, int n_nodes,  \
-      int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim, double alpha0,      \
-      double alpha1, void* stream) {                                                          \
-    return nequip::launch_conv_bwd<T>(x, sh, emb, w1, w2, w2t, edge_src, dst_ptr, g,          \
-                                      dx_groups, dx_terms, dx_coef, dx_col_group, paths,      \
-                                      path_terms, path_coef, dx_edge, dsh, demb, nullptr,     \
-                                      nullptr, nullptr, n_paths, n_nodes, dim_in, sh_dim,     \
-                                      n_emb, hidden, wn, mid_dim, alpha0, alpha1, stream);    \
-  }                                                                                           \
-  extern "C" int nequip_conv_bwd_train_##SUFFIX(                                              \
-      const void* x, const void* sh, const void* emb, const void* w1, const void* w2,         \
-      const void* w2t, const void* edge_src, const void* dst_ptr, const void* g,              \
-      const void* dx_groups, const void* dx_terms, const void* dx_coef,                       \
-      const void* dx_col_group, const void* paths, const void* path_terms,                    \
-      const void* path_coef, void* dx_edge, void* dsh, void* demb, void* dw_edge,             \
-      void* h_edge, void* dh_edge, int n_paths, int n_nodes, int dim_in, int sh_dim,          \
-      int n_emb, int hidden, int wn, int mid_dim, double alpha0, double alpha1,               \
-      void* stream) {                                                                         \
-    return nequip::launch_conv_bwd<T>(x, sh, emb, w1, w2, w2t, edge_src, dst_ptr, g,          \
-                                      dx_groups, dx_terms, dx_coef, dx_col_group, paths,      \
-                                      path_terms, path_coef, dx_edge, dsh, demb, dw_edge,     \
-                                      h_edge, dh_edge, n_paths, n_nodes, dim_in, sh_dim,      \
-                                      n_emb, hidden, wn, mid_dim, alpha0, alpha1, stream);    \
+#define NEQUIP_CONV_BWD(SUFFIX, T)                                                                               \
+  extern "C" int nequip_conv_bwd_train_##SUFFIX(                                                                \
+      const void* x, const void* sh, const void* emb, const void* w1, const void* w2, const void* w2t,          \
+      const void* edge_src, const void* dst_ptr, const void* g, const void* dx_groups, const void* dx_terms,     \
+      const void* dx_coef, const void* dx_col_group, const void* paths, const void* path_terms,                 \
+      const void* path_coef, void* dx_edge, void* dsh, void* demb, void* dw_edge, void* h_edge, void* dh_edge,   \
+      int n_paths, int n_nodes, int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,              \
+      double alpha0, double alpha1, void* stream) {                                                             \
+    const nequip::ConvBwdArgs<T> args{                                                                          \
+        static_cast<const T*>(x),           static_cast<const T*>(sh),                                          \
+        static_cast<const T*>(emb),         static_cast<const T*>(w1),                                          \
+        static_cast<const T*>(w2),          static_cast<const T*>(w2t),                                         \
+        static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),                            \
+        static_cast<const T*>(g),           static_cast<const int32_t*>(dx_groups),                             \
+        static_cast<const int32_t*>(dx_terms), static_cast<const T*>(dx_coef),                                  \
+        static_cast<const int32_t*>(dx_col_group), static_cast<const int32_t*>(paths),                         \
+        static_cast<const int32_t*>(path_terms), static_cast<const T*>(path_coef),                              \
+        static_cast<T*>(dx_edge),           static_cast<T*>(dsh),                                               \
+        static_cast<T*>(demb),              static_cast<T*>(dw_edge),                                           \
+        static_cast<T*>(h_edge),            static_cast<T*>(dh_edge),                                           \
+        n_paths, n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim,                                           \
+        static_cast<T>(alpha0),             static_cast<T>(alpha1)};                                            \
+    return nequip::launch_conv_bwd<T>(args, stream);                                                            \
+  }                                                                                                             \
+  extern "C" int nequip_conv_bwd_##SUFFIX(                                                                      \
+      const void* x, const void* sh, const void* emb, const void* w1, const void* w2, const void* w2t,          \
+      const void* edge_src, const void* dst_ptr, const void* g, const void* dx_groups, const void* dx_terms,     \
+      const void* dx_coef, const void* dx_col_group, const void* paths, const void* path_terms,                 \
+      const void* path_coef, void* dx_edge, void* dsh, void* demb, int n_paths, int n_nodes, int dim_in,        \
+      int sh_dim, int n_emb, int hidden, int wn, int mid_dim, double alpha0, double alpha1, void* stream) {     \
+    return nequip_conv_bwd_train_##SUFFIX(x, sh, emb, w1, w2, w2t, edge_src, dst_ptr, g, dx_groups, dx_terms,   \
+                                          dx_coef, dx_col_group, paths, path_terms, path_coef, dx_edge, dsh,    \
+                                          demb, nullptr, nullptr, nullptr, n_paths, n_nodes, dim_in, sh_dim,    \
+                                          n_emb, hidden, wn, mid_dim, alpha0, alpha1, stream);                  \
   }
 
 NEQUIP_CONV_BWD(f32, float)

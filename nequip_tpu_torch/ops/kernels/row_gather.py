@@ -4,8 +4,13 @@ Counterpart of ``pallas_row_gather`` of ``tools/gather_microbench.py`` (T5):
 ``row_gather`` launches ``csrc/row_gather.cu`` on CUDA tensors and runs its
 plain twin ``row_gather_plain`` on CPU tensors.  The result is ``[E, D]``
 with no padding (the TPU's row padding to 1024 floats was a Mosaic tiling
-artefact, not part of the function).  ``block_e`` is the rows per block and
-``n_buf`` the rows in flight in a block, as on the TPU.
+artefact, not part of the function).  ``block_e`` is the rows a block
+copies, as on the TPU; ``n_buf`` is the warps of a block (``32 * n_buf``
+threads).  The block copies its rows as one flat range of (row, 16-byte
+unit) pairs, each thread with 8 loads in flight, so a block keeps ``n_buf *
+32 * 8`` units in flight (on the TPU ``n_buf`` was the rows in flight).  The
+defaults, 32 rows and 8 warps, were the fastest of the block shapes
+measured on an H100 (PERF.md, T5 findings).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx.long()]
 
 
-def row_gather(src: torch.Tensor, idx: torch.Tensor, block_e: int = 512, n_buf: int = 16) -> torch.Tensor:
+def row_gather(src: torch.Tensor, idx: torch.Tensor, block_e: int = 32, n_buf: int = 8) -> torch.Tensor:
     """``out [E, D] = src [S, D] [idx [E]]`` for any dtype; ``idx`` is int32
     with every value in ``[0, S)`` (the kernel does not check; the plain
     twin raises on a bad index)."""

@@ -150,11 +150,13 @@ class TPPlan:
                             dx_coef.append(c)
                 dx_col[row : row + mi.mul] = len(dx_groups)
                 dx_groups.append((row, 0, t0, len(dx_coef)))
-        # K2 dW/dsh: one group per path
+        # K2 dW/dsh: one group per path, its terms sorted (stably) by m2, so
+        # that A[p, m2] is one run of terms (conv_bwd.cu); the kernels that
+        # sum A[p, m2] term by term get the same sums in the same order
         paths, path_terms, path_coef = [], [], []
         for p in self.paths:
             t0 = len(path_coef)
-            for m1, m2, m3, c in p["terms"]:
+            for m1, m2, m3, c in sorted(p["terms"], key=lambda term: term[1]):
                 path_terms.append((p["x_off"] + m1 * p["mul"], p["out_off"] + m3 * p["mul"], m2))
                 path_coef.append(c)
             paths.append((p["w_off"], p["mul"], p["y_off"], p["y_dim"], t0, len(path_coef)))
@@ -504,7 +506,9 @@ def _launch_conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0, alpha1, layout: E
 def conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout, g):
     """K2, inference variant: per-edge ``(dx [E, dim_in], dsh [E, sh_dim],
     demb [E, n_emb])`` of K1 for the node cotangent ``g`` (see
-    ``csrc/conv_bwd.cu``); zero rows at masked slots."""
+    ``csrc/conv_bwd.cu``: dense tiles of 32 edges with the radial MLP as
+    block GEMMs in shared memory); zero rows at masked slots.  It allocates
+    no per-edge buffer besides its three outputs."""
     if not _route("conv_bwd", x, sh, emb, w1, w2, g):
         return conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
     outs, _ = _launch_conv_bwd(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=False)

@@ -123,6 +123,81 @@ def test_cuda_kernel_matches_plain(cuda, name, dtype):
         torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
 
 
+# K2's dense-tile cases (32-edge tiles in f32 and f64 at these widths):
+# (plan, destination degrees of the real edges); masked slots follow them
+K2_CASES = {
+    "segment_longer_than_tile": ("small", [3, 0, 100, 5] + [18] * 20),
+    "degree_0_and_1": ("small", list(np.random.RandomState(5).choice([0, 0, 0, 1, 1, 2, 7], 300))),
+    "n_real_below_tile": ("small", [2, 0, 3]),
+    "n_real_ragged": ("small", [18] * 4 + [5]),
+    "n_real_zero": ("small", [0] * 50),
+    "flagship_layer0": ("flagship0", [18] * 40 + [7]),
+    "flagship_layer1": ("flagship1", [18] * 40 + [7]),
+    # wider models whose 32-edge tiles do not fit: 16-edge tiles (64 features
+    # in f64, 128 in f32) and 8-edge tiles (128 features in f64)
+    "wide_64": ("wide64", [18] * 10 + [7]),
+    "wide_128": ("wide128", [18] * 10 + [7]),
+}
+
+
+def _k2_plan(kind, device, dtype):
+    """(plan, w1 shape, alphas): the test TP with hidden 16, or one of the
+    flagship's conv layers (hidden 128, WN 96 or 352)."""
+    if kind == "small":
+        args, _, _ = _problem(device, dtype)
+        return args[0], (8, 16), args[6:8]
+    if kind.startswith("wide"):
+        mul = int(kind[4:])
+        feats, sh = f"{mul}x0e+{mul}x1o+{mul}x2e", "1x0e+1x1o+1x2e"
+        mid, ins = uvu_instructions(Irreps(feats), Irreps(sh), Irreps(feats) + Irreps(f"{mul}x1e+{mul}x2o"))
+        plan = K.TPPlan(TensorProduct(feats, sh, mid, ins))
+        return plan, (8, 16), ScalarMLP(8, plan.weight_numel, hidden_layers_depth=1, hidden_layers_width=16).alphas
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.nn.interaction_block import InteractionBlock
+
+    model = NequIPGNNModel(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2,
+                           parity=False, num_features=32, avg_num_neighbors=18.0, tp_impl="fused")
+    blk = [m for m in model.modules() if isinstance(m, InteractionBlock)][int(kind[-1])]
+    return blk.tp_scatter.plan, tuple(blk.edge_mlp.w0.shape), blk.edge_mlp.alphas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["conv_bwd", "conv_bwd_train"])
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_cuda_conv_bwd_dense_tiles(cuda, case, name, dtype):
+    """K2 (both variants) on streams whose tiles cross node boundaries in
+    every way, against the plain version at the file's tolerances, zero at
+    masked slots, and bitwise equal on a repeat call."""
+    kind, degrees = K2_CASES[case]
+    plan, (n_emb, hidden), (a0, a1) = _k2_plan(kind, cuda, dtype)
+    r = np.random.RandomState(6)
+    n_nodes, n_real = len(degrees), int(np.sum(degrees))
+    n_slots = n_real + 37
+    dst = np.concatenate([np.repeat(np.arange(n_nodes), degrees), r.randint(0, n_nodes, 37)])
+    mask = np.arange(n_slots) < n_real
+    lay = K.relayout_edge_stream({
+        _keys.POSITIONS_KEY: torch.zeros(n_nodes, 3, device=cuda),
+        _keys.EDGE_INDEX_KEY: torch.as_tensor(np.stack([dst, r.randint(0, n_nodes, n_slots)]), device=cuda),
+        _keys.EDGE_MASK_KEY: torch.as_tensor(mask, device=cuda),
+    })[K.LAYOUT_KEY]
+    assert lay.n_real == n_real
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=dtype, device=cuda)
+    args = (plan, t(n_nodes, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+            t(hidden, plan.weight_numel), a0, a1, lay, t(n_nodes, plan.mid_dim))
+    run, plain = getattr(K, name), getattr(K, name + "_plain")
+    before = K.KERNELS[name].launches
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert K.KERNELS[name].launches == before + 1
+    for a, b, c in zip(got, plain(*args), run(*args)):
+        rtol, atol = _tol(dtype, b)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        assert torch.equal(a, c)
+    for a in got[:3]:  # dx, dsh, demb over every slot
+        assert not a[n_real:].any()
+
+
 # dw_reduce's shapes (P, Q): the flagship's dW1 and dW2, two ragged ones
 # (masked rows and columns, two row tiles) and one staged element by element
 DW_SHAPES = [(8, 128), (128, 96), (128, 352), (24, 40), (136, 20), (5, 7)]
@@ -298,17 +373,31 @@ def test_cuda_microbench_bwd_matches_plain(cuda, layout, dtype):
         assert torch.equal(a, c)
 
 
+# (dtype, row width): row bytes 1152, 24, 28, 576, 14, 7, 576 and 2304 take
+# 16-, 8-, 4-, 16-, 2-, 1-, 16- and 16-byte units
+GATHER_ROWS = [(torch.float32, 288), (torch.float32, 6), (torch.float32, 7), (torch.bfloat16, 288),
+               (torch.bfloat16, 7), (torch.int8, 7), (torch.int16, 288), (torch.float64, 288)]
+assert {next(u for u in (16, 8, 4, 2, 1) if d * torch.empty(0, dtype=t).element_size() % u == 0)
+        for t, d in GATHER_ROWS} == {16, 8, 4, 2, 1}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64, torch.int16])
-@pytest.mark.parametrize("dim", [288, 7])
-def test_cuda_row_gather_equals_index_select(cuda, dtype, dim):
+@pytest.mark.parametrize("n_rows,block_e,n_buf", [(3000, 128, 8), (3001, 7, 1), (777, 512, 32), (1, 512, 16)])
+@pytest.mark.parametrize("dtype,dim", GATHER_ROWS)
+def test_cuda_row_gather_equals_index_select(cuda, dtype, dim, n_rows, block_e, n_buf):
+    """T5 bitwise equal to index_select at every unit size, row counts that
+    are no multiple of the block's rows or of its flat step, and indices
+    that repeat and hit both ends of src."""
     from nequip_tpu_torch.ops.kernels.row_gather import row_gather
 
     r = np.random.RandomState(0)
     src = torch.as_tensor(r.standard_normal((1000, dim)) * 100, device=cuda).to(dtype)
-    idx = torch.as_tensor(r.randint(0, 1000, 3000), dtype=torch.int32, device=cuda)
+    idx = r.randint(0, 1000, n_rows)
+    idx[: min(n_rows, 3)] = 999
+    idx[n_rows // 2 :: 97] = 0
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
     before = K.KERNELS["row_gather"].launches
-    got = row_gather(src, idx, block_e=128, n_buf=8)
+    got = row_gather(src, idx, block_e=block_e, n_buf=n_buf)
     torch.cuda.synchronize()
     assert K.KERNELS["row_gather"].launches == before + 1
     assert torch.equal(got, torch.index_select(src, 0, idx))

@@ -225,3 +225,18 @@ def test_plan_tables_cover_every_column():
     assert len(t["path_coef"]) == len(t["fwd_coef"]) == len(t["dx_coef"]) == sum(
         len(q["terms"]) for q in plan.paths
     )
+
+
+def test_plan_path_terms_run_by_m2():
+    """Each path's terms are its CG terms sorted stably by m2 (numpy's
+    stable argsort as the reference), so K2 sums A[p, m2] as one run and
+    the kernels that sum A[p, m2] term by term keep their order."""
+    p = _problem(unsorted=False)
+    plan = K.TPPlan(p["tp"])
+    t = plan._tables
+    for q, (w_off, mul, y_off, y_dim, t0, t1) in zip(plan.paths, t["paths"]):
+        terms = np.array([(q["x_off"] + m1 * mul, q["out_off"] + m3 * mul, m2) for m1, m2, m3, _ in q["terms"]])
+        order = np.argsort(terms[:, 2], kind="stable")
+        np.testing.assert_array_equal(t["path_terms"][t0:t1], terms[order])
+        np.testing.assert_array_equal(t["path_coef"][t0:t1], np.array([c for *_, c in q["terms"]])[order])
+        assert (np.diff(t["path_terms"][t0:t1, 2]) >= 0).all() and t["path_terms"][t0:t1, 2].max() < y_dim
