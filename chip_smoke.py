@@ -9,7 +9,10 @@ Phases (each prints a line; any failure exits non-zero):
      per source, all at once);
   2. every kernel against its plain PyTorch version on the card, at the three
      conv-layer shapes of the flagship on the 23k-atom fcc Cu graph, f32 and
-     f64, with median kernel and plain times (CUDA events): K1 conv_fwd, K2
+     f64, with median kernel and plain times (CUDA events): K1 conv_fwd
+     (bitwise equal on a repeat call, what each call allocated within its
+     output and carry rows, and beside it the time of the unfused
+     composition it replaces: radial_weights through torch.mm, then K4), K2
      conv_bwd (inference) and conv_bwd_train (all five outputs, dw1/dw2
      bitwise equal on a repeat call), the dW reduction dw_reduce at both
      of its shapes (dW2 h_e x dW_e and dW1 emb x dh_pre_e, one line each,
@@ -23,8 +26,8 @@ Phases (each prints a line; any failure exits non-zero):
      over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger)
      and, where one PyTorch call computes the same function, that call's
      time (library_ms: torch.mm for the dW reduction, index_add_ for K3);
-     K2's f32 per-layer times beside their bounds again on one line per
-     variant;
+     K1's and K2's f32 per-layer times beside their bounds again on one
+     line per kernel;
   3. the port in f64, kernels on the card, against the golden E/F/stress the
      JAX package wrote (tests/data/torch_port_golden.npz);
   4. serving: the flagship in f32 with tp_impl="fused" answers three
@@ -307,7 +310,8 @@ def phase2_kernels(n_atoms: int, reps: int):
     blocks = [m for m in model.modules() if isinstance(m, InteractionBlock)]
     rng = np.random.RandomState(0)
     dw_sums = {}  # dw_reduce f32 per shape, ms over the layers: kernel, plain, bound, torch.mm, both back to back
-    k2_layers = {"conv_bwd": [], "conv_bwd_train": []}  # f32 (kernel, bound) ms per layer
+    tile_layers = {"conv_fwd": [], "conv_bwd": [], "conv_bwd_train": []}  # f32 (kernel, bound) ms per layer
+    unfused_ms = []  # f32 ms per layer of what K1 replaces: radial_weights (torch.mm) then K4
     report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
                   "library_ms": None} for k in K.KERNELS if k not in MICROBENCH_KERNELS}
     for dtype, rtol, atol_rel in ((torch.float32, 1e-4, 1e-5), (torch.float64, 1e-10, 1e-10)):
@@ -388,7 +392,7 @@ def phase2_kernels(n_atoms: int, reps: int):
                 "dw_reduce dW1": lambda: torch.mm(emb[:n_real].t(), dh_pre),
                 "scatter_rows": lambda: buf.index_add_(0, src_idx, dx_edge[:n_real]),
             }
-            repeat_equal = ("conv_bwd_train", "dw_reduce", "tri_fwd_acc", "jvp_fwd", "jvp_bwd")
+            repeat_equal = ("conv_fwd", "conv_bwd_train", "dw_reduce", "tri_fwd_acc", "jvp_fwd", "jvp_bwd")
             for label, (kern, plain) in calls.items():
                 name = label.split()[0]  # the kernel; "dw_reduce dW1"/"dW2" are its two shapes
                 where = f"layer {li} {dtype}"
@@ -406,6 +410,8 @@ def phase2_kernels(n_atoms: int, reps: int):
                     torch.cuda.synchronize()
                     if counter.launches != before + 1:
                         raise RuntimeError(f"phase 2: {label} launch counter did not move")
+                    if name == "conv_fwd":
+                        _check_k1_allocations(torch.cuda.max_memory_allocated() - held, plan, x, w1, layout, where)
                     if name == "conv_bwd":
                         _check_k2_allocations(torch.cuda.max_memory_allocated() - held, plan, x, sh, emb, w2, where)
                     err = max(err, _check(label, got, _tuple(ref_run()), rtol, atol_rel, where))
@@ -429,6 +435,10 @@ def phase2_kernels(n_atoms: int, reps: int):
                     )
                 bound, by = _bound_ms(ops, nbytes)
                 burst = ""
+                if name == "conv_fwd":  # the unfused composition K1 replaces, as tp_impl="fused_tp" runs it
+                    unfused = cuda_median_ms(
+                        lambda: K.tri_fwd(plan, x, sh, K.radial_weights(emb, w1, w2, a0, a1), layout), reps)
+                    burst = f"; unfused radial_weights + K4 {unfused:.3f} ms"
                 if name == "dw_reduce":  # ten calls back to back: the host's cost per call hides
                     ms10, lib10 = (cuda_median_ms(lambda f=f: [f() for _ in range(10)], reps) / 10
                                    for f in (kern, library[label]))
@@ -441,8 +451,10 @@ def phase2_kernels(n_atoms: int, reps: int):
                     flush=True,
                 )
                 if dtype == torch.float32:
-                    if name in k2_layers:
-                        k2_layers[name].append((ms, bound))
+                    if name in tile_layers:
+                        tile_layers[name].append((ms, bound))
+                    if name == "conv_fwd":
+                        unfused_ms.append(unfused)
                     if name == "dw_reduce":
                         dw_sums.setdefault(label, np.zeros(6))[:] += (ms, plain_ms, bound, lib_ms, ms10, lib10)
                     r = report[name]
@@ -457,10 +469,12 @@ def phase2_kernels(n_atoms: int, reps: int):
             del x, sh, emb, w1, w2, g, w, h_e, dw_e, dh_pre, dx_edge, calls, checks, tx, tsh, dw, gt, acc, tacc, acc_t
             del s_ops, library, buf
             torch.cuda.empty_cache()
-    for name, rows in k2_layers.items():
+    for name, rows in tile_layers.items():
         print(f"phase 2 {name} f32 per layer (kernel / bound ms): "
               + ", ".join(f"{ms:.3f} / {bound:.3f}" for ms, bound in rows)
-              + f"; sum {sum(r[0] for r in rows):.3f} / {sum(r[1] for r in rows):.3f}", flush=True)
+              + f"; sum {sum(r[0] for r in rows):.3f} / {sum(r[1] for r in rows):.3f}"
+              + (f"; unfused radial_weights + K4 per layer {', '.join(f'{u:.3f}' for u in unfused_ms)}, "
+                 f"sum {sum(unfused_ms):.3f}" if name == "conv_fwd" else ""), flush=True)
     dw_sums["dw_reduce, both shapes (the report's row)"] = sum(dw_sums.values())
     for label, (ms, plain_ms, bound, lib_ms, ms10, lib10) in dw_sums.items():
         print(f"phase 2 {label} f32, sum of 3 layers: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -469,6 +483,23 @@ def phase2_kernels(n_atoms: int, reps: int):
     for r in report.values():
         r["bound_by"] = "operations" if r.pop("ops") / F32_FLOP_S > r.pop("bytes") / HBM_BYTES_S else "bytes"
     return report
+
+
+def _check_k1_allocations(nbytes: int, plan, x, w1, layout, where: str) -> None:
+    """K1 may allocate its output out [N, mid_dim] and its carry rows
+    [ceil(n_real / tile), mid_dim], with 32 MiB for its term tables and the
+    allocator's rounding, and nothing per edge besides: a per-edge [E, WN]
+    buffer would pass the limit by E x 96 x 4 B = 161 MB or more at the
+    23k-atom stream."""
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    tile = K.conv_fwd_tile(plan, *w1.shape, x.dtype, x.device)
+    rows = layout.num_nodes + K.conv_fwd_carry_rows(layout.n_real, tile)
+    limit = x.element_size() * rows * plan.mid_dim + 32 * 2**20
+    print(f"phase 2 conv_fwd {where}: allocated {nbytes / 2**20:.1f} MiB in one call, limit {limit / 2**20:.1f} MiB "
+          f"(out, {tile}-edge tiles' carry rows and 32 MiB; no per-edge [E, WN] or [E, hidden] buffer)", flush=True)
+    if nbytes > limit:
+        raise RuntimeError(f"phase 2: K1 allocated more than out and its carry rows at {where} (a per-edge buffer?)")
 
 
 def _check_k2_allocations(nbytes: int, plan, x, sh, emb, w2, where: str) -> None:

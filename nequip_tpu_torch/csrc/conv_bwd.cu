@@ -73,8 +73,8 @@
 // Registers and spills (nvcc -Xptxas -v, 32-edge tiles): f32 128 (two blocks
 // an SM), 8 bytes of spill; f64 one block an SM 255, 12 bytes (two blocks:
 // 128, 88-272 bytes); PERF.md lists every tile.
+#include "dense_tiles.cuh"
 #include "radial_mlp.cuh"
-#include "tp_common.cuh"
 
 namespace nequip {
 namespace {
@@ -129,19 +129,6 @@ __host__ __device__ inline BwdSmem bwd_smem(int tile, int wn, int hidden, int n_
   L.o_idx = o;
   L.bytes = static_cast<size_t>(o) * sizeof(T) + 2 * sizeof(int32_t) * tile;
   return L;
-}
-
-// the destination of real slot e: dst_ptr[n] <= e < dst_ptr[n + 1]
-__device__ __forceinline__ int find_dst(const int32_t* __restrict__ dst_ptr, int n_nodes, int e) {
-  int lo = 0, hi = n_nodes;  // dst_ptr[lo] <= e < dst_ptr[hi]
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(dst_ptr + mid) <= e)
-      lo = mid;
-    else
-      hi = mid;
-  }
-  return lo;
 }
 
 template <typename T, int TILE, int MIN_BLOCKS>
@@ -341,59 +328,14 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
   }
 }
 
-// Shared memory of one device: what a block may opt in to, and what an SM
-// holds for resident blocks (each also reserves `reserved` bytes).
-struct SmemLimits {
-  int dev = -1, optin = 0, per_sm = 0, reserved = 0;
-};
-
-// The limits of the current device, read once per thread and device.
-inline cudaError_t smem_limits(SmemLimits& out) {
-  static thread_local SmemLimits cache;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (cache.dev != dev) {
-    SmemLimits l;
-    l.dev = dev;
-    if ((err = cudaDeviceGetAttribute(&l.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&l.per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&l.reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)) != cudaSuccess)
-      return err;
-    cache = l;
-  }
-  out = cache;
-  return cudaSuccess;
-}
-
-// One tile shape launched on a persistent grid of every block that fits on
-// the card at once.  The grid and the shared-memory opt-in are set up once
-// per thread, device and size (a model has a few layer shapes), so a repeat
-// launch makes no other CUDA call.
+// One tile shape launched on the persistent grid (dense_tiles.cuh).
 template <typename T, int TILE, int MIN_BLOCKS>
 cudaError_t launch_tile(const ConvBwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
   auto kernel = conv_bwd_kernel<T, TILE, MIN_BLOCKS>;
-  struct Grid {
-    int dev = -1, grid = 0;
-    size_t smem = 0;
-  };
-  static thread_local Grid cache[8];
-  static thread_local int next = 0;
-  const Grid* c = nullptr;
-  for (const Grid& g : cache)
-    if (g.dev == dev && g.smem == smem) c = &g;
-  if (c == nullptr) {
-    cudaError_t err = allow_dynamic_smem(kernel, smem);
-    int sms = 0, per_sm = 0;
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads, smem);
-    if (err != cudaSuccess) return err;
-    Grid& g = cache[next];
-    next = (next + 1) % 8;
-    g.dev = dev, g.smem = smem, g.grid = sms * (per_sm > 0 ? per_sm : 1);
-    c = &g;
-  }
-  kernel<<<c->grid, kBwdThreads, smem, stream>>>(args);
+  int grid = 0;
+  const cudaError_t err = persistent_grid(kernel, kBwdThreads, dev, smem, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBwdThreads, smem, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -413,14 +355,12 @@ int launch_conv_bwd(const ConvBwdArgs<T>& args, void* stream) {
   auto smem = [&](int tile) {
     return bwd_smem<T>(tile, args.wn, args.hidden, args.n_emb, args.sh_dim, args.n_paths).bytes;
   };
-  const size_t optin = static_cast<size_t>(lim.optin);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (smem(32) <= optin) {
-    if (2 * (smem(32) + lim.reserved) <= static_cast<size_t>(lim.per_sm))
-      return static_cast<int>(launch_tile<T, 32, 2>(args, lim.dev, smem(32), s));
+  if (lim.fit(smem(32), 1)) {
+    if (lim.fit(smem(32), 2)) return static_cast<int>(launch_tile<T, 32, 2>(args, lim.dev, smem(32), s));
     return static_cast<int>(launch_tile<T, 32, 1>(args, lim.dev, smem(32), s));
   }
-  if (smem(16) <= optin) return static_cast<int>(launch_tile<T, 16, 1>(args, lim.dev, smem(16), s));
+  if (lim.fit(smem(16), 1)) return static_cast<int>(launch_tile<T, 16, 1>(args, lim.dev, smem(16), s));
   return static_cast<int>(launch_tile<T, 8, 1>(args, lim.dev, smem(8), s));  // refused if it does not fit either
 }
 

@@ -3,165 +3,372 @@
 //
 // Replaces the TPU kernel nequip_tpu/ops/pallas/tp_scatter.py,
 // _make_fused_mlp.forward (kernel body _fwd_mlp_kernel_T, CG block
-// _compute_tp_block_T).  Per edge e with source s and destination n:
+// _compute_tp_block_T).  Per real edge e with source s and destination n:
 //   w_e = alpha1 * silu(alpha0 * emb_e . W1) . W2            (radial MLP)
 //   out[n, out_row + u] += w_e[w_off + u] * sum_terms c * sh_e[y] * x[s, x_row + u]
+// Rows of nodes with no real edge (padding nodes too) are zero; masked
+// slots are never read.
 //
-// What bounds it on an H100: its bytes are the x[src] gather (419,904 x 288
-// x 4 B ~ 484 MB in layer 1 at 23k atoms, f32) and W2 (128 x 352 x 4 B =
-// 180 KB) read from L2 per edge tile, ~0.2 ms at HBM rate; measured, it
-// takes 5.9 / 14.4 / 6.0 ms in the three layers (H100 80GB HBM3, 700 W), so
-// it is bound by latency: each 8-edge tile passes four barriers, and in the
-// radial-weight loop only WN threads (96 of 256 in layers 0 and 2) are busy,
-// each walking the 128 hidden units in sequence.
-// Design: one block per destination node walks that node's CSR segment of
-// the dst-sorted edge stream, so the node's output row (<= 1120 values)
-// accumulates in shared memory and is written once: no atomics, and the sum
-// order is fixed.  Edges are staged kEdgeTile at a time, so each W1/W2 value
-// read from L2 serves kEdgeTile edges, and the [E, WN] radial weights never
-// reach device memory.  The CG terms come from a run-time table (one group
-// per output row (path, m3)).  Tiles spanning several nodes (more edges per
-// W2 pass) and per-model generated code are the next steps for speed.
-#include "tp_common.cuh"
+// What bounds it on an H100 (flagship, 23k atoms, 419,904 edges, f32):
+// operations, the radial MLP's product with W2 (2 x 128 x WN FMAs per edge,
+// WN = 96 / 352 / 96), 1.00 ms over the three layers at 67 TFLOP/s of FFMA;
+// its bytes (x[src], out) take less.  The first design, one block per
+// destination stepping 8 edges at a time, took 5.60 / 14.29 / 5.89 ms in
+// the three layers: ~18-edge segments left its tiles 75% full, and its MLP
+// loops kept only WN or hidden of 256 threads busy, re-reading W1/W2 from
+// L2 for every 8 edges.
+// Design (dense edge tiles, as K2 in conv_bwd.cu):
+// - A block takes TILE = 32 consecutive real slots of the dst-sorted stream,
+//   across node boundaries, on a persistent grid of (SMs x resident blocks)
+//   (dense_tiles.cuh: n_real = dst_ptr[n_nodes] is read on the card; one
+//   warp finds the tile's destinations with a 32-ary search, tile_dst).
+// - The radial MLP is a block GEMM on the tile (radial_mlp.cuh): h =
+//   silu(alpha0 emb . W1) from a shared copy of W1, then w = alpha1 h . W2
+//   with W2 streamed in 16-row slabs through a 3-stage cp.async ring, each
+//   slab serving every edge of the tile; f32 (f64) FFMA, no tensor-core
+//   form being f32-exact.  w stays in shared memory: no [E, WN] or
+//   [E, hidden] buffer is written.
+// - The CG product: the tile's x[src] rows are copied into shared memory
+//   (cp.async, over the memory h and the ring held during the GEMM) with
+//   c * sh_e[y] per (edge, term) beside them.  Each thread owns output
+//   columns of the fwd_groups / fwd_terms tables: it forms the column's CG
+//   product for every edge of the tile in registers (each term's table
+//   entry read once a tile), then walks the edges in stream order keeping
+//   the column's running sum, and writes it out where the destination
+//   changes.  Within a tile every output is one thread's fixed-order sum.
+// - Destinations split across tiles: a tile whose last segment continues
+//   into the next tile writes that part to its row of carry [n_tiles,
+//   mid_dim]; every other segment goes to out (a segment that began in an
+//   earlier tile is the final part of its node).  A second launch, one warp
+//   per node, writes the zero rows of degree-0 and padding nodes and, for
+//   each node whose edges span tiles t0 < t1, out[n] = carry[t0] + ... +
+//   carry[t1 - 1] + out[n] in tile order.  No atomics: two calls give
+//   bitwise equal results.  The carry rows (59 MB in layer 1 in f32) live
+//   only inside the call, so the serving peak does not move; the owner-
+//   computes alternative (the tile holding a node's first edge finishes it)
+//   would redo the MLP GEMM for each tile's overflow edges.
+// - Shared memory: w [TILE][WN], then one region that holds h and the ring
+//   during the GEMM and x rows and c * y during the CG product, ~103 KB for
+//   a 32-edge f32 tile of layer 1, so two blocks share an SM (registers
+//   capped at 128); f64 takes one block an SM, and wider models 16- or
+//   8-edge tiles where a 32-edge one does not fit a block.
+// Measured (chip_smoke.py phase 2; H100 80GB HBM3, 700 W; PERF.md, K1
+// findings): 0.99 / 2.59 / 0.99 ms for the three layers, ~4.6x its bound.
+// In scratch builds (clock64 marks per phase, and copies without the GEMM
+// or without the CG product) the W2 GEMM took about half of K1 and the CG
+// product and its sums about a fifth.  Tried there and slower or no
+// faster: the term table in registers (up to 8 terms a column), each
+// thread's column metadata in registers, CG steps of 8 or 16 edges instead
+// of the whole tile.  Kept, each a small gain: tile_dst instead of a binary
+// search per edge, and silu with the fast exp and division in f32.
+// Registers and spills (nvcc -Xptxas -v): f32 32-edge tile 128 (two blocks
+// an SM), 8 bytes of spill; one block an SM 176; 16-edge 192, 8-edge 184;
+// f64 32-edge 253 (two blocks: 128), 16-edge 254, 8-edge 249; none spill
+// but the first; the second launch 31.
+#include "dense_tiles.cuh"
+#include "radial_mlp.cuh"
 
 namespace nequip {
+namespace {
 
-// groups: int32 [G, 4] = (out_row, w_off, t_begin, t_end), one per (path, m3)
-// terms:  int32 [T, 2] = (x_row, y_index) with coef[T] = cg * path_weight
-// col_group: int32 [mid_dim], the group owning each output column
+constexpr int kFwdThreads = 256;  // tile_gemm's 8 warps
+constexpr int kFwdBK = 16;        // W2 rows per slab of the ring
+constexpr int kFwdStages = 3;
+constexpr int kFinishWarps = 8;   // nodes per block of the second launch
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) conv_fwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ emb,
-    const T* __restrict__ w1, const T* __restrict__ w2,
-    const int32_t* __restrict__ edge_src, const int32_t* __restrict__ dst_ptr,
-    const int32_t* __restrict__ groups, const int32_t* __restrict__ terms,
-    const T* __restrict__ coef, const int32_t* __restrict__ col_group,
-    T* __restrict__ out,
-    int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,
-    T alpha0, T alpha1) {
+struct ConvFwdArgs {
+  const T *x, *sh, *emb, *w1, *w2;
+  const int32_t *edge_src, *dst_ptr, *groups, *terms;
+  const T* coef;
+  const int32_t* col_group;
+  T *out, *carry;
+  int n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim, n_terms;
+  T alpha0, alpha1;
+};
+
+// Shared-memory carve-up of one tile, in elements of T from the base (every
+// region starts on 16 bytes), then int32 s_src [TILE], s_dst [TILE] and two
+// flags.  The region at o_u holds h [TILE][ldh] and the ring during the
+// GEMM, then x [TILE][dim_in] and, at o_u + o_cy, c * y [TILE][n_terms].
+struct FwdSmem {
+  int ldw, ldh, ldw1;  // row strides of s_w [TILE][ldw], s_h [TILE][ldh], s_w1 [n_emb][ldw1]
+  int o_u, o_cy, o_emb, o_y, o_w1, o_idx;
+  size_t bytes;
+};
+
+template <typename T>
+__host__ __device__ inline FwdSmem fwd_smem(int tile, int dim_in, int sh_dim, int n_emb, int hidden, int wn,
+                                           int n_terms) {
+  constexpr int V = mlp::Vec<T>::V, CW = 32 * V;
+  FwdSmem L;
+  L.ldw = mlp::round_up(wn, CW);         // whole column chunks: the GEMM's epilogue writes them
+  L.ldh = mlp::round_up(hidden, kFwdBK);  // whole k-slabs, zero past hidden
+  L.ldw1 = mlp::round_up(hidden, V);
+  int o = tile * L.ldw;
+  L.o_u = o;
+  const int gemm = tile * L.ldh + mlp::ring_elems<T, kFwdBK, kFwdStages>();
+  L.o_cy = mlp::round_up(tile * dim_in, V);
+  const int cg = L.o_cy + tile * n_terms;
+  o += mlp::round_up(gemm > cg ? gemm : cg, V);
+  L.o_emb = o;
+  o += mlp::round_up(tile * n_emb, V);
+  L.o_y = o;
+  o += mlp::round_up(tile * sh_dim, V);
+  L.o_w1 = o;
+  o += mlp::round_up(n_emb * L.ldw1, V);
+  L.o_idx = o;
+  L.bytes = static_cast<size_t>(o) * sizeof(T) + sizeof(int32_t) * (2 * tile + 2);
+  return L;
+}
+
+// silu(x) = x * sigmoid(x); in f32 with the fast exp and division (a few
+// ulp, far inside K1's tolerance), in f64 as written
+__device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + __expf(-x)); }
+__device__ __forceinline__ double silu(double x) { return x * sigmoid(x); }
+
+template <typename T, int TILE, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const ConvFwdArgs<T> a) {
+  constexpr int NT = kFwdThreads, TE = TILE / 8, V = mlp::Vec<T>::V;  // TE: rows a thread owns in the GEMM
+  static_assert(TILE % 8 == 0 && TILE <= 32, "one warp finds the tile's destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_acc = reinterpret_cast<T*>(smem_raw);  // [mid_dim]
-  T* s_x = s_acc + mid_dim;                    // [kEdgeTile, dim_in]
-  T* s_y = s_x + kEdgeTile * dim_in;           // [kEdgeTile, sh_dim]
-  T* s_emb = s_y + kEdgeTile * sh_dim;         // [kEdgeTile, n_emb]
-  T* s_h = s_emb + kEdgeTile * n_emb;          // [kEdgeTile, hidden]
-  T* s_w = s_h + kEdgeTile * hidden;           // [kEdgeTile, wn]
+  const int hidden = a.hidden, wn = a.wn, n_emb = a.n_emb, sh_dim = a.sh_dim, dim_in = a.dim_in;
+  const int mid_dim = a.mid_dim, n_terms = a.n_terms;
+  const FwdSmem L = fwd_smem<T>(TILE, dim_in, sh_dim, n_emb, hidden, wn, n_terms);
+  T* base_t = reinterpret_cast<T*>(smem_raw);
+  T* s_w = base_t;                // [TILE][ldw]
+  T* s_h = base_t + L.o_u;        // [TILE][ldh], during the GEMM
+  T* s_ring = s_h + TILE * L.ldh;  // the W2 ring, during the GEMM
+  T* s_x = base_t + L.o_u;        // [TILE][dim_in], after the GEMM
+  T* s_cy = s_x + L.o_cy;         // [TILE][n_terms], after the GEMM
+  T* s_emb = base_t + L.o_emb;    // [TILE][n_emb]
+  T* s_y = base_t + L.o_y;        // [TILE][sh_dim]
+  T* s_w1 = base_t + L.o_w1;      // [n_emb][ldw1]
+  int32_t* s_src = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
+  int32_t* s_dst = s_src + TILE;                                  // [TILE]
+  int32_t* s_flags = s_dst + TILE;  // [0]: bit e set where edge e ends its segment in the tile; [1]: carry
 
-  const int n = blockIdx.x;
   const int tid = threadIdx.x;
-  const int e_begin = dst_ptr[n];
-  const int e_end = dst_ptr[n + 1];
-  for (int o = tid; o < mid_dim; o += blockDim.x) s_acc[o] = T(0);
+  const int n_real = __ldg(a.dst_ptr + a.n_nodes);
+  const int n_tiles = mlp::cdiv(n_real, TILE);
+  if (static_cast<int>(blockIdx.x) >= n_tiles) return;
+  for (int i = tid; i < n_emb * L.ldw1; i += NT) {
+    const int r = i / L.ldw1, c = i - r * L.ldw1;
+    s_w1[i] = c < hidden ? a.w1[r * hidden + c] : T(0);
+  }
+  const bool x_vec = mlp::vec_ok(a.x, dim_in);
 
-  for (int base = e_begin; base < e_end; base += kEdgeTile) {
-    const int cnt = min(kEdgeTile, e_end - base);
-    __syncthreads();  // readers of the previous tile are done
-    for (int i = tid; i < cnt * dim_in; i += blockDim.x) {
-      const int e = i / dim_in;
-      s_x[i] = x[static_cast<int64_t>(edge_src[base + e]) * dim_in + (i - e * dim_in)];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * TILE;
+    const int cnt = min(TILE, n_real - base);
+    __syncthreads();  // s_w1 is staged; the previous tile's readers are done
+    if (tid < 32) {   // warp 0: sources, destinations, and where segments end
+      const bool real = tid < cnt;
+      const int d = tile_dst(a.dst_ptr, a.n_nodes, base, cnt);
+      const int d_next = __shfl_down_sync(0xffffffffu, d, 1);
+      const unsigned ends = __ballot_sync(0xffffffffu, real && (tid == cnt - 1 || d_next != d));
+      if (tid < TILE) {
+        s_src[tid] = real ? __ldg(a.edge_src + base + tid) : 0;
+        s_dst[tid] = d;
+      }
+      if (tid == 0) s_flags[0] = static_cast<int32_t>(ends);
+      if (tid == cnt - 1) s_flags[1] = __ldg(a.dst_ptr + d + 1) > base + cnt;  // the last segment continues
     }
-    for (int i = tid; i < cnt * sh_dim; i += blockDim.x)
-      s_y[i] = sh[static_cast<int64_t>(base) * sh_dim + i];
-    for (int i = tid; i < cnt * n_emb; i += blockDim.x)
-      s_emb[i] = emb[static_cast<int64_t>(base) * n_emb + i];
+    for (int i = tid; i < TILE * n_emb; i += NT)
+      s_emb[i] = i < cnt * n_emb ? a.emb[static_cast<int64_t>(base) * n_emb + i] : T(0);
+    for (int i = tid; i < TILE * sh_dim; i += NT)
+      s_y[i] = i < cnt * sh_dim ? a.sh[static_cast<int64_t>(base) * sh_dim + i] : T(0);
     __syncthreads();
 
-    // hidden layer: h = silu(alpha0 * emb . W1), W1 is [n_emb, hidden]
-    for (int t = tid; t < hidden; t += blockDim.x) {
-      T acc[kEdgeTile];
+    // hidden layer h = silu(h_pre), V columns of one edge per step, zero in the padding columns
+    for (int i = tid; i < TILE * (L.ldh / V); i += NT) {
+      const int e = i / (L.ldh / V), t0 = (i - e * (L.ldh / V)) * V;
+      T hp[V] = {};
+      if (t0 < hidden) mlp::hidden_pre(s_emb + e * n_emb, s_w1 + t0, L.ldw1, n_emb, a.alpha0, hp);
+      T v[V];
 #pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e) acc[e] = T(0);
-      for (int i = 0; i < n_emb; ++i) {
-        const T wv = w1[i * hidden + t];
+      for (int j = 0; j < V; ++j) v[j] = t0 + j < hidden ? silu(hp[j]) : T(0);
+      mlp::store16(s_h + e * L.ldh + t0, v);
+    }
+    // w = alpha1 * h . W2 (tile_gemm starts at a barrier: s_h is complete)
+    mlp::tile_gemm<T, TILE, kFwdBK, kFwdStages>(
+        s_h, L.ldh, a.w2, hidden, wn, s_ring, [&](int r0, int c0, T (&acc)[TE][V]) {
 #pragma unroll
-        for (int e = 0; e < kEdgeTile; ++e)
-          if (e < cnt) acc[e] += s_emb[e * n_emb + i] * wv;
+          for (int i = 0; i < TE; ++i) {
+            T v[V];
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[j] = a.alpha1 * acc[i][j];
+            mlp::store16(s_w + (r0 + i) * L.ldw + c0, v);
+          }
+        });
+
+    // x[src] rows into the region h and the ring held (tile_gemm ended at a
+    // barrier with no copy in flight); rows past cnt are zero
+    if (x_vec) {
+      const int units = dim_in / V;  // 16-byte units per row
+      for (int i = tid; i < TILE * units; i += NT) {
+        const int e = i / units, c = (i - e * units) * V;
+        const bool ok = e < cnt;
+        cp_async_16(s_x + e * dim_in + c, ok ? a.x + static_cast<int64_t>(s_src[e]) * dim_in + c : a.x, ok);
       }
+    } else {
+      for (int i = tid; i < TILE * dim_in; i += NT) {
+        const int e = i / dim_in, c = i - e * dim_in;
+        const bool ok = e < cnt;
+        cp_async_elem<sizeof(T)>(s_x + i, ok ? a.x + static_cast<int64_t>(s_src[e]) * dim_in + c : a.x, ok);
+      }
+    }
+    cp_async_commit();
+    for (int i = tid; i < TILE * n_terms; i += NT) {  // c * y per (edge, term), while the rows land
+      const int e = i / n_terms, k = i - e * n_terms;
+      s_cy[i] = __ldg(a.coef + k) * s_y[e * sh_dim + __ldg(a.terms + 2 * k + 1)];
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // CG product and segmented sum: thread o walks the tile's edges in order
+    const unsigned ends = static_cast<unsigned>(s_flags[0]);
+    T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * mid_dim : nullptr;
+    for (int o = tid; o < mid_dim; o += NT) {
+      const int32_t* gr = a.groups + 4 * __ldg(a.col_group + o);
+      const int u = o - __ldg(gr), wc = __ldg(gr + 1) + u, t0 = __ldg(gr + 2), t1 = __ldg(gr + 3);
+      T m[TILE];  // column o of each edge's CG product (zero on the rows past cnt)
 #pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e)
-        if (e < cnt) {
-          const T a = alpha0 * acc[e];
-          s_h[e * hidden + t] = a * sigmoid(a);
+      for (int e = 0; e < TILE; ++e) m[e] = T(0);
+      for (int k = t0; k < t1; ++k) {
+        const int xr = __ldg(a.terms + 2 * k) + u;
+#pragma unroll
+        for (int e = 0; e < TILE; ++e) m[e] += s_cy[e * n_terms + k] * s_x[e * dim_in + xr];
+      }
+      T acc = T(0);
+#pragma unroll
+      for (int e = 0; e < TILE; ++e) {
+        acc += s_w[e * L.ldw + wc] * m[e];
+        if ((ends >> e) & 1u) {  // edge e ends its segment: write the sum out
+          T* row = (e == cnt - 1 && carry_row != nullptr) ? carry_row
+                                                           : a.out + static_cast<int64_t>(s_dst[e]) * mid_dim;
+          row[o] = acc;
+          acc = T(0);
         }
-    }
-    __syncthreads();
-
-    // radial weights: w = alpha1 * h . W2, W2 is [hidden, wn]
-    for (int j = tid; j < wn; j += blockDim.x) {
-      T acc[kEdgeTile];
-#pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e) acc[e] = T(0);
-      for (int t = 0; t < hidden; ++t) {
-        const T wv = w2[static_cast<int64_t>(t) * wn + j];
-#pragma unroll
-        for (int e = 0; e < kEdgeTile; ++e)
-          if (e < cnt) acc[e] += s_h[e * hidden + t] * wv;
       }
-#pragma unroll
-      for (int e = 0; e < kEdgeTile; ++e)
-        if (e < cnt) s_w[e * wn + j] = alpha1 * acc[e];
-    }
-    __syncthreads();
-
-    // CG product: each thread owns its output columns, so no races
-    for (int o = tid; o < mid_dim; o += blockDim.x) {
-      const int32_t* gr = groups + 4 * col_group[o];
-      const int u = o - gr[0];
-      const int w_col = gr[1] + u;
-      const int t0 = gr[2];
-      const int t1 = gr[3];
-      T total = s_acc[o];
-      for (int e = 0; e < cnt; ++e) {
-        const T* xe = s_x + e * dim_in;
-        const T* ye = s_y + e * sh_dim;
-        T m = T(0);
-        for (int k = t0; k < t1; ++k) m += coef[k] * ye[terms[2 * k + 1]] * xe[terms[2 * k] + u];
-        total += s_w[e * wn + w_col] * m;
-      }
-      s_acc[o] = total;
     }
   }
-  for (int o = tid; o < mid_dim; o += blockDim.x)
-    out[static_cast<int64_t>(n) * mid_dim + o] = s_acc[o];
+}
+
+// One warp per node: zero rows where no real edge ends, and the sum of the
+// carried parts and the final part, in tile order, where a node's edges
+// span tiles.
+template <typename T>
+__global__ void __launch_bounds__(32 * kFinishWarps) conv_fwd_finish_kernel(const int32_t* __restrict__ dst_ptr,
+                                                                           const T* __restrict__ carry,
+                                                                           T* __restrict__ out, int n_nodes,
+                                                                           int mid_dim, int tile) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kFinishWarps + (threadIdx.x >> 5);
+  if (n >= n_nodes) return;
+  const int b = __ldg(dst_ptr + n), e = __ldg(dst_ptr + n + 1);
+  T* row = out + static_cast<int64_t>(n) * mid_dim;
+  if (b == e) {
+    for (int c = lane; c < mid_dim; c += 32) row[c] = T(0);
+    return;
+  }
+  const int t0 = b / tile, t1 = (e - 1) / tile;
+  if (t0 == t1) return;  // written whole by its tile
+  for (int c = lane; c < mid_dim; c += 32) {
+    T v = carry[static_cast<int64_t>(t0) * mid_dim + c];
+    for (int t = t0 + 1; t < t1; ++t) v += carry[static_cast<int64_t>(t) * mid_dim + c];
+    row[c] = v + row[c];
+  }
 }
 
 template <typename T>
-int launch_conv_fwd(const void* x, const void* sh, const void* emb, const void* w1,
-                    const void* w2, const void* edge_src, const void* dst_ptr,
-                    const void* groups, const void* terms, const void* coef,
-                    const void* col_group, void* out, int n_nodes, int dim_in, int sh_dim,
-                    int n_emb, int hidden, int wn, int mid_dim, double alpha0, double alpha1,
-                    void* stream) {
-  const size_t smem = sizeof(T) * (static_cast<size_t>(mid_dim) +
-                                   static_cast<size_t>(kEdgeTile) *
-                                       (dim_in + sh_dim + n_emb + hidden + wn));
-  cudaError_t err = allow_dynamic_smem(conv_fwd_kernel<T>, smem);
+size_t fwd_bytes(const ConvFwdArgs<T>& a, int tile) {
+  return fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.n_emb, a.hidden, a.wn, a.n_terms).bytes;
+}
+
+// The largest tile (32, 16 or 8 edges) whose shared memory fits one block,
+// or 0 if none does.
+template <typename T>
+int pick_tile(const ConvFwdArgs<T>& a, const SmemLimits& lim) {
+  const int tiles[] = {32, 16, 8};
+  for (int tile : tiles)
+    if (lim.fit(fwd_bytes(a, tile), 1)) return tile;
+  return 0;
+}
+
+template <typename T, int TILE, int MIN_BLOCKS>
+cudaError_t launch_tile(const ConvFwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = conv_fwd_kernel<T, TILE, MIN_BLOCKS>;
+  int grid = 0;
+  const cudaError_t err = persistent_grid(kernel, kFwdThreads, dev, smem, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kFwdThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// Tile kernel, then the finish kernel.  The 32-edge tile caps registers at
+// 128 for two blocks an SM only where two fit in shared memory (f32 at the
+// flagship's widths); `tile` must be pick_tile's (the caller sized carry
+// [ceil(n_real / tile), mid_dim] by it).
+template <typename T>
+int launch_conv_fwd(const ConvFwdArgs<T>& args, int tile, void* stream) {
+  if (args.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
+  SmemLimits lim;
+  cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_nodes > 0) {
-    conv_fwd_kernel<T><<<n_nodes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(emb),
-        static_cast<const T*>(w1), static_cast<const T*>(w2),
-        static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),
-        static_cast<const int32_t*>(groups), static_cast<const int32_t*>(terms),
-        static_cast<const T*>(coef), static_cast<const int32_t*>(col_group),
-        static_cast<T*>(out), dim_in, sh_dim, n_emb, hidden, wn, mid_dim,
-        static_cast<T>(alpha0), static_cast<T>(alpha1));
-  }
+  if (tile != pick_tile(args, lim)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fwd_bytes(args, tile);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile == 32)
+    err = lim.fit(smem, 2) ? launch_tile<T, 32, 2>(args, lim.dev, smem, s) : launch_tile<T, 32, 1>(args, lim.dev, smem, s);
+  else if (tile == 16)
+    err = launch_tile<T, 16, 1>(args, lim.dev, smem, s);
+  else
+    err = launch_tile<T, 8, 1>(args, lim.dev, smem, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_fwd_finish_kernel<T><<<mlp::cdiv(args.n_nodes, kFinishWarps), 32 * kFinishWarps, 0, s>>>(
+      args.dst_ptr, args.carry, args.out, args.n_nodes, args.mid_dim, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
+// pick_tile for the given widths on the current device; a CUDA error as -err
+template <typename T>
+int conv_fwd_tile(int dim_in, int sh_dim, int n_emb, int hidden, int wn, int n_terms) {
+  SmemLimits lim;
+  const cudaError_t err = smem_limits(lim);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  ConvFwdArgs<T> a{};
+  a.dim_in = dim_in, a.sh_dim = sh_dim, a.n_emb = n_emb, a.hidden = hidden, a.wn = wn, a.n_terms = n_terms;
+  return pick_tile(a, lim);
+}
+
+}  // namespace
 }  // namespace nequip
 
-#define NEQUIP_CONV_FWD(SUFFIX, T)                                                          \
-  extern "C" int nequip_conv_fwd_##SUFFIX(                                                 \
-      const void* x, const void* sh, const void* emb, const void* w1, const void* w2,      \
-      const void* edge_src, const void* dst_ptr, const void* groups, const void* terms,    \
-      const void* coef, const void* col_group, void* out, int n_nodes, int dim_in,         \
-      int sh_dim, int n_emb, int hidden, int wn, int mid_dim, double alpha0, double alpha1, \
-      void* stream) {                                                                      \
-    return nequip::launch_conv_fwd<T>(x, sh, emb, w1, w2, edge_src, dst_ptr, groups, terms, \
-                                      coef, col_group, out, n_nodes, dim_in, sh_dim, n_emb, \
-                                      hidden, wn, mid_dim, alpha0, alpha1, stream);         \
+#define NEQUIP_CONV_FWD(SUFFIX, T)                                                                               \
+  extern "C" int nequip_conv_fwd_tile_##SUFFIX(int dim_in, int sh_dim, int n_emb, int hidden, int wn,           \
+                                               int n_terms) {                                                   \
+    return nequip::conv_fwd_tile<T>(dim_in, sh_dim, n_emb, hidden, wn, n_terms);                                \
+  }                                                                                                             \
+  extern "C" int nequip_conv_fwd_##SUFFIX(                                                                      \
+      const void* x, const void* sh, const void* emb, const void* w1, const void* w2, const void* edge_src,     \
+      const void* dst_ptr, const void* groups, const void* terms, const void* coef, const void* col_group,       \
+      void* out, void* carry, int n_nodes, int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,   \
+      int n_terms, int tile, double alpha0, double alpha1, void* stream) {                                      \
+    const nequip::ConvFwdArgs<T> args{                                                                          \
+        static_cast<const T*>(x),         static_cast<const T*>(sh),                                            \
+        static_cast<const T*>(emb),       static_cast<const T*>(w1),                                            \
+        static_cast<const T*>(w2),        static_cast<const int32_t*>(edge_src),                                \
+        static_cast<const int32_t*>(dst_ptr), static_cast<const int32_t*>(groups),                              \
+        static_cast<const int32_t*>(terms), static_cast<const T*>(coef),                                        \
+        static_cast<const int32_t*>(col_group), static_cast<T*>(out),                                           \
+        static_cast<T*>(carry),           n_nodes,                                                              \
+        dim_in,                           sh_dim,                                                               \
+        n_emb,                            hidden,                                                               \
+        wn,                               mid_dim,                                                              \
+        n_terms,                          static_cast<T>(alpha0),                                               \
+        static_cast<T>(alpha1)};                                                                                \
+    return nequip::launch_conv_fwd<T>(args, tile, stream);                                                      \
   }
 
 NEQUIP_CONV_FWD(f32, float)

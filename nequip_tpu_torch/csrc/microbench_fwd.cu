@@ -37,8 +37,9 @@
 // edge order of every sum is fixed), and a second kernel sums the partials in
 // block order: no atomics, two runs are bitwise equal.  Within a step the
 // chunk goes kEdgeTile edges at a time through shared memory with the loops
-// of conv_fwd.cu (MLP: one thread per hidden unit, then per radial weight;
-// CG: one thread per output column, term tables from TPPlan).
+// of K1's first design, before its dense edge tiles (MLP: one thread per
+// hidden unit, then per radial weight; CG: one thread per output column,
+// term tables from TPPlan).
 #include <type_traits>
 
 #include "tp_common.cuh"

@@ -1,5 +1,6 @@
 // Block-GEMM routines of the radial MLP on a dense tile of edges, shared by
-// the convolution kernels that recompute the MLP in-kernel (K2, conv_bwd.cu).
+// the convolution kernels that compute the MLP in-kernel (K1, conv_fwd.cu;
+// K2, conv_bwd.cu).
 //
 // The MLP is W = alpha1 * silu(alpha0 * emb . W1) . W2 with W1 [n_emb, H]
 // and W2 [H, WN].  On a tile of TILE edges the two products with H and WN

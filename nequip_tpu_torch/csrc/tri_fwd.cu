@@ -7,8 +7,8 @@
 // tp_impl="fused_tp" and the second-order pass of the fused conv (three F
 // calls per layer in each VJP of K5).  Per edge e with source s, destination n:
 //   out[n, out_row + u] += w_e[w_off + u] * sum_terms c * y_e[yi] * x[s, x_row + u]
-// It is K1 (conv_fwd.cu) without the in-kernel radial MLP: w is read from
-// an [E, WN] buffer in kernel order.
+// It computes K1's sum (conv_fwd.cu) without the in-kernel radial MLP: w is
+// read from an [E, WN] buffer in kernel order.
 //
 // What bounds it on an H100: bytes, the x[src] gather and the w read
 // (419,904 x (288 + 352) x 4 B ~ 1.1 GB in layer 1 at 23k atoms, f32),

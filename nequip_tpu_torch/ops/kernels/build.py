@@ -31,7 +31,8 @@ BUILD_DIR = _PKG / "_build"
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # argument kinds of every exported entry point, in order
 _SIGNATURES: Dict[str, List] = {
-    "nequip_conv_fwd": [_P] * 12 + [_I] * 7 + [_D, _D, _P],
+    "nequip_conv_fwd": [_P] * 13 + [_I] * 9 + [_D, _D, _P],
+    "nequip_conv_fwd_tile": [_I] * 6,
     "nequip_conv_bwd": [_P] * 19 + [_I] * 8 + [_D, _D, _P],
     "nequip_conv_bwd_train": [_P] * 22 + [_I] * 8 + [_D, _D, _P],
     "nequip_dw_reduce": [_P] * 4 + [_I] * 5 + [_D, _P],

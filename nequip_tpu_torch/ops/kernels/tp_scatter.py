@@ -118,6 +118,7 @@ class TPPlan:
             raise ValueError(f"SH chunks wider than {_MAX_YDIM} (l > 4) are not supported")
         self._tables = self._build_tables()
         self._device_tables: Dict[Tuple[torch.device, torch.dtype], Dict[str, torch.Tensor]] = {}
+        self._fwd_tiles: Dict[tuple, int] = {}  # K1's edges per tile, by (device, dtype, n_emb, hidden)
 
     def _build_tables(self) -> Dict[str, np.ndarray]:
         # K1: one group per output row (path, m3)
@@ -448,21 +449,54 @@ def _check_layout(layout: EdgeLayout, device: torch.device) -> None:
             raise ValueError("edge layout tensors must be contiguous int32 on the kernel's device")
 
 
+def conv_fwd_carry_rows(n_real: int, tile: int) -> int:
+    """Rows of K1's carry buffer: one per tile of ``tile`` real edges (a tile
+    whose last destination continues into the next tile writes its part
+    there, see ``csrc/conv_fwd.cu``)."""
+    return _cdiv(n_real, tile)
+
+
+def conv_fwd_tile(plan: TPPlan, n_emb: int, hidden: int, dtype: torch.dtype, device) -> int:
+    """Edges per tile of K1 (32, 16 or 8: the largest whose shared memory
+    fits one block) for ``plan`` with an ``n_emb -> hidden -> WN`` radial
+    MLP on a CUDA ``device``; asked of the library once per widths and kept
+    with the plan."""
+    device = torch.device(device)
+    key = (device, dtype, n_emb, hidden)
+    if key not in plan._fwd_tiles:
+        with torch.cuda.device(device):
+            tile = build.entry_point("nequip_conv_fwd_tile", dtype)(
+                plan.dim_in, plan.sh_dim, n_emb, hidden, plan.weight_numel, len(plan._tables["fwd_coef"]))
+        if tile < 0:
+            build.check(-tile, "conv_fwd")
+        if tile == 0:
+            raise RuntimeError(f"conv_fwd: no edge tile fits in shared memory at dim_in {plan.dim_in}, "
+                               f"WN {plan.weight_numel}, hidden {hidden} in {dtype}")
+        plan._fwd_tiles[key] = tile
+    return plan._fwd_tiles[key]
+
+
 def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout):
-    """K1: ``[N, mid_dim]`` fused conv messages (see ``csrc/conv_fwd.cu``)."""
+    """K1: ``[N, mid_dim]`` fused conv messages (see ``csrc/conv_fwd.cu``:
+    dense tiles of 32 edges with the radial MLP as a block GEMM in shared
+    memory).  It allocates its output and the ``[n_tiles, mid_dim]`` carry
+    rows of destinations that tiles split, and no per-edge buffer."""
     if not _route("conv_fwd", x, sh, emb, w1, w2):
         return conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout)
     _check_layout(layout, x.device)
     n_emb, hidden = w1.shape
     tab = plan.device_tables(x.device, x.dtype)
+    n_terms = tab["fwd_coef"].shape[0]
+    tile = conv_fwd_tile(plan, n_emb, hidden, x.dtype, x.device)
     out = torch.empty(layout.num_nodes, plan.mid_dim, dtype=x.dtype, device=x.device)
+    carry = torch.empty(conv_fwd_carry_rows(layout.n_real, tile), plan.mid_dim, dtype=x.dtype, device=x.device)
     err = build.entry_point("nequip_conv_fwd", x.dtype)(
         x.data_ptr(), sh.data_ptr(), emb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(),
         tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
-        tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(),
+        tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(), carry.data_ptr(),
         layout.num_nodes, plan.dim_in, plan.sh_dim, n_emb, hidden, plan.weight_numel,
-        plan.mid_dim, alpha0, alpha1, torch.cuda.current_stream(x.device).cuda_stream,
+        plan.mid_dim, n_terms, tile, alpha0, alpha1, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "conv_fwd")
     conv_fwd.launches += 1

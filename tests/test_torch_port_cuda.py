@@ -123,9 +123,10 @@ def test_cuda_kernel_matches_plain(cuda, name, dtype):
         torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
 
 
-# K2's dense-tile cases (32-edge tiles in f32 and f64 at these widths):
-# (plan, destination degrees of the real edges); masked slots follow them
-K2_CASES = {
+# Dense-tile cases of K1 and K2 (32-edge tiles in f32 and f64 at these
+# widths): (plan, destination degrees of the real edges); masked slots
+# follow them
+DENSE_TILE_CASES = {
     "segment_longer_than_tile": ("small", [3, 0, 100, 5] + [18] * 20),
     "degree_0_and_1": ("small", list(np.random.RandomState(5).choice([0, 0, 0, 1, 1, 2, 7], 300))),
     "n_real_below_tile": ("small", [2, 0, 3]),
@@ -133,14 +134,15 @@ K2_CASES = {
     "n_real_zero": ("small", [0] * 50),
     "flagship_layer0": ("flagship0", [18] * 40 + [7]),
     "flagship_layer1": ("flagship1", [18] * 40 + [7]),
-    # wider models whose 32-edge tiles do not fit: 16-edge tiles (64 features
-    # in f64, 128 in f32) and 8-edge tiles (128 features in f64)
+    # wider models whose 32-edge tiles do not fit: 16-edge tiles (K2: 64
+    # features in f64, 128 in f32; K1 the same) and 8-edge tiles (128
+    # features in f64)
     "wide_64": ("wide64", [18] * 10 + [7]),
     "wide_128": ("wide128", [18] * 10 + [7]),
 }
 
 
-def _k2_plan(kind, device, dtype):
+def _tile_plan(kind, device, dtype):
     """(plan, w1 shape, alphas): the test TP with hidden 16, or one of the
     flagship's conv layers (hidden 128, WN 96 or 352)."""
     if kind == "small":
@@ -161,27 +163,70 @@ def _k2_plan(kind, device, dtype):
     return blk.tp_scatter.plan, tuple(blk.edge_mlp.w0.shape), blk.edge_mlp.alphas
 
 
+def _tile_stream(degrees, device, r, n_masked=37):
+    """The kernel-order layout of real edges with the given destination
+    degrees and random sources, then ``n_masked`` masked slots with random
+    destinations; returns (layout, n_slots)."""
+    n_nodes, n_real = len(degrees), int(np.sum(degrees))
+    n_slots = n_real + n_masked
+    dst = np.concatenate([np.repeat(np.arange(n_nodes), degrees), r.randint(0, n_nodes, n_masked)])
+    mask = np.arange(n_slots) < n_real
+    lay = K.relayout_edge_stream({
+        _keys.POSITIONS_KEY: torch.zeros(n_nodes, 3, device=device),
+        _keys.EDGE_INDEX_KEY: torch.as_tensor(np.stack([dst, r.randint(0, n_nodes, n_slots)]), device=device),
+        _keys.EDGE_MASK_KEY: torch.as_tensor(mask, device=device),
+    })[K.LAYOUT_KEY]
+    assert lay.n_real == n_real
+    return lay, n_slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_cuda_conv_fwd_dense_tiles(cuda, case, dtype):
+    """K1 on streams whose tiles cross node boundaries in every way (nodes
+    split over two or more tiles, the 16- and 8-edge tiles of wide models),
+    against the plain version at the file's tolerances; rows of empty and
+    padding nodes exactly zero; masked slots poisoned with NaN change
+    nothing; bitwise equal on a repeat call."""
+    kind, degrees = DENSE_TILE_CASES[case]
+    degrees = list(degrees) + [0] * 3  # padding nodes: no real edge, masked slots may point at them
+    plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, cuda, dtype)
+    r = np.random.RandomState(7)
+    lay, n_slots = _tile_stream(degrees, cuda, r)
+    n_nodes, n_real = len(degrees), lay.n_real
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=dtype, device=cuda)
+    x, sh, emb, w1, w2 = t(n_nodes, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden), \
+        t(hidden, plan.weight_numel)
+    before = K.KERNELS["conv_fwd"].launches
+    got = K.conv_fwd(plan, x, sh, emb, w1, w2, a0, a1, lay)
+    torch.cuda.synchronize()
+    assert K.KERNELS["conv_fwd"].launches == before + 1
+    want = K.conv_fwd_plain(plan, x, sh, emb, w1, w2, a0, a1, lay)
+    rtol, atol = _tol(dtype, want)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    empty = torch.as_tensor(np.asarray(degrees) == 0, device=cuda)
+    assert not got[empty].any()  # NaN would count as nonzero
+    poisoned = [v.clone() for v in (sh, emb)]
+    for v in poisoned:
+        v[n_real:] = float("nan")
+    assert torch.equal(K.conv_fwd(plan, x, *poisoned, w1, w2, a0, a1, lay), got)
+    assert torch.equal(K.conv_fwd(plan, x, sh, emb, w1, w2, a0, a1, lay), got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", ["conv_bwd", "conv_bwd_train"])
-@pytest.mark.parametrize("case", list(K2_CASES))
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
 def test_cuda_conv_bwd_dense_tiles(cuda, case, name, dtype):
     """K2 (both variants) on streams whose tiles cross node boundaries in
     every way, against the plain version at the file's tolerances, zero at
     masked slots, and bitwise equal on a repeat call."""
-    kind, degrees = K2_CASES[case]
-    plan, (n_emb, hidden), (a0, a1) = _k2_plan(kind, cuda, dtype)
+    kind, degrees = DENSE_TILE_CASES[case]
+    plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, cuda, dtype)
     r = np.random.RandomState(6)
-    n_nodes, n_real = len(degrees), int(np.sum(degrees))
-    n_slots = n_real + 37
-    dst = np.concatenate([np.repeat(np.arange(n_nodes), degrees), r.randint(0, n_nodes, 37)])
-    mask = np.arange(n_slots) < n_real
-    lay = K.relayout_edge_stream({
-        _keys.POSITIONS_KEY: torch.zeros(n_nodes, 3, device=cuda),
-        _keys.EDGE_INDEX_KEY: torch.as_tensor(np.stack([dst, r.randint(0, n_nodes, n_slots)]), device=cuda),
-        _keys.EDGE_MASK_KEY: torch.as_tensor(mask, device=cuda),
-    })[K.LAYOUT_KEY]
-    assert lay.n_real == n_real
+    lay, n_slots = _tile_stream(degrees, cuda, r)
+    n_nodes, n_real = len(degrees), lay.n_real
     t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=dtype, device=cuda)
     args = (plan, t(n_nodes, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
             t(hidden, plan.weight_numel), a0, a1, lay, t(n_nodes, plan.mid_dim))

@@ -29,6 +29,7 @@ from nequip_tpu_torch.data import _keys
 from nequip_tpu_torch.ops.irreps import Irreps
 from nequip_tpu_torch.ops.kernels import tp_scatter as K
 from nequip_tpu_torch.ops.tensor_product import TensorProduct, uvu_instructions
+from test_torch_port_cuda import DENSE_TILE_CASES
 
 N_NODES, N_REAL, N_SLOTS, N_EMB, HIDDEN = 128, 300, 512, 8, 16
 
@@ -37,29 +38,41 @@ def _t(a, dtype=torch.float64):
     return torch.as_tensor(np.array(a), dtype=dtype)
 
 
-def _problem(unsorted: bool):
+def _problem(unsorted: bool, degrees=None):
+    """The test TP on 128 nodes with 300 real edges of 512 slots, or, given
+    destination degrees, on a stream of real edges with those degrees
+    (random sources) and 37 masked slots, over whole 128-row node tiles of
+    the JAX kernel."""
     r = np.random.RandomState(0)
     feats, sh = "8x0e+8x1o+8x2e", "1x0e+1x1o+1x2e"
     target = Irreps(feats) + Irreps("8x1e+8x2o")
     mid, ins = uvu_instructions(Irreps(feats), Irreps(sh), target)
     jmid, jins = j_uvu(JIrreps(feats), JIrreps(sh), JIrreps(str(target)))
     tp, jtp = TensorProduct(feats, sh, mid, ins), JTP(feats, sh, str(jmid), jins)
-    dst = np.sort(r.randint(0, 100, N_REAL))
-    src = r.randint(0, 100, N_REAL)
-    pad = np.full(N_SLOTS - N_REAL, N_NODES - 1)
-    edge_index = np.stack([np.concatenate([dst, pad]), np.concatenate([src, pad])])
-    mask = np.arange(N_SLOTS) < N_REAL
+    if degrees is None:
+        n_nodes, n_slots = N_NODES, N_SLOTS
+        dst = np.sort(r.randint(0, 100, N_REAL))
+        src = r.randint(0, 100, N_REAL)
+        pad = np.full(N_SLOTS - N_REAL, N_NODES - 1)
+        edge_index = np.stack([np.concatenate([dst, pad]), np.concatenate([src, pad])])
+        mask = np.arange(N_SLOTS) < N_REAL
+    else:
+        n_real = int(np.sum(degrees))
+        n_nodes, n_slots = -(-len(degrees) // 128) * 128, n_real + 37
+        dst = np.concatenate([np.repeat(np.arange(len(degrees)), degrees), r.randint(0, n_nodes, 37)])
+        edge_index = np.stack([dst, r.randint(0, n_nodes, n_slots)])
+        mask = np.arange(n_slots) < n_real
     if unsorted:
-        perm = np.random.RandomState(1).permutation(N_SLOTS)
+        perm = np.random.RandomState(1).permutation(n_slots)
         edge_index, mask = edge_index[:, perm], mask[perm]
     mlp = JScalarMLP(input_dim=N_EMB, output_dim=tp.weight_numel, hidden_layers_depth=1,
                      hidden_layers_width=HIDDEN, nonlinearity="silu", bias=False)
     mlp_params = jax.tree.map(np.asarray, mlp.init(jax.random.PRNGKey(2)))
     return dict(
-        tp=tp, jtp=jtp, mlp=mlp, mlp_params=mlp_params, edge_index=edge_index, mask=mask,
-        x=r.standard_normal((N_NODES, tp.irreps_in1.dim)),
-        sh=r.standard_normal((N_SLOTS, tp.irreps_in2.dim)),
-        emb=r.standard_normal((N_SLOTS, N_EMB)),
+        tp=tp, jtp=jtp, mlp=mlp, mlp_params=mlp_params, edge_index=edge_index, mask=mask, n_nodes=n_nodes,
+        x=r.standard_normal((n_nodes, tp.irreps_in1.dim)),
+        sh=r.standard_normal((n_slots, tp.irreps_in2.dim)),
+        emb=r.standard_normal((n_slots, N_EMB)),
     )
 
 
@@ -67,7 +80,7 @@ def _port_stream(p):
     """The port's kernel-order stream; returns (data, order) with
     data[k] == original[order] for every per-edge field."""
     data = {
-        _keys.POSITIONS_KEY: torch.zeros(N_NODES, 3, dtype=torch.float64),
+        _keys.POSITIONS_KEY: torch.zeros(p["n_nodes"], 3, dtype=torch.float64),
         _keys.EDGE_INDEX_KEY: torch.as_tensor(p["edge_index"], dtype=torch.int64),
         _keys.EDGE_MASK_KEY: torch.as_tensor(p["mask"]),
         _keys.EDGE_ATTRS_KEY: _t(p["sh"]),
@@ -75,7 +88,7 @@ def _port_stream(p):
     }
     out = K.relayout_edge_stream(data)
     ei = p["edge_index"]
-    order = np.argsort(np.where(p["mask"], ei[0], N_NODES), kind="stable")
+    order = np.argsort(np.where(p["mask"], ei[0], p["n_nodes"]), kind="stable")
     np.testing.assert_array_equal(out[_keys.EDGE_INDEX_KEY].numpy(), ei[:, order])
     np.testing.assert_array_equal(out[_keys.EDGE_ATTRS_KEY].numpy(), p["sh"][order])
     return out, order
@@ -94,12 +107,21 @@ def _port_call(p, data, x=None):
 def _jax_call(p, x, sh, emb):
     ei = jnp.asarray(p["edge_index"], dtype=jnp.int32)
     return j_fused(p["jtp"], p["mlp"], x, sh, emb, jax.tree.map(jnp.asarray, p["mlp_params"]),
-                   ei[0], ei[1], jnp.asarray(p["mask"]), N_NODES)
+                   ei[0], ei[1], jnp.asarray(p["mask"]), p["n_nodes"])
 
 
-@pytest.mark.parametrize("unsorted", [False, True])
-def test_fused_forward_matches_jax_pallas(unsorted):
-    p = _problem(unsorted)
+# the small degree patterns of K1/K2's dense-tile cases on the card
+DEGREE_CASES = {case: degrees for case, (kind, degrees) in DENSE_TILE_CASES.items() if kind == "small"}
+
+
+@pytest.mark.parametrize("unsorted,case", [(False, None), (True, None)] + [(False, c) for c in DEGREE_CASES],
+                         ids=["False", "True", *DEGREE_CASES])
+def test_fused_forward_matches_jax_pallas(unsorted, case):
+    """The port's fused forward against the JAX K1 (interpret mode), also on
+    streams whose 32-edge tiles split destinations in every way the card's
+    K1 meets: a segment longer than a tile, degrees 0 and 1, fewer real
+    edges than a tile, a ragged last tile, every slot masked."""
+    p = _problem(unsorted, None if case is None else DEGREE_CASES[case])
     data, _ = _port_stream(p)
     got = _port_call(p, data).numpy()
     want = np.asarray(_jax_call(p, jnp.asarray(p["x"]), jnp.asarray(p["sh"]), jnp.asarray(p["emb"])))
@@ -167,6 +189,60 @@ def test_poisoned_masked_slots_change_nothing():
         bad[k] = t
     for a, b in zip(clean, run(bad)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _tile_split_sum(dst_ptr, msg, tile):
+    """Segment sums of ``msg`` in the order of conv_fwd.cu, modelled in
+    numpy: each tile of ``tile`` real slots sums every segment in edge order
+    and writes it where it ends in the tile, to the tile's carry row if the
+    segment continues into the next tile, else to ``out``; then, per node,
+    zero rows where no edge ends and carry[t0] + ... + carry[t1 - 1] +
+    out[n] where the node's edges span tiles t0 < t1."""
+    n_nodes, n_real = len(dst_ptr) - 1, int(dst_ptr[-1])
+    out = np.full((n_nodes, msg.shape[1]), np.nan)
+    carry = np.full((K.conv_fwd_carry_rows(n_real, tile), msg.shape[1]), np.nan)
+    dst = np.searchsorted(dst_ptr, np.arange(n_real), side="right") - 1  # find_dst
+    for t in range(carry.shape[0]):
+        base = t * tile
+        cnt = min(tile, n_real - base)
+        acc = np.zeros(msg.shape[1])
+        for e in range(cnt):
+            acc = acc + msg[base + e]
+            d = dst[base + e]
+            if e == cnt - 1 or dst[base + e + 1] != d:
+                if e == cnt - 1 and dst_ptr[d + 1] > base + cnt:
+                    carry[t] = acc
+                else:
+                    out[d] = acc
+                acc = np.zeros(msg.shape[1])
+    for n in range(n_nodes):
+        b, e = dst_ptr[n], dst_ptr[n + 1]
+        if b == e:
+            out[n] = 0.0
+            continue
+        t0, t1 = b // tile, (e - 1) // tile
+        if t0 != t1:
+            v = carry[t0]
+            for t in range(t0 + 1, t1):
+                v = v + carry[t]
+            out[n] = v + out[n]
+    return out
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_conv_fwd_tile_split_sums_every_segment(case, tile):
+    """K1's split of destinations across tiles (the carry rows the wrapper
+    sizes with ``conv_fwd_carry_rows``, the order of the second launch)
+    writes every node's row once, with the sum of its segment."""
+    degrees = np.asarray(DENSE_TILE_CASES[case][1] + [0] * 3)
+    dst_ptr = np.concatenate([[0], np.cumsum(degrees)])
+    msg = np.random.RandomState(4).standard_normal((int(dst_ptr[-1]), 5))
+    want = np.zeros((len(degrees), 5))
+    np.add.at(want, np.repeat(np.arange(len(degrees)), degrees), msg)
+    got = _tile_split_sum(dst_ptr, msg, tile)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
 def test_layout_csr_matches_numpy():
