@@ -44,12 +44,14 @@
 //   W2 / W2^T streamed in 16-row slabs through a 3-stage cp.async ring and
 //   reused by every edge of the tile; 4 x 4 register micro-tiles per thread.
 //   h_pre is recomputed (n_emb FMAs, in the same order) where silu' needs it.
-// - The CG-VJP runs over (8-edge group, 32-column block) items for dx and
-//   (8-edge group, path) items for dW_e and dsh, lanes over channels, each
-//   term's table entry read once for 8 edges, whose x and g loads are in
-//   flight together.  TPPlan sorts each path's terms by m2, so A[p, m2] is
-//   one run of terms, folded into dW_e and into the dsh partial (a
-//   warp-shuffle sum over channels) when the run ends.
+// - The CG-VJP (cg_vjp.cuh, shared with K5 and K7) runs over (8-edge group,
+//   32-column block) items for dx and (8-edge group, path) items for dW_e
+//   and dsh, lanes over channels, each term's table entry read once for 8
+//   edges, whose x and g loads are in flight together (a g value once where
+//   the 8 edges share a destination).  TPPlan sorts each path's terms by m2,
+//   so A[p, m2] is one run of terms, folded into dW_e and into the dsh
+//   partial (a reduce-scatter over the channels) when the run ends; the
+//   (group, path) items go to the warps heaviest path first.
 // - dW_e overwrites w in shared memory in place (one thread reads w[e][j]
 //   before it writes dW_e[e][j]; dx is done by then), and the dsh partials
 //   share the ring's memory, so a 32-edge f32 tile of layer 1 needs ~97 KB
@@ -60,7 +62,8 @@
 // - Every output element is written by one thread from sums in a fixed
 //   order: two calls give bitwise equal results.
 // Measured (H100 80GB HBM3, 700 W; PERF.md, K2 findings): 2.4 / 6.8 / 2.4 ms for
-// the three layers, ~5.7x its bound.  clock64 marks per phase (layer 1,
+// the three layers, ~5.7x its bound (PR 7; since the shared CG-VJP of PR 9
+// about 8% less, PERF.md PR 9).  clock64 marks per phase (PR 7, layer 1,
 // cycles per tile of one block, two blocks an SM): the CG-VJP ~47% (dW_e
 // and dsh 88k, dx 30k; short runs of ~2.4 terms, each ending in 8 shuffle
 // reductions, and L2 latency), the two GEMMs ~41% (~50% of FFMA issue with
@@ -73,6 +76,7 @@
 // Registers and spills (nvcc -Xptxas -v, 32-edge tiles): f32 128 (two blocks
 // an SM), 8 bytes of spill; f64 one block an SM 255, 12 bytes (two blocks:
 // 128, 88-272 bytes); PERF.md lists every tile.
+#include "cg_vjp.cuh"
 #include "dense_tiles.cuh"
 #include "radial_mlp.cuh"
 
@@ -100,7 +104,8 @@ struct ConvBwdArgs {
 };
 
 // Shared-memory carve-up of one tile, in elements of T from the base (every
-// region starts on 16 bytes), then two int32 [TILE] arrays.
+// region starts on 16 bytes), then two int32 [TILE] arrays and int32
+// [n_paths] (the paths' order of cg::order_paths).
 struct BwdSmem {
   int ldw, ldh, ldw1;  // row strides of s_w [TILE][ldw], s_h [TILE][ldh], s_w1 [n_emb][ldw1]
   int o_h, o_ring, o_emb, o_y, o_w1, o_idx;
@@ -127,14 +132,14 @@ __host__ __device__ inline BwdSmem bwd_smem(int tile, int wn, int hidden, int n_
   L.o_w1 = o;
   o += mlp::round_up(n_emb * L.ldw1, V);
   L.o_idx = o;
-  L.bytes = static_cast<size_t>(o) * sizeof(T) + 2 * sizeof(int32_t) * tile;
+  L.bytes = static_cast<size_t>(o) * sizeof(T) + sizeof(int32_t) * (2 * tile + n_paths);
   return L;
 }
 
 template <typename T, int TILE, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const ConvBwdArgs<T> a) {
   constexpr int NW = kBwdWarps, NT = kBwdThreads, TE = TILE / 8, V = mlp::Vec<T>::V;  // TE: rows a thread owns in the GEMMs
-  constexpr int TC = TILE < kCgEdges ? TILE : kCgEdges, NG = TILE / TC;  // edges per CG item, edge groups
+  constexpr int TC = TILE < kCgEdges ? TILE : kCgEdges;  // edges per CG item
   static_assert(NW == 8 && TILE % 8 == 0 && TILE % TC == 0, "tile_gemm takes 8 warps with whole rows each");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hidden = a.hidden, wn = a.wn, n_emb = a.n_emb, sh_dim = a.sh_dim, dim_in = a.dim_in;
@@ -150,13 +155,16 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
   T* s_w1 = base_t + L.o_w1;       // [n_emb][ldw1]
   int32_t* s_src = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
   int32_t* s_dst = s_src + TILE;                                  // [TILE]
+  int32_t* s_order = s_dst + TILE;                                // [n_paths]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const cg::Tables<T> tab{a.dx_groups, a.dx_terms, a.dx_coef, a.dx_col_group, a.paths, a.path_terms,
+                          a.path_coef, n_paths};
+  const int tid = threadIdx.x;
   const int n_real = __ldg(a.dst_ptr + a.n_nodes);
   const int n_tiles = mlp::cdiv(n_real, TILE);
   if (static_cast<int>(blockIdx.x) >= n_tiles) return;
   for (int i = tid; i < n_emb * hidden; i += NT) s_w1[(i / hidden) * L.ldw1 + i % hidden] = a.w1[i];
-  const int n_cb = mlp::cdiv(dim_in, 32);  // 32-column blocks of dx
+  cg::order_paths(tab, s_order);
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * TILE;
@@ -165,7 +173,7 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
     if (tid < TILE) {
       const bool real = tid < cnt;  // rows past cnt compute finite values that are not written
       s_src[tid] = real ? __ldg(a.edge_src + base + tid) : 0;
-      s_dst[tid] = real ? find_dst(a.dst_ptr, a.n_nodes, base + tid) : 0;
+      s_dst[tid] = find_dst(a.dst_ptr, a.n_nodes, base + min(tid, cnt - 1));  // sorted, as cg_vjp.cuh needs
     }
     for (int i = tid; i < TILE * n_emb; i += NT)
       s_emb[i] = i < cnt * n_emb ? a.emb[static_cast<int64_t>(base) * n_emb + i] : T(0);
@@ -197,103 +205,21 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
             T v[V];
 #pragma unroll
             for (int j = 0; j < V; ++j) v[j] = a.alpha1 * acc[i][j];
-            mlp::store16(s_w + (r0 + i) * L.ldw + c0, v);
+            store16(s_w + (r0 + i) * L.ldw + c0, v);
           }
         });
 
-    // dx: one warp per (TC-edge group, 32-column block), lanes over columns
+    // the CG-VJP (cg_vjp.cuh): dx, then dW_e in place of w and the dsh partials, then dsh
     for (int i = tid; i < TILE * n_paths * kMaxYDim; i += NT) s_dshp[i] = T(0);
-    for (int item = warp; item < NG * n_cb; item += NW) {
-      const int e0 = (item / n_cb) * TC, c = (item % n_cb) * 32 + lane;
-      if (e0 >= cnt || c >= dim_in) continue;
-      const int32_t* gr = a.dx_groups + 4 * __ldg(a.dx_col_group + c);
-      const int u = c - __ldg(gr), t0 = __ldg(gr + 2), t1 = __ldg(gr + 3);
-      int go[TC];  // g row offsets (the launcher checks n_nodes * mid_dim < 2^31)
-      T acc[TC];
-#pragma unroll
-      for (int i = 0; i < TC; ++i) {
-        go[i] = s_dst[e0 + i] * mid_dim + u;
-        acc[i] = T(0);
-      }
-#pragma unroll 2
-      for (int k = t0; k < t1; ++k) {
-        const int out_row = __ldg(a.dx_terms + 3 * k), yi = __ldg(a.dx_terms + 3 * k + 1);
-        const int wo = __ldg(a.dx_terms + 3 * k + 2) + u;
-        const T coef = __ldg(a.dx_coef + k);
-#pragma unroll
-        for (int i = 0; i < TC; ++i)
-          acc[i] += coef * s_y[(e0 + i) * sh_dim + yi] * __ldg(a.g + go[i] + out_row) * s_w[(e0 + i) * L.ldw + wo];
-      }
-#pragma unroll
-      for (int i = 0; i < TC; ++i)
-        if (e0 + i < cnt) a.dx_edge[static_cast<int64_t>(base + e0 + i) * dim_in + c] = acc[i];
-    }
+    const cg::GRows<T, false> gr{a.g, 0, mid_dim};
+    cg::dx_items<T, TILE, TC, NW>(tab, gr, s_dst, s_y, sh_dim, s_w, L.ldw, cnt, dim_in,
+                                  a.dx_edge + static_cast<int64_t>(base) * dim_in);
     __syncthreads();  // dx has read w; the dsh partials are zero
-
-    // dW_e (in place of w) and the dsh partials: one warp per (TC-edge group, path), lanes over channels
-    for (int item = warp; item < NG * n_paths; item += NW) {
-      const int e0 = (item / n_paths) * TC, p = item % n_paths;
-      if (e0 >= cnt) continue;
-      const int32_t* pt = a.paths + 6 * p;
-      const int w_off = __ldg(pt), mul = __ldg(pt + 1), y_off = __ldg(pt + 2);
-      const int t0 = __ldg(pt + 4), t1 = __ldg(pt + 5);
-      for (int ub = 0; ub < mul; ub += 32) {  // warp-uniform trip count
-        const int u = ub + lane;
-        const bool on = u < mul;
-        int xo[TC], go[TC];  // x and g row offsets (the launcher checks they fit in int32)
-        T wv[TC], dw[TC];
-#pragma unroll
-        for (int i = 0; i < TC; ++i) {
-          xo[i] = s_src[e0 + i] * dim_in + u;
-          go[i] = s_dst[e0 + i] * mid_dim + u;
-          wv[i] = on ? s_w[(e0 + i) * L.ldw + w_off + u] : T(0);
-          dw[i] = T(0);
-        }
-        for (int k = t0, run_end; k < t1; k = run_end) {  // one run of terms per m2 (TPPlan sorts them)
-          const int m = __ldg(a.path_terms + 3 * k + 2);
-          for (run_end = k + 1; run_end < t1 && __ldg(a.path_terms + 3 * run_end + 2) == m;) ++run_end;
-          T am[TC];
-#pragma unroll
-          for (int i = 0; i < TC; ++i) am[i] = T(0);
-          if (on) {
-#pragma unroll 2
-            for (int kk = k; kk < run_end; ++kk) {
-              const int x_row = __ldg(a.path_terms + 3 * kk), out_row = __ldg(a.path_terms + 3 * kk + 1);
-              const T coef = __ldg(a.path_coef + kk);
-#pragma unroll
-              for (int i = 0; i < TC; ++i) am[i] += coef * __ldg(a.x + xo[i] + x_row) * __ldg(a.g + go[i] + out_row);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < TC; ++i) {
-            dw[i] += s_y[(e0 + i) * sh_dim + y_off + m] * am[i];
-            T v = wv[i] * am[i];
-            for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-            if (lane == 0) s_dshp[((e0 + i) * n_paths + p) * kMaxYDim + m] += v;
-          }
-        }
-        if (on) {
-#pragma unroll
-          for (int i = 0; i < TC; ++i) {
-            s_w[(e0 + i) * L.ldw + w_off + u] = dw[i];
-            if (a.dw_edge != nullptr && e0 + i < cnt)
-              a.dw_edge[static_cast<int64_t>(base + e0 + i) * wn + w_off + u] = dw[i];
-          }
-        }
-      }
-    }
+    cg::dw_items<T, TILE, TC, NW>(
+        tab, s_order, cg::XRows<T, false>{a.x, s_src, dim_in}, gr, s_dst, s_y, sh_dim, s_w, L.ldw, cnt, s_dshp,
+        a.dw_edge == nullptr ? nullptr : a.dw_edge + static_cast<int64_t>(base) * wn, wn);
     __syncthreads();
-
-    // dsh: sum the path partials in path order
-    for (int i = tid; i < cnt * sh_dim; i += NT) {
-      const int e = i / sh_dim, c = i - e * sh_dim;
-      T acc = T(0);
-      for (int p = 0; p < n_paths; ++p) {
-        const int m = c - __ldg(a.paths + 6 * p + 2);
-        if (m >= 0 && m < __ldg(a.paths + 6 * p + 3)) acc += s_dshp[(e * n_paths + p) * kMaxYDim + m];
-      }
-      a.dsh[static_cast<int64_t>(base) * sh_dim + i] = acc;
-    }
+    cg::path_sum<T, NT>(tab, s_dshp, cnt, sh_dim, a.dsh + static_cast<int64_t>(base) * sh_dim);
     // dh_pre = alpha1 * (dW_e . W2^T) * silu'(h_pre), W2^T is [wn, hidden]
     // (tile_gemm starts at a barrier: the dsh partials are read, the ring is free)
     mlp::tile_gemm<T, TILE, kBwdBK, kBwdStages>(

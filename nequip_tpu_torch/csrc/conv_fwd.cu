@@ -188,7 +188,7 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
       T v[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) v[j] = t0 + j < hidden ? silu(hp[j]) : T(0);
-      mlp::store16(s_h + e * L.ldh + t0, v);
+      store16(s_h + e * L.ldh + t0, v);
     }
     // w = alpha1 * h . W2 (tile_gemm starts at a barrier: s_h is complete)
     mlp::tile_gemm<T, TILE, kFwdBK, kFwdStages>(
@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
             T v[V];
 #pragma unroll
             for (int j = 0; j < V; ++j) v[j] = a.alpha1 * acc[i][j];
-            mlp::store16(s_w + (r0 + i) * L.ldw + c0, v);
+            store16(s_w + (r0 + i) * L.ldw + c0, v);
           }
         });
 

@@ -1,6 +1,7 @@
 // cp.async staging of global memory into shared memory, and the 16-byte
-// shared loads that read it back: the helpers of the kernels that stream a
-// matrix through a shared-memory ring (dw_reduce.cu, radial_mlp.cuh).
+// loads and stores of V = 16 / sizeof(T) registers: the helpers of the
+// kernels that stream a matrix through a shared-memory ring (dw_reduce.cu,
+// radial_mlp.cuh) or stage an edge tile (dense_tiles.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +17,14 @@ __device__ __forceinline__ void load16(float* d, const float* s) {
 __device__ __forceinline__ void load16(double* d, const double* s) {
   const double2 v = *reinterpret_cast<const double2*>(s);
   d[0] = v.x, d[1] = v.y;
+}
+
+// one 16-byte store of V registers (shared or global memory)
+__device__ __forceinline__ void store16(float* d, const float* s) {
+  *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
+}
+__device__ __forceinline__ void store16(double* d, const double* s) {
+  *reinterpret_cast<double2*>(d) = make_double2(s[0], s[1]);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

@@ -1,13 +1,16 @@
 // Dense edge tiles of the dst-sorted stream on a persistent grid, shared by
 // the kernels that take TILE consecutive real slots across node boundaries
-// (K1, conv_fwd.cu; K2, conv_bwd.cu): each edge's destination, and the
-// launch geometry of a grid of every block that fits on the card at once.
+// (K1, conv_fwd.cu; K2, conv_bwd.cu; K5, tri_bwd.cu; K7, jvp_bwd.cu): each
+// edge's destination, the cp.async staging of a tile's rows and the stores
+// of its per-edge outputs, and the launch geometry of a grid of every block
+// that fits on the card at once.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "tp_common.cuh"
 
 namespace nequip {
@@ -53,6 +56,70 @@ __device__ __forceinline__ int tile_dst(const int32_t* __restrict__ dst_ptr, int
   const bool past = __shfl_sync(kAll, p, 31) <= e;
   if (lane >= cnt) return -1;
   return past ? find_dst(dst_ptr, n_nodes, e) : lo + rank;
+}
+
+// The 16-byte phase of p in elements: p - phase16(p) is 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ int phase16(const T* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+}
+
+// Starts the copy of the n contiguous elements src[0, n) to dst[ph + k]
+// (ph = phase16(src); dst 16-byte aligned with room for n_fill + 16 /
+// sizeof(T) - 1 elements), so both sides of each 16-byte copy are aligned
+// whatever src's alignment (an operand that is a row slice of a larger
+// tensor): element copies for the head and tail, 16-byte copies between.
+// dst[ph + k] for k in [n, n_fill) is set to zero.  The readers find the
+// rows at dst + phase16(src).
+template <typename T, int NT>
+__device__ __forceinline__ void stage_flat(T* dst, const T* __restrict__ src, int n, int n_fill, int tid) {
+  constexpr int V = 16 / sizeof(T);
+  const int ph = phase16(src);
+  T* d = dst + ph;
+  const int head = min(n, (V - ph) % V), n_vec = (n - head) / V, tail = head + n_vec * V;
+  for (int k = tid; k < head; k += NT) cp_async_elem<sizeof(T)>(d + k, src + k, true);
+  for (int j = tid; j < n_vec; j += NT) cp_async_16(d + head + j * V, src + head + j * V, true);
+  for (int k = tail + tid; k < n; k += NT) cp_async_elem<sizeof(T)>(d + k, src + k, true);
+  for (int k = n + tid; k < n_fill; k += NT) d[k] = T(0);
+}
+
+// Starts the gather of TILE rows of n elements, dst[e * n + c] = src[idx[e]
+// * n + c] for the edges e < cnt and zero for the others: 16-byte copies
+// where every row is 16-byte aligned, element copies otherwise.
+template <typename T, int TILE, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, const int32_t* __restrict__ idx,
+                                           int cnt, int n, int tid) {
+  constexpr int V = 16 / sizeof(T);
+  if ((n % V) == 0 && phase16(src) == 0) {
+    const int per_row = n / V;
+    for (int i = tid; i < TILE * per_row; i += NT) {
+      const int e = i / per_row, c = (i - e * per_row) * V;
+      const bool ok = e < cnt;
+      cp_async_16(dst + e * n + c, ok ? src + static_cast<int64_t>(__ldg(idx + e)) * n + c : src, ok);
+    }
+  } else {
+    for (int i = tid; i < TILE * n; i += NT) {
+      const int e = i / n, c = i - e * n;
+      const bool ok = e < cnt;
+      cp_async_elem<sizeof(T)>(dst + i, ok ? src + static_cast<int64_t>(__ldg(idx + e)) * n + c : src, ok);
+    }
+  }
+}
+
+// dst[0, n) = src[0, n) from shared to global memory: 16-byte stores for
+// the 16-byte aligned body of dst, element stores for its head and tail.
+template <typename T, int NT>
+__device__ __forceinline__ void store_flat(T* __restrict__ dst, const T* src, int n, int tid) {
+  constexpr int V = 16 / sizeof(T);
+  const int head = min(n, (V - phase16(dst)) % V), n_vec = (n - head) / V, tail = head + n_vec * V;
+  for (int k = tid; k < head; k += NT) dst[k] = src[k];
+  for (int j = tid; j < n_vec; j += NT) {
+    T v[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) v[q] = src[head + j * V + q];
+    store16(dst + head + j * V, v);
+  }
+  for (int k = tail + tid; k < n; k += NT) dst[k] = src[k];
 }
 
 // Shared memory of one device: what a block may opt in to, and what an SM
@@ -117,7 +184,10 @@ inline cudaError_t persistent_grid(Kernel kernel, int threads, int dev, size_t s
   int sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused size must not resurface as the next launch's error
+    return err;
+  }
   Entry& g = cache[next];
   next = (next + 1) % kEntries;
   g.fn = fn, g.dev = dev, g.smem = smem, g.grid = sms * (per_sm > 0 ? per_sm : 1);

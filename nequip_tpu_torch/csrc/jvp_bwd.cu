@@ -20,258 +20,216 @@
 // them through the radial MLP's jvp.
 //
 // What bounds it on an H100: bytes, the x/tx gathers and w/dw reads plus the
-// six per-edge outputs (419,904 x (4 x 288 + 4 x 352 + 4 x 9) x 4 B ~ 4.4 GB
-// in layer 1 at 23k atoms, f32), ~1.3 ms at HBM rate; like K5 it is more
-// likely latency bound by its barriers per edge tile.
-// Design: K5's (tri_bwd.cu), one block per destination node over its CSR
-// segment with g[n] and gt[n] in shared memory (the TPU kernel's one-hot
-// gather matmul is not needed), kEdgeTile edges per step.  dx/dtx: one
-// thread per input column; cw/cdw and the per-path dy/dty partials: one warp
-// per (edge, path) with lanes over channels, reduced by warp shuffles and
-// then across paths in a fixed order, so every sum is deterministic.  Shared
-// memory is 2 x mid_dim + kEdgeTile x (2 x (dim_in + sh_dim + WN) +
-// 2 x paths x kMaxYDim) values, 114 KB in layer 1 in f64 (allowed above
-// 48 KB; the card gives a block 227 KB).
-#include "tp_common.cuh"
+// six per-edge outputs (4 x 288 + 4 x 352 + 4 x 9 values an edge of layer 1,
+// f32); one of the fr sweep's 4 slices of the 23k-atom stream moves ~1.1 GB
+// there.
+// The first design (PR 3) was K5's first: one block per destination node, 8
+// edges a step, with three accumulator arrays under a 9-way select.
+// Design: K5's (tri_bwd.cu) with two of every operand.  Dense tiles of TILE
+// consecutive real slots of the slice's dst-sorted stream on a persistent
+// grid (dense_tiles.cuh), destinations by one warp (tile_dst); the tile's
+// x[src] and tx[src] rows, y, ty, w and dw rows staged by cp.async (rows of
+// an operand whose base is not 16-byte aligned, as sh[rows] of a slice, at
+// the source's 16-byte phase); g and gt rows are read through L1 (staging
+// them, as K5 does, was no faster here).  The three-family CG-VJP of
+// cg_vjp.cuh: dx and dtx over (4-edge group, 32-column block) items, then
+// cw, cdw (in place of w, dw) and the dy/dty partials over (4-edge group,
+// path) items on m2 runs, reduce-scattered over the channels, then dy and
+// dty in path order; cw, cdw, dy and dty leave in 16-byte stores.  No
+// atomics, a fixed order of every sum: bitwise repeatable.  4-edge items
+// keep the three families in 128 registers without spilling (8-edge items
+// spill, PERF.md).
+// Shared memory (f32, layer 1): a 32-edge tile needs ~191 KB, one block an
+// SM; 16-edge tiles (96 KB) let two blocks share an SM and are taken.  f64
+// of layer 1 takes 8-edge tiles, 4-edge ones only models wider than the
+// flagship.  Registers (nvcc -Xptxas -v): 128 for two blocks an SM, 157-207
+// for one, no spills.
+// Measured (H100 80GB HBM3, 700 W; PERF.md, PR 9): f32 on one of 4 slices
+// 0.30 / 1.25 / 0.39 ms for the three layers in chip_smoke.py's phase 2,
+// 4.1x the bound (3.94 ms before).  clock64 marks (chip_cg_profile.py,
+// layer 1, cycles per 16-edge tile of one block): staging 12.0k, dx and dtx
+// 29.5k, cw, cdw and partials 37.4k, dy and dty 10.5k, stores 2.0k.
+#include "cg_vjp.cuh"
+#include "dense_tiles.cuh"
 
 namespace nequip {
+namespace {
 
-// dx_groups: int32 [Gx, 4] = (x_row, unused, t_begin, t_end), one per input row
-// dx_terms:  int32 [Tx, 3] = (out_row, y_index, w_off), dx_coef[Tx]
-// dx_col_group: int32 [dim_in]
-// paths:      int32 [P, 6] = (w_off, mul, y_off, y_dim, t_begin, t_end)
-// path_terms: int32 [Tp, 3] = (x_row, out_row, m2), path_coef[Tp]
+constexpr int kCgEdges = 4;  // edges of one CG-VJP item
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) jvp_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ tx, const T* __restrict__ y,
-    const T* __restrict__ ty, const T* __restrict__ w, const T* __restrict__ dw,
-    const int32_t* __restrict__ edge_src, const int32_t* __restrict__ dst_ptr,
-    const T* __restrict__ g, const T* __restrict__ gt,
-    const int32_t* __restrict__ dx_groups, const int32_t* __restrict__ dx_terms,
-    const T* __restrict__ dx_coef, const int32_t* __restrict__ dx_col_group,
-    const int32_t* __restrict__ paths, const int32_t* __restrict__ path_terms,
-    const T* __restrict__ path_coef, int n_paths,
-    T* __restrict__ dx_edge, T* __restrict__ dtx_edge, T* __restrict__ dy,
-    T* __restrict__ dty, T* __restrict__ cw, T* __restrict__ cdw,
-    int dim_in, int sh_dim, int wn, int mid_dim) {
+struct JvpBwdArgs {
+  const T *x, *tx, *y, *ty, *w, *dw;
+  const int32_t *edge_src, *dst_ptr;
+  const T *g, *gt;
+  cg::Tables<T> tab;
+  T *dx_edge, *dtx_edge, *dy, *dty, *cw, *cdw;
+  int n_nodes, dim_in, sh_dim, wn, mid_dim;
+};
+
+// Shared-memory carve-up, in elements of T: STAGES buffers of (w, dw, y,
+// ty, each with room for a 16-byte phase; x, tx rows), the dy and dty
+// partials, then int32 [TILE + n_paths] (the destinations and the paths'
+// order).
+struct JvpBwdSmem {
+  int o_dw, o_y, o_ty, o_x, o_tx, stage, o_part, o_tpart, o_dst;
+  size_t bytes;
+};
+
+template <typename T>
+__host__ __device__ inline JvpBwdSmem jvp_bwd_smem(int tile, int stages, int dim_in, int sh_dim, int wn,
+                                                   int n_paths) {
+  constexpr int V = 16 / sizeof(T);
+  auto up = [](int a) { return (a + V - 1) / V * V; };
+  JvpBwdSmem L;
+  L.o_dw = up(tile * wn + V - 1);
+  L.o_y = L.o_dw + up(tile * wn + V - 1);
+  L.o_ty = L.o_y + up(tile * sh_dim + V - 1);
+  L.o_x = L.o_ty + up(tile * sh_dim + V - 1);
+  L.o_tx = L.o_x + up(tile * dim_in);
+  L.stage = L.o_tx + up(tile * dim_in);
+  L.o_part = stages * L.stage;
+  L.o_tpart = L.o_part + up(tile * n_paths * kMaxYDim);
+  L.o_dst = L.o_tpart + up(tile * n_paths * kMaxYDim);
+  L.bytes = static_cast<size_t>(L.o_dst) * sizeof(T) + sizeof(int32_t) * (tile + n_paths);
+  return L;
+}
+
+template <typename T, int TILE, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const JvpBwdArgs<T> a) {
+  constexpr int NT = kThreads, NW = NT / 32, TC = TILE < kCgEdges ? TILE : kCgEdges;
+  static_assert(TILE <= 32 && TILE % TC == 0 && (STAGES == 1 || STAGES == 2), "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_g = reinterpret_cast<T*>(smem_raw);     // [mid_dim]
-  T* s_gt = s_g + mid_dim;                     // [mid_dim]
-  T* s_x = s_gt + mid_dim;                     // [kEdgeTile, dim_in]
-  T* s_tx = s_x + kEdgeTile * dim_in;          // [kEdgeTile, dim_in]
-  T* s_y = s_tx + kEdgeTile * dim_in;          // [kEdgeTile, sh_dim]
-  T* s_ty = s_y + kEdgeTile * sh_dim;          // [kEdgeTile, sh_dim]
-  T* s_w = s_ty + kEdgeTile * sh_dim;          // [kEdgeTile, wn]
-  T* s_dw = s_w + kEdgeTile * wn;              // [kEdgeTile, wn]
-  T* s_dyp = s_dw + kEdgeTile * wn;            // [kEdgeTile, n_paths, kMaxYDim]
-  T* s_dtyp = s_dyp + kEdgeTile * n_paths * kMaxYDim;
+  const int dim_in = a.dim_in, sh_dim = a.sh_dim, wn = a.wn, mid_dim = a.mid_dim;
+  const JvpBwdSmem L = jvp_bwd_smem<T>(TILE, STAGES, dim_in, sh_dim, wn, a.tab.n_paths);
+  T* base_t = reinterpret_cast<T*>(smem_raw);
+  T* s_part = base_t + L.o_part;    // [TILE][n_paths][kMaxYDim], dy
+  T* s_tpart = base_t + L.o_tpart;  // the same, dty
+  int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_dst);  // [TILE]
+  int32_t* s_order = s_dst + TILE;                                // [n_paths], heaviest first (cg::order_paths)
 
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int e_begin = dst_ptr[n];
-  const int e_end = dst_ptr[n + 1];
-  if (e_begin == e_end) return;  // no edge of this node in the stream (or slice)
-  for (int o = tid; o < mid_dim; o += blockDim.x) {
-    s_g[o] = g[static_cast<int64_t>(n) * mid_dim + o];
-    s_gt[o] = gt[static_cast<int64_t>(n) * mid_dim + o];
-  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_real = __ldg(a.dst_ptr + a.n_nodes);
+  const int n_tiles = (n_real + TILE - 1) / TILE;
+  if (static_cast<int>(blockIdx.x) >= n_tiles) return;
 
-  for (int base = e_begin; base < e_end; base += kEdgeTile) {
-    const int cnt = min(kEdgeTile, e_end - base);
-    __syncthreads();  // s_g/s_gt are loaded; readers of the previous tile are done
-    for (int i = tid; i < cnt * dim_in; i += blockDim.x) {
-      const int e = i / dim_in;
-      const int64_t at = static_cast<int64_t>(edge_src[base + e]) * dim_in + (i - e * dim_in);
-      s_x[i] = x[at];
-      s_tx[i] = tx[at];
+  auto stage = [&](int tile, int buf) {
+    const int base = tile * TILE, cnt = min(TILE, n_real - base);
+    const int64_t ow = static_cast<int64_t>(base) * wn, oy = static_cast<int64_t>(base) * sh_dim;
+    T* sb = base_t + buf * L.stage;
+    stage_flat<T, NT>(sb, a.w + ow, cnt * wn, TILE * wn, tid);
+    stage_flat<T, NT>(sb + L.o_dw, a.dw + ow, cnt * wn, TILE * wn, tid);
+    stage_flat<T, NT>(sb + L.o_y, a.y + oy, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_flat<T, NT>(sb + L.o_ty, a.ty + oy, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_rows<T, TILE, NT>(sb + L.o_x, a.x, a.edge_src + base, cnt, dim_in, tid);
+    stage_rows<T, TILE, NT>(sb + L.o_tx, a.tx, a.edge_src + base, cnt, dim_in, tid);
+    cp_async_commit();
+  };
+  cg::order_paths(a.tab, s_order);  // the loop's first barrier publishes it
+  if (STAGES == 2) stage(blockIdx.x, 0);
+
+  for (int tile = blockIdx.x, it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int base = tile * TILE, cnt = min(TILE, n_real - base);
+    const int buf = STAGES == 2 ? (it & 1) : 0;
+    __syncthreads();  // the previous tile's readers are done
+    if (warp == 0) {  // the destinations
+      const int d = tile_dst(a.dst_ptr, a.n_nodes, base, cnt);
+      const int d1 = __shfl_sync(0xffffffffu, d, cnt - 1);
+      if (lane < TILE) s_dst[lane] = d < 0 ? d1 : d;  // sorted; rows past cnt compute values not written
     }
-    for (int i = tid; i < cnt * sh_dim; i += blockDim.x) {
-      s_y[i] = y[static_cast<int64_t>(base) * sh_dim + i];
-      s_ty[i] = ty[static_cast<int64_t>(base) * sh_dim + i];
+    if (STAGES == 2) {
+      if (tile + static_cast<int>(gridDim.x) < n_tiles)
+        stage(tile + gridDim.x, buf ^ 1);
+      else
+        cp_async_commit();  // an empty group: the wait below counts one group ahead
+      cp_async_wait<1>();
+    } else {
+      stage(tile, 0);
     }
-    for (int i = tid; i < cnt * wn; i += blockDim.x) {
-      s_w[i] = w[static_cast<int64_t>(base) * wn + i];
-      s_dw[i] = dw[static_cast<int64_t>(base) * wn + i];
-    }
+    for (int i = tid; i < TILE * a.tab.n_paths * kMaxYDim; i += NT) s_part[i] = s_tpart[i] = T(0);
+    if (STAGES == 1) cp_async_wait<0>();
     __syncthreads();
 
-    // dx, dtx: one thread per input column
-    for (int c = tid; c < dim_in; c += blockDim.x) {
-      const int32_t* gr = dx_groups + 4 * dx_col_group[c];
-      const int u = c - gr[0];
-      const int t0 = gr[2];
-      const int t1 = gr[3];
-      for (int e = 0; e < cnt; ++e) {
-        const T* ye = s_y + e * sh_dim;
-        const T* tye = s_ty + e * sh_dim;
-        const T* we = s_w + e * wn;
-        const T* dwe = s_dw + e * wn;
-        T acc = T(0);
-        T tacc = T(0);
-        for (int k = t0; k < t1; ++k) {
-          const int32_t* tk = dx_terms + 3 * k;
-          const int o = tk[0] + u;
-          const T yv = ye[tk[1]];
-          const T wv = we[tk[2] + u];
-          const T ygt = dx_coef[k] * yv * s_gt[o];
-          acc += dx_coef[k] * wv * (yv * s_g[o] + tye[tk[1]] * s_gt[o]) + dwe[tk[2] + u] * ygt;
-          tacc += wv * ygt;
-        }
-        const int64_t at = static_cast<int64_t>(base + e) * dim_in + c;
-        dx_edge[at] = acc;
-        dtx_edge[at] = tacc;
-      }
-    }
-
-    // cw, cdw and the per-path dy/dty partials: one warp per (edge, path),
-    // lanes over channels
-    for (int pe = warp; pe < cnt * n_paths; pe += n_warps) {
-      const int e = pe / n_paths;
-      const int p = pe - e * n_paths;
-      const int32_t* pt = paths + 6 * p;
-      const int w_off = pt[0], mul = pt[1], y_off = pt[2], y_dim = pt[3];
-      const int t0 = pt[4], t1 = pt[5];
-      const T* xe = s_x + e * dim_in;
-      const T* txe = s_tx + e * dim_in;
-      const T* ye = s_y + e * sh_dim;
-      const T* tye = s_ty + e * sh_dim;
-      const T* we = s_w + e * wn;
-      const T* dwe = s_dw + e * wn;
-      T part[kMaxYDim];
-      T tpart[kMaxYDim];
-#pragma unroll
-      for (int m = 0; m < kMaxYDim; ++m) part[m] = tpart[m] = T(0);
-      for (int ub = 0; ub < mul; ub += 32) {  // warp-uniform trip count
-        const int u = ub + lane;
-        if (u < mul) {
-          T a1[kMaxYDim], a2[kMaxYDim], a3[kMaxYDim];
-#pragma unroll
-          for (int m = 0; m < kMaxYDim; ++m) a1[m] = a2[m] = a3[m] = T(0);
-          for (int k = t0; k < t1; ++k) {
-            const int32_t* tk = path_terms + 3 * k;
-            const T c = path_coef[k];
-            const T xv = xe[tk[0] + u];
-            const T gv = s_g[tk[1] + u];
-            const T gtv = s_gt[tk[1] + u];
-            const T v1 = c * xv * gv;
-            const T v2 = c * xv * gtv;
-            const T v3 = c * txe[tk[0] + u] * gtv;
-#pragma unroll
-            for (int m = 0; m < kMaxYDim; ++m)
-              if (m == tk[2]) {
-                a1[m] += v1;
-                a2[m] += v2;
-                a3[m] += v3;
-              }
-          }
-          const T wu = we[w_off + u];
-          const T dwu = dwe[w_off + u];
-          T cwu = T(0);
-          T cdwu = T(0);
-#pragma unroll
-          for (int m = 0; m < kMaxYDim; ++m)
-            if (m < y_dim) {
-              const T p13 = a1[m] + a3[m];
-              cwu += ye[y_off + m] * p13 + tye[y_off + m] * a2[m];
-              cdwu += ye[y_off + m] * a2[m];
-              part[m] += wu * p13 + dwu * a2[m];
-              tpart[m] += wu * a2[m];
-            }
-          const int64_t at = static_cast<int64_t>(base + e) * wn + w_off + u;
-          cw[at] = cwu;
-          cdw[at] = cdwu;
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kMaxYDim; ++m) {
-        T v = part[m];
-        T tv = tpart[m];
-        for (int off = 16; off > 0; off >>= 1) {
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-          tv += __shfl_xor_sync(0xffffffffu, tv, off);
-        }
-        part[m] = v;
-        tpart[m] = tv;
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int m = 0; m < kMaxYDim; ++m)
-          if (m < y_dim) {
-            s_dyp[(e * n_paths + p) * kMaxYDim + m] = part[m];
-            s_dtyp[(e * n_paths + p) * kMaxYDim + m] = tpart[m];
-          }
-      }
-    }
+    const int64_t ow = static_cast<int64_t>(base) * wn, oy = static_cast<int64_t>(base) * sh_dim;
+    const int64_t ox = static_cast<int64_t>(base) * dim_in;
+    T* sb = base_t + buf * L.stage;
+    T* s_w = sb + phase16(a.w + ow);  // [TILE][wn]: w, then cw in place
+    T* s_dw = sb + L.o_dw + phase16(a.dw + ow);  // [TILE][wn]: dw, then cdw in place
+    const T* s_y = sb + L.o_y + phase16(a.y + oy);     // [TILE][sh_dim]
+    const T* s_ty = sb + L.o_ty + phase16(a.ty + oy);  // [TILE][sh_dim]
+    const cg::GRows<T, false> gr{a.g, 0, mid_dim}, gtr{a.gt, 0, mid_dim};
+    cg::dx_items_jvp<T, TILE, TC, NW>(a.tab, gr, gtr, s_dst, s_y, s_ty, sh_dim, s_w, s_dw, wn, cnt, dim_in,
+                                      a.dx_edge + ox, a.dtx_edge + ox);
+    __syncthreads();  // dx and dtx have read w and dw
+    cg::dw_items_jvp<T, TILE, TC, NW>(a.tab, cg::XRows<T, true>{sb + L.o_x, nullptr, dim_in},
+                                      cg::XRows<T, true>{sb + L.o_tx, nullptr, dim_in}, gr, gtr, s_order, s_dst, s_y,
+                                      s_ty, sh_dim, s_w, s_dw, wn, cnt, s_part, s_tpart);
     __syncthreads();
-
-    // dy, dty: sum the path partials in path order
-    for (int i = tid; i < cnt * sh_dim; i += blockDim.x) {
-      const int e = i / sh_dim;
-      const int c = i - e * sh_dim;
-      T acc = T(0);
-      T tacc = T(0);
-      for (int p = 0; p < n_paths; ++p) {
-        const int m = c - paths[6 * p + 2];
-        if (m >= 0 && m < paths[6 * p + 3]) {
-          acc += s_dyp[(e * n_paths + p) * kMaxYDim + m];
-          tacc += s_dtyp[(e * n_paths + p) * kMaxYDim + m];
-        }
-      }
-      dy[static_cast<int64_t>(base + e) * sh_dim + c] = acc;
-      dty[static_cast<int64_t>(base + e) * sh_dim + c] = tacc;
-    }
+    cg::path_sum<T, NT>(a.tab, s_part, cnt, sh_dim, a.dy + oy);
+    cg::path_sum<T, NT>(a.tab, s_tpart, cnt, sh_dim, a.dty + oy);
+    store_flat<T, NT>(a.cw + ow, s_w, cnt * wn, tid);
+    store_flat<T, NT>(a.cdw + ow, s_dw, cnt * wn, tid);
   }
 }
 
+template <typename T, int TILE, int STAGES, int MIN_BLOCKS>
+cudaError_t launch_tile(const JvpBwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = jvp_bwd_kernel<T, TILE, STAGES, MIN_BLOCKS>;
+  int grid = 0;
+  const cudaError_t err = persistent_grid(kernel, kThreads, dev, smem, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// The first shape whose shared memory fits: two blocks an SM before one,
+// larger tiles before smaller, double-buffered before single.
 template <typename T>
-int launch_jvp_bwd(const void* x, const void* tx, const void* y, const void* ty, const void* w,
-                   const void* dw, const void* edge_src, const void* dst_ptr, const void* g,
-                   const void* gt, const void* dx_groups, const void* dx_terms,
-                   const void* dx_coef, const void* dx_col_group, const void* paths,
-                   const void* path_terms, const void* path_coef, void* dx_edge,
-                   void* dtx_edge, void* dy, void* dty, void* cw, void* cdw, int n_paths,
-                   int n_nodes, int dim_in, int sh_dim, int wn, int mid_dim, void* stream) {
-  const size_t smem =
-      sizeof(T) * (2 * static_cast<size_t>(mid_dim) +
-                   static_cast<size_t>(kEdgeTile) *
-                       (2 * (dim_in + sh_dim + wn) + 2 * n_paths * kMaxYDim));
-  cudaError_t err = allow_dynamic_smem(jvp_bwd_kernel<T>, smem);
+int launch_jvp_bwd(const JvpBwdArgs<T>& a, void* stream) {
+  if (a.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
+  const int64_t rows = a.n_nodes + 1;  // g offsets are int32
+  if (rows * a.mid_dim >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  SmemLimits lim;
+  const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_nodes > 0) {
-    jvp_bwd_kernel<T><<<n_nodes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(tx), static_cast<const T*>(y),
-        static_cast<const T*>(ty), static_cast<const T*>(w), static_cast<const T*>(dw),
-        static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),
-        static_cast<const T*>(g), static_cast<const T*>(gt),
-        static_cast<const int32_t*>(dx_groups), static_cast<const int32_t*>(dx_terms),
-        static_cast<const T*>(dx_coef), static_cast<const int32_t*>(dx_col_group),
-        static_cast<const int32_t*>(paths), static_cast<const int32_t*>(path_terms),
-        static_cast<const T*>(path_coef), n_paths, static_cast<T*>(dx_edge),
-        static_cast<T*>(dtx_edge), static_cast<T*>(dy), static_cast<T*>(dty),
-        static_cast<T*>(cw), static_cast<T*>(cdw), dim_in, sh_dim, wn, mid_dim);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto smem = [&](int tile, int stages) {
+    return jvp_bwd_smem<T>(tile, stages, a.dim_in, a.sh_dim, a.wn, a.tab.n_paths).bytes;
+  };
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (lim.fit(smem(32, 2), 2)) e = launch_tile<T, 32, 2, 2>(a, lim.dev, smem(32, 2), s);
+  else if (lim.fit(smem(32, 1), 2)) e = launch_tile<T, 32, 1, 2>(a, lim.dev, smem(32, 1), s);
+  else if (lim.fit(smem(16, 1), 2)) e = launch_tile<T, 16, 1, 2>(a, lim.dev, smem(16, 1), s);
+  else if (lim.fit(smem(8, 1), 2)) e = launch_tile<T, 8, 1, 2>(a, lim.dev, smem(8, 1), s);
+  else if (lim.fit(smem(16, 1), 1)) e = launch_tile<T, 16, 1, 1>(a, lim.dev, smem(16, 1), s);
+  else if (lim.fit(smem(8, 1), 1)) e = launch_tile<T, 8, 1, 1>(a, lim.dev, smem(8, 1), s);
+  else e = launch_tile<T, 4, 1, 1>(a, lim.dev, smem(4, 1), s);  // refused if it does not fit either
+  return static_cast<int>(e);
 }
 
+}  // namespace
 }  // namespace nequip
 
-#define NEQUIP_JVP_BWD(SUFFIX, T)                                                              \
-  extern "C" int nequip_jvp_bwd_##SUFFIX(                                                     \
-      const void* x, const void* tx, const void* y, const void* ty, const void* w,            \
-      const void* dw, const void* edge_src, const void* dst_ptr, const void* g,               \
-      const void* gt, const void* dx_groups, const void* dx_terms, const void* dx_coef,       \
-      const void* dx_col_group, const void* paths, const void* path_terms,                    \
-      const void* path_coef, void* dx_edge, void* dtx_edge, void* dy, void* dty, void* cw,    \
-      void* cdw, int n_paths, int n_nodes, int dim_in, int sh_dim, int wn, int mid_dim,       \
-      void* stream) {                                                                         \
-    return nequip::launch_jvp_bwd<T>(x, tx, y, ty, w, dw, edge_src, dst_ptr, g, gt,           \
-                                     dx_groups, dx_terms, dx_coef, dx_col_group, paths,       \
-                                     path_terms, path_coef, dx_edge, dtx_edge, dy, dty, cw,   \
-                                     cdw, n_paths, n_nodes, dim_in, sh_dim, wn, mid_dim,      \
-                                     stream);                                                 \
+#define NEQUIP_JVP_BWD(SUFFIX, T)                                                                              \
+  extern "C" int nequip_jvp_bwd_##SUFFIX(                                                                     \
+      const void* x, const void* tx, const void* y, const void* ty, const void* w, const void* dw,            \
+      const void* edge_src, const void* dst_ptr, const void* g, const void* gt, const void* dx_groups,        \
+      const void* dx_terms, const void* dx_coef, const void* dx_col_group, const void* paths,                 \
+      const void* path_terms, const void* path_coef, void* dx_edge, void* dtx_edge, void* dy, void* dty,      \
+      void* cw, void* cdw, int n_paths, int n_nodes, int dim_in, int sh_dim, int wn, int mid_dim,             \
+      void* stream) {                                                                                         \
+    const nequip::JvpBwdArgs<T> args{                                                                         \
+        static_cast<const T*>(x), static_cast<const T*>(tx), static_cast<const T*>(y),                        \
+        static_cast<const T*>(ty), static_cast<const T*>(w), static_cast<const T*>(dw),                       \
+        static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),                          \
+        static_cast<const T*>(g), static_cast<const T*>(gt),                                                  \
+        {static_cast<const int32_t*>(dx_groups), static_cast<const int32_t*>(dx_terms),                       \
+         static_cast<const T*>(dx_coef), static_cast<const int32_t*>(dx_col_group),                           \
+         static_cast<const int32_t*>(paths), static_cast<const int32_t*>(path_terms),                         \
+         static_cast<const T*>(path_coef), n_paths},                                                          \
+        static_cast<T*>(dx_edge), static_cast<T*>(dtx_edge), static_cast<T*>(dy), static_cast<T*>(dty),       \
+        static_cast<T*>(cw), static_cast<T*>(cdw), n_nodes, dim_in, sh_dim, wn, mid_dim};                     \
+    return nequip::launch_jvp_bwd<T>(args, stream);                                                           \
   }
 
 NEQUIP_JVP_BWD(f32, float)

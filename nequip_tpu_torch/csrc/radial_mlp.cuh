@@ -42,14 +42,6 @@ struct Vec<double> {
   static constexpr int V = 2;
 };
 
-// one 16-byte store of V registers into shared memory
-__device__ __forceinline__ void store16(float* d, const float* s) {
-  *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
-}
-__device__ __forceinline__ void store16(double* d, const double* s) {
-  *reinterpret_cast<double2*>(d) = make_double2(s[0], s[1]);
-}
-
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b; }
 

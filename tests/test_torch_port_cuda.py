@@ -243,6 +243,90 @@ def test_cuda_conv_bwd_dense_tiles(cuda, case, name, dtype):
         assert not a[n_real:].any()
 
 
+def _tri_operands(kind, device, dtype, degrees, seed):
+    """(plan, layout, n_real, x, tx, sh, tsh, w, dw, g, gt) on the stream of
+    ``degrees`` for K5 and K7: node rows and per-slot rows, random."""
+    plan, _, _ = _tile_plan(kind, device, dtype)
+    r = np.random.RandomState(seed)
+    lay, n_slots = _tile_stream(degrees, device, r)
+    n_nodes = len(degrees)
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=dtype, device=device)
+    x, tx = t(n_nodes, plan.dim_in), t(n_nodes, plan.dim_in)
+    sh, tsh = t(n_slots, plan.sh_dim), t(n_slots, plan.sh_dim)
+    w, dw = t(n_slots, plan.weight_numel), t(n_slots, plan.weight_numel)
+    g, gt = t(n_nodes, plan.mid_dim), t(n_nodes, plan.mid_dim)
+    return plan, lay, lay.n_real, x, tx, sh, tsh, w, dw, g, gt
+
+
+def _tri_call(name, plan, lay, x, tx, sh, tsh, w, dw, g, gt):
+    """K5 or K7 (``name``) and its plain version on the same operands."""
+    if name == "tri_bwd":
+        return (lambda: K.tri_bwd(plan, x, sh, w, lay, g)), (lambda: K.tri_bwd_plain(plan, x, sh, w, lay, g))
+    ops = (plan, x, tx, sh, tsh, w, dw, lay, g, gt)
+    return (lambda: K.jvp_bwd(*ops)), (lambda: K.jvp_bwd_plain(*ops))
+
+
+def _check_once_and_repeat(name, run, plain, dtype):
+    """One launch, the plain version's values at the file's tolerances, and
+    bitwise equal outputs on a repeat call; returns the outputs."""
+    before = K.KERNELS[name].launches
+    got = run()
+    torch.cuda.synchronize()
+    assert K.KERNELS[name].launches == before + 1
+    for a, b, c in zip(got, plain(), run()):
+        rtol, atol = _tol(dtype, b)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        assert torch.equal(a, c)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["tri_bwd", "jvp_bwd"])
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_cuda_tri_bwd_jvp_bwd_dense_tiles(cuda, case, name, dtype):
+    """K5 and K7 on streams whose tiles cross node boundaries in every way
+    (and the 16- and 8-edge tiles of wide models), against their plain
+    versions, bitwise equal on a repeat call; masked slots read as NaN
+    change nothing and come out zero."""
+    kind, degrees = DENSE_TILE_CASES[case]
+    plan, lay, n_real, *ops = _tri_operands(kind, cuda, dtype, degrees, seed=11)
+    got = _check_once_and_repeat(name, *_tri_call(name, plan, lay, *ops), dtype)
+    for a in got:
+        assert not a[n_real:].any()  # NaN would count as nonzero
+    poisoned = [v.clone() for v in ops]
+    for v in poisoned[2:6]:  # sh, tsh, w, dw
+        v[n_real:] = float("nan")
+    for a, b in zip(_tri_call(name, plan, lay, *poisoned)[0](), got):
+        assert torch.equal(a, b)
+
+
+# slices of the fr sweep through edge_slices on [18] * 40 + [7]: the second
+# slice starts inside node 1's segment at row 28 (a destination split over
+# two slices, sh[rows] 16-byte aligned) or at row 37 (an odd row: the base of
+# sh[rows] is 4 bytes past a 16-byte boundary in f32, 8 in f64)
+SLICE_STARTS = {"split_destination": 28, "odd_row": 37}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["tri_bwd", "jvp_bwd"])
+@pytest.mark.parametrize("case", list(SLICE_STARTS))
+def test_cuda_tri_bwd_jvp_bwd_on_slices(cuda, case, name, dtype):
+    """K5 and K7 on both slices of a two-slice cut of the flagship's layer-1
+    stream, the operands the rows of each slice, against plain."""
+    degrees = [18] * 40 + [7]
+    plan, lay, n_real, x, tx, sh, tsh, w, dw, g, gt = _tri_operands("flagship1", cuda, dtype, degrees, seed=12)
+    slices = K.edge_slices(lay, 2, [0, SLICE_STARTS[case], n_real])
+    assert SLICE_STARTS[case] not in lay.dst_ptr.tolist()  # the boundary falls inside a segment
+    for sl in slices:
+        rows = slice(sl.start, sl.stop)
+        ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows], g, gt)
+        if sl.start == SLICE_STARTS["odd_row"]:
+            assert ops[2].data_ptr() % 16 and ops[3].data_ptr() % 16
+        _check_once_and_repeat(name, *_tri_call(name, plan, sl.layout, *ops), dtype)
+
+
 # dw_reduce's shapes (P, Q): the flagship's dW1 and dW2, two ragged ones
 # (masked rows and columns, two row tiles) and one staged element by element
 DW_SHAPES = [(8, 128), (128, 96), (128, 352), (24, 40), (136, 20), (5, 7)]

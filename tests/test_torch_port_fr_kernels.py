@@ -10,7 +10,10 @@ jitted as one program.  The problem is the one of
 r_max 4 (3,978 real edges, shuffled, padded to 4,096 slots), 256 node
 slots, features ``4x0e+4x1o`` x SH(1).  The JAX stream of 4,608 slots cut
 into 3 slices puts both boundaries of slice 1 inside a destination's
-segment; the port's slice 1 holds the same real edges.
+segment; the port's slice 1 holds the same real edges.  K5 runs on that
+slice too, and K7 also over whole streams with the degree patterns of its
+dense tiles on the card (``DEGREE_CASES``: long segments, empty nodes,
+fewer real edges than a tile, none).
 
 Tolerances: 1e-12 of max(1, max |ref|) for the kernel twins and the chunked
 outputs (float64 sums of a few dozen terms in another order), 1e-10 of max
@@ -35,6 +38,7 @@ from nequip_tpu_torch.ops.irreps import Irreps
 from nequip_tpu_torch.ops.kernels import tp_scatter as K
 from nequip_tpu_torch.ops.mlp import ScalarMLP
 from nequip_tpu_torch.ops.tensor_product import TensorProduct, uvu_instructions
+from test_torch_port_kernels import DEGREE_CASES
 
 N_NODES, N_SLOTS, ROWS, BLOCK_E, N_EMB, HIDDEN = 256, 4096, 128, 256, 8, 16
 C, SLICE = 3, 1
@@ -46,7 +50,53 @@ def _t(a):
 
 def _close(got, want, tol):
     want = np.asarray(want)
-    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=tol * max(1.0, float(np.abs(want).max())))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=tol * max(1.0, float(np.abs(want).max(initial=0.0))))
+
+
+def _stream(ei, mask, r, n_nodes=N_NODES):
+    """The test TP on the stream ``(ei, mask)`` over ``n_nodes`` nodes: the
+    JAX identity layout of its relaid stream and the port's kernel-order
+    stream (row r holding edge order[r]), with random per-edge operands from
+    ``r`` in JAX slot order (``slot``) and in port order (``port``) and
+    random node operands."""
+    feats, sh = "4x0e+4x1o", "1x0e+1x1o"
+    mid, ins = uvu_instructions(Irreps(feats), Irreps(sh), Irreps(feats))
+    jmid, jins = j_uvu(JIrreps(feats), JIrreps(sh), JIrreps(feats))
+    tp, jtp = TensorProduct(feats, sh, mid, ins), JTP(feats, sh, str(jmid), jins)
+    D, S, M, W = tp.irreps_in1.dim, tp.irreps_in2.dim, tp.irreps_out.dim, tp.weight_numel
+    n_real = int(mask.sum())
+
+    # JAX: the identity layout of its relaid stream and the slot -> edge map
+    jdata = J.relayout_edge_stream({
+        jkeys.POSITIONS_KEY: jnp.zeros((n_nodes, 3)),
+        jkeys.EDGE_INDEX_KEY: jnp.asarray(ei), jkeys.EDGE_MASK_KEY: jnp.asarray(mask),
+    })
+    take = J._layout_edges_np(ei[0], ei[1], mask, n_nodes, ROWS, BLOCK_E)[0]
+    wm = np.asarray(jdata[J.layout_key()]["valid"])
+    slot_edge = np.minimum(take, N_SLOTS - 1)
+    # the port: its kernel-order stream, row r holding edge order[r]
+    pdata = K.relayout_edge_stream({
+        _keys.POSITIONS_KEY: torch.zeros(n_nodes, 3, dtype=torch.float64),
+        _keys.EDGE_INDEX_KEY: torch.as_tensor(ei, dtype=torch.int64), _keys.EDGE_MASK_KEY: torch.as_tensor(mask),
+    })
+    order = np.argsort(np.where(mask, ei[0], n_nodes), kind="stable")
+    slot_of_edge = np.full(N_SLOTS, -1)
+    slot_of_edge[take[wm]] = np.nonzero(wm)[0]
+
+    def edge(*shape):  # per-edge values in the original order, zero at masked slots
+        return np.where(mask[:, None], r.standard_normal((N_SLOTS,) + shape), 0.0)
+
+    arrays = dict(sh=edge(S), tsh=edge(S), w=edge(W), dw=edge(W), emb=edge(N_EMB), temb=edge(N_EMB))
+    node = dict(x=r.standard_normal((n_nodes, D)), tx=r.standard_normal((n_nodes, D)),
+                g=r.standard_normal((n_nodes, M)), gt=r.standard_normal((n_nodes, M)),
+                acc=r.standard_normal((n_nodes, M)), tacc=r.standard_normal((n_nodes, M)))
+    return dict(
+        tp=tp, jtp=jtp, plan=K.TPPlan(tp), jplan=J._TPPlan(jtp), jdata=jdata, jlay=jdata[J.layout_key()],
+        jsrc=jdata[jkeys.EDGE_INDEX_KEY][1], take=take, wm=wm, lay=pdata[K.LAYOUT_KEY], order=order,
+        n_real=n_real, slot_of_edge=slot_of_edge, node=node,
+        slot={k: np.where(wm[:, None], a[slot_edge], 0.0) for k, a in arrays.items()},
+        port={k: _t(a[order]) for k, a in arrays.items()},
+    )
 
 
 @pytest.fixture(scope="module")
@@ -60,29 +110,8 @@ def p():
     pad = np.full(N_SLOTS - n_real, N_NODES - 1)
     ei = np.stack([np.concatenate([dst[perm], pad]), np.concatenate([src[perm], pad])]).astype(np.int32)
     mask = np.arange(N_SLOTS) < n_real
-
-    feats, sh = "4x0e+4x1o", "1x0e+1x1o"
-    mid, ins = uvu_instructions(Irreps(feats), Irreps(sh), Irreps(feats))
-    jmid, jins = j_uvu(JIrreps(feats), JIrreps(sh), JIrreps(feats))
-    tp, jtp = TensorProduct(feats, sh, mid, ins), JTP(feats, sh, str(jmid), jins)
-    D, S, M, W = tp.irreps_in1.dim, tp.irreps_in2.dim, tp.irreps_out.dim, tp.weight_numel
-
-    # JAX: the identity layout of its relaid stream and the slot -> edge map
-    jdata = J.relayout_edge_stream({
-        jkeys.POSITIONS_KEY: jnp.zeros((N_NODES, 3)),
-        jkeys.EDGE_INDEX_KEY: jnp.asarray(ei), jkeys.EDGE_MASK_KEY: jnp.asarray(mask),
-    })
-    jlay = jdata[J.layout_key()]
-    take = J._layout_edges_np(ei[0], ei[1], mask, N_NODES, ROWS, BLOCK_E)[0]
-    wm = np.asarray(jlay["valid"])
-    slot_edge = np.minimum(take, N_SLOTS - 1)
-    # the port: its kernel-order stream, row r holding edge order[r]
-    pdata = K.relayout_edge_stream({
-        _keys.POSITIONS_KEY: torch.zeros(N_NODES, 3, dtype=torch.float64),
-        _keys.EDGE_INDEX_KEY: torch.as_tensor(ei, dtype=torch.int64), _keys.EDGE_MASK_KEY: torch.as_tensor(mask),
-    })
-    order = np.argsort(np.where(mask, ei[0], N_NODES), kind="stable")
-    lay = pdata[K.LAYOUT_KEY]
+    st = _stream(ei, mask, r)
+    jdata, jlay, take, wm, order = st["jdata"], st["jlay"], st["take"], st["wm"], st["order"]
 
     # JAX slices (whole chunks, the first chunk of each re-enters the accumulator)
     E_pal = take.shape[0]
@@ -95,21 +124,13 @@ def p():
     jslice = {"take_idx": None, "rel_dst": stk["rel"][SLICE], "chunk_tile": stk["ct"][SLICE],
               "chunk_first": stk["cf"][SLICE], "valid": stk["valid"][SLICE], "dx": "segsum"}
     bounds = [int(wm[: s * Es].sum()) for s in range(C)] + [n_real]
-    sl = K.edge_slices(lay, C, bounds)[SLICE]
+    sl = K.edge_slices(st["lay"], C, bounds)[SLICE]
     real_dst = ei[0][order][:n_real]
     assert real_dst[sl.start - 1] == real_dst[sl.start] and real_dst[sl.stop - 1] == real_dst[sl.stop]
     jrows = np.nonzero(wm[SLICE * Es:(SLICE + 1) * Es])[0]  # real slots of the JAX slice
     np.testing.assert_array_equal(take[SLICE * Es + jrows], order[sl.start:sl.stop])
-    slot_of_edge = np.full(N_SLOTS, -1)
-    slot_of_edge[take[wm]] = np.nonzero(wm)[0]
 
-    def edge(*shape):  # per-edge values in the original order, zero at masked slots
-        return np.where(mask[:, None], r.standard_normal((N_SLOTS,) + shape), 0.0)
-
-    arrays = dict(sh=edge(S), tsh=edge(S), w=edge(W), dw=edge(W), emb=edge(N_EMB), temb=edge(N_EMB))
-    node = dict(x=r.standard_normal((N_NODES, D)), tx=r.standard_normal((N_NODES, D)),
-                g=r.standard_normal((N_NODES, M)), gt=r.standard_normal((N_NODES, M)),
-                acc=r.standard_normal((N_NODES, M)), tacc=r.standard_normal((N_NODES, M)))
+    W = st["tp"].weight_numel
     jmlp = JScalarMLP(input_dim=N_EMB, output_dim=W, hidden_layers_depth=1, hidden_layers_width=HIDDEN,
                       nonlinearity="silu", bias=False)
     mlp_params = jax.tree.map(np.asarray, jmlp.init(jax.random.PRNGKey(2)))
@@ -118,14 +139,7 @@ def p():
         for k in ("w0", "w1"):
             getattr(mlp, k).data = _t(mlp_params[k])
     assert np.allclose(mlp.alphas, jmlp.alphas, rtol=1e-15)
-    return dict(
-        tp=tp, jtp=jtp, plan=K.TPPlan(tp), jplan=J._TPPlan(jtp), jlay=jlay, jslice=jslice, stk=stk,
-        jsrc=jdata[jkeys.EDGE_INDEX_KEY][1], lay=lay, sl=sl, Es=Es, jrows=jrows, order=order, n_real=n_real,
-        slot_of_edge=slot_of_edge,
-        jmlp=jmlp, mlp=mlp, mlp_params=mlp_params, node=node,
-        slot={k: np.where(wm[:, None], a[slot_edge], 0.0) for k, a in arrays.items()},
-        port={k: _t(a[order]) for k, a in arrays.items()},
-    )
+    return dict(st, jslice=jslice, stk=stk, sl=sl, Es=Es, jrows=jrows, jmlp=jmlp, mlp=mlp, mlp_params=mlp_params)
 
 
 def _jslice(p, name):
@@ -194,6 +208,59 @@ def test_jvp_bwd_matches_jax_jvp_backward(p):
         _close(K.scatter_rows(e, lay.src_perm, lay.src_ptr).numpy(), w, 1e-12)
     for a, b in zip(per_edge, want[2:]):
         _close(a.numpy(), _jedges(p, b), 1e-12)
+
+
+def test_tri_bwd_matches_jax_backward_on_slice(p):
+    """K5's three outputs on slice 1, whose both boundaries fall inside a
+    destination's segment (dx through K3 on the slice's source CSR), against
+    the JAX kernel on the same slice (its dx through the slice segment sum)."""
+    n = p["node"]
+    want = jax.jit(lambda x, y, w, g: J._backward_kernel_call(
+        p["jtp"], p["jplan"], x, y, w, p["stk"]["src"][SLICE], p["stk"]["src"][SLICE], None, N_NODES, ROWS,
+        BLOCK_E, g, layout=p["jslice"],
+    ))(jnp.asarray(n["x"]), _jslice(p, "sh"), _jslice(p, "w"), jnp.asarray(n["g"]))
+    lay = p["sl"].layout
+    dx_e, dy, dw = K.tri_bwd(p["plan"], _t(n["x"]), _pslice(p, "sh"), _pslice(p, "w"), lay, _t(n["g"]))
+    _close(K.scatter_rows(dx_e, lay.src_perm, lay.src_ptr).numpy(), want[0], 1e-12)
+    for a, b in zip((dy, dw), want[1:]):
+        _close(a.numpy(), _jedges(p, b), 1e-12)
+
+
+def _degree_stream(degrees):
+    """``_stream`` on real edges with the given destination degrees (random
+    sources, shuffled), the other slots masked."""
+    r = np.random.RandomState(7)
+    n_real, n_nodes = int(np.sum(degrees)), -(-(len(degrees) + 1) // ROWS) * ROWS
+    dst = np.repeat(np.arange(len(degrees)), degrees)
+    perm = r.permutation(n_real)
+    pad = np.full(N_SLOTS - n_real, n_nodes - 1)
+    src = r.randint(0, n_nodes, n_real)
+    ei = np.stack([np.concatenate([dst[perm], pad]), np.concatenate([src[perm], pad])]).astype(np.int32)
+    return _stream(ei, np.arange(N_SLOTS) < n_real, r, n_nodes), n_nodes
+
+
+@pytest.mark.parametrize("case", list(DEGREE_CASES))
+def test_jvp_bwd_matches_jax_jvp_backward_degrees(case):
+    """K7's six outputs over a whole stream with the degree patterns of its
+    dense tiles on the card (a segment longer than a tile, degrees 0 and 1,
+    fewer real edges than a tile, a ragged last tile, every slot masked)
+    against the JAX kernel on the identity layout of the same stream."""
+    q, n_nodes = _degree_stream(DEGREE_CASES[case])
+    n = q["node"]
+    jops = [jnp.asarray(q["slot"][k]) for k in ("sh", "tsh", "w", "dw")]
+    want = jax.jit(lambda x, tx, ops, g, gt: J._jvp_backward_kernel_call(
+        q["jtp"], q["jplan"], x, tx, *ops, q["jsrc"], n_nodes, ROWS, BLOCK_E, g, gt, layout=q["jlay"],
+    ))(*(jnp.asarray(n[k]) for k in ("x", "tx")), jops, *(jnp.asarray(n[k]) for k in ("g", "gt")))
+    lay, n_real = q["lay"], q["n_real"]
+    dx_e, dtx_e, *per_edge = K.jvp_bwd(q["plan"], _t(n["x"]), _t(n["tx"]),
+                                       *(q["port"][k] for k in ("sh", "tsh", "w", "dw")), lay,
+                                       _t(n["g"]), _t(n["gt"]))
+    for e, w in ((dx_e, want[0]), (dtx_e, want[1])):
+        _close(K.scatter_rows(e, lay.src_perm, lay.src_ptr).numpy(), w, 1e-12)
+    rows = q["slot_of_edge"][q["order"][:n_real]]  # the JAX slots of the port's real rows
+    for a, b in zip(per_edge, want[2:]):
+        assert not a[n_real:].any()
+        _close(a.numpy()[:n_real], np.asarray(b)[rows], 1e-12)
 
 
 def test_chunked_conv_matches_jax(p):

@@ -8,7 +8,8 @@ package's Pallas kernels in interpret mode, on the small problem of
 128 nodes, 300 real edges of 512 slots, sorted and unsorted streams):
 
 * K4/K5 (``fused_tp_scatter``/``fused_tp_scatter_bwd``): forward 1e-10,
-  cotangents 1e-9;
+  cotangents 1e-9; K5 also on the degree patterns of its dense tiles on
+  the card (``DEGREE_CASES``);
 * K2's ``dw1``/``dw2`` against ``jax.vjp`` of ``fused_tp_scatter_mlp``: 1e-9;
 * ``dw_reduce`` (plain on the CPU) against numpy: 1e-13; its split of the
   edges into chunks (``_dw_split``) tiles them once, in order;
@@ -26,7 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_port_kernels import N_NODES, _jax_call, _port_stream, _problem, _t
+from test_torch_port_kernels import DEGREE_CASES, _jax_call, _port_stream, _problem, _t
 
 from nequip_tpu.ops.pallas.tp_scatter import fused_tp_scatter as j_tri
 from nequip_tpu.ops.pallas.tp_scatter import fused_tp_scatter_bwd as j_tri_bwd
@@ -46,11 +47,11 @@ def _weights(p):
 
 def _jgraph(p):
     ei = jnp.asarray(p["edge_index"], dtype=jnp.int32)
-    return ei[0], ei[1], jnp.asarray(p["mask"]), N_NODES
+    return ei[0], ei[1], jnp.asarray(p["mask"]), p["n_nodes"]
 
 
 def _g(p, seed=9):
-    return np.random.RandomState(seed).standard_normal((N_NODES, p["tp"].irreps_out.dim))
+    return np.random.RandomState(seed).standard_normal((p["n_nodes"], p["tp"].irreps_out.dim))
 
 
 def _mlp_args(p):
@@ -78,9 +79,14 @@ def test_tri_fwd_matches_jax_pallas(unsorted):
     _close(got.numpy(), want, 1e-10)
 
 
-@pytest.mark.parametrize("unsorted", SORTS)
-def test_tri_bwd_matches_jax_pallas(unsorted):
-    p = _problem(unsorted)
+@pytest.mark.parametrize("unsorted,case", [(False, None), (True, None)] + [(False, c) for c in DEGREE_CASES],
+                         ids=["False", "True", *DEGREE_CASES])
+def test_tri_bwd_matches_jax_pallas(unsorted, case):
+    """K5 (plain on the CPU) against the JAX kernel, also on the degree
+    patterns of K5's dense tiles on the card: a segment longer than a tile,
+    degrees 0 and 1, fewer real edges than a tile, a ragged last tile, every
+    slot masked."""
+    p = _problem(unsorted, None if case is None else DEGREE_CASES[case])
     data, order = _port_stream(p)
     w, g = _weights(p), _g(p)
     dx, dy, dw = K.fused_tp_scatter_bwd(K.TPPlan(p["tp"]), _t(p["x"]), data[_keys.EDGE_ATTRS_KEY],
