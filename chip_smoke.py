@@ -18,18 +18,21 @@ Phases (each prints a line; any failure exits non-zero):
      of its shapes (dW2 h_e x dW_e and dW1 emb x dh_pre_e, one line each,
      bitwise equal on a repeat call, with their f32 sums; beside the
      one-call times, the kernel and torch.mm timed ten calls back to back),
-     K3 scatter_rows, K4 tri_fwd and K5 tri_bwd on the whole stream (K5
+     K3 scatter_rows, K4 tri_fwd and K5 tri_bwd on the whole stream (each
      bitwise equal on a repeat call, its allocations within its outputs);
      K4-acc tri_fwd_acc, K6 jvp_fwd (with and without accumulators) and K7
-     jvp_bwd (allocations within its outputs) on one of 4 edge slices whose
-     first destination segment the slice boundary splits (the shapes the fr
-     sweep gives them), each bitwise equal on a repeat call.  Beside each
+     jvp_bwd on one of 4 edge slices whose first destination segment the
+     slice boundary splits (the shapes the fr sweep gives them), each
+     bitwise equal on a repeat call, its allocations within its outputs
+     (for the accumulating forms: the copies of the accumulators the check
+     adds onto) and, for K4, K4-acc and K6, their carry rows.  Beside each
      time: the kernel's bound (bytes over 3.35 TB/s or f32 operations over
      67 TFLOP/s, whichever is larger) and, where one PyTorch call computes
      the same function, that call's time (library_ms: torch.mm for the dW
      reduction, index_add_ for K3);
      the f32 per-layer times of the kernels on dense edge tiles (K1, K2, K2
-     train, K5, K7) beside their bounds again on one line per kernel;
+     train, K4, K4-acc, K5, K6, K7) beside their bounds again on one line
+     per kernel, K1's with the unfused radial_weights + K4 beside it;
   3. the port in f64, kernels on the card, against the golden E/F/stress the
      JAX package wrote (tests/data/torch_port_golden.npz);
   4. serving: the flagship in f32 with tp_impl="fused" answers three
@@ -313,7 +316,8 @@ def phase2_kernels(n_atoms: int, reps: int):
     rng = np.random.RandomState(0)
     dw_sums = {}  # dw_reduce f32 per shape, ms over the layers: kernel, plain, bound, torch.mm, both back to back
     # f32 (kernel, bound) ms per layer of the kernels on dense edge tiles
-    tile_layers = {"conv_fwd": [], "conv_bwd": [], "conv_bwd_train": [], "tri_bwd": [], "jvp_bwd": []}
+    tile_layers = {k: [] for k in ("conv_fwd", "conv_bwd", "conv_bwd_train", "tri_fwd", "tri_fwd_acc", "tri_bwd",
+                                   "jvp_fwd", "jvp_bwd")}
     unfused_ms = []  # f32 ms per layer of what K1 replaces: radial_weights (torch.mm) then K4
     report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
                   "library_ms": None} for k in K.KERNELS if k not in MICROBENCH_KERNELS}
@@ -395,9 +399,11 @@ def phase2_kernels(n_atoms: int, reps: int):
                 "dw_reduce dW1": lambda: torch.mm(emb[:n_real].t(), dh_pre),
                 "scatter_rows": lambda: buf.index_add_(0, src_idx, dx_edge[:n_real]),
             }
-            repeat_equal = ("conv_fwd", "conv_bwd_train", "dw_reduce", "tri_fwd_acc", "jvp_fwd", "tri_bwd", "jvp_bwd")
+            repeat_equal = ("conv_fwd", "conv_bwd_train", "dw_reduce", "tri_fwd", "tri_fwd_acc", "jvp_fwd", "tri_bwd",
+                            "jvp_bwd")
             for label, (kern, plain) in calls.items():
                 name = label.split()[0]  # the kernel; "dw_reduce dW1"/"dW2" are its two shapes
+                sliced = name in ("tri_fwd_acc", "jvp_fwd", "jvp_bwd")
                 where = f"layer {li} {dtype}"
                 counter = K.KERNELS[name]
                 err = 0.0
@@ -417,8 +423,9 @@ def phase2_kernels(n_atoms: int, reps: int):
                         _check_k1_allocations(torch.cuda.max_memory_allocated() - held, plan, x, w1, layout, where)
                     if name == "conv_bwd":
                         _check_k2_allocations(torch.cuda.max_memory_allocated() - held, plan, x, sh, emb, w2, where)
-                    if name in ("tri_bwd", "jvp_bwd"):
-                        _check_output_allocations(name, torch.cuda.max_memory_allocated() - held, got, where)
+                    if name in ("tri_fwd", "tri_fwd_acc", "jvp_fwd", "tri_bwd", "jvp_bwd"):
+                        _check_output_allocations(name, torch.cuda.max_memory_allocated() - held, got, where,
+                                                  _carry_bytes(name, plan, x, lay_s if sliced else layout))
                     err = max(err, _check(label, got, _tuple(ref_run()), rtol, atol_rel, where))
                     if name in repeat_equal:
                         again = _tuple(run())
@@ -428,7 +435,6 @@ def phase2_kernels(n_atoms: int, reps: int):
                 ms = cuda_median_ms(kern, reps)
                 plain_ms = cuda_median_ms(plain, reps)
                 lib_ms = cuda_median_ms(library[label], reps) if label in library else None
-                sliced = name in ("tri_fwd_acc", "jvp_fwd", "jvp_bwd")
                 itemsize = torch.finfo(dtype).bits // 8
                 if name == "dw_reduce":
                     P, Q = (n_emb, hidden) if label.endswith("dW1") else (hidden, plan.weight_numel)
@@ -521,12 +527,27 @@ def _check_k2_allocations(nbytes: int, plan, x, sh, emb, w2, where: str) -> None
         raise RuntimeError(f"phase 2: the inference K2 allocated more than its outputs at {where} (a per-edge buffer?)")
 
 
-def _check_output_allocations(name: str, nbytes: int, outs, where: str) -> None:
-    """K5 and K7 may allocate their per-edge outputs, with 32 MiB for the
-    allocator's rounding, and nothing besides (no per-edge scratch)."""
-    limit = sum(t.numel() * t.element_size() for t in outs) + 32 * 2**20
+def _carry_bytes(name: str, plan, x, layout) -> int:
+    """The carry rows of K4, K4-acc and K6 ([ceil(n_real / tile), mid_dim],
+    K6 two of them; see csrc/cg_fwd.cuh); 0 for the other kernels."""
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    if name not in ("tri_fwd", "tri_fwd_acc", "jvp_fwd"):
+        return 0
+    entry = "jvp_fwd" if name == "jvp_fwd" else "tri_fwd"
+    rows = K.conv_fwd_carry_rows(layout.n_real, K.tri_fwd_tile(plan, entry, x.dtype, x.device))
+    return x.element_size() * rows * plan.mid_dim * (2 if entry == "jvp_fwd" else 1)
+
+
+def _check_output_allocations(name: str, nbytes: int, outs, where: str, carry: int = 0) -> None:
+    """K4, K4-acc, K5, K6 and K7 may allocate their outputs (K5, K7: per
+    edge; the accumulating forms: none, the check's copies of the
+    accumulators are counted as their outputs) and K4's and K6's carry rows
+    (``carry`` bytes), with 32 MiB for the allocator's rounding, and nothing
+    besides (no per-edge scratch)."""
+    limit = sum(t.numel() * t.element_size() for t in outs) + carry + 32 * 2**20
     print(f"phase 2 {name} {where}: allocated {nbytes / 2**20:.1f} MiB in one call, limit {limit / 2**20:.1f} MiB "
-          f"(outputs and 32 MiB)", flush=True)
+          f"(outputs, {carry / 2**20:.1f} MiB of carry rows and 32 MiB)", flush=True)
     if nbytes > limit:
         raise RuntimeError(f"phase 2: {name} allocated more than its outputs at {where}")
 

@@ -28,25 +28,28 @@
 //   slab serving every edge of the tile; f32 (f64) FFMA, no tensor-core
 //   form being f32-exact.  w stays in shared memory: no [E, WN] or
 //   [E, hidden] buffer is written.
-// - The CG product: the tile's x[src] rows are copied into shared memory
-//   (cp.async, over the memory h and the ring held during the GEMM) with
-//   c * sh_e[y] per (edge, term) beside them.  Each thread owns output
-//   columns of the fwd_groups / fwd_terms tables: it forms the column's CG
-//   product for every edge of the tile in registers (each term's table
-//   entry read once a tile), then walks the edges in stream order keeping
-//   the column's running sum, and writes it out where the destination
-//   changes.  Within a tile every output is one thread's fixed-order sum.
-// - Destinations split across tiles: a tile whose last segment continues
-//   into the next tile writes that part to its row of carry [n_tiles,
-//   mid_dim]; every other segment goes to out (a segment that began in an
-//   earlier tile is the final part of its node).  A second launch, one warp
-//   per node, writes the zero rows of degree-0 and padding nodes and, for
-//   each node whose edges span tiles t0 < t1, out[n] = carry[t0] + ... +
-//   carry[t1 - 1] + out[n] in tile order.  No atomics: two calls give
-//   bitwise equal results.  The carry rows (59 MB in layer 1 in f32) live
-//   only inside the call, so the serving peak does not move; the owner-
-//   computes alternative (the tile holding a node's first edge finishes it)
-//   would redo the MLP GEMM for each tile's overflow edges.
+// - The CG product (cg_fwd.cuh, shared with K4 and K6): the tile's x[src]
+//   rows are copied into shared memory (cp.async, over the memory h and the
+//   ring held during the GEMM) with c * sh_e[y] per (term, edge) beside
+//   them.  Each thread owns output columns of the fwd_groups / fwd_terms
+//   tables: it forms the column's CG product for every edge of the tile in
+//   registers (each term's table entry read once a tile), then walks the
+//   edges in stream order keeping the column's running sum, and writes it
+//   out where the destination changes.  Within a tile every output is one
+//   thread's fixed-order sum.
+// - Destinations split across tiles (cg_fwd.cuh, shared with K4 and K6):
+//   a tile whose last segment continues into the next tile writes that part
+//   to its row of carry [n_tiles, mid_dim]; every other segment goes to out
+//   (a segment that began in an earlier tile is the final part of its
+//   node).  A second launch, one warp per node, writes the zero rows of
+//   degree-0 and padding nodes and, for each node whose edges span tiles
+//   t0 < t1, out[n] = carry[t0] + ... + carry[t1 - 1] + out[n] in tile
+//   order.  No atomics: two calls give bitwise equal results.  The carry
+//   rows (59 MB in layer 1 in f32) live only inside the call, so the
+//   serving peak does not move; the owner-computes alternative (the tile
+//   holding a node's first edge finishes it) would redo the MLP GEMM for
+//   each tile's overflow edges (in K4 and K6, which have no GEMM, it was
+//   timed and was slower: PERF.md).
 // - Shared memory: w [TILE][WN], then one region that holds h and the ring
 //   during the GEMM and x rows and c * y during the CG product, ~103 KB for
 //   a 32-edge f32 tile of layer 1, so two blocks share an SM (registers
@@ -61,10 +64,11 @@
 // thread's column metadata in registers, CG steps of 8 or 16 edges instead
 // of the whole tile.  Kept, each a small gain: tile_dst instead of a binary
 // search per edge, and silu with the fast exp and division in f32.
-// Registers and spills (nvcc -Xptxas -v): f32 32-edge tile 128 (two blocks
-// an SM), 8 bytes of spill; one block an SM 176; 16-edge 192, 8-edge 184;
-// f64 32-edge 253 (two blocks: 128), 16-edge 254, 8-edge 249; none spill
-// but the first; the second launch 31.
+// Registers and spills (nvcc -Xptxas -v): f32 32-edge tile 128 (two
+// blocks an SM), 4 bytes of spill; one block an SM 183; 16-edge 223,
+// 8-edge 218; f64 32-edge 246 (two blocks: 128), 16-edge 244, 8-edge 244;
+// none spill but the first; the second launch 31-32.
+#include "cg_fwd.cuh"
 #include "dense_tiles.cuh"
 #include "radial_mlp.cuh"
 
@@ -74,23 +78,21 @@ namespace {
 constexpr int kFwdThreads = 256;  // tile_gemm's 8 warps
 constexpr int kFwdBK = 16;        // W2 rows per slab of the ring
 constexpr int kFwdStages = 3;
-constexpr int kFinishWarps = 8;   // nodes per block of the second launch
 
 template <typename T>
 struct ConvFwdArgs {
   const T *x, *sh, *emb, *w1, *w2;
-  const int32_t *edge_src, *dst_ptr, *groups, *terms;
-  const T* coef;
-  const int32_t* col_group;
+  const int32_t *edge_src, *dst_ptr;
+  cgf::Tables<T> tab;
   T *out, *carry;
-  int n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim, n_terms;
+  int n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim;
   T alpha0, alpha1;
 };
 
 // Shared-memory carve-up of one tile, in elements of T from the base (every
-// region starts on 16 bytes), then int32 s_src [TILE], s_dst [TILE] and two
-// flags.  The region at o_u holds h [TILE][ldh] and the ring during the
-// GEMM, then x [TILE][dim_in] and, at o_u + o_cy, c * y [TILE][n_terms].
+// region starts on 16 bytes), then int32 s_dst [TILE] and two flags.  The
+// region at o_u holds h [TILE][ldh] and the ring during the GEMM, then x
+// [TILE][dim_in] and, at o_u + o_cy, c * y [n_terms][TILE].
 struct FwdSmem {
   int ldw, ldh, ldw1;  // row strides of s_w [TILE][ldw], s_h [TILE][ldh], s_w1 [n_emb][ldw1]
   int o_u, o_cy, o_emb, o_y, o_w1, o_idx;
@@ -118,7 +120,7 @@ __host__ __device__ inline FwdSmem fwd_smem(int tile, int dim_in, int sh_dim, in
   L.o_w1 = o;
   o += mlp::round_up(n_emb * L.ldw1, V);
   L.o_idx = o;
-  L.bytes = static_cast<size_t>(o) * sizeof(T) + sizeof(int32_t) * (2 * tile + 2);
+  L.bytes = static_cast<size_t>(o) * sizeof(T) + sizeof(int32_t) * (tile + 2);
   return L;
 }
 
@@ -133,19 +135,18 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
   static_assert(TILE % 8 == 0 && TILE <= 32, "one warp finds the tile's destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hidden = a.hidden, wn = a.wn, n_emb = a.n_emb, sh_dim = a.sh_dim, dim_in = a.dim_in;
-  const int mid_dim = a.mid_dim, n_terms = a.n_terms;
-  const FwdSmem L = fwd_smem<T>(TILE, dim_in, sh_dim, n_emb, hidden, wn, n_terms);
+  const int mid_dim = a.mid_dim;
+  const FwdSmem L = fwd_smem<T>(TILE, dim_in, sh_dim, n_emb, hidden, wn, a.tab.n_terms);
   T* base_t = reinterpret_cast<T*>(smem_raw);
   T* s_w = base_t;                // [TILE][ldw]
   T* s_h = base_t + L.o_u;        // [TILE][ldh], during the GEMM
   T* s_ring = s_h + TILE * L.ldh;  // the W2 ring, during the GEMM
   T* s_x = base_t + L.o_u;        // [TILE][dim_in], after the GEMM
-  T* s_cy = s_x + L.o_cy;         // [TILE][n_terms], after the GEMM
+  T* s_cy = s_x + L.o_cy;         // [n_terms][TILE], after the GEMM
   T* s_emb = base_t + L.o_emb;    // [TILE][n_emb]
   T* s_y = base_t + L.o_y;        // [TILE][sh_dim]
   T* s_w1 = base_t + L.o_w1;      // [n_emb][ldw1]
-  int32_t* s_src = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
-  int32_t* s_dst = s_src + TILE;                                  // [TILE]
+  int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
   int32_t* s_flags = s_dst + TILE;  // [0]: bit e set where edge e ends its segment in the tile; [1]: carry
 
   const int tid = threadIdx.x;
@@ -156,24 +157,12 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
     const int r = i / L.ldw1, c = i - r * L.ldw1;
     s_w1[i] = c < hidden ? a.w1[r * hidden + c] : T(0);
   }
-  const bool x_vec = mlp::vec_ok(a.x, dim_in);
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * TILE;
     const int cnt = min(TILE, n_real - base);
     __syncthreads();  // s_w1 is staged; the previous tile's readers are done
-    if (tid < 32) {   // warp 0: sources, destinations, and where segments end
-      const bool real = tid < cnt;
-      const int d = tile_dst(a.dst_ptr, a.n_nodes, base, cnt);
-      const int d_next = __shfl_down_sync(0xffffffffu, d, 1);
-      const unsigned ends = __ballot_sync(0xffffffffu, real && (tid == cnt - 1 || d_next != d));
-      if (tid < TILE) {
-        s_src[tid] = real ? __ldg(a.edge_src + base + tid) : 0;
-        s_dst[tid] = d;
-      }
-      if (tid == 0) s_flags[0] = static_cast<int32_t>(ends);
-      if (tid == cnt - 1) s_flags[1] = __ldg(a.dst_ptr + d + 1) > base + cnt;  // the last segment continues
-    }
+    if (tid < 32) cgf::tile_segments<TILE>(a.dst_ptr, a.n_nodes, base, cnt, s_dst, s_flags);  // warp 0
     for (int i = tid; i < TILE * n_emb; i += NT)
       s_emb[i] = i < cnt * n_emb ? a.emb[static_cast<int64_t>(base) * n_emb + i] : T(0);
     for (int i = tid; i < TILE * sh_dim; i += NT)
@@ -204,86 +193,27 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
 
     // x[src] rows into the region h and the ring held (tile_gemm ended at a
     // barrier with no copy in flight); rows past cnt are zero
-    if (x_vec) {
-      const int units = dim_in / V;  // 16-byte units per row
-      for (int i = tid; i < TILE * units; i += NT) {
-        const int e = i / units, c = (i - e * units) * V;
-        const bool ok = e < cnt;
-        cp_async_16(s_x + e * dim_in + c, ok ? a.x + static_cast<int64_t>(s_src[e]) * dim_in + c : a.x, ok);
-      }
-    } else {
-      for (int i = tid; i < TILE * dim_in; i += NT) {
-        const int e = i / dim_in, c = i - e * dim_in;
-        const bool ok = e < cnt;
-        cp_async_elem<sizeof(T)>(s_x + i, ok ? a.x + static_cast<int64_t>(s_src[e]) * dim_in + c : a.x, ok);
-      }
-    }
+    stage_rows<T, TILE, NT>(s_x, a.x, a.edge_src + base, cnt, dim_in, tid);
     cp_async_commit();
-    for (int i = tid; i < TILE * n_terms; i += NT) {  // c * y per (edge, term), while the rows land
-      const int e = i / n_terms, k = i - e * n_terms;
-      s_cy[i] = __ldg(a.coef + k) * s_y[e * sh_dim + __ldg(a.terms + 2 * k + 1)];
-    }
+    cgf::scale_y<T, TILE, NT>(a.tab, s_y, sh_dim, s_cy, tid);  // c * y per (edge, term), while the rows land
     cp_async_wait<0>();
     __syncthreads();
 
-    // CG product and segmented sum: thread o walks the tile's edges in order
-    const unsigned ends = static_cast<unsigned>(s_flags[0]);
+    // CG product and segmented sum (cg_fwd.cuh); a last segment that
+    // continues into the next tile goes to this tile's carry row
     T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * mid_dim : nullptr;
-    for (int o = tid; o < mid_dim; o += NT) {
-      const int32_t* gr = a.groups + 4 * __ldg(a.col_group + o);
-      const int u = o - __ldg(gr), wc = __ldg(gr + 1) + u, t0 = __ldg(gr + 2), t1 = __ldg(gr + 3);
-      T m[TILE];  // column o of each edge's CG product (zero on the rows past cnt)
-#pragma unroll
-      for (int e = 0; e < TILE; ++e) m[e] = T(0);
-      for (int k = t0; k < t1; ++k) {
-        const int xr = __ldg(a.terms + 2 * k) + u;
-#pragma unroll
-        for (int e = 0; e < TILE; ++e) m[e] += s_cy[e * n_terms + k] * s_x[e * dim_in + xr];
-      }
-      T acc = T(0);
-#pragma unroll
-      for (int e = 0; e < TILE; ++e) {
-        acc += s_w[e * L.ldw + wc] * m[e];
-        if ((ends >> e) & 1u) {  // edge e ends its segment: write the sum out
+    cgf::cg_forward<T, TILE, NT>(
+        a.tab, s_cy, s_x, dim_in, s_w, L.ldw, mid_dim, static_cast<unsigned>(s_flags[0]), [&](int o, int e, T v) {
           T* row = (e == cnt - 1 && carry_row != nullptr) ? carry_row
                                                            : a.out + static_cast<int64_t>(s_dst[e]) * mid_dim;
-          row[o] = acc;
-          acc = T(0);
-        }
-      }
-    }
-  }
-}
-
-// One warp per node: zero rows where no real edge ends, and the sum of the
-// carried parts and the final part, in tile order, where a node's edges
-// span tiles.
-template <typename T>
-__global__ void __launch_bounds__(32 * kFinishWarps) conv_fwd_finish_kernel(const int32_t* __restrict__ dst_ptr,
-                                                                           const T* __restrict__ carry,
-                                                                           T* __restrict__ out, int n_nodes,
-                                                                           int mid_dim, int tile) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kFinishWarps + (threadIdx.x >> 5);
-  if (n >= n_nodes) return;
-  const int b = __ldg(dst_ptr + n), e = __ldg(dst_ptr + n + 1);
-  T* row = out + static_cast<int64_t>(n) * mid_dim;
-  if (b == e) {
-    for (int c = lane; c < mid_dim; c += 32) row[c] = T(0);
-    return;
-  }
-  const int t0 = b / tile, t1 = (e - 1) / tile;
-  if (t0 == t1) return;  // written whole by its tile
-  for (int c = lane; c < mid_dim; c += 32) {
-    T v = carry[static_cast<int64_t>(t0) * mid_dim + c];
-    for (int t = t0 + 1; t < t1; ++t) v += carry[static_cast<int64_t>(t) * mid_dim + c];
-    row[c] = v + row[c];
+          row[o] = v;
+        });
   }
 }
 
 template <typename T>
 size_t fwd_bytes(const ConvFwdArgs<T>& a, int tile) {
-  return fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.n_emb, a.hidden, a.wn, a.n_terms).bytes;
+  return fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.n_emb, a.hidden, a.wn, a.tab.n_terms).bytes;
 }
 
 // The largest tile (32, 16 or 8 edges) whose shared memory fits one block,
@@ -306,7 +236,7 @@ cudaError_t launch_tile(const ConvFwdArgs<T>& args, int dev, size_t smem, cudaSt
   return cudaGetLastError();
 }
 
-// Tile kernel, then the finish kernel.  The 32-edge tile caps registers at
+// Tile kernel, then the finish kernel (cg_fwd.cuh).  The 32-edge tile caps registers at
 // 128 for two blocks an SM only where two fit in shared memory (f32 at the
 // flagship's widths); `tile` must be pick_tile's (the caller sized carry
 // [ceil(n_real / tile), mid_dim] by it).
@@ -326,9 +256,8 @@ int launch_conv_fwd(const ConvFwdArgs<T>& args, int tile, void* stream) {
   else
     err = launch_tile<T, 8, 1>(args, lim.dev, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_fwd_finish_kernel<T><<<mlp::cdiv(args.n_nodes, kFinishWarps), 32 * kFinishWarps, 0, s>>>(
-      args.dst_ptr, args.carry, args.out, args.n_nodes, args.mid_dim, tile);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cgf::launch_finish<T, 1, false>(args.dst_ptr, args.carry, args.out, nullptr, args.n_nodes,
+                                                          args.mid_dim, tile, s));
 }
 
 // pick_tile for the given widths on the current device; a CUDA error as -err
@@ -338,7 +267,7 @@ int conv_fwd_tile(int dim_in, int sh_dim, int n_emb, int hidden, int wn, int n_t
   const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return -static_cast<int>(err);
   ConvFwdArgs<T> a{};
-  a.dim_in = dim_in, a.sh_dim = sh_dim, a.n_emb = n_emb, a.hidden = hidden, a.wn = wn, a.n_terms = n_terms;
+  a.dim_in = dim_in, a.sh_dim = sh_dim, a.n_emb = n_emb, a.hidden = hidden, a.wn = wn, a.tab.n_terms = n_terms;
   return pick_tile(a, lim);
 }
 
@@ -359,14 +288,14 @@ int conv_fwd_tile(int dim_in, int sh_dim, int n_emb, int hidden, int wn, int n_t
         static_cast<const T*>(x),         static_cast<const T*>(sh),                                            \
         static_cast<const T*>(emb),       static_cast<const T*>(w1),                                            \
         static_cast<const T*>(w2),        static_cast<const int32_t*>(edge_src),                                \
-        static_cast<const int32_t*>(dst_ptr), static_cast<const int32_t*>(groups),                              \
-        static_cast<const int32_t*>(terms), static_cast<const T*>(coef),                                        \
-        static_cast<const int32_t*>(col_group), static_cast<T*>(out),                                           \
-        static_cast<T*>(carry),           n_nodes,                                                              \
-        dim_in,                           sh_dim,                                                               \
-        n_emb,                            hidden,                                                               \
-        wn,                               mid_dim,                                                              \
-        n_terms,                          static_cast<T>(alpha0),                                               \
+        static_cast<const int32_t*>(dst_ptr),                                                                   \
+        {static_cast<const int32_t*>(groups), static_cast<const int32_t*>(terms), static_cast<const T*>(coef),  \
+         static_cast<const int32_t*>(col_group), n_terms},                                                      \
+        static_cast<T*>(out),             static_cast<T*>(carry),                                               \
+        n_nodes,                          dim_in,                                                               \
+        sh_dim,                           n_emb,                                                                \
+        hidden,                           wn,                                                                   \
+        mid_dim,                          static_cast<T>(alpha0),                                               \
         static_cast<T>(alpha1)};                                                                                \
     return nequip::launch_conv_fwd<T>(args, tile, stream);                                                      \
   }

@@ -37,11 +37,13 @@ _SIGNATURES: Dict[str, List] = {
     "nequip_conv_bwd_train": [_P] * 22 + [_I] * 8 + [_D, _D, _P],
     "nequip_dw_reduce": [_P] * 4 + [_I] * 5 + [_D, _P],
     "nequip_scatter_rows": [_P] * 4 + [_I, _I, _P],
-    "nequip_tri_fwd": [_P] * 10 + [_I] * 5 + [_P],
-    "nequip_tri_fwd_acc": [_P] * 10 + [_I] * 5 + [_P],
+    "nequip_tri_fwd": [_P] * 11 + [_I] * 7 + [_P],
+    "nequip_tri_fwd_acc": [_P] * 11 + [_I] * 7 + [_P],
+    "nequip_tri_fwd_tile": [_I] * 4,
     "nequip_tri_bwd": [_P] * 16 + [_I] * 6 + [_P],
-    "nequip_jvp_fwd": [_P] * 14 + [_I] * 5 + [_P],
-    "nequip_jvp_fwd_acc": [_P] * 14 + [_I] * 5 + [_P],
+    "nequip_jvp_fwd": [_P] * 15 + [_I] * 7 + [_P],
+    "nequip_jvp_fwd_acc": [_P] * 15 + [_I] * 7 + [_P],
+    "nequip_jvp_fwd_tile": [_I] * 4,
     "nequip_jvp_bwd": [_P] * 23 + [_I] * 6 + [_P],
     "nequip_mb_fwd": [_P] * 13 + [_I] * 12 + [_P],
     "nequip_mb_bwd": [_P] * 14 + [_I] * 9 + [_P],

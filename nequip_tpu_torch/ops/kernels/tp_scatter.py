@@ -118,7 +118,7 @@ class TPPlan:
             raise ValueError(f"SH chunks wider than {_MAX_YDIM} (l > 4) are not supported")
         self._tables = self._build_tables()
         self._device_tables: Dict[Tuple[torch.device, torch.dtype], Dict[str, torch.Tensor]] = {}
-        self._fwd_tiles: Dict[tuple, int] = {}  # K1's edges per tile, by (device, dtype, n_emb, hidden)
+        self._fwd_tiles: Dict[tuple, int] = {}  # edges per tile of K1, K4 and K6, by kernel, device, dtype, widths
 
     def _build_tables(self) -> Dict[str, np.ndarray]:
         # K1: one group per output row (path, m3)
@@ -450,30 +450,43 @@ def _check_layout(layout: EdgeLayout, device: torch.device) -> None:
 
 
 def conv_fwd_carry_rows(n_real: int, tile: int) -> int:
-    """Rows of K1's carry buffer: one per tile of ``tile`` real edges (a tile
-    whose last destination continues into the next tile writes its part
-    there, see ``csrc/conv_fwd.cu``)."""
+    """Rows of the carry buffer of K1, K4 and K6: one per tile of ``tile``
+    real edges (a tile whose last destination continues into the next tile
+    writes its part there, see ``csrc/cg_fwd.cuh``)."""
     return _cdiv(n_real, tile)
+
+
+def _tile(plan: TPPlan, name: str, dtype: torch.dtype, device, widths: Tuple[int, ...]) -> int:
+    """Edges per tile that kernel ``name`` takes at ``widths`` on a CUDA
+    ``device`` (32, 16, 8 or 4, as its shared memory fits), asked of the
+    library once and kept with the plan; raises if no tile fits."""
+    device = torch.device(device)
+    key = (name, device, dtype, widths)
+    if key not in plan._fwd_tiles:
+        with torch.cuda.device(device):
+            tile = build.entry_point(f"nequip_{name}_tile", dtype)(*widths)
+        if tile < 0:
+            build.check(-tile, name)
+        if tile == 0:
+            raise RuntimeError(f"{name}: no edge tile fits in shared memory at dim_in {plan.dim_in}, "
+                               f"WN {plan.weight_numel}, widths {widths} in {dtype}")
+        plan._fwd_tiles[key] = tile
+    return plan._fwd_tiles[key]
 
 
 def conv_fwd_tile(plan: TPPlan, n_emb: int, hidden: int, dtype: torch.dtype, device) -> int:
     """Edges per tile of K1 (32, 16 or 8: the largest whose shared memory
     fits one block) for ``plan`` with an ``n_emb -> hidden -> WN`` radial
-    MLP on a CUDA ``device``; asked of the library once per widths and kept
-    with the plan."""
-    device = torch.device(device)
-    key = (device, dtype, n_emb, hidden)
-    if key not in plan._fwd_tiles:
-        with torch.cuda.device(device):
-            tile = build.entry_point("nequip_conv_fwd_tile", dtype)(
-                plan.dim_in, plan.sh_dim, n_emb, hidden, plan.weight_numel, len(plan._tables["fwd_coef"]))
-        if tile < 0:
-            build.check(-tile, "conv_fwd")
-        if tile == 0:
-            raise RuntimeError(f"conv_fwd: no edge tile fits in shared memory at dim_in {plan.dim_in}, "
-                               f"WN {plan.weight_numel}, hidden {hidden} in {dtype}")
-        plan._fwd_tiles[key] = tile
-    return plan._fwd_tiles[key]
+    MLP on a CUDA ``device``."""
+    return _tile(plan, "conv_fwd", dtype, device, (plan.dim_in, plan.sh_dim, n_emb, hidden, plan.weight_numel,
+                                                   len(plan._tables["fwd_coef"])))
+
+
+def tri_fwd_tile(plan: TPPlan, name: str, dtype: torch.dtype, device) -> int:
+    """Edges per tile of K4 and K4-acc (``name`` "tri_fwd") or K6 ("jvp_fwd")
+    for ``plan`` on a CUDA ``device``."""
+    return _tile(plan, name, dtype, device, (plan.dim_in, plan.sh_dim, plan.weight_numel,
+                                             len(plan._tables["fwd_coef"])))
 
 
 def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout):
@@ -609,9 +622,11 @@ def _check_acc(name: str, acc, layout: EdgeLayout, plan: TPPlan, ref: torch.Tens
 
 def tri_fwd(plan: TPPlan, x, y, w, layout: EdgeLayout, acc=None):
     """K4: ``[N, mid_dim]`` trilinear conv with per-edge weights ``w [E, WN]``
-    (see ``csrc/tri_fwd.cu``).  With ``acc`` (K4-acc, counted as
-    ``tri_fwd_acc``) the messages are added onto ``acc`` in place and ``acc``
-    is returned: one slice of the edge-chunked sweep."""
+    (see ``csrc/tri_fwd.cu``: dense edge tiles, the CG forward shared with
+    K1).  With ``acc`` (K4-acc, counted as ``tri_fwd_acc``) the messages are
+    added onto ``acc`` in place and ``acc`` is returned: one slice of the
+    edge-chunked sweep.  It allocates its output (none with ``acc``) and
+    the carry rows of destinations that tiles split."""
     if acc is not None:
         return tri_fwd_acc(plan, x, y, w, layout, acc)
     if not _route("tri_fwd", x, y, w):
@@ -635,12 +650,14 @@ def tri_fwd_acc(plan: TPPlan, x, y, w, layout: EdgeLayout, acc):
 def _launch_tri_fwd(entry: str, plan: TPPlan, x, y, w, layout: EdgeLayout, out) -> None:
     _check_layout(layout, x.device)
     tab = plan.device_tables(x.device, x.dtype)
+    tile = tri_fwd_tile(plan, "tri_fwd", x.dtype, x.device)
+    carry = torch.empty(conv_fwd_carry_rows(layout.n_real, tile), plan.mid_dim, dtype=x.dtype, device=x.device)
     err = build.entry_point(entry, x.dtype)(
         x.data_ptr(), y.data_ptr(), w.data_ptr(), layout.edge_src.data_ptr(),
         layout.dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
-        tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(),
-        layout.num_nodes, plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(), carry.data_ptr(),
+        tab["fwd_coef"].shape[0], layout.num_nodes, plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
+        tile, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, entry)
 
@@ -649,7 +666,8 @@ def jvp_fwd(plan: TPPlan, x, tx, y, ty, w, dw, layout: EdgeLayout, acc=None):
     """K6: ``(msg, tmsg) = (F(x, y, w), F(tx, y, w) + F(x, ty, w) + F(x, y, dw))``
     in one pass (see ``csrc/jvp_fwd.cu``).  With ``acc = (msg_acc,
     tmsg_acc)`` both are added onto the accumulators in place, which are
-    returned."""
+    returned.  It allocates its outputs (none with ``acc``) and ``[n_tiles,
+    2 mid_dim]`` carry rows."""
     if not _route("jvp_fwd", x, tx, y, ty, w, dw, *(acc or ())):
         return jvp_fwd_plain(plan, x, tx, y, ty, w, dw, layout, acc)
     _check_layout(layout, x.device)
@@ -661,12 +679,15 @@ def jvp_fwd(plan: TPPlan, x, tx, y, ty, w, dw, layout: EdgeLayout, acc=None):
         _check_acc("jvp_fwd", acc, layout, plan, x)
         entry = "nequip_jvp_fwd_acc"
     tab = plan.device_tables(x.device, x.dtype)
+    tile = tri_fwd_tile(plan, "jvp_fwd", x.dtype, x.device)
+    carry = torch.empty(conv_fwd_carry_rows(layout.n_real, tile), 2 * plan.mid_dim, dtype=x.dtype, device=x.device)
     err = build.entry_point(entry, x.dtype)(
         x.data_ptr(), tx.data_ptr(), y.data_ptr(), ty.data_ptr(), w.data_ptr(), dw.data_ptr(),
         layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(),
         tab["fwd_terms"].data_ptr(), tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(),
-        acc[0].data_ptr(), acc[1].data_ptr(), layout.num_nodes, plan.dim_in, plan.sh_dim,
-        plan.weight_numel, plan.mid_dim, torch.cuda.current_stream(x.device).cuda_stream,
+        acc[0].data_ptr(), acc[1].data_ptr(), carry.data_ptr(), tab["fwd_coef"].shape[0], layout.num_nodes,
+        plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim, tile,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, entry)
     jvp_fwd.launches += 1

@@ -301,11 +301,106 @@ def test_cuda_tri_bwd_jvp_bwd_dense_tiles(cuda, case, name, dtype):
         assert torch.equal(a, b)
 
 
+FWD_KERNELS = ["tri_fwd", "tri_fwd_acc", "jvp_fwd", "jvp_fwd_acc"]
+
+
+def _fwd_call(name, plan, lay, x, tx, sh, tsh, w, dw, acc):
+    """K4, K4-acc or K6 with or without accumulators (``name``) and its plain
+    version on the same operands; each call adds onto fresh copies of
+    ``acc``."""
+    fresh = lambda: tuple(a.clone() for a in acc)  # noqa: E731
+    if name == "tri_fwd":
+        return (lambda: (K.tri_fwd(plan, x, sh, w, lay),)), (lambda: (K.tri_fwd_plain(plan, x, sh, w, lay),))
+    if name == "tri_fwd_acc":
+        return ((lambda: (K.tri_fwd(plan, x, sh, w, lay, acc=fresh()[0]),)),
+                (lambda: (K.tri_fwd_plain(plan, x, sh, w, lay, fresh()[0]),)))
+    ops = (plan, x, tx, sh, tsh, w, dw, lay)
+    if name == "jvp_fwd":
+        return (lambda: K.jvp_fwd(*ops)), (lambda: K.jvp_fwd_plain(*ops))
+    return (lambda: K.jvp_fwd(*ops, acc=fresh())), (lambda: K.jvp_fwd_plain(*ops, fresh()))
+
+
+def _check_fwd(name, run, plain, dtype, lay, acc):
+    """One launch, the plain version's values at the file's tolerances,
+    bitwise equal outputs on a repeat call; rows of nodes without an edge
+    exactly zero (without accumulators) or bitwise the accumulators' (with
+    them).  Returns the outputs."""
+    counter = name.replace("jvp_fwd_acc", "jvp_fwd")
+    before = K.KERNELS[counter].launches
+    got = run()
+    torch.cuda.synchronize()
+    assert K.KERNELS[counter].launches == before + 1
+    for a, b, c in zip(got, plain(), run()):
+        rtol, atol = _tol(dtype, b)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        assert torch.equal(a, c)
+    empty = lay.dst_ptr[1:] == lay.dst_ptr[:-1]
+    for i, a in enumerate(got):
+        if name.endswith("_acc"):
+            assert torch.equal(a[empty], acc[i][empty])
+        else:
+            assert not a[empty].any()  # NaN would count as nonzero
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", FWD_KERNELS)
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_cuda_tri_fwd_jvp_fwd_dense_tiles(cuda, case, name, dtype):
+    """K4, K4-acc and K6 (both forms) on streams whose tiles cross node
+    boundaries in every way (nodes owned by one tile and walked over several
+    chunks, the 16-, 8- and 4-edge tiles of wide models), with padding
+    nodes; against their plain versions, bitwise equal on a repeat call;
+    masked slots poisoned with NaN change nothing."""
+    kind, degrees = DENSE_TILE_CASES[case]
+    degrees = list(degrees) + [0] * 3  # padding nodes: no real edge, masked slots may point at them
+    plan, lay, n_real, x, tx, sh, tsh, w, dw, g, gt = _tri_operands(kind, cuda, dtype, degrees, seed=13)
+    acc = (g, gt)  # random accumulators of the _acc forms
+    got = _check_fwd(name, *_fwd_call(name, plan, lay, x, tx, sh, tsh, w, dw, acc), dtype, lay, acc)
+    poisoned = [v.clone() for v in (sh, tsh, w, dw)]
+    for v in poisoned:
+        v[n_real:] = float("nan")
+    for a, b in zip(_fwd_call(name, plan, lay, x, tx, *poisoned, acc)[0](), got):
+        assert torch.equal(a, b)
+
+
 # slices of the fr sweep through edge_slices on [18] * 40 + [7]: the second
 # slice starts inside node 1's segment at row 28 (a destination split over
 # two slices, sh[rows] 16-byte aligned) or at row 37 (an odd row: the base of
 # sh[rows] is 4 bytes past a 16-byte boundary in f32, 8 in f64)
 SLICE_STARTS = {"split_destination": 28, "odd_row": 37}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["tri_fwd_acc", "jvp_fwd_acc"])
+@pytest.mark.parametrize("case", list(SLICE_STARTS))
+def test_cuda_tri_fwd_jvp_fwd_on_slices(cuda, case, name, dtype):
+    """K4-acc and K6-acc on both slices of a two-slice cut of the flagship's
+    layer-1 stream, the operands the rows of each slice, against plain; rows
+    of nodes without an edge in the slice untouched; both slices in turn
+    onto the same accumulators give the whole stream's sum."""
+    degrees = [18] * 40 + [7]
+    plan, lay, n_real, x, tx, sh, tsh, w, dw, g, gt = _tri_operands("flagship1", cuda, dtype, degrees, seed=14)
+    slices = K.edge_slices(lay, 2, [0, SLICE_STARTS[case], n_real])
+    assert SLICE_STARTS[case] not in lay.dst_ptr.tolist()  # the boundary falls inside a segment
+    acc = (g, gt)
+    running = tuple(a.clone() for a in acc)
+    for sl in slices:
+        rows = slice(sl.start, sl.stop)
+        ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows])
+        if sl.start == SLICE_STARTS["odd_row"]:
+            assert ops[2].data_ptr() % 16 and ops[3].data_ptr() % 16
+        _check_fwd(name, *_fwd_call(name, plan, sl.layout, *ops, acc), dtype, sl.layout, acc)
+        if name == "tri_fwd_acc":
+            K.tri_fwd(plan, x, ops[2], ops[4], sl.layout, acc=running[0])
+        else:
+            K.jvp_fwd(plan, *ops, sl.layout, acc=running)
+    whole = _fwd_call(name, plan, lay, x, tx, sh, tsh, w, dw, acc)[1]()
+    for a, b in zip(running, whole):
+        rtol, atol = _tol(dtype, b)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda

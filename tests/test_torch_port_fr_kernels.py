@@ -11,9 +11,9 @@ r_max 4 (3,978 real edges, shuffled, padded to 4,096 slots), 256 node
 slots, features ``4x0e+4x1o`` x SH(1).  The JAX stream of 4,608 slots cut
 into 3 slices puts both boundaries of slice 1 inside a destination's
 segment; the port's slice 1 holds the same real edges.  K5 runs on that
-slice too, and K7 also over whole streams with the degree patterns of its
-dense tiles on the card (``DEGREE_CASES``: long segments, empty nodes,
-fewer real edges than a tile, none).
+slice too, and K4-acc, K6 and K7 also over whole streams with the degree
+patterns of their dense tiles on the card (``DEGREE_CASES``: long
+segments, empty nodes, fewer real edges than a tile, none).
 
 Tolerances: 1e-12 of max(1, max |ref|) for the kernel twins and the chunked
 outputs (float64 sums of a few dozen terms in another order), 1e-10 of max
@@ -156,37 +156,59 @@ def _jedges(p, a):
     return np.asarray(a)[p["jrows"]]
 
 
-def test_tri_fwd_acc_matches_jax_forward_acc(p):
-    n = p["node"]
+def _check_tri_fwd_acc(q, n_nodes, jl, src, y, w, lay, py, pw):
+    """K4-acc (plain on the CPU) against the JAX ``_forward(acc=...)``: in
+    place, and rows of nodes without an edge keep the accumulator's values."""
+    n = q["node"]
     want = jax.jit(lambda x, y, w, acc: J._forward(
-        p["jtp"], x, y, w, p["stk"]["src"][SLICE], p["stk"]["src"][SLICE], None, num_nodes=N_NODES,
-        rows=ROWS, block_e=BLOCK_E, layout=p["jslice"], acc=acc,
-    ))(jnp.asarray(n["x"]), _jslice(p, "sh"), _jslice(p, "w"), jnp.asarray(n["acc"]))
+        q["jtp"], x, y, w, src, src, None, num_nodes=n_nodes, rows=ROWS, block_e=BLOCK_E, layout=jl, acc=acc,
+    ))(jnp.asarray(n["x"]), y, w, jnp.asarray(n["acc"]))
     acc = _t(n["acc"])
-    got = K.tri_fwd(p["plan"], _t(n["x"]), _pslice(p, "sh"), _pslice(p, "w"), p["sl"].layout, acc=acc)
+    got = K.tri_fwd(q["plan"], _t(n["x"]), py, pw, lay, acc=acc)
     assert got is acc  # in place
     _close(got.numpy(), want, 1e-12)
 
 
-@pytest.mark.parametrize("with_acc", [False, True])
-def test_jvp_fwd_matches_jax_jvp_forward(p, with_acc):
-    """Without accumulators over the whole stream, with them over slice 1."""
-    n = p["node"]
+def test_tri_fwd_acc_matches_jax_forward_acc(p):
+    """On slice 1, whose both boundaries fall inside a destination's segment."""
+    _check_tri_fwd_acc(p, N_NODES, p["jslice"], p["stk"]["src"][SLICE], _jslice(p, "sh"), _jslice(p, "w"),
+                       p["sl"].layout, _pslice(p, "sh"), _pslice(p, "w"))
+
+
+@pytest.mark.parametrize("case", list(DEGREE_CASES))
+def test_tri_fwd_acc_matches_jax_forward_acc_degrees(case):
+    """Over whole streams with the degree patterns of K4-acc's dense tiles
+    on the card (a segment longer than a tile, degrees 0 and 1, fewer real
+    edges than a tile, a ragged last tile, every slot masked)."""
+    q, n_nodes = _degree_stream(DEGREE_CASES[case])
+    _check_tri_fwd_acc(q, n_nodes, q["jlay"], q["jsrc"], jnp.asarray(q["slot"]["sh"]), jnp.asarray(q["slot"]["w"]),
+                       q["lay"], q["port"]["sh"], q["port"]["w"])
+
+
+@pytest.mark.parametrize("with_acc,case", [(False, None), (True, None)]
+                         + [(a, c) for c in DEGREE_CASES for a in (False, True)],
+                         ids=["False", "True"] + [f"{a}-{c}" for c in DEGREE_CASES for a in (False, True)])
+def test_jvp_fwd_matches_jax_jvp_forward(p, with_acc, case):
+    """Without accumulators over the whole stream, with them over slice 1
+    (both boundaries inside a destination's segment); and both forms over
+    whole streams with the degree patterns of K6's dense tiles on the
+    card."""
+    q, n_nodes = (p, N_NODES) if case is None else _degree_stream(DEGREE_CASES[case])
+    n = q["node"]
     x, tx = jnp.asarray(n["x"]), jnp.asarray(n["tx"])
-    if with_acc:
+    if with_acc and case is None:
         jl, src = p["jslice"], p["stk"]["src"][SLICE]
         jops = [_jslice(p, k) for k in ("sh", "tsh", "w", "dw")]
         pops = [_pslice(p, k) for k in ("sh", "tsh", "w", "dw")] + [p["sl"].layout]
-        acc = (n["acc"], n["tacc"])
     else:
-        jl, src = p["jlay"], p["jsrc"]
-        jops = [jnp.asarray(p["slot"][k]) for k in ("sh", "tsh", "w", "dw")]
-        pops = [p["port"][k] for k in ("sh", "tsh", "w", "dw")] + [p["lay"]]
-        acc = None
+        jl, src = q["jlay"], q["jsrc"]
+        jops = [jnp.asarray(q["slot"][k]) for k in ("sh", "tsh", "w", "dw")]
+        pops = [q["port"][k] for k in ("sh", "tsh", "w", "dw")] + [q["lay"]]
+    acc = (n["acc"], n["tacc"]) if with_acc else None
     want = jax.jit(lambda x, tx, ops, acc: J._jvp_forward(
-        p["jtp"], x, tx, *ops, src, N_NODES, jl, ROWS, BLOCK_E, acc=acc,
+        q["jtp"], x, tx, *ops, src, n_nodes, jl, ROWS, BLOCK_E, acc=acc,
     ))(x, tx, jops, None if acc is None else tuple(map(jnp.asarray, acc)))
-    got = K.jvp_fwd(p["plan"], _t(n["x"]), _t(n["tx"]), *pops, acc=None if acc is None else tuple(map(_t, acc)))
+    got = K.jvp_fwd(q["plan"], _t(n["x"]), _t(n["tx"]), *pops, acc=None if acc is None else tuple(map(_t, acc)))
     for a, b in zip(got, want):
         _close(a.numpy(), b, 1e-12)
 

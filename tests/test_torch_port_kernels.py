@@ -191,34 +191,37 @@ def test_poisoned_masked_slots_change_nothing():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def _tile_split_sum(dst_ptr, msg, tile):
-    """Segment sums of ``msg`` in the order of conv_fwd.cu, modelled in
-    numpy: each tile of ``tile`` real slots sums every segment in edge order
-    and writes it where it ends in the tile, to the tile's carry row if the
-    segment continues into the next tile, else to ``out``; then, per node,
-    zero rows where no edge ends and carry[t0] + ... + carry[t1 - 1] +
-    out[n] where the node's edges span tiles t0 < t1."""
+def _tile_split_sum(dst_ptr, msg, tile, acc=None):
+    """Segment sums of ``msg`` in the order of conv_fwd.cu (K1), tri_fwd.cu
+    and jvp_fwd.cu (K4, K6; cg_fwd.cuh), modelled in numpy: each tile of
+    ``tile`` real slots sums every segment in edge order and writes it where
+    it ends in the tile, to the tile's carry row if the segment continues
+    into the next tile, else to ``out`` (added onto ``acc``, the
+    accumulating forms); then, per node, zero rows where no edge ends (with
+    ``acc``: left as they are) and carry[t0] + ... + carry[t1 - 1] + out[n]
+    where the node's edges span tiles t0 < t1."""
     n_nodes, n_real = len(dst_ptr) - 1, int(dst_ptr[-1])
-    out = np.full((n_nodes, msg.shape[1]), np.nan)
+    out = np.full((n_nodes, msg.shape[1]), np.nan) if acc is None else acc.copy()
     carry = np.full((K.conv_fwd_carry_rows(n_real, tile), msg.shape[1]), np.nan)
     dst = np.searchsorted(dst_ptr, np.arange(n_real), side="right") - 1  # find_dst
     for t in range(carry.shape[0]):
         base = t * tile
         cnt = min(tile, n_real - base)
-        acc = np.zeros(msg.shape[1])
+        run = np.zeros(msg.shape[1])
         for e in range(cnt):
-            acc = acc + msg[base + e]
+            run = run + msg[base + e]
             d = dst[base + e]
             if e == cnt - 1 or dst[base + e + 1] != d:
                 if e == cnt - 1 and dst_ptr[d + 1] > base + cnt:
-                    carry[t] = acc
+                    carry[t] = run
                 else:
-                    out[d] = acc
-                acc = np.zeros(msg.shape[1])
+                    out[d] = run if acc is None else out[d] + run
+                run = np.zeros(msg.shape[1])
     for n in range(n_nodes):
         b, e = dst_ptr[n], dst_ptr[n + 1]
         if b == e:
-            out[n] = 0.0
+            if acc is None:
+                out[n] = 0.0
             continue
         t0, t1 = b // tile, (e - 1) // tile
         if t0 != t1:
@@ -243,6 +246,25 @@ def test_conv_fwd_tile_split_sums_every_segment(case, tile):
     got = _tile_split_sum(dst_ptr, msg, tile)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("tile", [4, 8, 16, 32])
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_tri_fwd_acc_tile_split_sums_every_segment(case, tile):
+    """K4-acc's and K6-acc's split of destinations across tiles (K1's, with
+    the last part of each node added onto the accumulator and the rows of
+    nodes without an edge left as they are) adds every node's segment sum
+    onto its row once; the untouched rows keep their values bitwise."""
+    degrees = np.asarray(DENSE_TILE_CASES[case][1] + [0] * 3)
+    dst_ptr = np.concatenate([[0], np.cumsum(degrees)])
+    r = np.random.RandomState(4)
+    msg = r.standard_normal((int(dst_ptr[-1]), 5))
+    acc = r.standard_normal((len(degrees), 5))
+    want = acc.copy()
+    np.add.at(want, np.repeat(np.arange(len(degrees)), degrees), msg)
+    got = _tile_split_sum(dst_ptr, msg, tile, acc)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(got[degrees == 0], acc[degrees == 0])
 
 
 def test_layout_csr_matches_numpy():

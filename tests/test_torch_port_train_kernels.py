@@ -8,8 +8,8 @@ package's Pallas kernels in interpret mode, on the small problem of
 128 nodes, 300 real edges of 512 slots, sorted and unsorted streams):
 
 * K4/K5 (``fused_tp_scatter``/``fused_tp_scatter_bwd``): forward 1e-10,
-  cotangents 1e-9; K5 also on the degree patterns of its dense tiles on
-  the card (``DEGREE_CASES``);
+  cotangents 1e-9; both also on the degree patterns of their dense tiles
+  on the card (``DEGREE_CASES``);
 * K2's ``dw1``/``dw2`` against ``jax.vjp`` of ``fused_tp_scatter_mlp``: 1e-9;
 * ``dw_reduce`` (plain on the CPU) against numpy: 1e-13; its split of the
   edges into chunks (``_dw_split``) tiles them once, in order;
@@ -68,9 +68,14 @@ def _jit_vjp(f, primals, cotangent):
     return jax.jit(lambda ps, ct: jax.vjp(f, *ps)[1](ct))(primals, cotangent)
 
 
-@pytest.mark.parametrize("unsorted", SORTS)
-def test_tri_fwd_matches_jax_pallas(unsorted):
-    p = _problem(unsorted)
+@pytest.mark.parametrize("unsorted,case", [(False, None), (True, None)] + [(False, c) for c in DEGREE_CASES],
+                         ids=["False", "True", *DEGREE_CASES])
+def test_tri_fwd_matches_jax_pallas(unsorted, case):
+    """K4 (plain on the CPU) against the JAX kernel, also on the degree
+    patterns of K4's dense tiles on the card: a segment longer than a tile
+    (one tile walks it in several chunks), degrees 0 and 1, fewer real
+    edges than a tile, a ragged last tile, every slot masked."""
+    p = _problem(unsorted, None if case is None else DEGREE_CASES[case])
     data, order = _port_stream(p)
     w = _weights(p)
     got = K.fused_tp_scatter(K.TPPlan(p["tp"]), _t(p["x"]), data[_keys.EDGE_ATTRS_KEY], _t(w[order]),
