@@ -66,7 +66,28 @@ Phases (each prints a line; any failure exits non-zero):
      of 288, f32 and bf16, four index patterns), bitwise equal to
      torch.index_select, with its time (at the wrapper's block shape, and
      at the tool's) beside index_select's; 8c both
-     tools' run() at their defaults, whose launches the report counts.
+     tools' run() at their defaults, whose launches the report counts;
+  9. MD, as bench.py's MD row drives the JAX driver: the flagship in f32
+     with tp_impl="fused" on the 23,328-atom fcc frame, VelocityVerlet at
+     2 fs, masses 63.546, skin 0.5, blocks of 10 steps, Maxwell-Boltzmann
+     velocities at 300 K from seed 1.  9a builds the C++ cell list with g++
+     and times it and the kdtree backend at the MD cutoff (r_max + skin);
+     their (dst, src, shift) edge sets must be equal.  9b
+     integration="host" and 9c integration="block" (one CUDA graph a
+     block): a warm-up block, then 100 timed steps from where it ended,
+     with the step's median, min and max (host clock per step, or per
+     block / 10), atom-steps/s, the force call's and the integrator's
+     times alone (CUDA events), neighbour-list and re-layout time per
+     rebuild, peak memory, for 9c the captures, capture time and the
+     graph's replay time per step; the launches of the timed run (K1, K2's
+     inference variant and K3 must launch, no training kernel may).  9d:
+     host and block positions and forces after the same 110 steps from
+     one start.  9e: skin 1e-6 (a rebuild after every block; one capture
+     whose graph replays on layouts refilled in place): the last forces
+     against a fresh neighbour list at the final positions, and a further
+     replayed block against a fresh list from the positions of the last
+     build.  9h: the force call on the MD graph against tp_impl="torch"
+     (phase 4's gates).  9f: the host run's NVE drift per atom.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -1063,6 +1084,222 @@ def phase8c_tools():
     return launches
 
 
+# phase 9: the MD driver at 23k atoms, as bench.py's MD row drives the JAX one
+MD_STEPS = 100
+MD_MASS = 63.546  # amu, Cu
+MD_SKIN = 0.5
+# Host and block integration run the same kernels on the same float64 state;
+# the Verlet forms differ in rounding (make_step against the split halves),
+# and float32 forces carry such differences through the chaotic trajectory.
+# After 110 steps from one start the gaps must stay below these (3.3e-8 A
+# and 6.5e-7 of max |F| on an H100 80GB HBM3 at 700 W); a force call on a
+# stale layout misses or adds whole pair terms.
+MD_POS_TOL = 1e-5  # Angstrom
+MD_FORCE_TOL = 1e-4  # of max |F|
+# forces of a replayed block against a fresh neighbour list on the same
+# positions: the same kernels on the same inputs, so float32 rounding at most
+STALE_FORCE_TOL = 1e-6  # of max |F|
+NVE_DRIFT_LIMIT = 1e-3  # eV per atom over the run (velocity Verlet, 2 fs)
+
+
+def _edge_rows(edge_index, shifts, mask=None) -> np.ndarray:
+    """(dst, src, shift) rows of the (real) edges, sorted, to compare edge sets."""
+    rows = np.concatenate([np.asarray(edge_index).T.astype(np.int64), np.rint(np.asarray(shifts)).astype(np.int64)],
+                          axis=1)
+    if mask is not None:
+        rows = rows[np.asarray(mask)]
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _md_frame(n_atoms: int) -> dict:
+    f = fcc_frame(n_atoms)
+    return {"pos": f["pos"], "cell": f["cell"], "pbc": f["pbc"], "atom_types": np.zeros(len(f["pos"]), dtype=np.int64)}
+
+
+def phase9a_neighbor_list(smi: str, frame: dict, cutoff: float) -> None:
+    """The C++ cell list's build, and both backends at MD's cutoff (r_max +
+    skin) on the 23k-atom frame; their edge sets must be equal."""
+    import tempfile
+
+    from nequip_tpu_torch.data import _cpp_nl, neighbor_list
+
+    _cpp_nl.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_cpp_nl.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        _cpp_nl.build(Path(tmp))
+        build_s = time.perf_counter() - t0
+    ms, rows = {}, {}
+    for backend, reps in (("cpp", 3), ("kdtree", 2)):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ei, sh = neighbor_list(frame["pos"], cutoff, cell=frame["cell"], pbc=frame["pbc"], backend=backend)
+            times.append(time.perf_counter() - t0)
+        ms[backend] = 1e3 * float(np.median(times))
+        rows[backend] = _edge_rows(ei, sh)
+    equal = rows["cpp"].shape == rows["kdtree"].shape and bool((rows["cpp"] == rows["kdtree"]).all())
+    print(f"phase 9a neighbour list ({smi}, host CPU): C++ cell list built by g++ in {build_s:.1f} s; "
+          f"{len(frame['pos'])} atoms, cutoff {cutoff} A: cpp {ms['cpp']:.1f} ms (median of 3), "
+          f"kdtree {ms['kdtree']:.1f} ms (median of 2), {len(rows['cpp'])} / {len(rows['kdtree'])} edges, "
+          f"edge sets (dst, src, shift) equal: {equal}", flush=True)
+    if not equal:
+        raise RuntimeError("phase 9a: the cpp and kdtree neighbour lists differ")
+
+
+def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str) -> dict:
+    """A warm-up block, then MD_STEPS timed steps from where it ended."""
+    import torch
+
+    from nequip_tpu_torch.integrations import MDDriver, VelocityVerlet
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    n = len(frame["pos"])
+    masses = np.full(n, MD_MASS)
+    driver = MDDriver(model, dict(frame), VelocityVerlet(dt_fs=2.0), masses=masses, skin=MD_SKIN,
+                      steps_per_block=10, integration=integration)
+    t0 = time.perf_counter()
+    warm = driver.run(driver.steps_per_block, velocities=v0)
+    warm_s = time.perf_counter() - t0
+    dev = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")  # noqa: E731
+    ke = lambda v: float(0.5 * np.sum(masses[:, None] * v**2))  # noqa: E731
+    e0 = driver._potential_energy(dev(warm["positions"])) + ke(warm["velocities"])
+    builds0, captures0 = len(driver.rebuild_timings), driver.captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = driver.run(MD_STEPS, velocities=warm["velocities"])
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in K.KERNELS.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    clock = driver.step_clock
+    per_step = [1e3 * (tb - ta) / (sb - sa) for (sa, ta), (sb, tb) in zip(clock, clock[1:])]
+    rebuilds = driver.rebuild_timings[builds0:]
+    e1 = driver._potential_energy(dev(out["positions"])) + ke(out["velocities"])
+
+    pos, forces = dev(out["positions"]), dev(out["forces"])
+    half_a, half_b = driver.integrator.make_half_steps(driver.masses)
+    state = (pos, dev(out["velocities"]), forces, torch.zeros((), dtype=torch.float64, device="cuda"))
+    model_ms = cuda_median_ms(lambda: driver.forces(pos))
+    integ_ms = cuda_median_ms(lambda: driver._disp2(half_b(*half_a(state), forces)[0]))
+    med = float(np.median(per_step))
+    line = (f"phase 9{label} MD integration={integration} ({smi}): {n} atoms, warm-up block {warm_s:.2f} s; "
+            f"{MD_STEPS} steps in {wall_s:.3f} s ({1e3 * wall_s / MD_STEPS:.2f} ms a step, "
+            f"{n * MD_STEPS / wall_s:.0f} atom-steps/s); step median {med:.2f} ms ({n / med * 1e3:.0f} atom-steps/s), "
+            f"min {min(per_step):.2f}, max {max(per_step):.2f} ms (host clock per "
+            f"{'step' if integration == 'host' else 'block / 10'}); model {model_ms:.2f} ms "
+            f"({100 * model_ms / med:.0f}% of the median step), integrator {integ_ms:.3f} ms (CUDA events, "
+            f"median of 10); {len(rebuilds)} rebuilds: neighbour list "
+            f"{1e3 * np.mean([r['neighbor_list_s'] for r in rebuilds]) if rebuilds else 0:.1f} ms, "
+            f"pad + transfer + re-layout {1e3 * np.mean([r['relayout_s'] for r in rebuilds]) if rebuilds else 0:.1f} "
+            f"ms a rebuild; peak {peak / 2**30:.3f} GiB; edge capacity {driver._cap[1]}")
+    if integration == "block":
+        program = driver._block_program()
+        replay_ms = cuda_median_ms(program, reps=5, warmup=1) / driver.steps_per_block
+        line += (f"; captures {driver.captures} ({driver.captures - captures0} in the timed run), capture "
+                 f"{driver.capture_s:.2f} s with its warm-up step, graph replay {replay_ms:.2f} ms a step "
+                 f"(CUDA events, median of 5 blocks)")
+    print(line, flush=True)
+    print(f"phase 9{label} launches (counted in Python: eager calls"
+          f"{', and each capture: one warm-up step and one block; replays add none' if integration == 'block' else ''}"
+          f"): {launches}", flush=True)
+    if not (np.isfinite(out["positions"]).all() and np.isfinite(out["forces"]).all() and math.isfinite(e1)):
+        raise RuntimeError(f"phase 9{label}: non-finite MD state")
+    for name in SERVING_KERNELS:
+        if not launches.get(name):
+            raise RuntimeError(f"phase 9{label}: kernel {name} was not launched on the MD path")
+    if any(k not in SERVING_KERNELS for k in launches):
+        raise RuntimeError(f"phase 9{label}: MD launched a training kernel: {launches}")
+    return {"out": out, "drift": abs(e1 - e0) / n, "e0": e0, "e1": e1}
+
+
+def phase9_md(smi: str) -> None:
+    """MD at 23k atoms: (a) neighbour lists, (b) host and (c) block
+    integration, (d) host against block, (e) a replayed block on refilled
+    layouts against fresh neighbour lists, (f) NVE drift; (g), the
+    launches, in (b) and (c)."""
+    import torch
+
+    from nequip_tpu_torch.integrations import MDDriver, VelocityVerlet, maxwell_boltzmann_velocities
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.ops.kernels.tp_scatter import LAYOUT_KEY
+
+    frame = _md_frame(23000)
+    n = len(frame["pos"])
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP)
+    phase9a_neighbor_list(smi, frame, float(model.r_max) + MD_SKIN)
+    v0 = maxwell_boltzmann_velocities(np.full(n, MD_MASS), 300.0, seed=1)
+    runs = {integration: _md_run(label, smi, model, frame, v0, integration)
+            for label, integration in (("b", "host"), ("c", "block"))}
+    torch.cuda.empty_cache()
+
+    host, block = runs["host"]["out"], runs["block"]["out"]
+    pos_gap = float(np.abs(host["positions"] - block["positions"]).max())
+    f_scale = float(np.abs(host["forces"]).max())
+    f_gap = float(np.abs(host["forces"] - block["forces"]).max())
+    print(f"phase 9d host vs block after {MD_STEPS + 10} steps from one start: positions max gap {pos_gap:.3e} A "
+          f"(limit {MD_POS_TOL:.0e}), forces max gap {f_gap:.3e} (max |F| {f_scale:.3e}, limit "
+          f"{MD_FORCE_TOL:.0e} of it)", flush=True)
+    if not (pos_gap <= MD_POS_TOL and f_gap <= MD_FORCE_TOL * f_scale):
+        raise RuntimeError("phase 9d: host and block integration disagree")
+
+    # (e) skin 1e-6: every block rebuilds, and the graph replays on layouts refilled in place
+    masses = np.full(n, MD_MASS)
+    driver = MDDriver(model, dict(frame), VelocityVerlet(dt_fs=2.0), masses=masses, skin=1e-6,
+                      steps_per_block=10, integration="block")
+    src0 = driver._batch[LAYOUT_KEY].edge_src.cpu().numpy().copy()
+    out = driver.run(50, velocities=v0)
+    rebuilds = len(driver.rebuild_timings) - 1
+    lay = driver._batch[LAYOUT_KEY]
+    moved_slots = int((lay.edge_src.cpu().numpy() != src0).sum())
+
+    def fresh_forces(nl_pos, at):
+        d = MDDriver(model, {**frame, "pos": nl_pos}, VelocityVerlet(dt_fs=2.0), masses=masses, skin=1e-6,
+                     integration="host")
+        return d.forces(torch.as_tensor(at, dtype=torch.float64, device="cuda")).cpu().numpy()
+
+    scale = float(np.abs(out["forces"]).max())
+    gap_last = float(np.abs(fresh_forces(out["positions"], out["positions"]) - out["forces"]).max())
+    nl_pos = driver._nl_pos.copy()
+    driver._block_program()()  # one more block, replayed on the last refilled layout
+    replayed = driver._state[2].cpu().numpy()
+    gap_replay = float(np.abs(fresh_forces(nl_pos, driver._state[0].cpu().numpy()) - replayed).max())
+    print(f"phase 9e stale edges (skin 1e-6, block): {rebuilds} rebuilds in 50 steps, {driver.captures} capture, "
+          f"{driver.replays} replays; kernel-order sources changed at {moved_slots} of {len(src0)} slots since the "
+          f"capture; last forces vs a fresh list at the final positions: max gap {gap_last:.3e}; a further block "
+          f"replayed on the refilled layout vs a fresh list from the same build positions: max gap "
+          f"{gap_replay:.3e} (max |F| {scale:.3e}, limit {STALE_FORCE_TOL:.0e} of it)", flush=True)
+    if rebuilds != 5 or driver.captures != 1 or moved_slots == 0:
+        raise RuntimeError("phase 9e: expected 5 rebuilds, one capture and a changed layout")
+    if not (gap_last <= STALE_FORCE_TOL * scale and gap_replay <= STALE_FORCE_TOL * scale):
+        raise RuntimeError("phase 9e: a replayed block ran on stale edges")
+
+    # (h) the force call at the MD graph's shapes against the plain conv (tp_impl="torch")
+    ref_model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="torch", **FLAGSHIP)
+    ref_model.load_state_dict(model.state_dict())
+    at = torch.as_tensor(host["positions"], dtype=torch.float64, device="cuda")
+    pair = [MDDriver(m, {**frame, "pos": host["positions"]}, VelocityVerlet(dt_fs=2.0), masses=masses, skin=MD_SKIN,
+                     integration="host") for m in (model, ref_model)]
+    (e_got, f_got), (e_ref, f_ref) = ((d._potential_energy(at), d.forces(at).cpu().numpy()) for d in pair)
+    n_edges = int(pair[0]._batch["edge_mask"].sum())
+    del pair
+    e_rel = abs(e_got - e_ref) / abs(e_ref)
+    f_err, f_max = float(np.abs(f_got - f_ref).max()), float(np.abs(f_ref).max())
+    print(f"phase 9h fused vs torch on the MD graph (f32, card, {n_edges} edges at cutoff "
+          f"{float(model.r_max) + MD_SKIN} A): energy rel err {e_rel:.3e}, forces max err {f_err:.3e} "
+          f"(max |F| {f_max:.3e})", flush=True)
+    if not (e_rel <= 1e-5 and f_err <= 1e-4 * f_max):
+        raise RuntimeError("phase 9h: fused and torch force calls disagree on the MD graph")
+
+    drift = runs["host"]["drift"]
+    print(f"phase 9f NVE drift (host run, {MD_STEPS} steps of 2 fs): |dE_total| per atom {drift:.3e} eV "
+          f"(E {runs['host']['e0']:.6f} -> {runs['host']['e1']:.6f} eV; limit {NVE_DRIFT_LIMIT:.0e}); "
+          f"block run {runs['block']['drift']:.3e} eV", flush=True)
+    if not drift <= NVE_DRIFT_LIMIT:
+        raise RuntimeError("phase 9f: NVE energy drift beyond the limit")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1080,6 +1317,7 @@ def main() -> int:
     report.update(phase8a_microbench(smi))
     report["row_gather"] = phase8b_gather(smi)
     mb_launches = phase8c_tools()
+    phase9_md(smi)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

@@ -12,7 +12,7 @@ from .atomic_data_dict import (
 from .datamodule import NequIPDataModule
 from .loader import DataLoader
 from .modifier import BaseModifier, NumNeighbors, PerAtomModifier
-from .neighborlist import compute_neighborlist_, neighbor_list
+from .neighborlist import compute_neighborlist_, neighbor_list, register_neighborlist_backend
 from .stats_manager import CommonDataStatisticsManager, DataStatisticsManager, EnergyOnlyDataStatisticsManager
 
 __all__ = [
@@ -30,6 +30,7 @@ __all__ = [
     "from_dict",
     "neighbor_list",
     "pad_batch",
+    "register_neighborlist_backend",
     "round_up",
     "to_tensors",
 ]

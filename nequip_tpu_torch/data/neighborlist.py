@@ -1,8 +1,11 @@
-"""Host-side neighbour list (scipy cKDTree backend).
+"""Host-side neighbour list, with a registry of backends.
 
-Port of ``nequip_tpu/data/neighborlist.py`` (``_kdtree_nl`` and
-``compute_neighborlist_``).  The C++ cell list of the JAX package is not
-ported yet.
+Port of ``nequip_tpu/data/neighborlist.py``: ``"cpp"``, the C++ cell list
+(``csrc/neighborlist.cpp``, built at first use by ``_cpp_nl``), is the
+default; ``"kdtree"`` replicates the periodic images within the cutoff and
+queries a scipy cKDTree.  Both give the same edge set; the order of the
+edges within a centre's segment differs.  ``register_neighborlist_backend``
+adds others.  There is no ``"auto"``: a backend that cannot run raises.
 
 Convention (same as the JAX package): ``edge_index[0]`` = center (dst),
 ``edge_index[1]`` = neighbour (src), integer ``edge_cell_shift`` such that
@@ -12,11 +15,19 @@ through periodic images are kept, the trivial self-edge is not.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
 from . import _keys
+
+_NL_BACKENDS: Dict[str, Callable] = {}
+DEFAULT_BACKEND = "cpp"
+
+
+def register_neighborlist_backend(name: str, fn: Callable) -> None:
+    """``fn(pos=, r_max=, cell=, pbc=) -> (edge_index, edge_cell_shift)``."""
+    _NL_BACKENDS[name] = fn
 
 
 def neighbor_list(
@@ -24,12 +35,17 @@ def neighbor_list(
     r_max: float,
     cell: Optional[np.ndarray] = None,
     pbc=(False, False, False),
+    backend: str = DEFAULT_BACKEND,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Return ``(edge_index (2, E) int32, edge_cell_shift (E, 3) float64)``."""
+    if backend not in _NL_BACKENDS:
+        raise ValueError(f"unknown neighbour-list backend {backend!r}; registered: {sorted(_NL_BACKENDS)}")
+    return _NL_BACKENDS[backend](pos=np.asarray(pos, dtype=np.float64), r_max=float(r_max), cell=cell, pbc=pbc)
+
+
+def _kdtree_nl(pos: np.ndarray, r_max: float, cell: Optional[np.ndarray], pbc) -> Tuple[np.ndarray, np.ndarray]:
     from scipy.spatial import cKDTree
 
-    pos = np.asarray(pos, dtype=np.float64)
-    r_max = float(r_max)
     n = pos.shape[0]
     pbc = np.asarray(pbc, dtype=bool).reshape(-1)
     if pbc.size == 1:
@@ -83,14 +99,24 @@ def neighbor_list(
     return edge_index, edge_cell_shift
 
 
-def compute_neighborlist_(data: dict, r_max: float) -> dict:
+def _cpp_nl(pos: np.ndarray, r_max: float, cell: Optional[np.ndarray], pbc) -> Tuple[np.ndarray, np.ndarray]:
+    from ._cpp_nl import cpp_cell_list_nl
+
+    return cpp_cell_list_nl(pos, r_max, cell, pbc)
+
+
+register_neighborlist_backend("kdtree", _kdtree_nl)
+register_neighborlist_backend("cpp", _cpp_nl)
+
+
+def compute_neighborlist_(data: dict, r_max: float, backend: str = DEFAULT_BACKEND) -> dict:
     """In-place neighbour-list construction on a host AtomicDataDict."""
     cell = data.get(_keys.CELL_KEY)
     if cell is not None:
         cell = np.asarray(cell).reshape(3, 3)
     pbc = data.get(_keys.PBC_KEY, np.zeros(3, dtype=bool))
     edge_index, shifts = neighbor_list(
-        data[_keys.POSITIONS_KEY], r_max, cell=cell, pbc=np.asarray(pbc).reshape(-1)
+        data[_keys.POSITIONS_KEY], r_max, cell=cell, pbc=np.asarray(pbc).reshape(-1), backend=backend
     )
     for k in [k for k in data if k.startswith(_keys.EDGE_LAYOUT_KEY_PREFIX)]:
         del data[k]  # layouts derive from the edge list and are stale now

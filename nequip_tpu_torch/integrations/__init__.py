@@ -1,3 +1,12 @@
+from .batched import NequIPBatchedInference
 from .calculator import NequIPCalculator
+from .md import MDDriver, NoseHoover, VelocityVerlet, maxwell_boltzmann_velocities
 
-__all__ = ["NequIPCalculator"]
+__all__ = [
+    "MDDriver",
+    "NequIPBatchedInference",
+    "NequIPCalculator",
+    "NoseHoover",
+    "VelocityVerlet",
+    "maxwell_boltzmann_velocities",
+]

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..data import _keys, batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up, to_tensors
+from ..data.neighborlist import DEFAULT_BACKEND
 from ..data.transforms import ChemicalSpeciesToAtomTypeMapper
 from ..ops.kernels.tp_scatter import relayout_edge_stream
 from ..utils.device import resolve_device
@@ -30,11 +31,14 @@ PAD_MULTIPLE = 128
 class NequIPCalculator:
     """``type_names`` are chemical symbols: ``atomic_numbers`` map onto them.
     Runs on the card (``device="cuda"``, raising without one) unless the
-    caller asks for the CPU."""
+    caller asks for the CPU.  ``nl_backend`` names the neighbour-list backend
+    (``data/neighborlist.py``: ``"cpp"`` or ``"kdtree"``)."""
 
-    def __init__(self, predictor: Callable[[dict], dict], r_max: float, type_names: List[str], device="cuda"):
+    def __init__(self, predictor: Callable[[dict], dict], r_max: float, type_names: List[str], device="cuda",
+                 nl_backend: str = DEFAULT_BACKEND):
         self.predictor = predictor
         self.r_max = float(r_max)
+        self.nl_backend = nl_backend
         self.type_names = list(type_names)
         self.type_mapper = ChemicalSpeciesToAtomTypeMapper(self.type_names)
         self.device = resolve_device(device)
@@ -42,17 +46,18 @@ class NequIPCalculator:
         self.timings: Dict[str, float] = {}
 
     @classmethod
-    def from_model(cls, model, device="cuda") -> "NequIPCalculator":
+    def from_model(cls, model, device="cuda", nl_backend: str = DEFAULT_BACKEND) -> "NequIPCalculator":
         """Serve a port ``GraphModel`` (weights frozen: inference only)."""
         device = resolve_device(device)
         model = model.to(device).requires_grad_(False)
         md = model.metadata
-        return cls(model, r_max=float(md["r_max"]), type_names=md["type_names"].split(), device=device)
+        return cls(model, r_max=float(md["r_max"]), type_names=md["type_names"].split(), device=device,
+                   nl_backend=nl_backend)
 
     def _prepare(self, frame: dict):
         data = self.type_mapper(from_dict(dict(frame)))
         t0 = time.perf_counter()
-        data = compute_neighborlist_(data, self.r_max)
+        data = compute_neighborlist_(data, self.r_max, backend=self.nl_backend)
         self.timings["neighbor_list_s"] = time.perf_counter() - t0
         batch = batched_from_list([data])
         n = batch[_keys.POSITIONS_KEY].shape[0]

@@ -8,7 +8,7 @@ edges get exactly-zero edge embedding and cutoff, so their messages vanish
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,6 +78,7 @@ class EdgeLengthNormalizer(GraphModule):
             self._rmax_recip = (1.0 / mat).reshape(-1)
         else:
             self._rmax_recip = np.array(1.0 / self.r_max)
+        self._recips: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}  # _rmax_recip, per device
         irreps_out = {_keys.NORM_LENGTH_KEY: Irreps("1x0e")}
         if self.per_edge_type:
             irreps_out[_keys.EDGE_TYPE_KEY] = None
@@ -86,7 +87,10 @@ class EdgeLengthNormalizer(GraphModule):
     def forward(self, data: dict) -> dict:
         data = with_edge_vectors(data, with_lengths=True)
         r = data[_keys.EDGE_LENGTH_KEY].reshape(-1, 1)
-        recip = torch.as_tensor(self._rmax_recip, dtype=r.dtype, device=r.device)
+        key = (r.dtype, r.device)
+        if key not in self._recips:
+            self._recips[key] = torch.as_tensor(self._rmax_recip, dtype=r.dtype, device=r.device)
+        recip = self._recips[key]
         if self.per_edge_type:
             data = with_edge_types(data)
             et = data[_keys.EDGE_TYPE_KEY]

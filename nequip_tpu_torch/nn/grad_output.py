@@ -30,6 +30,16 @@ from .graph_utils import per_frame_matmul
 from .module import GraphModule
 
 
+def _volumes(data: dict) -> torch.Tensor:
+    """|det(cell)| per frame, as the triple product (elementwise ops only, so
+    a CUDA graph can capture it), 1 for padding frames."""
+    cell = data[_keys.CELL_KEY].reshape(-1, 3, 3)
+    vol = torch.abs(torch.sum(cell[:, 0] * torch.linalg.cross(cell[:, 1], cell[:, 2]), dim=-1))
+    if _keys.FRAME_MASK_KEY in data:
+        vol = torch.where(data[_keys.FRAME_MASK_KEY], vol, torch.ones_like(vol))
+    return vol
+
+
 class ForceStressOutput(GraphModule):
     def __init__(self, func: GraphModule, do_derivatives: bool = True):
         super().__init__()
@@ -79,10 +89,7 @@ class ForceStressOutput(GraphModule):
         out[_keys.POSITIONS_KEY] = data[_keys.POSITIONS_KEY]
         if has_cell:
             out[_keys.CELL_KEY] = orig_cell
-            vol = torch.abs(torch.linalg.det(orig_cell.reshape(-1, 3, 3)))
-            if _keys.FRAME_MASK_KEY in data:
-                vol = torch.where(data[_keys.FRAME_MASK_KEY], vol, torch.ones_like(vol))
-            out[_keys.STRESS_KEY] = dE_ddisp / vol[:, None, None]
+            out[_keys.STRESS_KEY] = dE_ddisp / _volumes(data)[:, None, None]
         out[_keys.FORCE_KEY] = -dE_dpos
         out[_keys.VIRIAL_KEY] = -dE_ddisp
         return out
@@ -121,10 +128,7 @@ class ForceStressOutput(GraphModule):
         if _keys.STRESS_KEY in cotangents:  # stress = (dE/ddisp) / vol
             if not has_cell:
                 raise ValueError("a stress cotangent needs a cell")
-            vol = torch.abs(torch.linalg.det(orig_cell.reshape(-1, 3, 3)))
-            if _keys.FRAME_MASK_KEY in data:
-                vol = torch.where(data[_keys.FRAME_MASK_KEY], vol, torch.ones_like(vol))
-            ts = (cotangents[_keys.STRESS_KEY] / vol[:, None, None]).to(pos.dtype)
+            ts = (cotangents[_keys.STRESS_KEY] / _volumes(data)[:, None, None]).to(pos.dtype)
             t_disp = ts if t_disp is None else t_disp + ts
 
         # the strain parametrisation of forward, linearised at displacement 0:

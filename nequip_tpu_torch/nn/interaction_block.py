@@ -119,6 +119,7 @@ class InteractionBlock(GraphModule):
             if len(self.irreps_mid_simplified) != len(irreps_mid)
             else None
         )
+        self._merge_perms: Dict[torch.device, torch.Tensor] = {}  # _merge_perm, per device
         self.linear_2 = Linear(self.irreps_mid_simplified, feature_irreps_out)
         # self-connection TP; its shared weights are the parameter ``sc``
         self.sc_tp = (
@@ -141,7 +142,9 @@ class InteractionBlock(GraphModule):
     def _merge_mid(self, x: torch.Tensor) -> torch.Tensor:
         if self._merge_perm is None:
             return x
-        return torch.index_select(x, -1, torch.as_tensor(self._merge_perm, device=x.device))
+        if x.device not in self._merge_perms:
+            self._merge_perms[x.device] = torch.as_tensor(self._merge_perm, device=x.device)
+        return torch.index_select(x, -1, self._merge_perms[x.device])
 
     def forward(self, data: dict) -> dict:
         x = data[_keys.NODE_FEATURES_KEY]

@@ -7,7 +7,7 @@ Port of ``nequip_tpu/nn/norm.py``: multiply node features by
 from __future__ import annotations
 
 from math import sqrt
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,6 +34,7 @@ class AvgNumNeighborsNorm(GraphModule):
         else:
             raise TypeError("avg_num_neighbors must be a float or dict")
         self._norm_const = [1.0 / sqrt(n) for n in consts]
+        self._tables: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}  # per-type table, per device
         self._init_irreps(irreps_in=irreps_in)
 
     def forward(self, data: dict) -> dict:
@@ -42,6 +43,9 @@ class AvgNumNeighborsNorm(GraphModule):
         if len(self._norm_const) == 1:
             data[_keys.NODE_FEATURES_KEY] = feats * self._norm_const[0]
             return data
-        table = torch.tensor(self._norm_const, dtype=feats.dtype, device=feats.device)
+        key = (feats.dtype, feats.device)
+        if key not in self._tables:
+            self._tables[key] = torch.tensor(self._norm_const, dtype=feats.dtype, device=feats.device)
+        table = self._tables[key]
         data[_keys.NODE_FEATURES_KEY] = table[data[_keys.ATOM_TYPE_KEY].reshape(-1)].unsqueeze(-1) * feats
         return data

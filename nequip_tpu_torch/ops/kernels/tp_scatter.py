@@ -449,11 +449,12 @@ def _check_layout(layout: EdgeLayout, device: torch.device) -> None:
             raise ValueError("edge layout tensors must be contiguous int32 on the kernel's device")
 
 
-def conv_fwd_carry_rows(n_real: int, tile: int) -> int:
-    """Rows of the carry buffer of K1, K4 and K6: one per tile of ``tile``
-    real edges (a tile whose last destination continues into the next tile
-    writes its part there, see ``csrc/cg_fwd.cuh``)."""
-    return _cdiv(n_real, tile)
+def conv_fwd_carry_rows(n_edges: int, tile: int) -> int:
+    """Rows of the carry buffer of K1, K4 and K6 over ``n_edges`` edges (at
+    least the real ones): one per tile of ``tile`` edges (a tile whose last
+    destination continues into the next tile writes its part there, see
+    ``csrc/cg_fwd.cuh``)."""
+    return _cdiv(n_edges, tile)
 
 
 def _tile(plan: TPPlan, name: str, dtype: torch.dtype, device, widths: Tuple[int, ...]) -> int:
@@ -493,7 +494,11 @@ def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
     """K1: ``[N, mid_dim]`` fused conv messages (see ``csrc/conv_fwd.cu``:
     dense tiles of 32 edges with the radial MLP as a block GEMM in shared
     memory).  It allocates its output and the ``[n_tiles, mid_dim]`` carry
-    rows of destinations that tiles split, and no per-edge buffer."""
+    rows of destinations that tiles split, and no per-edge buffer.  The
+    carry rows are counted over all edge slots, not the real edges, so that
+    a CUDA graph of the call stays in bounds when replayed on a layout
+    refilled with more real edges (``integrations/md.py``); the kernel reads
+    the real-edge count from ``dst_ptr`` on the device."""
     if not _route("conv_fwd", x, sh, emb, w1, w2):
         return conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout)
     _check_layout(layout, x.device)
@@ -502,7 +507,8 @@ def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
     n_terms = tab["fwd_coef"].shape[0]
     tile = conv_fwd_tile(plan, n_emb, hidden, x.dtype, x.device)
     out = torch.empty(layout.num_nodes, plan.mid_dim, dtype=x.dtype, device=x.device)
-    carry = torch.empty(conv_fwd_carry_rows(layout.n_real, tile), plan.mid_dim, dtype=x.dtype, device=x.device)
+    carry = torch.empty(conv_fwd_carry_rows(layout.edge_src.shape[0], tile), plan.mid_dim, dtype=x.dtype,
+                        device=x.device)
     err = build.entry_point("nequip_conv_fwd", x.dtype)(
         x.data_ptr(), sh.data_ptr(), emb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(),

@@ -171,6 +171,13 @@ def spherical_harmonics_np(lmax: int, vecs: np.ndarray, normalize: bool = True) 
     return np.stack(cols, axis=-1) @ coeffs
 
 
+@lru_cache(maxsize=None)
+def _sh_coeff_tensor(lmax: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The coefficient table on ``device``, copied there once (a copy from
+    the host in every call would also break CUDA graph capture)."""
+    return torch.tensor(_sh_coeff_tables(lmax)[1], dtype=dtype, device=device)
+
+
 def spherical_harmonics(
     lmax: int, vecs: torch.Tensor, normalize: bool = True, eps: float = 1e-30
 ) -> torch.Tensor:
@@ -179,8 +186,8 @@ def spherical_harmonics(
     The zero vector maps to finite values with a finite gradient (padded
     edges are masked downstream).
     """
-    monomials, coeffs_np = _sh_coeff_tables(lmax)
-    coeffs = torch.tensor(coeffs_np, dtype=vecs.dtype, device=vecs.device)
+    monomials, _ = _sh_coeff_tables(lmax)
+    coeffs = _sh_coeff_tensor(lmax, vecs.dtype, vecs.device)
     if normalize:
         n2 = torch.sum(vecs * vecs, dim=-1, keepdim=True)
         big = n2 > eps

@@ -625,3 +625,38 @@ def test_cuda_row_gather_equals_index_select(cuda, dtype, dim, n_rows, block_e, 
     torch.cuda.synchronize()
     assert K.KERNELS["row_gather"].launches == before + 1
     assert torch.equal(got, torch.index_select(src, 0, idx))
+
+
+@pytest.mark.cuda
+def test_cuda_md_block_graph_replays_refilled_layouts(cuda):
+    """integration="block" on the card: one CUDA graph, captured once, replays
+    every block on a layout refilled in place (skin 1e-6: a rebuild after
+    each block); it follows the eager host loop (float64) and its last
+    block's forces equal those from a fresh neighbour list at the positions
+    of the last build."""
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.integrations import MDDriver, VelocityVerlet
+    from nequip_tpu_torch.model import NequIPGNNModel
+
+    cfg = dict(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2,
+               parity=False, num_features=8, radial_mlp_width=16, avg_num_neighbors=18.0)
+    model = NequIPGNNModel(tp_impl="fused", **cfg)
+    f = LJTestDataset(supercell=(3, 3, 3), num_frames=1, seed=31).frames[0]
+    n = len(f["pos"])
+    frame = {"pos": f["pos"], "cell": f["cell"], "pbc": np.array([True] * 3), "atom_types": np.zeros(n, dtype=int)}
+    v0 = 0.02 * np.random.RandomState(3).standard_normal((n, 3))
+    kw = dict(masses=np.full(n, 63.5), skin=1e-6, steps_per_block=5)
+    outs = {}
+    for integration in ("host", "block"):
+        driver = MDDriver(model, dict(frame), VelocityVerlet(dt_fs=2.0), integration=integration, **kw)
+        outs[integration] = driver.run(15, velocities=v0)
+    assert driver.captures == 1 and driver.replays == 3 and len(driver.rebuild_timings) == 4
+    for k in ("positions", "velocities", "forces"):
+        np.testing.assert_allclose(outs["block"][k], outs["host"][k], rtol=0, atol=1e-9, err_msg=k)
+
+    nl_pos = driver._nl_pos.copy()
+    driver._block_program()()  # a fourth block on the layout refilled after the third
+    torch.cuda.synchronize()
+    fresh = MDDriver(model, dict(frame, pos=nl_pos), VelocityVerlet(dt_fs=2.0), integration="host", **kw)
+    want = fresh.forces(driver._state[0].clone())
+    torch.testing.assert_close(driver._state[2], want, rtol=0, atol=1e-10)

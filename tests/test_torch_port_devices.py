@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
-``NequIPCalculator`` (``__init__`` and ``from_model``), ``DataLoader`` and
-``NequIPDataModule`` default to ``device="cuda"``.  Each test decides inside
+``NequIPCalculator`` (``__init__`` and ``from_model``), ``DataLoader``,
+``NequIPDataModule``, ``MDDriver`` and ``NequIPBatchedInference`` default to
+``device="cuda"``.  Each test decides inside
 itself whether there is a card: without one the default raises a clear
 ``RuntimeError`` (nothing carries on on the CPU); with one the model or the
 batches lie on it.
@@ -15,7 +16,7 @@ from nequip_tpu_torch.data import NequIPDataModule
 from nequip_tpu_torch.data.dataset import LJTestDataset
 from nequip_tpu_torch.data.loader import DataLoader
 from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
-from nequip_tpu_torch.integrations import NequIPCalculator
+from nequip_tpu_torch.integrations import MDDriver, NequIPBatchedInference, NequIPCalculator, VelocityVerlet
 from nequip_tpu_torch.model import NequIPGNNModel
 
 
@@ -62,3 +63,26 @@ def test_datamodule_defaults_to_the_card():
     dm.setup("fit")
     batch = next(iter(dm.train_dataloader()))
     assert all(v.is_cuda for v in batch.values() if isinstance(v, torch.Tensor))
+
+
+def _md_frame():
+    frame = _dataset()[0]
+    return {"pos": frame["pos"], "cell": frame["cell"], "pbc": frame["pbc"],
+            "atom_types": np.zeros(len(frame["pos"]), dtype=int)}
+
+
+def test_md_driver_and_batched_inference_default_to_the_card():
+    model = NequIPGNNModel(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=1, l_max=1,
+                           parity=False, num_features=4, radial_mlp_width=8, avg_num_neighbors=10.0)
+    frame = _md_frame()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MDDriver(model, frame, VelocityVerlet(dt_fs=1.0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            NequIPBatchedInference(model)
+        return
+    driver = MDDriver(model, frame, VelocityVerlet(dt_fs=1.0), integration="host")
+    assert driver.device.type == "cuda" and all(p.is_cuda for p in model.parameters())
+    assert np.isfinite(driver.run(2)["forces"]).all()
+    batched = NequIPBatchedInference(model)
+    assert batched.device.type == "cuda" and np.isfinite(batched([frame])[0]["forces"]).all()

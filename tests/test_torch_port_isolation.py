@@ -1,5 +1,6 @@
-"""The port stands alone: importing it, running a forward pass and running
-its two microbenchmark tools load neither JAX nor the JAX package (the GPU
+"""The port stands alone: importing it, running a forward pass, running its
+two microbenchmark tools, building its C++ neighbour list and running two
+host-mode MD steps on the CPU load neither JAX nor the JAX package (the GPU
 machine has neither)."""
 
 import json
@@ -30,9 +31,18 @@ from nequip_tpu_torch.tools import gather_microbench, kernel_microbench
 with contextlib.redirect_stdout(io.StringIO()):
     kernel_microbench.main(["--device", "cpu", "--grid", "2", "--rows", "4", "--be", "8", "--reps", "1"])
     gather_microbench.main(["--device", "cpu", "--rows", "64", "--src-rows", "64", "--dim", "8", "--block-e", "16"])
+import tempfile
+from pathlib import Path
+from nequip_tpu_torch.data import _cpp_nl
+from nequip_tpu_torch.integrations import MDDriver, VelocityVerlet
+with tempfile.TemporaryDirectory() as tmp:
+    _cpp_nl.build(Path(tmp))
+frame = {"pos": pos + 0.05, "cell": np.eye(3) * a, "pbc": np.ones(3, bool), "atom_types": np.zeros(4, int)}
+md = MDDriver(model, frame, VelocityVerlet(dt_fs=1.0), integration="host", device="cpu").run(2)
 mods = sorted(sys.modules)
 print(json.dumps({
-    "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])),
+    "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
+                   and np.isfinite(md["positions"]).all() and np.isfinite(md["forces"]).all()),
     "jax": [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")],
     "nequip_tpu": [m for m in mods if m == "nequip_tpu" or m.startswith("nequip_tpu.")],
 }))
