@@ -91,7 +91,7 @@ Phases (each prints a line; any failure exits non-zero):
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
-kernels of K3-K7, phase 8c for T1-T5; "ms"/"plain_ms"/"bound_ms"/"library_ms": phase-2 f32
+kernels of K3-K7, phase 8c for T1-T5 (phase 10 prints its own); "ms"/"plain_ms"/"bound_ms"/"library_ms": phase-2 f32
 medians and bounds summed over the three layer shapes (for the dW
 reduction over both of its shapes too), and for T1-T5 the
 phase-8 numbers of the `full` HIGHEST (T1), `full_t` DEFAULT (T3, TF32
@@ -773,7 +773,8 @@ def phase6_train(smi: str, supercell: int = 18, epochs: int = 2):
     del grads, m
     torch.cuda.empty_cache()
 
-    trainer = Trainer(max_epochs=epochs, ckpt_dir=str(ROOT / "chiprun_out" / "chip_smoke_train"))
+    trainer = Trainer(max_epochs=epochs, ckpt_dir=str(ROOT / "chiprun_out" / "chip_smoke_train"), save_last=False,
+                      save_best=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -858,7 +859,8 @@ def phase7_train_fr(smi: str, dm, rr: dict, epochs: int = 2):
     del grads
     torch.cuda.empty_cache()
 
-    trainer = Trainer(max_epochs=epochs, ckpt_dir=str(ROOT / "chiprun_out" / "chip_smoke_train_fr"))
+    trainer = Trainer(max_epochs=epochs, ckpt_dir=str(ROOT / "chiprun_out" / "chip_smoke_train_fr"), save_last=False,
+                      save_best=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -1300,6 +1302,240 @@ def phase9_md(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+CLI_DIR = ROOT / "chiprun_out" / "chip_smoke_cli"
+CLI_TRAIN_KERNELS = TRAINING_KERNELS + ("conv_bwd",)  # 10a: rr training, K2's inference variant in val and test
+CLI_FR_KERNELS = ("tri_fwd_acc", "jvp_fwd", "jvp_bwd")  # 10c
+CLI_RESUME_TOL = 1e-5  # of max |p|
+ACCURACY_GATE = 0.15  # val forces MAE / label force RMS (tests/integration/test_train.py)
+
+
+def _cli_config(supercell: int) -> dict:
+    """The flagship in an EMATrainModule on LJ-labelled fcc frames, with the
+    dataset statistics resolved into the model (phase 10a)."""
+    t = "nequip_tpu_torch."
+    model = {k: v for k, v in FLAGSHIP.items()
+             if k not in ("avg_num_neighbors", "per_type_energy_shifts", "per_type_energy_scales")}
+    return {
+        "run": ["train", "val", "test"],
+        "data": {
+            "_target_": t + "data.NequIPDataModule",
+            "seed": 0,
+            "split_dataset": {
+                "dataset": {
+                    "_target_": t + "data.dataset.LJTestDataset", "supercell": [supercell] * 3, "num_frames": 4,
+                    "seed": 0,
+                    "transforms": [
+                        {"_target_": t + "data.transforms.ChemicalSpeciesToAtomTypeMapper", "chemical_symbols": ["Cu"]},
+                        {"_target_": t + "data.transforms.NeighborListTransform", "r_max": FLAGSHIP["r_max"]},
+                    ],
+                },
+                "train": 2, "val": 1, "test": 1,
+            },
+            "train_dataloader": {"batch_size": 1},
+            "val_dataloader": {"batch_size": 1},
+            "test_dataloader": {"batch_size": 1},
+            "stats_manager": {"_target_": t + "data.CommonDataStatisticsManager", "type_names": ["Cu"]},
+        },
+        "trainer": {
+            "_target_": t + "train.Trainer",
+            "max_epochs": 3,
+            "monitor": "val0_epoch/weighted_sum",
+            "log_every_n_steps": 100,
+            "callbacks": [
+                {"_target_": t + "train.callbacks.LossCoefficientMonitor"},
+                {"_target_": t + "train.callbacks.TrainingStatsMonitor"},
+                {"_target_": t + "train.callbacks.SoftAdapt", "beta": 1.1, "interval": "epoch", "frequency": 1},
+            ],
+        },
+        "training_module": {
+            "_target_": t + "train.EMATrainModule",
+            "ema_decay": 0.99,
+            "model": {
+                "_target_": t + "model.NequIPGNNModel", "seed": 0, "model_dtype": "float32", "tp_impl": "fused",
+                **model,
+                "avg_num_neighbors": "${training_data_stats:num_neighbors_mean}",
+                "per_type_energy_shifts": "${training_data_stats:per_atom_energy_mean}",
+                "per_type_energy_scales": "${training_data_stats:per_type_forces_rms}",
+            },
+            "loss": {"_target_": t + "train.EnergyForceLoss", "per_atom_energy": True,
+                     "coeffs": {"total_energy": 1.0, "forces": 1.0}},
+            "val_metrics": {"_target_": t + "train.EnergyForceMetrics"},
+            "optimizer": {"_target_": "optax.adam", "learning_rate": 1e-3},
+            "gradient_clip_val": 100.0,
+            "lr_scheduler": {"scheduler": {"_target_": t + "train.StepLR", "step_size": 1, "gamma": 0.5},
+                             "interval": "epoch", "frequency": 1},
+        },
+    }
+
+
+def _retarget(node):
+    """A JAX-package config with its ``nequip_tpu.`` targets moved to the port."""
+    if isinstance(node, dict):
+        return {k: "nequip_tpu_torch." + v[len("nequip_tpu."):] if k == "_target_" and v.startswith("nequip_tpu.")
+                else _retarget(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_retarget(v) for v in node]
+    return node
+
+
+def _run_cli(name: str, args) -> object:
+    """``main(["-cn", name, "-cp", CLI_DIR, *args])`` as a user runs
+    nequip-torch-train; returns the trainer its run_config ran."""
+    from nequip_tpu_torch.scripts import train as cli
+
+    trainers = []
+    run_config = cli.run_config
+    cli.run_config = lambda *a, **kw: trainers.append(run_config(*a, **kw))
+    try:
+        cli.main(["-cn", name, "-cp", str(CLI_DIR), *args])
+    finally:
+        cli.run_config = run_config
+    return trainers[0]
+
+
+def _max_rel_gap(got: dict, want: dict):
+    """(largest per-tensor max |got - want| / max |want|, all bitwise equal)."""
+    import torch
+
+    if set(got) != set(want):
+        raise RuntimeError(f"tensor names differ: {sorted(set(got) ^ set(want))}")
+    gap = max(float((got[k].double() - want[k].double()).abs().max()) / max(float(want[k].abs().max()), 1e-300)
+              for k in want)
+    return gap, all(torch.equal(got[k], want[k]) for k in want)
+
+
+def phase10_cli(smi: str, rr: dict, supercell: int = 18, cli_args=()) -> dict:
+    """The training CLI on the card: 10a the flagship run, 10b resume, 10c
+    fr over edge slices, 10d the LJ accuracy gate."""
+    import os
+
+    import torch
+    import yaml
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    (CLI_DIR / "flagship_lj.yaml").write_text(yaml.safe_dump(_cli_config(supercell)))
+    dirs = {k: CLI_DIR / k for k in ("a", "b", "c", "d")}
+
+    # 10a
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = _run_cli("flagship_lj", [*cli_args, f"++trainer.ckpt_dir={dirs['a']}"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = np.asarray(trainer.step_seconds[1:]) * 1e3
+    print(
+        f"phase 10a CLI train/val/test ({smi}): {trainer.global_step} steps, main() {run_s:.1f} s, first step "
+        f"{trainer.step_seconds[0] * 1e3:.1f} ms, later steps median {np.median(steps):.1f} ms "
+        f"(min {steps.min():.1f}, max {steps.max():.1f}), max_memory_allocated {peak / 2**30:.3f} GiB; "
+        f"phase 6 rr: median {rr['median_ms']:.1f} ms, {rr['peak_gib']:.3f} GiB",
+        flush=True,
+    )
+    rows = trainer.metrics_rows
+    if len(rows) != 5 or trainer.global_step != 6:
+        raise RuntimeError(f"phase 10a: expected 3 epochs of 2 steps, then a val and a test row; got {len(rows)} rows")
+    for row in rows[:3]:
+        coeffs = {k.split("/", 1)[1]: round(v, 6) for k, v in row.items() if k.startswith("loss_coeffs/")}
+        print(f"phase 10a epoch {row['epoch']}: train loss {row['train_loss_epoch/weighted_sum']:.6e}, "
+              f"val loss {row['val0_epoch/weighted_sum']:.6e}, lr_scale {row['lr_scale']}, loss coefficients "
+              f"logged at the previous epoch's end {coeffs or 'none'}", flush=True)
+        if not all(math.isfinite(row[k]) for k in ("train_loss_epoch/weighted_sum", "val0_epoch/weighted_sum")):
+            raise RuntimeError("phase 10a: non-finite training or validation loss")
+    test = {k: v for k, v in rows[-1].items() if k.startswith("test0_epoch/")}
+    print(f"phase 10a final loss coefficients {trainer.current_loss_coeffs()}; test (best.ckpt) "
+          + ", ".join(f"{k.split('/')[1]} {v:.4e}" for k, v in sorted(test.items())), flush=True)
+    if not test or not all(math.isfinite(v) for v in test.values()):
+        raise RuntimeError("phase 10a: missing or non-finite test metrics")
+    for name in ("last.ckpt", "best.ckpt", "metrics.csv"):
+        if not (dirs["a"] / name).exists():
+            raise RuntimeError(f"phase 10a: {name} was not written")
+    if trainer.loaded_ckpt_path != str(dirs["a"] / "best.ckpt"):
+        raise RuntimeError(f"phase 10a: the test run read {trainer.loaded_ckpt_path}, not best.ckpt")
+    payload = load_checkpoint(str(dirs["a"] / "last.ckpt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(dirs["a"] / "timed.ckpt"), trainer.module.state_dict(), payload["config"], payload["meta"])
+    write_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 10a last.ckpt write: {write_ms:.1f} ms (state to the host and torch.save), "
+          f"{os.path.getsize(dirs['a'] / 'last.ckpt') / 2**20:.3f} MiB", flush=True)
+    print(f"phase 10a launches {launches}", flush=True)
+    for name in CLI_TRAIN_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"phase 10a: kernel {name} was not launched on the CLI's path")
+    straight = payload["state"]
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 10b
+    t0 = time.perf_counter()
+    _run_cli("flagship_lj", [*cli_args, f"++trainer.ckpt_dir={dirs['b']}", "++trainer.max_epochs=2"])
+    resumed = _run_cli("flagship_lj", [*cli_args, f"++trainer.ckpt_dir={dirs['b']}", "++trainer.max_epochs=3",
+                                       f"++ckpt_path={dirs['b'] / 'last.ckpt'}"])
+    got = load_checkpoint(str(dirs["b"] / "last.ckpt"))["state"]
+    gaps = {k: _max_rel_gap(got[k], straight[k]) for k in ("params", "ema_params")}
+    print(f"phase 10b resume (2 epochs, then main() with ++ckpt_path to 3; {time.perf_counter() - t0:.1f} s): "
+          f"params max gap / max|p| {gaps['params'][0]:.3e} (bitwise equal: {gaps['params'][1]}), EMA params "
+          f"{gaps['ema_params'][0]:.3e} (bitwise equal: {gaps['ema_params'][1]}); tolerance {CLI_RESUME_TOL:.0e}",
+          flush=True)
+    if resumed.epoch != 3 or not all(g <= CLI_RESUME_TOL for g, _ in gaps.values()):
+        raise RuntimeError("phase 10b: the resumed run differs from the straight run")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # 10c
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    fr = _run_cli("flagship_lj", [*cli_args, f"++trainer.ckpt_dir={dirs['c']}", "++trainer.max_epochs=1",
+                                  "++training_module.force_grad_mode=fr", f"++training_module.fr_edge_chunks={N_CHUNKS}"])
+    torch.cuda.synchronize()
+    launches_fr = {k: fn.launches for k, fn in K.KERNELS.items()}
+    loss_fr, loss_rr = fr.metrics_rows[0]["train_loss_epoch/weighted_sum"], rows[0]["train_loss_epoch/weighted_sum"]
+    rel = abs(loss_fr - loss_rr) / abs(loss_rr)
+    print(f"phase 10c CLI fr over {N_CHUNKS} edge slices ({smi}): step times {[round(x * 1e3, 1) for x in fr.step_seconds]} ms, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; epoch 0 train loss {loss_fr:.6e} "
+          f"against 10a's {loss_rr:.6e} (rel {rel:.2e}, limit 1e-4); launches {launches_fr}", flush=True)
+    for name in CLI_FR_KERNELS:
+        if launches_fr[name] == 0:
+            raise RuntimeError(f"phase 10c: kernel {name} was not launched on the CLI's fr path")
+    if not rel <= 1e-4:
+        raise RuntimeError("phase 10c: the fr run's first epoch differs from rr's")
+    del fr
+    torch.cuda.empty_cache()
+
+    # 10d
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+
+    cfg = _retarget(yaml.safe_load((ROOT / "tests" / "integration" / "lj_config.yaml").read_text()))
+    split = cfg["data"]["split_dataset"]
+    split["dataset"]["num_frames"] = 32
+    split.update(train=24, val=4, test=4)
+    cfg["data"]["train_dataloader"]["batch_size"] = 4
+    cfg["trainer"].update(max_epochs=40, ckpt_dir=str(dirs["d"]))
+    cfg["training_module"]["model"].update(model_dtype="float32", tp_impl="fused")
+    (CLI_DIR / "lj_accuracy_gate.yaml").write_text(yaml.safe_dump(cfg))
+    t0 = time.perf_counter()
+    gate = _run_cli("lj_accuracy_gate", list(cli_args))
+    gate_s = time.perf_counter() - t0
+    mae = float(gate.metrics_rows[-1]["val0_epoch/forces_mae"])
+    forces = np.concatenate([np.asarray(f["forces"]) for f in LJTestDataset(num_frames=32, seed=123456).frames])
+    rms = float(np.sqrt(np.mean(forces**2)))
+    print(f"phase 10d accuracy gate ({smi}): {gate.epoch} epochs, {gate.global_step} steps in {gate_s:.1f} s; val forces "
+          f"MAE {mae:.4e} eV/A over label force RMS {rms:.4e} = {mae / rms:.4f} (limit {ACCURACY_GATE})", flush=True)
+    if not mae <= ACCURACY_GATE * rms:
+        raise RuntimeError("phase 10d: the model does not fit the LJ labels")
+    for ckpt in CLI_DIR.glob("*/*.ckpt"):  # the configs and metrics.csv files stay
+        ckpt.unlink()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1318,6 +1554,7 @@ def main() -> int:
     report["row_gather"] = phase8b_gather(smi)
     mb_launches = phase8c_tools()
     phase9_md(smi)
+    phase10_cli(smi, rr)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

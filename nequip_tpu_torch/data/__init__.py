@@ -4,6 +4,7 @@ datasets, loaders, statistics and the datamodule."""
 from . import _keys
 from .atomic_data_dict import (
     batched_from_list,
+    frame_from_batched,
     from_dict,
     pad_batch,
     round_up,
@@ -27,6 +28,7 @@ __all__ = [
     "_keys",
     "batched_from_list",
     "compute_neighborlist_",
+    "frame_from_batched",
     "from_dict",
     "neighbor_list",
     "pad_batch",

@@ -3,6 +3,8 @@
 Port of ``nequip_tpu/data/_sampler.py``: a fixed number of frames per
 "epoch", advancing deterministically through a full shuffle of the dataset
 across epochs (the same order from the same seed as the JAX package).
+Its state is the epoch counter, so a resumed run continues at the same
+window of the same shuffle.
 """
 
 from __future__ import annotations
@@ -30,6 +32,12 @@ class PartialSampler:
 
     def step_epoch(self) -> None:
         self._epoch += 1
+
+    def state_dict(self) -> dict:
+        return {"epoch": self._epoch}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self._epoch = int(sd["epoch"])
 
     def __len__(self) -> int:
         return self.num_samples

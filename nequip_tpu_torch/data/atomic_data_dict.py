@@ -167,6 +167,52 @@ def batched_from_list(frames: Sequence[Type]) -> Type:
     return out
 
 
+def frame_from_batched(data: Type, index: int) -> Type:
+    """One frame of a batched (optionally padded) numpy dict, without its
+    padding (the JAX package's ``frame_from_batched``)."""
+    nf = num_frames(data)
+    if index < 0:
+        index += nf
+    if not 0 <= index < nf:
+        raise IndexError(f"frame {index} of {nf}")
+    node_sel = np.asarray(data[_keys.BATCH_KEY]) == index
+    if _keys.NODE_MASK_KEY in data:
+        node_sel = node_sel & np.asarray(data[_keys.NODE_MASK_KEY])
+    node_idx = np.nonzero(node_sel)[0]
+
+    out: Type = {}
+    edge_idx = None
+    if _keys.EDGE_INDEX_KEY in data:
+        ei = np.asarray(data[_keys.EDGE_INDEX_KEY])
+        edge_sel = np.isin(ei[0], node_idx)
+        if _keys.EDGE_MASK_KEY in data:
+            edge_sel = edge_sel & np.asarray(data[_keys.EDGE_MASK_KEY])
+        edge_idx = np.nonzero(edge_sel)[0]
+        remap = np.full(num_nodes(data), -1, dtype=_INT_DTYPE)
+        remap[node_idx] = np.arange(len(node_idx), dtype=_INT_DTYPE)
+        out[_keys.EDGE_INDEX_KEY] = remap[ei[:, edge_idx]]
+
+    skip = (_keys.EDGE_INDEX_KEY, _keys.BATCH_KEY, _keys.NUM_NODES_KEY, _keys.NODE_MASK_KEY,
+            _keys.EDGE_MASK_KEY, _keys.FRAME_MASK_KEY)
+    for k, v in data.items():
+        if k in skip or k.startswith(_keys.EDGE_LAYOUT_KEY_PREFIX):
+            continue
+        ftype = get_field_type(k, error_on_unregistered=False)
+        v = np.asarray(v)
+        if ftype == "node":
+            out[k] = v[node_idx]
+        elif ftype == "edge":
+            if edge_idx is None:
+                raise KeyError(f"edge field {k} without {_keys.EDGE_INDEX_KEY}")
+            out[k] = v[edge_idx]
+        elif ftype == "graph":
+            out[k] = v[index : index + 1]
+        else:
+            out[k] = v
+    out[_keys.NUM_NODES_KEY] = np.array([len(node_idx)], dtype=_INT_DTYPE)
+    return out
+
+
 def pad_batch(data: Type, n_nodes: int, n_edges: int, n_frames: Optional[int] = None) -> Type:
     """Pad a batched dict to static capacities and attach masks.
 

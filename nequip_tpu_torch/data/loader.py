@@ -6,9 +6,10 @@ from the same seed.  Batches are padded (the padding contract of
 batch pads to the worst case (max frame size x batch_size), the
 JAX loader's ``n_buckets=1`` policy.  Shuffling is keyed by (seed, epoch);
 ``num_samples_per_epoch`` splits one pass over a large dataset into many
-short epochs (``PartialSampler``).  Not ported yet: the capacity-bucket
-ladder (``n_buckets>1``), per-process sharding, fixed capacities, and the
-state a resumed run restores.
+short epochs (``PartialSampler``).  ``state_dict`` holds the epoch
+counter and the sampler's, which is what a resumed run restores to
+continue at the same data position.  Not ported yet: the capacity-bucket
+ladder (``n_buckets>1``), per-process sharding and fixed capacities.
 """
 
 from __future__ import annotations
@@ -113,3 +114,12 @@ class DataLoader:
         """Fraction of processed node+edge slots that were padding."""
         total = self._real_slots + self._padded_slots
         return self._padded_slots / total if total else 0.0
+
+    # --- restartable state ---------------------------------------------
+    def state_dict(self) -> dict:
+        return {"epoch": self._epoch, "sampler": self.sampler.state_dict() if self.sampler is not None else None}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._epoch = int(state["epoch"])
+        if state.get("sampler") is not None and self.sampler is not None:
+            self.sampler.load_state_dict(state["sampler"])

@@ -44,6 +44,15 @@ from ..ops.irreps import Irrep, Irreps, MulIrrep
 from ..utils.dtype import default_dtype
 
 
+@torch.no_grad()
+def init_weights(model: torch.nn.Module, seed: int) -> None:
+    """Draw every weight of the model from a generator seeded with ``seed``."""
+    generator = torch.Generator().manual_seed(int(seed))
+    for m in model.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+
+
 def NequIPGNNModel(
     seed: int,
     model_dtype: str,
@@ -113,8 +122,11 @@ def FullNequIPGNNModel(
     convnet_nonlinearity_scalars: Dict[str, str] = {"e": "silu", "o": "tanh"},
     convnet_nonlinearity_gates: Dict[str, str] = {"e": "silu", "o": "tanh"},
     tp_impl: str = "torch",
+    pair_potential: Optional[dict] = None,
 ) -> GraphModel:
     """Fully explicit NequIP GNN builder (one config entry per layer)."""
+    if pair_potential is not None:
+        raise NotImplementedError("pair_potential (the ZBL prior, nn/pair_potential.py) is not ported yet")
     type_names = list(type_names)
     if not all(tn.isalnum() for tn in type_names):
         raise ValueError("type_names must be alphanumeric")
@@ -199,10 +211,7 @@ def FullNequIPGNNModel(
             type_names=type_names, r_max=r_max, per_edge_type_cutoff=per_edge_type_cutoff,
         )
 
-    generator = torch.Generator().manual_seed(int(seed))
-    for m in model.modules():
-        if hasattr(m, "reset_parameters"):
-            m.reset_parameters(generator)
+    init_weights(model, seed)
     model.model_config = {
         "seed": seed,
         "model_dtype": model_dtype,

@@ -201,6 +201,13 @@ class MetricsManager:
             out["weighted_sum"] = float(sum(c * v for c, v in comps))
         return out
 
+    # --- checkpoint state ------------------------------------------------
+    def state_dict(self) -> dict:
+        return {"coeffs": dict(self.coeffs)}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.set_coeffs(sd.get("coeffs", {}))
+
 
 # ---------------------------------------------------------------------------
 # canned managers (the JAX package's EnergyForce(Stress)Loss/Metrics)

@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
 ``NequIPCalculator`` (``__init__`` and ``from_model``), ``DataLoader``,
-``NequIPDataModule``, ``MDDriver`` and ``NequIPBatchedInference`` default to
+``NequIPDataModule``, ``MDDriver``, ``NequIPBatchedInference``, the training
+modules and the training CLI (``run_config``, ``main``) default to
 ``device="cuda"``.  Each test decides inside
 itself whether there is a card: without one the default raises a clear
 ``RuntimeError`` (nothing carries on on the CPU); with one the model or the
@@ -18,6 +19,8 @@ from nequip_tpu_torch.data.loader import DataLoader
 from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
 from nequip_tpu_torch.integrations import MDDriver, NequIPBatchedInference, NequIPCalculator, VelocityVerlet
 from nequip_tpu_torch.model import NequIPGNNModel
+from nequip_tpu_torch.scripts import train as train_cli
+from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
 
 
 def _dataset():
@@ -86,3 +89,29 @@ def test_md_driver_and_batched_inference_default_to_the_card():
     assert np.isfinite(driver.run(2)["forces"]).all()
     batched = NequIPBatchedInference(model)
     assert batched.device.type == "cuda" and np.isfinite(batched([frame])[0]["forces"]).all()
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    import yaml
+
+    from pathlib import Path
+
+    config_dir = Path(__file__).resolve().parents[1] / "nequip_tpu_torch" / "configs"
+    config = yaml.safe_load((config_dir / "minimal_lj.yaml").read_text())
+    config["trainer"].update(max_epochs=1, ckpt_dir=str(tmp_path / "ckpt"))
+    model = NequIPGNNModel(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=1, l_max=1,
+                           parity=False, num_features=4, radial_mlp_width=8, avg_num_neighbors=10.0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            NequIPTrainModule(model, loss=EnergyForceLoss())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_cli.run_config(config)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_cli.main(["-cn", "minimal_lj", "-cp", str(config_dir), "++trainer.max_epochs=1",
+                            f"++trainer.ckpt_dir={tmp_path / 'main'}"])
+        assert not (tmp_path / "ckpt").exists() and not (tmp_path / "main").exists()
+        return
+    module = NequIPTrainModule(model, loss=EnergyForceLoss())
+    assert module.device.type == "cuda" and all(p.is_cuda for p in model.parameters())
+    trainer = train_cli.run_config(config)
+    assert trainer.module.device.type == "cuda" and (tmp_path / "ckpt" / "last.ckpt").exists()

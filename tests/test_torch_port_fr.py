@@ -205,7 +205,7 @@ def test_fr_adam_step_matches_jax(s):
     model = _port_model(s, "fused")
     module = EMATrainModule(model, loss=EnergyForceLoss(type_names=["Cu", "H"]),
                             optimizer={"_target_": "optax.adam", "learning_rate": 1e-3},
-                            force_grad_mode="fr", fr_edge_chunks=2)
+                            force_grad_mode="fr", fr_edge_chunks=2, device="cpu")
     values = module.training_step(_port_batch(s, labels=True))
     assert float(values["train_loss_step/weighted_sum"]) == pytest.approx(
         float(logs["train_loss_step/weighted_sum"]), rel=1e-12)
@@ -230,7 +230,7 @@ def test_fr_trainer_fit_matches_rr(tmp_path):
         module = NequIPTrainModule(NequIPGNNModel(tp_impl="fused_tp", **cfg), loss=EnergyForceLoss(),
                                    val_metrics=EnergyForceMetrics(),
                                    optimizer={"_target_": "optax.adam", "learning_rate": 5e-3},
-                                   force_grad_mode=mode, fr_edge_chunks=n_chunks)
+                                   force_grad_mode=mode, fr_edge_chunks=n_chunks, device="cpu")
         trainer = Trainer(max_epochs=2, ckpt_dir=str(tmp_path / mode))
         trainer.fit(module, _lj_datamodule())
         rows[mode] = trainer.metrics_rows
@@ -253,7 +253,7 @@ def test_fr_runs_the_expected_kernels(s, n_chunks, monkeypatch):
         monkeypatch.setattr(K, name, lambda *a, _o=orig, _n=name: calls.add(_n) or _o(*a))
     model = _port_model(s, "fused")
     module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu", "H"]), force_grad_mode="fr",
-                               fr_edge_chunks=n_chunks)
+                               fr_edge_chunks=n_chunks, device="cpu")
     module.compute_grads_fr(_port_batch(s, labels=True))
     if n_chunks:
         assert calls == {"tri_fwd_plain", "tri_bwd_plain", "jvp_fwd_plain", "jvp_bwd_plain", "scatter_rows_plain"}
@@ -266,7 +266,7 @@ def test_fr_runs_the_expected_kernels(s, n_chunks, monkeypatch):
 def test_chunked_fr_grads_are_bitwise_repeatable(s):
     model = _port_model(s, "fused")
     module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu", "H"]), force_grad_mode="fr",
-                               fr_edge_chunks=3)
+                               fr_edge_chunks=3, device="cpu")
     runs = []
     for _ in range(2):
         model.zero_grad(set_to_none=True)
@@ -287,11 +287,11 @@ def test_chunked_fr_grads_are_bitwise_repeatable(s):
 def test_bad_fr_configurations_raise(kwargs, tp_impl):
     model = NequIPGNNModel(tp_impl=tp_impl, **CFG)
     with pytest.raises(ValueError):
-        NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu", "H"]), **kwargs)
+        NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu", "H"]), device="cpu", **kwargs)
 
 
 def test_more_slices_than_edges_raise(s):
     module = NequIPTrainModule(_port_model(s, "fused_tp"), loss=EnergyForceLoss(type_names=["Cu", "H"]),
-                               force_grad_mode="fr", fr_edge_chunks=10**6)
+                               force_grad_mode="fr", fr_edge_chunks=10**6, device="cpu")
     with pytest.raises(ValueError, match="fr_edge_chunks"):
         module.compute_grads_fr(_port_batch(s, labels=True))

@@ -1,7 +1,8 @@
 """The port stands alone: importing it, running a forward pass, running its
-two microbenchmark tools, building its C++ neighbour list and running two
-host-mode MD steps on the CPU load neither JAX nor the JAX package (the GPU
-machine has neither)."""
+two microbenchmark tools, building its C++ neighbour list, running two
+host-mode MD steps and one epoch of its training CLI on the CPU (its
+shipped minimal_lj.yaml, which names ``optax.adam``) load neither JAX, nor
+optax or flax, nor the JAX package (the GPU machine has none of them)."""
 
 import json
 import os
@@ -39,12 +40,20 @@ with tempfile.TemporaryDirectory() as tmp:
     _cpp_nl.build(Path(tmp))
 frame = {"pos": pos + 0.05, "cell": np.eye(3) * a, "pbc": np.ones(3, bool), "atom_types": np.zeros(4, int)}
 md = MDDriver(model, frame, VelocityVerlet(dt_fs=1.0), integration="host", device="cpu").run(2)
+import nequip_tpu_torch.train.callbacks, nequip_tpu_torch.utils.global_state
+from nequip_tpu_torch.scripts.train import main
+with tempfile.TemporaryDirectory() as tmp:
+    main(["-cn", "minimal_lj", "-cp", "nequip_tpu_torch/configs", "--device", "cpu", "++trainer.max_epochs=1",
+          f"++trainer.ckpt_dir={tmp}"])
+    cli_ok = all(Path(tmp, f).exists() for f in ("last.ckpt", "best.ckpt", "metrics.csv"))
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
                    and np.isfinite(md["positions"]).all() and np.isfinite(md["forces"]).all()),
+    "cli": cli_ok,
     "jax": [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")],
     "nequip_tpu": [m for m in mods if m == "nequip_tpu" or m.startswith("nequip_tpu.")],
+    "optax_flax": [m for m in mods if m.split(".")[0] in ("optax", "flax")],
 }))
 """
 
@@ -56,4 +65,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"finite": True, "jax": [], "nequip_tpu": []}
+    assert out == {"finite": True, "cli": True, "jax": [], "nequip_tpu": [], "optax_flax": []}

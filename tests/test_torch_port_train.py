@@ -68,7 +68,7 @@ def jax_step():
 def test_rr_step_matches_jax(jax_step, tp_impl):
     params, want_loss, want_grads = jax_step
     model = load_jax_params(NequIPGNNModel(tp_impl=tp_impl, **SMALL), params)
-    module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]))
+    module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), device="cpu")
     batch = next(iter(DataLoader(_lj(LJTestDataset, ChemicalSpeciesToAtomTypeMapper, NeighborListTransform),
                                  batch_size=2, device="cpu")))
     loss, _, _ = module.compute_loss(batch)
@@ -115,7 +115,7 @@ def test_trainer_fit_matches_jax_trainer(tmp_path):
                             flatten_tree(jax.tree.map(np.asarray, jmodel.init_params())))
     module = EMATrainModule(model, loss=EnergyForceLoss(per_atom_energy=True, coeffs={"total_energy": 1.0, "forces": 1.0}),
                             val_metrics=EnergyForceMetrics(), optimizer={"_target_": "optax.adam", "learning_rate": 0.005},
-                            ema_decay=0.99)
+                            ema_decay=0.99, device="cpu")
     trainer = Trainer(max_epochs=2, ckpt_dir=str(tmp_path / "port"))
     trainer.fit(module, dm)
 
@@ -137,7 +137,7 @@ def test_param_groups_and_frozen_paths():
     module = NequIPTrainModule(model, loss=EnergyForceLoss(), optimizer={
         "_target_": "optax.adam", "learning_rate": 1e-3,
         "param_groups": [{"paths": ["layer0_convnet"], "learning_rate": 1e-2}],
-    })
+    }, device="cpu")
     lrs = {id(p): g["lr"] for g in module.optimizer.param_groups for p in g["params"]}
     for path, p in module.named_trainable():
         assert lrs[id(p)] == (1e-2 if path.startswith("layer0_convnet.") else 1e-3), path
@@ -151,11 +151,11 @@ def test_evaluation_runs_the_serving_kernels(monkeypatch):
     from nequip_tpu_torch.ops.kernels import tp_scatter as K
 
     model = NequIPGNNModel(tp_impl="fused", **SMALL)
-    module = EMATrainModule(model, loss=EnergyForceLoss(), val_metrics=EnergyForceMetrics())
+    module = EMATrainModule(model, loss=EnergyForceLoss(), val_metrics=EnergyForceMetrics(), device="cpu")
     monkeypatch.setattr(K, "conv_bwd_train_plain", lambda *a: pytest.fail("training variant in evaluation"))
     batch = next(iter(DataLoader(_lj(LJTestDataset, ChemicalSpeciesToAtomTypeMapper, NeighborListTransform),
                                  batch_size=2, device="cpu")))
-    for m in (module, NequIPTrainModule(model, loss=EnergyForceLoss(), val_metrics=EnergyForceMetrics())):
+    for m in (module, NequIPTrainModule(model, loss=EnergyForceLoss(), val_metrics=EnergyForceMetrics(), device="cpu")):
         state, out = m.evaluation_step(m.val_metrics, m.val_metrics.init_state(), batch)
         assert np.isfinite(m.val_metrics.compute(state)["weighted_sum"])
     assert all(p.requires_grad for p in model.parameters())

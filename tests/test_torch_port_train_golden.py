@@ -47,7 +47,7 @@ def test_port_matches_train_golden(tp_impl):
     data = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame)), 4.0)
     n_edges = data["edge_index"].shape[1]
     batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(n_edges, 256), 2))
-    module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]))
+    module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), device="cpu")
     loss, _, _ = module.compute_loss(batch)
     loss.backward()
     assert float(loss.detach()) == pytest.approx(float(z["loss"]), rel=1e-10)
