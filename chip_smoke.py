@@ -88,6 +88,20 @@ Phases (each prints a line; any failure exits non-zero):
      replayed block against a fresh list from the positions of the last
      build.  9h: the force call on the MD graph against tp_impl="torch"
      (phase 4's gates).  9f: the host run's NVE drift per atom.
+ 10. the training CLI (nequip-torch-train) on the flagship: 10a train/val/
+     test, 10b resume, 10c fr over edge slices, 10d the LJ accuracy gate;
+ 11. deployment: 11a the f64 golden flagship through save_compiled_model at
+     the 23k-atom frame's capacities and the calculator's
+     from_compiled_model, against the JAX golden at phase 3's gates; 11b
+     nequip-torch-package build, info and list on 10a's best.ckpt, and the
+     package's and the checkpoint's calculators bitwise equal on the
+     23k-atom frame; 11c nequip-torch-compile --capacity-ladder 2 of
+     best.ckpt with its self-check (compile s, artifact MiB, load s), the
+     launches of one compiled request against one eager request (K1, K2,
+     K3 alike, no training kernel); 11d 12 warm requests each, compiled and
+     eager in turns, host-clock medians of prepare and model time, compiled
+     against eager at E rel 1e-5, F and stress 1e-4 of their max; 11e a
+     27k-atom frame served from rung 1 at the same gates.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -1368,16 +1382,6 @@ def _cli_config(supercell: int) -> dict:
     }
 
 
-def _retarget(node):
-    """A JAX-package config with its ``nequip_tpu.`` targets moved to the port."""
-    if isinstance(node, dict):
-        return {k: "nequip_tpu_torch." + v[len("nequip_tpu."):] if k == "_target_" and v.startswith("nequip_tpu.")
-                else _retarget(v) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_retarget(v) for v in node]
-    return node
-
-
 def _run_cli(name: str, args) -> object:
     """``main(["-cn", name, "-cp", CLI_DIR, *args])`` as a user runs
     nequip-torch-train; returns the trainer its run_config ran."""
@@ -1511,8 +1515,9 @@ def phase10_cli(smi: str, rr: dict, supercell: int = 18, cli_args=()) -> dict:
 
     # 10d
     from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.utils.config import retarget
 
-    cfg = _retarget(yaml.safe_load((ROOT / "tests" / "integration" / "lj_config.yaml").read_text()))
+    cfg = retarget(yaml.safe_load((ROOT / "tests" / "integration" / "lj_config.yaml").read_text()))
     split = cfg["data"]["split_dataset"]
     split["dataset"]["num_frames"] = 32
     split.update(train=24, val=4, test=4)
@@ -1530,10 +1535,169 @@ def phase10_cli(smi: str, rr: dict, supercell: int = 18, cli_args=()) -> dict:
           f"MAE {mae:.4e} eV/A over label force RMS {rms:.4e} = {mae / rms:.4f} (limit {ACCURACY_GATE})", flush=True)
     if not mae <= ACCURACY_GATE * rms:
         raise RuntimeError("phase 10d: the model does not fit the LJ labels")
-    for ckpt in CLI_DIR.glob("*/*.ckpt"):  # the configs and metrics.csv files stay
-        ckpt.unlink()
     torch.cuda.empty_cache()
     return launches
+
+
+# phase 11: deployment of phase 10a's checkpoint (its files are deleted after it)
+DEPLOY_DIR = CLI_DIR / "deploy"
+TRAINING_ONLY = tuple(k for k in TRAINING_KERNELS + FR_CHUNKED_KERNELS if k not in SERVING_KERNELS)
+DEPLOY_REQUESTS = 12
+
+
+def _serving_launches(calc, frame) -> dict:
+    """The kernels one request of ``calc`` launched (K1, K2, K3 and the
+    training kernels, which must stay at 0)."""
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    K.reset_launch_counts()
+    calc.calculate(frame)
+    return {k: K.KERNELS[k].launches for k in SERVING_KERNELS + TRAINING_ONLY}
+
+
+def _deploy_gap(got: dict, want: dict) -> tuple:
+    """(energy rel err, forces max err / max|F|, stress max err / max|stress|)."""
+    return (abs(got["energy"] - want["energy"]) / abs(want["energy"]),
+            float(np.abs(got["forces"] - want["forces"]).max()) / float(np.abs(want["forces"]).max()),
+            float(np.abs(got["stress"] - want["stress"]).max()) / float(np.abs(want["stress"]).max()))
+
+
+def phase11_deploy(smi: str) -> dict:
+    """Deployment on the card: 11a the f64 golden flagship exported and
+    loaded, 11b nequip-torch-package on phase 10a's best.ckpt, 11c
+    nequip-torch-compile of it with a 2-rung ladder, 11d compiled against
+    eager requests, 11e a frame on rung 1."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, to_tensors
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel, load_jax_params, save_compiled_model
+    from nequip_tpu_torch.ops.kernels.tp_scatter import relayout_edge_stream
+    from nequip_tpu_torch.scripts import compile as compile_cli
+    from nequip_tpu_torch.scripts import package as package_cli
+
+    DEPLOY_DIR.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+
+    # 11a: the JAX golden through an exported program at the 23k-atom frame's capacities
+    z = np.load(GOLDEN)
+    model = NequIPGNNModel(seed=0, model_dtype="float64", tp_impl="fused", **FLAGSHIP)
+    load_jax_params(model, {k[len("params/"):]: z[k] for k in z.files if k.startswith("params/")})
+    model = model.to("cuda").requires_grad_(False)
+    golden = {"pos": z["pos"], "cell": z["cell"], "pbc": z["pbc"], "atomic_numbers": z["atomic_numbers"]}
+    frame = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(golden)), 4.0)
+    batch = relayout_edge_stream(to_tensors(pad_batch(batched_from_list([frame]), 23424, 420096, 2), "cuda"))
+    path = DEPLOY_DIR / "golden_f64.nequip_tpu_torch.zip"
+    t0 = time.perf_counter()
+    save_compiled_model(str(path), model, [batch])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calc = NequIPCalculator.from_compiled_model(str(path))
+    load_s = time.perf_counter() - t0
+    res = calc.calculate(golden)
+    e_err = abs(res["energy"] - float(z["energy"])) / abs(float(z["energy"]))
+    f_err = float(np.abs(res["forces"] - z["forces"]).max())
+    s_err = float(np.abs(res["stress"] - z["stress"]).max())
+    print(f"phase 11a golden through the exported program (f64, 23424 node / 420096 edge slots, {smi}): export "
+          f"{export_s:.1f} s, {os.path.getsize(path) / 2**20:.2f} MiB, load {load_s:.1f} s; energy rel err "
+          f"{e_err:.3e}, forces max err {f_err:.3e}, stress max err {s_err:.3e}", flush=True)
+    if not (e_err <= 1e-10 and f_err <= 1e-8 and s_err <= 1e-8):
+        raise RuntimeError("phase 11a: the exported program disagrees with the JAX golden")
+    del model, calc, batch
+    torch.cuda.empty_cache()
+
+    # 11b: the package of phase 10a's best.ckpt; the package and the checkpoint serve alike
+    ckpt = str(CLI_DIR / "a" / "best.ckpt")
+    pkg = str(DEPLOY_DIR / "flagship_pkg.zip")
+    t0 = time.perf_counter()
+    package_cli.main(["build", ckpt, pkg])
+    build_s = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        package_cli.main(["info", pkg])
+    info = json.loads(out.getvalue())
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        package_cli.main(["list", pkg])
+    members = [ln.split() for ln in out.getvalue().splitlines()]
+    frame23 = fcc_frame(23000, seed=1)
+    by_pkg = NequIPCalculator.from_saved_model(pkg)
+    eager = NequIPCalculator.from_saved_model(ckpt)
+    # index_add on the card sums in any order: deterministic algorithms for the
+    # bitwise comparison (the kernels write whole outputs: no fill of torch.empty)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        from_pkg, from_ckpt = by_pkg.calculate(frame23), eager.calculate(frame23)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    same = all(np.array_equal(np.asarray(from_pkg[k]), np.asarray(from_ckpt[k])) for k in ("energy", "forces", "stress"))
+    same_weights = all(torch.equal(a, b) for (_, a), (_, b) in zip(by_pkg.predictor.jax_named_tensors(),
+                                                                   eager.predictor.jax_named_tensors()))
+    del by_pkg
+    print(f"phase 11b nequip-torch-package build ({smi}): {build_s:.1f} s, "
+          f"{os.path.getsize(pkg) / 2**20:.2f} MiB; info: {info['model_config']['_target_']}, "
+          f"{info['metadata']['model_dtype']}, r_max {info['metadata']['r_max']}; list: "
+          + ", ".join(f"{name} {int(size) / 2**20:.2f} MiB" for size, name in members)
+          + f"; weights bitwise equal: {same_weights}; package and checkpoint calculators on {len(frame23['pos'])} "
+          f"atoms (deterministic algorithms) bitwise equal: {same}", flush=True)
+    if not (same and same_weights):
+        raise RuntimeError("phase 11b: the package and the checkpoint answer differently")
+
+    # 11c: nequip-torch-compile with its self-check; one compiled request's launches against eager's
+    art = str(DEPLOY_DIR / "flagship.nequip_tpu_torch.zip")
+    t0 = time.perf_counter()
+    compile_cli.main([ckpt, art, "--target", "ase", "--capacity-ladder", "2"])
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compiled = NequIPCalculator.from_compiled_model(art)
+    load_s = time.perf_counter() - t0
+    ladder = compiled.predictor.capacity_ladder
+    compiled.calculate(frame23)  # warm-up
+    launches = _serving_launches(compiled, frame23)
+    eager_launches = _serving_launches(eager, frame23)
+    print(f"phase 11c nequip-torch-compile --capacity-ladder 2 ({smi}): {compile_s:.1f} s with the self-check, "
+          f"{os.path.getsize(art) / 2**20:.2f} MiB, load {load_s:.1f} s; ladder {ladder}; launches of one request: "
+          f"compiled {launches}, eager {eager_launches}", flush=True)
+    if launches != eager_launches or any(launches[k] for k in TRAINING_ONLY) or not all(
+            launches[k] for k in SERVING_KERNELS):
+        raise RuntimeError("phase 11c: the compiled request does not launch K1, K2 and K3 as eager does")
+
+    # 11d: warm requests, compiled and eager in turns
+    times = {"compiled": [], "eager": []}
+    for _ in range(DEPLOY_REQUESTS):
+        for name, c in (("compiled", compiled), ("eager", eager)):
+            res = c.calculate(frame23)
+            times[name].append((c.timings["prepare_s"], c.timings["model_s"], res))
+    med = {name: [float(np.median([t[i] for t in ts])) * 1e3 for i in (0, 1)] for name, ts in times.items()}
+    gap = _deploy_gap(times["compiled"][-1][2], times["eager"][-1][2])
+    print(f"phase 11d {DEPLOY_REQUESTS} warm requests each, in turns, on {len(frame23['pos'])} atoms ({smi}), host "
+          f"clock medians: compiled prepare {med['compiled'][0]:.1f} ms, model {med['compiled'][1]:.2f} ms; eager "
+          f"prepare {med['eager'][0]:.1f} ms, model {med['eager'][1]:.2f} ms; compiled vs eager: energy rel "
+          f"{gap[0]:.3e}, forces {gap[1]:.3e} of max|F|, stress {gap[2]:.3e} of max|stress|", flush=True)
+    if not (gap[0] <= 1e-5 and gap[1] <= 1e-4 and gap[2] <= 1e-4):
+        raise RuntimeError("phase 11d: the compiled and eager requests disagree")
+
+    # 11e: a larger frame walks up to rung 1
+    big = fcc_frame(27000, seed=2)
+    n_big = len(big["pos"])
+    e_big = compute_neighborlist_(from_dict(big), 4.0)["edge_index"].shape[1]
+    rung = ladder.index(compiled.predictor.select_capacities(n_big, e_big))
+    gap = _deploy_gap(compiled.calculate(big), eager.calculate(big))
+    print(f"phase 11e {n_big} atoms, {e_big} edges: served from rung {rung} ({ladder[rung]}); compiled vs eager: "
+          f"energy rel {gap[0]:.3e}, forces {gap[1]:.3e} of max|F|, stress {gap[2]:.3e} of max|stress|; "
+          f"phase 11 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if rung != 1 or not (gap[0] <= 1e-5 and gap[1] <= 1e-4 and gap[2] <= 1e-4):
+        raise RuntimeError("phase 11e: the frame beyond rung 0 was not served from rung 1 within the gates")
+    del compiled, eager
+    for f in list(CLI_DIR.glob("*/*.ckpt")) + list(DEPLOY_DIR.glob("*.zip")):  # configs and metrics.csv stay
+        f.unlink()
+    torch.cuda.empty_cache()
+    return {"compile_s": compile_s, "load_s": load_s, "model_ms": med}
 
 
 def main() -> int:
@@ -1555,6 +1719,7 @@ def main() -> int:
     mb_launches = phase8c_tools()
     phase9_md(smi)
     phase10_cli(smi, rr)
+    phase11_deploy(smi)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

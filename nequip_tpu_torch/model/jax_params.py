@@ -6,7 +6,8 @@ keyed like ``layer1_convnet.conv.edge_mlp.w1`` (a flat dict keyed by those
 dotted paths, as stored in an ``.npz``, is taken as well).  Every leaf is written by
 dotted path into the port model's parameter or persistent buffer of the
 same path and shape; a missing or extra key, or a shape mismatch, raises.
-``jax_named_grads`` goes the other way for gradients: the port's parameter
+``jax_params_tree`` is its inverse, the model's tree for a package's
+``params.pkl``.  ``jax_named_grads`` goes the other way for gradients: the port's parameter
 gradients keyed by the JAX dotted paths, to hold against a JAX gradient
 tree flattened the same way.
 """
@@ -45,6 +46,20 @@ def load_jax_params(model: GraphModule, tree: Mapping) -> GraphModule:
             raise ValueError(f"{name}: shape {value.shape} != {tuple(t.shape)}")
         t.copy_(torch.as_tensor(np.array(value), dtype=t.dtype))
     return model
+
+
+def jax_params_tree(model: GraphModule) -> Dict:
+    """The inverse of ``load_jax_params``: the model's parameters and
+    persistent buffers as the JAX package's nested parameter tree of host
+    numpy arrays (what ``nequip-package`` pickles as ``params.pkl``)."""
+    tree: Dict = {}
+    for name, t in model.jax_named_tensors():
+        *parents, leaf = name.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = t.detach().cpu().numpy()
+    return tree
 
 
 def jax_named_grads(model: GraphModule) -> Dict[str, np.ndarray]:

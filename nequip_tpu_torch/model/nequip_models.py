@@ -10,17 +10,17 @@ arguments,
 ``tp_impl`` is ``"torch"`` (plain PyTorch, JAX ``"xla"``), ``"fused"``
 (the fused CUDA kernels with the radial MLP inside, JAX ``"pallas_fused"``)
 or ``"fused_tp"`` (the trilinear CUDA kernels after a plain radial MLP, JAX
-``"pallas"``).  Weights come from a seeded ``torch.Generator``; they differ from
-the JAX package's initialisation, and ``model/jax_params.py`` loads a JAX
-parameter tree instead.
+``"pallas"``).  Both builders are ``@model_builder``s (``model/utils.py``): weights come
+from a seeded ``torch.Generator`` (they differ from the JAX package's
+initialisation; ``model/jax_params.py`` loads a JAX parameter tree instead),
+and ``model.model_config`` rebuilds the model through
+``utils.config.instantiate``.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Dict, List, Optional, Sequence, Union
-
-import torch
 
 from ..data import _keys
 from ..nn import (
@@ -41,22 +41,11 @@ from ..nn.embedding import (
     SphericalHarmonicEdgeAttrs,
 )
 from ..ops.irreps import Irrep, Irreps, MulIrrep
-from ..utils.dtype import default_dtype
+from .utils import model_builder
 
 
-@torch.no_grad()
-def init_weights(model: torch.nn.Module, seed: int) -> None:
-    """Draw every weight of the model from a generator seeded with ``seed``."""
-    generator = torch.Generator().manual_seed(int(seed))
-    for m in model.modules():
-        if hasattr(m, "reset_parameters"):
-            m.reset_parameters(generator)
-
-
+@model_builder
 def NequIPGNNModel(
-    seed: int,
-    model_dtype: str,
-    type_names: Sequence[str],
     num_layers: int = 4,
     l_max: int = 1,
     parity: bool = True,
@@ -64,6 +53,7 @@ def NequIPGNNModel(
     type_embed_num_features: Optional[int] = None,
     radial_mlp_depth: int = 1,
     radial_mlp_width: int = 128,
+    type_names: Sequence[str] = None,
     **kwargs,
 ) -> GraphModel:
     """The standard NequIP energy(+forces/stress) model."""
@@ -85,8 +75,6 @@ def NequIPGNNModel(
     # the last conv layer outputs scalars only
     hidden_list = [hidden] * (num_layers - 1) + [Irreps([(num_features[0], (0, 1))])]
     return FullNequIPGNNModel(
-        seed=seed,
-        model_dtype=model_dtype,
         type_names=type_names,
         irreps_edge_sh=l_max,
         type_embed_num_features=type_embed_num_features,
@@ -97,11 +85,10 @@ def NequIPGNNModel(
     )
 
 
+@model_builder
 def FullNequIPGNNModel(
-    seed: int,
-    model_dtype: str,
-    type_names: Sequence[str],
     r_max: float,
+    type_names: Sequence[str] = None,
     radial_mlp_depth: Sequence[int] = (1,),
     radial_mlp_width: Sequence[int] = (8,),
     feature_irreps_hidden: Sequence[Union[str, Irreps]] = ("32x0e",),
@@ -136,87 +123,77 @@ def FullNequIPGNNModel(
     if not all(mi.ir.l == 0 for mi in Irreps(feature_irreps_hidden[-1])):
         raise ValueError("the last convnet layer must output scalars only")
 
-    with default_dtype(model_dtype):
-        type_embed = NodeTypeEmbed(type_names=type_names, num_features=type_embed_num_features)
-        spharm = SphericalHarmonicEdgeAttrs(irreps_edge_sh=irreps_edge_sh, irreps_in=type_embed.irreps_out)
-        edge_norm = EdgeLengthNormalizer(
-            r_max=r_max, type_names=type_names, per_edge_type_cutoff=per_edge_type_cutoff,
-            irreps_in=spharm.irreps_out,
-        )
-        bessel_encode = BesselEdgeLengthEncoding(
-            cutoff=PolynomialCutoff(polynomial_cutoff_p), num_bessels=num_bessels,
-            irreps_in=edge_norm.irreps_out,
-        )
-        factor = ApplyFactor(
-            in_field=_keys.EDGE_EMBEDDING_KEY, factor=(2 * math.pi) / (r_max * r_max),
-            irreps_in=bessel_encode.irreps_out,
-        )
-        modules = {
-            "type_embed": type_embed,
-            "spharm": spharm,
-            "edge_norm": edge_norm,
-            "bessel_encode": bessel_encode,
-            "factor": factor,
-        }
-        prev = factor.irreps_out
-        for i in range(num_layers):
-            conv = ConvNetLayer(
-                irreps_in=prev,
-                feature_irreps_hidden=feature_irreps_hidden[i],
-                convolution_kwargs={
-                    "radial_mlp_depth": radial_mlp_depth[i],
-                    "radial_mlp_width": radial_mlp_width[i],
-                    # no self-connection on the first layer: the isolated-atom limit
-                    "use_sc": i != 0 and convnet_sc,
-                    "is_first_layer": i == 0,
-                    "avg_num_neighbors": avg_num_neighbors,
-                    "type_names": type_names,
-                    "tp_impl": tp_impl,
-                },
-                resnet=i != 0 and convnet_resnet,
-                nonlinearity_scalars=convnet_nonlinearity_scalars,
-                nonlinearity_gates=convnet_nonlinearity_gates,
-            )
-            prev = conv.irreps_out
-            modules[f"layer{i}_convnet"] = conv
-        if readout_mlp_hidden_layers_width is None:
-            readout_mlp_hidden_layers_width = Irreps(feature_irreps_hidden[-1]).dim
-        modules["per_atom_energy_readout"] = ScalarMLP(
-            output_dim=1,
-            hidden_layers_depth=readout_mlp_hidden_layers_depth,
-            hidden_layers_width=readout_mlp_hidden_layers_width,
-            nonlinearity=readout_mlp_nonlinearity,
-            field=_keys.NODE_FEATURES_KEY,
-            out_field=_keys.PER_ATOM_ENERGY_KEY,
-            irreps_in=prev,
-        )
-        modules["per_type_energy_scale_shift"] = PerTypeScaleShift(
-            type_names=type_names,
-            field=_keys.PER_ATOM_ENERGY_KEY,
-            out_field=_keys.PER_ATOM_ENERGY_KEY,
-            scales=per_type_energy_scales,
-            shifts=per_type_energy_shifts,
-            irreps_in=modules["per_atom_energy_readout"].irreps_out,
-        )
-        energy_model = SequentialGraphNetwork(modules)
-        energy_model.append(
-            "total_energy_sum",
-            AtomwiseReduce(
-                field=_keys.PER_ATOM_ENERGY_KEY, out_field=_keys.TOTAL_ENERGY_KEY,
-                irreps_in=energy_model.irreps_out,
-            ),
-        )
-        model = GraphModel(
-            ForceStressOutput(energy_model, do_derivatives),
-            type_names=type_names, r_max=r_max, per_edge_type_cutoff=per_edge_type_cutoff,
-        )
-
-    init_weights(model, seed)
-    model.model_config = {
-        "seed": seed,
-        "model_dtype": model_dtype,
-        "type_names": type_names,
-        "r_max": r_max,
-        "tp_impl": tp_impl,
+    type_embed = NodeTypeEmbed(type_names=type_names, num_features=type_embed_num_features)
+    spharm = SphericalHarmonicEdgeAttrs(irreps_edge_sh=irreps_edge_sh, irreps_in=type_embed.irreps_out)
+    edge_norm = EdgeLengthNormalizer(
+        r_max=r_max, type_names=type_names, per_edge_type_cutoff=per_edge_type_cutoff,
+        irreps_in=spharm.irreps_out,
+    )
+    bessel_encode = BesselEdgeLengthEncoding(
+        cutoff=PolynomialCutoff(polynomial_cutoff_p), num_bessels=num_bessels,
+        irreps_in=edge_norm.irreps_out,
+    )
+    factor = ApplyFactor(
+        in_field=_keys.EDGE_EMBEDDING_KEY, factor=(2 * math.pi) / (r_max * r_max),
+        irreps_in=bessel_encode.irreps_out,
+    )
+    modules = {
+        "type_embed": type_embed,
+        "spharm": spharm,
+        "edge_norm": edge_norm,
+        "bessel_encode": bessel_encode,
+        "factor": factor,
     }
+    prev = factor.irreps_out
+    for i in range(num_layers):
+        conv = ConvNetLayer(
+            irreps_in=prev,
+            feature_irreps_hidden=feature_irreps_hidden[i],
+            convolution_kwargs={
+                "radial_mlp_depth": radial_mlp_depth[i],
+                "radial_mlp_width": radial_mlp_width[i],
+                # no self-connection on the first layer: the isolated-atom limit
+                "use_sc": i != 0 and convnet_sc,
+                "is_first_layer": i == 0,
+                "avg_num_neighbors": avg_num_neighbors,
+                "type_names": type_names,
+                "tp_impl": tp_impl,
+            },
+            resnet=i != 0 and convnet_resnet,
+            nonlinearity_scalars=convnet_nonlinearity_scalars,
+            nonlinearity_gates=convnet_nonlinearity_gates,
+        )
+        prev = conv.irreps_out
+        modules[f"layer{i}_convnet"] = conv
+    if readout_mlp_hidden_layers_width is None:
+        readout_mlp_hidden_layers_width = Irreps(feature_irreps_hidden[-1]).dim
+    modules["per_atom_energy_readout"] = ScalarMLP(
+        output_dim=1,
+        hidden_layers_depth=readout_mlp_hidden_layers_depth,
+        hidden_layers_width=readout_mlp_hidden_layers_width,
+        nonlinearity=readout_mlp_nonlinearity,
+        field=_keys.NODE_FEATURES_KEY,
+        out_field=_keys.PER_ATOM_ENERGY_KEY,
+        irreps_in=prev,
+    )
+    modules["per_type_energy_scale_shift"] = PerTypeScaleShift(
+        type_names=type_names,
+        field=_keys.PER_ATOM_ENERGY_KEY,
+        out_field=_keys.PER_ATOM_ENERGY_KEY,
+        scales=per_type_energy_scales,
+        shifts=per_type_energy_shifts,
+        irreps_in=modules["per_atom_energy_readout"].irreps_out,
+    )
+    energy_model = SequentialGraphNetwork(modules)
+    energy_model.append(
+        "total_energy_sum",
+        AtomwiseReduce(
+            field=_keys.PER_ATOM_ENERGY_KEY, out_field=_keys.TOTAL_ENERGY_KEY,
+            irreps_in=energy_model.irreps_out,
+        ),
+    )
+    model = GraphModel(
+        ForceStressOutput(energy_model, do_derivatives),
+        type_names=type_names, r_max=r_max, per_edge_type_cutoff=per_edge_type_cutoff,
+    )
     return model

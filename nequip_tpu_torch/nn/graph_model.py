@@ -53,9 +53,11 @@ class GraphModel(GraphModule):
         self.per_edge_type_cutoff = per_edge_type_cutoff
         self._init_irreps(irreps_in=dict(model.irreps_in), irreps_out=dict(model.irreps_out))
         self.input_fields = tuple(dict.fromkeys(list(_ALWAYS_INPUT_FIELDS) + list(model.irreps_in)))
-        self.uses_fused_kernels = any(
-            isinstance(m, InteractionBlock) and m.tp_scatter.impl in KERNEL_IMPLS for m in self.modules()
-        )
+
+    @property
+    def uses_fused_kernels(self) -> bool:
+        """Whether a layer runs the CUDA kernels (and so needs the edge stream in kernel order)."""
+        return any(isinstance(m, InteractionBlock) and m.tp_scatter.impl in KERNEL_IMPLS for m in self.modules())
 
     @property
     def metadata(self) -> Dict[str, str]:

@@ -108,10 +108,7 @@ class InteractionBlock(GraphModule):
             hidden_layers_width=radial_mlp_width,
             nonlinearity="silu",
         )
-        if tp_impl == "fused" and (
-            self.edge_mlp.num_layers != 2 or self.edge_mlp.nonlinearity != "silu"
-        ):
-            raise ValueError("tp_impl='fused' needs the depth-1 bias-free silu radial MLP")
+        self.set_tp_impl(tp_impl)
         self.irreps_mid = irreps_mid
         self.irreps_mid_simplified = irreps_mid.simplify()
         self._merge_perm = (
@@ -133,6 +130,12 @@ class InteractionBlock(GraphModule):
             self.sc = nn.Parameter(torch.empty(self.sc_tp.weight_numel, dtype=self.model_dtype))
         # edge slices of the fr sweep; set by the fr train step, 0 otherwise
         self.fr_edge_chunks = 0
+
+    def set_tp_impl(self, tp_impl: str) -> None:
+        """Switch the conv's implementation (``TP_IMPLS``); the weights stay."""
+        if tp_impl == "fused" and (self.edge_mlp.num_layers != 2 or self.edge_mlp.nonlinearity != "silu"):
+            raise ValueError("tp_impl='fused' needs the depth-1 bias-free silu radial MLP")
+        self.tp_scatter.set_impl(tp_impl)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -28,8 +28,6 @@ KERNEL_IMPLS = ("fused", "fused_tp")
 
 class TensorProductScatter:
     def __init__(self, feature_irreps_in, irreps_edge_attr, irreps_mid, instructions, impl: str = "torch"):
-        if impl not in TP_IMPLS:
-            raise ValueError(f"tp_impl must be one of {TP_IMPLS}, got {impl!r}")
         self.feature_irreps_in = Irreps(feature_irreps_in)
         self.irreps_edge_attr = Irreps(irreps_edge_attr)
         self.irreps_mid = Irreps(irreps_mid)
@@ -37,8 +35,15 @@ class TensorProductScatter:
             self.feature_irreps_in, self.irreps_edge_attr, self.irreps_mid, instructions,
             shared_weights=False,
         )
+        self.plan = None
+        self.set_impl(impl)
+
+    def set_impl(self, impl: str) -> None:
+        if impl not in TP_IMPLS:
+            raise ValueError(f"tp_impl must be one of {TP_IMPLS}, got {impl!r}")
         self.impl = impl
-        self.plan = TPPlan(self.tp) if impl in KERNEL_IMPLS else None
+        if impl in KERNEL_IMPLS and self.plan is None:
+            self.plan = TPPlan(self.tp)
 
     @property
     def weight_numel(self) -> int:

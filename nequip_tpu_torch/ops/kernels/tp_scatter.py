@@ -26,6 +26,17 @@ Each wrapper runs its plain PyTorch twin (``*_plain``) when its tensors lie
 on the CPU, launches its kernel when they lie on a CUDA device, and raises
 for any other device.  Each counts its kernel launches in ``.launches``.
 
+Serving (frozen radial-MLP weights) runs K1, K2's inference variant and K3
+as registered ops, ``torch.ops.nequip_torch.{conv_fwd, conv_bwd,
+scatter_rows}``, whose arguments are tensors and numbers only (the plan's
+tables, the layout's four tensors): a tracer (``make_fx``, ``torch.export``)
+records them as single nodes, and an exported program calls them.  Their
+CUDA kernels are the launches the wrappers make; their CPU kernels are the
+plain twins, with the TP computed from K1's tables (``_TablePlan``); K1's
+backward is K2's inference variant, then K3.  Inside the ops the real-edge
+count is read on the device (``dst_ptr[N]``, by the kernels) and never on
+the host, so a trace holds no value of the data.
+
 Autograd (as ``_make_fused_mlp`` and ``_make_fused_uncached`` in JAX):
 ``FusedConv`` (K1) has the backward ``FusedConvBwd`` (K2, then K3), whose
 own backward is the composition of the radial MLP with the trilinear
@@ -47,7 +58,7 @@ segment, so nothing reads them.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,7 +129,6 @@ class TPPlan:
             raise ValueError(f"SH chunks wider than {_MAX_YDIM} (l > 4) are not supported")
         self._tables = self._build_tables()
         self._device_tables: Dict[Tuple[torch.device, torch.dtype], Dict[str, torch.Tensor]] = {}
-        self._fwd_tiles: Dict[tuple, int] = {}  # edges per tile of K1, K4 and K6, by kernel, device, dtype, widths
 
     def _build_tables(self) -> Dict[str, np.ndarray]:
         # K1: one group per output row (path, m3)
@@ -173,13 +183,20 @@ class TPPlan:
         )
 
     def device_tables(self, device: torch.device, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """The tables on ``device``, floats in ``dtype``, in ``TABLE_NAMES``
+        order (the registered ops take them in that order)."""
         key = (device, dtype)
         if key not in self._device_tables:
             self._device_tables[key] = {
-                k: torch.as_tensor(v, dtype=dtype if v.dtype.kind == "f" else torch.int32, device=device)
-                for k, v in self._tables.items()
+                k: torch.as_tensor(self._tables[k], dtype=dtype if self._tables[k].dtype.kind == "f" else torch.int32,
+                                   device=device)
+                for k in TABLE_NAMES
             }
         return self._device_tables[key]
+
+
+TABLE_NAMES = ("fwd_groups", "fwd_terms", "fwd_coef", "fwd_col", "dx_groups", "dx_terms", "dx_coef", "dx_col",
+               "paths", "path_terms", "path_coef")
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +206,9 @@ class TPPlan:
 class EdgeLayout:
     edge_src: torch.Tensor  # int32 [E], source of every slot (kernel order)
     dst_ptr: torch.Tensor   # int32 [N+1], CSR over the real edges
-    src_perm: torch.Tensor  # int32 [n_real], real slots sorted (stably) by source
+    src_perm: torch.Tensor  # int32 [n_real] (or longer: entries past n_real unread), real slots sorted (stably) by source
     src_ptr: torch.Tensor   # int32 [N+1], CSR of src_perm
-    n_real: int             # real edges: slots [0, n_real) of the stream
+    n_real: Optional[int]   # real edges: slots [0, n_real) of the stream; None where it stays on the device
     _slices: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
@@ -306,6 +323,25 @@ def relayout_edge_stream(data: dict) -> dict:
     return out
 
 
+# the layout as four tensors of fixed shape, the inputs of an exported program
+LAYOUT_TENSORS = ("edge_src", "dst_ptr", "src_perm", "src_ptr")
+LAYOUT_FIELDS = tuple(f"{LAYOUT_KEY}.{name}" for name in LAYOUT_TENSORS)
+
+
+def layout_fields(layout: EdgeLayout) -> Dict[str, torch.Tensor]:
+    """The layout's tensors under ``LAYOUT_FIELDS``, ``src_perm`` padded
+    with zeros to the stream's length (the kernels read none of the pad)."""
+    n_pad = layout.edge_src.shape[0] - layout.src_perm.shape[0]
+    return dict(zip(LAYOUT_FIELDS, (layout.edge_src, layout.dst_ptr, F.pad(layout.src_perm, (0, n_pad)),
+                                    layout.src_ptr)))
+
+
+def layout_from_fields(data: dict) -> EdgeLayout:
+    """The layout over the tensors of ``layout_fields``; its real-edge count
+    stays on the device (``n_real`` None)."""
+    return EdgeLayout(*(data[f] for f in LAYOUT_FIELDS), n_real=None)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch twins
 # ---------------------------------------------------------------------------
@@ -330,32 +366,33 @@ def conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout)
     return x.new_zeros(layout.num_nodes, plan.mid_dim).index_add_(0, dst, msg)
 
 
-def _conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g, train: bool):
+def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
+    """K2's inference variant in plain torch: the VJP of the radial MLP and
+    of the TP written out (``_table_tp_vjp``), no autograd inside, since it
+    is the CPU kernel of a registered op."""
+    n, n_pad = layout.n_real, sh.shape[0] - layout.n_real
+    dst = _segment_rows(layout.dst_ptr)
+    src = layout.edge_src[:n].long()
+    a = emb[:n] @ (w1 * alpha0)
+    s = torch.sigmoid(a)
+    W = (a * s) @ (w2 * alpha1)
+    dx_edge, dsh, dW = _table_tp_vjp(plan.device_tables(x.device, x.dtype), x[src], sh[:n], W, g[dst])
+    dh_pre = (dW @ (w2 * alpha1).t()) * (s * (1 + a * (1 - s)))
+    return tuple(F.pad(t, (0, 0, 0, n_pad)) for t in (dx_edge, dsh, dh_pre @ (w1 * alpha0).t()))
+
+
+def conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
+    """K2's training variant in plain torch (autograd through ``plan.tp``):
+    ``conv_bwd``'s three outputs and ``dw1``, ``dw2``."""
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
     with torch.enable_grad():
-        xs = x[src].detach().requires_grad_(True)
-        ys = sh[:n_real].detach().requires_grad_(True)
-        es = emb[:n_real].detach().requires_grad_(True)
-        ws = (w1.detach().requires_grad_(train), w2.detach().requires_grad_(train))
-        msg = plan.tp(xs, ys, radial_weights(es, *ws, alpha0, alpha1))
-        grads = torch.autograd.grad(msg, (xs, ys, es) + (ws if train else ()), g[dst])
-    dx_edge = x.new_zeros(sh.shape[0], plan.dim_in)
-    dx_edge[:n_real] = grads[0]
-    dsh = torch.zeros_like(sh)
-    dsh[:n_real] = grads[1]
-    demb = torch.zeros_like(emb)
-    demb[:n_real] = grads[2]
-    return (dx_edge, dsh, demb) + tuple(grads[3:])
-
-
-def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
-    return _conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=False)
-
-
-def conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
-    return _conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=True)
+        ins = [t.detach().requires_grad_(True) for t in (x[src], sh[:n_real], emb[:n_real], w1, w2)]
+        msg = plan.tp(ins[0], ins[1], radial_weights(*ins[2:], alpha0, alpha1))
+        grads = torch.autograd.grad(msg, ins, g[dst])
+    n_pad = sh.shape[0] - n_real
+    return tuple(F.pad(gr, (0, 0, 0, n_pad)) for gr in grads[:3]) + tuple(grads[3:])
 
 
 def dw_reduce_plain(a, b, scale: float, n: int):
@@ -418,7 +455,60 @@ def tri_bwd_plain(plan, x, y, w, layout: EdgeLayout, g):
 def scatter_rows_plain(values, perm, ptr):
     rows = _segment_rows(ptr)
     out = values.new_zeros((ptr.shape[0] - 1,) + tuple(values.shape[1:]))
-    return out.index_add_(0, rows, values[perm.long()])
+    return out.index_add_(0, rows, values[perm[: rows.shape[0]].long()])
+
+
+def _table_pairs(tab: Dict[str, torch.Tensor]):
+    """The weighted ``uvu`` TP as K1's tables give it: column ``c`` of group
+    ``(row, w_off, t0, t1)`` is ``w[:, w_off + u] * sum_t coef[t] *
+    x[:, x_row[t] + u] * y[:, y_col[t]]`` with ``u = c - row``
+    (``TPPlan._build_tables``).  Returns, per (column, term) pair, its
+    column, coefficient, x column and y column, and per column its w column."""
+    groups, terms, coef, col = (tab[k] for k in ("fwd_groups", "fwd_terms", "fwd_coef", "fwd_col"))
+    groups, terms = groups.long(), terms.long()
+    cols = torch.arange(col.shape[0], device=coef.device)
+    g = groups[col.long()]
+    u = cols - g[:, 0]
+    counts = g[:, 3] - g[:, 2]
+    pair_col = torch.repeat_interleave(cols, counts)
+    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    t = torch.repeat_interleave(g[:, 2], counts) + torch.arange(pair_col.shape[0], device=coef.device) - first
+    return pair_col, coef[t], terms[t, 0] + u[pair_col], terms[t, 1], g[:, 1] + u
+
+
+def _table_tp(tab: Dict[str, torch.Tensor], x, y, w):
+    """Per-edge messages ``[E, mid_dim]`` of the TP from K1's tables alone
+    (what K1 computes)."""
+    pair_col, coef, xi, yi, wi = _table_pairs(tab)
+    s = x.new_zeros(x.shape[0], wi.shape[0]).index_add_(1, pair_col, coef * x[:, xi] * y[:, yi])
+    return s * w[:, wi]
+
+
+def _table_tp_vjp(tab: Dict[str, torch.Tensor], x, y, w, g):
+    """``(dx, dy, dw)`` of ``_table_tp`` for the per-edge cotangent ``g``."""
+    pair_col, coef, xi, yi, wi = _table_pairs(tab)
+    s = x.new_zeros(x.shape[0], wi.shape[0]).index_add_(1, pair_col, coef * x[:, xi] * y[:, yi])
+    dw = torch.zeros_like(w).index_add_(1, wi, g * s)
+    ds = coef * (g * w[:, wi])[:, pair_col]
+    return (torch.zeros_like(x).index_add_(1, xi, ds * y[:, yi]),
+            torch.zeros_like(y).index_add_(1, yi, ds * x[:, xi]), dw)
+
+
+class _TablePlan(NamedTuple):
+    """What the plain twins of K1 and K2 read of a ``TPPlan``, from its
+    tables: the CPU kernels of the registered ops get tensors, not plans."""
+
+    tab: Dict[str, torch.Tensor]
+
+    @property
+    def mid_dim(self) -> int:
+        return self.tab["fwd_col"].shape[0]
+
+    def device_tables(self, device, dtype) -> Dict[str, torch.Tensor]:
+        return self.tab
+
+    def tp(self, x, y, w):
+        return _table_tp(self.tab, x, y, w)
 
 
 # ---------------------------------------------------------------------------
@@ -443,10 +533,14 @@ def _route(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
-def _check_layout(layout: EdgeLayout, device: torch.device) -> None:
-    for t in (layout.edge_src, layout.dst_ptr, layout.src_perm, layout.src_ptr):
+def _check_index(device: torch.device, *tensors: torch.Tensor) -> None:
+    for t in tensors:
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("edge layout tensors must be contiguous int32 on the kernel's device")
+
+
+def _check_layout(layout: EdgeLayout, device: torch.device) -> None:
+    _check_index(device, layout.edge_src, layout.dst_ptr, layout.src_perm, layout.src_ptr)
 
 
 def conv_fwd_carry_rows(n_edges: int, tile: int) -> int:
@@ -457,37 +551,40 @@ def conv_fwd_carry_rows(n_edges: int, tile: int) -> int:
     return _cdiv(n_edges, tile)
 
 
-def _tile(plan: TPPlan, name: str, dtype: torch.dtype, device, widths: Tuple[int, ...]) -> int:
+# edges per tile of K1, K4 and K6 by (kernel, device, dtype, widths): the
+# library's answer for the card the process runs on, asked at first launch
+_TILES: Dict[tuple, int] = {}
+
+
+def _tile(name: str, dtype: torch.dtype, device, widths: Tuple[int, ...]) -> int:
     """Edges per tile that kernel ``name`` takes at ``widths`` on a CUDA
     ``device`` (32, 16, 8 or 4, as its shared memory fits), asked of the
-    library once and kept with the plan; raises if no tile fits."""
+    library once per process; raises if no tile fits."""
     device = torch.device(device)
     key = (name, device, dtype, widths)
-    if key not in plan._fwd_tiles:
+    if key not in _TILES:
         with torch.cuda.device(device):
             tile = build.entry_point(f"nequip_{name}_tile", dtype)(*widths)
         if tile < 0:
             build.check(-tile, name)
         if tile == 0:
-            raise RuntimeError(f"{name}: no edge tile fits in shared memory at dim_in {plan.dim_in}, "
-                               f"WN {plan.weight_numel}, widths {widths} in {dtype}")
-        plan._fwd_tiles[key] = tile
-    return plan._fwd_tiles[key]
+            raise RuntimeError(f"{name}: no edge tile fits in shared memory at widths {widths} in {dtype}")
+        _TILES[key] = tile
+    return _TILES[key]
 
 
 def conv_fwd_tile(plan: TPPlan, n_emb: int, hidden: int, dtype: torch.dtype, device) -> int:
     """Edges per tile of K1 (32, 16 or 8: the largest whose shared memory
     fits one block) for ``plan`` with an ``n_emb -> hidden -> WN`` radial
     MLP on a CUDA ``device``."""
-    return _tile(plan, "conv_fwd", dtype, device, (plan.dim_in, plan.sh_dim, n_emb, hidden, plan.weight_numel,
-                                                   len(plan._tables["fwd_coef"])))
+    return _tile("conv_fwd", dtype, device, (plan.dim_in, plan.sh_dim, n_emb, hidden, plan.weight_numel,
+                                             len(plan._tables["fwd_coef"])))
 
 
 def tri_fwd_tile(plan: TPPlan, name: str, dtype: torch.dtype, device) -> int:
     """Edges per tile of K4 and K4-acc (``name`` "tri_fwd") or K6 ("jvp_fwd")
     for ``plan`` on a CUDA ``device``."""
-    return _tile(plan, name, dtype, device, (plan.dim_in, plan.sh_dim, plan.weight_numel,
-                                             len(plan._tables["fwd_coef"])))
+    return _tile(name, dtype, device, (plan.dim_in, plan.sh_dim, plan.weight_numel, len(plan._tables["fwd_coef"])))
 
 
 def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout):
@@ -502,57 +599,71 @@ def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
     if not _route("conv_fwd", x, sh, emb, w1, w2):
         return conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout)
     _check_layout(layout, x.device)
+    return _launch_conv_fwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr,
+                            plan.device_tables(x.device, x.dtype), alpha0, alpha1)
+
+
+def _launch_conv_fwd(x, sh, emb, w1, w2, edge_src, dst_ptr, tab: Dict[str, torch.Tensor], alpha0, alpha1):
+    """K1's launch on raw tensors (the wrapper's and the registered op's)."""
     n_emb, hidden = w1.shape
-    tab = plan.device_tables(x.device, x.dtype)
-    n_terms = tab["fwd_coef"].shape[0]
-    tile = conv_fwd_tile(plan, n_emb, hidden, x.dtype, x.device)
-    out = torch.empty(layout.num_nodes, plan.mid_dim, dtype=x.dtype, device=x.device)
-    carry = torch.empty(conv_fwd_carry_rows(layout.edge_src.shape[0], tile), plan.mid_dim, dtype=x.dtype,
-                        device=x.device)
+    num_nodes, dim_in, sh_dim, wn = dst_ptr.shape[0] - 1, x.shape[1], sh.shape[1], w2.shape[1]
+    mid_dim, n_terms = tab["fwd_col"].shape[0], tab["fwd_coef"].shape[0]
+    tile = _tile("conv_fwd", x.dtype, x.device, (dim_in, sh_dim, n_emb, hidden, wn, n_terms))
+    out = torch.empty(num_nodes, mid_dim, dtype=x.dtype, device=x.device)
+    carry = torch.empty(conv_fwd_carry_rows(edge_src.shape[0], tile), mid_dim, dtype=x.dtype, device=x.device)
     err = build.entry_point("nequip_conv_fwd", x.dtype)(
         x.data_ptr(), sh.data_ptr(), emb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(),
+        edge_src.data_ptr(), dst_ptr.data_ptr(),
         tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
         tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(), carry.data_ptr(),
-        layout.num_nodes, plan.dim_in, plan.sh_dim, n_emb, hidden, plan.weight_numel,
-        plan.mid_dim, n_terms, tile, alpha0, alpha1, torch.cuda.current_stream(x.device).cuda_stream,
+        num_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim, n_terms, tile, alpha0, alpha1,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "conv_fwd")
     conv_fwd.launches += 1
     return out
 
 
-def _launch_conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g, train: bool):
-    _check_layout(layout, x.device)
+def _launch_conv_bwd(x, sh, emb, w1, w2, edge_src, dst_ptr, g, tab: Dict[str, torch.Tensor], alpha0, alpha1,
+                     n_real: Optional[int] = None):
+    """K2's launch on raw tensors: the inference variant, or with ``n_real``
+    (the real edges, known on the host) the training variant, which also
+    returns its per-edge dW factors over the real slots."""
     n_emb, hidden = w1.shape
-    tab = plan.device_tables(x.device, x.dtype)
+    num_nodes, dim_in, sh_dim, wn, mid_dim = dst_ptr.shape[0] - 1, x.shape[1], sh.shape[1], w2.shape[1], g.shape[1]
     w2t = w2.t().contiguous()
-    dx_edge = torch.empty(sh.shape[0], plan.dim_in, dtype=x.dtype, device=x.device)
-    dx_edge[layout.n_real :].zero_()  # the kernel writes the real slots only
+    if n_real is None:
+        # the kernel writes the real slots only, and their count stays on the device
+        dx_edge = torch.zeros(sh.shape[0], dim_in, dtype=x.dtype, device=x.device)
+    else:
+        dx_edge = torch.empty(sh.shape[0], dim_in, dtype=x.dtype, device=x.device)
+        dx_edge[n_real:].zero_()
     dsh = torch.zeros_like(sh)
     demb = torch.zeros_like(emb)
     args = [
         x.data_ptr(), sh.data_ptr(), emb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        w2t.data_ptr(), layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(), g.data_ptr(),
+        w2t.data_ptr(), edge_src.data_ptr(), dst_ptr.data_ptr(), g.data_ptr(),
         tab["dx_groups"].data_ptr(), tab["dx_terms"].data_ptr(), tab["dx_coef"].data_ptr(),
         tab["dx_col"].data_ptr(), tab["paths"].data_ptr(), tab["path_terms"].data_ptr(),
         tab["path_coef"].data_ptr(), dx_edge.data_ptr(), dsh.data_ptr(), demb.data_ptr(),
     ]
     per_edge = ()
-    if train:
+    if n_real is not None:
         # per-edge factors of dW2 / dW1 over the real slots, reduced by dw_reduce
         per_edge = tuple(
-            torch.empty(layout.n_real, width, dtype=x.dtype, device=x.device)
-            for width in (plan.weight_numel, hidden, hidden)
+            torch.empty(n_real, width, dtype=x.dtype, device=x.device) for width in (wn, hidden, hidden)
         )
         args += [t.data_ptr() for t in per_edge]
     args += [
-        len(plan.paths), layout.num_nodes, plan.dim_in, plan.sh_dim, n_emb, hidden,
-        plan.weight_numel, plan.mid_dim, alpha0, alpha1,
+        tab["paths"].shape[0], num_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim, alpha0, alpha1,
         torch.cuda.current_stream(x.device).cuda_stream,
     ]
-    name = "conv_bwd_train" if train else "conv_bwd"
+    name = "conv_bwd" if n_real is None else "conv_bwd_train"
     build.check(build.entry_point(f"nequip_{name}", x.dtype)(*args), name)
+    if n_real is None:
+        conv_bwd.launches += 1
+        return dx_edge, dsh, demb
+    conv_bwd_train.launches += 1
     return (dx_edge, dsh, demb), per_edge
 
 
@@ -561,12 +672,13 @@ def conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
     demb [E, n_emb])`` of K1 for the node cotangent ``g`` (see
     ``csrc/conv_bwd.cu``: dense tiles of 32 edges with the radial MLP as
     block GEMMs in shared memory); zero rows at masked slots.  It allocates
-    no per-edge buffer besides its three outputs."""
+    no per-edge buffer besides its three outputs.  Like the registered op,
+    it leaves the real-edge count on the device."""
     if not _route("conv_bwd", x, sh, emb, w1, w2, g):
         return conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
-    outs, _ = _launch_conv_bwd(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=False)
-    conv_bwd.launches += 1
-    return outs
+    _check_layout(layout, x.device)
+    return _launch_conv_bwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr, g,
+                            plan.device_tables(x.device, x.dtype), alpha0, alpha1)
 
 
 def conv_bwd_train(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout, g):
@@ -576,9 +688,10 @@ def conv_bwd_train(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: floa
     ``dw_reduce`` sums them over the edges."""
     if not _route("conv_bwd_train", x, sh, emb, w1, w2, g):
         return conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
-    outs, (dw_e, h_e, dh_e) = _launch_conv_bwd(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g, train=True)
-    conv_bwd_train.launches += 1
+    _check_layout(layout, x.device)
     n = layout.n_real
+    outs, (dw_e, h_e, dh_e) = _launch_conv_bwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr, g,
+                                               plan.device_tables(x.device, x.dtype), alpha0, alpha1, n_real=n)
     return outs + (dw_reduce(emb, dh_e, alpha0, n), dw_reduce(h_e, dw_e, alpha1, n))
 
 
@@ -764,6 +877,10 @@ def scatter_rows(values, perm, ptr):
     ``csrc/scatter_rows.cu``)."""
     if not _route("scatter_rows", values):
         return scatter_rows_plain(values, perm, ptr)
+    return _launch_scatter_rows(values, perm, ptr)
+
+
+def _launch_scatter_rows(values, perm, ptr):
     for t in (perm, ptr):
         if t.device != values.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("scatter_rows: perm and ptr must be contiguous int32 on the values' device")
@@ -819,9 +936,10 @@ def _dx_nodes(dx_edge, layout: EdgeLayout):
 
 class FusedConv(torch.autograd.Function):
     """``out = scatter_dst(TP(x[src], sh, MLP(emb; w1, w2)))`` with K1 as
-    forward.  Its backward is ``FusedConvBwd`` (K2's training variant) when
-    the radial-MLP weights need gradients or a graph is being built (force
-    losses); otherwise, as in serving, K2's inference variant and K3."""
+    forward, for training (the radial-MLP weights need gradients): its
+    backward is ``FusedConvBwd`` (K2's training variant), differentiable
+    again for force losses.  Serving takes the registered op instead
+    (``fused_tp_scatter_mlp``)."""
 
     @staticmethod
     def forward(ctx, x, sh, emb, w1, w2, plan, alpha0, alpha1, layout):
@@ -832,14 +950,9 @@ class FusedConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, sh, emb, w1, w2 = ctx.saved_tensors
-        layout, need = ctx.layout, ctx.needs_input_grad
-        g = g.contiguous()
-        if need[3] or need[4] or torch.is_grad_enabled():
-            grads = FusedConvBwd.apply(x, sh, emb, w1, w2, g, ctx.plan, *ctx.alphas, layout)
-            return tuple(gr if nd else None for gr, nd in zip(grads, need[:5])) + (None,) * 4
-        dx_edge, dsh, demb = conv_bwd(ctx.plan, x, sh, emb, w1, w2, *ctx.alphas, layout, g)
-        dx = _dx_nodes(dx_edge, layout) if need[0] else None
-        return dx, dsh, demb, None, None, None, None, None, None
+        need = ctx.needs_input_grad
+        grads = FusedConvBwd.apply(x, sh, emb, w1, w2, g.contiguous(), ctx.plan, *ctx.alphas, ctx.layout)
+        return tuple(gr if nd else None for gr, nd in zip(grads, need[:5])) + (None,) * 4
 
 
 def _conv_bwd_composition(plan, x, sh, emb, w1, w2, g, alpha0, alpha1, layout: EdgeLayout):
@@ -960,8 +1073,17 @@ class TriConvBwd(torch.autograd.Function):
 
 def fused_tp_scatter_mlp(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float,
                          layout: EdgeLayout) -> torch.Tensor:
-    """Fully fused conv; ``w1``/``w2`` are the radial MLP's ``w0``/``w1``."""
-    return FusedConv.apply(x, sh, emb, w1, w2, plan, alpha0, alpha1, layout)
+    """Fully fused conv; ``w1``/``w2`` are the radial MLP's ``w0``/``w1``.
+    Training weights (``requires_grad``) run ``FusedConv``; frozen ones,
+    as in serving, the registered op ``nequip_torch::conv_fwd``, whose
+    backward is K2's inference variant, then K3."""
+    if w1.requires_grad or w2.requires_grad:
+        return FusedConv.apply(x, sh, emb, w1, w2, plan, alpha0, alpha1, layout)
+    # the layout's own tensors: a CUDA graph replayed on a layout refilled in
+    # place (integrations/md.py) must read the buffers, not a copy made at capture
+    tables = plan.device_tables(x.device, x.dtype).values()
+    return torch.ops.nequip_torch.conv_fwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr, layout.src_perm,
+                                           layout.src_ptr, *tables, alpha0, alpha1)
 
 
 def fused_tp_scatter(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout) -> torch.Tensor:
@@ -973,6 +1095,104 @@ def fused_tp_scatter_bwd(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLa
     """``(dx, dy, dw)`` of ``F`` for the node cotangent ``g`` (K5, then K3),
     differentiable to all orders."""
     return TriConvBwd.apply(x, edge_attr, edge_weight, g, plan, layout)
+
+
+# ---------------------------------------------------------------------------
+# K1, K2 (inference) and K3 as registered ops: tensors and numbers in and out
+# ---------------------------------------------------------------------------
+_TABLES_SCHEMA = ", ".join(f"Tensor {name}" for name in TABLE_NAMES)
+_COEF = [i for i, name in enumerate(TABLE_NAMES) if name.endswith("coef")]  # the float tables
+_LAYOUT_SCHEMA = ", ".join(f"Tensor {name}" for name in LAYOUT_TENSORS)
+_MLP_SCHEMA = "Tensor x, Tensor sh, Tensor emb, Tensor w1, Tensor w2"
+
+
+def _op_layout(edge_src, dst_ptr, src_perm=None, src_ptr=None) -> EdgeLayout:
+    """A layout for the plain twins inside a CPU kernel, which may read the
+    real-edge count on the host."""
+    return EdgeLayout(edge_src, dst_ptr, src_perm, src_ptr, n_real=int(dst_ptr[-1]))
+
+
+@torch.library.custom_op(
+    "nequip_torch::conv_fwd", mutates_args=(), device_types="cpu",
+    schema=f"({_MLP_SCHEMA}, {_LAYOUT_SCHEMA}, {_TABLES_SCHEMA}, float alpha0, float alpha1) -> Tensor",
+)
+def _conv_fwd_op(x, sh, emb, w1, w2, edge_src, dst_ptr, src_perm, src_ptr, *rest):
+    *tables, alpha0, alpha1 = rest
+    return conv_fwd_plain(_TablePlan(dict(zip(TABLE_NAMES, tables))), x, sh, emb, w1, w2, alpha0, alpha1,
+                          _op_layout(edge_src, dst_ptr, src_perm, src_ptr))
+
+
+@_conv_fwd_op.register_kernel("cuda")
+def _conv_fwd_cuda(x, sh, emb, w1, w2, edge_src, dst_ptr, src_perm, src_ptr, *rest):
+    *tables, alpha0, alpha1 = rest
+    _route("conv_fwd", x, sh, emb, w1, w2, *(tables[i] for i in _COEF))
+    _check_index(x.device, edge_src, dst_ptr, src_perm, src_ptr)
+    return _launch_conv_fwd(x, sh, emb, w1, w2, edge_src, dst_ptr, dict(zip(TABLE_NAMES, tables)), alpha0, alpha1)
+
+
+@_conv_fwd_op.register_fake
+def _conv_fwd_fake(x, sh, emb, w1, w2, edge_src, dst_ptr, src_perm, src_ptr, *rest):
+    return x.new_empty(dst_ptr.shape[0] - 1, rest[TABLE_NAMES.index("fwd_col")].shape[0])
+
+
+def _conv_fwd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:-2])
+    ctx.alphas, ctx.n_inputs = inputs[-2:], len(inputs)
+
+
+def _conv_fwd_backward(ctx, g):
+    """K2's inference variant, then K3 for the node cotangent of ``x``: the
+    weights are frozen (training runs ``FusedConv``)."""
+    if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+        raise RuntimeError("nequip_torch::conv_fwd has no weight gradients: training runs FusedConv")
+    x, sh, emb, w1, w2, edge_src, dst_ptr, src_perm, src_ptr, *tables = ctx.saved_tensors
+    dx_edge, dsh, demb = _conv_bwd_op(x, sh, emb, w1, w2, g.contiguous(), edge_src, dst_ptr, *tables, *ctx.alphas)
+    dx = _scatter_rows_op(dx_edge, src_perm, src_ptr) if ctx.needs_input_grad[0] else None
+    return (dx, dsh, demb) + (None,) * (ctx.n_inputs - 3)
+
+
+_conv_fwd_op.register_autograd(_conv_fwd_backward, setup_context=_conv_fwd_setup)
+
+
+@torch.library.custom_op(
+    "nequip_torch::conv_bwd", mutates_args=(), device_types="cpu",
+    schema=f"({_MLP_SCHEMA}, Tensor g, Tensor edge_src, Tensor dst_ptr, {_TABLES_SCHEMA}, float alpha0, "
+           "float alpha1) -> (Tensor, Tensor, Tensor)",
+)
+def _conv_bwd_op(x, sh, emb, w1, w2, g, edge_src, dst_ptr, *rest):
+    *tables, alpha0, alpha1 = rest
+    return conv_bwd_plain(_TablePlan(dict(zip(TABLE_NAMES, tables))), x, sh, emb, w1, w2, alpha0, alpha1,
+                          _op_layout(edge_src, dst_ptr), g)
+
+
+@_conv_bwd_op.register_kernel("cuda")
+def _conv_bwd_cuda(x, sh, emb, w1, w2, g, edge_src, dst_ptr, *rest):
+    *tables, alpha0, alpha1 = rest
+    _route("conv_bwd", x, sh, emb, w1, w2, g, *(tables[i] for i in _COEF))
+    _check_index(x.device, edge_src, dst_ptr)
+    return _launch_conv_bwd(x, sh, emb, w1, w2, edge_src, dst_ptr, g, dict(zip(TABLE_NAMES, tables)), alpha0, alpha1)
+
+
+@_conv_bwd_op.register_fake
+def _conv_bwd_fake(x, sh, emb, w1, w2, g, edge_src, dst_ptr, *rest):
+    return x.new_empty(sh.shape[0], x.shape[1]), torch.empty_like(sh), torch.empty_like(emb)
+
+
+@torch.library.custom_op("nequip_torch::scatter_rows", mutates_args=(), device_types="cpu",
+                         schema="(Tensor values, Tensor perm, Tensor ptr) -> Tensor")
+def _scatter_rows_op(values, perm, ptr):
+    return scatter_rows_plain(values, perm, ptr)
+
+
+@_scatter_rows_op.register_kernel("cuda")
+def _scatter_rows_cuda(values, perm, ptr):
+    _route("scatter_rows", values)
+    return _launch_scatter_rows(values, perm, ptr)
+
+
+@_scatter_rows_op.register_fake
+def _scatter_rows_fake(values, perm, ptr):
+    return values.new_empty(ptr.shape[0] - 1, values.shape[1])
 
 
 # ---------------------------------------------------------------------------

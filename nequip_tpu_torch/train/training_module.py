@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ..model.jax_params import load_jax_params
-from ..model.nequip_models import init_weights
+from ..model.utils import init_weights
 from ..nn.interaction_block import InteractionBlock
 from ..ops.kernels.tp_scatter import LAYOUT_KEY, check_edge_chunks, relayout_edge_stream
 from ..utils.config import instantiate

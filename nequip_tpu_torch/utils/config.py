@@ -7,6 +7,8 @@ only), the port's own copy:
   ``_target_`` dotted path, recursively unless ``_recursive_=False``; it
   imports only the targets it builds, so a dict handed on un-instantiated
   (the optimizer's ``optax.adam``) is never imported;
+* ``retarget(cfg)`` moves a JAX-package config's ``nequip_tpu.``
+  targets (and ``tp_impl`` names) to the port;
 * ``resolve(cfg, root)`` does OmegaConf-style ``${path.to.key}`` and
   ``${resolver:arg1,arg2}`` interpolation; an interpolation whose resolver
   is not registered yet (``training_data_stats`` before the statistics are
@@ -251,6 +253,32 @@ def instantiate(cfg: Any, *args, _recursive_: bool = True, **overrides) -> Any:
     if isinstance(cfg, list):
         return [instantiate(v) if _recursive_ else v for v in cfg]
     return cfg
+
+
+# the JAX package's tp_impl names and the port's
+_JAX_TP_IMPLS = {"xla": "torch", "pallas_fused": "fused", "pallas": "fused_tp"}
+
+
+def retarget(node: Any) -> Any:
+    """A config written for the JAX package (a YAML file, or the
+    ``model_config`` of its package archive) for the port: ``_target_``
+    strings under ``nequip_tpu.`` move to ``nequip_tpu_torch.``, and the
+    JAX ``tp_impl`` names to the port's (``xla`` -> ``torch``,
+    ``pallas_fused`` -> ``fused``, ``pallas`` -> ``fused_tp``)."""
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            if k == "_target_" and isinstance(v, str) and v.startswith("nequip_tpu."):
+                v = "nequip_tpu_torch." + v[len("nequip_tpu."):]
+            elif k == "tp_impl" and v in _JAX_TP_IMPLS:
+                v = _JAX_TP_IMPLS[v]
+            else:
+                v = retarget(v)
+            out[k] = v
+        return out
+    if isinstance(node, list):
+        return [retarget(v) for v in node]
+    return node
 
 
 def load_config(path: str, resolve_interpolations: bool = False) -> dict:

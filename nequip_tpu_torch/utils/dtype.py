@@ -3,13 +3,15 @@
 Port of ``nequip_tpu/utils/dtype.py``: modules capture the ``model_dtype``
 that is current while they are built, and create their parameters in it.
 The geometry and the energy sum run in ``GLOBAL_DTYPE`` (float64), as in
-upstream NequIP.
+upstream NequIP.  ``model_tolerance`` is the compiled-against-eager
+self-check's tolerance per model dtype.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 from typing import Union
 
 import torch
@@ -52,3 +54,15 @@ def default_dtype(dtype):
         yield
     finally:
         _default_dtype.reset(token)
+
+
+# compiled-against-eager self-check tolerances (max abs error), as the
+# reference's NEQUIP_FLOAT{64,32}_MODEL_TOL
+_MODEL_TOLS = {
+    torch.float64: float(os.environ.get("NEQUIP_FLOAT64_MODEL_TOL", 1e-12)),
+    torch.float32: float(os.environ.get("NEQUIP_FLOAT32_MODEL_TOL", 5e-5)),
+}
+
+
+def model_tolerance(dtype) -> float:
+    return _MODEL_TOLS[dtype_from_name(dtype)]

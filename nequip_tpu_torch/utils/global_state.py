@@ -5,7 +5,7 @@ sets ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` (PyTorch's matmuls and convolutions;
 the port's CUDA kernels compute in the model's dtype either way), and a
 seed seeds PyTorch's global generators.  Model weights come from their
-own seeded generator (``model/nequip_models.py``), so the seed does not
+own seeded generator (``model/utils.py``), so the seed does not
 change them.
 """
 

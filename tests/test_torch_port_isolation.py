@@ -1,7 +1,9 @@
 """The port stands alone: importing it, running a forward pass, running its
 two microbenchmark tools, building its C++ neighbour list, running two
-host-mode MD steps and one epoch of its training CLI on the CPU (its
-shipped minimal_lj.yaml, which names ``optax.adam``) load neither JAX, nor
+host-mode MD steps, one epoch of its training CLI on the CPU (its shipped
+minimal_lj.yaml, which names ``optax.adam``), and packaging, compiling and
+serving that run's checkpoint (``nequip-torch-package``,
+``nequip-torch-compile``, the calculator's loaders) load neither JAX, nor
 optax or flax, nor the JAX package (the GPU machine has none of them)."""
 
 import json
@@ -46,11 +48,20 @@ with tempfile.TemporaryDirectory() as tmp:
     main(["-cn", "minimal_lj", "-cp", "nequip_tpu_torch/configs", "--device", "cpu", "++trainer.max_epochs=1",
           f"++trainer.ckpt_dir={tmp}"])
     cli_ok = all(Path(tmp, f).exists() for f in ("last.ckpt", "best.ckpt", "metrics.csv"))
+    from nequip_tpu_torch.scripts import compile as compile_cli, package as package_cli
+    package_cli.main(["build", f"{tmp}/best.ckpt", f"{tmp}/pkg.zip", "--device", "cpu", "--no-code-snapshot"])
+    compile_cli.main([f"{tmp}/pkg.zip", f"{tmp}/model.nequip_tpu_torch.zip", "--device", "cpu"])
+    served = [NequIPCalculator.from_saved_model(f"{tmp}/pkg.zip", device="cpu"),
+              NequIPCalculator.from_compiled_model(f"{tmp}/model.nequip_tpu_torch.zip", device="cpu")]
+    deployed = [c.calculate({"pos": pos + 0.05, "cell": np.eye(3) * a, "pbc": np.ones(3, bool),
+                             "atomic_numbers": np.full(4, 29)}) for c in served]
+    deploy_ok = bool(np.allclose(deployed[0]["forces"], deployed[1]["forces"], rtol=0, atol=1e-12))
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
                    and np.isfinite(md["positions"]).all() and np.isfinite(md["forces"]).all()),
     "cli": cli_ok,
+    "deploy": deploy_ok,
     "jax": [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")],
     "nequip_tpu": [m for m in mods if m == "nequip_tpu" or m.startswith("nequip_tpu.")],
     "optax_flax": [m for m in mods if m.split(".")[0] in ("optax", "flax")],
@@ -65,4 +76,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"finite": True, "cli": True, "jax": [], "nequip_tpu": [], "optax_flax": []}
+    assert out == {"finite": True, "cli": True, "deploy": True, "jax": [], "nequip_tpu": [], "optax_flax": []}
