@@ -1,12 +1,20 @@
 """Molecular dynamics: velocity Verlet and Nose-Hoover NVT with a Verlet skin.
 
-Port of ``nequip_tpu/integrations/md.py`` with the host neighbour list
-(``nl_backend="host"``; the device cell list is not ported).  Positions,
-velocities, forces and the thermostat variable stay on the device; the
-neighbour list (``data/neighborlist.py``, the C++ cell list by default) is
-rebuilt on the host only when an atom has moved more than half the skin
-since the last build, and the edge stream is put into kernel order
-(``relayout_edge_stream``) once per build, not once per force call.
+Port of ``nequip_tpu/integrations/md.py``.  Positions, velocities, forces
+and the thermostat variable stay on the device; the neighbour list is
+rebuilt only when an atom has moved more than half the skin since the last
+build, and the edge stream is put into kernel order once per build, not
+once per force call.  Two neighbour-list backends, as in the JAX package:
+
+* ``nl_backend="host"``: ``data/neighborlist.py`` (the C++ cell list by
+  default) on the host, then padding, transfer and ``relayout_edge_stream``;
+* ``nl_backend="device"``: the device cell list (``ops/device_nl.py``, a
+  CUDA kernel) writes the edge stream in kernel order straight into the
+  padded batch's tensors, and ``fill_edge_layout_`` refills the layout on
+  the device: no position or edge crosses the host link.  Needs
+  ``integration="block"``, a fully periodic box at least ``3 * (r_max +
+  skin)`` thick, and ``tp_impl`` "fused" or "torch" (the force call then
+  runs the registered ops, which read the real-edge count on the card).
 
 Two ways to integrate, as in the JAX package:
 
@@ -24,10 +32,29 @@ Two ways to integrate, as in the JAX package:
   capacity) and the next replay runs on the new layout; a rebuild that
   grows a capacity makes new tensors and drops the graph, and the next
   block captures anew.  The captured kernel calls depend on no host integer
-  that a refill changes: K1's carry rows are sized by the edge slots, and
-  rows of K2's per-edge ``dx`` past the real edges, which K3 never reads,
-  are zeroed from the real-edge count at capture.  On the CPU the same
-  block runs eagerly.
+  that a refill changes: K1's carry rows are sized by the edge slots, K2
+  zero-fills its whole per-edge ``dx``, and the kernels read the real-edge
+  count from ``dst_ptr`` on the card.  On the CPU the same block runs
+  eagerly.
+
+With ``nl_backend="device"`` the JAX driver's order holds (its in-graph
+rebuild block): after each block, if the largest displacement since the
+last build exceeds half the skin, the list is rebuilt from the block's
+final positions and the forces are refreshed.  The rebuild (list and
+layout) and the force refresh are two more CUDA graphs over the same
+static buffers, captured with the block graph and replayed after a block
+whose one read-back (the displacement with the overflow flag, one
+two-element copy) asks for it: the block graph stays free of a branch, and
+the rebuild graph can be timed alone with CUDA events.  The JAX driver
+repads its stream to ``n * k_max`` slots because its stream keeps masked
+slots in place; this stream is compacted, so the driver keeps the edge
+capacity of the first host build (with ``edge_headroom``), and the
+captured force call has the shapes of the host path.  ``k_max`` and
+``cell_cap`` are sized from that build as in JAX.  A bucket, an atom or
+the stream that outgrows its capacity sets the overflow flag, which the
+next read-back (and the end of ``run()``) turns into an error: the
+capacities of a captured graph cannot grow, so the driver must be rebuilt
+(or the host list used).
 
 Units: metal-style (eV, Angstrom, amu, fs) with ASE's constants.
 """
@@ -44,7 +71,8 @@ import numpy as np
 import torch
 
 from ..data import _keys, batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up, to_tensors
-from ..ops.kernels.tp_scatter import LAYOUT_KEY, EdgeLayout, relayout_edge_stream
+from ..ops.device_nl import cell_grid, device_nl, size_capacities, suggest_grid_dims
+from ..ops.kernels.tp_scatter import LAYOUT_KEY, EdgeLayout, fill_edge_layout_, relayout_edge_stream
 from ..utils.device import resolve_device
 
 log = logging.getLogger("nequip_tpu_torch")
@@ -52,6 +80,8 @@ log = logging.getLogger("nequip_tpu_torch")
 # ASE-compatible unit constants (eV, A, amu base units)
 FS = 0.09822694750253231  # 1 fs in sqrt(amu A^2 / eV)
 KB = 8.617330337217213e-05  # eV / K
+OVERFLOW_MESSAGE = ("device neighborlist capacity overflow — density rose beyond the initial headroom; "
+                    "rebuild the MDDriver (or use nl_backend='host')")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -183,7 +213,11 @@ class MDDriver:
     a rebuild that outgrows the edge capacity grows it with fresh headroom.
 
     ``rebuild_timings`` holds, per neighbour-list build, the host seconds of
-    the neighbour list and of padding, transfer and re-layout (synchronised);
+    the neighbour list and of padding, transfer and re-layout (synchronised;
+    with ``nl_backend="device"`` the first, sizing build), then, per device
+    rebuild, ``device_nl_ms``, the rebuild's (list and layout, not the force
+    refresh) time on the card (CUDA events, read at the end of ``run()``;
+    host seconds on the CPU); ``rebuilds`` counts the skin rebuilds;
     ``captures`` counts the block programs made (``integration="block"``:
     CUDA graphs captured on the card, eager programs on the CPU),
     ``capture_s`` the graphs' capture seconds (with their warm-up), and
@@ -207,15 +241,12 @@ class MDDriver:
         edge_headroom: float = 1.1,
         device="cuda",
     ):
-        if nl_backend == "device":
-            raise NotImplementedError(
-                "nl_backend='device' needs the device neighbour list (ops/device_nl.py), "
-                "ROADMAP Queue 1 item 7, which the port does not have yet; use nl_backend='host'"
-            )
-        if nl_backend != "host":
-            raise ValueError(f"nl_backend must be 'host' (or 'device', not ported), not {nl_backend!r}")
+        if nl_backend not in ("host", "device"):
+            raise ValueError(f"nl_backend must be 'host' or 'device', not {nl_backend!r}")
         if integration not in ("block", "host"):
             raise ValueError(f"integration must be 'block' or 'host', not {integration!r}")
+        if integration == "host" and nl_backend == "device":
+            raise ValueError("integration='host' pairs with nl_backend='host'")
         self.device = resolve_device(device)
         self.model = model.to(self.device).requires_grad_(False)
         self.integrator = integrator
@@ -244,11 +275,16 @@ class MDDriver:
         # static state of the block programs: (pos, vel, forces, aux), advanced in place
         self._state = tuple(torch.zeros(shape, dtype=self._dtype, device=self.device)
                             for shape in ((n, 3), (n, 3), (n, 3), ()))
+        self._rebuild_programs: Optional[Tuple[Callable[[], None], Callable[[], None]]] = None
+        self._pending_timings: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self.rebuilds = 0
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
         self.step_count = 0
         self.step_clock: List[Tuple[int, float]] = []
+        if nl_backend == "device":
+            self._setup_device_nl()
 
     # ------------------------------------------------------------------
     def _build_neighborlist(self) -> None:
@@ -285,6 +321,81 @@ class MDDriver:
             torch.cuda.synchronize(self.device)
         self.rebuild_timings.append({"neighbor_list_s": t1 - t0, "relayout_s": time.perf_counter() - t1})
 
+    # ------------------------------------------------------------------
+    # the device cell list (nl_backend="device")
+    # ------------------------------------------------------------------
+    def _setup_device_nl(self) -> None:
+        """Size the device cell list from the first (host) build, as the JAX
+        driver does, then rebuild the batch's edges with it."""
+        impls = {m.tp_scatter.impl for m in self.model.modules() if hasattr(m, "tp_scatter")}
+        if "fused_tp" in impls:
+            # its autograd Functions (K4, K5) size buffers by the real edges on the host
+            raise ValueError("nl_backend='device' keeps the real-edge count on the card, which tp_impl "
+                             "'fused_tp' needs on the host: use tp_impl 'fused' or 'torch'")
+        if _keys.CELL_KEY not in self._frame:
+            raise ValueError("nl_backend='device' needs a periodic box (a cell)")
+        cell = np.asarray(self._frame[_keys.CELL_KEY], dtype=np.float64).reshape(3, 3)
+        pbc = np.asarray(self._frame.get(_keys.PBC_KEY, np.ones(3, bool))).reshape(-1)
+        if not pbc.all():
+            raise ValueError("nl_backend='device' needs a fully periodic box")
+        r_build = self.r_max + self.skin
+        dims = suggest_grid_dims(cell, r_build)
+        dst = self._batch[_keys.EDGE_INDEX_KEY][0][self._batch[_keys.EDGE_MASK_KEY]].cpu().numpy()
+        self._nl_caps = size_capacities(self._frame[_keys.POSITIONS_KEY], cell, dims, dst)
+        self._grid = cell_grid(cell, r_build, dims, self._dtype, self.device)
+        self._overflow = torch.zeros(1, dtype=torch.int32, device=self.device)
+        layout = self._batch.get(LAYOUT_KEY)
+        if layout is not None:  # refilled in place from here on, over the whole permutation buffer
+            self._batch[LAYOUT_KEY] = EdgeLayout(layout.edge_src, layout.dst_ptr, self._src_perm, layout.src_ptr, None)
+        pos = torch.as_tensor(np.asarray(self._frame[_keys.POSITIONS_KEY]), dtype=self._dtype, device=self.device)
+        self._timed(lambda: self._device_rebuild(pos))
+        self._check_overflow()
+
+    def _device_rebuild(self, pos: torch.Tensor) -> None:
+        """The list from ``pos`` into the batch's edge tensors and layout, in
+        place, with no read-back (a CUDA graph captures it)."""
+        b = self._batch
+        device_nl(pos, self._grid, *self._nl_caps, self._overflow, pad_index=self._cap[0] - 1,
+                  out=(b[_keys.EDGE_INDEX_KEY], b[_keys.EDGE_CELL_SHIFT_KEY], b[_keys.EDGE_MASK_KEY]))
+        if LAYOUT_KEY in b:
+            b[LAYOUT_KEY] = fill_edge_layout_(b[LAYOUT_KEY], b[_keys.EDGE_INDEX_KEY], b[_keys.EDGE_MASK_KEY])
+        self._nl_pos_dev.copy_(pos)
+
+    def _timed(self, rebuild: Callable[[], None]) -> None:
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            rebuild()
+            self.rebuild_timings.append({"device_nl_ms": 1e3 * (time.perf_counter() - t0)})
+            return
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rebuild()
+        end.record()
+        self._pending_timings.append((start, end))
+
+    def _read_timings(self) -> None:
+        """Rebuild times on the card, once the stream has passed them."""
+        for start, end in self._pending_timings:
+            end.synchronize()
+            self.rebuild_timings.append({"device_nl_ms": start.elapsed_time(end)})
+        self._pending_timings = []
+
+    def _check_overflow(self) -> None:
+        if int(self._overflow.item()):
+            raise RuntimeError(OVERFLOW_MESSAGE)
+
+    def _rebuild_and_refresh(self) -> None:
+        """Rebuild from the block's final positions, then refresh the forces
+        (on the card: two graph replays, captured with the block graph)."""
+        rebuild, refresh = self._rebuild_programs
+        self._timed(rebuild)
+        refresh()
+        self.rebuilds += 1
+
+    def _refresh_forces(self) -> None:
+        self._state[2].copy_(self.forces(self._state[0]))
+
+    # ------------------------------------------------------------------
     def _adopt(self, batch: dict, nl_pos: torch.Tensor) -> None:
         """New batch tensors (first build, or a capacity changed): the block
         program made on the old ones is dropped."""
@@ -338,49 +449,58 @@ class MDDriver:
     # ------------------------------------------------------------------
     def _advance_block(self, state) -> torch.Tensor:
         """``steps_per_block`` steps from ``state``, written back into it;
-        returns the displacement scalar."""
+        returns the block's status: the largest squared displacement since
+        the last build (and, with the device list, the overflow flag)."""
         step = self.integrator.make_step(self.forces, self.masses)
         new = state
         for _ in range(self.steps_per_block):
             new = step(new)
         for dst, src in zip(state, new):
             dst.copy_(src)
-        return self._disp2(state[0])
+        disp2 = self._disp2(state[0])
+        if self.nl_backend == "device":
+            return torch.stack([disp2, self._overflow[0].to(disp2.dtype)])
+        return disp2
 
     def _block_program(self) -> Callable[[], torch.Tensor]:
         """The program that advances ``_state`` one block over the current
         batch tensors (made anew after ``_adopt``)."""
         if self._program is None:
-            if self.device.type != "cuda":
-                self._program = lambda: self._advance_block(self._state)  # noqa: E731
-            else:
-                self._program = self._capture()
+            on_card = self.device.type == "cuda"
+            block = lambda: self._advance_block(self._state)  # noqa: E731
+            self._program = self._capture(block) if on_card else block
+            if self.nl_backend == "device":  # the rebuild's programs too, before any step is timed
+                programs = (lambda: self._device_rebuild(self._state[0]), self._refresh_forces)
+                self._rebuild_programs = tuple(self._capture(p, warm=False) for p in programs) if on_card else programs
             self.captures += 1
         return self._program
 
-    def _capture(self) -> Callable[[], torch.Tensor]:
+    def _capture(self, fn: Callable, warm: bool = True) -> Callable:
+        """``fn`` as a CUDA graph over the driver's static buffers; ``warm``
+        runs one integrator step on copies of the state first."""
         t0 = time.perf_counter()
         # a graph that only a dead reference cycle still holds must not be
         # destroyed by the collector during the capture, which forbids it
         gc.collect()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            # one step on copies of the state: lazy set-up (library handles,
-            # kernel attributes and tile sizes, device tables) stays out of the graph
-            warm = tuple(t.clone() for t in self._state)
-            self.integrator.make_step(self.forces, self.masses)(warm)
-        current.wait_stream(side)
+        if warm:
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                # one step on copies of the state: lazy set-up (library handles,
+                # kernel attributes and tile sizes, device tables) stays out of the graph
+                copies = tuple(t.clone() for t in self._state)
+                self.integrator.make_step(self.forces, self.masses)(copies)
+            current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            disp2 = self._advance_block(self._state)
+            out = fn()
         torch.cuda.synchronize(self.device)
         self.capture_s += time.perf_counter() - t0
 
-        def replay() -> torch.Tensor:  # holds the graph, not the driver: no cycle keeps it alive
+        def replay():  # holds the graph, not the driver: no cycle keeps it alive
             graph.replay()
-            return disp2
+            return out
 
         return replay
 
@@ -420,6 +540,7 @@ class MDDriver:
     def _rebuild(self, pos: torch.Tensor) -> None:
         self._frame[_keys.POSITIONS_KEY] = _host(pos)
         self._build_neighborlist()
+        self.rebuilds += 1
 
     def _run_host(self, state, n_steps: int, log_every_blocks, traj_fh, thermo: list):
         half_a, half_b = self.integrator.make_half_steps(self.masses)
@@ -446,19 +567,27 @@ class MDDriver:
             dst.copy_(src)
         state = self._state
         steps_done = n_blocks = 0
+        device_list = self.nl_backend == "device"
         while steps_done < n_steps:
-            disp2 = self._block_program()()
+            status = self._block_program()().tolist()  # the block's one read-back
             self.replays += 1
             steps_done += self.steps_per_block
             self.step_count += self.steps_per_block
             n_blocks += 1
+            if device_list and status[1]:
+                raise RuntimeError(OVERFLOW_MESSAGE)
             if log_every_blocks and n_blocks % log_every_blocks == 0:
                 self._record(thermo, traj_fh, state)
-            moved = math.sqrt(float(disp2)) > 0.5 * self.skin  # the block's one read-back
+            moved = math.sqrt(status[0] if device_list else status) > 0.5 * self.skin
             self.step_clock.append((self.step_count, time.perf_counter()))
-            if moved:
+            if moved and device_list:
+                self._rebuild_and_refresh()
+            elif moved:
                 self._rebuild(state[0])
                 state[2].copy_(self.forces(state[0]))
+        if device_list:
+            self._check_overflow()
+            self._read_timings()
         return state
 
     @torch.no_grad()

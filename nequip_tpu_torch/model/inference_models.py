@@ -30,6 +30,13 @@ a sort).  A model that runs the CUDA kernels takes the layout's four
 tensors as inputs (``LAYOUT_FIELDS``: ``src_perm`` padded to the rung's
 edge capacity); inside, the kernels read the real-edge count from
 ``dst_ptr[N]`` on the device.
+
+The ``pair_nequip`` target (an MD engine's pair style) takes edge vectors
+instead of positions, shifts and cell, and returns the total and per-atom
+energies and the edge forces (``ForceStressOutput``'s edge branch).  Its
+example batches carry the vectors (``with_edge_vector_inputs``).  Called on
+a batch without the layout, ``CompiledModel`` puts the stream into kernel
+order itself and returns the edge forces in the batch's own edge order.
 """
 
 from __future__ import annotations
@@ -43,7 +50,15 @@ from typing import Dict, List, Optional
 import torch
 
 from ..data import _keys
-from ..ops.kernels.tp_scatter import LAYOUT_FIELDS, LAYOUT_KEY, layout_fields, layout_from_fields
+from ..ops.kernels.tp_scatter import (
+    LAYOUT_FIELDS,
+    LAYOUT_KEY,
+    kernel_order,
+    layout_fields,
+    layout_from_fields,
+    relayout_edge_stream,
+    to_caller_order,
+)
 from ..utils.device import resolve_device
 from .jax_params import jax_params_tree
 
@@ -70,11 +85,6 @@ TARGET_OUTPUT_FIELDS = {
     "batch": _ENERGY_OUTPUTS,
     "pair_nequip": [_keys.TOTAL_ENERGY_KEY, _keys.PER_ATOM_ENERGY_KEY, _keys.EDGE_FORCE_KEY],
 }
-PAIR_STYLE_MISSING = (
-    "target 'pair_nequip' needs the edge-vector force branch of ForceStressOutput "
-    "(nequip_tpu_torch/nn/grad_output.py: forces on edge vectors, for a LAMMPS pair style), "
-    "which waits for the pair-style slice of the port (ROADMAP.md)"
-)
 
 
 def rung_file(i: int) -> str:
@@ -89,9 +99,20 @@ def _fields(batch: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+def with_edge_vector_inputs(batch: dict) -> dict:
+    """A padded batch (tensors) with its edge vectors, the ``pair_nequip``
+    target's input, computed from positions, shifts and cell (before the
+    re-layout, which then permutes them with the other edge fields)."""
+    from ..nn.graph_utils import with_edge_vectors
+
+    out = dict(batch)
+    out[_keys.EDGE_VECTORS_KEY] = with_edge_vectors(batch, with_lengths=False)[_keys.EDGE_VECTORS_KEY]
+    return out
+
+
 def _caps_of(fields: Dict[str, torch.Tensor]) -> Dict[str, int]:
     return {
-        "n_nodes": int(fields[_keys.POSITIONS_KEY].shape[0]),
+        "n_nodes": int(fields[_keys.ATOM_TYPE_KEY].shape[0]),
         "n_edges": int(fields[_keys.EDGE_INDEX_KEY].shape[1]),
         "n_frames": int(fields[_keys.NUM_NODES_KEY].shape[0]),
     }
@@ -128,8 +149,6 @@ def save_compiled_model(out_path: str, model, example_batch, target: str = "ase"
     a capacity ladder, one program per rung).  The weights are frozen in
     place.  A batch of a model that runs the kernels carries its edge
     layout (``relayout_edge_stream``).  Returns the metadata."""
-    if target == "pair_nequip":
-        raise NotImplementedError(PAIR_STYLE_MISSING)
     if target not in TARGET_INPUT_FIELDS:
         raise ValueError(f"unknown target {target!r}; options: {sorted(TARGET_INPUT_FIELDS)}")
     if mode not in MODES:
@@ -137,6 +156,8 @@ def save_compiled_model(out_path: str, model, example_batch, target: str = "ase"
     model.requires_grad_(False)
     batches = [_fields(b) for b in (example_batch if isinstance(example_batch, (list, tuple)) else [example_batch])]
     input_fields = [k for k in TARGET_INPUT_FIELDS[target] if k in batches[0]]
+    if target == "pair_nequip" and _keys.EDGE_VECTORS_KEY not in input_fields:
+        raise ValueError("target 'pair_nequip' takes edge vectors: give batches with_edge_vector_inputs()")
     ladder = [_caps_of(b) for b in batches]
     if ladder != sorted(ladder, key=lambda c: (c["n_nodes"], c["n_edges"])):
         raise ValueError("capacity ladder rungs must be ascending")
@@ -240,7 +261,16 @@ class CompiledModel:
         return None
 
     def __call__(self, data: dict) -> Dict[str, torch.Tensor]:
-        fields = _fields(data)
+        order = None
+        if self.uses_fused_kernels and LAYOUT_KEY not in data and LAYOUT_FIELDS[0] not in data:
+            order = kernel_order(data)
+            data = relayout_edge_stream(data, order)
+        out = self._run(_fields(data))
+        if order is not None and _keys.EDGE_FORCE_KEY in out:
+            out[_keys.EDGE_FORCE_KEY] = to_caller_order(out[_keys.EDGE_FORCE_KEY], order)
+        return out
+
+    def _run(self, fields: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self._model is not None:
             out = self._model({k: fields[k] for k in self.input_fields} | _layout_of(fields))
             return {k: out[k] for k in self.output_fields}

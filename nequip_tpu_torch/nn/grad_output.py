@@ -15,6 +15,12 @@ reverse; the fused kernels' autograd Functions are closed under it).  The
 gradients flow through every module, including the kernels' ``dsh``/``demb``
 outputs back to the edge vectors.
 
+With ``edge_vectors`` among the inputs (an MD engine's pair style, the
+LAMMPS ML-IAP pattern) the edge branch runs instead (JAX
+``_edge_force_branch``): ``edge_forces = dE/d(edge_vectors)`` with no sign
+flip, of the local atoms' energies only when ``num_local_ghost_atoms`` is
+given.  ``GraphModel`` returns them in the caller's edge order.
+
 ``loss_surrogate`` is the other route to the same parameter gradients
 (reverse over forward, ``force_grad_mode="fr"``): a scalar whose gradient
 is the loss gradient, built from one dual-number sweep of the energy graph.
@@ -46,7 +52,7 @@ class ForceStressOutput(GraphModule):
         self.func = func
         self.do_derivatives = do_derivatives
         self._init_irreps(irreps_in=dict(func.irreps_in), irreps_out=dict(func.irreps_out))
-        for k in (_keys.FORCE_KEY, _keys.STRESS_KEY, _keys.VIRIAL_KEY):
+        for k in (_keys.FORCE_KEY, _keys.STRESS_KEY, _keys.VIRIAL_KEY, _keys.EDGE_FORCE_KEY):
             self.irreps_out[k] = Irreps("1o")
 
     _jax_transparent = ("func",)
@@ -54,9 +60,9 @@ class ForceStressOutput(GraphModule):
     def forward(self, data: dict) -> dict:
         if not self.do_derivatives:
             return self.func(data)
-        if _keys.EDGE_VECTORS_KEY in data:
-            raise NotImplementedError("the edge-vector force branch is not ported")
         training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        if _keys.EDGE_VECTORS_KEY in data:
+            return self._edge_force_branch(data, training)
         pos = data[_keys.POSITIONS_KEY].detach()
         has_cell = _keys.CELL_KEY in data
         num_frames = data[_keys.NUM_NODES_KEY].shape[0]
@@ -92,6 +98,31 @@ class ForceStressOutput(GraphModule):
             out[_keys.STRESS_KEY] = dE_ddisp / _volumes(data)[:, None, None]
         out[_keys.FORCE_KEY] = -dE_dpos
         out[_keys.VIRIAL_KEY] = -dE_ddisp
+        return out
+
+    def _edge_force_branch(self, data: dict, training: bool) -> dict:
+        with torch.enable_grad():
+            vecs = data[_keys.EDGE_VECTORS_KEY].detach().clone().requires_grad_(True)
+            inner = dict(data)
+            inner[_keys.EDGE_VECTORS_KEY] = vecs
+            out = self.func(inner)
+            if _keys.NUM_LOCAL_GHOST_NODES_KEY in data:
+                # an engine's spatial decomposition: only the locally owned
+                # atoms' energies (ghost energies come from incomplete graphs
+                # and belong to their home rank)
+                n_local = data[_keys.NUM_LOCAL_GHOST_NODES_KEY].reshape(-1)[0]
+                e_atom = out[_keys.PER_ATOM_ENERGY_KEY].reshape(-1)
+                local = torch.arange(e_atom.shape[0], device=e_atom.device) < n_local
+                energy = torch.where(local, e_atom, torch.zeros_like(e_atom))
+            else:
+                energy = out[_keys.TOTAL_ENERGY_KEY].reshape(-1)
+                if _keys.FRAME_MASK_KEY in data:
+                    energy = torch.where(data[_keys.FRAME_MASK_KEY], energy, torch.zeros_like(energy))
+            (dE_dvec,) = torch.autograd.grad(energy.sum(), vecs, create_graph=training)
+        if not training:
+            out = {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in out.items()}
+        out[_keys.EDGE_VECTORS_KEY] = data[_keys.EDGE_VECTORS_KEY]
+        out[_keys.EDGE_FORCE_KEY] = dE_dvec  # no sign flip: the LAMMPS pair convention
         return out
 
     def loss_surrogate(self, data: dict, cotangents: dict) -> torch.Tensor:

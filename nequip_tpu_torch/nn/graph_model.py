@@ -4,7 +4,9 @@ Port of ``nequip_tpu/nn/graph_model.py``: filters the incoming data down to
 the model's input fields, carries the metadata deployment needs (r_max,
 type names, dtype), and, when a layer runs the fused kernels, puts the edge
 stream into kernel order (``relayout_edge_stream``) unless a caller, such
-as the calculator, already did so once per neighbour list.
+as the calculator, already did so once per neighbour list.  Forces on given
+edge vectors (``ForceStressOutput``'s edge branch) then come back in the
+caller's edge order, as do the caller's per-edge inputs.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from ..data import _keys
-from ..ops.kernels.tp_scatter import relayout_edge_stream
+from ..data._key_registry import get_field_type
+from ..ops.kernels.tp_scatter import LAYOUT_KEY, kernel_order, relayout_edge_stream, to_caller_order
 from ..utils.dtype import dtype_to_name
 from .embedding.utils import cutoff_dict_to_matrix
 from .interaction_block import InteractionBlock
@@ -32,6 +35,8 @@ _ALWAYS_INPUT_FIELDS = (
     _keys.NODE_MASK_KEY,
     _keys.EDGE_MASK_KEY,
     _keys.FRAME_MASK_KEY,
+    _keys.NUM_LOCAL_GHOST_NODES_KEY,
+    _keys.EDGE_VECTORS_KEY,
 )
 
 
@@ -73,15 +78,28 @@ class GraphModel(GraphModule):
         md.update(self.model.metadata())
         return md
 
-    def _inputs(self, data: dict) -> dict:
+    def _inputs(self, data: dict, order=None) -> dict:
         inputs = {k: data[k] for k in self.input_fields if k in data}
         inputs.update({k: v for k, v in data.items() if k.startswith(_keys.EDGE_LAYOUT_KEY_PREFIX)})
         if self.uses_fused_kernels:
-            inputs = relayout_edge_stream(inputs)
+            inputs = relayout_edge_stream(inputs, order)
         return inputs
 
     def forward(self, data: dict) -> dict:
-        return self.model(self._inputs(data))
+        # the edge permutation, kept where edge vectors come in and are put into kernel order here
+        order = None
+        if _keys.EDGE_VECTORS_KEY in data and self.uses_fused_kernels and LAYOUT_KEY not in data:
+            order = kernel_order(data)
+        inputs = self._inputs(data, order)
+        out = self.model(inputs)
+        if order is not None:
+            out = dict(out)
+            for k in inputs:
+                if k in data and get_field_type(k, error_on_unregistered=False) == "edge":
+                    out[k] = data[k]
+            if _keys.EDGE_FORCE_KEY in out:
+                out[_keys.EDGE_FORCE_KEY] = to_caller_order(out[_keys.EDGE_FORCE_KEY], order)
+        return out
 
     def loss_surrogate(self, data: dict, cotangents: dict):
         """The fr surrogate of the wrapped ``ForceStressOutput`` on the same

@@ -47,6 +47,7 @@ _SIGNATURES: Dict[str, List] = {
     "nequip_jvp_bwd": [_P] * 23 + [_I] * 6 + [_P],
     "nequip_mb_fwd": [_P] * 13 + [_I] * 12 + [_P],
     "nequip_mb_bwd": [_P] * 14 + [_I] * 9 + [_P],
+    "nequip_device_nl": [_P] * 3 + [_I] * 4 + [_D] + [_I] * 2 + [_P] * 11 + [_I] * 2 + [_P] * 5,
 }
 # dtype-free entry points (a copy moves bytes), registered under their own names
 _BYTE_SIGNATURES: Dict[str, List] = {
@@ -70,6 +71,7 @@ KERNEL_SOURCES = {
     "mb_bwd": "nequip_tpu_torch/csrc/microbench_bwd.cu",
     "mb_bwd_t": "nequip_tpu_torch/csrc/microbench_bwd.cu",
     "row_gather": "nequip_tpu_torch/csrc/row_gather.cu",
+    "device_nl": "nequip_tpu_torch/csrc/device_nl.cu",
 }
 
 

@@ -292,23 +292,48 @@ def edge_slices(layout: EdgeLayout, n_chunks: int, bounds=None) -> Tuple[EdgeSli
     return tuple(out)
 
 
-def relayout_edge_stream(data: dict) -> dict:
+def _num_nodes(data: dict) -> int:
+    key = _keys.POSITIONS_KEY if _keys.POSITIONS_KEY in data else _keys.ATOM_TYPE_KEY
+    return data[key].shape[0]
+
+
+def _edge_mask(data: dict) -> torch.Tensor:
+    mask = data.get(_keys.EDGE_MASK_KEY)
+    if mask is None:
+        edge_index = data[_keys.EDGE_INDEX_KEY]
+        mask = torch.ones(edge_index.shape[1], dtype=torch.bool, device=edge_index.device)
+    return mask
+
+
+def kernel_order(data: dict) -> torch.Tensor:
+    """The permutation ``relayout_edge_stream`` applies to the edges: real
+    edges first, by destination (stable), masked edges after them."""
+    edge_index = data[_keys.EDGE_INDEX_KEY]
+    key = torch.where(_edge_mask(data), edge_index[0], torch.full_like(edge_index[0], _num_nodes(data)))
+    return torch.argsort(key, stable=True)
+
+
+def to_caller_order(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Per-edge ``values`` in kernel order back in the order of the stream
+    that ``kernel_order`` was taken of."""
+    return values.index_select(0, torch.argsort(order))  # a gather: deterministic on the card
+
+
+def relayout_edge_stream(data: dict, order: Optional[torch.Tensor] = None) -> dict:
     """Permute every per-edge field into kernel order and attach the layout.
 
     Counterpart of the JAX ``relayout_edge_stream``: per-edge tensors
     computed downstream (SH, radial embedding) are then born in kernel
-    order.  No-op when the layout is already attached.
+    order.  No-op when the layout is already attached.  ``order`` is the
+    stream's ``kernel_order`` where the caller has it already.
     """
     if LAYOUT_KEY in data:
         return data
     edge_index = data[_keys.EDGE_INDEX_KEY]
-    num_nodes = data[_keys.POSITIONS_KEY].shape[0]
-    n_edges = edge_index.shape[1]
-    mask = data.get(_keys.EDGE_MASK_KEY)
-    if mask is None:
-        mask = torch.ones(n_edges, dtype=torch.bool, device=edge_index.device)
-    key = torch.where(mask, edge_index[0], torch.full_like(edge_index[0], num_nodes))
-    order = torch.argsort(key, stable=True)
+    num_nodes = _num_nodes(data)
+    mask = _edge_mask(data)
+    if order is None:
+        order = kernel_order(data)
     out = dict(data)
     out[_keys.EDGE_INDEX_KEY] = edge_index[:, order]
     out[_keys.EDGE_MASK_KEY] = mask[order]
@@ -334,6 +359,35 @@ def layout_fields(layout: EdgeLayout) -> Dict[str, torch.Tensor]:
     n_pad = layout.edge_src.shape[0] - layout.src_perm.shape[0]
     return dict(zip(LAYOUT_FIELDS, (layout.edge_src, layout.dst_ptr, F.pad(layout.src_perm, (0, n_pad)),
                                     layout.src_ptr)))
+
+
+def _csr_ptr(sorted_keys: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Row pointers of keys sorted ascending (keys == ``num_nodes`` in no row)."""
+    return torch.searchsorted(sorted_keys, torch.arange(num_nodes + 1, device=sorted_keys.device,
+                                                        dtype=sorted_keys.dtype))
+
+
+def fill_edge_layout_(layout: EdgeLayout, edge_index: torch.Tensor, edge_mask: torch.Tensor) -> EdgeLayout:
+    """Refill ``layout``'s four tensors in place from a stream already in
+    kernel order (real edges first, sorted by destination; ``src_perm`` of
+    the stream's length) and return a layout over them with ``n_real``
+    None: the kernels read the real-edge count from ``dst_ptr[N]``.  Sorts,
+    searches and copies on the stream's device only, with no read-back to
+    the host, so a CUDA graph can capture it (the MD driver's device
+    rebuild).  ``src_perm``'s entries past the real edges are the masked
+    slots, which nothing reads.  Equal to ``build_edge_layout`` on the
+    same stream, except that it does not check the order (that would read
+    back)."""
+    n = layout.num_nodes
+    dst, src = edge_index[0], edge_index[1]
+    sentinel = torch.full_like(dst, n)
+    layout.edge_src.copy_(src)
+    layout.dst_ptr.copy_(_csr_ptr(torch.where(edge_mask, dst, sentinel), n))
+    key = torch.where(edge_mask, src, sentinel)
+    perm = torch.argsort(key, stable=True)
+    layout.src_perm.copy_(perm)
+    layout.src_ptr.copy_(_csr_ptr(key[perm], n))
+    return EdgeLayout(layout.edge_src, layout.dst_ptr, layout.src_perm, layout.src_ptr, n_real=None)
 
 
 def layout_from_fields(data: dict) -> EdgeLayout:

@@ -1,9 +1,9 @@
 """``nequip-torch-compile``: export a trained model for deployment.
 
 Port of ``nequip_tpu/scripts/compile.py``: load a checkpoint or a package,
-apply modifiers, choose the target's fields (``ase`` / ``batch``; the
-``pair_nequip`` target raises: its edge-vector force branch is not
-ported), export one program per capacity rung
+apply modifiers, choose the target's fields (``ase`` / ``batch``, or
+``pair_nequip``: edge vectors in, edge forces out, for an MD engine's pair
+style), export one program per capacity rung
 (``model/inference_models.py``), then check the artifact against its
 contract (``validate_artifact``) and the loaded programs against the eager
 model on the example batch, within ``model_tolerance`` of the model dtype.
@@ -80,7 +80,12 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from ..data import _keys, to_tensors
-    from ..model.inference_models import PAIR_STYLE_MISSING, load_compiled_model, save_compiled_model, validate_artifact
+    from ..model.inference_models import (
+        load_compiled_model,
+        save_compiled_model,
+        validate_artifact,
+        with_edge_vector_inputs,
+    )
     from ..model.modify_utils import modify
     from ..model.saved_models import load_saved_model
     from ..ops.kernels.tp_scatter import relayout_edge_stream
@@ -89,8 +94,6 @@ def main(argv=None) -> None:
     from ..utils.global_state import set_global_state
     from ._workflow_utils import set_workflow_state
 
-    if args.target == "pair_nequip":
-        raise NotImplementedError(PAIR_STYLE_MISSING)
     device = resolve_device(args.device)
     set_workflow_state("compile")
     try:
@@ -106,6 +109,8 @@ def main(argv=None) -> None:
         batches = []
         for b in ladder_batches(example, n_nodes, n_edges, args.num_frames, args.capacity_ladder, args.ladder_factor):
             b = to_tensors(b, device)
+            if args.target == "pair_nequip":
+                b = with_edge_vector_inputs(b)
             batches.append(relayout_edge_stream(b) if model.uses_fused_kernels else b)
         meta = save_compiled_model(args.output_path, model, batches, target=args.target, mode=args.mode)
         log.info(f"wrote {args.output_path}; capacity ladder {meta['capacity_ladder']}")

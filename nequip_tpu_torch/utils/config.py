@@ -281,6 +281,29 @@ def retarget(node: Any) -> Any:
     return node
 
 
+_PORT_TP_IMPLS = {v: k for k, v in _JAX_TP_IMPLS.items()}
+
+
+def unretarget(node: Any) -> Any:
+    """The inverse of ``retarget``: a port config as the JAX package writes
+    it (``nequip_tpu_torch.`` targets under ``nequip_tpu.``, the port's
+    ``tp_impl`` names the JAX ones), for files that both packages read."""
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            if k == "_target_" and isinstance(v, str) and v.startswith("nequip_tpu_torch."):
+                v = "nequip_tpu." + v[len("nequip_tpu_torch."):]
+            elif k == "tp_impl" and v in _PORT_TP_IMPLS:
+                v = _PORT_TP_IMPLS[v]
+            else:
+                v = unretarget(v)
+            out[k] = v
+        return out
+    if isinstance(node, list):
+        return [unretarget(v) for v in node]
+    return node
+
+
 def load_config(path: str, resolve_interpolations: bool = False) -> dict:
     with open(path) as f:
         cfg = yaml.safe_load(f)

@@ -660,3 +660,76 @@ def test_cuda_md_block_graph_replays_refilled_layouts(cuda):
     fresh = MDDriver(model, dict(frame, pos=nl_pos), VelocityVerlet(dt_fs=2.0), integration="host", **kw)
     want = fresh.forces(driver._state[0].clone())
     torch.testing.assert_close(driver._state[2], want, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_device_nl_matches_plain(cuda, dtype):
+    """csrc/device_nl.cu against its plain twin on the same CUDA tensors: the
+    slots, the stream and the flag equal exactly (the same single-rounded
+    geometry decides every cutoff test), bitwise equal on a repeat call,
+    and under small capacities the same flag and the same kept edges."""
+    from nequip_tpu_torch.ops import device_nl as D
+
+    r = np.random.RandomState(0)
+    a, reps = 3.61, 5
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]]) * a
+    pos = np.concatenate([base + np.array([i, j, k]) * a for i in range(reps) for j in range(reps) for k in range(reps)])
+    cell = np.diag([reps * a] * 3) + np.array([[0.0, 0.0, 0.0], [0.9, 0.0, 0.0], [0.0, 0.4, 0.0]])
+    pos = (pos + r.normal(0, 0.1, pos.shape)) @ np.linalg.inv(np.diag([reps * a] * 3)) @ cell + 2.0 * cell[0]
+    r_cut = 4.5
+    dims = D.suggest_grid_dims(cell, r_cut)
+    grid = D.cell_grid(cell, r_cut, dims, dtype, cuda)
+    x = torch.as_tensor(pos, dtype=dtype, device=cuda)
+    n = len(pos)
+
+    def run(fn, cell_cap, k_max, e_cap):
+        out = (torch.empty(2, e_cap, dtype=torch.int64, device=cuda), torch.empty(e_cap, 3, dtype=dtype, device=cuda),
+               torch.empty(e_cap, dtype=torch.bool, device=cuda))
+        flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+        slots = fn(x, grid, cell_cap, k_max, flag, out=out, pad_index=n - 1)
+        torch.cuda.synchronize()
+        return tuple(slots) + out + (flag,)
+
+    before = K.KERNELS["device_nl"].launches
+    for cell_cap, k_max, e_cap, overflow in ((24, 64, 64 * n, 0), (2, 64, 64 * n, 1), (24, 8, 64 * n, 1),
+                                             (24, 64, 1024, 1)):
+        got = run(D.device_nl, cell_cap, k_max, e_cap)
+        again = run(D.device_nl, cell_cap, k_max, e_cap)
+        want = run(D.device_nl_plain, cell_cap, k_max, e_cap)
+        assert int(got[-1].item()) == overflow
+        for g, a2, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a2)
+    assert K.KERNELS["device_nl"].launches == before + 8
+
+
+@pytest.mark.cuda
+def test_cuda_md_device_nl_graphs(cuda):
+    """nl_backend="device" on the card: the block graph, then at each rebuild
+    (skin 1e-6: after every block) the rebuild and force-refresh graphs,
+    captured once; it follows the host-list block run (float64) and its
+    last forces equal those from a fresh host list at the final positions."""
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.integrations import MDDriver, VelocityVerlet
+    from nequip_tpu_torch.model import NequIPGNNModel
+
+    cfg = dict(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2,
+               parity=False, num_features=8, radial_mlp_width=16, avg_num_neighbors=18.0)
+    model = NequIPGNNModel(tp_impl="fused", **cfg)
+    f = LJTestDataset(supercell=(4, 4, 4), num_frames=1, seed=31).frames[0]
+    n = len(f["pos"])
+    frame = {"pos": f["pos"], "cell": f["cell"], "pbc": np.array([True] * 3), "atom_types": np.zeros(n, dtype=int)}
+    v0 = 0.02 * np.random.RandomState(3).standard_normal((n, 3))
+    kw = dict(masses=np.full(n, 63.5), skin=1e-6, steps_per_block=5)
+    outs = {}
+    for backend in ("host", "device"):
+        driver = MDDriver(model, dict(frame), VelocityVerlet(dt_fs=2.0), nl_backend=backend, **kw)
+        outs[backend] = driver.run(15, velocities=v0)
+    assert driver.captures == 1 and driver.replays == 3 and driver.rebuilds == 3
+    assert [list(t) for t in driver.rebuild_timings[1:]] == [["device_nl_ms"]] * 4
+    for k in ("positions", "velocities", "forces"):
+        np.testing.assert_allclose(outs["device"][k], outs["host"][k], rtol=0, atol=1e-9, err_msg=k)
+    fresh = MDDriver(model, dict(frame, pos=outs["device"]["positions"]), VelocityVerlet(dt_fs=2.0),
+                     integration="host", **kw)
+    want = fresh.forces(torch.as_tensor(outs["device"]["positions"], dtype=torch.float64, device=cuda))
+    np.testing.assert_allclose(outs["device"]["forces"], want.cpu().numpy(), rtol=0, atol=1e-10)

@@ -477,9 +477,9 @@ def test_capacity_ladder(runs, tmp_path):
 
 
 def test_entry_points_need_the_card_and_name_what_is_missing(runs, compiled, monkeypatch, tmp_path):
-    """The loaders and both CLIs default to cuda and raise without a card
-    (monkeypatched away where a test machine has one); the pair-style
-    target names the missing force branch."""
+    """The loaders and the CLIs default to cuda and raise without a card
+    (monkeypatched away where a test machine has one), the pair-style
+    target's compile too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NequIPCalculator.from_compiled_model(compiled[0])
@@ -489,7 +489,7 @@ def test_entry_points_need_the_card_and_name_what_is_missing(runs, compiled, mon
         port_compile.main([runs["port_ckpt"], str(tmp_path / "x.zip")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_package.main(["build", runs["port_ckpt"], str(tmp_path / "p.zip")])
-    with pytest.raises(NotImplementedError, match="edge-vector force branch"):
-        port_compile.main([runs["port_ckpt"], str(tmp_path / "y.zip"), "--target", "pair_nequip", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_compile.main([runs["port_ckpt"], str(tmp_path / "y.zip"), "--target", "pair_nequip"])
     with pytest.raises(ValueError, match="run on 'cpu'"):
         load_compiled_model(compiled[0], device="meta")

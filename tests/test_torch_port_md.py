@@ -278,8 +278,8 @@ def test_second_run_continues(models):
 def test_driver_options(models):
     _, _, port = models
     frame = _frame(17)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        MDDriver(port, frame, VelocityVerlet(dt_fs=1.0), nl_backend="device", device="cpu")
+    with pytest.raises(ValueError, match="integration='host' pairs with nl_backend='host'"):
+        MDDriver(port, frame, VelocityVerlet(dt_fs=1.0), nl_backend="device", integration="host", device="cpu")
     with pytest.raises(ValueError, match="integration"):
         MDDriver(port, frame, VelocityVerlet(dt_fs=1.0), integration="graph", device="cpu")
     with pytest.raises(ValueError, match="atom_types"):
