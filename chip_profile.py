@@ -5,12 +5,13 @@
 For each training case, ``tp_impl`` x ``force_grad_mode`` x
 ``fr_edge_chunks`` (rr with ``"fused"`` and ``"fused_tp"``; fr with
 ``"fused"`` unchunked and over 4 slices, and ``"fused_tp"`` over 4
-slices): two warm-up training steps (f32, one 23,328-atom LJ frame,
+slices; rr ``"fused"`` again with the ZBL prior of ``tutorial.yaml``):
+two warm-up training steps (f32, one 23,328-atom LJ frame,
 ``EnergyForceLoss``, Adam), five timed steps (host clock, synchronised)
 with their peak device memory, then two steps under ``torch.profiler``
 whose device kernel time per step is printed by kernel name, with the busy
 share (kernel time / profiled wall time).  The full profiler table goes to
-``<out>/profile_train_<impl>_<mode><chunks>.txt``.  Then the model time of
+``<out>/profile_train_<impl>_<mode><chunks>[_zbl].txt``.  Then the model time of
 warm 23k-atom calculator requests per impl, two rounds each.  Needs CUDA;
 the flagship and frame generator are those of ``chip_smoke.py``.
 """
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import FLAGSHIP, fcc_frame
+from chip_smoke import FLAGSHIP, ZBL, fcc_frame
 from nequip_tpu_torch.data import DataLoader
 from nequip_tpu_torch.data.dataset import LJTestDataset
 from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
@@ -34,12 +35,14 @@ from nequip_tpu_torch.ops.kernels.tp_scatter import relayout_edge_stream
 from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
 
 IMPLS = ("fused", "fused_tp")
-TRAIN_CASES = (("fused", "rr", 0), ("fused_tp", "rr", 0), ("fused", "fr", 0), ("fused", "fr", 4),
-               ("fused_tp", "fr", 4))
+# (tp_impl, force_grad_mode, fr_edge_chunks, with the ZBL prior)
+TRAIN_CASES = (("fused", "rr", 0, False), ("fused_tp", "rr", 0, False), ("fused", "fr", 0, False),
+               ("fused", "fr", 4, False), ("fused_tp", "fr", 4, False), ("fused", "rr", 0, True))
 
 
-def profile_training(impl: str, mode: str, n_chunks: int, batch: dict, out_dir: Path, smi: str) -> None:
-    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=impl, **FLAGSHIP).to("cuda")
+def profile_training(impl: str, mode: str, n_chunks: int, zbl: bool, batch: dict, out_dir: Path, smi: str) -> None:
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=impl, pair_potential=ZBL if zbl else None,
+                           **FLAGSHIP).to("cuda")
     module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), force_grad_mode=mode,
                                fr_edge_chunks=n_chunks)
     for _ in range(2):
@@ -66,12 +69,12 @@ def profile_training(impl: str, mode: str, n_chunks: int, batch: dict, out_dir: 
         key=lambda r: -r[1],
     )
     total = sum(r[1] for r in dev)
-    print(f"train {impl} {mode} chunks {n_chunks}: step ms {[round(t * 1e3, 1) for t in times]} median {np.median(times) * 1e3:.1f}; "
+    print(f"train {impl} {mode} chunks {n_chunks}{' zbl' if zbl else ''}: step ms {[round(t * 1e3, 1) for t in times]} median {np.median(times) * 1e3:.1f}; "
           f"peak {peak / 2**30:.3f} GiB; profiled wall/step {wall_ms:.1f} ms, device kernel time/step "
           f"{total:.1f} ms, busy {total / wall_ms:.1%} ({smi})", flush=True)
     for key, ms, count in dev[:25]:
         print(f"  {ms:9.3f} ms/step {count:6.1f}x  {key[:110]}")
-    (out_dir / f"profile_train_{impl}_{mode}{n_chunks}.txt").write_text(ka.table(sort_by="device_time_total", row_limit=60))
+    (out_dir / f"profile_train_{impl}_{mode}{n_chunks}{'_zbl' if zbl else ''}.txt").write_text(ka.table(sort_by="device_time_total", row_limit=60))
 
 
 def main() -> None:

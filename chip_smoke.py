@@ -118,6 +118,26 @@ Phases (each prints a line; any failure exits non-zero):
      K1, K2 and K3 launched; 12b two x-slab domains with ghosts out to
      num_layers * r_max reproduce the undivided energy and forces; 12c the
      pair_nequip program against the eager wrapper.
+ 13. training from data files: 13a phase 6's three LJ frames (23,328 atoms,
+     energy, forces, stress) written as extxyz (write_extxyz), an
+     sGDML-layout NPZ and a shard (ShardDataset.save_from_iterator), each
+     file's size and read time (host clock), read back bitwise equal (NPZ,
+     shard) or within the writer's 1e-10 (extxyz); 13b one epoch of the
+     flagship with a ZBL prior (f32, fused, EnergyForceLoss, Adam, batch 1,
+     2 train + 1 val frames) from each file through a NequIPDataModule
+     config naming NPZDataset, ShardDataset or ASEDataset, against the
+     same frames in memory (deterministic index_add): the first-epoch
+     training loss bitwise equal for NPZ and shard, within rel 1e-6 for
+     extxyz; step times, peak memory and launches (K1, K2-train, K3, K4, K5
+     must launch); 13c the capacity-bucket ladder: two frames each of 14^3,
+     16^3 and 18^3 supercells, one epoch in order with n_buckets=3 and with
+     n_buckets=1: the ladder, padding waste, step times by bucket, peak
+     memory, losses within f32 rel 1e-5; 13d nequip-torch-train -cn tutorial
+     as shipped (20 epochs, 25 frames of 32 atoms, stress in the loss) and
+     -cn lj_accuracy ++trainer.max_epochs=2: main() seconds, test metrics,
+     loss coefficients, all finite; 13e nequip-torch-compile of the
+     tutorial's best.ckpt (ZBL through the export) against the eager model
+     at phase 11's gates (E rel 1e-5, F 1e-4 of max|F|).
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -1975,6 +1995,236 @@ def phase12_pair_style(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 13: training from data files, the bucket ladder, the tutorial config
+FILES_DIR = ROOT / "chiprun_out" / "chip_smoke_files"
+FILE_KERNELS = ("conv_fwd", "conv_bwd_train", "scatter_rows", "tri_fwd", "tri_bwd")  # 13b: K1, K2-train, K3, K4, K5
+ZBL = {"_target_": "nequip_tpu_torch.nn.pair_potential.ZBL", "units": "metal", "chemical_species": ["Cu"]}
+XYZ_TOL = 1e-10  # the extxyz writer's %.10f: Angstrom, eV/A, eV
+XYZ_LOSS_REL = 1e-6
+BUCKET_LOSS_REL = 1e-5  # f32
+
+
+def _file_frames(supercell: int, num_frames: int, seed: int) -> list:
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+
+    ds = LJTestDataset(supercell=(supercell,) * 3, num_frames=num_frames, seed=seed)
+    return [ds.get_frame(i) for i in range(num_frames)]
+
+
+def _file_transforms() -> list:
+    t = "nequip_tpu_torch.data.transforms."
+    return [{"_target_": t + "ChemicalSpeciesToAtomTypeMapper", "chemical_symbols": ["Cu"]},
+            {"_target_": t + "NeighborListTransform", "r_max": FLAGSHIP["r_max"]}]
+
+
+def _fit_one_epoch(dataset, n_buckets: int = 1, with_val: bool = True, shuffle: bool = True):
+    """One epoch of Trainer.fit of the flagship with a ZBL prior (f32,
+    fused, EnergyForceLoss, Adam) over ``dataset`` (a dataset or its
+    ``_target_`` config), batch 1; returns (trainer, launches, peak bytes, loader)."""
+    import torch
+
+    from nequip_tpu_torch.data import NequIPDataModule
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, EnergyForceMetrics, NequIPTrainModule, Trainer
+
+    loader = {"batch_size": 1, "n_buckets": n_buckets, "shuffle": shuffle}
+    if with_val:
+        dm = NequIPDataModule(seed=0, split_dataset={"dataset": dataset, "train": 2, "val": 1},
+                              train_dataloader=loader, val_dataloader={"batch_size": 1}, device="cuda")
+    else:
+        dm = NequIPDataModule(seed=0, train_dataset=dataset, train_dataloader=loader, device="cuda")
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", pair_potential=ZBL, **FLAGSHIP).to("cuda")
+    module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), val_metrics=EnergyForceMetrics(),
+                               optimizer={"_target_": "optax.adam", "learning_rate": 1e-3})
+    trainer = Trainer(max_epochs=1, ckpt_dir=str(FILES_DIR / "ckpt"), save_last=False, save_best=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    trainer.fit(module, dm)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    train_loader = dm.train_dataloader()
+    del module, model, dm
+    torch.cuda.empty_cache()
+    return trainer, launches, peak, train_loader
+
+
+def phase13_files(smi: str, frames=None, rr=None) -> dict:
+    """Training from files on the card: 13a extxyz, NPZ and shard files of
+    phase 6's three 23k-atom LJ frames written and read back, 13b one epoch
+    of the flagship with ZBL from each file against the frames in memory,
+    13c the capacity-bucket ladder on a mixed-size dataset, 13d
+    nequip-torch-train -cn tutorial and lj_accuracy, 13e nequip-torch-compile
+    of the tutorial's best.ckpt against eager."""
+    import os
+
+    import torch
+
+    from nequip_tpu_torch.data.dataset import InMemoryDataset, NPZDataset, ShardDataset
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
+    from nequip_tpu_torch.data.xyz import read_extxyz, write_extxyz
+
+    FILES_DIR.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    if frames is None:
+        frames = _file_frames(18, 3, seed=0)
+    n_atoms = len(frames[0]["pos"])
+
+    # 13a: three files of the same frames, the port's writers only
+    paths = {"extxyz": FILES_DIR / "lj18.extxyz", "npz": FILES_DIR / "lj18.npz", "shard": FILES_DIR / "lj18.nqs"}
+    write_extxyz(str(paths["extxyz"]), frames)
+    stack = lambda k: np.stack([np.asarray(f[k]) for f in frames])  # noqa: E731
+    np.savez(str(paths["npz"]), R=stack("pos"), E=stack("total_energy").reshape(-1), F=stack("forces"),
+             z=np.asarray(frames[0]["atomic_numbers"]), cell=stack("cell"), pbc=stack("pbc"), stress=stack("stress"))
+    ShardDataset.save_from_iterator(str(paths["shard"]), iter(frames))
+    read, read_s = {}, {}
+    for name, reader in (("extxyz", lambda p: read_extxyz(p)),
+                         ("npz", lambda p: [NPZDataset(p).get_frame(i) for i in range(len(frames))]),
+                         ("shard", lambda p: [ShardDataset(p).get_frame(i) for i in range(len(frames))])):
+        t0 = time.perf_counter()
+        read[name] = reader(str(paths[name]))
+        read_s[name] = time.perf_counter() - t0
+    xyz_err = max(float(np.abs(np.asarray(g[k], dtype=np.float64).reshape(-1) - np.asarray(f[k]).reshape(-1)).max())
+                  for g, f in zip(read["extxyz"], frames) for k in ("pos", "forces", "total_energy", "cell"))
+    npz_equal = all(np.array_equal(np.asarray(g[k]).reshape(-1), np.asarray(f[k]).reshape(-1))
+                    for g, f in zip(read["npz"], frames)
+                    for k in ("pos", "forces", "total_energy", "atomic_numbers", "cell", "pbc", "stress"))
+    shard_equal = all(set(g) == set(f) and all(np.array_equal(g[k], f[k]) and g[k].dtype == np.asarray(f[k]).dtype
+                                               for k in f) for g, f in zip(read["shard"], frames))
+    print(f"phase 13a files of {len(frames)} LJ frames of {n_atoms} atoms (host clock): "
+          + ", ".join(f"{n} {os.path.getsize(paths[n]) / 2**20:.1f} MiB read in {read_s[n]:.3f} s" for n in paths)
+          + f"; extxyz read-back max err {xyz_err:.2e} (limit {XYZ_TOL:.0e}); NPZ bitwise equal {npz_equal}; "
+          f"shard bitwise equal {shard_equal}", flush=True)
+    if not (xyz_err <= XYZ_TOL and npz_equal and shard_equal):
+        raise RuntimeError("phase 13a: a file does not read back the frames written")
+    del read
+
+    # 13b: one epoch from each file, with deterministic index_add so the runs compare bitwise
+    ds = "nequip_tpu_torch.data.dataset."
+    sources = {
+        "memory": InMemoryDataset(frames, transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]),
+                                                      NeighborListTransform(FLAGSHIP["r_max"])]),
+        "npz": {"_target_": ds + "NPZDataset", "file_path": str(paths["npz"]), "transforms": _file_transforms()},
+        "shard": {"_target_": ds + "ShardDataset", "file_path": str(paths["shard"]), "transforms": _file_transforms()},
+        "extxyz": {"_target_": ds + "ASEDataset", "file_path": str(paths["extxyz"]), "transforms": _file_transforms()},
+    }
+    losses, steps_13b = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for name, src in sources.items():
+            t0 = time.perf_counter()
+            trainer, launches, peak, _ = _fit_one_epoch(src)
+            row = trainer.metrics_rows[0]
+            losses[name] = row["train_loss_epoch/weighted_sum"]
+            steps_13b[name] = [x * 1e3 for x in trainer.step_seconds]
+            print(f"phase 13b {name} ({smi}): fit {time.perf_counter() - t0:.1f} s, step times "
+                  f"{[round(x, 1) for x in steps_13b[name]]} ms, max_memory_allocated {peak / 2**30:.3f} GiB, "
+                  f"train loss {losses[name]!r}, val loss {row['val0_epoch/weighted_sum']:.6e}; launches "
+                  + ", ".join(f"{k} {launches[k]}" for k in FILE_KERNELS + ("conv_bwd", "dw_reduce")), flush=True)
+            if not all(launches[k] for k in FILE_KERNELS):
+                raise RuntimeError(f"phase 13b: a kernel of {FILE_KERNELS} was not launched training from {name}")
+            if not all(math.isfinite(row[k]) for k in ("train_loss_epoch/weighted_sum", "val0_epoch/weighted_sum")):
+                raise RuntimeError(f"phase 13b: non-finite loss training from {name}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    xyz_rel = abs(losses["extxyz"] - losses["memory"]) / abs(losses["memory"])
+    print(f"phase 13b first-epoch train loss against memory: NPZ bitwise equal {losses['npz'] == losses['memory']}, "
+          f"shard bitwise equal {losses['shard'] == losses['memory']}, extxyz rel {xyz_rel:.2e} "
+          f"(limit {XYZ_LOSS_REL:.0e})", flush=True)
+    if not (losses["npz"] == losses["memory"] and losses["shard"] == losses["memory"] and xyz_rel <= XYZ_LOSS_REL):
+        raise RuntimeError("phase 13b: training from a file differs from training on the frames in memory")
+
+    # 13c: the bucket ladder on 2 frames each of 14^3, 16^3 and 18^3 supercells, in order
+    mixed = _file_frames(14, 2, seed=1) + _file_frames(16, 2, seed=2) + frames[:2]
+    mixed_ds = InMemoryDataset(mixed, transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]),
+                                                  NeighborListTransform(FLAGSHIP["r_max"])])
+    needs = [(len(f["pos"]) + 1, mixed_ds[i]["edge_index"].shape[1]) for i, f in enumerate(mixed)]
+    ladder = {}
+    for n_buckets in (3, 1):
+        trainer, launches, peak, loader = _fit_one_epoch(mixed_ds, n_buckets=n_buckets, with_val=False, shuffle=False)
+        by_bucket = {}
+        for need, ms in zip(needs, trainer.step_seconds):
+            by_bucket.setdefault(loader._pick_bucket(*need)["n_nodes"], []).append(round(ms * 1e3, 1))
+        ladder[n_buckets] = dict(loss=trainer.metrics_rows[0]["train_loss_epoch/weighted_sum"],
+                                 waste=loader.padding_waste(), peak=peak,
+                                 steps=[round(x * 1e3, 1) for x in trainer.step_seconds])
+        print(f"phase 13c n_buckets={n_buckets} ({smi}): ladder "
+              + ", ".join(f"({b['n_nodes']} nodes, {b['n_edges']} edges)" for b in loader.buckets)
+              + f"; padding waste {loader.padding_waste():.4f}; step ms by bucket (nodes: steps) {by_bucket}; "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB; train loss {ladder[n_buckets]['loss']:.8e}; "
+              f"launches {launches['conv_fwd']} K1, {launches['conv_bwd_train']} K2-train", flush=True)
+        if n_buckets == 3 and len(loader.buckets) != 3:
+            raise RuntimeError(f"phase 13c: expected a 3-bucket ladder, got {loader.buckets}")
+    rel = abs(ladder[3]["loss"] - ladder[1]["loss"]) / abs(ladder[1]["loss"])
+    print(f"phase 13c n_buckets 3 against 1: loss rel {rel:.2e} (limit {BUCKET_LOSS_REL:.0e}), padding waste "
+          f"{ladder[3]['waste']:.4f} against {ladder[1]['waste']:.4f}, peak {ladder[3]['peak'] / 2**30:.3f} against "
+          f"{ladder[1]['peak'] / 2**30:.3f} GiB; the 18^3 steps with ZBL {ladder[3]['steps'][-2:]} ms against "
+          f"phase 6's rr median without it {rr['median_ms'] if rr else float('nan'):.1f} ms", flush=True)
+    if not (rel <= BUCKET_LOSS_REL and ladder[3]["waste"] < ladder[1]["waste"]):
+        raise RuntimeError("phase 13c: the bucketed epoch differs from the worst-case-padded one")
+
+    # 13d: the tutorial config as shipped, and lj_accuracy for 2 epochs
+    configs = str(ROOT / "nequip_tpu_torch" / "configs")
+    from nequip_tpu_torch.scripts import train as cli
+
+    runs = {}
+    for name, extra in (("tutorial", []), ("lj_accuracy", ["++trainer.max_epochs=2"])):
+        trainers = []
+        run_config = cli.run_config
+        cli.run_config = lambda *a, **kw: trainers.append(run_config(*a, **kw))
+        t0 = time.perf_counter()
+        try:
+            cli.main(["-cn", name, "-cp", configs, f"++trainer.ckpt_dir={FILES_DIR / name}", *extra])
+        finally:
+            cli.run_config = run_config
+        main_s = time.perf_counter() - t0
+        trainer = trainers[0]
+        test = {k.split("/")[1]: v for k, v in trainer.metrics_rows[-1].items() if k.startswith("test0_epoch/")}
+        coeffs = trainer.current_loss_coeffs()
+        values = [float(v) for row in trainer.metrics_rows for v in row.values() if isinstance(v, (int, float))]
+        values += list(coeffs.values())
+        print(f"phase 13d nequip-torch-train -cn {name} {' '.join(extra)} ({smi}): main() {main_s:.1f} s, "
+              f"{trainer.epoch} epochs, {trainer.global_step} steps, step median "
+              f"{np.median(trainer.step_seconds) * 1e3:.1f} ms; test (best.ckpt) "
+              + ", ".join(f"{k} {v:.4e}" for k, v in sorted(test.items()))
+              + f"; loss coefficients {coeffs}", flush=True)
+        if not test or not all(math.isfinite(v) for v in values):
+            raise RuntimeError(f"phase 13d: {name} has missing or non-finite metrics")
+        runs[name] = main_s
+        del trainer, trainers
+        torch.cuda.empty_cache()
+
+    # 13e: compile the tutorial's best.ckpt (ZBL through the export) and serve it against eager
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.scripts import compile as compile_cli
+
+    ckpt = str(FILES_DIR / "tutorial" / "best.ckpt")
+    art = str(FILES_DIR / "tutorial.nequip_tpu_torch.zip")
+    t0 = time.perf_counter()
+    compile_cli.main([ckpt, art, "--target", "ase", "--no-check"])  # checked against eager below
+    compile_s = time.perf_counter() - t0
+    frame = LJTestDataset(num_frames=1, seed=7).get_frame(0)
+    frame = {k: frame[k] for k in ("pos", "cell", "pbc", "atomic_numbers")}
+    compiled, eager = NequIPCalculator.from_compiled_model(art), NequIPCalculator.from_saved_model(ckpt)
+    gap = _deploy_gap(compiled.calculate(frame), eager.calculate(frame))
+    print(f"phase 13e nequip-torch-compile --no-check of the tutorial's best.ckpt (ZBL; {smi}): {compile_s:.1f} s, "
+          f"{os.path.getsize(art) / 2**20:.2f} MiB; compiled vs eager on {len(frame['pos'])} atoms: energy "
+          f"rel {gap[0]:.3e}, forces {gap[1]:.3e} of max|F|, stress {gap[2]:.3e} of max|stress|; phase 13 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not (gap[0] <= 1e-5 and gap[1] <= 1e-4):
+        raise RuntimeError("phase 13e: the compiled tutorial model disagrees with eager")
+    del compiled, eager
+    for f in list(FILES_DIR.glob("*/*.ckpt")) + list(FILES_DIR.glob("*.zip")) + [paths[n] for n in paths]:
+        f.unlink()
+    torch.cuda.empty_cache()
+    return {"read_s": read_s, "steps_13b": steps_13b, "ladder": ladder, "main_s": runs, "compile_s": compile_s}
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1988,6 +2238,7 @@ def main() -> int:
     phase5_train_golden()
     rr_launches, dm, rr = phase6_train(smi)
     fr_launches = phase7_train_fr(smi, dm, rr)
+    lj_frames = dm.datasets["train"][0].dataset.frames  # phase 6's three LJ frames, for phase 13
     del dm
     report.update(phase8a_microbench(smi))
     report["row_gather"] = phase8b_gather(smi)
@@ -1996,6 +2247,8 @@ def main() -> int:
     phase10_cli(smi, rr)
     phase11_deploy(smi)
     phase12_pair_style(smi)
+    phase13_files(smi, lj_frames, rr)
+    del lj_frames
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

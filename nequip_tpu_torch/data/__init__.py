@@ -10,13 +10,14 @@ from .atomic_data_dict import (
     round_up,
     to_tensors,
 )
-from .datamodule import NequIPDataModule
+from .datamodule import ASEDataModule, NequIPDataModule
 from .loader import DataLoader
 from .modifier import BaseModifier, NumNeighbors, PerAtomModifier
 from .neighborlist import compute_neighborlist_, neighbor_list, register_neighborlist_backend
 from .stats_manager import CommonDataStatisticsManager, DataStatisticsManager, EnergyOnlyDataStatisticsManager
 
 __all__ = [
+    "ASEDataModule",
     "BaseModifier",
     "CommonDataStatisticsManager",
     "DataLoader",

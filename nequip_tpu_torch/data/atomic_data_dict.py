@@ -260,10 +260,15 @@ def pad_batch(data: Type, n_nodes: int, n_edges: int, n_frames: Optional[int] = 
 
 
 def to_tensors(data: Type, device=None) -> Dict[str, torch.Tensor]:
-    """numpy dict -> torch tensors on ``device`` (float64 / int64 / bool)."""
+    """numpy dict -> torch tensors on ``device`` (float64 / int64 / bool).
+
+    A read-only array (a ``ShardDataset`` frame is a view into its mmap) is
+    copied here, where it becomes a tensor, and nowhere earlier."""
     out = {}
     for k, v in data.items():
         v = np.asarray(v)
+        if not v.flags.writeable:
+            v = v.copy()
         if v.dtype.kind == "f":
             t = torch.as_tensor(v, dtype=torch.float64)
         elif v.dtype.kind in "iu":

@@ -32,6 +32,20 @@ class AtomicDataset:
         return data
 
 
+class InMemoryDataset(AtomicDataset):
+    """Frames held in a list (each access returns a shallow copy)."""
+
+    def __init__(self, frames: Sequence[dict], transforms=None):
+        super().__init__(transforms)
+        self.frames = list(frames)
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def get_frame(self, idx: int) -> dict:
+        return dict(self.frames[idx])
+
+
 class SubsetDataset(AtomicDataset):
     def __init__(self, dataset: AtomicDataset, indices: Sequence[int]):
         super().__init__([])

@@ -2,6 +2,7 @@ from .inference_models import CompiledModel, load_compiled_model, save_compiled_
 from .jax_params import flatten_tree, jax_named_grads, jax_params_tree, load_jax_params
 from .modify_utils import modify
 from .nequip_models import FullNequIPGNNModel, NequIPGNNModel
+from .pair_potential import ZBLPairPotential
 from .saved_models import ModelFromCheckpoint, ModelFromPackage, data_dict_from_checkpoint, load_saved_model
 from .utils import init_weights, model_builder
 
@@ -23,4 +24,5 @@ __all__ = [
     "modify",
     "save_compiled_model",
     "validate_artifact",
+    "ZBLPairPotential",
 ]

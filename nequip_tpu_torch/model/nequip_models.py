@@ -5,7 +5,7 @@ arguments,
 
     type_embed -> spherical harmonics -> edge length norm -> Bessel encoding
     -> x(2*pi/r_max^2) -> N x ConvNetLayer -> scalar readout MLP
-    -> per-type scale/shift -> per-frame sum -> ForceStressOutput
+    -> per-type scale/shift -> [pair potential] -> per-frame sum -> ForceStressOutput
 
 ``tp_impl`` is ``"torch"`` (plain PyTorch, JAX ``"xla"``), ``"fused"``
 (the fused CUDA kernels with the radial MLP inside, JAX ``"pallas_fused"``)
@@ -41,6 +41,7 @@ from ..nn.embedding import (
     SphericalHarmonicEdgeAttrs,
 )
 from ..ops.irreps import Irrep, Irreps, MulIrrep
+from ..utils.config import instantiate
 from .utils import model_builder
 
 
@@ -111,9 +112,11 @@ def FullNequIPGNNModel(
     tp_impl: str = "torch",
     pair_potential: Optional[dict] = None,
 ) -> GraphModel:
-    """Fully explicit NequIP GNN builder (one config entry per layer)."""
-    if pair_potential is not None:
-        raise NotImplementedError("pair_potential (the ZBL prior, nn/pair_potential.py) is not ported yet")
+    """Fully explicit NequIP GNN builder (one config entry per layer).
+
+    ``pair_potential``: a ``_target_`` config of a pair potential
+    (``nn.pair_potential.ZBL`` or ``LennardJones``), added to the per-atom
+    energy before the frame sum."""
     type_names = list(type_names)
     if not all(tn.isalnum() for tn in type_names):
         raise ValueError("type_names must be alphanumeric")
@@ -185,6 +188,10 @@ def FullNequIPGNNModel(
         irreps_in=modules["per_atom_energy_readout"].irreps_out,
     )
     energy_model = SequentialGraphNetwork(modules)
+    if pair_potential is not None:
+        energy_model.append(
+            "pair_potential", instantiate(pair_potential, type_names=type_names, irreps_in=energy_model.irreps_out)
+        )
     energy_model.append(
         "total_energy_sum",
         AtomwiseReduce(

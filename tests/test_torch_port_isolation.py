@@ -4,9 +4,13 @@ host-mode MD steps, the device neighbour list and one block of MD with it,
 one epoch of its training CLI on the CPU (its shipped minimal_lj.yaml,
 which names ``optax.adam``), packaging, compiling and serving that run's
 checkpoint (``nequip-torch-package``, ``nequip-torch-compile``, the
-calculator's loaders), and its pair style (``nequip-torch-prepare-pair-style``,
-the wrapper, the ``pair_nequip`` target) load neither JAX, nor optax or
-flax, nor the JAX package (the GPU machine has none of them)."""
+calculator's loaders), its pair style (``nequip-torch-prepare-pair-style``,
+the wrapper, the ``pair_nequip`` target), its data files (extxyz, NPZ and
+shard files written, read and trained from through a data module with the
+bucket ladder, the named data modules, the transforms) and a model with the
+ZBL prior load neither JAX, nor optax or flax, nor the JAX package (the GPU
+machine has none of them), and import neither ``h5py`` nor ``lmdb`` until a
+dataset that reads them is built."""
 
 import json
 import os
@@ -73,6 +77,31 @@ with tempfile.TemporaryDirectory() as tmp:
     compile_cli.main([f"{tmp}/pkg.zip", f"{tmp}/pair.nequip_tpu_torch.zip", "--target", "pair_nequip",
                       "--device", "cpu"])
     pair_ok = bool(np.isfinite(pair["edge_forces"]).all()) and pair["edge_forces"].shape == (2, 3)
+from nequip_tpu_torch.data import NequIPDataModule, transforms as T
+from nequip_tpu_torch.data.datamodule import named
+from nequip_tpu_torch.data.dataset import LJTestDataset, NPZDataset, ShardDataset
+from nequip_tpu_torch.data.xyz import read_extxyz, write_extxyz
+from nequip_tpu_torch.model import ZBLPairPotential
+from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule, Trainer
+with tempfile.TemporaryDirectory() as tmp:
+    frames = [LJTestDataset(num_frames=3, seed=1).get_frame(i) for i in range(3)]
+    write_extxyz(f"{tmp}/f.xyz", frames)
+    ShardDataset.save_from_iterator(f"{tmp}/f.nqs", iter(frames))
+    np.savez(f"{tmp}/f.npz", R=np.stack([f["pos"] for f in frames]), E=np.array([0.1, 0.2, 0.3]),
+             z=frames[0]["atomic_numbers"])
+    files_ok = len(read_extxyz(f"{tmp}/f.xyz")) == 3 and len(NPZDataset(f"{tmp}/f.npz")) == 3
+    tr = [T.ChemicalSpeciesToAtomTypeMapper(["Cu"]), T.NeighborListTransform(4.0), T.AddNaNStressTransform()]
+    dm = NequIPDataModule(seed=0, train_dataset=ShardDataset(f"{tmp}/f.nqs", transforms=tr),
+                          train_dataloader={"batch_size": 1, "n_buckets": 2}, device="cpu")
+    zbl = NequIPGNNModel(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=2, l_max=1,
+                         parity=False, num_features=4, radial_mlp_width=8, avg_num_neighbors=12.0, tp_impl="fused",
+                         pair_potential={"_target_": "nequip_tpu_torch.nn.pair_potential.ZBL", "units": "metal",
+                                         "chemical_species": ["Cu"]})
+    fit = Trainer(max_epochs=1, ckpt_dir=tmp, save_last=False, save_best=False)
+    fit.fit(NequIPTrainModule(zbl, loss=EnergyForceLoss(), device="cpu"), dm)
+    files_ok = files_ok and bool(np.isfinite(fit.metrics_rows[0]["train_loss_epoch/weighted_sum"]))
+    files_ok = files_ok and len(ZBLPairPotential(seed=0, model_dtype="float64", r_max=4.0, type_names=["Cu"],
+                                                 chemical_species=["Cu"], units="metal").model_config) > 0
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
@@ -84,6 +113,8 @@ print(json.dumps({
     "jax": [m for m in mods if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")],
     "nequip_tpu": [m for m in mods if m == "nequip_tpu" or m.startswith("nequip_tpu.")],
     "optax_flax": [m for m in mods if m.split(".")[0] in ("optax", "flax")],
+    "files": files_ok,
+    "lazy": [m for m in mods if m.split(".")[0] in ("h5py", "lmdb")],
 }))
 """
 
@@ -96,4 +127,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"finite": True, "cli": True, "deploy": True, "pair": True, "jax": [], "nequip_tpu": [],
-                   "optax_flax": []}
+                   "optax_flax": [], "files": True, "lazy": []}
