@@ -12,7 +12,8 @@ with their peak device memory, then two steps under ``torch.profiler``
 whose device kernel time per step is printed by kernel name, with the busy
 share (kernel time / profiled wall time).  The full profiler table goes to
 ``<out>/profile_train_<impl>_<mode><chunks>[_zbl].txt``.  Then the model time of
-warm 23k-atom calculator requests per impl, two rounds each.  Needs CUDA;
+warm 23k-atom calculator requests per impl, two rounds each (``--serve-only``:
+these alone).  Needs CUDA;
 the flagship and frame generator are those of ``chip_smoke.py``.
 """
 
@@ -80,6 +81,7 @@ def profile_training(impl: str, mode: str, n_chunks: int, zbl: bool, batch: dict
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=Path("build/profile"))
+    ap.add_argument("--serve-only", action="store_true", help="time the calculator requests only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile.py needs a CUDA device")
@@ -88,12 +90,13 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    ds = LJTestDataset(supercell=(18,) * 3, num_frames=1, seed=0,
-                       transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]), NeighborListTransform(4.0)])
-    batch = relayout_edge_stream(next(iter(DataLoader(ds, batch_size=1, device="cuda"))))
-    for case in TRAIN_CASES:
-        profile_training(*case, batch, args.out, smi)
-        torch.cuda.empty_cache()
+    if not args.serve_only:
+        ds = LJTestDataset(supercell=(18,) * 3, num_frames=1, seed=0,
+                           transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]), NeighborListTransform(4.0)])
+        batch = relayout_edge_stream(next(iter(DataLoader(ds, batch_size=1, device="cuda"))))
+        for case in TRAIN_CASES:
+            profile_training(*case, batch, args.out, smi)
+            torch.cuda.empty_cache()
     for impl in IMPLS * 2:
         calc = NequIPCalculator.from_model(
             NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=impl, **FLAGSHIP), device="cuda")

@@ -138,6 +138,27 @@ Phases (each prints a line; any failure exits non-zero):
      loss coefficients, all finite; 13e nequip-torch-compile of the
      tutorial's best.ckpt (ZBL through the export) against the eager model
      at phase 11's gates (E rel 1e-5, F 1e-4 of max|F|).
+ 14. the model builder's options: 14a the options golden
+     (tests/data/torch_port_options_golden.npz: the norm nonlinearity, a
+     categorical embedding, learnable shift, trainable leaves and remat;
+     a depth-2 radial MLP; a narrowed preset M) in f64 through the kernels
+     at phase 3's gates, each layer on K1's route or, for the depth-2 MLP,
+     K4's (launch counters); 14b PresetNequIPGNNModel("M") at full width
+     on the 23k-atom frame, f32: serving against tp_impl="torch" (phase
+     4's gates) with its model time, peak and launches; each layer's shape
+     and edges per tile, K1, K2, K2-train, K4, K5, K4-acc, K6 and K7 held
+     against their plain versions on the layer's own inputs at phase 2's
+     f32 gates, and their times beside their bounds; three rr steps each
+     with no remat, remat_conv True and "save_tp" and remat_force (losses
+     and gradients within the f32 gates, step medians, peaks, and the
+     extra launches exactly the recomputed layers); one fr step over 4 slices with
+     remat_conv True against False; and one rr and one fr step of preset
+     M against the same weights at tp_impl="torch" on a 4,000-atom frame
+     (smaller, to keep the plain conv's double backward in memory):
+     losses within 1e-5 rel, gradients within 1e-4 of max; 14c the flagship's widths with a depth-2 radial MLP at
+     tp_impl="fused": served against torch with K4, K5 and K3 launched and
+     K1 not, then packaged and compiled through the registered ops
+     nequip_torch::tri_fwd / tri_bwd against eager at phase 11's gates.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -342,7 +363,7 @@ def _bound_ms(ops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def _check(name, got, ref, rtol, atol_rel, where):
+def _check(name, got, ref, rtol, atol_rel, where, phase="phase 2"):
     """Largest |got - ref| over the outputs; raises beyond rtol |ref| +
     atol_rel max|ref| or on a non-finite value."""
     err = 0.0
@@ -351,7 +372,7 @@ def _check(name, got, ref, rtol, atol_rel, where):
         diff = (a - b).abs()
         if not bool(a.isfinite().all()) or bool((diff > rtol * b.abs() + atol_rel * scale).any()):
             raise RuntimeError(
-                f"phase 2: {name} output {out_i} {where} disagrees with plain: "
+                f"{phase}: {name} output {out_i} {where} disagrees with plain: "
                 f"max |diff| {float(diff.max()):.3e}, max |ref| {scale:.3e}"
             )
         err = max(err, float(diff.max()))
@@ -2225,6 +2246,405 @@ def phase13_files(smi: str, frames=None, rr=None) -> dict:
     return {"read_s": read_s, "steps_13b": steps_13b, "ladder": ladder, "main_s": runs, "compile_s": compile_s}
 
 
+OPTIONS_GOLDEN = ROOT / "tests" / "data" / "torch_port_options_golden.npz"
+OPTIONS_ROUTES = {"options": "fused", "depth2": "fused_tp", "preset_m": "fused"}  # K1's or K4's route
+OPTIONS_DIR = ROOT / "chiprun_out" / "chip_smoke_options"
+PRESET_M = dict(type_names=["Cu"], r_max=4.0, preset="M", avg_num_neighbors=18.0,
+                per_type_energy_shifts={"Cu": -3.5}, per_type_energy_scales={"Cu": 0.5})
+K1_ROUTE = ("conv_fwd", "conv_bwd", "scatter_rows")
+K4_ROUTE = ("tri_fwd", "tri_bwd", "scatter_rows")
+
+
+def _routes(model) -> list:
+    from nequip_tpu_torch.nn.interaction_block import InteractionBlock
+
+    return [m.route for m in model.modules() if isinstance(m, InteractionBlock)]
+
+
+def _check_route(label: str, route: str, launches: dict) -> None:
+    """K1's route launches K1, K2 and K3 and no K4; K4's route K4, K5 and K3
+    and no K1."""
+    need, never = (K1_ROUTE, "tri_fwd") if route == "fused" else (K4_ROUTE, "conv_fwd")
+    if not all(launches.get(k) for k in need) or launches.get(never):
+        raise RuntimeError(f"{label}: route {route} launched {launches}")
+
+
+def _launches() -> dict:
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    return {k: fn.launches for k, fn in K.KERNELS.items() if fn.launches}
+
+
+def phase14a_options_golden(smi: str) -> None:
+    """The options golden (three JAX-built models) in f64 through the kernels
+    at phase 3's gates, each layer on the route its radial MLP gives it."""
+    import torch
+
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up
+    from nequip_tpu_torch.data import to_tensors
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.model import load_jax_params
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.utils.config import instantiate, retarget
+
+    if not OPTIONS_GOLDEN.exists():
+        raise RuntimeError(f"phase 14a: golden file {OPTIONS_GOLDEN} is missing")
+    z = np.load(OPTIONS_GOLDEN)
+    frame = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(
+        from_dict({k: z[k] for k in ("pos", "cell", "pbc", "atomic_numbers", "charge")})), 4.0)
+    batch = to_tensors(pad_batch(batched_from_list([frame]), 128, round_up(frame["edge_index"].shape[1], 256), 2),
+                       "cuda")
+    n = len(z["pos"])
+    for name, route in OPTIONS_ROUTES.items():
+        model = instantiate(dict(retarget(json.loads(str(z[f"{name}/config"]))), tp_impl="fused"), _recursive_=False)
+        prefix = f"{name}/params/"
+        load_jax_params(model, {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)})
+        model = model.to("cuda").requires_grad_(False)
+        K.reset_launch_counts()
+        out = model(batch)
+        launches = _launches()
+        e_err = abs(float(out["total_energy"][0, 0]) - float(z[f"{name}/energy"])) / abs(float(z[f"{name}/energy"]))
+        f_err = float(np.abs(out["forces"][:n].cpu().numpy() - z[f"{name}/forces"]).max())
+        s_err = float(np.abs(out["stress"][0].cpu().numpy() - z[f"{name}/stress"]).max())
+        print(f"phase 14a options golden {name} (f64, kernels, {smi}): routes {_routes(model)}, energy rel err "
+              f"{e_err:.3e}, forces max err {f_err:.3e}, stress max err {s_err:.3e}; launches {launches}", flush=True)
+        if set(_routes(model)) != {route}:
+            raise RuntimeError(f"phase 14a: {name} layers took routes {_routes(model)}, not {route}")
+        _check_route(f"phase 14a {name}", route, launches)
+        if not (e_err <= 1e-10 and f_err <= 1e-8 and s_err <= 1e-8):
+            raise RuntimeError(f"phase 14a: the port's {name} disagrees with the JAX golden")
+    del model, out
+    torch.cuda.empty_cache()
+
+
+def _layer_inputs(model, batch) -> list:
+    """Per interaction block: its plan, radial MLP and the conv's inputs
+    (x, sh, emb, layout) in one forward of ``model`` on ``batch``."""
+    from nequip_tpu_torch.nn.interaction_block import InteractionBlock
+    from nequip_tpu_torch.ops.kernels.tp_scatter import LAYOUT_KEY
+
+    found, blocks = [], [m for m in model.modules() if isinstance(m, InteractionBlock)]
+    for b in blocks:
+        def conv(data, x, _b=b, _conv=b.conv):
+            found.append((_b, x.detach(), data["edge_attrs"].detach(), data["edge_embedding"].detach(),
+                          data[LAYOUT_KEY]))
+            return _conv(data, x)
+        b.conv = conv
+    try:
+        model(batch)
+    finally:
+        for b in blocks:
+            del b.conv
+    return found
+
+
+def phase14b_preset_m(smi: str) -> dict:
+    """PresetNequIPGNNModel("M") at full width on the 23k-atom frame, f32:
+    serving against tp_impl="torch"; each layer's shapes and tiles, and its
+    kernels held against their plain versions on the layer's inputs and
+    timed; rr steps with remat_conv False, True and "save_tp" and one fr step
+    over 4 slices with remat_conv True against False; then one rr and one fr
+    step against tp_impl="torch" on a 4,000-atom frame."""
+    import torch
+
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import PresetNequIPGNNModel, jax_named_grads
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    model = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **PRESET_M)
+    calc = NequIPCalculator.from_model(model, device="cuda")
+    frame = fcc_frame(23000, seed=1)
+    calc.calculate(frame)  # warm-up: the tile queries and the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = calc.calculate(frame)
+    serving, peak = _launches(), torch.cuda.max_memory_allocated()
+    ref_model = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="torch", **PRESET_M)
+    ref_model.load_state_dict(model.state_dict())
+    ref = NequIPCalculator.from_model(ref_model, device="cuda").calculate(frame)
+    gap = _deploy_gap(res, ref)
+    print(f"phase 14b preset M serving, {len(frame['pos'])} atoms ({smi}): routes {_routes(model)}, model "
+          f"{calc.timings['model_s'] * 1e3:.1f} ms, max_memory_allocated {peak / 2**30:.3f} GiB, launches {serving}; "
+          f"fused vs torch: energy rel {gap[0]:.3e}, forces {gap[1]:.3e} of max|F|", flush=True)
+    if set(_routes(model)) != {"fused"}:
+        raise RuntimeError("phase 14b: preset M's layers did not all take K1's route")
+    _check_route("phase 14b serving", "fused", serving)
+    if any(serving.get(k) for k in ("conv_bwd_train", "dw_reduce", "tri_fwd", "tri_bwd")):
+        raise RuntimeError("phase 14b: serving launched a training kernel")
+    if not (gap[0] <= 1e-5 and gap[1] <= 1e-4):
+        raise RuntimeError("phase 14b: preset M's fused and torch serving disagree")
+    del ref_model, ref, calc
+    torch.cuda.empty_cache()
+
+    # each layer's shapes and tiles; its kernels against their plain versions
+    # on the layer's inputs at phase 2's f32 gates, then timed (CUDA events)
+    batch, n, e = graph(23000, "cuda", seed=1)
+    g_rng = torch.Generator(device="cuda").manual_seed(0)
+    layers = []
+    with torch.no_grad():
+        for i, (blk, x, sh, emb, layout) in enumerate(_layer_inputs(model.to("cuda"), batch)):
+            plan, mlp = blk.tp_scatter.plan, blk.edge_mlp
+            w1, w2 = (w.detach() for w in mlp.weights())
+            a0, a1 = mlp.alphas
+            N, E = x.shape[0], sh.shape[0]
+
+            def t(*shape):
+                return torch.randn(*shape, device="cuda", generator=g_rng)
+
+            g, gt = t(N, plan.mid_dim), t(N, plan.mid_dim)
+            W = mlp(emb).contiguous()
+            # the fr operands on slice 1 of N_CHUNKS: tangents and accumulators
+            sl = K.edge_slices(layout, N_CHUNKS)[1]
+            lay_s, rows = sl.layout, slice(sl.start, sl.stop)
+            tx, tsh, dW = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel)
+            s_ops = (x, tx, sh[rows], tsh[rows], W[rows], dW[rows], lay_s)
+            acc, tacc = t(N, plan.mid_dim), t(N, plan.mid_dim)
+            mlp_args = (plan, x, sh, emb, w1, w2, a0, a1, layout)
+            calls = {
+                "K1": (lambda: K.conv_fwd(*mlp_args), lambda: K.conv_fwd_plain(*mlp_args)),
+                "K2": (lambda: K.conv_bwd(*mlp_args, g), lambda: K.conv_bwd_plain(*mlp_args, g)),
+                "K2-train": (lambda: K.conv_bwd_train(*mlp_args, g), lambda: K.conv_bwd_train_plain(*mlp_args, g)),
+                "K4": (lambda: K.tri_fwd(plan, x, sh, W, layout), lambda: K.tri_fwd_plain(plan, x, sh, W, layout)),
+                "K5": (lambda: K.tri_bwd(plan, x, sh, W, layout, g),
+                       lambda: K.tri_bwd_plain(plan, x, sh, W, layout, g)),
+                "K4-acc": (lambda: K.tri_fwd(plan, x, sh[rows], W[rows], lay_s, acc=acc.clone()),
+                           lambda: K.tri_fwd_plain(plan, x, sh[rows], W[rows], lay_s, acc.clone())),
+                "K6": (lambda: K.jvp_fwd(plan, *s_ops, acc=(acc.clone(), tacc.clone())),
+                       lambda: K.jvp_fwd_plain(plan, *s_ops, (acc.clone(), tacc.clone()))),
+                "K7": (lambda: K.jvp_bwd(plan, *s_ops, g, gt), lambda: K.jvp_bwd_plain(plan, *s_ops, g, gt)),
+            }
+            where = f"at preset M layer {i} float32"
+            errs = {k: _check(k, _tuple(kern()), _tuple(plain()), 1e-4, 1e-5, where, phase="phase 14b")
+                    for k, (kern, plain) in calls.items()}
+            torch.cuda.empty_cache()
+            ms = {k: cuda_median_ms(calls[k][0], reps=5, warmup=1) for k in ("K1", "K2", "K2-train", "K4", "K5")}
+            tiles = {"K1": K.conv_fwd_tile(plan, w1.shape[0], w1.shape[1], torch.float32, "cuda"),
+                     "K4": K.tri_fwd_tile(plan, "tri_fwd", torch.float32, "cuda"),
+                     "K6": K.tri_fwd_tile(plan, "jvp_fwd", torch.float32, "cuda")}
+            shape = dict(dim_in=plan.dim_in, mid_dim=plan.mid_dim, WN=plan.weight_numel, paths=len(plan.paths),
+                         cg_terms=len(plan._tables["fwd_coef"]), mlp=f"{w1.shape[0]}->{w1.shape[1]}->{w2.shape[1]}")
+            n_real = layout.n_real
+            n_dst = int((layout.dst_ptr[1:] > layout.dst_ptr[:-1]).sum())
+            n_src = int(torch.unique(layout.edge_src[:n_real]).numel())
+            bound = {k: _bound_ms(*work(name, plan, n_real, n_dst, n_src, x.shape[0], w1.shape[1], w1.shape[0], 4))[0]
+                     for k, name in (("K1", "conv_fwd"), ("K2", "conv_bwd"), ("K2-train", "conv_bwd_train"),
+                                     ("K4", "tri_fwd"), ("K5", "tri_bwd"))}
+            layers.append(dict(shape=shape, tiles=tiles, ms=ms, bound_ms=bound, max_abs_err=errs))
+            print(f"phase 14b preset M layer {i} ({smi}): {shape}; edges per tile {tiles}; against plain (f32, max "
+                  f"abs err) " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + "; f32 ms (bound) "
+                  + ", ".join(f"{k} {v:.3f} ({bound[k]:.3f})" for k, v in ms.items()), flush=True)
+            del W, g, gt, tx, tsh, dW, acc, tacc, s_ops, calls
+            torch.cuda.empty_cache()
+
+    # rr steps with remat_conv False, True, "save_tp"; then fr over 4 slices with and without remat
+    lab = torch.Generator(device="cuda").manual_seed(1)
+    batch = dict(batch, total_energy=torch.randn(2, 1, device="cuda", generator=lab, dtype=torch.float64),
+                 forces=torch.randn(batch["pos"].shape, device="cuda", generator=lab, dtype=torch.float64))
+    rr = {}
+    remats = {"none": {}, "remat_conv=True": {"remat_conv": True}, "remat_conv='save_tp'": {"remat_conv": "save_tp"},
+              "remat_force=True": {"remat_force": True}}
+    for label, kw in remats.items():
+        m = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **kw, **PRESET_M)
+        module = NequIPTrainModule(m.to("cuda"), loss=EnergyForceLoss(type_names=["Cu"]),
+                                   optimizer={"_target_": "optax.adam", "learning_rate": 1e-3})
+        times, losses = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(3):
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, _, _ = module.compute_loss(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+            if step == 0:
+                grads, launches = jax_named_grads(m), _launches()
+            m.zero_grad(set_to_none=True)
+            del loss
+        rr[label] = dict(ms=float(np.median(times)), peak=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
+                         grads=grads, launches=launches)
+        print(f"phase 14b preset M rr step, {label} ({smi}): median {rr[label]['ms']:.1f} ms of "
+              f"{[round(t, 1) for t in times]}, max_memory_allocated {rr[label]['peak']:.3f} GiB, losses "
+              f"{losses}, launches a step {launches}", flush=True)
+        del module, m
+        torch.cuda.empty_cache()
+    # remat_conv=True recomputes each layer's forward twice a rr step (in the
+    # force backward and again in the loss backward); "save_tp" never reruns
+    # the conv; remat_force is recorded only (nn/grad_output.py)
+    wants = {"remat_conv=True": {"conv_fwd": 2 * 4}, "remat_conv='save_tp'": {}, "remat_force=True": {}}
+    base = rr["none"]
+    for label, want in wants.items():
+        err = _grad_errors(rr[label]["grads"], base["grads"])
+        keys = set(rr[label]["launches"]) | set(base["launches"]) | set(want)
+        extra = {k: rr[label]["launches"].get(k, 0) - base["launches"].get(k, 0) for k in keys}
+        want = {k: want.get(k, 0) for k in keys}
+        loss_rel = abs(rr[label]["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+        print(f"phase 14b {label} against none: grads max err / max|grad| {err:.3e}, loss rel {loss_rel:.3e}, peak "
+              f"{rr[label]['peak']:.3f} against {base['peak']:.3f} GiB, step {rr[label]['ms']:.1f} against "
+              f"{base['ms']:.1f} ms, extra launches {extra} (expected {want})", flush=True)
+        if not (err <= 1e-4 and loss_rel <= 1e-5):
+            raise RuntimeError(f"phase 14b: {label} changed the loss or the gradients")
+        if extra != want:
+            raise RuntimeError(f"phase 14b: {label} launched {extra} more kernels, not {want}")
+    fr = {}
+    for remat in (False, True):
+        m = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", remat_conv=remat, **PRESET_M)
+        module = NequIPTrainModule(m.to("cuda"), loss=EnergyForceLoss(type_names=["Cu"]),
+                                   optimizer={"_target_": "optax.adam", "learning_rate": 1e-3},
+                                   force_grad_mode="fr", fr_edge_chunks=N_CHUNKS)
+        module.compute_grads_fr(batch)  # warm-up
+        m.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _, _ = module.compute_grads_fr(batch)
+        torch.cuda.synchronize()
+        fr[remat] = dict(ms=(time.perf_counter() - t0) * 1e3, peak=torch.cuda.max_memory_allocated() / 2**30,
+                         loss=float(loss), grads=jax_named_grads(m), launches=_launches())
+        print(f"phase 14b preset M fr step over {N_CHUNKS} slices, remat_conv={remat!r} ({smi}): "
+              f"{fr[remat]['ms']:.1f} ms, max_memory_allocated {fr[remat]['peak']:.3f} GiB, loss "
+              f"{fr[remat]['loss']:.6e}, launches {fr[remat]['launches']}", flush=True)
+        del module, m, loss
+        torch.cuda.empty_cache()
+    err = _grad_errors(fr[True]["grads"], fr[False]["grads"])
+    fr_rr = _grad_errors(fr[False]["grads"], rr["none"]["grads"])
+    print(f"phase 14b fr remat against none: grads max err / max|grad| {err:.3e}; fr against rr (no remat) "
+          f"{fr_rr:.3e}", flush=True)
+    if not (err <= 1e-4 and fr_rr <= 1e-4):
+        raise RuntimeError("phase 14b: preset M's fr gradients disagree (remat, or against rr)")
+    for k in ("jvp_fwd", "jvp_bwd", "tri_fwd_acc"):
+        if not fr[True]["launches"].get(k):
+            raise RuntimeError(f"phase 14b: the fr step with remat did not launch {k}")
+    del batch
+    torch.cuda.empty_cache()
+    _preset_m_against_torch(smi)
+    return {"layers": layers, "rr": {str(k): {kk: v[kk] for kk in ("ms", "peak")} for k, v in rr.items()},
+            "fr": {str(k): {kk: v[kk] for kk in ("ms", "peak")} for k, v in fr.items()}}
+
+
+def _preset_m_against_torch(smi: str) -> None:
+    """One rr step and one fr step (4 slices) of preset M on the kernels
+    against the same weights at tp_impl="torch", on a 4,000-atom frame at
+    full width (smaller than phase 4's, to keep the plain conv's double
+    backward in memory): losses within 1e-5 rel, gradients within 1e-4 of
+    max."""
+    import torch
+
+    from nequip_tpu_torch.model import PresetNequIPGNNModel, jax_named_grads
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    batch, n, e = graph(4000, "cuda", seed=2)
+    lab = torch.Generator(device="cuda").manual_seed(2)
+    batch = dict(batch, total_energy=torch.randn(2, 1, device="cuda", generator=lab, dtype=torch.float64),
+                 forces=torch.randn(batch["pos"].shape, device="cuda", generator=lab, dtype=torch.float64))
+    state = None
+    for mode in ("rr", "fr"):
+        runs = {}
+        for impl in ("fused", "torch"):
+            m = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl=impl, **PRESET_M).to("cuda")
+            if state is None:
+                state = m.state_dict()
+            m.load_state_dict(state)
+            module = NequIPTrainModule(m, loss=EnergyForceLoss(type_names=["Cu"]),
+                                       optimizer={"_target_": "optax.adam", "learning_rate": 1e-3},
+                                       force_grad_mode=mode,
+                                       fr_edge_chunks=N_CHUNKS if mode == "fr" and impl == "fused" else 0)
+            if mode == "rr":
+                loss, _, _ = module.compute_loss(batch)
+                loss.backward()
+            else:
+                loss, _, _ = module.compute_grads_fr(batch)
+            torch.cuda.synchronize()
+            runs[impl] = (float(loss.detach()), jax_named_grads(m))
+            del module, m, loss
+            torch.cuda.empty_cache()
+        err = _grad_errors(runs["fused"][1], runs["torch"][1])
+        loss_rel = abs(runs["fused"][0] - runs["torch"][0]) / abs(runs["torch"][0])
+        print(f"phase 14b preset M {mode} step on {n} atoms, {e} edges, kernels against tp_impl='torch' ({smi}): "
+              f"loss rel {loss_rel:.3e}, grads max err / max|grad| {err:.3e}", flush=True)
+        if not (loss_rel <= 1e-5 and err <= 1e-4):
+            raise RuntimeError(f"phase 14b: preset M's {mode} step on the kernels disagrees with tp_impl='torch'")
+
+
+def phase14c_depth2(smi: str) -> None:
+    """The flagship's widths with a depth-2 radial MLP at tp_impl="fused":
+    K4's route (K4, K5, K3 and no K1) serving against tp_impl="torch", and its
+    package compiled through the registered ops against eager."""
+    import os
+
+    import torch
+
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.scripts import compile as compile_cli
+    from nequip_tpu_torch.scripts import package as package_cli
+
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", radial_mlp_depth=2, **FLAGSHIP)
+    eager = NequIPCalculator.from_model(model, device="cuda")
+    frame = fcc_frame(23000, seed=1)
+    eager.calculate(frame)  # warm-up
+    K.reset_launch_counts()
+    res = eager.calculate(frame)
+    launches = _launches()
+    ref_model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="torch", radial_mlp_depth=2, **FLAGSHIP)
+    ref_model.load_state_dict(model.state_dict())
+    gap = _deploy_gap(res, NequIPCalculator.from_model(ref_model, device="cuda").calculate(frame))
+    print(f"phase 14c depth-2 radial MLP at tp_impl='fused' ({smi}): routes {_routes(model)}, model "
+          f"{eager.timings['model_s'] * 1e3:.1f} ms, launches {launches}; against torch: energy rel {gap[0]:.3e}, "
+          f"forces {gap[1]:.3e} of max|F|", flush=True)
+    if set(_routes(model)) != {"fused_tp"}:
+        raise RuntimeError("phase 14c: the depth-2 layers did not take K4's route")
+    _check_route("phase 14c", "fused_tp", launches)
+    if not (gap[0] <= 1e-5 and gap[1] <= 1e-4):
+        raise RuntimeError("phase 14c: the depth-2 model disagrees with tp_impl='torch'")
+    del ref_model
+
+    OPTIONS_DIR.mkdir(parents=True, exist_ok=True)
+    nl = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame)), 4.0)
+    example = pad_batch(batched_from_list([nl]), round_up(len(frame["pos"]), 128),
+                        round_up(nl["edge_index"].shape[1], 256), 2)
+    pkg, art = str(OPTIONS_DIR / "depth2_pkg.zip"), str(OPTIONS_DIR / "depth2.nequip_tpu_torch.zip")
+    package_cli.package_model(model, pkg, example, "cuda", snapshot=False)
+    t0 = time.perf_counter()
+    compile_cli.main([pkg, art, "--target", "ase", "--no-check"])  # checked against eager below
+    compile_s = time.perf_counter() - t0
+    compiled = NequIPCalculator.from_compiled_model(art)
+    compiled.calculate(frame)  # warm-up
+    K.reset_launch_counts()
+    got = compiled.calculate(frame)
+    c_launches = _launches()
+    gap = _deploy_gap(got, eager.calculate(frame))
+    print(f"phase 14c nequip-torch-compile of the depth-2 package ({smi}): {compile_s:.1f} s, "
+          f"{os.path.getsize(art) / 2**20:.2f} MiB; compiled model {compiled.timings['model_s'] * 1e3:.1f} ms, "
+          f"launches {c_launches}; compiled vs eager: energy rel {gap[0]:.3e}, forces {gap[1]:.3e} of max|F|, "
+          f"stress {gap[2]:.3e} of max|stress|", flush=True)
+    _check_route("phase 14c compiled", "fused_tp", c_launches)
+    if not (gap[0] <= 1e-5 and gap[1] <= 1e-4):
+        raise RuntimeError("phase 14c: the compiled depth-2 program disagrees with eager")
+    del compiled, eager, model
+    for f in OPTIONS_DIR.glob("*.zip"):
+        f.unlink()
+    torch.cuda.empty_cache()
+
+
+def phase14_options(smi: str) -> dict:
+    """Phase 14: the model builder's options (14a), preset M at full width
+    (14b) and the depth-2 radial MLP on K4's route (14c)."""
+    t0 = time.perf_counter()
+    phase14a_options_golden(smi)
+    out = phase14b_preset_m(smi)
+    phase14c_depth2(smi)
+    print(f"phase 14 {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2249,6 +2669,7 @@ def main() -> int:
     phase12_pair_style(smi)
     phase13_files(smi, lj_frames, rr)
     del lj_frames
+    phase14_options(smi)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

@@ -2,9 +2,12 @@
 
 Port of ``nequip_tpu/data/_key_registry.py``: graph fields pad to the frame
 capacity, node fields to the node capacity, edge fields to the edge capacity.
+``register_fields`` adds fields (a per-frame label, a spin vector) that the
+batching, padding and ``to_tensors`` then carry like the built-in ones;
+``deregister_fields`` takes them out again.
 """
 
-from typing import Dict, Set
+from typing import Dict, Sequence, Set
 
 from . import _keys
 
@@ -80,6 +83,56 @@ _NODE_FIELDS: Set[str] = set(_DEFAULT_NODE_FIELDS)
 _EDGE_FIELDS: Set[str] = set(_DEFAULT_EDGE_FIELDS)
 _LONG_FIELDS: Set[str] = set(_DEFAULT_LONG_FIELDS)
 _CARTESIAN_TENSOR_FIELDS: Dict[str, str] = dict(_DEFAULT_CARTESIAN_TENSOR_FIELDS)
+
+
+def register_fields(
+    graph_fields: Sequence[str] = (),
+    node_fields: Sequence[str] = (),
+    edge_fields: Sequence[str] = (),
+    long_fields: Sequence[str] = (),
+    cartesian_tensor_fields: Dict[str, str] = None,
+) -> None:
+    """Register new fields as graph, node or edge fields (each in one of
+    them), integer (``long``) fields, or cartesian tensors with their
+    symmetry (``"ij"`` or ``"ij=ji"``)."""
+    graph, node, edge = set(graph_fields), set(node_fields), set(edge_fields)
+    if len(graph | node | edge) != len(graph) + len(node) + len(edge):
+        raise ValueError("a field cannot be in more than one of graph, node and edge")
+    for new, others in ((graph, (_NODE_FIELDS, _EDGE_FIELDS)), (node, (_GRAPH_FIELDS, _EDGE_FIELDS)),
+                        (edge, (_GRAPH_FIELDS, _NODE_FIELDS))):
+        clash = sorted(f for f in new if any(f in o for o in others))
+        if clash:
+            raise ValueError(f"fields {clash} are already registered in another category")
+    _GRAPH_FIELDS.update(graph)
+    _NODE_FIELDS.update(node)
+    _EDGE_FIELDS.update(edge)
+    _LONG_FIELDS.update(long_fields)
+    _CARTESIAN_TENSOR_FIELDS.update(cartesian_tensor_fields or {})
+
+
+def deregister_fields(*fields: str) -> None:
+    """Undo ``register_fields`` for these fields; built-in fields raise."""
+    defaults = _DEFAULT_GRAPH_FIELDS | _DEFAULT_NODE_FIELDS | _DEFAULT_EDGE_FIELDS
+    for f in fields:
+        if f in defaults:
+            raise ValueError(f"cannot deregister built-in field {f}")
+        for registry in (_GRAPH_FIELDS, _NODE_FIELDS, _EDGE_FIELDS, _LONG_FIELDS):
+            registry.discard(f)
+        _CARTESIAN_TENSOR_FIELDS.pop(f, None)
+
+
+def _register_field_prefix(prefix: str) -> None:
+    """Register every registered field again under ``prefix`` (which ends in
+    ``_``, e.g. ``original_dataset_``)."""
+    if not prefix.endswith("_"):
+        raise ValueError("a field prefix ends in '_'")
+    register_fields(
+        graph_fields=[prefix + f for f in _GRAPH_FIELDS],
+        node_fields=[prefix + f for f in _NODE_FIELDS],
+        edge_fields=[prefix + f for f in _EDGE_FIELDS],
+        long_fields=[prefix + f for f in _LONG_FIELDS],
+        cartesian_tensor_fields={prefix + f: fmt for f, fmt in _CARTESIAN_TENSOR_FIELDS.items()},
+    )
 
 
 def get_field_type(field: str, error_on_unregistered: bool = True) -> str:

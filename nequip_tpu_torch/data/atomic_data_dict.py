@@ -213,6 +213,34 @@ def frame_from_batched(data: Type, index: int) -> Type:
     return out
 
 
+def without_nodes(data: Type, which_nodes: np.ndarray) -> Type:
+    """A copy of an unpadded frame or batch with the given nodes removed, and
+    every edge that touches one of them (JAX ``without_nodes``)."""
+    n = num_nodes(data)
+    mask = np.ones(n, dtype=bool)
+    mask[np.asarray(which_nodes)] = False
+    keep_idx = np.nonzero(mask)[0]
+    remap = np.full(n, -1, dtype=_INT_DTYPE)
+    remap[keep_idx] = np.arange(len(keep_idx), dtype=_INT_DTYPE)
+    out: Type = {}
+    if _keys.EDGE_INDEX_KEY in data:
+        ei = np.asarray(data[_keys.EDGE_INDEX_KEY])
+        edge_keep = mask[ei[0]] & mask[ei[1]]
+        out[_keys.EDGE_INDEX_KEY] = remap[ei[:, edge_keep]]
+    for k, v in data.items():
+        if k in (_keys.EDGE_INDEX_KEY, _keys.NUM_NODES_KEY) or k.startswith(_keys.EDGE_LAYOUT_KEY_PREFIX):
+            continue
+        ftype = get_field_type(k, error_on_unregistered=False)
+        v = np.asarray(v)
+        out[k] = v[keep_idx] if ftype == "node" else v[edge_keep] if ftype == "edge" else v
+    if _keys.BATCH_KEY in out:
+        nf = int(out[_keys.BATCH_KEY].max()) + 1 if len(out[_keys.BATCH_KEY]) else 1
+        out[_keys.NUM_NODES_KEY] = np.bincount(out[_keys.BATCH_KEY], minlength=nf).astype(_INT_DTYPE)
+    else:
+        out[_keys.NUM_NODES_KEY] = np.array([len(keep_idx)], dtype=_INT_DTYPE)
+    return out
+
+
 def pad_batch(data: Type, n_nodes: int, n_edges: int, n_frames: Optional[int] = None) -> Type:
     """Pad a batched dict to static capacities and attach masks.
 

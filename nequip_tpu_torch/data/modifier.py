@@ -45,6 +45,46 @@ class PerAtomModifier(BaseModifier):
         return f"per_atom_{self.field}"
 
 
+class MappedFieldModifier(BaseModifier):
+    """Read another key than the nominal field name (a prediction or target
+    stored under another name)."""
+
+    def __init__(self, field: str, mapped_field: str):
+        super().__init__(field)
+        self.mapped_field = mapped_field
+
+    def __call__(self, data: dict):
+        return data[self.mapped_field]
+
+
+class EdgeLengths(BaseModifier):
+    """Edge lengths ``[E, 1]``: the stored field, or computed on the host
+    from the positions, the edge index and the cell shifts."""
+
+    def __init__(self):
+        super().__init__(_keys.EDGE_LENGTH_KEY)
+
+    def __call__(self, data: dict):
+        if _keys.EDGE_LENGTH_KEY in data:
+            return data[_keys.EDGE_LENGTH_KEY]
+        pos = np.asarray(data[_keys.POSITIONS_KEY])
+        ei = np.asarray(data[_keys.EDGE_INDEX_KEY])
+        vec = pos[ei[1]] - pos[ei[0]]
+        if _keys.CELL_KEY in data:
+            cell = np.asarray(data[_keys.CELL_KEY])
+            batch = np.asarray(data.get(_keys.BATCH_KEY, np.zeros(len(pos), dtype=int)))
+            vec = vec + np.einsum("ei,eij->ej", np.asarray(data[_keys.EDGE_CELL_SHIFT_KEY]), cell[batch[ei[0]]])
+        return np.linalg.norm(vec, axis=1, keepdims=True)
+
+    @property
+    def name(self) -> str:
+        return "edge_lengths"
+
+    @property
+    def field_type(self) -> str:
+        return "edge"
+
+
 class NumNeighbors(BaseModifier):
     """Per-node neighbour counts of a host frame (for avg_num_neighbors)."""
 

@@ -327,11 +327,12 @@ class MDDriver:
     def _setup_device_nl(self) -> None:
         """Size the device cell list from the first (host) build, as the JAX
         driver does, then rebuild the batch's edges with it."""
-        impls = {m.tp_scatter.impl for m in self.model.modules() if hasattr(m, "tp_scatter")}
-        if "fused_tp" in impls:
-            # its autograd Functions (K4, K5) size buffers by the real edges on the host
-            raise ValueError("nl_backend='device' keeps the real-edge count on the card, which tp_impl "
-                             "'fused_tp' needs on the host: use tp_impl 'fused' or 'torch'")
+        routes = {m.route for m in self.model.modules() if hasattr(m, "route")}
+        if "fused_tp" in routes:
+            # K4's route (tp_impl "fused_tp", or "fused" with a radial MLP K1
+            # does not take) has not been run in the device-list graphs
+            raise ValueError("nl_backend='device' takes K1's route or the plain one: use tp_impl 'fused' or "
+                             "'torch' (with 'fused', the depth-1 radial MLP)")
         if _keys.CELL_KEY not in self._frame:
             raise ValueError("nl_backend='device' needs a periodic box (a cell)")
         cell = np.asarray(self._frame[_keys.CELL_KEY], dtype=np.float64).reshape(3, 3)

@@ -11,12 +11,10 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
-import torch
 
 from ..nn.atomwise import PerTypeScaleShift
 from ..nn.interaction_block import InteractionBlock
 from ..nn.model_modifier_utils import get_all_modifiers, is_persistent_modifier, model_modifier
-from ..utils.dtype import GLOBAL_DTYPE
 
 
 def modify(model, modifiers: List[Dict], persistent_only: bool = False):
@@ -91,14 +89,14 @@ def modify_PerTypeScaleShift(model, scales=None, shifts=None, scales_trainable: 
     """Replace per-type energy scales and shifts (fine-tuning), as the JAX
     ``modify_PerTypeScaleShift``: new values are a float for every type or a
     dict over some of the model's type names; other types keep their values
-    (zero where the model had none)."""
-    if scales_trainable or shifts_trainable:
-        raise NotImplementedError("trainable per-type scales and shifts are not ported (they are fixed buffers)")
+    (zero where the model had none).  A kind given new values becomes one
+    value per type, a parameter when ``*_trainable`` (fine-tuning trains
+    it), else a fixed buffer."""
     found = [m for m in model.modules() if isinstance(m, PerTypeScaleShift)]
     if not found:
         raise ValueError("model has no PerTypeScaleShift module")
     for mod in found:
-        for kind, new_vals in (("scales", scales), ("shifts", shifts)):
+        for kind, new_vals, trainable in (("scales", scales, scales_trainable), ("shifts", shifts, shifts_trainable)):
             if new_vals is None:
                 continue
             if isinstance(new_vals, (int, float)):
@@ -111,14 +109,10 @@ def modify_PerTypeScaleShift(model, scales=None, shifts=None, scales_trainable: 
                 cur.detach().cpu().numpy().reshape(-1), (mod.num_types,)).copy()
             for t, v in new_vals.items():
                 vals[mod.type_names.index(t)] = float(v)
-            device = cur.device if cur is not None else next(iter(model.parameters())).device
-            value = torch.as_tensor(vals.reshape(-1, 1), dtype=GLOBAL_DTYPE, device=device)
-            if cur is None:
-                delattr(mod, kind)
-                mod.register_buffer(kind, value)
-            else:
-                setattr(mod, kind, value)
-            # a rebuild from the config (a package) has the new values' buffer too
+            setattr(mod, f"{kind}_trainable", bool(trainable))
+            mod.set_values(kind, vals, device=next(iter(model.parameters())).device)
+            # a rebuild from the config (a package) has the new values and leaves too
             if getattr(model, "model_config", None):
                 model.model_config[f"per_type_energy_{kind}"] = dict(zip(mod.type_names, map(float, vals)))
+                model.model_config[f"per_type_energy_{kind}_trainable"] = bool(trainable)
     return model

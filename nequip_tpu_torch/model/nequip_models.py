@@ -14,7 +14,17 @@ or ``"fused_tp"`` (the trilinear CUDA kernels after a plain radial MLP, JAX
 from a seeded ``torch.Generator`` (they differ from the JAX package's
 initialisation; ``model/jax_params.py`` loads a JAX parameter tree instead),
 and ``model.model_config`` rebuilds the model through
-``utils.config.instantiate``.
+``utils.config.instantiate``.  ``PresetNequIPGNNModel`` builds the S, M, L
+and XL size presets of the JAX package.
+
+Every keyword of the JAX builders is taken: the categorical graph-field
+embeddings, trainable Bessel frequencies and per-type scales and shifts
+(parameters at the JAX tree's paths, frozen buffers otherwise),
+``learnable_shift`` (the first layer keeps its self-connection and
+resnet), the norm nonlinearity (``convnet_nonlinearity_type="norm"``),
+``remat_conv`` (``torch.utils.checkpoint``, see ``nn/convnetlayer.py``)
+and ``remat_force`` (accepted and recorded; the force branch runs as
+without it, see ``nn/grad_output.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +53,30 @@ from ..nn.embedding import (
 from ..ops.irreps import Irrep, Irreps, MulIrrep
 from ..utils.config import instantiate
 from .utils import model_builder
+
+_NEQUIP_GNN_PRESETS = {
+    "S": {"num_layers": 2, "l_max": 1, "num_features": [128, 64]},
+    "M": {"num_layers": 4, "l_max": 2, "num_features": [128, 64, 32]},
+    "L": {"num_layers": 6, "l_max": 3, "num_features": [128, 64, 32, 32]},
+    "XL": {"num_layers": 6, "l_max": 4, "num_features": [320, 96, 64, 32, 32]},
+}
+_NEQUIP_GNN_STANDARD_PRESET = {
+    "parity": False,
+    "type_embed_num_features": 32,
+    "radial_mlp_depth": 1,
+    "radial_mlp_width": 128,
+}
+
+
+@model_builder
+def PresetNequIPGNNModel(preset: str, type_names: Sequence[str] = None, **kwargs) -> GraphModel:
+    """``NequIPGNNModel`` at a named size preset (S, M, L or XL); keywords
+    override the preset's."""
+    preset = preset.upper()
+    if preset not in _NEQUIP_GNN_PRESETS:
+        raise ValueError(f"preset must be one of {list(_NEQUIP_GNN_PRESETS)}, got {preset!r}")
+    return NequIPGNNModel(type_names=type_names,
+                          **{**_NEQUIP_GNN_STANDARD_PRESET, **_NEQUIP_GNN_PRESETS[preset], **kwargs})
 
 
 @model_builder
@@ -95,21 +129,29 @@ def FullNequIPGNNModel(
     feature_irreps_hidden: Sequence[Union[str, Irreps]] = ("32x0e",),
     irreps_edge_sh: Union[int, str, Irreps] = 1,
     type_embed_num_features: int = 32,
+    categorical_graph_field_embed: Optional[List[Dict]] = None,
     readout_mlp_hidden_layers_depth: int = 0,
     readout_mlp_hidden_layers_width: Optional[int] = None,
     readout_mlp_nonlinearity: Optional[str] = "silu",
     per_edge_type_cutoff: Optional[Dict[str, Union[float, Dict[str, float]]]] = None,
     num_bessels: int = 8,
+    bessel_trainable: bool = False,
     polynomial_cutoff_p: int = 6,
     avg_num_neighbors: Optional[Union[float, Dict[str, float]]] = None,
     per_type_energy_scales: Optional[Union[float, Dict[str, float]]] = None,
     per_type_energy_shifts: Optional[Union[float, Dict[str, float]]] = None,
+    per_type_energy_scales_trainable: bool = False,
+    per_type_energy_shifts_trainable: bool = False,
     do_derivatives: bool = True,
     convnet_sc: bool = True,
+    learnable_shift: bool = False,
     convnet_resnet: bool = False,
+    convnet_nonlinearity_type: str = "gate",
     convnet_nonlinearity_scalars: Dict[str, str] = {"e": "silu", "o": "tanh"},
     convnet_nonlinearity_gates: Dict[str, str] = {"e": "silu", "o": "tanh"},
     tp_impl: str = "torch",
+    remat_conv: Union[bool, str] = False,
+    remat_force: bool = False,
     pair_potential: Optional[dict] = None,
 ) -> GraphModel:
     """Fully explicit NequIP GNN builder (one config entry per layer).
@@ -122,18 +164,21 @@ def FullNequIPGNNModel(
         raise ValueError("type_names must be alphanumeric")
     if not len(radial_mlp_depth) == len(radial_mlp_width) == len(feature_irreps_hidden):
         raise ValueError("one radial MLP depth, width and hidden irreps per layer")
+    if learnable_shift and not (convnet_sc or convnet_resnet):
+        raise ValueError("learnable_shift needs convnet_sc or convnet_resnet")
     num_layers = len(radial_mlp_depth)
     if not all(mi.ir.l == 0 for mi in Irreps(feature_irreps_hidden[-1])):
         raise ValueError("the last convnet layer must output scalars only")
 
-    type_embed = NodeTypeEmbed(type_names=type_names, num_features=type_embed_num_features)
+    type_embed = NodeTypeEmbed(type_names=type_names, num_features=type_embed_num_features,
+                               categorical_graph_field_embed=categorical_graph_field_embed)
     spharm = SphericalHarmonicEdgeAttrs(irreps_edge_sh=irreps_edge_sh, irreps_in=type_embed.irreps_out)
     edge_norm = EdgeLengthNormalizer(
         r_max=r_max, type_names=type_names, per_edge_type_cutoff=per_edge_type_cutoff,
         irreps_in=spharm.irreps_out,
     )
     bessel_encode = BesselEdgeLengthEncoding(
-        cutoff=PolynomialCutoff(polynomial_cutoff_p), num_bessels=num_bessels,
+        cutoff=PolynomialCutoff(polynomial_cutoff_p), num_bessels=num_bessels, trainable=bessel_trainable,
         irreps_in=edge_norm.irreps_out,
     )
     factor = ApplyFactor(
@@ -155,14 +200,17 @@ def FullNequIPGNNModel(
             convolution_kwargs={
                 "radial_mlp_depth": radial_mlp_depth[i],
                 "radial_mlp_width": radial_mlp_width[i],
-                # no self-connection on the first layer: the isolated-atom limit
-                "use_sc": i != 0 and convnet_sc,
+                # no self-connection on the first layer (the isolated-atom
+                # limit), unless the shift is learned through it
+                "use_sc": convnet_sc if learnable_shift else i != 0 and convnet_sc,
                 "is_first_layer": i == 0,
                 "avg_num_neighbors": avg_num_neighbors,
                 "type_names": type_names,
                 "tp_impl": tp_impl,
             },
-            resnet=i != 0 and convnet_resnet,
+            resnet=convnet_resnet if learnable_shift else i != 0 and convnet_resnet,
+            remat=remat_conv,
+            nonlinearity_type=convnet_nonlinearity_type,
             nonlinearity_scalars=convnet_nonlinearity_scalars,
             nonlinearity_gates=convnet_nonlinearity_gates,
         )
@@ -175,6 +223,8 @@ def FullNequIPGNNModel(
         hidden_layers_depth=readout_mlp_hidden_layers_depth,
         hidden_layers_width=readout_mlp_hidden_layers_width,
         nonlinearity=readout_mlp_nonlinearity,
+        bias=False,
+        forward_weight_init=True,
         field=_keys.NODE_FEATURES_KEY,
         out_field=_keys.PER_ATOM_ENERGY_KEY,
         irreps_in=prev,
@@ -185,6 +235,8 @@ def FullNequIPGNNModel(
         out_field=_keys.PER_ATOM_ENERGY_KEY,
         scales=per_type_energy_scales,
         shifts=per_type_energy_shifts,
+        scales_trainable=per_type_energy_scales_trainable,
+        shifts_trainable=per_type_energy_shifts_trainable,
         irreps_in=modules["per_atom_energy_readout"].irreps_out,
     )
     energy_model = SequentialGraphNetwork(modules)
@@ -200,7 +252,7 @@ def FullNequIPGNNModel(
         ),
     )
     model = GraphModel(
-        ForceStressOutput(energy_model, do_derivatives),
+        ForceStressOutput(energy_model, do_derivatives, remat=remat_force),
         type_names=type_names, r_max=r_max, per_edge_type_cutoff=per_edge_type_cutoff,
     )
     return model

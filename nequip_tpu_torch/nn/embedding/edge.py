@@ -100,9 +100,12 @@ class EdgeLengthNormalizer(GraphModule):
 
 
 class BesselEdgeLengthEncoding(GraphModule):
-    """edge_embedding = bessel(normed length) * cutoff envelope."""
+    """edge_embedding = bessel(normed length) * cutoff envelope.
 
-    def __init__(self, cutoff: PolynomialCutoff, num_bessels: int = 8, irreps_in=None):
+    ``bessel_weights`` (the frequencies 1..num_bessels) is a frozen buffer,
+    or with ``trainable`` a parameter, at the same path of the JAX tree."""
+
+    def __init__(self, cutoff: PolynomialCutoff, num_bessels: int = 8, trainable: bool = False, irreps_in=None):
         super().__init__()
         self.cutoff = cutoff
         self.num_bessels = int(num_bessels)
@@ -113,10 +116,11 @@ class BesselEdgeLengthEncoding(GraphModule):
                 _keys.EDGE_CUTOFF_KEY: Irreps("1x0e"),
             },
         )
-        # a frozen parameter of the JAX tree (``bessel_trainable=False``)
-        self.register_buffer(
-            "bessel_weights", torch.arange(1.0, self.num_bessels + 1.0, dtype=torch.float64)
-        )
+        weights = torch.arange(1.0, self.num_bessels + 1.0, dtype=torch.float64)
+        if trainable:
+            self.bessel_weights = torch.nn.Parameter(weights)
+        else:
+            self.register_buffer("bessel_weights", weights)
 
     def forward(self, data: dict) -> dict:
         x = data[_keys.NORM_LENGTH_KEY]
@@ -129,4 +133,25 @@ class BesselEdgeLengthEncoding(GraphModule):
         data = dict(data)
         data[_keys.EDGE_CUTOFF_KEY] = cutoff
         data[_keys.EDGE_EMBEDDING_KEY] = bessel * cutoff
+        return data
+
+
+class AddRadialCutoffToData(GraphModule):
+    """Add ``edge_cutoff`` where it is missing (a model without a Bessel
+    encoding); zero at masked edges."""
+
+    def __init__(self, cutoff: PolynomialCutoff, norm_length_field: str = _keys.NORM_LENGTH_KEY, irreps_in=None):
+        super().__init__()
+        self.cutoff = cutoff
+        self.norm_length_field = norm_length_field
+        self._init_irreps(irreps_in=irreps_in, irreps_out={_keys.EDGE_CUTOFF_KEY: Irreps("1x0e")})
+
+    def forward(self, data: dict) -> dict:
+        if _keys.EDGE_CUTOFF_KEY in data:
+            return data
+        cutoff = self.cutoff(data[self.norm_length_field]).to(self.model_dtype)
+        if _keys.EDGE_MASK_KEY in data:
+            cutoff = torch.where(data[_keys.EDGE_MASK_KEY].unsqueeze(-1), cutoff, torch.zeros_like(cutoff))
+        data = dict(data)
+        data[_keys.EDGE_CUTOFF_KEY] = cutoff
         return data

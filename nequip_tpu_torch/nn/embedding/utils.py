@@ -37,3 +37,10 @@ def cutoff_dict_to_matrix(
             mat[i, :] = float(v)
     assert (mat <= r_max + 1e-12).all(), "per-edge-type cutoffs must be <= r_max"
     return mat
+
+
+def cutoff_matrix_to_dict(mat: np.ndarray, type_names: List[str]) -> Dict[str, Dict[str, float]]:
+    """The inverse of ``cutoff_dict_to_matrix``: center type -> {neighbour
+    type -> cutoff}, every pair written out."""
+    return {center: {nbr: float(mat[i, j]) for j, nbr in enumerate(type_names)}
+            for i, center in enumerate(type_names)}

@@ -24,6 +24,15 @@ given.  ``GraphModel`` returns them in the caller's edge order.
 ``loss_surrogate`` is the other route to the same parameter gradients
 (reverse over forward, ``force_grad_mode="fr"``): a scalar whose gradient
 is the loss gradient, built from one dual-number sweep of the energy graph.
+
+``remat=True`` (the builder's ``remat_force``, JAX ``jax.checkpoint`` of the
+branch) is accepted, so that JAX configs and packages that name it load,
+and recorded; the port runs the ordinary branch, which gives the same
+numbers.  A recompute cannot lower the rr peak: it falls in the loss
+backward, where the recomputed branch and its second-order graph are live
+as without remat (``PERF.md``).
+
+``PartialForceOutput`` gives the whole jacobian ``-dE_j/dpos_i``.
 """
 
 from __future__ import annotations
@@ -47,10 +56,11 @@ def _volumes(data: dict) -> torch.Tensor:
 
 
 class ForceStressOutput(GraphModule):
-    def __init__(self, func: GraphModule, do_derivatives: bool = True):
+    def __init__(self, func: GraphModule, do_derivatives: bool = True, remat: bool = False):
         super().__init__()
         self.func = func
         self.do_derivatives = do_derivatives
+        self.remat = bool(remat)  # recorded only (module docstring)
         self._init_irreps(irreps_in=dict(func.irreps_in), irreps_out=dict(func.irreps_out))
         for k in (_keys.FORCE_KEY, _keys.STRESS_KEY, _keys.VIRIAL_KEY, _keys.EDGE_FORCE_KEY):
             self.irreps_out[k] = Irreps("1o")
@@ -61,8 +71,10 @@ class ForceStressOutput(GraphModule):
         if not self.do_derivatives:
             return self.func(data)
         training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
-        if _keys.EDGE_VECTORS_KEY in data:
-            return self._edge_force_branch(data, training)
+        branch = self._edge_force_branch if _keys.EDGE_VECTORS_KEY in data else self._pos_stress_branch
+        return branch(data, training)
+
+    def _pos_stress_branch(self, data: dict, training: bool) -> dict:
         pos = data[_keys.POSITIONS_KEY].detach()
         has_cell = _keys.CELL_KEY in data
         num_frames = data[_keys.NUM_NODES_KEY].shape[0]
@@ -190,3 +202,33 @@ class ForceStressOutput(GraphModule):
                 )
             surrogate = surrogate + (v * out[k]).sum()
         return surrogate
+
+
+class PartialForceOutput(GraphModule):
+    """The whole jacobian: ``partial_forces[j, i] = -dE_j/dpos_i`` over every
+    node slot (padding included), and ``forces`` its sum over ``j`` (JAX
+    ``PartialForceOutput``).  One backward per node slot: a tool for small
+    systems."""
+
+    def __init__(self, func: GraphModule):
+        super().__init__()
+        self.func = func
+        self._init_irreps(irreps_in=dict(func.irreps_in), irreps_out=dict(func.irreps_out))
+        self.irreps_out[_keys.PARTIAL_FORCE_KEY] = Irreps("1o")
+        self.irreps_out[_keys.FORCE_KEY] = Irreps("1o")
+
+    _jax_transparent = ("func",)
+
+    def forward(self, data: dict) -> dict:
+        with torch.enable_grad():
+            pos = data[_keys.POSITIONS_KEY].detach().clone().requires_grad_(True)
+            out = self.func(dict(data, **{_keys.POSITIONS_KEY: pos}))
+            e = out[_keys.PER_ATOM_ENERGY_KEY].reshape(-1)
+            rows = [torch.autograd.grad(e[j], pos, retain_graph=j + 1 < e.shape[0], allow_unused=True)[0]
+                    for j in range(e.shape[0])]
+        partial = -torch.stack([torch.zeros_like(pos) if r is None else r for r in rows])
+        out = {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in out.items()}
+        out[_keys.POSITIONS_KEY] = data[_keys.POSITIONS_KEY]
+        out[_keys.PARTIAL_FORCE_KEY] = partial
+        out[_keys.FORCE_KEY] = partial.sum(0)
+        return out

@@ -5,16 +5,28 @@ Port of ``InteractionBlock.__call__`` (``nequip_tpu/nn/interaction_block.py``):
     linear_1 -> avg-num-neighbor norm -> TP-scatter with radial-MLP edge
     weights -> merge of same-irrep mid chunks -> linear_2 -> + self-connection
 
-With ``tp_impl="fused"`` the radial MLP runs inside the fused kernel and
-the ``[E, weight_numel]`` radial weights never exist in device memory; with
-``tp_impl="fused_tp"`` the MLP runs in plain PyTorch and the trilinear
-kernel (K4) takes its ``[E, weight_numel]`` output.
+The conv runs one of three routes (``InteractionBlock.route``), fixed when
+the implementation is set, by the JAX package's own rule
+(``use_fully_fused``):
+
+* ``"fused"`` (K1, backward K2 and K3): ``tp_impl="fused"`` with the
+  depth-1, bias-free silu radial MLP that K1 computes in-kernel; the
+  ``[E, weight_numel]`` radial weights never exist in device memory;
+* ``"fused_tp"`` (K4, backward K5 and K3): ``tp_impl="fused_tp"``, and
+  ``tp_impl="fused"`` with any other radial MLP (JAX ``pallas_fused`` runs
+  such an MLP in XLA and the TP-scatter after it): the MLP runs in plain
+  PyTorch and the trilinear kernel takes its output;
+* ``"torch"``: the plain PyTorch path.
 
 fr (reverse-over-forward) training hands the block ``fr_edge_chunks = C``
 (``train/training_module.py``, ``edge_chunks``); with ``C > 1`` and either
 kernel impl, ``forward`` runs the conv over C slices of the edge stream
 (``ChunkedConv``: K4-acc, backward K5 + K3) and ``jvp`` runs the dual
 sweep over them (``ChunkedJvpConv``: K6, backward K7 + K3).
+
+``forward`` is ``tail(conv(head(data)))``: ``ConvNetLayer``'s
+``remat="save_tp"`` checkpoints the head and the tail and keeps the conv's
+output, so the kernel is not run again in the backward.
 """
 
 from __future__ import annotations
@@ -132,10 +144,13 @@ class InteractionBlock(GraphModule):
         self.fr_edge_chunks = 0
 
     def set_tp_impl(self, tp_impl: str) -> None:
-        """Switch the conv's implementation (``TP_IMPLS``); the weights stay."""
-        if tp_impl == "fused" and (self.edge_mlp.num_layers != 2 or self.edge_mlp.nonlinearity != "silu"):
-            raise ValueError("tp_impl='fused' needs the depth-1 bias-free silu radial MLP")
+        """Switch the conv's implementation (``TP_IMPLS``); the weights stay.
+        ``route`` says which kernels the conv runs (module docstring)."""
         self.tp_scatter.set_impl(tp_impl)
+        mlp = self.edge_mlp
+        k1_mlp = (mlp.num_layers == 2 and not mlp.bias and mlp.nonlinearity == "silu"
+                  and mlp.parametrization is None)
+        self.route = "fused_tp" if tp_impl == "fused" and not k1_mlp else tp_impl
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -149,50 +164,51 @@ class InteractionBlock(GraphModule):
             self._merge_perms[x.device] = torch.as_tensor(self._merge_perm, device=x.device)
         return torch.index_select(x, -1, self._merge_perms[x.device])
 
-    def forward(self, data: dict) -> dict:
+    def head(self, data: dict):
+        """``(x, sc)``: the normed ``linear_1`` features and the
+        self-connection (None without one)."""
         x = data[_keys.NODE_FEATURES_KEY]
-        num_nodes = x.shape[0]
-        if self.sc_tp is not None:
-            sc = self.sc_tp(x, data[_keys.NODE_ATTRS_KEY], self.sc.to(x.dtype))
+        sc = self.sc_tp(x, data[_keys.NODE_ATTRS_KEY], self.sc.to(x.dtype)) if self.sc_tp is not None else None
+        return self._feature_maps(data, self.linear_1(x)), sc
 
-        data = dict(data)
-        data[_keys.NODE_FEATURES_KEY] = self.linear_1(x)
-        data = self.avg_num_neighbors_norm(data)
-        x = data[_keys.NODE_FEATURES_KEY]
-
+    def conv(self, data: dict, x: torch.Tensor) -> torch.Tensor:
+        """The ``[N, mid_dim]`` messages of the route's kernels."""
+        emb, sh = data[_keys.EDGE_EMBEDDING_KEY], data[_keys.EDGE_ATTRS_KEY]
         if self._chunked():
-            x = chunked_conv(
-                self.tp_scatter.plan, self.edge_mlp, x, data[_keys.EDGE_ATTRS_KEY],
-                data[_keys.EDGE_EMBEDDING_KEY], data[LAYOUT_KEY], self.fr_edge_chunks,
+            return chunked_conv(self.tp_scatter.plan, self.edge_mlp, x, sh, emb, data[LAYOUT_KEY],
+                                self.fr_edge_chunks)
+        if self.route == "fused":
+            return fused_tp_scatter_mlp(
+                self.tp_scatter.plan, x, sh, emb, self.edge_mlp.w0.to(x.dtype), self.edge_mlp.w1.to(x.dtype),
+                self.edge_mlp.alphas[0], self.edge_mlp.alphas[1], data[LAYOUT_KEY],
             )
-        elif self.tp_scatter.impl == "fused":
-            x = fused_tp_scatter_mlp(
-                self.tp_scatter.plan, x,
-                data[_keys.EDGE_ATTRS_KEY], data[_keys.EDGE_EMBEDDING_KEY],
-                self.edge_mlp.w0.to(x.dtype), self.edge_mlp.w1.to(x.dtype),
-                self.edge_mlp.alphas[0], self.edge_mlp.alphas[1],
-                data[LAYOUT_KEY],
-            )
-        elif self.tp_scatter.impl == "fused_tp":
-            x = fused_tp_scatter(
-                self.tp_scatter.plan, x, data[_keys.EDGE_ATTRS_KEY],
-                self.edge_mlp(data[_keys.EDGE_EMBEDDING_KEY]), data[LAYOUT_KEY],
-            )
-        else:
-            x = self.tp_scatter.forward_tp_scatter(
-                x=x,
-                edge_attr=data[_keys.EDGE_ATTRS_KEY],
-                edge_weight=self.edge_mlp(data[_keys.EDGE_EMBEDDING_KEY]),
-                edge_dst=data[_keys.EDGE_INDEX_KEY][0],
-                edge_src=data[_keys.EDGE_INDEX_KEY][1],
-                edge_mask=data.get(_keys.EDGE_MASK_KEY),
-                num_nodes=num_nodes,
-            )
-        x = self.linear_2(self._merge_mid(x))
-        if self.sc_tp is not None:
-            x = x + sc
-        data[_keys.NODE_FEATURES_KEY] = x
+        if self.route == "fused_tp":
+            return fused_tp_scatter(self.tp_scatter.plan, x, sh, self.edge_mlp(emb), data[LAYOUT_KEY],
+                                    frozen=self._frozen())
+        return self.tp_scatter.forward_tp_scatter(
+            x=x,
+            edge_attr=sh,
+            edge_weight=self.edge_mlp(emb),
+            edge_dst=data[_keys.EDGE_INDEX_KEY][0],
+            edge_src=data[_keys.EDGE_INDEX_KEY][1],
+            edge_mask=data.get(_keys.EDGE_MASK_KEY),
+            num_nodes=x.shape[0],
+        )
+
+    def tail(self, msg: torch.Tensor, sc: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.linear_2(self._merge_mid(msg))
+        return x if sc is None else x + sc
+
+    def forward(self, data: dict) -> dict:
+        x, sc = self.head(data)
+        data = dict(data)
+        data[_keys.NODE_FEATURES_KEY] = self.tail(self.conv(data, x), sc)
         return data
+
+    def _frozen(self) -> bool:
+        """Serving: no radial-MLP weight needs a gradient, so the K4 route
+        takes its registered ops (first order only)."""
+        return not any(w.requires_grad for w in self.edge_mlp.weights())
 
     def _chunked(self) -> bool:
         return self.fr_edge_chunks > 1 and self.tp_scatter.impl in KERNEL_IMPLS
@@ -233,7 +249,7 @@ class InteractionBlock(GraphModule):
             tx = self._feature_maps(data, self.linear_1(tx))
         sh, tsh = data[_keys.EDGE_ATTRS_KEY], tangents.get(_keys.EDGE_ATTRS_KEY)
         emb, temb = data[_keys.EDGE_EMBEDDING_KEY], tangents.get(_keys.EDGE_EMBEDDING_KEY)
-        impl, plan = self.tp_scatter.impl, self.tp_scatter.plan
+        impl, plan, frozen = self.route, self.tp_scatter.plan, self._frozen()
         weights = [w.to(x.dtype) for w in self.edge_mlp.weights()]
 
         if self._chunked():
@@ -248,13 +264,14 @@ class InteractionBlock(GraphModule):
 
                 def K(xx, ss, ww=None):
                     if ww is not None:  # the dw term: the trilinear kernel (K4)
-                        return fused_tp_scatter(plan, xx, ss, ww, data[LAYOUT_KEY])
+                        return fused_tp_scatter(plan, xx, ss, ww, data[LAYOUT_KEY], frozen=frozen)
                     return fused_tp_scatter_mlp(plan, xx, ss, emb, *weights, a0, a1, data[LAYOUT_KEY])
             elif impl == "fused_tp":
                 w = self.edge_mlp.with_weights(emb, weights)
 
                 def K(xx, ss, ww=None):
-                    return fused_tp_scatter(plan, xx, ss, w if ww is None else ww, data[LAYOUT_KEY])
+                    return fused_tp_scatter(plan, xx, ss, w if ww is None else ww, data[LAYOUT_KEY],
+                                            frozen=frozen)
             else:
                 w = self.edge_mlp.with_weights(emb, weights)
 

@@ -159,3 +159,14 @@ class SequentialGraphNetwork(GraphModule):
         for m in self.children():
             out.update(m.metadata())
         return out
+
+
+def replace_submodules(module: nn.Module, cls, factory) -> nn.Module:
+    """Replace every submodule of type ``cls`` (the module itself too) by
+    ``factory(old)``, recursively, in place (JAX ``replace_submodules``).
+    The parameters of a replaced module go with it."""
+    if isinstance(module, cls):
+        return factory(module)
+    for name, child in list(module.named_children()):
+        setattr(module, name, replace_submodules(child, cls, factory))
+    return module

@@ -24,6 +24,10 @@ class ScalarMLP(GraphModule):
         hidden_layers_depth: int = 0,
         hidden_layers_width: Optional[int] = None,
         nonlinearity: Optional[str] = "silu",
+        bias: bool = False,
+        forward_weight_init: bool = True,
+        init_mode: str = "uniform",
+        parametrization: Optional[str] = None,
         field: str = _keys.NODE_FEATURES_KEY,
         out_field: Optional[str] = None,
         irreps_in=None,
@@ -41,6 +45,10 @@ class ScalarMLP(GraphModule):
             hidden_layers_depth=hidden_layers_depth,
             hidden_layers_width=hidden_layers_width,
             nonlinearity=nonlinearity,
+            bias=bias,
+            forward_weight_init=forward_weight_init,
+            init_mode=init_mode,
+            parametrization=parametrization,
         )
         self.irreps_out[self.out_field] = Irreps([(self.mlp.output_dim, (0, 1))])
 

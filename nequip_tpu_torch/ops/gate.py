@@ -4,7 +4,8 @@ Port of ``nequip_tpu/ops/gate.py``.  Input layout
 ``irreps_scalars + irreps_gates + irreps_gated``; output
 ``act_s(scalars) + act_g(gates) * gated`` (gates broadcast over the
 m-dimension), i.e. ``irreps_scalars + irreps_gated``.  Scalar activations
-are second-moment normalised.
+are second-moment normalised.  ``NormActivation`` is the norm-based
+alternative (``ConvNetLayer(nonlinearity_type="norm")``).
 """
 
 from __future__ import annotations
@@ -58,4 +59,25 @@ class Gate:
             gate = g[..., off : off + mi.mul].unsqueeze(-2)
             out.append((chunk * gate).reshape(batch + (mi.dim,)))
             off += mi.mul
+        return torch.cat(out, dim=-1)
+
+
+class NormActivation:
+    """Scale each irrep channel by ``act(|x_u|) / |x_u|`` (e3nn's
+    ``NormActivation`` with ``normalize=True``; the JAX ``NormActivation``),
+    the squared norm floored at ``epsilon**2``."""
+
+    def __init__(self, irreps_in, scalar_nonlinearity: str = "silu", epsilon: float = 1e-8):
+        self.irreps_in = Irreps(irreps_in)
+        self.irreps_out = self.irreps_in
+        self._act = normalized_activation(scalar_nonlinearity)
+        self._eps2 = float(epsilon) ** 2
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        batch = tuple(x.shape[:-1])
+        out = []
+        for mi, sl in zip(self.irreps_in, self.irreps_in.slices()):
+            chunk = x[..., sl].reshape(batch + (mi.ir.dim, mi.mul))
+            n = torch.sqrt(torch.clamp(torch.sum(chunk * chunk, dim=-2, keepdim=True), min=self._eps2))
+            out.append((chunk * (self._act(n) / n)).reshape(batch + (mi.dim,)))
         return torch.cat(out, dim=-1)

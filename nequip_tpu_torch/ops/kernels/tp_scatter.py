@@ -28,7 +28,10 @@ for any other device.  Each counts its kernel launches in ``.launches``.
 
 Serving (frozen radial-MLP weights) runs K1, K2's inference variant and K3
 as registered ops, ``torch.ops.nequip_torch.{conv_fwd, conv_bwd,
-scatter_rows}``, whose arguments are tensors and numbers only (the plan's
+scatter_rows}``, and on K4's route (a radial MLP K1 does not take), where
+the real-edge count stays on the device (a traced program), K4 and K5's
+first-order backward as ``nequip_torch.{tri_fwd, tri_bwd}``, whose
+arguments are tensors and numbers only (the plan's
 tables, the layout's four tensors): a tracer (``make_fx``, ``torch.export``)
 records them as single nodes, and an exported program calls them.  Their
 CUDA kernels are the launches the wrappers make; their CPU kernels are the
@@ -822,14 +825,23 @@ def tri_fwd_acc(plan: TPPlan, x, y, w, layout: EdgeLayout, acc):
 
 def _launch_tri_fwd(entry: str, plan: TPPlan, x, y, w, layout: EdgeLayout, out) -> None:
     _check_layout(layout, x.device)
-    tab = plan.device_tables(x.device, x.dtype)
-    tile = tri_fwd_tile(plan, "tri_fwd", x.dtype, x.device)
-    carry = torch.empty(conv_fwd_carry_rows(layout.n_real, tile), plan.mid_dim, dtype=x.dtype, device=x.device)
+    _launch_tri_fwd_raw(entry, x, y, w, layout.edge_src, layout.dst_ptr, plan.device_tables(x.device, x.dtype),
+                        out, layout.n_real)
+
+
+def _launch_tri_fwd_raw(entry: str, x, y, w, edge_src, dst_ptr, tab: Dict[str, torch.Tensor], out,
+                        n_edges: int) -> None:
+    """K4's launch on raw tensors (the wrapper's and the registered op's);
+    ``n_edges`` (at least the real edges) sizes the carry rows."""
+    n_terms, mid_dim = tab["fwd_coef"].shape[0], tab["fwd_col"].shape[0]
+    dim_in, sh_dim, wn = x.shape[1], y.shape[1], w.shape[1]
+    tile = _tile("tri_fwd", x.dtype, x.device, (dim_in, sh_dim, wn, n_terms))
+    carry = torch.empty(conv_fwd_carry_rows(n_edges, tile), mid_dim, dtype=x.dtype, device=x.device)
     err = build.entry_point(entry, x.dtype)(
-        x.data_ptr(), y.data_ptr(), w.data_ptr(), layout.edge_src.data_ptr(),
-        layout.dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), edge_src.data_ptr(),
+        dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
         tab["fwd_coef"].data_ptr(), tab["fwd_col"].data_ptr(), out.data_ptr(), carry.data_ptr(),
-        tab["fwd_coef"].shape[0], layout.num_nodes, plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
+        n_terms, dst_ptr.shape[0] - 1, dim_in, sh_dim, wn, mid_dim,
         tile, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, entry)
@@ -911,19 +923,25 @@ def tri_bwd(plan: TPPlan, x, y, w, layout: EdgeLayout, g):
     )
     for t in outs:
         t[n_real:].zero_()  # the kernel writes the real slots only
+    _launch_tri_bwd_raw(x, y, w, layout.edge_src, layout.dst_ptr, g, tab, outs)
+    tri_bwd.launches += 1
+    return outs
+
+
+def _launch_tri_bwd_raw(x, y, w, edge_src, dst_ptr, g, tab: Dict[str, torch.Tensor], outs) -> None:
+    """K5's launch on raw tensors into ``outs = (dx_edge, dy, dw)`` (the
+    wrapper's and the registered op's)."""
     dx_edge, dy, dw = outs
     err = build.entry_point("nequip_tri_bwd", x.dtype)(
-        x.data_ptr(), y.data_ptr(), w.data_ptr(), layout.edge_src.data_ptr(),
-        layout.dst_ptr.data_ptr(), g.data_ptr(), tab["dx_groups"].data_ptr(),
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), edge_src.data_ptr(),
+        dst_ptr.data_ptr(), g.data_ptr(), tab["dx_groups"].data_ptr(),
         tab["dx_terms"].data_ptr(), tab["dx_coef"].data_ptr(), tab["dx_col"].data_ptr(),
         tab["paths"].data_ptr(), tab["path_terms"].data_ptr(), tab["path_coef"].data_ptr(),
-        dx_edge.data_ptr(), dy.data_ptr(), dw.data_ptr(), len(plan.paths), layout.num_nodes,
-        plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim,
+        dx_edge.data_ptr(), dy.data_ptr(), dw.data_ptr(), tab["paths"].shape[0], dst_ptr.shape[0] - 1,
+        x.shape[1], y.shape[1], w.shape[1], tab["fwd_col"].shape[0],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "tri_bwd")
-    tri_bwd.launches += 1
-    return outs
 
 
 def scatter_rows(values, perm, ptr):
@@ -1140,9 +1158,22 @@ def fused_tp_scatter_mlp(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1
                                            layout.src_ptr, *tables, alpha0, alpha1)
 
 
-def fused_tp_scatter(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout) -> torch.Tensor:
-    """The trilinear conv ``F(x, edge_attr, edge_weight)`` (K4 forward)."""
-    return TriConv.apply(x, edge_attr, edge_weight, plan, layout)
+def fused_tp_scatter(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout,
+                     frozen: bool = False) -> torch.Tensor:
+    """The trilinear conv ``F(x, edge_attr, edge_weight)`` (K4 forward).
+    Training, and any call whose layout has its real-edge count on the host
+    (eager serving), runs ``TriConv``, closed under differentiation, whose
+    wrappers size the carry rows by the real edges and zero only the masked
+    tail.  ``frozen`` (the weights that make ``edge_weight`` need no
+    gradient) with the count on the device (``n_real`` None: a traced or
+    exported program) takes the registered op ``nequip_torch::tri_fwd``,
+    whose backward is the inference op ``nequip_torch::tri_bwd`` (K5), then
+    K3, first order only."""
+    if not frozen or layout.n_real is not None:
+        return TriConv.apply(x, edge_attr, edge_weight, plan, layout)
+    tables = plan.device_tables(x.device, x.dtype).values()
+    return torch.ops.nequip_torch.tri_fwd(x, edge_attr, edge_weight, layout.edge_src, layout.dst_ptr,
+                                          layout.src_perm, layout.src_ptr, *tables)
 
 
 def fused_tp_scatter_bwd(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout, g):
@@ -1152,7 +1183,8 @@ def fused_tp_scatter_bwd(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLa
 
 
 # ---------------------------------------------------------------------------
-# K1, K2 (inference) and K3 as registered ops: tensors and numbers in and out
+# K1, K2 (inference), K3, K4 and K5 (inference) as registered ops: tensors
+# and numbers in and out
 # ---------------------------------------------------------------------------
 _TABLES_SCHEMA = ", ".join(f"Tensor {name}" for name in TABLE_NAMES)
 _COEF = [i for i, name in enumerate(TABLE_NAMES) if name.endswith("coef")]  # the float tables
@@ -1247,6 +1279,81 @@ def _scatter_rows_cuda(values, perm, ptr):
 @_scatter_rows_op.register_fake
 def _scatter_rows_fake(values, perm, ptr):
     return values.new_empty(ptr.shape[0] - 1, values.shape[1])
+
+
+_TRI_SCHEMA = "Tensor x, Tensor y, Tensor w"
+
+
+@torch.library.custom_op(
+    "nequip_torch::tri_fwd", mutates_args=(), device_types="cpu",
+    schema=f"({_TRI_SCHEMA}, {_LAYOUT_SCHEMA}, {_TABLES_SCHEMA}) -> Tensor",
+)
+def _tri_fwd_op(x, y, w, edge_src, dst_ptr, src_perm, src_ptr, *tables):
+    return tri_fwd_plain(_TablePlan(dict(zip(TABLE_NAMES, tables))), x, y, w,
+                         _op_layout(edge_src, dst_ptr, src_perm, src_ptr))
+
+
+@_tri_fwd_op.register_kernel("cuda")
+def _tri_fwd_cuda(x, y, w, edge_src, dst_ptr, src_perm, src_ptr, *tables):
+    _route("tri_fwd", x, y, w, *(tables[i] for i in _COEF))
+    _check_index(x.device, edge_src, dst_ptr, src_perm, src_ptr)
+    tab = dict(zip(TABLE_NAMES, tables))
+    out = torch.empty(dst_ptr.shape[0] - 1, tab["fwd_col"].shape[0], dtype=x.dtype, device=x.device)
+    # carry rows over all edge slots: the real-edge count stays on the device
+    _launch_tri_fwd_raw("nequip_tri_fwd", x, y, w, edge_src, dst_ptr, tab, out, y.shape[0])
+    tri_fwd.launches += 1
+    return out
+
+
+@_tri_fwd_op.register_fake
+def _tri_fwd_fake(x, y, w, edge_src, dst_ptr, src_perm, src_ptr, *tables):
+    return x.new_empty(dst_ptr.shape[0] - 1, tables[TABLE_NAMES.index("fwd_col")].shape[0])
+
+
+def _tri_fwd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _tri_fwd_backward(ctx, g):
+    """The inference op ``tri_bwd`` (K5), then K3 for the node cotangent of
+    ``x``: first order only (training runs ``TriConv``)."""
+    x, y, w, edge_src, dst_ptr, src_perm, src_ptr, *tables = ctx.saved_tensors
+    dx_edge, dy, dw = _tri_bwd_op(x, y, w, g.contiguous(), edge_src, dst_ptr, *tables)
+    dx = _scatter_rows_op(dx_edge, src_perm, src_ptr) if ctx.needs_input_grad[0] else None
+    return (dx, dy, dw) + (None,) * (4 + len(tables))
+
+
+_tri_fwd_op.register_autograd(_tri_fwd_backward, setup_context=_tri_fwd_setup)
+
+
+@torch.library.custom_op(
+    "nequip_torch::tri_bwd", mutates_args=(), device_types="cpu",
+    schema=f"({_TRI_SCHEMA}, Tensor g, Tensor edge_src, Tensor dst_ptr, {_TABLES_SCHEMA}) "
+           "-> (Tensor, Tensor, Tensor)",
+)
+def _tri_bwd_op(x, y, w, g, edge_src, dst_ptr, *tables):
+    # K5's twin written out (``_table_tp_vjp``): a CPU kernel runs no autograd
+    n = int(dst_ptr[-1])
+    src = edge_src[:n].long()
+    grads = _table_tp_vjp(dict(zip(TABLE_NAMES, tables)), x[src], y[:n], w[:n], g[_segment_rows(dst_ptr)])
+    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n)) for gr in grads)
+
+
+@_tri_bwd_op.register_kernel("cuda")
+def _tri_bwd_cuda(x, y, w, g, edge_src, dst_ptr, *tables):
+    _route("tri_bwd", x, y, w, g, *(tables[i] for i in _COEF))
+    _check_index(x.device, edge_src, dst_ptr)
+    # zeroed whole: the kernel writes the real slots, whose count stays on the device
+    outs = tuple(torch.zeros(y.shape[0], width, dtype=x.dtype, device=x.device)
+                 for width in (x.shape[1], y.shape[1], w.shape[1]))
+    _launch_tri_bwd_raw(x, y, w, edge_src, dst_ptr, g, dict(zip(TABLE_NAMES, tables)), outs)
+    tri_bwd.launches += 1
+    return outs
+
+
+@_tri_bwd_op.register_fake
+def _tri_bwd_fake(x, y, w, g, edge_src, dst_ptr, *tables):
+    return x.new_empty(y.shape[0], x.shape[1]), torch.empty_like(y), torch.empty_like(w)
 
 
 # ---------------------------------------------------------------------------

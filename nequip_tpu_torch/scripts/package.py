@@ -88,26 +88,32 @@ def _write(path: str, meta: dict, cfg: dict, model, example=None, outputs=None, 
             zf.writestr("code_snapshot.zip", code_snapshot_bytes())
 
 
-def build(args) -> None:
+def package_model(model, output_path: str, example: dict, device="cuda", snapshot: bool = True) -> None:
+    """Write ``model`` (built by a ``@model_builder``: its ``model_config``
+    rebuilds it) as a package, with ``example`` (a padded numpy batch) and
+    the model's energy and forces on it."""
     from .. import __version__
-    from ..model.saved_models import data_dict_from_checkpoint, load_saved_model
-    from ..utils.device import resolve_device
     from ..utils.versions import get_current_code_versions
 
-    device = resolve_device(args.device)
-    model = load_saved_model(args.ckpt_path)
     cfg = getattr(model, "model_config", None)
     if not cfg or "_target_" not in cfg:
         raise ValueError("the model has no model_config to rebuild it from; cannot package")
-    example = data_dict_from_checkpoint(args.ckpt_path)
     meta = {
         "package_format_version": PACKAGE_FORMAT_VERSION,
         "nequip_tpu_torch_version": __version__,
         "code_versions": get_current_code_versions(),
         **{k: str(v) for k, v in model.metadata.items()},
     }
-    _write(args.output_path, meta, cfg, model, example, _example_outputs(model, example, device),
-           snapshot=not args.no_code_snapshot)
+    _write(output_path, meta, cfg, model, example, _example_outputs(model, example, device), snapshot=snapshot)
+
+
+def build(args) -> None:
+    from ..model.saved_models import data_dict_from_checkpoint, load_saved_model
+    from ..utils.device import resolve_device
+
+    model = load_saved_model(args.ckpt_path)
+    package_model(model, args.output_path, data_dict_from_checkpoint(args.ckpt_path), resolve_device(args.device),
+                  snapshot=not args.no_code_snapshot)
     log.info(f"wrote package {args.output_path}")
 
 

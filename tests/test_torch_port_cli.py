@@ -17,7 +17,9 @@ of its frozen leaves (fixed per-type scales and shifts, fixed Bessel
 weights); the port's counts the trainable parameters only.  So the
 cross-package run holds a clip that binds on neither side against the
 unclipped JAX run, and a binding clip is held against a plain torch step
-of ``g * min(1, c / ||g_trainable||)``.
+of ``g * min(1, c / ||g_trainable||)``.  With every leaf trainable
+(``bessel_trainable`` and trainable per-type scales and shifts) both norms
+run over the same leaves, and a binding clip matches the JAX run.
 """
 
 import copy
@@ -145,6 +147,14 @@ TRAJECTORY_CASES = {
          "training_module.lr_scheduler": _epoch_scheduler("ReduceLROnPlateau", "val0_epoch/weighted_sum",
                                                           factor=0.5, patience=0, threshold=0.9)},
         {"training_module.gradient_clip_val": 1.0e6},
+    ),
+    "all_trainable_binding_clip": (
+        {"run": ["train", "val", "test"], "trainer.max_epochs": 3, "trainer.callbacks": _callbacks("epoch", 1),
+         "training_module.lr_scheduler": _epoch_scheduler("StepLR", step_size=1, gamma=0.5),
+         "training_module.gradient_clip_val": 1.0e-4, "training_module.model.bessel_trainable": True,
+         "training_module.model.per_type_energy_scales_trainable": True,
+         "training_module.model.per_type_energy_shifts_trainable": True},
+        {},
     ),
 }
 PORT_MODEL = {"training_module.model.tp_impl": "fused"}

@@ -8,8 +8,11 @@ calculator's loaders), its pair style (``nequip-torch-prepare-pair-style``,
 the wrapper, the ``pair_nequip`` target), its data files (extxyz, NPZ and
 shard files written, read and trained from through a data module with the
 bucket ladder, the named data modules, the transforms) and a model with the
-ZBL prior load neither JAX, nor optax or flax, nor the JAX package (the GPU
-machine has none of them), and import neither ``h5py`` nor ``lmdb`` until a
+ZBL prior, the model builder's options (a preset with the norm
+nonlinearity, a categorical embedding, trainable leaves and remat; a
+depth-2 radial MLP on the K4 route; the shipped model suite and its
+assertion library) load neither JAX, nor optax or flax, nor the JAX package
+(the GPU machine has none of them), and import neither ``h5py`` nor ``lmdb`` until a
 dataset that reads them is built."""
 
 import json
@@ -102,6 +105,25 @@ with tempfile.TemporaryDirectory() as tmp:
     files_ok = files_ok and bool(np.isfinite(fit.metrics_rows[0]["train_loss_epoch/weighted_sum"]))
     files_ok = files_ok and len(ZBLPairPotential(seed=0, model_dtype="float64", r_max=4.0, type_names=["Cu"],
                                                  chemical_species=["Cu"], units="metal").model_config) > 0
+import nequip_tpu_torch.utils.unittests
+from nequip_tpu_torch.model import PresetNequIPGNNModel
+from nequip_tpu_torch.nn import PartialForceOutput
+from nequip_tpu_torch.utils.test_utils import assert_permutation_equivariant
+from nequip_tpu_torch.data import compute_neighborlist_, from_dict
+preset = PresetNequIPGNNModel(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, preset="S",
+                              num_features=[4, 2], radial_mlp_width=8, type_embed_num_features=4,
+                              avg_num_neighbors=12.0, tp_impl="fused", convnet_nonlinearity_type="norm",
+                              categorical_graph_field_embed=[{"field": "charge", "min": 0, "max": 1,
+                                                              "num_features": 2}],
+                              learnable_shift=True, bessel_trainable=True, remat_conv="save_tp", remat_force=True)
+depth2 = NequIPGNNModel(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=2, l_max=1,
+                        parity=False, num_features=4, radial_mlp_width=8, radial_mlp_depth=2,
+                        avg_num_neighbors=12.0, tp_impl="fused")
+small = compute_neighborlist_(from_dict({"pos": pos + 0.05, "cell": np.eye(3) * a, "pbc": np.ones(3, bool),
+                                         "atom_types": np.zeros(4, int), "charge": np.array([1])}), 4.0)
+assert_permutation_equivariant(preset, small, capacities=(8, 256, 2))
+assert_permutation_equivariant(depth2, small, capacities=(8, 256, 2))
+options_ok = [m.route for m in depth2.modules() if hasattr(m, "route")] == ["fused_tp", "fused_tp"]
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
@@ -115,6 +137,7 @@ print(json.dumps({
     "optax_flax": [m for m in mods if m.split(".")[0] in ("optax", "flax")],
     "files": files_ok,
     "lazy": [m for m in mods if m.split(".")[0] in ("h5py", "lmdb")],
+    "options": options_ok,
 }))
 """
 
@@ -127,4 +150,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"finite": True, "cli": True, "deploy": True, "pair": True, "jax": [], "nequip_tpu": [],
-                   "optax_flax": [], "files": True, "lazy": []}
+                   "optax_flax": [], "files": True, "lazy": [], "options": True}
