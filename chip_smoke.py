@@ -999,6 +999,23 @@ def _mb_bound(ops: float, mm_ops: float, nbytes: float, tf32: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def _w2_mm_ms(ops: dict, G: int, tf32: bool, reps: int) -> float:
+    """cuBLAS's time for the radial MLP's W2 product alone over the call's G x
+    be rows (h of the chunk repeated G times), in f32 or with TF32 allowed
+    (the setting restored after)."""
+    import torch
+
+    h = torch.nn.functional.silu(ops["emb"] @ ops["w1"]).repeat(G, 1)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        return cuda_median_ms(lambda: torch.mm(h, ops["w2"]), reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+        del h
+        torch.cuda.empty_cache()
+
+
 def phase8a_microbench(smi: str, reps: int = 10, grid: int = 2048, rows: int = 128, be: int = 256):
     """T1-T4 at the tool's full width against their plain versions."""
     import torch
@@ -1046,6 +1063,10 @@ def phase8a_microbench(smi: str, reps: int = 10, grid: int = 2048, rows: int = 1
             if not all(torch.equal(a, b) for a, b in zip(got, _tuple(kern()))):
                 raise RuntimeError(f"phase 8a: {variant} {prec} {dtype} differs on a repeat call")
             name = f"{variant} {prec}" + (" f64" if f64 else "")
+            if not bwd:
+                shape = MB.fwd_launch_shape(plan, variant, ops, rows, G, prec)
+                print(f"phase 8a {name} launch: {shape['n_blocks']} blocks ({shape['n_ranges']} step ranges x column "
+                      f"groups), {shape['smem']} bytes of shared memory a block; groups: {shape['groups']}", flush=True)
             if f64:
                 print(f"phase 8a {name} G={G}: max_abs_err {err:.3e}", flush=True)
                 continue
@@ -1062,6 +1083,10 @@ def phase8a_microbench(smi: str, reps: int = 10, grid: int = 2048, rows: int = 1
             )
             report[(variant, prec)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                            bound_ms=bound_tf32 if tf32 else bound, bound_by=by)
+            if variant == "mlp":
+                print(f"phase 8a mlp {prec} ({smi}): W2 product alone, not the same function: torch.mm "
+                      f"[{G * be}, {ops['w2'].shape[0]}] x {list(ops['w2'].shape)} {_w2_mm_ms(ops, G, tf32, reps):.3f} ms "
+                      f"({'TF32 allowed' if tf32 else 'f32'})", flush=True)
         del ops
     torch.cuda.empty_cache()
 
