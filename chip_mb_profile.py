@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where T1 and T3 (the conv-block microbenchmark forward,
-``csrc/microbench_fwd.cu``) spend their time, and what variants of their
-design cost, on one NVIDIA GPU.
+"""Where the conv-block microbenchmarks spend their time, and what variants
+of their design cost, on one NVIDIA GPU: T1 and T3 (the forward,
+``csrc/microbench_fwd.cu``) or, with ``--bwd``, T2 and T4 (the CG-VJP,
+``csrc/microbench_bwd.cu``).
 
-    python3 chip_mb_profile.py [VARIANT ...]   (default: base clocks split3)
+    python3 chip_mb_profile.py [VARIANT ...]          (default: base clocks split3)
+    python3 chip_mb_profile.py --bwd [VARIANT ...]    (default: base clocks tc4 g_l1)
 
 Each variant is built once, from a patched copy of the source in its own
 library under ``nequip_tpu_torch/_build/``, and timed (CUDA events, median
@@ -24,10 +26,25 @@ plain f32).  Variants:
           tensor-core form of K1's W2 product;
   ring5   HIGHEST with five stages in K1's W2 ring instead of three (the
           MLP variants).
+
+With ``--bwd`` T2 (``cgvjp``) and T4 (``cgvjp_t``) are timed at G and at
+G / 2 (each variant held at phase 8a's gates: 1e-4 of max|ref| against the
+plain f32 step, the G / (G / 2) time ratio in [1.7, 2.3]).  Variants:
+
+  base    the kernel as it is;
+  clocks  clock64 marks: cycles of thread 0 in each phase of BWD_PHASES,
+          per block (staging, the result copy) or per tile-step (the
+          CG-VJP's phases), summed over the blocks;
+  tc4     CG-VJP items of 4 edges instead of 8 (18 items a step);
+  g_l1    g rows read through L1 from device memory instead of staged in
+          shared memory, as K2 reads its g rows, which leaves room and
+          registers for four blocks an SM instead of three (T2 only: T4's
+          g is feature-major).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -43,6 +60,7 @@ from nequip_tpu_torch.ops.kernels import microbench as MB
 from nequip_tpu_torch.tools.kernel_microbench import make_inputs, to_tensors
 
 SOURCE = build.CSRC / "microbench_fwd.cu"
+BWD_SOURCE = build.CSRC / "microbench_bwd.cu"
 CASES = [("dot", "HIGHEST"), ("mlp", "HIGHEST"), ("mlp", "DEFAULT"), ("cg", "HIGHEST"), ("full", "HIGHEST"),
          ("full", "DEFAULT"), ("xpose", "DEFAULT"), ("cg_t", "DEFAULT"), ("full_t", "DEFAULT"),
          ("full_t_pre", "DEFAULT")]
@@ -147,41 +165,169 @@ PATCHES = {"base": lambda src: src, "clocks": clocks, "split3": split3, "ring5":
 RING_BYTES = {"ring5": 5 * 16 * 512}  # the host's layout of a patched ring (microbench._RING)
 
 
-def build_variant(name: str, root: str) -> str:
+# what each mark of the T2/T4 kernel closes, in the order thread 0 passes them
+BWD_PHASES = ("staging (a block)", "dx_items + barrier", "dw_items + barrier", "path_sum",
+              "restore w, zero partials + barrier", "result copy (a writing block)")
+
+
+def bwd_clocks(src: str) -> str:
+    marks = [
+        ("namespace nequip {\nnamespace mb {\n", MARKS, ""),
+        ("  const int tid = threadIdx.x;\n", "", "  long long mb_t = clock64(), mb_acc[8] = {};\n"),
+        ("  cp_async_wait<0>();\n  __syncthreads();\n", "", "  MB_MARK(0)\n"),
+        ("    __syncthreads();  // dx has read w\n", "", "    MB_MARK(1)\n"),
+        ("part, nullptr, wn);\n    __syncthreads();\n", "", "    MB_MARK(2)\n"),
+        ("    cg::path_sum<T, NT>(a.tab, part, cnt, sh_dim, s_dy);\n", "", "    MB_MARK(3)\n"),
+        ("    store_tile<T, kT, TILE, NT>(a.dw, s_w, base, cnt, wn, be, tid);\n  }\n", "",
+         "  __syncthreads();\n  MB_MARK(5)\n  if (tid == 0) {\n"
+         "    for (int i = 0; i < 6; ++i) atomicAdd(&mb_clk[i], static_cast<unsigned long long>(mb_acc[i]));\n"
+         "    atomicAdd(&mb_clk[13], range == a.n_ranges - 1 ? 1ull : 0ull);\n"
+         "    atomicAdd(&mb_clk[14], static_cast<unsigned long long>(step1 - step0));\n"
+         "    atomicAdd(&mb_clk[15], 1ull);\n  }\n"),
+    ]
+    for anchor, before, after in marks:
+        src = _once(src, anchor, before + anchor + after)
+    return _once(src, "    __syncthreads();\n  }\n  if (range == a.n_ranges - 1) {",
+                 "    __syncthreads();\n    MB_MARK(4)\n  }\n  if (range == a.n_ranges - 1) {")
+
+
+def tc4(src: str) -> str:
+    return _once(src, "constexpr int kBwdEdges = 8;", "constexpr int kBwdEdges = 4;")
+
+
+def g_l1(src: str) -> str:
+    src = _once(src, "sizeof(T) == 4 ? 3 : 1;", "sizeof(T) == 4 ? 4 : 1;")
+    src = _once(src, "L.o_w0 = L.o_g + up(tile * mid_dim + V - 1);", "L.o_w0 = L.o_g;")
+    src = _once(src, "const int ph_g = stage_tile<T, kT, TILE, NT>(sm + L.o_g, a.g, base, cnt, mid_dim, be, tid);",
+                "const int ph_g = 0;")
+    return _once(src, "const cg::GRows<T, true> gr{sm + L.o_g + ph_g, 0, mid_dim};",
+                 "const cg::GRows<T, false> gr{a.g + static_cast<int64_t>(base) * mid_dim, 0, mid_dim};")
+
+
+BWD_PATCHES = {"base": lambda src: src, "clocks": bwd_clocks, "tc4": tc4, "g_l1": g_l1}
+
+
+def g_l1_smem(plan, itemsize: int, bwd_smem) -> int:
+    """The g_l1 kernel's shared memory: bwd_smem without the g rows."""
+    V = 16 // itemsize
+    return bwd_smem(plan, itemsize) - itemsize * MB._ru(MB.BWD_TILE * plan.mid_dim + V - 1, V)
+
+
+def build_variant(name: str, root: str, bwd: bool = False) -> str:
     os.makedirs(root, exist_ok=True)
     cu = os.path.join(root, f"mb_{name}.cu")
+    source, patches = (BWD_SOURCE, BWD_PATCHES) if bwd else (SOURCE, PATCHES)
     with open(cu, "w") as f:
-        f.write(PATCHES[name](SOURCE.read_text()))
+        f.write(patches[name](source.read_text()))
     lib = os.path.join(root, f"libmb_{name}.so")
     cmd = [build._find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
-           "-fPIC", f"-I{build.CSRC}", "-shared", cu, "-o", lib]
+           "-fPIC", f"-I{build.CSRC}", "-Xptxas=-v", "-shared", cu, "-o", lib]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {name} failed:\n{proc.stdout}\n{proc.stderr}")
+    if bwd:  # registers and spills of each instantiation
+        for ln in proc.stderr.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"ptxas {name}: {ln.strip()}", flush=True)
     return lib
 
 
-def load(path: str) -> ctypes.CDLL:
+def load(path: str, bwd: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     for sfx in ("f32", "f64"):
-        for name in ("nequip_mb_fwd", "nequip_mb_fwd_blocks"):
+        for name in ("nequip_mb_bwd", "nequip_mb_bwd_blocks") if bwd else ("nequip_mb_fwd", "nequip_mb_fwd_blocks"):
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes, fn.restype = build._SIGNATURES[name], ctypes.c_int
     return lib
 
 
+def build_all(names, bwd: bool = False) -> dict:
+    root = os.path.join(build.BUILD_DIR, "mb_profile")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp, ThreadPoolExecutor(len(names)) as ex:
+        paths = list(ex.map(lambda n: build_variant(n, os.path.join(tmp, n), bwd), names))
+        return {n: load(p, bwd) for n, p in zip(names, paths)}
+
+
+def smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+@contextlib.contextmanager
+def host_tile(name: str):
+    """The host's T2/T4 shared memory set to a patched kernel's."""
+    saved = MB.bwd_smem
+    if name == "g_l1":
+        MB.bwd_smem = lambda plan, itemsize: g_l1_smem(plan, itemsize, saved)
+    try:
+        yield
+    finally:
+        MB.bwd_smem = saved
+
+
+def main_bwd(names) -> int:
+    CS.phase0_device()
+    be, G = 256, 2048
+    plan, arrays = make_inputs(128, be)
+    ops = to_tensors(arrays, "cuda")
+    libs = build_all(names, bwd=True)
+    card = smi()
+    for variant, layout in (("cgvjp", "r"), ("cgvjp_t", "t")):
+        runs = {n: lib for n, lib in libs.items() if not (n == "g_l1" and layout == "t")}
+        ref = MB.chunk_bwd_plain(plan, ops, layout)
+        fns = {}
+        for name, lib in runs.items():
+            with host_tile(name):
+                shape = MB.bwd_launch_shape(plan, ops, G, layout, lib)
+                got = MB.launch_bwd(plan, ops, G, layout, lib)  # caches the shape at this tile
+                MB.launch_bwd(plan, ops, G // 2, layout, lib)
+            errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, ref)]
+            ok = all(bool(a.isfinite().all()) for a in got) and max(errs) <= 1e-4
+            print(f"{variant} {name}: {shape['tile']}-edge tiles, {shape['n_ranges']} step ranges, "
+                  f"{shape['n_blocks']} blocks, {shape['smem']} bytes a block, {shape['per_sm']} blocks an SM; "
+                  f"max |diff| / max|ref| (dx, dy, dw) {', '.join(f'{e:.2e}' for e in errs)} "
+                  f"{'ok' if ok else 'FAILS the 1e-4 gate'}", flush=True)
+            if not ok:
+                return 1
+            for g in (G, G // 2):
+                fns[(name, g)] = lambda lib=lib, g=g, name=name: _launch(name, plan, ops, g, layout, lib)
+        times = dict(zip(fns, CS.interleaved_median_ms(list(fns.values()), reps=10)))
+        for name in runs:
+            ms, half = times[(name, G)], times[(name, G // 2)]
+            ratio = ms / half
+            print(f"{variant} {name} ({card}): {ms:.3f} ms ({ms / G * 1e3:.3f} us/chunk), at G/2 {half:.3f} ms, "
+                  f"ratio {ratio:.3f}{'' if 1.7 <= ratio <= 2.3 else ' OUTSIDE [1.7, 2.3]'}", flush=True)
+            if not 1.7 <= ratio <= 2.3:
+                return 1
+        if "clocks" in libs:
+            lib = libs["clocks"]
+            clk = (ctypes.c_ulonglong * 16)()
+            lib.mb_zero_clk()
+            MB.launch_bwd(plan, ops, G, layout, lib)
+            torch.cuda.synchronize()
+            lib.mb_read_clk(clk)
+            per = [max(1, clk[15])] + [max(1, clk[14])] * 4 + [max(1, clk[13])]  # blocks, tile-steps, writers
+            print(f"{variant} clocks, cycles of thread 0 ({clk[15]} blocks, {clk[14]} tile-steps): " + "; ".join(
+                f"{p} {clk[i] / n:.0f}" for i, (p, n) in enumerate(zip(BWD_PHASES, per))), flush=True)
+    return 0
+
+
+def _launch(name: str, plan, ops: dict, G: int, layout: str, lib):
+    with host_tile(name):
+        return MB.launch_bwd(plan, ops, G, layout, lib)
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--bwd"]:
+        return main_bwd(argv[1:] or ["base", "clocks", "tc4", "g_l1"])
     names = argv or ["base", "clocks", "split3"]
     CS.phase0_device()
     rows, be, G = 128, 256, 2048
     plan, arrays = make_inputs(rows, be)
     ops = to_tensors(arrays, "cuda")
-    root = os.path.join(build.BUILD_DIR, "mb_profile")
-    os.makedirs(root, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=root) as tmp, ThreadPoolExecutor(len(names)) as ex:
-        libs = dict(zip(names, (load(p) for p in ex.map(lambda n: build_variant(n, os.path.join(tmp, n)), names))))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    libs = build_all(names)
+    card = smi()
     for variant, prec in CASES:
         runs = {}
         for name, lib in libs.items():
@@ -204,7 +350,7 @@ def main(argv) -> int:
                 return 1
         times = CS.interleaved_median_ms([fn for fn, _ in runs.values()], reps=10)
         for name, ms in zip(runs, times):
-            print(f"{variant} {prec} {name} ({smi}): {ms:.3f} ms ({ms / G * 1e3:.3f} us/chunk)", flush=True)
+            print(f"{variant} {prec} {name} ({card}): {ms:.3f} ms ({ms / G * 1e3:.3f} us/chunk)", flush=True)
         if "clocks" in libs:
             lib = libs["clocks"]
             clk = (ctypes.c_ulonglong * 16)()

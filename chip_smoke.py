@@ -62,7 +62,9 @@ Phases (each prints a line; any failure exits non-zero):
      max|ref|, f32 DEFAULT (TF32 MLP) at 1e-4 against plain with TF32
      rounding emulated and at 1e-2 against plain f32, f64 at G=4 at 1e-12,
      each bitwise equal on a repeat call, with kernel, plain and bound
-     times; 8b the row gather T5 on the 23k-atom edge stream (430,080 rows
+     times (T2/T4's plain computes one step: a T2/T4 call at G=2048 must
+     take 1.7-2.3x its time at G=1024; their launch shape is printed);
+     8b the row gather T5 on the 23k-atom edge stream (430,080 rows
      of 288, f32 and bf16, four index patterns), bitwise equal to
      torch.index_select, with its time (at the wrapper's block shape, and
      at the tool's) beside index_select's; 8c both
@@ -167,9 +169,9 @@ kernels of K3-K7, phase 8c for T1-T5, phase 9i for the device list
 medians and bounds summed over the three layer shapes (for the dW
 reduction over both of its shapes too), for T1-T5 the
 phase-8 numbers of the `full` HIGHEST (T1), `full_t` DEFAULT (T3, TF32
-bound), CG-VJP (T2/T4) and f32 random-pattern gather (T5) rows, and
-phase 9h's f64 numbers for the device list, whose "replaces" names the
-XLA function it replaces (no pallas_call); "max_abs_err": the largest
+bound), CG-VJP (T2/T4; their plain_ms is one step) and f32
+random-pattern gather (T5) rows, and phase 9h's f64 numbers for the
+device list, whose "replaces" names the XLA function it replaces (no pallas_call); "max_abs_err": the largest
 f32 difference from plain, 0 for the device list, whose output equals
 its twin's); the last line is {"ok": true, "device": {...}}.
 """
@@ -1063,7 +1065,12 @@ def phase8a_microbench(smi: str, reps: int = 10, grid: int = 2048, rows: int = 1
             if not all(torch.equal(a, b) for a, b in zip(got, _tuple(kern()))):
                 raise RuntimeError(f"phase 8a: {variant} {prec} {dtype} differs on a repeat call")
             name = f"{variant} {prec}" + (" f64" if f64 else "")
-            if not bwd:
+            if bwd:
+                shape = MB.bwd_launch_shape(plan, ops, G, layout)
+                print(f"phase 8a {name} launch: {shape['tile']}-edge tiles, {shape['n_ranges']} step ranges, "
+                      f"{shape['n_blocks']} blocks, {shape['smem']} bytes of shared memory a block, "
+                      f"{shape['per_sm']} blocks an SM", flush=True)
+            else:
                 shape = MB.fwd_launch_shape(plan, variant, ops, rows, G, prec)
                 print(f"phase 8a {name} launch: {shape['n_blocks']} blocks ({shape['n_ranges']} step ranges x column "
                       f"groups), {shape['smem']} bytes of shared memory a block; groups: {shape['groups']}", flush=True)
@@ -1075,9 +1082,19 @@ def phase8a_microbench(smi: str, reps: int = 10, grid: int = 2048, rows: int = 1
             w_ops, w_mm, nbytes = mb_work(plan, variant, be, rows, G)
             bound, by = _mb_bound(w_ops, w_mm, nbytes, tf32=False)
             bound_tf32 = _mb_bound(w_ops, w_mm, nbytes, tf32=True)[0]
+            if bwd:  # the plain version computes one step; a call at half the steps must take about half the time
+                full_ms, half_ms = interleaved_median_ms([kern, lambda: MB.chunk_bwd(plan, ops, G // 2, layout)], reps)
+                ratio = full_ms / half_ms
+                plain = (f"plain (one step) {plain_ms:.3f} ms a chunk, kernel at G={G} / G={G // 2} in turns "
+                         f"{full_ms:.3f} / {half_ms:.3f} ms (time ratio {ratio:.3f})")
+                if not 1.7 <= ratio <= 2.3:
+                    raise RuntimeError(f"phase 8a: {variant} at G={G} takes {ratio:.3f}x its time at G={G // 2}, "
+                                       "outside [1.7, 2.3]: the steps' work is not all done")
+            else:
+                plain = f"plain {plain_ms:.3f} ms"
             print(
                 f"phase 8a {name} ({smi}): max_abs_err {err:.3e}, kernel {ms:.3f} ms "
-                f"({ms / G * 1e3:.2f} us/chunk), plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}, f32)"
+                f"({ms / G * 1e3:.2f} us/chunk), {plain}, bound {bound:.4f} ms ({by}, f32)"
                 + (f", TF32 bound {bound_tf32:.4f} ms" if w_mm else ""),
                 flush=True,
             )

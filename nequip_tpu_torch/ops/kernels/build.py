@@ -47,7 +47,8 @@ _SIGNATURES: Dict[str, List] = {
     "nequip_jvp_bwd": [_P] * 23 + [_I] * 6 + [_P],
     "nequip_mb_fwd": [_P] * 12 + [_I] * 14 + [_P],
     "nequip_mb_fwd_blocks": [_I] * 3,
-    "nequip_mb_bwd": [_P] * 14 + [_I] * 9 + [_P],
+    "nequip_mb_bwd": [_P] * 14 + [_I] * 10 + [_P],
+    "nequip_mb_bwd_blocks": [_I] * 2,
     "nequip_device_nl": [_P] * 3 + [_I] * 4 + [_D] + [_I] * 2 + [_P] * 11 + [_I] * 2 + [_P] * 5,
 }
 # dtype-free entry points (a copy moves bytes), registered under their own names

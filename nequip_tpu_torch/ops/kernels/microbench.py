@@ -25,6 +25,10 @@ uvu paths (``fwd_groups``): a block of the grid takes one group and a
 range of steps, keeps its group's slice ``out[:, cols]`` in shared memory
 and runs the MLP's second product only for its group's radial-weight
 columns; the ranges' slices are summed in order by a second launch.
+T2/T4 split the chunk into ``BWD_TILE``-edge tiles instead: a block takes
+one tile and one of ``bwd_ranges`` ranges of steps, stages the tile once,
+keeps each step's results in shared memory and, if its range holds the
+last step, writes them out once (``bwd_smem`` bytes a block).
 
 Each wrapper runs its plain PyTorch twin when the operands lie on the CPU,
 launches its kernel when they lie on a CUDA device, and raises otherwise.
@@ -59,11 +63,11 @@ _SLOTS: Dict[str, Dict[str, str]] = {
     "full_t": dict(x="x", y="y", emb="emb", rel="rel", w1="w1_t", w2="w2_t"),
     "full_t_pre": dict(x="x_t", y="y_t", emb="emb", rel="rel", w1="w1_t", w2="w2_t"),
 }
-_BLOCKS_PER_SM = 2  # T2/T4's persistent grid: blocks per SM, each with its own result slot
 SCATTER_VARIANTS = ("dot", "full", "full_t", "full_t_pre")  # the block is summed into out's rows
 CG_VARIANTS = ("cg", "full", "cg_t", "full_t", "full_t_pre")
 SMEM_LIMIT = 232448  # bytes of shared memory a block may take on an H100 (227 KB)
 TILE = {4: 32, 8: 8}  # edges a tile by itemsize: the tiles csrc/microbench_fwd.cu instantiates
+BWD_TILE = 8  # edges a tile of T2/T4 (csrc/microbench_bwd.cu's kBwdTile), f32 and f64
 _THREADS = 256  # threads a block; a group holds at most this many columns where each owns one
 _RING = 3 * 16 * 512  # bytes of K1's W2 ring (radial_mlp.cuh: 3 stages x 16 rows x 32 lanes x 16 bytes)
 # int32 table header and per-group record of csrc/microbench_fwd.cu (enum Head, enum GInfo)
@@ -313,10 +317,6 @@ def chunk_fwd_plain(plan: TPPlan, variant: str, ops: dict, rows: int, grid: int,
     return out
 
 
-def _n_blocks(device: torch.device, grid: int) -> int:
-    return min(grid, _BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count)
-
-
 _FWD_CACHE: Dict[tuple, tuple] = {}
 
 
@@ -420,6 +420,25 @@ def _bwd_names(layout: str) -> Tuple[str, ...]:
     return ("x", "y", "g", "w") if layout == "r" else ("x_t", "y_t", "g_t", "w_t")
 
 
+def bwd_smem(plan: TPPlan, itemsize: int) -> int:
+    """Bytes of shared memory a T2/T4 block takes (``bwd_smem`` of
+    ``csrc/microbench_bwd.cu``, which refuses any other size): the tile's x,
+    g, y rows and w twice (each with room for a 16-byte phase), the dx and
+    dy tiles, two buffers of dy partials, and int32 [tile + paths]."""
+    V = 16 // itemsize
+    t, P = BWD_TILE, len(plan.paths)
+    elems = (_ru(t * plan.dim_in + V - 1, V) + _ru(t * plan.mid_dim + V - 1, V) + 2 * _ru(t * plan.weight_numel + V - 1, V)
+             + _ru(t * plan.sh_dim + V - 1, V) + _ru(t * plan.dim_in, V) + _ru(t * plan.sh_dim, V)
+             + 2 * _ru(t * P * 9, V))  # kMaxYDim = 9 partials a (edge, path)
+    return elems * itemsize + 4 * (t + P)
+
+
+def bwd_ranges(be: int, grid: int, slots: int) -> int:
+    """Step ranges of a T2/T4 launch: as many as the card's ``slots``
+    resident blocks hold for every tile, at least 1, at most ``grid``."""
+    return max(1, min(grid, slots // -(-be // BWD_TILE)))
+
+
 def chunk_bwd_plain(plan: TPPlan, ops: dict, layout: str = "r"):
     """T2/T4 in plain PyTorch: ``(dx, dy, dw)`` of ``TP(x, y, w)`` for the
     cotangent ``g``, in the operands' layout (one step's result: every step
@@ -434,31 +453,63 @@ def chunk_bwd_plain(plan: TPPlan, ops: dict, layout: str = "r"):
 
 def chunk_bwd(plan: TPPlan, ops: dict, grid: int, layout: str = "r"):
     """T2 (``layout="r"``) or T4 (``"t"``): ``(dx, dy, dw)`` of the chunk,
-    recomputed in each of ``grid`` steps (see ``csrc/microbench_bwd.cu``)."""
+    recomputed in each of ``grid`` steps (see ``csrc/microbench_bwd.cu``);
+    the chunk's edges must be a multiple of 8."""
     names = _bwd_names(layout)
     counter = "mb_bwd_t" if layout == "t" else "mb_bwd"
     x, y, g, w = (ops[n] for n in names)
+    be = x.shape[1] if layout == "t" else x.shape[0]
+    if be % 8 or be < 1 or grid < 1:
+        raise ValueError(f"{counter}: the chunk's edges ({be}) must be a positive multiple of 8, grid >= 1")
     if not _route(counter, x, y, g, w):
         return chunk_bwd_plain(plan, ops, layout)
+    out = launch_bwd(plan, ops, grid, layout)
+    COUNTERS[counter].launches += 1
+    return out
+
+
+_BWD_CACHE: Dict[tuple, Tuple[int, int]] = {}
+
+
+def bwd_launch_shape(plan: TPPlan, ops: dict, grid: int, layout: str = "r", lib=None) -> dict:
+    """What ``chunk_bwd`` launches on the card: the tile, shared memory a
+    block, resident blocks an SM, step ranges and blocks (cached per shape
+    and library)."""
+    x = ops[_bwd_names(layout)[0]]
     be = x.shape[1] if layout == "t" else x.shape[0]
-    if be % 8 or grid < 1:
-        raise ValueError(f"{counter}: the chunk's edges ({be}) must be a multiple of 8, grid >= 1")
+    lib = lib or build.load_library()
+    key = (x.dtype, layout, plan.dim_in, plan.sh_dim, plan.mid_dim, plan.weight_numel, len(plan.paths), x.device,
+           id(lib))
+    if key not in _BWD_CACHE:
+        smem = bwd_smem(plan, x.element_size())
+        per_sm = getattr(lib, f"nequip_mb_bwd_blocks_{_suffix(x.dtype)}")(smem, int(layout == "t"))
+        if per_sm < 1:  # a CUDA error (as -err), or no block fits
+            build.check(-per_sm if per_sm < 0 else 1, f"mb_bwd: blocks per SM at {smem} bytes")
+        _BWD_CACHE[key] = (smem, per_sm)
+    smem, per_sm = _BWD_CACHE[key]
+    n_ranges = bwd_ranges(be, grid, per_sm * torch.cuda.get_device_properties(x.device).multi_processor_count)
+    return dict(tile=BWD_TILE, smem=smem, per_sm=per_sm, n_ranges=n_ranges,
+                n_blocks=n_ranges * -(-be // BWD_TILE))
+
+
+def launch_bwd(plan: TPPlan, ops: dict, grid: int, layout: str = "r", lib=None):
+    """``chunk_bwd``'s launch on CUDA operands, through ``lib`` (default: the
+    kernel library; a profiling build passes its own), counting no launch."""
+    t = layout == "t"
+    x, y, g, w = (ops[n] for n in _bwd_names(layout))
+    be = x.shape[1] if t else x.shape[0]
+    lib = lib or build.load_library()
+    shape = bwd_launch_shape(plan, ops, grid, layout, lib)
     tab = plan.device_tables(x.device, x.dtype)
-    n_blocks = _n_blocks(x.device, grid)
-    # one slot of results per block; the last step's block holds the answer
-    outs = tuple(
-        torch.empty((n_blocks, width, be) if layout == "t" else (n_blocks, be, width), dtype=x.dtype, device=x.device)
-        for width in (plan.dim_in, plan.sh_dim, plan.weight_numel)
-    )
-    err = build.entry_point("nequip_mb_bwd", x.dtype)(
+    outs = tuple(torch.empty((width, be) if t else (be, width), dtype=x.dtype, device=x.device)
+                 for width in (plan.dim_in, plan.sh_dim, plan.weight_numel))
+    err = getattr(lib, f"nequip_mb_bwd_{_suffix(x.dtype)}")(
         x.data_ptr(), y.data_ptr(), g.data_ptr(), w.data_ptr(), tab["dx_groups"].data_ptr(),
         tab["dx_terms"].data_ptr(), tab["dx_coef"].data_ptr(), tab["dx_col"].data_ptr(),
         tab["paths"].data_ptr(), tab["path_terms"].data_ptr(), tab["path_coef"].data_ptr(),
         *(o.data_ptr() for o in outs), len(plan.paths), be, plan.dim_in, plan.sh_dim,
-        plan.weight_numel, plan.mid_dim, grid, n_blocks, int(layout == "t"),
+        plan.weight_numel, plan.mid_dim, grid, shape["n_ranges"], shape["smem"], int(t),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(err, counter)
-    COUNTERS[counter].launches += 1
-    last = (grid - 1) % n_blocks
-    return tuple(o[last] for o in outs)
+    build.check(err, "mb_bwd_t" if t else "mb_bwd")
+    return outs

@@ -597,6 +597,19 @@ def test_cuda_microbench_bwd_matches_plain(cuda, layout, dtype):
         assert torch.equal(a, c)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("be,grid", [(8, 1), (40, 3), (264, 2)])
+@pytest.mark.parametrize("layout", ["r", "t"])
+def test_cuda_microbench_bwd_tiles_and_ranges(cuda, layout, be, grid):
+    """T2/T4 on one tile, on a chunk of 5 tiles and on 33 tiles, with one
+    or a few steps (step ranges of one step each), f32 against plain."""
+    from nequip_tpu_torch.ops.kernels import microbench as MB
+
+    plan, ops = _microbench_ops(cuda, torch.float32, be=be)
+    for a, b in zip(MB.chunk_bwd(plan, ops, grid, layout), MB.chunk_bwd_plain(plan, ops, layout)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
 # (dtype, row width): row bytes 1152, 24, 28, 576, 14, 7, 576 and 2304 take
 # 16-, 8-, 4-, 16-, 2-, 1-, 16- and 16-byte units
 GATHER_ROWS = [(torch.float32, 288), (torch.float32, 6), (torch.float32, 7), (torch.bfloat16, 288),
