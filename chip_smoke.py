@@ -161,6 +161,21 @@ Phases (each prints a line; any failure exits non-zero):
      tp_impl="fused": served against torch with K4, K5 and K3 launched and
      K1 not, then packaged and compiled through the registered ops
      nequip_torch::tri_fwd / tri_bwd against eager at phase 11's gates.
+ 15. the rest of training: 15a the optimizer golden
+     (tests/data/torch_port_optim_golden.npz: a small all-trainable model
+     on the 108-atom frame, 3 steps each of ConFIG with pinv, EMA-ConFIG
+     with least squares, whose steps ConFIG with lsqr=True repeats, Muon +
+     Adam, schedule-free with a 2-step warmup, Adam with eps_root and Adam
+     under a warmup-cosine schedule) in f64 through the kernels: weights
+     and evaluation weights within 1e-8 of max (Muon + Adam 1e-5), the rr
+     training kernels launched; 15b Trainer.fit of the flagship in f32
+     with tp_impl="fused" for 2 epochs on phase 6's data with EMA-ConFIG
+     (lsqr), Muon + Adam and schedule-free, then Muon + Adam in fr over 4
+     slices: step times, peaks and launches (K1, K2-train, the dW
+     reduction, K3, K4 and K5 in rr; K3, K4-acc, K5, K6 and K7 in fr),
+     finite losses; 15c ConFIG's k gradients from one graph against k
+     separate passes, and its final gradient against tp_impl="torch", on
+     phase 6's first batch (1e-4 of max).
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -2687,6 +2702,204 @@ def phase14_options(smi: str) -> dict:
     return out
 
 
+OPTIM_GOLDEN = ROOT / "tests" / "data" / "torch_port_optim_golden.npz"
+OPTIM_GOLDEN_TOL = 1e-8  # of max |p| per tensor (f64)
+MUON_GOLDEN_TOL = 1e-5  # Muon's Newton-Schulz runs in float32 on both sides
+OPTIM_GOLDEN_STEPS = 3
+# 15a: every case of the golden, and ConFIG with lsqr=True from EMA-ConFIG's steps (the EMA leaves the weights alone)
+OPTIM_GOLDEN_RUNS = (("config_pinv", None), ("ema_config_lsqr", None), ("ema_config_lsqr", "ConFIGTrainModule"),
+                     ("muon_adam", None), ("schedule_free", None), ("adam_eps_root", None),
+                     ("adam_warmup_cosine", None))
+MODULES_TOL = 1e-4  # 15c: of max |g|, f32
+
+
+def optim_golden_case(z, name: str, device: str, module_name=None):
+    """Three steps of one case of tests/data/torch_port_optim_golden.npz
+    through the port's kernels (``tp_impl="fused"``): the model's tensors
+    after them, and the evaluation model's when it is another (EMA,
+    schedule-free), by JAX dotted path."""
+    from nequip_tpu_torch import train as port_train
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up
+    from nequip_tpu_torch.data import to_tensors
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.model import load_jax_params
+    from nequip_tpu_torch.utils.config import instantiate, retarget
+
+    case = json.loads(str(z["cases"]))[name]
+    kwargs = dict(case["kwargs"])
+    if module_name is not None:
+        kwargs.pop("ema_decay", None)
+    model = instantiate(dict(retarget(json.loads(str(z["config"]))), tp_impl="fused"), _recursive_=False)
+    load_jax_params(model, {k[len("init/"):]: z[k] for k in z.files if k.startswith("init/")})
+    module = getattr(port_train, module_name or case["module"])(
+        model, loss=port_train.EnergyForceLoss(type_names=["Cu"]), optimizer=retarget(case["optimizer"]),
+        device=device, **kwargs)
+    frame = {k: z[k] for k in ("pos", "cell", "pbc", "atomic_numbers", "total_energy", "forces")}
+    data = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame)), 4.0)
+    batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(data["edge_index"].shape[1], 256), 2),
+                       device)
+    coeffs = module.loss.coeff_vector()
+    for _ in range(OPTIM_GOLDEN_STEPS):
+        module.training_step(batch, coeffs)
+    host = lambda m: {k: t.detach().cpu().numpy() for k, t in m.jax_named_tensors()}  # noqa: E731
+    evaluation = module.evaluation_model()
+    return host(module.model), None if evaluation is module.model else host(evaluation)
+
+
+def optim_golden_errors(z, name: str, params: dict, evaluation) -> tuple:
+    """Largest per-tensor max |diff| / max |golden| of the weights and of the
+    evaluation weights (0 without them) against the golden's."""
+    def err(got, prefix):
+        want = {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)}
+        if set(got) != set(want):
+            raise RuntimeError(f"{name}: tensors {sorted(set(got) ^ set(want))} are not in both")
+        return max(float(np.abs(got[k] - want[k]).max()) / max(float(np.abs(want[k]).max()), 1e-300) for k in want)
+
+    return err(params, f"{name}/params/"), 0.0 if evaluation is None else err(evaluation, f"{name}/eval/")
+
+
+def phase15a_golden(smi: str) -> None:
+    """The optimizer golden's cases in f64 through the kernels."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    if not OPTIM_GOLDEN.exists():
+        raise RuntimeError(f"phase 15a: golden file {OPTIM_GOLDEN} is missing")
+    z = np.load(OPTIM_GOLDEN)
+    for name, module_name in OPTIM_GOLDEN_RUNS:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, evaluation = optim_golden_case(z, name, "cuda", module_name)
+        torch.cuda.synchronize()
+        p_err, e_err = optim_golden_errors(z, name, params, evaluation)
+        tol = MUON_GOLDEN_TOL if name == "muon_adam" else OPTIM_GOLDEN_TOL
+        label = name if module_name is None else f"{name} as {module_name}"
+        print(f"phase 15a optimizer golden {label} (f64, kernels, {smi}): {OPTIM_GOLDEN_STEPS} steps in "
+              f"{time.perf_counter() - t0:.2f} s, weights max err / max|p| {p_err:.3e}, evaluation weights "
+              f"{e_err:.3e} (gate {tol:g}); launches {_launches()}", flush=True)
+        if not all(K.KERNELS[k].launches for k in TRAINING_KERNELS):
+            raise RuntimeError(f"phase 15a: {label} did not launch every rr training kernel")
+        if not (p_err <= tol and e_err <= tol):
+            raise RuntimeError(f"phase 15a: the port's {label} disagrees with the JAX golden")
+    torch.cuda.empty_cache()
+
+
+def _config_direction_inputs(module, batch):
+    import torch
+
+    A_raw, _, _ = module.component_grads(batch)
+    b = torch.tensor([module.loss.coeffs[module.loss.entries[i]["name"]] for i in module._component_index],
+                     dtype=A_raw.dtype, device=A_raw.device)
+    return A_raw, b
+
+
+def phase15c_second_pass(smi: str, dm) -> None:
+    """ConFIG's k gradients from one graph against k separate passes, and
+    its final gradient through the kernels against tp_impl="torch", on
+    phase 6's first batch at full width, f32."""
+    import torch
+
+    from nequip_tpu_torch.data import DataLoader
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.train import ConFIGTrainModule, EnergyForceLoss
+    from nequip_tpu_torch.train.config_module import config_direction
+
+    first = next(iter(DataLoader(dm.datasets["train"][0], batch_size=1, shuffle=True, seed=dm.seed, device="cuda")))
+    modules = {}
+    for impl in ("fused", "torch"):
+        model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=impl, **FLAGSHIP).to("cuda")
+        modules[impl] = ConFIGTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), lsqr=True)
+    fused = modules["fused"]
+    names = [fused.loss.entries[i]["name"] for i in fused._component_index]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A_one, b = _config_direction_inputs(fused, first)
+    torch.cuda.synchronize()
+    one_ms, one_peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2**30
+    params = [p for _, p in fused.named_trainable()]
+    pass_err = 0.0
+    for i, name in enumerate(names):
+        out = fused.model(fused._prepare(first))
+        _, values = fused.loss.values(fused.loss.batch_state(out, first))
+        row = torch.cat([g.reshape(-1) for g in torch.autograd.grad(values[name], params)])
+        pass_err = max(pass_err, float((A_one[i] - row).abs().max()) / float(row.abs().max()))
+        del out, values, row
+    flat = config_direction(A_one, b)
+    A_torch, _ = _config_direction_inputs(modules["torch"], first)
+    flat_torch = config_direction(A_torch, b)
+    final_err = float((flat - flat_torch).abs().max()) / float(flat_torch.abs().max())
+    print(f"phase 15c ConFIG second pass ({smi}, f32, {len(names)} components {names}): one graph with retain_graph "
+          f"{one_ms:.1f} ms, max_memory_allocated {one_peak:.3f} GiB; against separate passes max err / max|g| "
+          f"{pass_err:.3e}; final gradient fused vs torch {final_err:.3e} (gate {MODULES_TOL:g})", flush=True)
+    if not (pass_err <= MODULES_TOL and final_err <= MODULES_TOL):
+        raise RuntimeError("phase 15c: ConFIG's second pass or its fused gradient disagrees")
+    del modules, fused, A_one, A_torch
+    torch.cuda.empty_cache()
+
+
+def phase15b_fit(smi: str, dm, rr: dict) -> dict:
+    """Trainer.fit of the flagship at full width (f32, fused) with
+    EMA-ConFIG, Muon + Adam and schedule-free, then Muon + Adam under fr
+    over N_CHUNKS edge slices; step times, peaks, launches and losses."""
+    import torch
+
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch import train as port_train
+
+    adam = {"_target_": "optax.adam", "learning_rate": 1e-3}
+    muon = {"_target_": "nequip_tpu_torch.train.muon_adam", "muon_lr": 0.02, "adam_lr": 1e-3}
+    runs = (("ema_config", "EMAConFIGTrainModule", adam, dict(lsqr=True)),
+            ("muon_adam", "NequIPTrainModule", muon, {}),
+            ("schedule_free", "ScheduleFreeTrainModule", adam, dict(warmup_steps=2)),
+            ("muon_adam_fr", "NequIPTrainModule", muon, dict(force_grad_mode="fr", fr_edge_chunks=N_CHUNKS)))
+    out = {}
+    for label, cls, optimizer, kwargs in runs:
+        model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP).to("cuda")
+        module = getattr(port_train, cls)(model, loss=port_train.EnergyForceLoss(type_names=["Cu"]),
+                                          val_metrics=port_train.EnergyForceMetrics(), optimizer=optimizer, **kwargs)
+        trainer = port_train.Trainer(max_epochs=2, ckpt_dir=str(ROOT / "chiprun_out" / f"chip_smoke_{label}"),
+                                     save_last=False, save_best=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        trainer.fit(module, dm)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = np.asarray(trainer.step_seconds[1:]) * 1e3
+        print(f"phase 15b {label} ({cls}, {smi}): first step {trainer.step_seconds[0] * 1e3:.1f} ms, later steps "
+              f"median {np.median(steps):.1f} ms (min {steps.min():.1f}, max {steps.max():.1f}), "
+              f"max_memory_allocated {peak:.3f} GiB; Adam rr (phase 6): median {rr['median_ms']:.1f} ms, "
+              f"{rr['peak_gib']:.3f} GiB", flush=True)
+        for row in trainer.metrics_rows:
+            print(f"phase 15b {label} epoch {row['epoch']}: train loss {row['train_loss_epoch/weighted_sum']:.6e}, "
+                  f"val loss {row['val0_epoch/weighted_sum']:.6e}", flush=True)
+        print(f"phase 15b {label} launches {launches}", flush=True)
+        for name in FR_CHUNKED_KERNELS if label.endswith("_fr") else TRAINING_KERNELS:
+            if launches[name] == 0:
+                raise RuntimeError(f"phase 15b: kernel {name} was not launched by {label}")
+        _check_fit(f"phase 15b {label}", trainer, 2)
+        out[label] = dict(median_ms=float(np.median(steps)), peak_gib=peak, launches=launches)
+        del module, model, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase15_train_modules(smi: str, dm, rr: dict) -> dict:
+    """Phase 15: ConFIG, Muon, schedule-free and the other optimizers and
+    schedules against the JAX goldens (15a), at full width (15b) and
+    ConFIG's second pass (15c)."""
+    t0 = time.perf_counter()
+    phase15a_golden(smi)
+    out = phase15b_fit(smi, dm, rr)
+    phase15c_second_pass(smi, dm)
+    print(f"phase 15 {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2701,7 +2914,6 @@ def main() -> int:
     rr_launches, dm, rr = phase6_train(smi)
     fr_launches = phase7_train_fr(smi, dm, rr)
     lj_frames = dm.datasets["train"][0].dataset.frames  # phase 6's three LJ frames, for phase 13
-    del dm
     report.update(phase8a_microbench(smi))
     report["row_gather"] = phase8b_gather(smi)
     mb_launches = phase8c_tools()
@@ -2712,6 +2924,8 @@ def main() -> int:
     phase13_files(smi, lj_frames, rr)
     del lj_frames
     phase14_options(smi)
+    phase15_train_modules(smi, dm, rr)
+    del dm
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

@@ -10,6 +10,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "cp_async.cuh"
 #include "tp_common.cuh"
 
@@ -154,11 +156,14 @@ inline cudaError_t smem_limits(SmemLimits& out) {
 }
 
 // The persistent grid of `kernel` at `threads` threads and `smem` bytes of
-// dynamic shared memory: SMs x resident blocks.  Set up once per thread,
-// kernel, device and size (a model has a few layer shapes), so a repeat
-// launch makes no other CUDA call.  The kernel's shared-memory opt-in is
-// the largest size asked of it so far, so no size set later can refuse a
-// size cached before.
+// dynamic shared memory: SMs x resident blocks.  Set up once per kernel,
+// device and size (a model has a few layer shapes), so a repeat launch
+// makes no other CUDA call.  The kernel's shared-memory opt-in is the
+// largest size asked of it so far, so no size set later can refuse a size
+// cached before.  The opt-in is the process's, so the cache is too: a
+// thread of its own (autograd's backward thread launches the forward
+// kernels under remat) would set a smaller opt-in than another thread's
+// cached sizes need, and their next launch would be refused.
 template <typename Kernel>
 inline cudaError_t persistent_grid(Kernel kernel, int threads, int dev, size_t smem, int& grid) {
   struct Entry {
@@ -167,8 +172,10 @@ inline cudaError_t persistent_grid(Kernel kernel, int threads, int dev, size_t s
     size_t smem = 0;
   };
   constexpr int kEntries = 16;
-  static thread_local Entry cache[kEntries];
-  static thread_local int next = 0;
+  static Entry cache[kEntries];
+  static int next = 0;
+  static std::mutex mutex;
+  const std::lock_guard<std::mutex> lock(mutex);
   const void* fn = reinterpret_cast<const void*>(kernel);
   size_t opted = 0;  // the opt-in set for this kernel and device, as far as the cache knows
   for (const Entry& g : cache) {

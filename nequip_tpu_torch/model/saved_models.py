@@ -4,7 +4,8 @@ Port of ``nequip_tpu/model/saved_models.py``:
 
 * ``ModelFromCheckpoint``: a checkpoint of ``nequip-torch-train``
   (``train/checkpoint.py``): the model is rebuilt from the training module's
-  model config and takes the EMA weights when the checkpoint has them;
+  model config and takes the evaluation weights (EMA, or schedule-free's)
+  when the checkpoint has them;
 * ``ModelFromPackage``: a ``nequip-torch-package`` archive, or one that the
   JAX package's ``nequip-package`` wrote: its ``model_config.json`` is
   retargeted to the port (``utils.config.retarget``) and its ``params.pkl``
@@ -45,14 +46,16 @@ def _training_config(payload: dict, path: str) -> dict:
 
 
 def ModelFromCheckpoint(ckpt_path: str, use_ema: bool = True):
-    """The model of a ``nequip-torch-train`` checkpoint, with its EMA weights
-    when it has them and ``use_ema`` (what evaluation ran)."""
+    """The model of a ``nequip-torch-train`` checkpoint, with its evaluation
+    weights (EMA, or schedule-free's ``x``) when it has them and ``use_ema``
+    (what evaluation ran)."""
     from ..train.checkpoint import load_checkpoint
 
     payload = load_checkpoint(ckpt_path)
     model = instantiate(_training_config(payload, ckpt_path)["training_module"]["model"], _recursive_=False)
     state = payload["state"]
-    return load_jax_params(model, state["ema_params"] if use_ema and "ema_params" in state else state["params"])
+    evaluation = next((state[k] for k in ("ema_params", "eval_params") if k in state), None)
+    return load_jax_params(model, evaluation if use_ema and evaluation is not None else state["params"])
 
 
 def is_package(path: str) -> bool:

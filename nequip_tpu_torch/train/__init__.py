@@ -1,8 +1,6 @@
-"""Training: loss and metrics, EMA, LR schedulers, checkpoints, the rr and
-fr training modules, the trainer and its callbacks.
-
-The JAX package's ConFIG and schedule-free training modules are not ported
-yet: their names raise ``NotImplementedError`` when a config builds them.
+"""Training: loss and metrics, EMA, LR schedulers (epoch and per-step),
+optimizers (Adam, AdamW, SGD, Muon), checkpoints, the rr and fr training
+modules, ConFIG and schedule-free, the trainer and its callbacks.
 """
 
 from . import callbacks
@@ -28,28 +26,30 @@ from .metrics_manager import (
     EnergyForceStressMetrics,
     MetricsManager,
 )
+from .config_module import (
+    ConFIGLightningModule,
+    ConFIGTrainModule,
+    EMAConFIGLightningModule,
+    EMAConFIGTrainModule,
+)
+from .muon import muon, muon_adam, zeropower_via_newtonschulz5
+from .schedulefree import ScheduleFreeLightningModule, ScheduleFreeTrainModule
 from .trainer import Trainer
 from .training_module import EMATrainModule, NequIPTrainModule
 
-
-def _not_ported(name: str, source: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"{name} ({source} in the JAX package) is not ported yet")
-
-    build.__name__ = name
-    return build
-
-
-ConFIGTrainModule = _not_ported("ConFIGTrainModule", "train/config_module.py")
-EMAConFIGTrainModule = _not_ported("EMAConFIGTrainModule", "train/config_module.py")
-ScheduleFreeTrainModule = _not_ported("ScheduleFreeTrainModule", "train/schedulefree.py")
+# the reference's class names
+NequIPLightningModule = NequIPTrainModule
+EMALightningModule = EMATrainModule
 
 __all__ = [
     "ChainedScheduler",
+    "ConFIGLightningModule",
     "ConFIGTrainModule",
     "ConstantLR",
     "CosineAnnealingLR",
+    "EMAConFIGLightningModule",
     "EMAConFIGTrainModule",
+    "EMALightningModule",
     "EMATrainModule",
     "EnergyForceLoss",
     "EnergyForceMetrics",
@@ -60,8 +60,10 @@ __all__ = [
     "LinearLR",
     "MetricsManager",
     "MultiStepLR",
+    "NequIPLightningModule",
     "NequIPTrainModule",
     "ReduceLROnPlateau",
+    "ScheduleFreeLightningModule",
     "ScheduleFreeTrainModule",
     "SequentialLR",
     "StepLR",
@@ -71,5 +73,8 @@ __all__ = [
     "ema_update",
     "format_version",
     "load_checkpoint",
+    "muon",
+    "muon_adam",
     "save_checkpoint",
+    "zeropower_via_newtonschulz5",
 ]

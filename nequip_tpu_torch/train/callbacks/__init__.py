@@ -1,5 +1,4 @@
-"""Training callbacks.  ``WandbWatch`` is not ported (``wandb`` is not
-installed): building it raises."""
+"""Training callbacks (the JAX package's ``train/callbacks``)."""
 
 from .base import Callback
 from .loss_coeff_monitor import LossCoefficientMonitor
@@ -7,13 +6,8 @@ from .loss_coeff_scheduler import LinearLossCoefficientScheduler, LossCoefficien
 from .softadapt import SoftAdapt
 from .tf32_scheduler import TF32Scheduler
 from .training_stats import TrainingStatsMonitor
+from .wandb_watch import WandbWatch
 from .write_xyz import TestTimeXYZFileWriter
-
-
-
-class WandbWatch(Callback):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("WandbWatch (train/callbacks/wandb_watch.py in the JAX package) is not ported yet")
 
 
 __all__ = [

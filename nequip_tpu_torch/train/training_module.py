@@ -1,9 +1,9 @@
 """Training modules: a model, its loss and metrics, and its optimizer.
 
 Port of ``nequip_tpu/train/training_module.py`` in PyTorch's idiom: the
-model is an ``nn.Module`` updated in place by a ``torch.optim.Adam``
-(``optax.adam``'s update: the same bias correction, ``eps`` added to the
-bias-corrected root of the second moment), and a step is
+model is an ``nn.Module`` updated in place by a torch optimizer (for
+``optax.adam`` a ``torch.optim.Adam``: the same bias correction, ``eps``
+added to the bias-corrected root of the second moment), and a step is
 
     out = model(batch)            # forces = -dE/dpos with create_graph=True
     loss = loss_manager(out, batch)
@@ -39,8 +39,18 @@ update.  ``gradient_clip_val`` clips by the global norm as
 ``optax.clip_by_global_norm`` does (``g / ||g|| * c`` when ``||g|| >= c``, no
 epsilon), over the trainable parameters only (the JAX module's norm also
 counts its frozen leaves' gradients).
-Not ported yet: per-step optax schedules as ``lr_scheduler``, optimizers
-other than Adam, multi-model modules.
+
+The optimizer config is the JAX package's (``optax.adam``, ``optax.adamw``,
+``optax.sgd``, ``muon``/``muon_adam``; ``optim.py``), with ``param_groups``
+(``[{paths: [dotted prefix, ...], <overrides>}, ...]``, first match wins):
+each group's merged config builds its own torch groups.  A per-step optax
+schedule as ``lr_scheduler`` (``{_target_: optax.<schedule>, ...}``,
+``schedules.py``) multiplies update ``count`` (0 first) by its value, on
+top of the epoch scale; the module sets every group's rate to its base rate
+times both before each update.  A mapping ``name -> model config`` as
+``model`` builds ``models`` (one ``type_names``); ``model`` is the first,
+the state holds every model's tensors by name, and the training step
+refuses, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -61,31 +71,15 @@ from ..utils.device import resolve_device
 from .ema import ema_update
 from .lr_scheduler import LRScheduler, build_scheduler
 from .metrics_manager import MetricsManager
+from .optim import build_optimizer, param_groups
+from .schedules import build_step_schedule
 
-_ADAM_NAMES = ("optax.adam", "torch.optim.Adam", "adam")
+# the reference's single-model key (the JAX package's SOLE_MODEL_KEY)
+SOLE_MODEL_KEY = "sole_model"
 
 
 def _path_matches(path: str, patterns: Sequence[str]) -> bool:
     return any(path == p or path.startswith(p + ".") for p in patterns)
-
-
-def _adam_kwargs(cfg: dict) -> dict:
-    """torch.optim.Adam arguments from an optax.adam-style or torch-style dict."""
-    cfg = dict(cfg)
-    target = cfg.pop("_target_", "adam")
-    if target not in _ADAM_NAMES:
-        raise NotImplementedError(f"optimizer {target!r} is not ported; Adam is ({', '.join(_ADAM_NAMES)})")
-    out = {"lr": float(cfg.pop("learning_rate", cfg.pop("lr", 1e-3)))}
-    if "betas" in cfg:
-        out["betas"] = tuple(cfg.pop("betas"))
-    elif "b1" in cfg or "b2" in cfg:
-        out["betas"] = (float(cfg.pop("b1", 0.9)), float(cfg.pop("b2", 0.999)))
-    out["eps"] = float(cfg.pop("eps", 1e-8))
-    if cfg.pop("eps_root", 0.0):
-        raise NotImplementedError("Adam with eps_root != 0 is not ported")
-    if cfg:
-        raise ValueError(f"unknown optimizer arguments {sorted(cfg)}")
-    return out
 
 
 def named_tensors_cpu(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -156,18 +150,19 @@ class NequIPTrainModule:
     ):
         if force_grad_mode not in ("rr", "fr"):
             raise ValueError(f"force_grad_mode must be 'rr' or 'fr', got {force_grad_mode!r}")
-        if isinstance(model, dict) and "_target_" not in model:
-            raise NotImplementedError("multi-model training modules (a mapping of name -> model) are not ported")
         self.device = resolve_device(device)
         self.model_config = model if isinstance(model, dict) else None
-        if isinstance(model, dict):
-            # not recursive: the model function builds its nested configs itself
-            model = instantiate(model, _recursive_=False)
+        if isinstance(model, dict) and "_target_" not in model:
+            # each model keeps the weights of its own seed
+            self.models = {name: self._build_model(m, None) for name, m in model.items()}
+        else:
+            self.models = {SOLE_MODEL_KEY: self._build_model(model, seed)}
+        if len({tuple(getattr(m, "type_names", None) or ()) for m in self.models.values()}) != 1:
+            raise ValueError("the models of a training module must have the same type_names")
+        # the sole or first model: the one the steps and evaluation run
+        model = next(iter(self.models.values()))
         model_seed = getattr(model, "model_config", {}).get("seed", 0)
         self.seed = int(seed) if seed is not None else model_seed
-        if self.seed != model_seed:  # the JAX module draws the weights from its own seed
-            init_weights(model, self.seed)
-        model = model.to(self.device)
         if fr_edge_chunks != 0 and (force_grad_mode != "fr" or not isinstance(fr_edge_chunks, int)
                                     or fr_edge_chunks < 2):
             raise ValueError("fr_edge_chunks requires force_grad_mode='fr' and an int >= 2 (0 turns it off)")
@@ -190,54 +185,84 @@ class NequIPTrainModule:
         self.optimizer_config = optimizer
         self.optimizer = self._build_optimizer(optimizer or {"_target_": "optax.adam", "learning_rate": 1e-3})
         self._base_lrs = [g["lr"] for g in self.optimizer.param_groups]
+        self._lr_scale = 1.0
+        self.update_count = 0  # optimizer updates so far: the per-step schedule's count
         self.gradient_clip_val = None if gradient_clip_val is None else float(gradient_clip_val)
 
         self.lr_scheduler_config = lr_scheduler
         self.lr_scheduler_obj: Optional[LRScheduler] = None
         self.lr_monitor: Optional[str] = None
         self.lr_frequency = 1
+        self._step_schedule = None
         if isinstance(lr_scheduler, dict) and "scheduler" in lr_scheduler:
             if lr_scheduler.get("interval", "epoch") != "epoch":
-                raise NotImplementedError("lr_scheduler interval 'step' is not ported; the epoch form is")
+                raise ValueError(
+                    "an lr_scheduler with a 'scheduler' entry steps at epoch ends (interval: epoch), as in the JAX "
+                    "package; a per-step schedule is an optax schedule given as lr_scheduler itself, e.g. "
+                    "{_target_: optax.warmup_cosine_decay_schedule, ...}"
+                )
             self.lr_scheduler_obj = build_scheduler(lr_scheduler["scheduler"])
             self.lr_monitor = lr_scheduler.get("monitor")
             self.lr_frequency = int(lr_scheduler.get("frequency", 1))
         elif lr_scheduler is not None:
-            raise NotImplementedError(
-                "a per-step optax schedule as lr_scheduler is not ported; use the epoch form "
-                "{scheduler: ..., monitor: ..., interval: epoch, frequency: N}"
-            )
+            self._step_schedule = build_step_schedule(lr_scheduler)
         self.loss_state = self.loss.init_state() if self.loss is not None else None
 
+    def _build_model(self, model, seed: Optional[int]) -> torch.nn.Module:
+        if isinstance(model, dict):
+            # not recursive: the model function builds its nested configs itself
+            model = instantiate(model, _recursive_=False)
+        if seed is not None and int(seed) != getattr(model, "model_config", {}).get("seed", 0):
+            init_weights(model, int(seed))  # the JAX module draws the weights from its own seed
+        return model.to(self.device)
+
     # --- parameters and optimizer ----------------------------------------
+    def named_tensors(self) -> List[tuple]:
+        """Every model tensor by JAX dotted path (under the model's name
+        when the module holds several)."""
+        if len(self.models) == 1:
+            return list(self.model.jax_named_tensors())
+        return [(f"{name}.{k}", t) for name, m in self.models.items() for k, t in m.jax_named_tensors()]
+
     def named_trainable(self) -> List[tuple]:
-        return [(k, t) for k, t in self.model.jax_named_tensors() if isinstance(t, torch.nn.Parameter) and t.requires_grad]
+        return [(k, t) for k, t in self.named_tensors() if isinstance(t, torch.nn.Parameter) and t.requires_grad]
 
     @property
     def frozen_paths(self) -> List[str]:
         trainable = {k for k, _ in self.named_trainable()}
-        return sorted(k for k, _ in self.model.jax_named_tensors() if k not in trainable)
+        return sorted(k for k, _ in self.named_tensors() if k not in trainable)
 
-    def _build_optimizer(self, cfg: dict) -> torch.optim.Optimizer:
+    def _build_optimizer(self, cfg: dict):
+        """One optimizer over the trainable parameters: the base config's
+        groups, and each ``param_groups`` entry's (its ``paths``' parameters,
+        the first matching entry winning) from the base config updated by
+        the entry."""
         cfg = dict(cfg)
-        group_cfgs = [dict(g) for g in cfg.pop("param_groups", None) or []]
-        base = _adam_kwargs(cfg)
-        groups: List[Dict] = [{"params": [], **base}]
-        for g in group_cfgs:  # first matching group wins; the rest take the base config
-            paths = tuple(g.pop("paths"))
-            groups.append({"params": [], "paths": paths, **_adam_kwargs({**cfg, **g})})
+        entries = [dict(g) for g in cfg.pop("param_groups", None) or []]
+        paths = [tuple(g.pop("paths")) for g in entries]
+        members: List[List[torch.Tensor]] = [[] for _ in range(len(entries) + 1)]
         for path, p in self.named_trainable():
-            target = next((g for g in groups[1:] if _path_matches(path, g["paths"])), groups[0])
-            target["params"].append(p)
-        groups = [{k: v for k, v in g.items() if k != "paths"} for g in groups if g["params"]]
-        return torch.optim.Adam(groups, foreach=False)
+            members[next((i + 1 for i, ps in enumerate(paths) if _path_matches(path, ps)), 0)].append(p)
+        specs = [cfg] + [{**cfg, **g} for g in entries]
+        return build_optimizer([group for spec, ps in zip(specs, members) for group in param_groups(spec, ps)])
 
     def set_lr_scale(self, scale: float) -> None:
-        """Every group's rate becomes its base rate times ``scale`` rounded to
-        float32 (the JAX trainer's scale, which multiplies Adam's update)."""
-        scale = float(np.float32(scale))
+        """Set the epoch LR scale, rounded to float32 (the JAX trainer's
+        scale, which multiplies the update)."""
+        self._lr_scale = float(np.float32(scale))
+        self._set_rates()
+
+    def _rate_factor(self) -> float:
+        """What every group's base rate is multiplied by for the next update."""
+        factor = self._lr_scale
+        if self._step_schedule is not None:
+            factor = factor * float(self._step_schedule(self.update_count))
+        return factor
+
+    def _set_rates(self) -> None:
+        factor = self._rate_factor()
         for g, base in zip(self.optimizer.param_groups, self._base_lrs):
-            g["lr"] = base * scale
+            g["lr"] = base * factor
 
     def lr_scheduler_epoch_end(self, epoch: int, metrics: Dict[str, float]) -> Optional[float]:
         """Step the epoch scheduler; the new LR scale, or None without one."""
@@ -304,18 +329,35 @@ class NequIPTrainModule:
     def training_step(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None) -> Dict[str, torch.Tensor]:
         """One step on a padded batch (``force_grad_mode``); returns the
         step's loss values."""
+        self._check_sole_model()
         self.optimizer.zero_grad(set_to_none=True)
         if self.force_grad_mode == "fr":
             loss, bs, values = self.compute_grads_fr(batch, loss_coeffs)
         else:
             loss, bs, values = self.compute_loss(batch, loss_coeffs)
             loss.backward()
+        return self._apply_update(bs, values)
+
+    def _check_sole_model(self) -> None:
+        if len(self.models) > 1:
+            raise RuntimeError("the training step serves the sole model; a module of several models needs a "
+                               "step of its own, as in the JAX package")
+
+    def _apply_update(self, bs, values) -> Dict[str, torch.Tensor]:
+        """The global-norm clip, the optimizer's update, the running loss
+        sums and the post-update hook, on the gradients in ``.grad``."""
         if self.gradient_clip_val is not None:
             clip_grad_global_norm_([p for _, p in self.named_trainable()], self.gradient_clip_val)
-        self.optimizer.step()
+        self._optimizer_step()
         self.loss_state = self.loss.accumulate(self.loss_state, bs)
         self._post_optimizer_step()
         return {f"train_loss_step/{k}": v.detach() for k, v in values.items()}
+
+    def _optimizer_step(self) -> None:
+        if self._step_schedule is not None:
+            self._set_rates()
+        self.optimizer.step()
+        self.update_count += 1
 
     def _post_optimizer_step(self) -> None:
         pass
@@ -339,7 +381,9 @@ class NequIPTrainModule:
     def hyperparameters(self) -> dict:
         """The module's resolved config, which a checkpoint stores."""
         return {
-            "model": self.model_config or dict(getattr(self.model, "model_config", {})),
+            "model": self.model_config or (
+                dict(getattr(self.model, "model_config", {})) if len(self.models) == 1
+                else {name: dict(getattr(m, "model_config", {})) for name, m in self.models.items()}),
             **self.metric_configs,
             "optimizer": self.optimizer_config,
             "lr_scheduler": self.lr_scheduler_config,
@@ -351,17 +395,28 @@ class NequIPTrainModule:
         }
 
     def state_dict(self) -> Dict[str, Any]:
-        """Model tensors by JAX dotted path, optimizer state and running
+        """Model tensors by JAX dotted path (by model name first when the
+        module holds several), optimizer state, update count and running
         loss sums, on the CPU."""
+        if len(self.models) == 1:
+            params = named_tensors_cpu(self.model)
+        else:
+            params = {name: named_tensors_cpu(m) for name, m in self.models.items()}
         return {
-            "params": named_tensors_cpu(self.model),
+            "params": params,
             "optimizer": self.optimizer.state_dict(),
+            "update_count": self.update_count,
             "loss_state": self.loss_state,
         }
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        load_jax_params(self.model, sd["params"])
+        if len(self.models) == 1:
+            load_jax_params(self.model, sd["params"])
+        else:
+            for name, m in self.models.items():
+                load_jax_params(m, sd["params"][name])
         self.optimizer.load_state_dict(sd["optimizer"])
+        self.update_count = int(sd.get("update_count", 0))
         self.loss_state = sd["loss_state"]
 
 

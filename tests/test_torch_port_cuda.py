@@ -243,6 +243,50 @@ def test_cuda_conv_bwd_dense_tiles(cuda, case, name, dtype):
         assert not a[n_real:].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv_fwd", "conv_bwd_train"])
+def test_cuda_smem_opt_in_holds_across_threads(cuda, name):
+    """A kernel launched from another thread at a smaller shared-memory size
+    (autograd's backward thread launches K1 under remat, and K2 always)
+    leaves the larger sizes this thread launched before launchable: the
+    kernel's opt-in and the cache of launch geometry are the process's."""
+    import threading
+
+    def case(kind, seed):
+        plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, cuda, torch.float32)
+        r = np.random.RandomState(seed)
+        lay, n_slots = _tile_stream([18] * 10 + [7], cuda, r)
+        t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=torch.float32, device=cuda)  # noqa: E731
+        args = (plan, t(11, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+                t(hidden, plan.weight_numel), a0, a1, lay)
+        if name == "conv_bwd_train":
+            args = args + (t(11, plan.mid_dim),)
+        run = lambda: getattr(K, name)(*args)  # noqa: E731
+        return run, getattr(K, name + "_plain")(*args)
+
+    def check(got, want):
+        for a, b in zip(*((got, want) if isinstance(want, tuple) else ((got,), (want,)))):
+            rtol, atol = _tol(torch.float32, b)
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+
+    # one kernel instance (K1 and K2 take 32-edge tiles at both widths), two shared-memory sizes
+    big, big_want = case("flagship1", 1)
+    small, small_want = case("small", 2)
+    first = big()
+    torch.cuda.synchronize()
+    check(first, big_want)
+    out = {}
+    worker = threading.Thread(target=lambda: out.update(small=small()))
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and "small" in out
+    torch.cuda.synchronize()
+    check(out["small"], small_want)
+    again = big()
+    torch.cuda.synchronize()
+    check(again, big_want)
+
+
 def _tri_operands(kind, device, dtype, degrees, seed):
     """(plan, layout, n_real, x, tx, sh, tsh, w, dw, g, gt) on the stream of
     ``degrees`` for K5 and K7: node rows and per-slot rows, random."""

@@ -11,7 +11,9 @@ bucket ladder, the named data modules, the transforms) and a model with the
 ZBL prior, the model builder's options (a preset with the norm
 nonlinearity, a categorical embedding, trainable leaves and remat; a
 depth-2 radial MLP on the K4 route; the shipped model suite and its
-assertion library) load neither JAX, nor optax or flax, nor the JAX package
+assertion library), a step of ConFIG (AdamW) and of schedule-free (Muon +
+Adam under a per-step cosine schedule) and ``WandbWatch`` without
+``wandb`` load neither JAX, nor optax or flax, nor the JAX package
 (the GPU machine has none of them), and import neither ``h5py`` nor ``lmdb`` until a
 dataset that reads them is built."""
 
@@ -124,6 +126,21 @@ small = compute_neighborlist_(from_dict({"pos": pos + 0.05, "cell": np.eye(3) * 
 assert_permutation_equivariant(preset, small, capacities=(8, 256, 2))
 assert_permutation_equivariant(depth2, small, capacities=(8, 256, 2))
 options_ok = [m.route for m in depth2.modules() if hasattr(m, "route")] == ["fused_tp", "fused_tp"]
+from nequip_tpu_torch.data import DataLoader
+from nequip_tpu_torch.train import ConFIGTrainModule, ScheduleFreeTrainModule, callbacks
+lj = LJTestDataset(num_frames=1, seed=1, transforms=[T.ChemicalSpeciesToAtomTypeMapper(["Cu"]), T.NeighborListTransform(4.0)])
+lj_batch = next(iter(DataLoader(lj, batch_size=1, device="cpu")))
+train_modules_ok = True
+for cls, kw in ((ConFIGTrainModule, dict(optimizer={"_target_": "optax.adamw", "learning_rate": 1e-3})),
+                (ScheduleFreeTrainModule, dict(optimizer={"_target_": "nequip_tpu_torch.train.muon_adam"},
+                                               lr_scheduler={"_target_": "optax.schedules.cosine_decay_schedule",
+                                                             "init_value": 1.0, "decay_steps": 4}))):
+    m = cls(NequIPGNNModel(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=1, l_max=1,
+                           parity=False, num_features=4, radial_mlp_width=8, avg_num_neighbors=12.0, tp_impl="fused"),
+            loss=EnergyForceLoss(), device="cpu", **kw)
+    logs = m.training_step(lj_batch)
+    train_modules_ok = train_modules_ok and bool(np.isfinite(float(logs["train_loss_step/weighted_sum"])))
+callbacks.WandbWatch().on_train_start(None, None)
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
@@ -138,6 +155,8 @@ print(json.dumps({
     "files": files_ok,
     "lazy": [m for m in mods if m.split(".")[0] in ("h5py", "lmdb")],
     "options": options_ok,
+    "train_modules": train_modules_ok,
+    "wandb": [m for m in sys.modules if m.split(".")[0] == "wandb"],
 }))
 """
 
@@ -150,4 +169,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"finite": True, "cli": True, "deploy": True, "pair": True, "jax": [], "nequip_tpu": [],
-                   "optax_flax": [], "files": True, "lazy": [], "options": True}
+                   "optax_flax": [], "files": True, "lazy": [], "options": True, "train_modules": True,
+                   "wandb": []}
