@@ -176,6 +176,29 @@ Phases (each prints a line; any failure exits non-zero):
      finite losses; 15c ConFIG's k gradients from one graph against k
      separate passes, and its final gradient against tp_impl="torch", on
      phase 6's first batch (1e-4 of max).
+ 16. the bfloat16 fast mode (enable_bf16_fast_mode: float32 parameters,
+     bf16 at use), with cuBLAS's bf16 products summed in float32 for the
+     phase (allow_bf16_reduced_precision_reduction off, as JAX sums them):
+     16a K1, K2's inference variant and K3 in bf16 against their plain
+     versions at the flagship's three layer shapes on the 23k graph,
+     within 8e-3 of max|out| (two bf16 ulps: the two round at the same
+     points and differ by the order of their sums), each bitwise equal on
+     a repeat call, with kernel, plain and bound ms (bytes at 2 B,
+     operations at 989 TFLOP/s bf16) and index_add_ in bf16 beside K3;
+     16b phase 3's golden in bf16 through the kernels, E rel 1e-3 and F
+     2e-2 of max|F| (JAX's bf16 gate); 16c three bf16 requests at 23k
+     atoms beside three f32 requests on the same frames: launches K1, K2,
+     K3 only, the bf16 serving peak within phase 4's limit, finite values,
+     translation invariance, forces within 5e-2 of max|F| of the f32
+     request's (a sanity bound), model times; 16d MD of the bf16 flagship
+     (phase 9's settings, 50 timed steps) host, block and block with the
+     device list, host against block and the device list against the
+     host list at phase 9d's limits, step times beside phase 9's f32 runs,
+     NVE drift (reported); 16e nequip-torch-compile --modifiers
+     enable_bf16_fast_mode --no-check of a flagship checkpoint (the
+     self-check refused with a KeyError, as in JAX), served with
+     from_compiled_model against the eager bf16 model (E rel 1e-3, F 2e-2
+     of max|F|), its launches K1, K2, K3.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -188,7 +211,9 @@ bound), CG-VJP (T2/T4; their plain_ms is one step) and f32
 random-pattern gather (T5) rows, and phase 9h's f64 numbers for the
 device list, whose "replaces" names the XLA function it replaces (no pallas_call); "max_abs_err": the largest
 f32 difference from plain, 0 for the device list, whose output equals
-its twin's); the last line is {"ok": true, "device": {...}}.
+its twin's); the rows conv_fwd_bf16, conv_bwd_bf16 and scatter_rows_bf16
+are phase 16a's bf16 numbers, their launches phase 16c's three bf16
+requests; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1236,6 +1261,7 @@ MD_FORCE_TOL = 1e-4  # of max |F|
 # positions: the same kernels on the same inputs, so float32 rounding at most
 STALE_FORCE_TOL = 1e-6  # of max |F|
 NVE_DRIFT_LIMIT = 1e-3  # eV per atom over the run (velocity Verlet, 2 fs)
+MD_RUNS: dict = {}  # _md_run's numbers by phase and label ("9b", "16d.b", ...)
 
 
 def _edge_rows(edge_index, shifts, mask=None) -> np.ndarray:
@@ -1369,9 +1395,12 @@ def phase9h_device_nl(smi: str, frame: dict, cutoff: float, cpp: dict) -> dict:
             "library_ms": None}
 
 
-def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str, nl_backend: str = "host") -> dict:
-    """A warm-up block, then MD_STEPS timed steps from where it ended; the
-    launches are counted from the driver's construction on."""
+def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str, nl_backend: str = "host",
+            steps: int = MD_STEPS, phase: str = "9") -> dict:
+    """A warm-up block, then ``steps`` timed steps from where it ended; the
+    launches are counted from the driver's construction on.  The result is
+    also kept in MD_RUNS under phase + label (phase 16 prints phase 9's
+    beside its own)."""
     import torch
 
     from nequip_tpu_torch.integrations import MDDriver, VelocityVerlet
@@ -1393,7 +1422,7 @@ def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str, nl_b
     torch.cuda.reset_peak_memory_stats()
     capture_s0 = driver.capture_s
     t0 = time.perf_counter()
-    out = driver.run(MD_STEPS, velocities=warm["velocities"])
+    out = driver.run(steps, velocities=warm["velocities"])
     wall_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in K.KERNELS.items() if fn.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -1418,9 +1447,9 @@ def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str, nl_b
                         f"{1e3 * np.mean([r['neighbor_list_s'] for r in rebuilds]) if rebuilds else 0:.1f} ms, "
                         f"pad + transfer + re-layout "
                         f"{1e3 * np.mean([r['relayout_s'] for r in rebuilds]) if rebuilds else 0:.1f} ms a rebuild")
-    line = (f"phase 9{label} MD integration={integration} nl_backend={nl_backend} ({smi}): {n} atoms, warm-up block "
-            f"{warm_s:.2f} s; {MD_STEPS} steps in {wall_s:.3f} s ({1e3 * wall_s / MD_STEPS:.2f} ms a step, "
-            f"{n * MD_STEPS / wall_s:.0f} atom-steps/s); step median {med:.2f} ms ({n / med * 1e3:.0f} atom-steps/s), "
+    line = (f"phase {phase}{label} MD integration={integration} nl_backend={nl_backend} ({smi}): {n} atoms, warm-up block "
+            f"{warm_s:.2f} s; {steps} steps in {wall_s:.3f} s ({1e3 * wall_s / steps:.2f} ms a step, "
+            f"{n * steps / wall_s:.0f} atom-steps/s); step median {med:.2f} ms ({n / med * 1e3:.0f} atom-steps/s), "
             f"min {min(per_step):.2f}, max {max(per_step):.2f} ms (host clock per "
             f"{'step' if integration == 'host' else 'block / 10'}); model {model_ms:.2f} ms "
             f"({100 * model_ms / med:.0f}% of the median step), integrator {integ_ms:.3f} ms (CUDA events, "
@@ -1432,19 +1461,21 @@ def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str, nl_b
                  f"{driver.capture_s:.2f} s with its warm-up step, graph replay {replay_ms:.2f} ms a step "
                  f"(CUDA events, median of 5 blocks)")
     print(line, flush=True)
-    print(f"phase 9{label} launches from the driver's construction on (counted in Python: eager calls"
+    print(f"phase {phase}{label} launches from the driver's construction on (counted in Python: eager calls"
           f"{', and each capture; replays add none' if integration == 'block' else ''}): {launches}", flush=True)
     if not (np.isfinite(out["positions"]).all() and np.isfinite(out["forces"]).all() and math.isfinite(e1)):
-        raise RuntimeError(f"phase 9{label}: non-finite MD state")
+        raise RuntimeError(f"phase {phase}{label}: non-finite MD state")
     path_kernels = SERVING_KERNELS + (("device_nl",) if nl_backend == "device" else ())
     for name in path_kernels:
         if not launches.get(name):
-            raise RuntimeError(f"phase 9{label}: kernel {name} was not launched on the MD path")
+            raise RuntimeError(f"phase {phase}{label}: kernel {name} was not launched on the MD path")
     if any(k not in path_kernels for k in launches):
-        raise RuntimeError(f"phase 9{label}: MD launched a kernel off its path: {launches}")
-    return {"out": out, "drift": abs(e1 - e0) / n, "e0": e0, "e1": e1, "launches": launches, "median_ms": med,
-            "mean_ms": 1e3 * wall_s / MD_STEPS, "atom_steps_s": n * MD_STEPS / wall_s, "rebuilds": len(rebuilds),
-            "rebuild_ms": rebuild_ms, "capture_s": driver.capture_s - capture_s0}
+        raise RuntimeError(f"phase {phase}{label}: MD launched a kernel off its path: {launches}")
+    result = {"out": out, "drift": abs(e1 - e0) / n, "e0": e0, "e1": e1, "launches": launches, "median_ms": med,
+              "mean_ms": 1e3 * wall_s / steps, "atom_steps_s": n * steps / wall_s, "rebuilds": len(rebuilds),
+              "rebuild_ms": rebuild_ms, "capture_s": driver.capture_s - capture_s0}
+    MD_RUNS[phase + label] = {k: v for k, v in result.items() if k != "out"}
+    return result
 
 
 def phase9_md(smi: str) -> dict:
@@ -2900,6 +2931,335 @@ def phase15_train_modules(smi: str, dm, rr: dict) -> dict:
     return out
 
 
+# phase 16: the bfloat16 fast mode (enable_bf16_fast_mode) through K1, K2 and K3 in bf16
+BF16_FLOP_S = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet): the bf16 kernels' operation bound
+BF16_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows")
+# a bf16 kernel and its plain twin round at the same points and differ only by
+# the order of their float32 sums: an output (or a rounded w or h inside)
+# may land one bf16 ulp apart; two ulps of max|out|
+BF16_KERNEL_TOL = 8e-3
+BF16_E_TOL, BF16_F_TOL = 1e-3, 2e-2  # against the f64 golden: JAX's gate (tests/integration/test_deploy.py)
+# a bf16 request against the f32 request on the same frame: a sanity bound (16b is the accuracy gate)
+BF16_SERVE_F_TOL = 5e-2
+BF16_MD_STEPS = 50
+BF16_DIR = CLI_DIR.parent / "chip_smoke_bf16"  # beside the CLI runs' outputs
+
+
+def _bf16_model(tp_impl: str = "fused"):
+    """The flagship (seed 0, f32 weights) through enable_bf16_fast_mode."""
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.model.modify_utils import modify
+
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **FLAGSHIP)
+    return modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+
+
+def phase16a_kernels(n_atoms: int, reps: int) -> dict:
+    """K1, K2 (inference) and K3 in bf16 against their plain versions at
+    the flagship's three layer shapes on the 23k-atom graph, each bitwise
+    equal on a repeat call, with kernel, plain and bound ms (index_add_ in
+    bf16 beside K3); returns the report rows, summed over the layers."""
+    import torch
+
+    from nequip_tpu_torch.nn.interaction_block import InteractionBlock
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    dev = torch.device("cuda")
+    data, n, e = graph(n_atoms, dev)
+    layout = data[K.LAYOUT_KEY]
+    N, E, n_real = data["pos"].shape[0], data["edge_index"].shape[1], layout.n_real
+    n_src = int(torch.unique(layout.edge_src[:n_real]).numel())
+    n_dst = int((layout.dst_ptr[1:] > layout.dst_ptr[:-1]).sum())
+    blocks = [m for m in _bf16_model().modules() if isinstance(m, InteractionBlock)]
+    rng = np.random.RandomState(16)
+    report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
+                  "library_ms": None} for k in BF16_KERNELS}
+    for li, blk in enumerate(blocks):
+        plan = blk.tp_scatter.plan
+        a0, a1 = blk.edge_mlp.alphas
+        n_emb, hidden = blk.edge_mlp.w0.shape
+
+        def t(*shape):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=torch.bfloat16, device=dev)
+
+        x, sh, emb = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, n_emb)
+        w1, w2, g = t(n_emb, hidden), t(hidden, plan.weight_numel), t(N, plan.mid_dim)
+        dx_edge = K.conv_bwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g)[0]
+        src_idx = layout.edge_src[:n_real].long()
+        buf = torch.zeros(N, plan.dim_in, dtype=torch.bfloat16, device=dev)
+        calls = {
+            "conv_fwd": (lambda: K.conv_fwd(plan, x, sh, emb, w1, w2, a0, a1, layout),
+                         lambda: K.conv_fwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout)),
+            "conv_bwd": (lambda: K.conv_bwd(plan, x, sh, emb, w1, w2, a0, a1, layout, g),
+                         lambda: K.conv_bwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g)),
+            "scatter_rows": (lambda: K.scatter_rows(dx_edge, layout.src_perm, layout.src_ptr),
+                             lambda: K.scatter_rows_plain(dx_edge, layout.src_perm, layout.src_ptr)),
+        }
+        for name, (kern, plain) in calls.items():
+            counter = K.KERNELS[name]
+            before = counter.launches
+            got = _tuple(kern())
+            torch.cuda.synchronize()
+            if counter.launches != before + 1:
+                raise RuntimeError(f"phase 16a: {name} bf16 launch counter did not move")
+            err = abs_err = 0.0
+            for out_i, (a, b) in enumerate(zip(got, _tuple(plain()))):
+                if a.dtype != torch.bfloat16 or not bool(a.float().isfinite().all()):
+                    raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} is not finite bf16")
+                diff, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+                if diff > BF16_KERNEL_TOL * scale:
+                    raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} disagrees with plain: max |diff| "
+                                       f"{diff:.3e}, max |ref| {scale:.3e} (limit {BF16_KERNEL_TOL:.0e} of it)")
+                err, abs_err = max(err, diff / scale), max(abs_err, diff)
+            if not all(torch.equal(a, b) for a, b in zip(got, _tuple(kern()))):
+                raise RuntimeError(f"phase 16a: {name} bf16 differs on a repeat call")
+            ms, plain_ms = cuda_median_ms(kern, reps), cuda_median_ms(plain, reps)
+            lib_ms = cuda_median_ms(lambda: buf.index_add_(0, src_idx, dx_edge[:n_real]), reps) \
+                if name == "scatter_rows" else None
+            ops, nbytes = work(name, plan, n_real, n_dst, n_src, N, hidden, n_emb, 2)
+            t_ops, t_bytes = ops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+            bound = max(t_ops, t_bytes)
+            print(f"phase 16a {name} bf16 layer {li}: max err {err:.3e} of max|out| (limit {BF16_KERNEL_TOL:.0e}), "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+                  f"({'operations' if t_ops > t_bytes else 'bytes'})"
+                  + ("" if lib_ms is None else f", index_add_ bf16 {lib_ms:.3f} ms"), flush=True)
+            r = report[name]
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["bound_ms"] += bound
+            r["ops"] += ops
+            r["bytes"] += nbytes
+            if lib_ms is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+        del x, sh, emb, w1, w2, g, dx_edge, buf, calls
+        torch.cuda.empty_cache()
+    for name, r in report.items():
+        r["bound_by"] = "operations" if r.pop("ops") / BF16_FLOP_S > r.pop("bytes") / HBM_BYTES_S else "bytes"
+        print(f"phase 16a {name} bf16, sum of 3 layers: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
+              + ("" if r["library_ms"] is None else f", index_add_ {r['library_ms']:.3f} ms"), flush=True)
+    return report
+
+
+def _golden_gap(res: dict, z) -> tuple:
+    """(energy rel err, forces max err / max|F|) against the f64 golden."""
+    return (abs(res["energy"] - float(z["energy"])) / abs(float(z["energy"])),
+            float(np.abs(res["forces"] - z["forces"]).max()) / float(np.abs(z["forces"]).max()))
+
+
+def phase16b_golden() -> None:
+    """Phase 3's golden through the bf16 kernels: the JAX f64 parameters in
+    a bf16 flagship (float32 parameters, enable_bf16_fast_mode), against the
+    f64 golden at JAX's bf16 gate."""
+    import torch
+
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel, load_jax_params
+    from nequip_tpu_torch.model.modify_utils import modify
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    z = np.load(GOLDEN)
+    model = NequIPGNNModel(seed=0, model_dtype="float64", tp_impl="fused", **FLAGSHIP)
+    load_jax_params(model, {k[len("params/"):]: z[k] for k in z.files if k.startswith("params/")})
+    model = modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+    K.reset_launch_counts()
+    res = NequIPCalculator.from_model(model, device="cuda").calculate(
+        {"pos": z["pos"], "cell": z["cell"], "pbc": z["pbc"], "atomic_numbers": z["atomic_numbers"]})
+    launches = {k: K.KERNELS[k].launches for k in BF16_KERNELS}
+    e_err, f_err = _golden_gap(res, z)
+    print(f"phase 16b golden in bf16 through the kernels (launches {launches}): energy rel err {e_err:.3e} "
+          f"(limit {BF16_E_TOL:.0e}), forces max err {f_err:.3e} of max|F| (limit {BF16_F_TOL:.0e})", flush=True)
+    if not all(launches.values()):
+        raise RuntimeError("phase 16b: the bf16 golden did not run K1, K2 and K3")
+    if not (e_err <= BF16_E_TOL and f_err <= BF16_F_TOL):
+        raise RuntimeError("phase 16b: the bf16 port disagrees with the f64 golden beyond JAX's bf16 gate")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase16c_serve(smi: str, n_atoms: int, n_requests: int = 3) -> dict:
+    """Three bf16 calculator requests at 23k atoms (tp_impl="fused") beside
+    three f32 requests on the same frames: launches (K1, K2, K3 only), the
+    bf16 serving peak, finiteness and translation invariance, forces within
+    the sanity bound of the f32 request's, model times; returns the bf16
+    requests' launches."""
+    import torch
+
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    frames = [fcc_frame(n_atoms, seed=s, jitter=0.05) for s in range(1, n_requests + 1)]
+    f32 = NequIPCalculator.from_model(NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP),
+                                      device="cuda")
+    ref = []
+    for frame in frames:
+        ref.append((f32.calculate(frame), f32.timings["model_s"] * 1e3))
+    del f32
+    torch.cuda.empty_cache()
+    calc = NequIPCalculator.from_model(_bf16_model(), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    results = []
+    for frame in frames:
+        results.append((calc.calculate(frame), calc.timings["model_s"] * 1e3))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, ((res, ms), (want, ref_ms)) in enumerate(zip(results, ref)):
+        F, n = res["forces"], len(res["forces"])
+        f_scale = float(np.abs(want["forces"]).max())
+        f_gap = float(np.abs(F - want["forces"]).max())
+        net = float(np.abs(F.sum(axis=0)).max())
+        print(f"phase 16c request {i} ({smi}): {n} atoms, model {ms:.1f} ms in bf16, {ref_ms:.1f} ms in f32 "
+              f"(phase 4's f32 requests above); E {res['energy']:.6f} (f32 {want['energy']:.6f}); forces against "
+              f"f32 {f_gap / f_scale:.3e} of max|F| (limit {BF16_SERVE_F_TOL:.0e}); net force {net:.3e}", flush=True)
+        if not (math.isfinite(res["energy"]) and np.isfinite(F).all()):
+            raise RuntimeError(f"phase 16c: request {i} returned non-finite values")
+        if net > 1e-3 * float(np.abs(F).max()) * math.sqrt(n):
+            raise RuntimeError(f"phase 16c: request {i} net force {net:.3e} breaks translation invariance")
+        if f_gap > BF16_SERVE_F_TOL * f_scale:
+            raise RuntimeError(f"phase 16c: request {i} forces are far from the f32 request's")
+    bf16_ms = [ms for _, ms in results]
+    f32_ms = [ms for _, ms in ref]
+    print(f"phase 16c launches {launches}, max_memory_allocated (bf16 serving peak) {peak / 2**30:.3f} GiB, limit "
+          f"{SERVING_PEAK_LIMIT / 2**30:.3f} GiB; model ms bf16 {', '.join(f'{m:.1f}' for m in bf16_ms)} "
+          f"(requests 1-2 median {np.median(bf16_ms[1:]):.1f}), f32 {', '.join(f'{m:.1f}' for m in f32_ms)} "
+          f"(median {np.median(f32_ms[1:]):.1f}) ({smi})", flush=True)
+    if n_atoms == 23000 and peak > SERVING_PEAK_LIMIT:
+        raise RuntimeError("phase 16c: the bf16 serving peak exceeds phase 4's limit")
+    if not all(launches[k] for k in BF16_KERNELS) or any(launches[k] for k in launches if k not in BF16_KERNELS):
+        raise RuntimeError(f"phase 16c: bf16 serving must launch K1, K2 and K3 and nothing else: {launches}")
+    del calc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase16d_md(smi: str) -> None:
+    """MD of the bf16 flagship at 23k atoms, host, block and device-list
+    block integration from one start (phase 9's settings, BF16_MD_STEPS
+    timed steps): host and block within phase 9d's limits, the step times
+    beside phase 9's f32 runs, the NVE drift (reported, not gated)."""
+    import torch
+
+    from nequip_tpu_torch.integrations import maxwell_boltzmann_velocities
+
+    frame = _md_frame(23000)
+    n = len(frame["pos"])
+    model = _bf16_model()
+    v0 = maxwell_boltzmann_velocities(np.full(n, MD_MASS), 300.0, seed=1)
+    runs = {}
+    for label, integration, backend in (("b", "host", "host"), ("c", "block", "host"), ("i", "block", "device")):
+        runs[label] = _md_run(label, smi, model, frame, v0, integration, nl_backend=backend, steps=BF16_MD_STEPS,
+                              phase="16d.")
+        torch.cuda.empty_cache()
+    host, block = runs["b"]["out"], runs["c"]["out"]
+    pos_gap = float(np.abs(host["positions"] - block["positions"]).max())
+    f_scale = float(np.abs(host["forces"]).max())
+    f_gap = float(np.abs(host["forces"] - block["forces"]).max())
+    dev_pos_gap = float(np.abs(runs["i"]["out"]["positions"] - block["positions"]).max())
+    dev_f_gap = float(np.abs(runs["i"]["out"]["forces"] - block["forces"]).max())
+    print(f"phase 16d host vs block (bf16) after {BF16_MD_STEPS + 10} steps from one start: positions max gap "
+          f"{pos_gap:.3e} A (limit {MD_POS_TOL:.0e}), forces max gap {f_gap:.3e} (max |F| {f_scale:.3e}, limit "
+          f"{MD_FORCE_TOL:.0e} of it); device list vs host list (block): positions {dev_pos_gap:.3e} A, forces "
+          f"{dev_f_gap:.3e}", flush=True)
+    for label, what in (("b", "host"), ("c", "block"), ("i", "block, device list")):
+        r, f = runs[label], MD_RUNS.get("9" + label)
+        beside = (f"f32 (phase 9{label}): median {f['median_ms']:.2f} ms, mean {f['mean_ms']:.2f} ms, "
+                  f"{f['atom_steps_s']:.0f} atom-steps/s" if f else "f32: phase 9 not run")
+        print(f"phase 16d {what} bf16 ({smi}): step median {r['median_ms']:.2f} ms, mean {r['mean_ms']:.2f} ms, "
+              f"{r['atom_steps_s']:.0f} atom-steps/s; {beside}; NVE drift |dE_total| per atom {r['drift']:.3e} eV "
+              f"over {BF16_MD_STEPS} steps (E {r['e0']:.6f} -> {r['e1']:.6f} eV; reported, not gated)", flush=True)
+    if not (pos_gap <= MD_POS_TOL and f_gap <= MD_FORCE_TOL * f_scale):
+        raise RuntimeError("phase 16d: bf16 host and block integration disagree")
+    if not (dev_pos_gap <= MD_POS_TOL and dev_f_gap <= MD_FORCE_TOL * f_scale):
+        raise RuntimeError("phase 16d: bf16 device-list and host-list MD runs disagree")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase16e_compile(smi: str) -> None:
+    """nequip-torch-compile --modifiers enable_bf16_fast_mode --no-check of
+    a checkpoint of the flagship (f32 weights, a 32-atom LJ data config;
+    rung 0 at the 23k-atom frame's capacities), loaded with
+    from_compiled_model and held against the eager bf16 model on the 23k
+    frame; the self-check is refused for bf16 as in JAX (no tolerance)."""
+    import os
+
+    import torch
+
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.model.saved_models import ModelFromCheckpoint
+    from nequip_tpu_torch.model.modify_utils import modify
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.scripts import compile as compile_cli
+    from nequip_tpu_torch.train.checkpoint import save_checkpoint
+
+    BF16_DIR.mkdir(parents=True, exist_ok=True)
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP)
+    ckpt, art = str(BF16_DIR / "flagship.ckpt"), str(BF16_DIR / "flagship_bf16.nequip_tpu_torch.zip")
+    save_checkpoint(ckpt, {"params": {k: v.detach().cpu() for k, v in model.jax_named_tensors()}},
+                    {"training_module": {"model": model.model_config}, "data": _cli_config(2)["data"]})
+    caps = ["--num-nodes", "23424", "--num-edges", "420096"]
+    try:
+        compile_cli.main([ckpt, art, "--modifiers", "enable_bf16_fast_mode", *caps])
+        raise RuntimeError("phase 16e: the compile self-check did not refuse bf16")
+    except KeyError as e:
+        refusal = str(e)
+    t0 = time.perf_counter()
+    compile_cli.main([ckpt, art, "--modifiers", "enable_bf16_fast_mode", "--no-check", *caps])
+    compile_s = time.perf_counter() - t0
+    compiled = NequIPCalculator.from_compiled_model(art)
+    eager = NequIPCalculator.from_model(modify(ModelFromCheckpoint(ckpt), [{"modifier": "enable_bf16_fast_mode"}]),
+                                        device="cuda")
+    frame = fcc_frame(23000, seed=1)
+    compiled.calculate(frame)  # warm-up
+    K.reset_launch_counts()
+    got = compiled.calculate(frame)
+    launches = {k: fn.launches for k, fn in K.KERNELS.items() if fn.launches}
+    want = eager.calculate(frame)
+    e_rel = abs(got["energy"] - want["energy"]) / abs(want["energy"])
+    f_err = float(np.abs(got["forces"] - want["forces"]).max()) / float(np.abs(want["forces"]).max())
+    print(f"phase 16e nequip-torch-compile --modifiers enable_bf16_fast_mode --no-check ({smi}): {compile_s:.1f} s, "
+          f"{os.path.getsize(art) / 2**20:.2f} MiB, metadata model_dtype "
+          f"{compiled.predictor.metadata.get('model_dtype')}; with the self-check: KeyError {refusal}; compiled vs "
+          f"eager bf16 on {len(frame['pos'])} atoms: energy rel {e_rel:.3e} (limit {BF16_E_TOL:.0e}), forces "
+          f"{f_err:.3e} of max|F| (limit {BF16_F_TOL:.0e}); compiled request launches {launches}", flush=True)
+    if set(launches) != set(BF16_KERNELS):
+        raise RuntimeError("phase 16e: the compiled bf16 request does not launch K1, K2 and K3 alone")
+    if not (e_rel <= BF16_E_TOL and f_err <= BF16_F_TOL):
+        raise RuntimeError("phase 16e: the compiled bf16 model disagrees with eager bf16")
+    del compiled, eager
+    for f in BF16_DIR.glob("*"):
+        f.unlink()
+    torch.cuda.empty_cache()
+
+
+def phase16_bf16(smi: str, n_atoms: int = 23000) -> tuple:
+    """Phase 16: the bf16 fast mode (16a kernels, 16b golden, 16c serving,
+    16d MD, 16e compile), with cuBLAS's bf16 products summed in float32 (as
+    JAX sums them) for the phase.  Returns (the bf16 kernels' report rows,
+    16c's launches)."""
+    import torch
+
+    t0 = time.perf_counter()
+    old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        report = phase16a_kernels(n_atoms, reps=10)
+        phase16b_golden()
+        launches = phase16c_serve(smi, n_atoms)
+        phase16d_md(smi)
+        phase16e_compile(smi)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
+    print(f"phase 16 {time.perf_counter() - t0:.1f} s", flush=True)
+    return report, launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2926,6 +3286,7 @@ def main() -> int:
     phase14_options(smi)
     phase15_train_modules(smi, dm, rr)
     del dm
+    bf16_report, bf16_launches = phase16_bf16(smi)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 
@@ -2951,6 +3312,17 @@ def main() -> int:
             "library_ms": report[name]["library_ms"],
         }
         for name in REPLACES
+    ] + [
+        {
+            "name": f"{name}_bf16",
+            "route": "cuda",
+            "source": KERNEL_SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": bf16_launches[name],
+            **{k: bf16_report[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+        }
+        for name in BF16_KERNELS
     ]
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError(f"a kernel was not launched on its path: {[k['name'] for k in kernels if not k['launches']]}")

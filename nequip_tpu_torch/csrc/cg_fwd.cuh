@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dense_tiles.cuh"
 
 namespace nequip {
@@ -111,6 +113,32 @@ __device__ __forceinline__ void cg_forward(const Tables<T>& tab, const T* cy, co
       if ((ends >> e) & 1u) {
         emit(o, e, acc);
         acc = T(0);
+      }
+    }
+  }
+}
+
+// cg_forward for K1's bf16 form (conv_fwd.cu): the same products, each
+// rounded to float32 once, summed into a compensated float32 sum
+// (SumF32x2), which emit(o, e, sum) takes.  Its value does not depend on
+// how the segment's edges fall into tiles, nor on zero terms among them,
+// so a bf16 output rounded from it does not either (MD's neighbour lists,
+// rebuilt at other steps, give other tilings of the same edges).
+template <int TILE, int NT, typename Emit>
+__device__ __forceinline__ void cg_forward_compensated(const Tables<float>& tab, const float* cy, const float* x,
+                                                       int ldx, const float* w, int ldw, int mid_dim, unsigned ends,
+                                                       Emit emit) {
+  for (int o = threadIdx.x; o < mid_dim; o += NT) {
+    const Column c = column(tab, o);
+    float m[TILE];
+    product<float, TILE>(tab, c, cy, x, ldx, m);
+    SumF32x2 acc;
+#pragma unroll
+    for (int e = 0; e < TILE; ++e) {
+      acc.add(__fmul_rn(w[e * ldw + c.wc], m[e]));
+      if ((ends >> e) & 1u) {
+        emit(o, e, acc);
+        acc = SumF32x2{};
       }
     }
   }
@@ -202,6 +230,50 @@ cudaError_t launch_finish(const int32_t* dst_ptr, const T* carry, T* out, T* tou
   const int blocks = (n_nodes + kFinishWarps - 1) / kFinishWarps;
   finish_split_rows<T, NF, kAcc><<<blocks, 32 * kFinishWarps, 0, stream>>>(dst_ptr, carry, out, tout, n_nodes,
                                                                            mid_dim, tile);
+  return cudaGetLastError();
+}
+
+// The second launch of K1's bf16 form (conv_fwd.cu), one warp per node:
+// the parts of a node whose edges span tiles t0 < t1 wait as compensated
+// sums (hi, lo) in float32 carry rows [n_tiles][2][2][mid_dim], tiles t0 ..
+// t1 - 1's in slot 0 and tile t1's (the part of its first destination that
+// began earlier) in slot 1, and the row becomes the bf16 nearest to
+// carry[t0][0] + ... + carry[t1 - 1][0] + carry[t1][1], added in tile order
+// as compensated sums.  Rows of nodes with no real edge are set to zero;
+// the tiles wrote the others whole.
+template <typename S>
+__global__ void __launch_bounds__(32 * kFinishWarps)
+    finish_split_rows_rounded(const int32_t* __restrict__ dst_ptr, const float* __restrict__ carry,
+                              S* __restrict__ out, int n_nodes, int mid_dim, int tile) {
+  static_assert(std::is_same<S, __nv_bfloat16>::value, "the rounded finish writes bf16");
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kFinishWarps + (threadIdx.x >> 5);
+  if (n >= n_nodes) return;
+  const int b = __ldg(dst_ptr + n), e = __ldg(dst_ptr + n + 1);
+  const int t0 = b / tile, t1 = (e - 1) / tile;
+  if (b != e && t0 == t1) return;  // written whole by its tile
+  S* row = out + static_cast<int64_t>(n) * mid_dim;
+  auto part = [&](int t, int slot, int c) {  // carry[t][slot] at column c
+    const float* p = carry + static_cast<int64_t>(4 * t + 2 * slot) * mid_dim + c;
+    return SumF32x2{p[0], p[mid_dim]};
+  };
+  for (int c = lane; c < mid_dim; c += 32) {
+    SumF32x2 v;
+    if (b != e) {
+      v = part(t0, 0, c);
+      for (int t = t0 + 1; t < t1; ++t) v.add(part(t, 0, c));
+      v.add(part(t1, 1, c));
+    }
+    row[c] = bf16_of_sum(v.hi, v.lo);
+  }
+}
+
+template <typename S>
+cudaError_t launch_finish_rounded(const int32_t* dst_ptr, const float* carry, S* out, int n_nodes, int mid_dim,
+                                  int tile, cudaStream_t stream) {
+  const int blocks = (n_nodes + kFinishWarps - 1) / kFinishWarps;
+  finish_split_rows_rounded<S><<<blocks, 32 * kFinishWarps, 0, stream>>>(dst_ptr, carry, out, n_nodes, mid_dim,
+                                                                         tile);
   return cudaGetLastError();
 }
 

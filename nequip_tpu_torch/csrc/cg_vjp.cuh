@@ -58,10 +58,10 @@ struct Tables {
 
 // The x[src] rows of the tile: staged in shared memory as rows [TILE][ld]
 // (STAGED: K5, K7), or gathered from global memory through L1 at row
-// s_src[e] (K2).
-template <typename T, bool STAGED>
+// s_src[e] (K2), stored as S (bf16 in K2's bf16 form) and widened to T.
+template <typename T, bool STAGED, typename S = T>
 struct XRows {
-  const T* x;
+  const S* x;
   const int32_t* s_src;  // unused when STAGED
   int ld;
   __device__ __forceinline__ int row(int e) const { return (STAGED ? e : s_src[e]) * ld; }
@@ -69,23 +69,23 @@ struct XRows {
     if constexpr (STAGED)
       return x[off];
     else
-      return __ldg(x + off);
+      return ldg_widen(x + off);
   }
 };
 
 // The g rows of the tile's destinations: staged in shared memory from node
 // d0 on (STAGED: K5, K7 when a tile's destinations are few), or read from
-// global memory through L1 (d0 = 0).
-template <typename T, bool STAGED>
+// global memory through L1 (d0 = 0), stored as S and widened to T.
+template <typename T, bool STAGED, typename S = T>
 struct GRows {
-  const T* g;
+  const S* g;
   int d0, ld;
   __device__ __forceinline__ int row(int dst) const { return (dst - d0) * ld; }
   __device__ __forceinline__ T at(int off) const {
     if constexpr (STAGED)
       return g[off];
     else
-      return __ldg(g + off);
+      return ldg_widen(g + off);
   }
 };
 
@@ -172,11 +172,12 @@ __device__ __forceinline__ void add_run(T (&v)[TC], T* part, int e0, int p, int 
 }
 
 // dx_e for the tile's edges < cnt into dx_out [cnt][dim_in] (row e of the
-// tile at dx_out + e * dim_in); y rows s_y [TILE][ldy], w rows s_w [TILE][ldw].
-template <typename T, int TILE, int TC, int NW, bool GS>
-__device__ __forceinline__ void dx_items(const Tables<T>& tab, const GRows<T, GS> gr, const int32_t* s_dst,
+// tile at dx_out + e * dim_in, of T or, rounded once, bf16); y rows s_y
+// [TILE][ldy], w rows s_w [TILE][ldw]; gr a GRows.
+template <typename T, int TILE, int TC, int NW, typename GR, typename O>
+__device__ __forceinline__ void dx_items(const Tables<T>& tab, const GR gr, const int32_t* s_dst,
                                          const T* s_y, int ldy, const T* s_w, int ldw, int cnt, int dim_in,
-                                         T* __restrict__ dx_out) {
+                                         O* __restrict__ dx_out) {
   constexpr int NG = TILE / TC;
   static_assert(TILE % TC == 0, "whole edge groups");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -208,18 +209,18 @@ __device__ __forceinline__ void dx_items(const Tables<T>& tab, const GRows<T, GS
       }
 #pragma unroll
       for (int i = 0; i < TC; ++i)
-        if (e0 + i < cnt) dx_out[static_cast<int64_t>(e0 + i) * dim_in + c] = acc[i];
+        if (e0 + i < cnt) dx_out[static_cast<int64_t>(e0 + i) * dim_in + c] = narrow<O>(acc[i]);
     });
   }
 }
 
 // dW_e in place of w (and, if dw_out is not null, into dw_out [cnt][wn]) and
 // the dy partials s_part [TILE][n_paths][kMaxYDim] (zero before the call,
-// summed into by each m2 run).
-template <typename T, int TILE, int TC, int NW, bool STAGED, bool GS>
-__device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_order, const XRows<T, STAGED> xr,
-                                         const GRows<T, GS> gr, const int32_t* s_dst, const T* s_y, int ldy, T* s_w,
-                                         int ldw, int cnt, T* s_part, T* __restrict__ dw_out, int wn) {
+// summed into by each m2 run); xr an XRows, gr a GRows.
+template <typename T, int TILE, int TC, int NW, typename XR, typename GR>
+__device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_order, const XR xr, const GR gr,
+                                         const int32_t* s_dst, const T* s_y, int ldy, T* s_w, int ldw, int cnt,
+                                         T* s_part, T* __restrict__ dw_out, int wn) {
   constexpr int NG = TILE / TC;
   const int lane = threadIdx.x & 31, n_paths = tab.n_paths;
   for (int k0 = 0; k0 < NG * n_paths; k0 += NW) {
@@ -423,10 +424,10 @@ __device__ __forceinline__ void dw_items_jvp(const Tables<T>& tab, const XRows<T
 // dy [cnt][sh_dim] (flat at out) from the partials in path order: each
 // thread sums V = 16 / sizeof(T) consecutive elements, reading each path's
 // row once for them, and stores them as one 16-byte store where out is
-// 16-byte aligned.
-template <typename T, int NT>
+// 16-byte aligned (an out of bf16: element stores, each rounded once).
+template <typename T, int NT, typename O>
 __device__ __forceinline__ void path_sum(const Tables<T>& tab, const T* s_part, int cnt, int sh_dim,
-                                         T* __restrict__ out) {
+                                         O* __restrict__ out) {
   constexpr int V = 16 / sizeof(T);
   const int n = cnt * sh_dim, n_paths = tab.n_paths;
   const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
@@ -446,12 +447,18 @@ __device__ __forceinline__ void path_sum(const Tables<T>& tab, const T* s_part, 
         if (i0 + j < n && m >= 0 && m < y_dim) v[j] += s_part[(e[j] * n_paths + p) * kMaxYDim + m];
       }
     }
-    if (vec && i0 + V <= n) {
-      store16(out + i0, v);
+    if constexpr (std::is_same<O, T>::value) {
+      if (vec && i0 + V <= n) {
+        store16(out + i0, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (i0 + j < n) out[i0 + j] = v[j];
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        if (i0 + j < n) out[i0 + j] = v[j];
+        if (i0 + j < n) out[i0 + j] = narrow<O>(v[j]);
     }
   }
 }

@@ -76,6 +76,19 @@
 // Registers and spills (nvcc -Xptxas -v, 32-edge tiles): f32 128 (two blocks
 // an SM), 8 bytes of spill; f64 one block an SM 255, 12 bytes (two blocks:
 // 128, 88-272 bytes); PERF.md lists every tile.
+//
+// bf16 (the fast mode's forces: nequip_conv_bwd_bf16, the inference
+// variant only; bf16 training is not instantiated): x, sh, emb, W1, W2,
+// W2^T and g are bf16 in device memory, and so are dx_edge, dsh and demb.
+// The kernel is the f32 design on a float32 tile (f32's shared-memory
+// layout and tile choice): each operand is widened as it is staged or read
+// (x and g through L1, as in f32), and every product and sum runs in
+// float32.  Rounding points, the same in the plain version
+// (tp_scatter.conv_bwd_plain): h = silu(h_pre) and w = alpha1 h . W2 are
+// rounded to bf16, as JAX's K2 rounds them; dW_e, dh_pre and every sum
+// stay float32, and each output element is rounded once, on its store.
+#include <type_traits>
+
 #include "cg_vjp.cuh"
 #include "dense_tiles.cuh"
 #include "radial_mlp.cuh"
@@ -89,16 +102,21 @@ constexpr int kBwdBK = 16;    // W2 rows per slab of the ring
 constexpr int kBwdStages = 3;
 constexpr int kCgEdges = 8;  // edges of one CG-VJP item: its loads per term in flight
 
-template <typename T>
+// S: the storage type of the operands and of dx_edge, dsh, demb; the kernel
+// computes in Acc<S> (tp_common.cuh), the type of the tables, the training
+// variant's per-edge factors and alphas
+template <typename S>
 struct ConvBwdArgs {
-  const T *x, *sh, *emb, *w1, *w2, *w2t;
+  using T = Acc<S>;
+  const S *x, *sh, *emb, *w1, *w2, *w2t;
   const int32_t *edge_src, *dst_ptr;
-  const T* g;
+  const S* g;
   const int32_t *dx_groups, *dx_terms;
   const T* dx_coef;
   const int32_t *dx_col_group, *paths, *path_terms;
   const T* path_coef;
-  T *dx_edge, *dsh, *demb, *dw_edge, *h_edge, *dh_edge;
+  S *dx_edge, *dsh, *demb;
+  T *dw_edge, *h_edge, *dh_edge;
   int n_paths, n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim;
   T alpha0, alpha1;
 };
@@ -136,8 +154,9 @@ __host__ __device__ inline BwdSmem bwd_smem(int tile, int wn, int hidden, int n_
   return L;
 }
 
-template <typename T, int TILE, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const ConvBwdArgs<T> a) {
+template <typename S, int TILE, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const ConvBwdArgs<S> a) {
+  using T = Acc<S>;  // shared memory, registers and sums
   constexpr int NW = kBwdWarps, NT = kBwdThreads, TE = TILE / 8, V = mlp::Vec<T>::V;  // TE: rows a thread owns in the GEMMs
   constexpr int TC = TILE < kCgEdges ? TILE : kCgEdges;  // edges per CG item
   static_assert(NW == 8 && TILE % 8 == 0 && TILE % TC == 0, "tile_gemm takes 8 warps with whole rows each");
@@ -163,7 +182,7 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
   const int n_real = __ldg(a.dst_ptr + a.n_nodes);
   const int n_tiles = mlp::cdiv(n_real, TILE);
   if (static_cast<int>(blockIdx.x) >= n_tiles) return;
-  for (int i = tid; i < n_emb * hidden; i += NT) s_w1[(i / hidden) * L.ldw1 + i % hidden] = a.w1[i];
+  for (int i = tid; i < n_emb * hidden; i += NT) s_w1[(i / hidden) * L.ldw1 + i % hidden] = widen(a.w1[i]);
   cg::order_paths(tab, s_order);
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -176,9 +195,9 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
       s_dst[tid] = find_dst(a.dst_ptr, a.n_nodes, base + min(tid, cnt - 1));  // sorted, as cg_vjp.cuh needs
     }
     for (int i = tid; i < TILE * n_emb; i += NT)
-      s_emb[i] = i < cnt * n_emb ? a.emb[static_cast<int64_t>(base) * n_emb + i] : T(0);
+      s_emb[i] = i < cnt * n_emb ? widen(a.emb[static_cast<int64_t>(base) * n_emb + i]) : T(0);
     for (int i = tid; i < TILE * sh_dim; i += NT)
-      s_y[i] = i < cnt * sh_dim ? a.sh[static_cast<int64_t>(base) * sh_dim + i] : T(0);
+      s_y[i] = i < cnt * sh_dim ? widen(a.sh[static_cast<int64_t>(base) * sh_dim + i]) : T(0);
     __syncthreads();
 
     // hidden layer h = silu(h_pre), V columns of one edge per step, zero in the padding columns
@@ -191,7 +210,7 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
         const int t = t0 + j;
         T v = T(0);
         if (t < hidden) {
-          v = hp[j] * sigmoid(hp[j]);
+          v = round_as<S>(hp[j] * sigmoid(hp[j]));  // bf16: h rounded
           if (a.h_edge != nullptr && e < cnt) a.h_edge[static_cast<int64_t>(base + e) * hidden + t] = v;
         }
         s_h[e * L.ldh + t] = v;
@@ -204,19 +223,19 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
           for (int i = 0; i < TE; ++i) {
             T v[V];
 #pragma unroll
-            for (int j = 0; j < V; ++j) v[j] = a.alpha1 * acc[i][j];
+            for (int j = 0; j < V; ++j) v[j] = round_as<S>(a.alpha1 * acc[i][j]);  // bf16: w rounded
             store16(s_w + (r0 + i) * L.ldw + c0, v);
           }
         });
 
     // the CG-VJP (cg_vjp.cuh): dx, then dW_e in place of w and the dsh partials, then dsh
     for (int i = tid; i < TILE * n_paths * kMaxYDim; i += NT) s_dshp[i] = T(0);
-    const cg::GRows<T, false> gr{a.g, 0, mid_dim};
+    const cg::GRows<T, false, S> gr{a.g, 0, mid_dim};
     cg::dx_items<T, TILE, TC, NW>(tab, gr, s_dst, s_y, sh_dim, s_w, L.ldw, cnt, dim_in,
                                   a.dx_edge + static_cast<int64_t>(base) * dim_in);
     __syncthreads();  // dx has read w; the dsh partials are zero
     cg::dw_items<T, TILE, TC, NW>(
-        tab, s_order, cg::XRows<T, false>{a.x, s_src, dim_in}, gr, s_dst, s_y, sh_dim, s_w, L.ldw, cnt, s_dshp,
+        tab, s_order, cg::XRows<T, false, S>{a.x, s_src, dim_in}, gr, s_dst, s_y, sh_dim, s_w, L.ldw, cnt, s_dshp,
         a.dw_edge == nullptr ? nullptr : a.dw_edge + static_cast<int64_t>(base) * wn, wn);
     __syncthreads();
     cg::path_sum<T, NT>(tab, s_dshp, cnt, sh_dim, a.dsh + static_cast<int64_t>(base) * sh_dim);
@@ -249,15 +268,15 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
       const T* wc = s_w1 + c * L.ldw1;
       T acc = T(0);
       for (int t = 0; t < hidden; ++t) acc += he[t] * wc[t];
-      a.demb[static_cast<int64_t>(base) * n_emb + i] = a.alpha0 * acc;
+      a.demb[static_cast<int64_t>(base) * n_emb + i] = narrow<S>(a.alpha0 * acc);
     }
   }
 }
 
 // One tile shape launched on the persistent grid (dense_tiles.cuh).
-template <typename T, int TILE, int MIN_BLOCKS>
-cudaError_t launch_tile(const ConvBwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
-  auto kernel = conv_bwd_kernel<T, TILE, MIN_BLOCKS>;
+template <typename S, int TILE, int MIN_BLOCKS>
+cudaError_t launch_tile(const ConvBwdArgs<S>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = conv_bwd_kernel<S, TILE, MIN_BLOCKS>;
   int grid = 0;
   const cudaError_t err = persistent_grid(kernel, kBwdThreads, dev, smem, grid);
   if (err != cudaSuccess) return err;
@@ -268,9 +287,11 @@ cudaError_t launch_tile(const ConvBwdArgs<T>& args, int dev, size_t smem, cudaSt
 // The largest tile whose shared memory fits one block.  The 32-edge tile
 // caps registers at 128 for two blocks an SM only where two fit in shared
 // memory (f32 at the flagship's widths); where one fits (f64), it keeps
-// all 255 and spills nothing.
-template <typename T>
-int launch_conv_bwd(const ConvBwdArgs<T>& args, void* stream) {
+// all 255 and spills nothing.  The tile is Acc<S> whatever S (bf16 tiles
+// are f32's).
+template <typename S>
+int launch_conv_bwd(const ConvBwdArgs<S>& args, void* stream) {
+  using T = Acc<S>;
   if (args.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t rows = args.n_nodes + 1;  // x and g offsets are int32
   if (rows * args.dim_in >= (int64_t{1} << 31) || rows * args.mid_dim >= (int64_t{1} << 31))
@@ -283,11 +304,11 @@ int launch_conv_bwd(const ConvBwdArgs<T>& args, void* stream) {
   };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lim.fit(smem(32), 1)) {
-    if (lim.fit(smem(32), 2)) return static_cast<int>(launch_tile<T, 32, 2>(args, lim.dev, smem(32), s));
-    return static_cast<int>(launch_tile<T, 32, 1>(args, lim.dev, smem(32), s));
+    if (lim.fit(smem(32), 2)) return static_cast<int>(launch_tile<S, 32, 2>(args, lim.dev, smem(32), s));
+    return static_cast<int>(launch_tile<S, 32, 1>(args, lim.dev, smem(32), s));
   }
-  if (lim.fit(smem(16), 1)) return static_cast<int>(launch_tile<T, 16, 1>(args, lim.dev, smem(16), s));
-  return static_cast<int>(launch_tile<T, 8, 1>(args, lim.dev, smem(8), s));  // refused if it does not fit either
+  if (lim.fit(smem(16), 1)) return static_cast<int>(launch_tile<S, 16, 1>(args, lim.dev, smem(16), s));
+  return static_cast<int>(launch_tile<S, 8, 1>(args, lim.dev, smem(8), s));  // refused if it does not fit either
 }
 
 }  // namespace
@@ -331,3 +352,29 @@ int launch_conv_bwd(const ConvBwdArgs<T>& args, void* stream) {
 
 NEQUIP_CONV_BWD(f32, float)
 NEQUIP_CONV_BWD(f64, double)
+
+// bf16: the inference variant only (nequip_conv_bwd's arguments)
+extern "C" int nequip_conv_bwd_bf16(const void* x, const void* sh, const void* emb, const void* w1, const void* w2,
+                                    const void* w2t, const void* edge_src, const void* dst_ptr, const void* g,
+                                    const void* dx_groups, const void* dx_terms, const void* dx_coef,
+                                    const void* dx_col_group, const void* paths, const void* path_terms,
+                                    const void* path_coef, void* dx_edge, void* dsh, void* demb, int n_paths,
+                                    int n_nodes, int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,
+                                    double alpha0, double alpha1, void* stream) {
+  using S = __nv_bfloat16;
+  const nequip::ConvBwdArgs<S> args{
+      static_cast<const S*>(x),       static_cast<const S*>(sh),
+      static_cast<const S*>(emb),     static_cast<const S*>(w1),
+      static_cast<const S*>(w2),      static_cast<const S*>(w2t),
+      static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),
+      static_cast<const S*>(g),       static_cast<const int32_t*>(dx_groups),
+      static_cast<const int32_t*>(dx_terms), static_cast<const float*>(dx_coef),
+      static_cast<const int32_t*>(dx_col_group), static_cast<const int32_t*>(paths),
+      static_cast<const int32_t*>(path_terms), static_cast<const float*>(path_coef),
+      static_cast<S*>(dx_edge),       static_cast<S*>(dsh),
+      static_cast<S*>(demb),          nullptr,
+      nullptr,                        nullptr,
+      n_paths, n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim,
+      static_cast<float>(alpha0),     static_cast<float>(alpha1)};
+  return nequip::launch_conv_bwd<S>(args, stream);
+}

@@ -68,6 +68,30 @@
 // blocks an SM), 4 bytes of spill; one block an SM 183; 16-edge 223,
 // 8-edge 218; f64 32-edge 246 (two blocks: 128), 16-edge 244, 8-edge 244;
 // none spill but the first; the second launch 31-32.
+//
+// bf16 (the fast mode: nequip_conv_fwd_bf16): x, sh, emb, W1, W2 and out
+// are bf16 in device memory; the kernel is the f32 design on a float32
+// tile (its shared-memory layout and tile choice are f32's), every operand
+// widened as it is staged (plain loads: cp.async has no 2-byte copy) and
+// every product and sum taken in float32.  Rounding points, the same in
+// the plain version (tp_scatter.conv_fwd_plain): w = alpha1 h . W2 is
+// rounded to bf16 (where JAX's K1 rounds it; h stays float32, as in JAX),
+// and each output element once, on its store.  JAX sums each chunk's
+// messages into a bf16 block; here the sums over edges are compensated
+// float32 sums (hi + lo, cgf::cg_forward_compensated), the parts of a
+// destination that tiles split too: a tile writes the part of its first
+// destination that began in an earlier tile to a second carry slot (carry
+// [n_tiles][2][2][mid_dim], float32 hi and lo rows), and the second launch
+// rounds carry[t0][0] + ... + carry[t1 - 1][0] + carry[t1][1] once.  Why
+// compensated: with plain float32 sums the bf16 output depends on how a
+// destination's edges fall into tiles, and an MD neighbour list rebuilt at
+// another step (the same pairs within r_max, other pairs in the skin, whose
+// messages are zero) tiles them otherwise; about 2^-16 of the outputs then
+// round the other way, and host and block MD of the 23k-atom flagship
+// drifted 5.4e-5 A apart in 60 steps (PERF.md, bf16 findings).  A compensated sum
+// is the exact sum to about n 2^-48 of its terms, whatever the grouping.
+#include <type_traits>
+
 #include "cg_fwd.cuh"
 #include "dense_tiles.cuh"
 #include "radial_mlp.cuh"
@@ -79,14 +103,17 @@ constexpr int kFwdThreads = 256;  // tile_gemm's 8 warps
 constexpr int kFwdBK = 16;        // W2 rows per slab of the ring
 constexpr int kFwdStages = 3;
 
-template <typename T>
+// S: the storage type of the operands and out; the kernel computes in
+// Acc<S> (tp_common.cuh), the type of the tables, the carry rows and alphas
+template <typename S>
 struct ConvFwdArgs {
-  const T *x, *sh, *emb, *w1, *w2;
+  const S *x, *sh, *emb, *w1, *w2;
   const int32_t *edge_src, *dst_ptr;
-  cgf::Tables<T> tab;
-  T *out, *carry;
+  cgf::Tables<Acc<S>> tab;
+  S* out;
+  Acc<S>* carry;
   int n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim;
-  T alpha0, alpha1;
+  Acc<S> alpha0, alpha1;
 };
 
 // Shared-memory carve-up of one tile, in elements of T from the base (every
@@ -129,8 +156,10 @@ __host__ __device__ inline FwdSmem fwd_smem(int tile, int dim_in, int sh_dim, in
 __device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + __expf(-x)); }
 __device__ __forceinline__ double silu(double x) { return x * sigmoid(x); }
 
-template <typename T, int TILE, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const ConvFwdArgs<T> a) {
+template <typename S, int TILE, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const ConvFwdArgs<S> a) {
+  using T = Acc<S>;  // shared memory, registers and sums
+  constexpr bool kRound = !std::is_same<S, T>::value;  // bf16: round on the stores (see the header)
   constexpr int NT = kFwdThreads, TE = TILE / 8, V = mlp::Vec<T>::V;  // TE: rows a thread owns in the GEMM
   static_assert(TILE % 8 == 0 && TILE <= 32, "one warp finds the tile's destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -155,7 +184,7 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
   if (static_cast<int>(blockIdx.x) >= n_tiles) return;
   for (int i = tid; i < n_emb * L.ldw1; i += NT) {
     const int r = i / L.ldw1, c = i - r * L.ldw1;
-    s_w1[i] = c < hidden ? a.w1[r * hidden + c] : T(0);
+    s_w1[i] = c < hidden ? widen(a.w1[r * hidden + c]) : T(0);
   }
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -164,9 +193,9 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
     __syncthreads();  // s_w1 is staged; the previous tile's readers are done
     if (tid < 32) cgf::tile_segments<TILE>(a.dst_ptr, a.n_nodes, base, cnt, s_dst, s_flags);  // warp 0
     for (int i = tid; i < TILE * n_emb; i += NT)
-      s_emb[i] = i < cnt * n_emb ? a.emb[static_cast<int64_t>(base) * n_emb + i] : T(0);
+      s_emb[i] = i < cnt * n_emb ? widen(a.emb[static_cast<int64_t>(base) * n_emb + i]) : T(0);
     for (int i = tid; i < TILE * sh_dim; i += NT)
-      s_y[i] = i < cnt * sh_dim ? a.sh[static_cast<int64_t>(base) * sh_dim + i] : T(0);
+      s_y[i] = i < cnt * sh_dim ? widen(a.sh[static_cast<int64_t>(base) * sh_dim + i]) : T(0);
     __syncthreads();
 
     // hidden layer h = silu(h_pre), V columns of one edge per step, zero in the padding columns
@@ -186,7 +215,7 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
           for (int i = 0; i < TE; ++i) {
             T v[V];
 #pragma unroll
-            for (int j = 0; j < V; ++j) v[j] = a.alpha1 * acc[i][j];
+            for (int j = 0; j < V; ++j) v[j] = round_as<S>(a.alpha1 * acc[i][j]);  // bf16: w rounded
             store16(s_w + (r0 + i) * L.ldw + c0, v);
           }
         });
@@ -201,34 +230,58 @@ __global__ void __launch_bounds__(kFwdThreads, MIN_BLOCKS) conv_fwd_kernel(const
 
     // CG product and segmented sum (cg_fwd.cuh); a last segment that
     // continues into the next tile goes to this tile's carry row
-    T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * mid_dim : nullptr;
-    cgf::cg_forward<T, TILE, NT>(
-        a.tab, s_cy, s_x, dim_in, s_w, L.ldw, mid_dim, static_cast<unsigned>(s_flags[0]), [&](int o, int e, T v) {
-          T* row = (e == cnt - 1 && carry_row != nullptr) ? carry_row
-                                                           : a.out + static_cast<int64_t>(s_dst[e]) * mid_dim;
-          row[o] = v;
-        });
+    const unsigned ends = static_cast<unsigned>(s_flags[0]);
+    if constexpr (!kRound) {
+      T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * mid_dim : nullptr;
+      cgf::cg_forward<T, TILE, NT>(
+          a.tab, s_cy, s_x, dim_in, s_w, L.ldw, mid_dim, ends, [&](int o, int e, T v) {
+            T* row = (e == cnt - 1 && carry_row != nullptr) ? carry_row
+                                                             : a.out + static_cast<int64_t>(s_dst[e]) * mid_dim;
+            row[o] = v;
+          });
+    } else {
+      // bf16: compensated sums; the tail part to carry [tile][0], the part
+      // of a first destination that began in an earlier tile to [tile][1]
+      // (each as hi, lo rows), every other segment rounded once into out
+      static_assert(std::is_same<S, __nv_bfloat16>::value, "the compensated form writes bf16");
+      T* const tail_row = s_flags[1] ? a.carry + static_cast<int64_t>(4 * tile) * mid_dim : nullptr;
+      const bool head = __ldg(a.dst_ptr + s_dst[0]) < base;
+      T* const head_row = head ? a.carry + static_cast<int64_t>(4 * tile + 2) * mid_dim : nullptr;
+      const int first_end = __ffs(static_cast<int>(ends)) - 1;  // the tile's last edge always ends a segment
+      cgf::cg_forward_compensated<TILE, NT>(
+          a.tab, s_cy, s_x, dim_in, s_w, L.ldw, mid_dim, ends, [&](int o, int e, const SumF32x2& v) {
+            T* const row = (e == cnt - 1 && tail_row != nullptr) ? tail_row
+                           : (e == first_end && head_row != nullptr) ? head_row : nullptr;
+            if (row != nullptr) {
+              row[o] = v.hi;
+              row[mid_dim + o] = v.lo;
+            } else {
+              a.out[static_cast<int64_t>(s_dst[e]) * mid_dim + o] = bf16_of_sum(v.hi, v.lo);
+            }
+          });
+    }
   }
 }
 
-template <typename T>
-size_t fwd_bytes(const ConvFwdArgs<T>& a, int tile) {
-  return fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.n_emb, a.hidden, a.wn, a.tab.n_terms).bytes;
+// shared memory of one block: the tile is Acc<S> whatever S (bf16 tiles are f32's)
+template <typename S>
+size_t fwd_bytes(const ConvFwdArgs<S>& a, int tile) {
+  return fwd_smem<Acc<S>>(tile, a.dim_in, a.sh_dim, a.n_emb, a.hidden, a.wn, a.tab.n_terms).bytes;
 }
 
 // The largest tile (32, 16 or 8 edges) whose shared memory fits one block,
 // or 0 if none does.
-template <typename T>
-int pick_tile(const ConvFwdArgs<T>& a, const SmemLimits& lim) {
+template <typename S>
+int pick_tile(const ConvFwdArgs<S>& a, const SmemLimits& lim) {
   const int tiles[] = {32, 16, 8};
   for (int tile : tiles)
     if (lim.fit(fwd_bytes(a, tile), 1)) return tile;
   return 0;
 }
 
-template <typename T, int TILE, int MIN_BLOCKS>
-cudaError_t launch_tile(const ConvFwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
-  auto kernel = conv_fwd_kernel<T, TILE, MIN_BLOCKS>;
+template <typename S, int TILE, int MIN_BLOCKS>
+cudaError_t launch_tile(const ConvFwdArgs<S>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = conv_fwd_kernel<S, TILE, MIN_BLOCKS>;
   int grid = 0;
   const cudaError_t err = persistent_grid(kernel, kFwdThreads, dev, smem, grid);
   if (err != cudaSuccess) return err;
@@ -239,9 +292,9 @@ cudaError_t launch_tile(const ConvFwdArgs<T>& args, int dev, size_t smem, cudaSt
 // Tile kernel, then the finish kernel (cg_fwd.cuh).  The 32-edge tile caps registers at
 // 128 for two blocks an SM only where two fit in shared memory (f32 at the
 // flagship's widths); `tile` must be pick_tile's (the caller sized carry
-// [ceil(n_real / tile), mid_dim] by it).
-template <typename T>
-int launch_conv_fwd(const ConvFwdArgs<T>& args, int tile, void* stream) {
+// [ceil(n_real / tile), mid_dim], bf16 [ceil(n_real / tile), 2, 2, mid_dim], by it).
+template <typename S>
+int launch_conv_fwd(const ConvFwdArgs<S>& args, int tile, void* stream) {
   if (args.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
   SmemLimits lim;
   cudaError_t err = smem_limits(lim);
@@ -250,23 +303,27 @@ int launch_conv_fwd(const ConvFwdArgs<T>& args, int tile, void* stream) {
   const size_t smem = fwd_bytes(args, tile);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 32)
-    err = lim.fit(smem, 2) ? launch_tile<T, 32, 2>(args, lim.dev, smem, s) : launch_tile<T, 32, 1>(args, lim.dev, smem, s);
+    err = lim.fit(smem, 2) ? launch_tile<S, 32, 2>(args, lim.dev, smem, s) : launch_tile<S, 32, 1>(args, lim.dev, smem, s);
   else if (tile == 16)
-    err = launch_tile<T, 16, 1>(args, lim.dev, smem, s);
+    err = launch_tile<S, 16, 1>(args, lim.dev, smem, s);
   else
-    err = launch_tile<T, 8, 1>(args, lim.dev, smem, s);
+    err = launch_tile<S, 8, 1>(args, lim.dev, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cgf::launch_finish<T, 1, false>(args.dst_ptr, args.carry, args.out, nullptr, args.n_nodes,
+  if constexpr (std::is_same<S, Acc<S>>::value)
+    return static_cast<int>(cgf::launch_finish<S, 1, false>(args.dst_ptr, args.carry, args.out, nullptr,
+                                                            args.n_nodes, args.mid_dim, tile, s));
+  else
+    return static_cast<int>(cgf::launch_finish_rounded<S>(args.dst_ptr, args.carry, args.out, args.n_nodes,
                                                           args.mid_dim, tile, s));
 }
 
 // pick_tile for the given widths on the current device; a CUDA error as -err
-template <typename T>
+template <typename S>
 int conv_fwd_tile(int dim_in, int sh_dim, int n_emb, int hidden, int wn, int n_terms) {
   SmemLimits lim;
   const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  ConvFwdArgs<T> a{};
+  ConvFwdArgs<S> a{};
   a.dim_in = dim_in, a.sh_dim = sh_dim, a.n_emb = n_emb, a.hidden = hidden, a.wn = wn, a.tab.n_terms = n_terms;
   return pick_tile(a, lim);
 }
@@ -289,16 +346,17 @@ int conv_fwd_tile(int dim_in, int sh_dim, int n_emb, int hidden, int wn, int n_t
         static_cast<const T*>(emb),       static_cast<const T*>(w1),                                            \
         static_cast<const T*>(w2),        static_cast<const int32_t*>(edge_src),                                \
         static_cast<const int32_t*>(dst_ptr),                                                                   \
-        {static_cast<const int32_t*>(groups), static_cast<const int32_t*>(terms), static_cast<const T*>(coef),  \
-         static_cast<const int32_t*>(col_group), n_terms},                                                      \
-        static_cast<T*>(out),             static_cast<T*>(carry),                                               \
+        {static_cast<const int32_t*>(groups), static_cast<const int32_t*>(terms),                                \
+         static_cast<const nequip::Acc<T>*>(coef), static_cast<const int32_t*>(col_group), n_terms},            \
+        static_cast<T*>(out),             static_cast<nequip::Acc<T>*>(carry),                                  \
         n_nodes,                          dim_in,                                                               \
         sh_dim,                           n_emb,                                                                \
         hidden,                           wn,                                                                   \
-        mid_dim,                          static_cast<T>(alpha0),                                               \
-        static_cast<T>(alpha1)};                                                                                \
+        mid_dim,                          static_cast<nequip::Acc<T>>(alpha0),                                  \
+        static_cast<nequip::Acc<T>>(alpha1)};                                                                   \
     return nequip::launch_conv_fwd<T>(args, tile, stream);                                                      \
   }
 
 NEQUIP_CONV_FWD(f32, float)
 NEQUIP_CONV_FWD(f64, double)
+NEQUIP_CONV_FWD(bf16, __nv_bfloat16)

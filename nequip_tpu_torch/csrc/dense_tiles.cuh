@@ -11,6 +11,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "tp_common.cuh"
@@ -87,12 +88,35 @@ __device__ __forceinline__ void stage_flat(T* dst, const T* __restrict__ src, in
 
 // Starts the gather of TILE rows of n elements, dst[e * n + c] = src[idx[e]
 // * n + c] for the edges e < cnt and zero for the others: 16-byte copies
-// where every row is 16-byte aligned, element copies otherwise.
-template <typename T, int TILE, int NT>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, const int32_t* __restrict__ idx,
+// where every row is 16-byte aligned, element copies otherwise.  bf16 rows
+// into a float tile (S = __nv_bfloat16, T = float) are widened on the way
+// by plain loads and stores (cp.async copies bytes, and has no 2-byte
+// form): 16-byte loads of 8 values where every row is 16-byte aligned,
+// element loads otherwise; those rows are in place when the call returns.
+template <typename T, int TILE, int NT, typename S>
+__device__ __forceinline__ void stage_rows(T* dst, const S* __restrict__ src, const int32_t* __restrict__ idx,
                                            int cnt, int n, int tid) {
   constexpr int V = 16 / sizeof(T);
-  if ((n % V) == 0 && phase16(src) == 0) {
+  if constexpr (!std::is_same<S, T>::value) {
+    static_assert(std::is_same<S, __nv_bfloat16>::value && std::is_same<T, float>::value, "bf16 rows into float");
+    if (n % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const int per_row = n / 8;
+      for (int i = tid; i < TILE * per_row; i += NT) {
+        const int e = i / per_row, c = (i - e * per_row) * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (e < cnt) v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<int64_t>(__ldg(idx + e)) * n + c));
+        float f[8];
+        widen8(v, f);
+        store16(dst + e * n + c, f);
+        store16(dst + e * n + c + 4, f + 4);
+      }
+    } else {
+      for (int i = tid; i < TILE * n; i += NT) {
+        const int e = i / n, c = i - e * n;
+        dst[i] = e < cnt ? widen(src[static_cast<int64_t>(__ldg(idx + e)) * n + c]) : T(0);
+      }
+    }
+  } else if ((n % V) == 0 && phase16(src) == 0) {
     const int per_row = n / V;
     for (int i = tid; i < TILE * per_row; i += NT) {
       const int e = i / per_row, c = (i - e * per_row) * V;

@@ -26,7 +26,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "cp_async.cuh"
+#include "tp_common.cuh"
 
 namespace nequip {
 namespace mlp {
@@ -53,12 +56,18 @@ __device__ __forceinline__ bool vec_ok(const T* b, int n) {
 
 // Starts the copy of rows [k0, k0 + BK) x columns [c0, c0 + CW) of the
 // row-major b [k, n] into dst [BK][CW]; rows >= k and columns >= n read as
-// zero.
-template <typename T, int BK, int CW, int NT>
-__device__ __forceinline__ void stage_slab(T* dst, const T* __restrict__ b, int k0, int k, int c0, int n, bool vec,
+// zero.  A b of another type S than T (bf16 weights into a float ring) is
+// widened by plain loads and stores, in place when the call returns.
+template <typename T, int BK, int CW, int NT, typename S>
+__device__ __forceinline__ void stage_slab(T* dst, const S* __restrict__ b, int k0, int k, int c0, int n, bool vec,
                                            int tid) {
   constexpr int V = Vec<T>::V;
-  if (vec) {
+  if constexpr (!std::is_same<S, T>::value) {
+    for (int i = tid; i < BK * CW; i += NT) {
+      const int r = i / CW, c = i % CW;
+      dst[i] = k0 + r < k && c0 + c < n ? widen(b[static_cast<int64_t>(k0 + r) * n + c0 + c]) : T(0);
+    }
+  } else if (vec) {
     constexpr int kCopies = BK * CW / V;
 #pragma unroll
     for (int j = 0; j < (kCopies + NT - 1) / NT; ++j) {
@@ -92,9 +101,17 @@ __host__ __device__ constexpr int ring_elems() {
 // thread calls epi(row0, col0, acc) with acc[i][j] the value of row row0 + i
 // and column col0 + j.  Starts with a barrier (the caller's writes of A,
 // and its reads of whatever shared the ring's memory, are done) and ends at
-// one with no copy in flight, so the caller may reuse the ring at once.
-template <typename T, int TILE, int BK, int STAGES, typename Epi>
-__device__ __forceinline__ void tile_gemm(const T* a, int lda, const T* __restrict__ b, int k, int n, T* ring,
+// one with no copy in flight, so the caller may reuse the ring at once.  B
+// may be stored as bf16 (S = __nv_bfloat16, T = float): its slabs are
+// widened into the float ring by plain loads and stores, which the ring's
+// barriers order as they order the copies.  Where B's rows are 16-byte
+// aligned, slab q + STAGES - 1 is loaded into registers (16-byte words of
+// 8 values) before slab q's products and stored after them, into the slot
+// every thread finished reading before this iteration's barrier, so the
+// loads' latency hides behind the products; otherwise stage_slab loads
+// element by element where the copy would be issued.
+template <typename T, int TILE, int BK, int STAGES, typename S, typename Epi>
+__device__ __forceinline__ void tile_gemm(const T* a, int lda, const S* __restrict__ b, int k, int n, T* ring,
                                           Epi&& epi) {
   constexpr int V = Vec<T>::V, CW = 32 * V, NT = 256, TE = TILE / 8;
   static_assert(TILE % 8 == 0 && BK % V == 0 && STAGES >= 2, "tile_gemm shape");
@@ -105,6 +122,35 @@ __device__ __forceinline__ void tile_gemm(const T* a, int lda, const T* __restri
   auto load = [&](int q) {
     const int c = q / nk, s = q - c * nk;
     stage_slab<T, BK, CW, NT>(ring + (q % STAGES) * BK * CW, b, s * BK, k, c * CW, n, vec, tid);
+  };
+  constexpr bool kWiden = !std::is_same<S, T>::value;
+  constexpr int kWords = BK * CW / 8, kWordsPerThread = (kWords + NT - 1) / NT;  // 16-byte words of 8 bf16 a slab
+  const bool prefetch = kWiden && n % 8 == 0 && (reinterpret_cast<uintptr_t>(b) & 15) == 0;
+  uint4 pre[kWordsPerThread];  // prefetch: the next slab's words
+  auto fetch = [&](int q) {
+    const int c = q / nk, s = q - c * nk;
+#pragma unroll
+    for (int j = 0; j < kWordsPerThread; ++j) {
+      const int i = tid + j * NT, r = i / (CW / 8), cc = (i % (CW / 8)) * 8;
+      pre[j] = make_uint4(0u, 0u, 0u, 0u);
+      if ((kWords % NT == 0 || i < kWords) && s * BK + r < k && c * CW + cc < n)
+        pre[j] = __ldg(reinterpret_cast<const uint4*>(b + static_cast<int64_t>(s * BK + r) * n + c * CW + cc));
+    }
+  };
+  auto put = [&](int q) {
+    T* dst = ring + (q % STAGES) * BK * CW;
+#pragma unroll
+    for (int j = 0; j < kWordsPerThread; ++j) {
+      const int i = tid + j * NT, r = i / (CW / 8), cc = (i % (CW / 8)) * 8;
+      if (kWords % NT == 0 || i < kWords) {
+        if constexpr (kWiden) {
+          float f[8];
+          widen8(pre[j], f);
+          store16(dst + r * CW + cc, f);
+          store16(dst + r * CW + cc + 4, f + 4);
+        }
+      }
+    }
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -121,7 +167,13 @@ __device__ __forceinline__ void tile_gemm(const T* a, int lda, const T* __restri
   for (int q = 0; q < nq; ++q) {
     cp_async_wait<STAGES - 2>();  // slab q has landed
     __syncthreads();              // ... for every thread, and slab q - 1 is consumed
-    if (q + STAGES - 1 < nq) load(q + STAGES - 1);
+    const bool next = q + STAGES - 1 < nq;
+    if (next) {
+      if (prefetch)
+        fetch(q + STAGES - 1);
+      else
+        load(q + STAGES - 1);
+    }
     cp_async_commit();
     const int c = q / nk, s = q - c * nk;
     const T* sb = ring + (q % STAGES) * BK * CW + col;
@@ -141,6 +193,7 @@ __device__ __forceinline__ void tile_gemm(const T* a, int lda, const T* __restri
           for (int j = 0; j < V; ++j) acc[i][j] += fa[i][v] * fb[j];
       }
     }
+    if (next && prefetch) put(q + STAGES - 1);
     if (s == nk - 1) {  // the chunk's sums are complete
       epi(warp * TE, c * CW + col, acc);
 #pragma unroll

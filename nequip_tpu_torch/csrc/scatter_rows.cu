@@ -13,22 +13,29 @@
 // the row's segment of the stable source-sorted permutation with threads
 // over D, so each gathered row is read as contiguous 4- or 8-byte words
 // across a warp; no atomics, and the sum order is the edge order.
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// bf16 (the fast mode's forces): values and out are bf16, each element is
+// widened on its read and summed in a float32 register in the same edge
+// order, and the sum is rounded to bf16 once, on its store (the plain
+// version, tp_scatter.scatter_rows_plain, rounds at the same point).  Its
+// bound is half the f32 one: 2 bytes a value.
+#include "tp_common.cuh"
 
 namespace nequip {
 
-template <typename T>
-__global__ void scatter_rows_kernel(const T* __restrict__ v, const int32_t* __restrict__ perm,
-                                    const int32_t* __restrict__ ptr, T* __restrict__ out,
+// S: the storage type; the sum runs in Acc<S> (tp_common.cuh)
+template <typename S>
+__global__ void scatter_rows_kernel(const S* __restrict__ v, const int32_t* __restrict__ perm,
+                                    const int32_t* __restrict__ ptr, S* __restrict__ out,
                                     int d) {
+  using A = Acc<S>;
   const int n = blockIdx.x;
   const int j0 = ptr[n];
   const int j1 = ptr[n + 1];
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    T acc = T(0);
-    for (int j = j0; j < j1; ++j) acc += v[static_cast<int64_t>(perm[j]) * d + c];
-    out[static_cast<int64_t>(n) * d + c] = acc;
+    A acc = A(0);
+    for (int j = j0; j < j1; ++j) acc += widen(v[static_cast<int64_t>(perm[j]) * d + c]);
+    out[static_cast<int64_t>(n) * d + c] = narrow<S>(acc);
   }
 }
 
@@ -54,4 +61,9 @@ extern "C" int nequip_scatter_rows_f32(const void* v, const void* perm, const vo
 extern "C" int nequip_scatter_rows_f64(const void* v, const void* perm, const void* ptr,
                                        void* out, int n_rows, int d, void* stream) {
   return nequip::launch_scatter_rows<double>(v, perm, ptr, out, n_rows, d, stream);
+}
+
+extern "C" int nequip_scatter_rows_bf16(const void* v, const void* perm, const void* ptr,
+                                        void* out, int n_rows, int d, void* stream) {
+  return nequip::launch_scatter_rows<__nv_bfloat16>(v, perm, ptr, out, n_rows, d, stream);
 }

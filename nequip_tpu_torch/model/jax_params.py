@@ -44,6 +44,8 @@ def load_jax_params(model: GraphModule, tree: Mapping) -> GraphModule:
         value = flat[name]
         if tuple(value.shape) != tuple(t.shape):
             raise ValueError(f"{name}: shape {value.shape} != {tuple(t.shape)}")
+        if value.dtype.name == "bfloat16":  # ml_dtypes' bf16 (a JAX tree cast to bf16): widened exactly
+            value = value.astype(np.float32)
         t.copy_(torch.as_tensor(np.array(value), dtype=t.dtype))
     return model
 

@@ -55,10 +55,12 @@ def disable_TPUFusedTPScatter(model):
 @model_modifier(persistent=False)
 def modify_model_dtype(model, model_dtype: str):
     """Rebuild the model from its ``model_config`` under another
-    ``model_dtype`` (float32 or float64), every weight carried over and cast
-    to the dtype the new build gives it (tensors held in the global float64
-    stay float64).  Implementation switches made by other modifiers are not
-    in the config: apply this one first."""
+    ``model_dtype`` (float32, float64 or bfloat16), every weight carried
+    over and cast to the dtype the new build gives it (tensors held in the
+    global float64 stay float64; a bfloat16 model holds float32 parameters,
+    ``utils.dtype.param_dtype``, so float32 -> bfloat16 -> float32 gives the
+    float32 weights back bitwise).  Implementation switches made by other
+    modifiers are not in the config: apply this one first."""
     from ..utils.config import instantiate
     from .jax_params import load_jax_params
 
@@ -74,13 +76,15 @@ def modify_model_dtype(model, model_dtype: str):
 
 @model_modifier(persistent=False)
 def enable_bf16_fast_mode(model):
-    """The JAX package's bfloat16 fast mode is not ported: the CUDA kernels
-    are instantiated for float32 and float64 only
-    (``ops/kernels/build.py``)."""
-    raise NotImplementedError(
-        "enable_bf16_fast_mode: the port's CUDA kernels are built for float32 and float64 only "
-        "(ops/kernels/build.py); bfloat16 is a later slice of the port (ROADMAP.md)"
-    )
+    """The bfloat16 "fast MD" mode, as in JAX: ``modify_model_dtype`` to
+    bfloat16.  Features, SH, radial embeddings and the weights at their use
+    are bf16, the parameters stay float32, the energy sum and forces stay in
+    the positions' float64.  Serving and MD run K1, K2's inference variant
+    and K3 in bf16 (float32 sums) with ``tp_impl="fused"``, or plain
+    PyTorch with ``"torch"``; the ``"fused_tp"`` route and training on the
+    kernels raise (``nn/interaction_block.py``).  It rebuilds the model:
+    apply it before ``enable_TPUFusedTPScatter``."""
+    return modify_model_dtype(model, model_dtype="bfloat16")
 
 
 @model_modifier(persistent=True)

@@ -71,10 +71,10 @@ class NodeTypeEmbed(GraphModule):
         if set_features:
             irreps_out[_keys.NODE_FEATURES_KEY] = out_irreps
         self._init_irreps(irreps_in=irreps_in, irreps_out=irreps_out)
-        self.type_embed = nn.Parameter(torch.empty(self.num_types, self.num_features, dtype=self.model_dtype))
+        self.type_embed = nn.Parameter(torch.empty(self.num_types, self.num_features, dtype=self.param_dtype))
         for spec in self.categorical_specs:
             self.register_parameter(f"embed_{spec['field']}", nn.Parameter(
-                torch.empty(spec["num"], spec["num_features"], dtype=self.model_dtype)))
+                torch.empty(spec["num"], spec["num_features"], dtype=self.param_dtype)))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -92,13 +92,13 @@ class NodeTypeEmbed(GraphModule):
 
     def forward(self, data: dict) -> dict:
         types = data[_keys.ATOM_TYPE_KEY].reshape(-1)
-        emb = self.type_embed[types]
+        emb = self.type_embed.to(self.model_dtype)[types]
         if self.categorical_specs:
             parts = [emb]
             batch = data[_keys.BATCH_KEY].reshape(-1)
             for spec in self.categorical_specs:
                 per_node = torch.index_select(data[spec["field"]].reshape(-1), 0, batch) - spec["min"]
-                parts.append(getattr(self, f"embed_{spec['field']}")[per_node])
+                parts.append(getattr(self, f"embed_{spec['field']}").to(self.model_dtype)[per_node])
             emb = torch.cat(parts, dim=-1)
         data = dict(data)
         data[_keys.NODE_ATTRS_KEY] = emb

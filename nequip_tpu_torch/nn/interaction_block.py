@@ -24,6 +24,13 @@ kernel impl, ``forward`` runs the conv over C slices of the edge stream
 (``ChunkedConv``: K4-acc, backward K5 + K3) and ``jvp`` runs the dual
 sweep over them (``ChunkedJvpConv``: K6, backward K7 + K3).
 
+bfloat16 (``enable_bf16_fast_mode``) serves and runs MD on two routes:
+``"fused"`` with frozen weights (K1, K2's inference variant and K3 in bf16,
+float32 sums) and ``"torch"`` (plain PyTorch in bf16).  The kernels of the
+``"fused_tp"`` route and of training (K2's training variant, the dW
+reduction, K4-acc to K7) have no bf16 form yet: a bf16 block on those
+raises ``NotImplementedError`` and never falls back to another route.
+
 ``forward`` is ``tail(conv(head(data)))``: ``ConvNetLayer``'s
 ``remat="save_tp"`` checkpoints the head and the tail and keeps the conv's
 output, so the kernel is not run again in the backward.
@@ -139,7 +146,7 @@ class InteractionBlock(GraphModule):
             else None
         )
         if self.sc_tp is not None:
-            self.sc = nn.Parameter(torch.empty(self.sc_tp.weight_numel, dtype=self.model_dtype))
+            self.sc = nn.Parameter(torch.empty(self.sc_tp.weight_numel, dtype=self.param_dtype))
         # edge slices of the fr sweep; set by the fr train step, 0 otherwise
         self.fr_edge_chunks = 0
 
@@ -171,8 +178,25 @@ class InteractionBlock(GraphModule):
         sc = self.sc_tp(x, data[_keys.NODE_ATTRS_KEY], self.sc.to(x.dtype)) if self.sc_tp is not None else None
         return self._feature_maps(data, self.linear_1(x)), sc
 
+    def _check_bf16(self, x: torch.Tensor, training: bool) -> None:
+        """Refuse what the kernels cannot do in bfloat16 (module docstring):
+        the ``"fused_tp"`` route, and training on a kernel route."""
+        if x.dtype != torch.bfloat16 or self.route == "torch":
+            return
+        if self.route == "fused_tp":
+            raise NotImplementedError(
+                "bfloat16 on the fused_tp route (the depth-2 radial MLP, K4/K5) has no kernel yet (ROADMAP.md); "
+                "run this model with tp_impl='torch' in bfloat16, or in float32"
+            )
+        if training or self._chunked() or not self._frozen():
+            raise NotImplementedError(
+                "bfloat16 training through the kernels (K2's training variant, the dW reduction, K4-acc to K7) "
+                "has no kernel yet (ROADMAP.md); the fused route serves frozen bfloat16 weights only"
+            )
+
     def conv(self, data: dict, x: torch.Tensor) -> torch.Tensor:
         """The ``[N, mid_dim]`` messages of the route's kernels."""
+        self._check_bf16(x, training=False)
         emb, sh = data[_keys.EDGE_EMBEDDING_KEY], data[_keys.EDGE_ATTRS_KEY]
         if self._chunked():
             return chunked_conv(self.tp_scatter.plan, self.edge_mlp, x, sh, emb, data[LAYOUT_KEY],
@@ -233,6 +257,7 @@ class InteractionBlock(GraphModule):
         through the same maps.  Forward mode never enters a kernel.
         """
         x = data[_keys.NODE_FEATURES_KEY]
+        self._check_bf16(x, training=True)  # the dual sweep is fr training's
         tx = tangents.get(_keys.NODE_FEATURES_KEY)
         n_attrs = data[_keys.NODE_ATTRS_KEY]
         t_attrs = tangents.get(_keys.NODE_ATTRS_KEY)

@@ -16,7 +16,7 @@ import torch.autograd.forward_ad as fwAD
 from torch import nn
 
 from ..ops.irreps import Irreps
-from ..utils.dtype import get_default_dtype
+from ..utils.dtype import get_default_dtype, param_dtype
 
 IrrepsDict = Dict[str, Optional[Irreps]]
 
@@ -39,6 +39,7 @@ class GraphModule(nn.Module):
         self.irreps_in: IrrepsDict = {}
         self.irreps_out: IrrepsDict = {}
         self.model_dtype = get_default_dtype()
+        self.param_dtype = param_dtype(self.model_dtype)  # float32 in a bfloat16 model
 
     def _init_irreps(
         self,

@@ -8,7 +8,10 @@ changed source rebuilds).  Importing this module needs no ``nvcc``.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns the ``cudaError_t`` of the launch; the Python wrappers raise if
-it is not 0.
+it is not 0.  Every kernel is instantiated for float32 and float64
+(suffixes ``f32``, ``f64``); the bfloat16 fast mode's kernels (``BF16``: K1,
+K2's inference variant and K3, bf16 storage with float32 sums) also for
+bfloat16 (``bf16``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ _SIGNATURES: Dict[str, List] = {
     "nequip_mb_bwd_blocks": [_I] * 2,
     "nequip_device_nl": [_P] * 3 + [_I] * 4 + [_D] + [_I] * 2 + [_P] * 11 + [_I] * 2 + [_P] * 5,
 }
+# the entry points that are instantiated for bfloat16 too; ``entry_point``
+# refuses bfloat16 for every other name before the library loads
+BF16 = ("nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_scatter_rows")
 # dtype-free entry points (a copy moves bytes), registered under their own names
 _BYTE_SIGNATURES: Dict[str, List] = {
     "nequip_row_gather_bytes": [_P] * 3 + [_I] * 4 + [_P],
@@ -139,7 +145,7 @@ def load_library() -> ctypes.CDLL:
     lib_path, _ = build()
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
+        for suffix in ("f32", "f64") + (("bf16",) if name in BF16 else ()):
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -158,12 +164,18 @@ def byte_entry_point(name: str) -> ctypes._CFuncPtr:
 
 
 def entry_point(name: str, dtype) -> ctypes._CFuncPtr:
-    """The C function ``name`` instantiated for a torch float dtype."""
+    """The C function ``name`` instantiated for a torch float dtype: float32
+    and float64 for every kernel, bfloat16 for the names in ``BF16``."""
     import torch
 
-    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
+    if dtype == torch.bfloat16 and name not in BF16:
+        raise TypeError(
+            f"{name}: no bfloat16 kernel; the bfloat16 fast mode has K1, K2's inference variant and K3 "
+            f"({', '.join(BF16)}), and the other kernels in bfloat16 are later work (ROADMAP.md)"
+        )
+    suffix = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}.get(dtype)
     if suffix is None:
-        raise TypeError(f"{name}: kernels are instantiated for float32 and float64, not {dtype}")
+        raise TypeError(f"{name}: kernels are instantiated for float32, float64 and bfloat16, not {dtype}")
     return getattr(load_library(), f"{name}_{suffix}")
 
 

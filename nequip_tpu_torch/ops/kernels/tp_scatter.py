@@ -26,6 +26,17 @@ Each wrapper runs its plain PyTorch twin (``*_plain``) when its tensors lie
 on the CPU, launches its kernel when they lie on a CUDA device, and raises
 for any other device.  Each counts its kernel launches in ``.launches``.
 
+bfloat16 (the fast mode): K1, K2's inference variant and K3 take bf16
+operands and return bf16 outputs, with every sum in float32
+(``acc_dtype``: their term tables and K1's carry rows are float32).  Their
+plain twins, given bf16, compute in float32 and round where the kernels
+round (stated in each kernel's header): K1 rounds ``w`` and each output,
+K2 ``h``, ``w`` and each output, K3 each output.  K1 sums over edges in
+compensated float32 (hi + lo), so that its output does not depend on how
+the edge stream falls into tiles; its twin sums in float64.  On the card a
+kernel then differs from its twin only by the order of its sums.  The
+other kernels have no bf16 form (``build.BF16``).
+
 Serving (frozen radial-MLP weights) runs K1, K2's inference variant and K3
 as registered ops, ``torch.ops.nequip_torch.{conv_fwd, conv_bwd,
 scatter_rows}``, and on K4's route (a radial MLP K1 does not take), where
@@ -60,6 +71,7 @@ segment, so nothing reads them.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -402,6 +414,35 @@ def layout_from_fields(data: dict) -> EdgeLayout:
 # ---------------------------------------------------------------------------
 # plain PyTorch twins
 # ---------------------------------------------------------------------------
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the kernels sum in for operands of ``dtype``: float32 for
+    bfloat16, else ``dtype`` (the JAX ``_acc_dtype``)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _wide(*ts: torch.Tensor):
+    """The tensors in their sum dtype (``acc_dtype``): bfloat16 widened to
+    float32, the others as they are."""
+    return tuple(t.to(acc_dtype(t.dtype)) for t in ts)
+
+
+def _round_as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype``'s precision, kept in its own dtype: a
+    rounding point of a bf16 kernel (the identity for f32 and f64)."""
+    return t.to(dtype).to(t.dtype) if dtype == torch.bfloat16 else t
+
+
+def _bf16_nearest(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 nearest to each float64 value (ties to even).  torch's own
+    cast goes through float32 and may round twice; here a float32 value on
+    a bf16 tie is moved one float32 ulp toward the float64 value first."""
+    f = t.float()
+    tie = (f.view(torch.int32) & 0xFFFF) == 0x8000
+    rest = t - f.double()
+    toward = torch.where(rest > 0, torch.full_like(f, math.inf), torch.full_like(f, -math.inf))
+    return torch.where(tie & (rest != 0), torch.nextafter(f, toward), f).to(torch.bfloat16)
+
+
 def radial_weights(emb: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                    alpha0: float, alpha1: float) -> torch.Tensor:
     """The depth-1 bias-free silu radial MLP (``ops/mlp.py`` semantics)."""
@@ -415,27 +456,39 @@ def _segment_rows(ptr: torch.Tensor) -> torch.Tensor:
 
 
 def conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout):
+    """K1's twin; bf16 inputs run in float32 with ``w`` rounded to bf16, the
+    messages summed in float64 (K1's compensated float32 sums agree with
+    that to far below a bf16 ulp) and each output rounded once to the
+    nearest bf16 (K1's rounding points)."""
+    dtype = x.dtype
+    x, sh, emb, w1, w2 = _wide(x, sh, emb, w1, w2)
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
-    w = radial_weights(emb[:n_real], w1, w2, alpha0, alpha1)
+    w = _round_as(radial_weights(emb[:n_real], w1, w2, alpha0, alpha1), dtype)
     msg = plan.tp(x[src], sh[:n_real], w)
+    if dtype == torch.bfloat16:
+        out = torch.zeros(layout.num_nodes, plan.mid_dim, dtype=torch.float64, device=x.device)
+        return _bf16_nearest(out.index_add_(0, dst, msg.double()))
     return x.new_zeros(layout.num_nodes, plan.mid_dim).index_add_(0, dst, msg)
 
 
 def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
     """K2's inference variant in plain torch: the VJP of the radial MLP and
     of the TP written out (``_table_tp_vjp``), no autograd inside, since it
-    is the CPU kernel of a registered op."""
+    is the CPU kernel of a registered op.  bf16 inputs run in float32 with
+    ``h``, ``w`` and the outputs rounded to bf16 (K2's rounding points)."""
+    dtype = x.dtype
+    x, sh, emb, w1, w2, g = _wide(x, sh, emb, w1, w2, g)
     n, n_pad = layout.n_real, sh.shape[0] - layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n].long()
     a = emb[:n] @ (w1 * alpha0)
     s = torch.sigmoid(a)
-    W = (a * s) @ (w2 * alpha1)
+    W = _round_as(_round_as(a * s, dtype) @ (w2 * alpha1), dtype)
     dx_edge, dsh, dW = _table_tp_vjp(plan.device_tables(x.device, x.dtype), x[src], sh[:n], W, g[dst])
     dh_pre = (dW @ (w2 * alpha1).t()) * (s * (1 + a * (1 - s)))
-    return tuple(F.pad(t, (0, 0, 0, n_pad)) for t in (dx_edge, dsh, dh_pre @ (w1 * alpha0).t()))
+    return tuple(F.pad(t, (0, 0, 0, n_pad)).to(dtype) for t in (dx_edge, dsh, dh_pre @ (w1 * alpha0).t()))
 
 
 def conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
@@ -510,9 +563,11 @@ def tri_bwd_plain(plan, x, y, w, layout: EdgeLayout, g):
 
 
 def scatter_rows_plain(values, perm, ptr):
+    """K3's twin; bf16 values are summed in float32 and rounded once."""
     rows = _segment_rows(ptr)
-    out = values.new_zeros((ptr.shape[0] - 1,) + tuple(values.shape[1:]))
-    return out.index_add_(0, rows, values[perm[: rows.shape[0]].long()])
+    (wide,) = _wide(values)
+    out = wide.new_zeros((ptr.shape[0] - 1,) + tuple(values.shape[1:]))
+    return out.index_add_(0, rows, wide[perm[: rows.shape[0]].long()]).to(values.dtype)
 
 
 def _table_pairs(tab: Dict[str, torch.Tensor]):
@@ -590,6 +645,16 @@ def _route(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+def _check_coefs(name: str, tables, like: torch.Tensor) -> None:
+    """The float term tables of a registered op's ``tables`` (``TABLE_NAMES``
+    order) lie contiguous on ``like``'s device in ``acc_dtype(like.dtype)``."""
+    dtype = acc_dtype(like.dtype)
+    for i in _COEF:
+        t = tables[i]
+        if t.device != like.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: the term tables' coefficients must be contiguous {dtype} on the inputs' device")
+
+
 def _check_index(device: torch.device, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
@@ -600,12 +665,15 @@ def _check_layout(layout: EdgeLayout, device: torch.device) -> None:
     _check_index(device, layout.edge_src, layout.dst_ptr, layout.src_perm, layout.src_ptr)
 
 
-def conv_fwd_carry_rows(n_edges: int, tile: int) -> int:
+def conv_fwd_carry_rows(n_edges: int, tile: int, dtype: torch.dtype = torch.float32) -> int:
     """Rows of the carry buffer of K1, K4 and K6 over ``n_edges`` edges (at
     least the real ones): one per tile of ``tile`` edges (a tile whose last
     destination continues into the next tile writes its part there, see
-    ``csrc/cg_fwd.cuh``)."""
-    return _cdiv(n_edges, tile)
+    ``csrc/cg_fwd.cuh``); four per tile for K1 in bf16 (two parts, each a
+    compensated float32 sum's hi and lo rows; the second part is a tile's
+    first destination's that began in an earlier tile, see
+    ``csrc/conv_fwd.cu``).  The rows are in ``acc_dtype(dtype)``."""
+    return _cdiv(n_edges, tile) * (4 if dtype == torch.bfloat16 else 1)
 
 
 # edges per tile of K1, K4 and K6 by (kernel, device, dtype, widths): the
@@ -657,7 +725,7 @@ def conv_fwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
         return conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout)
     _check_layout(layout, x.device)
     return _launch_conv_fwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr,
-                            plan.device_tables(x.device, x.dtype), alpha0, alpha1)
+                            plan.device_tables(x.device, acc_dtype(x.dtype)), alpha0, alpha1)
 
 
 def _launch_conv_fwd(x, sh, emb, w1, w2, edge_src, dst_ptr, tab: Dict[str, torch.Tensor], alpha0, alpha1):
@@ -667,7 +735,8 @@ def _launch_conv_fwd(x, sh, emb, w1, w2, edge_src, dst_ptr, tab: Dict[str, torch
     mid_dim, n_terms = tab["fwd_col"].shape[0], tab["fwd_coef"].shape[0]
     tile = _tile("conv_fwd", x.dtype, x.device, (dim_in, sh_dim, n_emb, hidden, wn, n_terms))
     out = torch.empty(num_nodes, mid_dim, dtype=x.dtype, device=x.device)
-    carry = torch.empty(conv_fwd_carry_rows(edge_src.shape[0], tile), mid_dim, dtype=x.dtype, device=x.device)
+    carry = torch.empty(conv_fwd_carry_rows(edge_src.shape[0], tile, x.dtype), mid_dim, dtype=acc_dtype(x.dtype),
+                        device=x.device)
     err = build.entry_point("nequip_conv_fwd", x.dtype)(
         x.data_ptr(), sh.data_ptr(), emb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         edge_src.data_ptr(), dst_ptr.data_ptr(),
@@ -735,7 +804,7 @@ def conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
         return conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
     _check_layout(layout, x.device)
     return _launch_conv_bwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr, g,
-                            plan.device_tables(x.device, x.dtype), alpha0, alpha1)
+                            plan.device_tables(x.device, acc_dtype(x.dtype)), alpha0, alpha1)
 
 
 def conv_bwd_train(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout, g):
@@ -1153,7 +1222,7 @@ def fused_tp_scatter_mlp(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1
         return FusedConv.apply(x, sh, emb, w1, w2, plan, alpha0, alpha1, layout)
     # the layout's own tensors: a CUDA graph replayed on a layout refilled in
     # place (integrations/md.py) must read the buffers, not a copy made at capture
-    tables = plan.device_tables(x.device, x.dtype).values()
+    tables = plan.device_tables(x.device, acc_dtype(x.dtype)).values()
     return torch.ops.nequip_torch.conv_fwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr, layout.src_perm,
                                            layout.src_ptr, *tables, alpha0, alpha1)
 
@@ -1211,7 +1280,8 @@ def _conv_fwd_op(x, sh, emb, w1, w2, edge_src, dst_ptr, src_perm, src_ptr, *rest
 @_conv_fwd_op.register_kernel("cuda")
 def _conv_fwd_cuda(x, sh, emb, w1, w2, edge_src, dst_ptr, src_perm, src_ptr, *rest):
     *tables, alpha0, alpha1 = rest
-    _route("conv_fwd", x, sh, emb, w1, w2, *(tables[i] for i in _COEF))
+    _route("conv_fwd", x, sh, emb, w1, w2)
+    _check_coefs("conv_fwd", tables, x)
     _check_index(x.device, edge_src, dst_ptr, src_perm, src_ptr)
     return _launch_conv_fwd(x, sh, emb, w1, w2, edge_src, dst_ptr, dict(zip(TABLE_NAMES, tables)), alpha0, alpha1)
 
@@ -1254,7 +1324,8 @@ def _conv_bwd_op(x, sh, emb, w1, w2, g, edge_src, dst_ptr, *rest):
 @_conv_bwd_op.register_kernel("cuda")
 def _conv_bwd_cuda(x, sh, emb, w1, w2, g, edge_src, dst_ptr, *rest):
     *tables, alpha0, alpha1 = rest
-    _route("conv_bwd", x, sh, emb, w1, w2, g, *(tables[i] for i in _COEF))
+    _route("conv_bwd", x, sh, emb, w1, w2, g)
+    _check_coefs("conv_bwd", tables, x)
     _check_index(x.device, edge_src, dst_ptr)
     return _launch_conv_bwd(x, sh, emb, w1, w2, edge_src, dst_ptr, g, dict(zip(TABLE_NAMES, tables)), alpha0, alpha1)
 

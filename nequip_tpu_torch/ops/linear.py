@@ -14,7 +14,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..utils.dtype import get_default_dtype
+from ..utils.dtype import param_dtype
 from .irreps import Irreps
 
 
@@ -33,7 +33,7 @@ class Linear(nn.Module):
         for i, j in self.instructions:
             fan[j] += self.irreps_in[i].mul
         self._alpha = [float(f) ** -0.5 if f > 0 else 0.0 for f in fan]
-        dtype = get_default_dtype()
+        dtype = param_dtype()  # float32 in a bfloat16 model: cast at use
         for i, j in self.instructions:
             shape = (self.irreps_in[i].mul, self.irreps_out[j].mul)
             self.register_parameter(f"w{i}_{j}", nn.Parameter(torch.empty(shape, dtype=dtype)))

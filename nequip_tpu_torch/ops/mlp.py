@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from ..utils.dtype import get_default_dtype
+from ..utils.dtype import param_dtype
 from .activations import raw_activation
 
 _SQRT3 = math.sqrt(3.0)
@@ -69,7 +69,7 @@ class ScalarMLP(nn.Module):
             else:
                 norm_dim, plain = h_out, nonlinearity is None or layer == self.num_layers - 1
             self.alphas.append((1.0 if plain else math.sqrt(2.0)) / math.sqrt(norm_dim))
-        dtype = get_default_dtype()
+        dtype = param_dtype()  # float32 in a bfloat16 model: cast at use
         self._leaf_names: List[str] = []
         for layer, (h_in, h_out) in enumerate(zip(self.dims, self.dims[1:])):
             shapes = {f"w{layer}": (h_in, h_out)}

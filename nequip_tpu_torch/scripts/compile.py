@@ -102,6 +102,8 @@ def main(argv=None) -> None:
         if args.modifiers:
             model = modify(model, [{"modifier": m} for m in args.modifiers])
         model = model.to(device).requires_grad_(False)
+        # the self-check's tolerance, asked first: bfloat16 has none (compile it with --no-check)
+        tol = None if args.no_check else model_tolerance(model.metadata["model_dtype"])
 
         example = example_batch(args.input_path)
         n_nodes = args.num_nodes or example[_keys.POSITIONS_KEY].shape[0]
@@ -120,7 +122,6 @@ def main(argv=None) -> None:
             compiled = load_compiled_model(args.output_path, device=device)
             out_c = compiled(batches[0])
             out_e = model(batches[0])
-            tol = model_tolerance(meta["model_dtype"])
             worst = max(float((out_c[k] - out_e[k]).abs().max()) for k in compiled.output_fields)
             if not worst <= tol:
                 raise RuntimeError(f"compiled-against-eager check failed: max abs err {worst:.3e} > {tol:.0e}")

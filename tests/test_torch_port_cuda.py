@@ -790,3 +790,117 @@ def test_cuda_md_device_nl_graphs(cuda):
                      integration="host", **kw)
     want = fresh.forces(torch.as_tensor(outs["device"]["positions"], dtype=torch.float64, device=cuda))
     np.testing.assert_allclose(outs["device"]["forces"], want.cpu().numpy(), rtol=0, atol=1e-10)
+
+
+# --- bfloat16: K1, K2's inference variant and K3 ---------------------------------
+# A bf16 kernel and its plain twin round at the same points and differ only
+# by the order of their float32 sums, so an output (or a rounded w inside)
+# may land one bf16 ulp apart where a sum lies near a rounding boundary:
+# max error 8e-3 of max|out|, two bf16 ulps of it.
+BF16_TOL = 8e-3
+
+
+def _bf16_check(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
+        assert bool(a.float().isfinite().all())
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= BF16_TOL * scale
+
+
+@pytest.fixture
+def bf16_sums():
+    """cuBLAS's bf16 products (the twins' radial MLP) with float32 sums, as JAX
+    sums them (_acc_dtype): the package never changes this setting."""
+    old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv_fwd", "conv_bwd"])
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_cuda_bf16_conv_dense_tiles(cuda, bf16_sums, case, name):
+    """K1 and K2's inference variant in bf16 on streams whose tiles cross
+    node boundaries in every way (K1's split destinations through both of
+    its carry rows), against their plain twins (bf16 in, float32 inside, the
+    same rounding points) within two bf16 ulps of max|out|; K1's rows of
+    empty nodes and K2's masked slots exactly zero; bitwise equal on a
+    repeat call."""
+    kind, degrees = DENSE_TILE_CASES[case]
+    degrees = list(degrees) + [0] * 3
+    plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, cuda, torch.float32)
+    r = np.random.RandomState(9)
+    lay, n_slots = _tile_stream(degrees, cuda, r)
+    n_nodes, n_real = len(degrees), lay.n_real
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=torch.bfloat16, device=cuda)
+    args = (plan, t(n_nodes, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+            t(hidden, plan.weight_numel), a0, a1, lay)
+    if name == "conv_bwd":
+        args += (t(n_nodes, plan.mid_dim),)
+    run, plain = getattr(K, name), getattr(K, name + "_plain")
+    before = K.KERNELS[name].launches
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert K.KERNELS[name].launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain(*args)
+    _bf16_check(got, want if isinstance(want, tuple) else (want,))
+    again = run(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again if isinstance(again, tuple) else (again,)))
+    if name == "conv_fwd":
+        assert not got[0][torch.as_tensor(np.asarray(degrees) == 0, device=cuda)].any()
+    else:
+        for a in got:
+            assert not a[n_real:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_scatter_rows_matches_plain(cuda):
+    """K3 in bf16: float32 sums in edge order, rounded once; bitwise equal
+    on a repeat call, and within one bf16 ulp of max|out| of the twin."""
+    args, _, v = _problem(cuda, torch.bfloat16)
+    lay = args[-1]
+    before = K.KERNELS["scatter_rows"].launches
+    got = K.scatter_rows(v, lay.src_perm, lay.src_ptr)
+    torch.cuda.synchronize()
+    assert K.KERNELS["scatter_rows"].launches == before + 1
+    _bf16_check((got,), (K.scatter_rows_plain(v, lay.src_perm, lay.src_ptr),))
+    assert torch.equal(got, K.scatter_rows(v, lay.src_perm, lay.src_ptr))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_model_serves_through_k1_k2_k3(cuda, bf16_sums):
+    """A bf16 model (enable_bf16_fast_mode, tp_impl="fused") on the card:
+    its parameters float32, its forces float64 and finite, within 5e-2 of
+    max|F| of the float32 model and its energy within 5e-3 eV an atom of it
+    (sanity bounds: the CPU tests hold bf16 to the golden; this model has
+    no energy shift, so its total energy is a small sum of per-atom terms
+    of either sign and a relative bound would not hold), and its launches
+    K1, K2's inference variant and K3 only."""
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.model.modify_utils import modify
+
+    cfg = dict(seed=0, model_dtype="float32", type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2,
+               parity=False, num_features=32, avg_num_neighbors=18.0, tp_impl="fused")
+    m32 = NequIPGNNModel(**cfg)
+    m16 = modify(m32, [{"modifier": "enable_bf16_fast_mode"}, {"modifier": "enable_TPUFusedTPScatter"}])
+    assert {p.dtype for p in m16.parameters()} == {torch.float32}
+    r = np.random.RandomState(2)
+    a = 3.61
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]]) * a
+    pos = np.concatenate([base + np.array([i, j, k]) * a for i in range(4) for j in range(4) for k in range(4)])
+    frame = {"pos": pos + r.normal(0, 0.1, pos.shape), "cell": np.diag([4 * a] * 3), "pbc": np.array([True] * 3),
+             "atomic_numbers": np.full(len(pos), 29)}
+    ref = NequIPCalculator.from_model(m32, device=cuda).calculate(frame)
+    K.reset_launch_counts()
+    got = NequIPCalculator.from_model(m16, device=cuda).calculate(frame)
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    assert all(launches[k] > 0 for k in ("conv_fwd", "conv_bwd", "scatter_rows"))
+    assert not any(v for k, v in launches.items() if k not in ("conv_fwd", "conv_bwd", "scatter_rows"))
+    assert got["forces"].dtype == np.float64 and np.isfinite(got["forces"]).all()
+    scale = np.abs(ref["forces"]).max()
+    assert np.abs(got["forces"] - ref["forces"]).max() <= 5e-2 * scale
+    assert abs(got["energy"] - ref["energy"]) <= 5e-3 * len(pos)

@@ -308,7 +308,9 @@ def test_modify_per_type_scale_shift_matches_jax(runs):
 def test_impl_and_dtype_modifiers(runs):
     """enable/disable_TPUFusedTPScatter switch the conv (uses_fused_kernels
     follows, the outputs stay), modify_model_dtype rebuilds with the weights
-    carried, and the bf16 mode names what is missing."""
+    carried, and the bf16 mode (the twin of JAX's
+    test_bf16_fast_mode_modifier) keeps float32 parameters, gives forces
+    within 2% of max|F|, and goes back to float32 bitwise."""
     model = ModelFromPackage(runs["jax_pkg"]).requires_grad_(False)
     frame = ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(_fcc_frame(2)))
     batch = pad_batch(batched_from_list([compute_neighborlist_(frame, 4.0)]), 64, 1280, 2)
@@ -325,8 +327,18 @@ def test_impl_and_dtype_modifiers(runs):
     back = modify(f32, [{"modifier": "modify_model_dtype", "model_dtype": "float64"}])
     err = float((back(_padded(back, batch))[_keys.FORCE_KEY] - ref[_keys.FORCE_KEY]).detach().abs().max())
     assert err <= 1e-5 * float(ref[_keys.FORCE_KEY].abs().max())  # the weights went through float32
-    with pytest.raises(NotImplementedError, match="float32 and float64"):
-        modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+    b16 = modify(f32, [{"modifier": "enable_bf16_fast_mode"}])
+    assert b16.metadata["model_dtype"] == "bfloat16"
+    assert {p.dtype for p in b16.parameters()} == {torch.float32}
+    f_ref = ref[_keys.FORCE_KEY].detach()
+    f16 = b16(_padded(b16, batch))[_keys.FORCE_KEY].detach()
+    assert f16.dtype == f_ref.dtype
+    assert float((f16 - f_ref).abs().max()) < 0.02 * float(f_ref.abs().max())  # JAX's gate
+    again = modify(b16, [{"modifier": "modify_model_dtype", "model_dtype": "float32"}])
+    want = f32(_padded(f32, batch))
+    got = again(_padded(again, batch))
+    for k in OUTPUTS:
+        assert torch.equal(got[k], want[k]), k
     with pytest.raises(KeyError, match="unknown modifier"):
         modify(model, [{"modifier": "no_such_modifier"}])
 
