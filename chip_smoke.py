@@ -198,7 +198,25 @@ Phases (each prints a line; any failure exits non-zero):
      enable_bf16_fast_mode --no-check of a flagship checkpoint (the
      self-check refused with a KeyError, as in JAX), served with
      from_compiled_model against the eager bf16 model (E rel 1e-3, F 2e-2
-     of max|F|), its launches K1, K2, K3.
+     of max|F|), its launches K1, K2, K3.  16a also holds K4 and K5 (the
+     whole stream) and K4-acc, K6 and K7 (one of 4 edge slices, their
+     accumulating forms on float32 accumulators) in bf16 against their
+     twins at the same gate, each bitwise equal on a repeat call, timed
+     beside the f32 kernel on the same values in one call (the twin 3
+     times); 16f the flagship with a depth-2 radial MLP in bf16 (K4's
+     route): three 23k-atom requests beside the f32 model's (model ms and
+     peak; launches K4, K5, K3 only), the options golden's depth-2 model
+     in bf16 against its f64 golden at JAX's bf16 gate, 16e's compile
+     check of its checkpoint, and 20 host MD steps; 16g Trainer.fit at
+     23k atoms (phase 6's frames, 2 epochs) in fr over 4 edge slices with
+     remat_conv="save_tp" on the fused route and in rr on fused_tp, each
+     beside the same fit in f32 (later steps' median and peak), the bf16
+     fits launching K4-acc, K5, K6, K7, K3 (fr) or K4, K5, K3 (rr) and
+     neither K2's training variant nor the dW reduction; then one rr and
+     one fr step of the bf16 flagship from the f64 training golden's
+     parameters against that golden: loss rel 1e-3, every gradient 0.1 of
+     its tensor's max|grad| (JAX's own bf16 step meets both: loss 2.2e-4,
+     gradients 4.2e-2), the gradients float32.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -211,9 +229,11 @@ bound), CG-VJP (T2/T4; their plain_ms is one step) and f32
 random-pattern gather (T5) rows, and phase 9h's f64 numbers for the
 device list, whose "replaces" names the XLA function it replaces (no pallas_call); "max_abs_err": the largest
 f32 difference from plain, 0 for the device list, whose output equals
-its twin's); the rows conv_fwd_bf16, conv_bwd_bf16 and scatter_rows_bf16
-are phase 16a's bf16 numbers, their launches phase 16c's three bf16
-requests; the last line is {"ok": true, "device": {...}}.
+its twin's); the rows conv_fwd_bf16 ... jvp_bwd_bf16 are phase 16a's
+bf16 numbers (K4-acc, K6 and K7 on one of 4 slices), the launches of K1,
+K2 and K3 phase 16c's three bf16 requests, of K4-K7 phase 16f's three
+bf16 requests and 16g's two bf16 fits; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -845,16 +865,12 @@ def phase5_train_golden():
     torch.cuda.empty_cache()
 
 
-def phase6_train(smi: str, supercell: int = 18, epochs: int = 2):
-    """Trainer.fit of the flagship at full width on 23k-atom LJ frames."""
-    import torch
-
-    from nequip_tpu_torch.data import DataLoader, NequIPDataModule
+def lj_datamodule(phase: str, supercell: int = 18):
+    """Phase 6's data: three LJ frames of the supercell (23,328 atoms at 18),
+    two to train on and one to validate, on the card."""
+    from nequip_tpu_torch.data import NequIPDataModule
     from nequip_tpu_torch.data.dataset import LJTestDataset
     from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
-    from nequip_tpu_torch.model import NequIPGNNModel, jax_named_grads
-    from nequip_tpu_torch.ops.kernels import tp_scatter as K
-    from nequip_tpu_torch.train import EnergyForceLoss, EnergyForceMetrics, NequIPTrainModule, Trainer
 
     t0 = time.perf_counter()
     ds = LJTestDataset(supercell=(supercell,) * 3, num_frames=3, seed=0,
@@ -862,8 +878,21 @@ def phase6_train(smi: str, supercell: int = 18, epochs: int = 2):
     dm = NequIPDataModule(seed=0, split_dataset={"dataset": ds, "train": 2, "val": 1},
                           train_dataloader={"batch_size": 1}, val_dataloader={"batch_size": 1}, device="cuda")
     dm.setup("fit")
-    print(f"phase 6 data: 3 LJ frames of {len(ds.frames[0]['pos'])} atoms in {time.perf_counter() - t0:.1f} s",
+    print(f"{phase} data: 3 LJ frames of {len(ds.frames[0]['pos'])} atoms in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return dm
+
+
+def phase6_train(smi: str, supercell: int = 18, epochs: int = 2):
+    """Trainer.fit of the flagship at full width on 23k-atom LJ frames."""
+    import torch
+
+    from nequip_tpu_torch.data import DataLoader
+    from nequip_tpu_torch.model import NequIPGNNModel, jax_named_grads
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, EnergyForceMetrics, NequIPTrainModule, Trainer
+
+    dm = lj_datamodule("phase 6", supercell)
 
     def make(tp_impl):
         model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **FLAGSHIP).to("cuda")
@@ -1396,9 +1425,10 @@ def phase9h_device_nl(smi: str, frame: dict, cutoff: float, cpp: dict) -> dict:
 
 
 def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str, nl_backend: str = "host",
-            steps: int = MD_STEPS, phase: str = "9") -> dict:
+            steps: int = MD_STEPS, phase: str = "9", route: tuple = SERVING_KERNELS) -> dict:
     """A warm-up block, then ``steps`` timed steps from where it ended; the
-    launches are counted from the driver's construction on.  The result is
+    launches are counted from the driver's construction on and must be
+    ``route``'s kernels (K1's serving kernels by default).  The result is
     also kept in MD_RUNS under phase + label (phase 16 prints phase 9's
     beside its own)."""
     import torch
@@ -1465,7 +1495,7 @@ def _md_run(label: str, smi: str, model, frame: dict, v0, integration: str, nl_b
           f"{', and each capture; replays add none' if integration == 'block' else ''}): {launches}", flush=True)
     if not (np.isfinite(out["positions"]).all() and np.isfinite(out["forces"]).all() and math.isfinite(e1)):
         raise RuntimeError(f"phase {phase}{label}: non-finite MD state")
-    path_kernels = SERVING_KERNELS + (("device_nl",) if nl_backend == "device" else ())
+    path_kernels = route + (("device_nl",) if nl_backend == "device" else ())
     for name in path_kernels:
         if not launches.get(name):
             raise RuntimeError(f"phase {phase}{label}: kernel {name} was not launched on the MD path")
@@ -2933,7 +2963,14 @@ def phase15_train_modules(smi: str, dm, rr: dict) -> dict:
 
 # phase 16: the bfloat16 fast mode (enable_bf16_fast_mode) through K1, K2 and K3 in bf16
 BF16_FLOP_S = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet): the bf16 kernels' operation bound
-BF16_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows")
+BF16_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows", "tri_fwd", "tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd")
+BF16_TRILINEAR = ("tri_fwd", "tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd")  # 16a's second half
+BF16_FR_KERNELS = ("tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd", "scatter_rows")  # 16g: fr over edge slices
+# a bf16 training step against the f64 training golden (loss rel; each tensor's max err / max|grad|): JAX's own
+# bf16 step (XLA, CPU) on that golden measures loss 2.2e-4, gradients 4.2e-2 (tests/test_torch_port_bf16_tri.py)
+BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-3, 0.1
+BF16_PLAIN_REPS = 3  # the plain twins of K4-K7 at 23k atoms take tens of ms a call
+BF16_DEPTH2_MD_STEPS = 20
 # a bf16 kernel and its plain twin round at the same points and differ only by
 # the order of their float32 sums: an output (or a rounded w or h inside)
 # may land one bf16 ulp apart; two ulps of max|out|
@@ -2945,12 +2982,13 @@ BF16_MD_STEPS = 50
 BF16_DIR = CLI_DIR.parent / "chip_smoke_bf16"  # beside the CLI runs' outputs
 
 
-def _bf16_model(tp_impl: str = "fused"):
-    """The flagship (seed 0, f32 weights) through enable_bf16_fast_mode."""
+def _bf16_model(tp_impl: str = "fused", **kw):
+    """The flagship (seed 0, f32 weights; ``kw`` on top of FLAGSHIP) through
+    enable_bf16_fast_mode."""
     from nequip_tpu_torch.model import NequIPGNNModel
     from nequip_tpu_torch.model.modify_utils import modify
 
-    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **FLAGSHIP)
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **dict(FLAGSHIP, **kw))
     return modify(model, [{"modifier": "enable_bf16_fast_mode"}])
 
 
@@ -2958,7 +2996,8 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
     """K1, K2 (inference) and K3 in bf16 against their plain versions at
     the flagship's three layer shapes on the 23k-atom graph, each bitwise
     equal on a repeat call, with kernel, plain and bound ms (index_add_ in
-    bf16 beside K3); returns the report rows, summed over the layers."""
+    bf16 beside K3); then K4-K7 (_bf16_trilinear); returns the report rows,
+    summed over the layers."""
     import torch
 
     from nequip_tpu_torch.nn.interaction_block import InteractionBlock
@@ -3034,12 +3073,115 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
                 r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
         del x, sh, emb, w1, w2, g, dx_edge, buf, calls
         torch.cuda.empty_cache()
+    _bf16_trilinear(layout, N, E, n_real, n_src, n_dst, blocks, rng, reps, report)
     for name, r in report.items():
         r["bound_by"] = "operations" if r.pop("ops") / BF16_FLOP_S > r.pop("bytes") / HBM_BYTES_S else "bytes"
         print(f"phase 16a {name} bf16, sum of 3 layers: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
+              + ("" if r.get("f32_ms") is None else f", f32 kernel {r.pop('f32_ms'):.3f} ms")
               + ("" if r["library_ms"] is None else f", index_add_ {r['library_ms']:.3f} ms"), flush=True)
     return report
+
+
+def _bf16_trilinear(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, blocks, rng, reps: int,
+                    report: dict) -> None:
+    """16a's second half: K4 and K5 on the whole 23k-atom stream, K4-acc,
+    K6 and K7 on one of N_CHUNKS slices (phase 2's cut, a boundary inside a
+    destination's segment), in bf16 against their twins at BF16_KERNEL_TOL
+    of max|out| (the accumulating forms once each, on fresh float32
+    accumulators), bitwise equal on a repeat call; the kernel's and the f32
+    kernel's CUDA-event medians on the same values in one call, the twin's
+    (BF16_PLAIN_REPS), and the bound at 2 B a value (K4-acc's accumulator
+    4 B); added to ``report``."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    dev = torch.device("cuda")
+    bounds = [0] + [s * n_real // N_CHUNKS + 7 for s in range(1, N_CHUNKS)] + [n_real]
+    sl = K.edge_slices(layout, N_CHUNKS, bounds)[1]
+    lay_s, rows = sl.layout, slice(sl.start, sl.stop)
+    n_touched_s = int((lay_s.dst_ptr[1:] > lay_s.dst_ptr[:-1]).sum())
+    n_src_s = int(torch.unique(lay_s.edge_src).numel())
+    for li, blk in enumerate(blocks):
+        plan = blk.tp_scatter.plan
+        n_emb, hidden = blk.edge_mlp.w0.shape
+
+        def t(*shape, dtype=torch.bfloat16):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+
+        ops16 = (t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel), t(N, plan.mid_dim),
+                 t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel), t(N, plan.mid_dim))
+        acc = (t(N, plan.mid_dim, dtype=torch.float32), t(N, plan.mid_dim, dtype=torch.float32))
+
+        def calls(ops, acc_t):
+            x, sh, w, g, tx, tsh, dw, gt = ops
+            s_ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows], lay_s)
+            return {
+                "tri_fwd": (lambda: K.tri_fwd(plan, x, sh, w, layout), lambda: K.tri_fwd_plain(plan, x, sh, w, layout)),
+                "tri_bwd": (lambda: K.tri_bwd(plan, x, sh, w, layout, g),
+                            lambda: K.tri_bwd_plain(plan, x, sh, w, layout, g)),
+                "tri_fwd_acc": (lambda: K.tri_fwd(plan, x, sh[rows], w[rows], lay_s, acc=acc_t),
+                                lambda: K.tri_fwd_plain(plan, x, sh[rows], w[rows], lay_s, acc_t)),
+                "jvp_fwd": (lambda: K.jvp_fwd(plan, *s_ops), lambda: K.jvp_fwd_plain(plan, *s_ops)),
+                "jvp_bwd": (lambda: K.jvp_bwd(plan, *s_ops, g, gt), lambda: K.jvp_bwd_plain(plan, *s_ops, g, gt)),
+                # checked once, not timed: the accumulating forms on fresh accumulators
+                "tri_fwd_acc check": (lambda: K.tri_fwd(plan, x, sh[rows], w[rows], lay_s, acc=acc[0].clone()),
+                                      lambda: K.tri_fwd_plain(plan, x, sh[rows], w[rows], lay_s, acc[0].clone())),
+                "jvp_fwd_acc check": (lambda: K.jvp_fwd(plan, *s_ops, acc=tuple(a.clone() for a in acc)),
+                                      lambda: K.jvp_fwd_plain(plan, *s_ops, tuple(a.clone() for a in acc))),
+            }
+
+        c16 = calls(ops16, acc[0].clone())  # the timed K4-acc calls keep adding onto their accumulator
+        c32 = calls(tuple(o.float() for o in ops16), acc[0].clone())
+        for name in BF16_TRILINEAR:
+            counter = K.KERNELS[name]
+            checked = [c16[f"{name} check"]] if name == "tri_fwd_acc" else [c16[name]]
+            if name == "jvp_fwd":
+                checked.append(c16["jvp_fwd_acc check"])
+            err = abs_err = 0.0
+            for run, ref_run in checked:
+                before = counter.launches
+                got = _tuple(run())
+                torch.cuda.synchronize()
+                if counter.launches != before + 1:
+                    raise RuntimeError(f"phase 16a: {name} bf16 launch counter did not move")
+                for out_i, (a, b) in enumerate(zip(got, _tuple(ref_run()))):
+                    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32) \
+                            or not bool(a.float().isfinite().all()):
+                        raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} is not finite bf16 "
+                                           f"(or a float32 accumulator)")
+                    diff, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+                    if diff > BF16_KERNEL_TOL * scale:
+                        raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} disagrees with plain: max "
+                                           f"|diff| {diff:.3e}, max |ref| {scale:.3e} (limit {BF16_KERNEL_TOL:.0e} of it)")
+                    err, abs_err = max(err, diff / scale), max(abs_err, diff)
+                if not all(torch.equal(a, b) for a, b in zip(got, _tuple(run()))):
+                    raise RuntimeError(f"phase 16a: {name} bf16 differs on a repeat call")
+            kern, plain = c16[name]
+            ms, f32_ms = interleaved_median_ms([kern, c32[name][0]], reps, rounds=1)
+            plain_ms = cuda_median_ms(plain, BF16_PLAIN_REPS, warmup=1)
+            sliced = name in ("tri_fwd_acc", "jvp_fwd", "jvp_bwd")
+            ops, nbytes = work(name, plan, lay_s.n_real if sliced else n_real, n_touched_s if sliced else n_dst,
+                               n_src_s if sliced else n_src, N, hidden, n_emb, 2)
+            if name == "tri_fwd_acc":  # its accumulator is float32: 4 B read and written a value
+                nbytes += 2 * n_touched_s * plan.mid_dim * 2
+            t_ops, t_bytes = ops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+            bound = max(t_ops, t_bytes)
+            print(f"phase 16a {name} bf16 layer {li}{' (one of 4 slices)' if sliced else ''}: max err {err:.3e} of "
+                  f"max|out| (limit {BF16_KERNEL_TOL:.0e}), kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms (same "
+                  f"call), plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+                  f"({'operations' if t_ops > t_bytes else 'bytes'})", flush=True)
+            r = report[name]
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            r["ms"] += ms
+            r["f32_ms"] = (r.get("f32_ms") or 0.0) + f32_ms
+            r["plain_ms"] += plain_ms
+            r["bound_ms"] += bound
+            r["ops"] += ops
+            r["bytes"] += nbytes
+        del ops16, acc, c16, c32
+        torch.cuda.empty_cache()
 
 
 def _golden_gap(res: dict, z) -> tuple:
@@ -3066,7 +3208,7 @@ def phase16b_golden() -> None:
     K.reset_launch_counts()
     res = NequIPCalculator.from_model(model, device="cuda").calculate(
         {"pos": z["pos"], "cell": z["cell"], "pbc": z["pbc"], "atomic_numbers": z["atomic_numbers"]})
-    launches = {k: K.KERNELS[k].launches for k in BF16_KERNELS}
+    launches = {k: K.KERNELS[k].launches for k in K1_ROUTE}
     e_err, f_err = _golden_gap(res, z)
     print(f"phase 16b golden in bf16 through the kernels (launches {launches}): energy rel err {e_err:.3e} "
           f"(limit {BF16_E_TOL:.0e}), forces max err {f_err:.3e} of max|F| (limit {BF16_F_TOL:.0e})", flush=True)
@@ -3130,7 +3272,7 @@ def phase16c_serve(smi: str, n_atoms: int, n_requests: int = 3) -> dict:
           f"(median {np.median(f32_ms[1:]):.1f}) ({smi})", flush=True)
     if n_atoms == 23000 and peak > SERVING_PEAK_LIMIT:
         raise RuntimeError("phase 16c: the bf16 serving peak exceeds phase 4's limit")
-    if not all(launches[k] for k in BF16_KERNELS) or any(launches[k] for k in launches if k not in BF16_KERNELS):
+    if not all(launches[k] for k in K1_ROUTE) or any(launches[k] for k in launches if k not in K1_ROUTE):
         raise RuntimeError(f"phase 16c: bf16 serving must launch K1, K2 and K3 and nothing else: {launches}")
     del calc
     torch.cuda.empty_cache()
@@ -3180,12 +3322,13 @@ def phase16d_md(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase16e_compile(smi: str) -> None:
+def phase16e_compile(smi: str, label: str = "16e", route: tuple = K1_ROUTE, **model_kw) -> None:
     """nequip-torch-compile --modifiers enable_bf16_fast_mode --no-check of
-    a checkpoint of the flagship (f32 weights, a 32-atom LJ data config;
-    rung 0 at the 23k-atom frame's capacities), loaded with
-    from_compiled_model and held against the eager bf16 model on the 23k
-    frame; the self-check is refused for bf16 as in JAX (no tolerance)."""
+    a checkpoint of the flagship (f32 weights, ``model_kw`` on top, a
+    32-atom LJ data config; rung 0 at the 23k-atom frame's capacities),
+    loaded with from_compiled_model and held against the eager bf16 model
+    on the 23k frame, its request launching ``route``'s kernels alone; the
+    self-check is refused for bf16 as in JAX (no tolerance)."""
     import os
 
     import torch
@@ -3199,14 +3342,14 @@ def phase16e_compile(smi: str) -> None:
     from nequip_tpu_torch.train.checkpoint import save_checkpoint
 
     BF16_DIR.mkdir(parents=True, exist_ok=True)
-    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP)
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **dict(FLAGSHIP, **model_kw))
     ckpt, art = str(BF16_DIR / "flagship.ckpt"), str(BF16_DIR / "flagship_bf16.nequip_tpu_torch.zip")
     save_checkpoint(ckpt, {"params": {k: v.detach().cpu() for k, v in model.jax_named_tensors()}},
                     {"training_module": {"model": model.model_config}, "data": _cli_config(2)["data"]})
     caps = ["--num-nodes", "23424", "--num-edges", "420096"]
     try:
         compile_cli.main([ckpt, art, "--modifiers", "enable_bf16_fast_mode", *caps])
-        raise RuntimeError("phase 16e: the compile self-check did not refuse bf16")
+        raise RuntimeError(f"phase {label}: the compile self-check did not refuse bf16")
     except KeyError as e:
         refusal = str(e)
     t0 = time.perf_counter()
@@ -3223,26 +3366,238 @@ def phase16e_compile(smi: str) -> None:
     want = eager.calculate(frame)
     e_rel = abs(got["energy"] - want["energy"]) / abs(want["energy"])
     f_err = float(np.abs(got["forces"] - want["forces"]).max()) / float(np.abs(want["forces"]).max())
-    print(f"phase 16e nequip-torch-compile --modifiers enable_bf16_fast_mode --no-check ({smi}): {compile_s:.1f} s, "
-          f"{os.path.getsize(art) / 2**20:.2f} MiB, metadata model_dtype "
+    print(f"phase {label} nequip-torch-compile --modifiers enable_bf16_fast_mode --no-check {model_kw or ''}({smi}): "
+          f"{compile_s:.1f} s, {os.path.getsize(art) / 2**20:.2f} MiB, metadata model_dtype "
           f"{compiled.predictor.metadata.get('model_dtype')}; with the self-check: KeyError {refusal}; compiled vs "
           f"eager bf16 on {len(frame['pos'])} atoms: energy rel {e_rel:.3e} (limit {BF16_E_TOL:.0e}), forces "
           f"{f_err:.3e} of max|F| (limit {BF16_F_TOL:.0e}); compiled request launches {launches}", flush=True)
-    if set(launches) != set(BF16_KERNELS):
-        raise RuntimeError("phase 16e: the compiled bf16 request does not launch K1, K2 and K3 alone")
+    if set(launches) != set(route):
+        raise RuntimeError(f"phase {label}: the compiled bf16 request does not launch {route} alone")
     if not (e_rel <= BF16_E_TOL and f_err <= BF16_F_TOL):
-        raise RuntimeError("phase 16e: the compiled bf16 model disagrees with eager bf16")
+        raise RuntimeError(f"phase {label}: the compiled bf16 model disagrees with eager bf16")
     del compiled, eager
     for f in BF16_DIR.glob("*"):
         f.unlink()
     torch.cuda.empty_cache()
 
 
-def phase16_bf16(smi: str, n_atoms: int = 23000) -> tuple:
+def _requests(calc, frames) -> tuple:
+    """(results, model ms) of a calculator's requests on ``frames``, and
+    the peak allocated over them (GiB), from a reset before the first."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = [(calc.calculate(frame), calc.timings["model_s"] * 1e3) for frame in frames]
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase16f_depth2(smi: str, n_atoms: int = 23000, n_requests: int = 3) -> dict:
+    """The flagship with a depth-2 radial MLP in bf16 (K4's route: K4, K5,
+    K3): three requests at 23k atoms beside the f32 model's on the same
+    frames (model ms and peak, forces within the sanity bound), the options
+    golden's depth-2 model in bf16 against its f64 golden at JAX's bf16
+    gate, its compile under --no-check (16e's check), and a short host MD
+    run; returns the bf16 requests' launches."""
+    import torch
+
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up
+    from nequip_tpu_torch.data import to_tensors
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.integrations import NequIPCalculator, maxwell_boltzmann_velocities
+    from nequip_tpu_torch.model import NequIPGNNModel, load_jax_params
+    from nequip_tpu_torch.model.modify_utils import modify
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.utils.config import instantiate, retarget
+
+    frames = [fcc_frame(n_atoms, seed=s, jitter=0.05) for s in range(1, n_requests + 1)]
+    f32 = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", radial_mlp_depth=2, **FLAGSHIP)
+    ref, ref_peak = _requests(NequIPCalculator.from_model(f32, device="cuda"), frames)
+    torch.cuda.empty_cache()
+    model = _bf16_model(radial_mlp_depth=2)
+    if set(_routes(model)) != {"fused_tp"}:
+        raise RuntimeError("phase 16f: the depth-2 layers did not take K4's route")
+    calc = NequIPCalculator.from_model(model, device="cuda")
+    K.reset_launch_counts()
+    results, peak = _requests(calc, frames)
+    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
+    for i, ((res, ms), (want, ref_ms)) in enumerate(zip(results, ref)):
+        f_scale = float(np.abs(want["forces"]).max())
+        f_gap = float(np.abs(res["forces"] - want["forces"]).max())
+        print(f"phase 16f request {i} depth-2 ({smi}): {len(res['forces'])} atoms, model {ms:.1f} ms in bf16, "
+              f"{ref_ms:.1f} ms in f32; E {res['energy']:.6f} (f32 {want['energy']:.6f}); forces against f32 "
+              f"{f_gap / f_scale:.3e} of max|F| (limit {BF16_SERVE_F_TOL:.0e})", flush=True)
+        if not (math.isfinite(res["energy"]) and np.isfinite(res["forces"]).all()):
+            raise RuntimeError(f"phase 16f: request {i} returned non-finite values")
+        if f_gap > BF16_SERVE_F_TOL * f_scale:
+            raise RuntimeError(f"phase 16f: request {i} forces are far from the f32 request's")
+    bf16_ms, f32_ms = [ms for _, ms in results], [ms for _, ms in ref]
+    print(f"phase 16f depth-2 launches {launches}; model ms bf16 {', '.join(f'{m:.1f}' for m in bf16_ms)} "
+          f"(requests 1-2 median {np.median(bf16_ms[1:]):.1f}), f32 {', '.join(f'{m:.1f}' for m in f32_ms)} "
+          f"(median {np.median(f32_ms[1:]):.1f}); max_memory_allocated over the requests bf16 {peak:.3f} GiB, "
+          f"f32 {ref_peak:.3f} GiB ({smi})", flush=True)
+    if not all(launches[k] for k in K4_ROUTE) or any(launches[k] for k in launches if k not in K4_ROUTE):
+        raise RuntimeError(f"phase 16f: bf16 depth-2 serving must launch K4, K5 and K3 and nothing else: {launches}")
+    del calc, f32, ref, results
+    torch.cuda.empty_cache()
+
+    z = np.load(OPTIONS_GOLDEN)
+    name = "depth2"
+    golden = instantiate(dict(retarget(json.loads(str(z[f"{name}/config"]))), tp_impl="fused"), _recursive_=False)
+    load_jax_params(golden, {k[len(f"{name}/params/"):]: z[k] for k in z.files if k.startswith(f"{name}/params/")})
+    golden = modify(golden, [{"modifier": "enable_bf16_fast_mode"}]).to("cuda").requires_grad_(False)
+    frame = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(
+        from_dict({k: z[k] for k in ("pos", "cell", "pbc", "atomic_numbers", "charge")})), 4.0)
+    batch = to_tensors(pad_batch(batched_from_list([frame]), 128, round_up(frame["edge_index"].shape[1], 256), 2),
+                       "cuda")
+    K.reset_launch_counts()
+    out = golden(batch)
+    g_launches = _launches()
+    n = len(z["pos"])
+    e_err = abs(float(out["total_energy"][0, 0]) - float(z[f"{name}/energy"])) / abs(float(z[f"{name}/energy"]))
+    f_ref = z[f"{name}/forces"]
+    f_err = float(np.abs(out["forces"][:n].cpu().numpy() - f_ref).max()) / float(np.abs(f_ref).max())
+    print(f"phase 16f options golden depth2 in bf16 through the kernels ({smi}): energy rel err {e_err:.3e} (limit "
+          f"{BF16_E_TOL:.0e}), forces max err {f_err:.3e} of max|F| (limit {BF16_F_TOL:.0e}); launches {g_launches}",
+          flush=True)
+    _check_route("phase 16f golden", "fused_tp", g_launches)
+    if not (e_err <= BF16_E_TOL and f_err <= BF16_F_TOL):
+        raise RuntimeError("phase 16f: the bf16 depth-2 model disagrees with the f64 golden beyond JAX's bf16 gate")
+    del golden, out
+    torch.cuda.empty_cache()
+
+    phase16e_compile(smi, label="16f", route=K4_ROUTE, radial_mlp_depth=2)
+    md_frame = _md_frame(23000)
+    v0 = maxwell_boltzmann_velocities(np.full(len(md_frame["pos"]), MD_MASS), 300.0, seed=1)
+    _md_run("f", smi, model, md_frame, v0, "host", steps=BF16_DEPTH2_MD_STEPS, phase="16", route=K4_ROUTE)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _bf16_golden_steps(smi: str) -> None:
+    """16g's gate: the bf16 flagship from the f64 training golden's
+    parameters (float32) takes one rr step on fused_tp and one fr step over
+    N_CHUNKS edge slices with remat_conv="save_tp" on fused; its loss and
+    gradients against the f64 golden within BF16_LOSS_TOL and
+    BF16_GRAD_TOL (JAX's own bf16 step meets them), its gradients float32."""
+    import torch
+
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up
+    from nequip_tpu_torch.data import to_tensors
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.model import NequIPGNNModel, jax_named_grads, load_jax_params
+    from nequip_tpu_torch.model.modify_utils import modify
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    z, params = np.load(TRAIN_GOLDEN), np.load(GOLDEN)
+    flat = {k[len("params/"):]: params[k] for k in params.files if k.startswith("params/")}
+    frame = {k: z[k] for k in ("pos", "cell", "pbc", "atomic_numbers", "total_energy", "forces")}
+    data = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame)), 4.0)
+    batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(data["edge_index"].shape[1], 256), 2),
+                       "cuda")
+    want = {k[len("grads/"):]: z[k] for k in z.files if k.startswith("grads/")}
+    for tp_impl, mode, n_chunks, kw in (("fused_tp", "rr", 0, {}), ("fused", "fr", N_CHUNKS, {"remat_conv": "save_tp"})):
+        model = NequIPGNNModel(seed=0, model_dtype="float64", tp_impl=tp_impl, **dict(FLAGSHIP, **kw))
+        load_jax_params(model, flat)
+        model = modify(model, [{"modifier": "enable_bf16_fast_mode"}]).to("cuda")
+        module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), force_grad_mode=mode,
+                                   fr_edge_chunks=n_chunks)
+        K.reset_launch_counts()
+        if mode == "rr":
+            loss, _, _ = module.compute_loss(batch)
+            loss.backward()
+        else:
+            loss, _, _ = module.compute_grads_fr(batch)
+        torch.cuda.synchronize()
+        launches = _launches()
+        dtypes = {p.grad.dtype for p in model.parameters() if p.grad is not None}
+        loss_err = abs(float(loss.detach()) - float(z["loss"])) / abs(float(z["loss"]))
+        grad_err = _grad_errors(jax_named_grads(model), want)
+        print(f"phase 16g training golden in bf16 ({mode} on {tp_impl}, fr_edge_chunks {n_chunks}{', save_tp' if kw else ''}, "
+              f"{smi}): loss rel err {loss_err:.3e} (limit {BF16_LOSS_TOL:.0e}), grads max err / max|grad| "
+              f"{grad_err:.3e} (limit {BF16_GRAD_TOL:.0e}), grad dtypes {sorted(map(str, dtypes))}, launches {launches}",
+              flush=True)
+        path = K4_ROUTE if mode == "rr" else BF16_FR_KERNELS
+        if set(launches) != set(path):
+            raise RuntimeError(f"phase 16g: the bf16 {mode} step launched {launches}, not {path}")
+        if dtypes != {torch.float32}:
+            raise RuntimeError(f"phase 16g: the bf16 {mode} step's gradients are {dtypes}, not float32")
+        if not (loss_err <= BF16_LOSS_TOL and grad_err <= BF16_GRAD_TOL):
+            raise RuntimeError(f"phase 16g: the bf16 {mode} step disagrees with the f64 training golden")
+        del model, module, loss
+        torch.cuda.empty_cache()
+
+
+def phase16g_train(smi: str, dm=None, epochs: int = 2) -> dict:
+    """bf16 training at 23k atoms: Trainer.fit (phase 6's LJ frames, 2
+    steps and a validation an epoch) in fr over N_CHUNKS edge slices with
+    remat_conv="save_tp" on the fused route (JAX's bf16 fr training row),
+    and in rr on fused_tp, each beside the same fit in f32 (later steps'
+    median and peak); the bf16 fits launch the sliced fr kernels (or K4's
+    route) and neither K2's training variant nor the dW reduction; then the
+    gradient gate (_bf16_golden_steps).  Returns the bf16 fits' launches
+    by mode."""
+    import torch
+
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.model.modify_utils import modify
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, EnergyForceMetrics, NequIPTrainModule, Trainer
+
+    dm = lj_datamodule("phase 16g") if dm is None else dm
+    out = {}
+    for mode, tp_impl, n_chunks, kw in (("fr", "fused", N_CHUNKS, {"remat_conv": "save_tp"}), ("rr", "fused_tp", 0, {})):
+        rows = {}
+        for dtype in ("float32", "bfloat16"):
+            model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **dict(FLAGSHIP, **kw))
+            if dtype == "bfloat16":
+                model = modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+            module = NequIPTrainModule(model.to("cuda"), loss=EnergyForceLoss(type_names=["Cu"]),
+                                       val_metrics=EnergyForceMetrics(),
+                                       optimizer={"_target_": "optax.adam", "learning_rate": 1e-3},
+                                       force_grad_mode=mode, fr_edge_chunks=n_chunks)
+            trainer = Trainer(max_epochs=epochs, ckpt_dir=str(BF16_DIR / "train"), save_last=False, save_best=False)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            trainer.fit(module, dm)
+            torch.cuda.synchronize()
+            launches = _launches()
+            steps = np.asarray(trainer.step_seconds[1:]) * 1e3
+            rows[dtype] = dict(median_ms=float(np.median(steps)), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                               first_ms=trainer.step_seconds[0] * 1e3, launches=launches,
+                               losses=[row["train_loss_epoch/weighted_sum"] for row in trainer.metrics_rows])
+            _check_fit(f"phase 16g {mode} {dtype}", trainer, epochs)
+            if {p.dtype for p in model.parameters()} != {torch.float32}:
+                raise RuntimeError(f"phase 16g: the {dtype} model's parameters are not float32")
+            del model, module, trainer
+            torch.cuda.empty_cache()
+        b, f = rows["bfloat16"], rows["float32"]
+        print(f"phase 16g train {mode} on {tp_impl}{f' over {n_chunks} edge slices, save_tp' if n_chunks else ''} "
+              f"({smi}): bf16 later steps median {b['median_ms']:.1f} ms (first {b['first_ms']:.1f}), "
+              f"max_memory_allocated {b['peak_gib']:.3f} GiB; f32 median {f['median_ms']:.1f} ms (first "
+              f"{f['first_ms']:.1f}), {f['peak_gib']:.3f} GiB; epoch train losses bf16 "
+              f"{', '.join(f'{x:.6e}' for x in b['losses'])}, f32 {', '.join(f'{x:.6e}' for x in f['losses'])}; "
+              f"bf16 launches {b['launches']}", flush=True)
+        need = BF16_FR_KERNELS if mode == "fr" else K4_ROUTE
+        if not all(b["launches"].get(k) for k in need) or any(k in b["launches"] for k in ("conv_bwd_train", "dw_reduce")):
+            raise RuntimeError(f"phase 16g: the bf16 {mode} fit launched {b['launches']}")
+        out[mode] = b["launches"]
+    _bf16_golden_steps(smi)
+    return out
+
+
+def phase16_bf16(smi: str, n_atoms: int = 23000, dm=None) -> tuple:
     """Phase 16: the bf16 fast mode (16a kernels, 16b golden, 16c serving,
-    16d MD, 16e compile), with cuBLAS's bf16 products summed in float32 (as
-    JAX sums them) for the phase.  Returns (the bf16 kernels' report rows,
-    16c's launches)."""
+    16d MD, 16e compile, 16f the depth-2 flagship on K4's route, 16g
+    training), with cuBLAS's bf16 products summed in float32 (as JAX sums
+    them) for the phase; ``dm`` phase 6's data (built anew when None).
+    Returns (the bf16 kernels' report rows, their launches on the main
+    paths: 16c's requests for K1, K2 and K3, 16f's requests and 16g's fits
+    for K4-K7)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3251,9 +3606,15 @@ def phase16_bf16(smi: str, n_atoms: int = 23000) -> tuple:
     try:
         report = phase16a_kernels(n_atoms, reps=10)
         phase16b_golden()
-        launches = phase16c_serve(smi, n_atoms)
+        launches = dict(phase16c_serve(smi, n_atoms))
         phase16d_md(smi)
         phase16e_compile(smi)
+        t1 = time.perf_counter()
+        depth2 = phase16f_depth2(smi, n_atoms)
+        fits = phase16g_train(smi, dm)
+        for name in BF16_TRILINEAR:
+            launches[name] = depth2.get(name, 0) + sum(f.get(name, 0) for f in fits.values())
+        print(f"phase 16f-16g {time.perf_counter() - t1:.1f} s", flush=True)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
     print(f"phase 16 {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3285,8 +3646,8 @@ def main() -> int:
     del lj_frames
     phase14_options(smi)
     phase15_train_modules(smi, dm, rr)
+    bf16_report, bf16_launches = phase16_bf16(smi, dm=dm)
     del dm
-    bf16_report, bf16_launches = phase16_bf16(smi)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

@@ -29,6 +29,13 @@
 // without an edge.  (K4 and K6 were also timed with owner-computes, the
 // tile holding a node's first edge finishing it in chunks: slower,
 // PERF.md.)
+//
+// The bf16 forms (K1, K4 and K6 with bf16 storage on float32 tiles) sum
+// over edges in compensated float32 (cg_forward_compensated,
+// cg_forward_jvp_compensated), and a tile puts the part of a destination
+// that another tile shares in float32 carry rows, hi and lo (carry_slots),
+// so that each output is rounded once, from a sum that does not depend on
+// how its edges fall into tiles (finish_split_rows_compensated).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -118,7 +125,7 @@ __device__ __forceinline__ void cg_forward(const Tables<T>& tab, const T* cy, co
   }
 }
 
-// cg_forward for K1's bf16 form (conv_fwd.cu): the same products, each
+// cg_forward for the bf16 forms of K1 (conv_fwd.cu) and K4 (tri_fwd.cu): the same products, each
 // rounded to float32 once, summed into a compensated float32 sum
 // (SumF32x2), which emit(o, e, sum) takes.  Its value does not depend on
 // how the segment's edges fall into tiles, nor on zero terms among them,
@@ -144,9 +151,35 @@ __device__ __forceinline__ void cg_forward_compensated(const Tables<float>& tab,
   }
 }
 
-// The same for the fr dual sweep: with tangents tx (rows beside x), c * ty
-// (cty, laid out as cy) and dw (beside w), per column and edge
+// m[e] and tm[e] of the fr dual sweep for column c: with tangents tx (rows
+// beside x) and c * ty (cty, laid out as cy),
 //   m = sum c y x,  tm = sum c (ty x + y tx)
+template <typename T, int TILE>
+__device__ __forceinline__ void product_jvp(const Tables<T>& tab, const Column& c, const T* cy, const T* cty,
+                                            const T* x, const T* tx, int ldx, T (&m)[TILE], T (&tm)[TILE]) {
+  constexpr int V = 16 / sizeof(T);
+  static_assert(TILE % V == 0, "whole 16-byte loads of c * y");
+#pragma unroll
+  for (int e = 0; e < TILE; ++e) m[e] = tm[e] = T(0);
+  for (int k = c.t0; k < c.t1; ++k) {
+    const int xr = __ldg(tab.terms + 2 * k) + c.u;
+#pragma unroll
+    for (int e0 = 0; e0 < TILE; e0 += V) {
+      T cv[V], ctv[V];
+      load16(cv, cy + k * TILE + e0);
+      load16(ctv, cty + k * TILE + e0);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int e = e0 + j;
+        const T xa = x[e * ldx + xr];
+        m[e] += cv[j] * xa;
+        tm[e] += ctv[j] * xa + cv[j] * tx[e * ldx + xr];
+      }
+    }
+  }
+}
+
+// The column sums of the fr dual sweep: with dw (beside w), per column and edge
 //   acc += w m,     tacc += w tm + dw m
 // both sums handed out together.
 template <typename T, int TILE, int NT, typename Emit>
@@ -155,27 +188,8 @@ __device__ __forceinline__ void cg_forward_jvp(const Tables<T>& tab, const T* cy
                                                unsigned ends, Emit emit) {
   for (int o = threadIdx.x; o < mid_dim; o += NT) {
     const Column c = column(tab, o);
-    constexpr int V = 16 / sizeof(T);
-    static_assert(TILE % V == 0, "whole 16-byte loads of c * y");
     T m[TILE], tm[TILE];
-#pragma unroll
-    for (int e = 0; e < TILE; ++e) m[e] = tm[e] = T(0);
-    for (int k = c.t0; k < c.t1; ++k) {
-      const int xr = __ldg(tab.terms + 2 * k) + c.u;
-#pragma unroll
-      for (int e0 = 0; e0 < TILE; e0 += V) {
-        T cv[V], ctv[V];
-        load16(cv, cy + k * TILE + e0);
-        load16(ctv, cty + k * TILE + e0);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const int e = e0 + j;
-          const T xa = x[e * ldx + xr];
-          m[e] += cv[j] * xa;
-          tm[e] += ctv[j] * xa + cv[j] * tx[e * ldx + xr];
-        }
-      }
-    }
+    product_jvp<T, TILE>(tab, c, cy, cty, x, tx, ldx, m, tm);
     T acc = T(0), tacc = T(0);
 #pragma unroll
     for (int e = 0; e < TILE; ++e) {
@@ -185,6 +199,34 @@ __device__ __forceinline__ void cg_forward_jvp(const Tables<T>& tab, const T* cy
       if ((ends >> e) & 1u) {
         emit(o, e, acc, tacc);
         acc = tacc = T(0);
+      }
+    }
+  }
+}
+
+// cg_forward_jvp for K6's bf16 form (jvp_fwd.cu): the same products, each
+// w m, w tm and dw m rounded to float32 once and added to a compensated
+// sum (SumF32x2, as cg_forward_compensated), both of which emit(o, e, sum,
+// tsum) takes.
+template <int TILE, int NT, typename Emit>
+__device__ __forceinline__ void cg_forward_jvp_compensated(const Tables<float>& tab, const float* cy,
+                                                           const float* cty, const float* x, const float* tx,
+                                                           int ldx, const float* w, const float* dw, int ldw,
+                                                           int mid_dim, unsigned ends, Emit emit) {
+  for (int o = threadIdx.x; o < mid_dim; o += NT) {
+    const Column c = column(tab, o);
+    float m[TILE], tm[TILE];
+    product_jvp<float, TILE>(tab, c, cy, cty, x, tx, ldx, m, tm);
+    SumF32x2 acc, tacc;
+#pragma unroll
+    for (int e = 0; e < TILE; ++e) {
+      const float we = w[e * ldw + c.wc];
+      acc.add(__fmul_rn(we, m[e]));
+      tacc.add(__fmul_rn(we, tm[e]));
+      tacc.add(__fmul_rn(dw[e * ldw + c.wc], m[e]));
+      if ((ends >> e) & 1u) {
+        emit(o, e, acc, tacc);
+        acc = tacc = SumF32x2{};
       }
     }
   }
@@ -233,47 +275,96 @@ cudaError_t launch_finish(const int32_t* dst_ptr, const T* carry, T* out, T* tou
   return cudaGetLastError();
 }
 
-// The second launch of K1's bf16 form (conv_fwd.cu), one warp per node:
-// the parts of a node whose edges span tiles t0 < t1 wait as compensated
-// sums (hi, lo) in float32 carry rows [n_tiles][2][2][mid_dim], tiles t0 ..
-// t1 - 1's in slot 0 and tile t1's (the part of its first destination that
-// began earlier) in slot 1, and the row becomes the bf16 nearest to
-// carry[t0][0] + ... + carry[t1 - 1][0] + carry[t1][1], added in tile order
-// as compensated sums.  Rows of nodes with no real edge are set to zero;
-// the tiles wrote the others whole.
-template <typename S>
+// Where the bf16 forms of K4 and K6 put a tile's compensated segment sums
+// (hi, lo) that another tile shares (K1's bf16 form, conv_fwd.cu, writes
+// the same layout with NF = 1 inline): carry rows [n_tiles][2][2][NF][mid_dim] of float32,
+// per tile two slots, each a hi row then a lo row of NF outputs (K6: msg
+// and tmsg).  Slot 0 takes the tile's last segment when it continues into
+// the next tile, slot 1 its first segment when that began in an earlier
+// tile; every other segment goes to its destination's row (at() is null).
+template <int NF>
+struct CarrySlots {
+  float *tail, *head;
+  int first_end;  // the edge where the tile's first segment ends
+  int mid_dim;
+  __device__ __forceinline__ float* at(int e, int cnt) const {
+    if (e == cnt - 1 && tail != nullptr) return tail;
+    return e == first_end ? head : nullptr;
+  }
+  // sum v of output f at column o into the slot at row
+  __device__ __forceinline__ void put(float* row, int f, int o, const SumF32x2& v) const {
+    row[f * mid_dim + o] = v.hi;
+    row[(NF + f) * mid_dim + o] = v.lo;
+  }
+};
+
+// The carry slots of tile `tile` (edges [base, base + cnt)), from warp 0's
+// destinations and flags (tile_segments); after the barrier that publishes them.
+template <int NF>
+__device__ __forceinline__ CarrySlots<NF> carry_slots(const int32_t* __restrict__ dst_ptr, const int32_t* s_dst,
+                                                      const int32_t* s_flags, float* carry, int tile, int base,
+                                                      int mid_dim) {
+  float* const rows = carry + static_cast<int64_t>(4 * tile) * NF * mid_dim;
+  return {s_flags[1] ? rows : nullptr, __ldg(dst_ptr + s_dst[0]) < base ? rows + 2 * NF * mid_dim : nullptr,
+          __ffs(s_flags[0]) - 1, mid_dim};  // the tile's last edge always ends a segment
+}
+
+// The output rows of the second launch of the bf16 forms: bf16, or with
+// kAcc the float32 accumulators.
+template <typename S, bool kAcc>
+using FinishOut = typename std::conditional<kAcc, float, S>::type;
+
+// The second launch of the bf16 forms (K1 conv_fwd.cu, K4 tri_fwd.cu, K6
+// jvp_fwd.cu), one warp per node: the parts of a node whose edges span
+// tiles t0 < t1 wait in carry_slots' rows, tiles t0 .. t1 - 1's in slot 0
+// and tile t1's in slot 1, and the node's sum is carry[t0][0] + ... +
+// carry[t1 - 1][0] + carry[t1][1], added in tile order as compensated sums.
+// Without kAcc each row (bf16) becomes the bf16 nearest to that sum, and
+// rows of nodes with no real edge are set to zero.  With kAcc (K4-acc,
+// K6-acc: float32 accumulators across the slices of the fr sweep) the sum
+// is added onto the row, rounded to float32 once, and rows of nodes with
+// no edge in the slice stay as they are.  The tiles wrote the other rows
+// whole.  NF = 2 sums two outputs (K6's msg into out, tmsg into tout).
+template <typename S, int NF, bool kAcc>
 __global__ void __launch_bounds__(32 * kFinishWarps)
-    finish_split_rows_rounded(const int32_t* __restrict__ dst_ptr, const float* __restrict__ carry,
-                              S* __restrict__ out, int n_nodes, int mid_dim, int tile) {
-  static_assert(std::is_same<S, __nv_bfloat16>::value, "the rounded finish writes bf16");
+    finish_split_rows_compensated(const int32_t* __restrict__ dst_ptr, const float* __restrict__ carry,
+                                  FinishOut<S, kAcc>* __restrict__ out, FinishOut<S, kAcc>* __restrict__ tout,
+                                  int n_nodes, int mid_dim, int tile) {
+  static_assert(std::is_same<S, __nv_bfloat16>::value, "the compensated finish is the bf16 forms'");
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kFinishWarps + (threadIdx.x >> 5);
   if (n >= n_nodes) return;
   const int b = __ldg(dst_ptr + n), e = __ldg(dst_ptr + n + 1);
   const int t0 = b / tile, t1 = (e - 1) / tile;
-  if (b != e && t0 == t1) return;  // written whole by its tile
-  S* row = out + static_cast<int64_t>(n) * mid_dim;
-  auto part = [&](int t, int slot, int c) {  // carry[t][slot] at column c
-    const float* p = carry + static_cast<int64_t>(4 * t + 2 * slot) * mid_dim + c;
-    return SumF32x2{p[0], p[mid_dim]};
-  };
-  for (int c = lane; c < mid_dim; c += 32) {
-    SumF32x2 v;
-    if (b != e) {
-      v = part(t0, 0, c);
-      for (int t = t0 + 1; t < t1; ++t) v.add(part(t, 0, c));
-      v.add(part(t1, 1, c));
+  if (b == e ? kAcc : t0 == t1) return;  // the accumulator's row, or written whole by its tile
+  for (int f = 0; f < NF; ++f) {
+    FinishOut<S, kAcc>* row = (f == 0 ? out : tout) + static_cast<int64_t>(n) * mid_dim;
+    auto part = [&](int t, int slot, int c) {  // output f of carry[t][slot] at column c
+      const float* p = carry + (static_cast<int64_t>(4 * t + 2 * slot) * NF + f) * mid_dim + c;
+      return SumF32x2{p[0], p[NF * mid_dim]};
+    };
+    for (int c = lane; c < mid_dim; c += 32) {
+      SumF32x2 v;
+      if (b != e) {
+        v = part(t0, 0, c);
+        for (int t = t0 + 1; t < t1; ++t) v.add(part(t, 0, c));
+        v.add(part(t1, 1, c));
+      }
+      if constexpr (kAcc)
+        row[c] = add_onto(row[c], v);
+      else
+        row[c] = bf16_of_sum(v.hi, v.lo);
     }
-    row[c] = bf16_of_sum(v.hi, v.lo);
   }
 }
 
-template <typename S>
-cudaError_t launch_finish_rounded(const int32_t* dst_ptr, const float* carry, S* out, int n_nodes, int mid_dim,
-                                  int tile, cudaStream_t stream) {
+template <typename S, int NF, bool kAcc>
+cudaError_t launch_finish_compensated(const int32_t* dst_ptr, const float* carry, FinishOut<S, kAcc>* out,
+                                      FinishOut<S, kAcc>* tout, int n_nodes, int mid_dim, int tile,
+                                      cudaStream_t stream) {
   const int blocks = (n_nodes + kFinishWarps - 1) / kFinishWarps;
-  finish_split_rows_rounded<S><<<blocks, 32 * kFinishWarps, 0, stream>>>(dst_ptr, carry, out, n_nodes, mid_dim,
-                                                                         tile);
+  finish_split_rows_compensated<S, NF, kAcc><<<blocks, 32 * kFinishWarps, 0, stream>>>(dst_ptr, carry, out, tout,
+                                                                                        n_nodes, mid_dim, tile);
   return cudaGetLastError();
 }
 

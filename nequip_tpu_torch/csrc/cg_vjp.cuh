@@ -1,7 +1,9 @@
 // The CG-VJP of the uvu conv tensor product on a dense edge tile, shared by
 // the kernels that take its cotangents per edge: K2 (conv_bwd.cu, the fused
 // conv's backward), K5 (tri_bwd.cu, the trilinear conv's) and K7
-// (jvp_bwd.cu, the fr dual sweep's, three families at once).
+// (jvp_bwd.cu, the fr dual sweep's, three families at once).  Their bf16
+// forms run it on float32 tiles and write each per-edge output rounded
+// once (the O template arguments).
 //
 // For an edge e (source s, destination n) with node cotangent g = g[n], the
 // weights w of the edge and its SH row y, over the CG terms (path p, m1, m2,
@@ -286,12 +288,13 @@ __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_
 
 // The fr sweep's dx and dtx (K7): with gt = gt[n], ty the SH tangent and dw
 // the weight tangent of the edge,
-//   dx_e  = sum_terms c [w (y g + ty gt) + dw y gt],   dtx_e = sum_terms c w y gt.
-template <typename T, int TILE, int TC, int NW, bool GS>
-__device__ __forceinline__ void dx_items_jvp(const Tables<T>& tab, const GRows<T, GS> gr, const GRows<T, GS> gtr,
+//   dx_e  = sum_terms c [w (y g + ty gt) + dw y gt],   dtx_e = sum_terms c w y gt;
+// gr and gtr GRows, the outputs of T or, rounded once, bf16.
+template <typename T, int TILE, int TC, int NW, typename GR, typename O>
+__device__ __forceinline__ void dx_items_jvp(const Tables<T>& tab, const GR gr, const GR gtr,
                                              const int32_t* s_dst, const T* s_y, const T* s_ty, int ldy,
                                              const T* s_w, const T* s_dw, int ldw, int cnt, int dim_in,
-                                             T* __restrict__ dx_out, T* __restrict__ dtx_out) {
+                                             O* __restrict__ dx_out, O* __restrict__ dtx_out) {
   constexpr int NG = TILE / TC;
   static_assert(TILE % TC == 0, "whole edge groups");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -328,8 +331,8 @@ __device__ __forceinline__ void dx_items_jvp(const Tables<T>& tab, const GRows<T
 #pragma unroll
       for (int i = 0; i < TC; ++i)
         if (e0 + i < cnt) {
-          dx_out[static_cast<int64_t>(e0 + i) * dim_in + c] = acc[i];
-          dtx_out[static_cast<int64_t>(e0 + i) * dim_in + c] = tacc[i];
+          dx_out[static_cast<int64_t>(e0 + i) * dim_in + c] = narrow<O>(acc[i]);
+          dtx_out[static_cast<int64_t>(e0 + i) * dim_in + c] = narrow<O>(tacc[i]);
         }
     });
   }
@@ -339,11 +342,11 @@ __device__ __forceinline__ void dx_items_jvp(const Tables<T>& tab, const GRows<T
 // three families P1 = sum c x g, P2 = sum c x gt, P3 = sum c tx gt, then
 //   cw  += y (P1 + P3) + ty P2,   cdw += y P2,
 //   dy partial  = w (P1 + P3) + dw P2,   dty partial = w P2;
-// cw overwrites w and cdw overwrites dw in place.
-template <typename T, int TILE, int TC, int NW, bool GS>
+// cw overwrites w and cdw overwrites dw in place; gr and gtr GRows.
+template <typename T, int TILE, int TC, int NW, typename GR>
 __device__ __forceinline__ void dw_items_jvp(const Tables<T>& tab, const XRows<T, true> xr,
-                                             const XRows<T, true> txr, const GRows<T, GS> gr,
-                                             const GRows<T, GS> gtr, const int32_t* s_order, const int32_t* s_dst,
+                                             const XRows<T, true> txr, const GR gr,
+                                             const GR gtr, const int32_t* s_order, const int32_t* s_dst,
                                              const T* s_y, const T* s_ty, int ldy, T* s_w, T* s_dw, int ldw, int cnt,
                                              T* s_part, T* s_tpart) {
   constexpr int NG = TILE / TC;

@@ -313,8 +313,8 @@ int launch_conv_fwd(const ConvFwdArgs<S>& args, int tile, void* stream) {
     return static_cast<int>(cgf::launch_finish<S, 1, false>(args.dst_ptr, args.carry, args.out, nullptr,
                                                             args.n_nodes, args.mid_dim, tile, s));
   else
-    return static_cast<int>(cgf::launch_finish_rounded<S>(args.dst_ptr, args.carry, args.out, args.n_nodes,
-                                                          args.mid_dim, tile, s));
+    return static_cast<int>(cgf::launch_finish_compensated<S, 1, false>(args.dst_ptr, args.carry, args.out, nullptr,
+                                                                        args.n_nodes, args.mid_dim, tile, s));
 }
 
 // pick_tile for the given widths on the current device; a CUDA error as -err

@@ -1,9 +1,12 @@
 // Dense edge tiles of the dst-sorted stream on a persistent grid, shared by
 // the kernels that take TILE consecutive real slots across node boundaries
-// (K1, conv_fwd.cu; K2, conv_bwd.cu; K5, tri_bwd.cu; K7, jvp_bwd.cu): each
-// edge's destination, the cp.async staging of a tile's rows and the stores
-// of its per-edge outputs, and the launch geometry of a grid of every block
-// that fits on the card at once.
+// (K1, conv_fwd.cu; K2, conv_bwd.cu; K4, tri_fwd.cu; K5, tri_bwd.cu; K6,
+// jvp_fwd.cu; K7, jvp_bwd.cu): each edge's destination, the cp.async
+// staging of a tile's rows (bf16 rows widened into float tiles on the way)
+// and the stores of its per-edge outputs, and the launch geometry of a grid
+// of every block that fits on the card at once.  A bf16 form takes the
+// float32 form's tile shapes (its tiles are float32), and its kernels are
+// other functions with opt-ins and cache entries of their own.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,17 +76,46 @@ __device__ __forceinline__ int phase16(const T* p) {
 // whatever src's alignment (an operand that is a row slice of a larger
 // tensor): element copies for the head and tail, 16-byte copies between.
 // dst[ph + k] for k in [n, n_fill) is set to zero.  The readers find the
-// rows at dst + phase16(src).
-template <typename T, int NT>
-__device__ __forceinline__ void stage_flat(T* dst, const T* __restrict__ src, int n, int n_fill, int tid) {
-  constexpr int V = 16 / sizeof(T);
-  const int ph = phase16(src);
-  T* d = dst + ph;
-  const int head = min(n, (V - ph) % V), n_vec = (n - head) / V, tail = head + n_vec * V;
-  for (int k = tid; k < head; k += NT) cp_async_elem<sizeof(T)>(d + k, src + k, true);
-  for (int j = tid; j < n_vec; j += NT) cp_async_16(d + head + j * V, src + head + j * V, true);
-  for (int k = tail + tid; k < n; k += NT) cp_async_elem<sizeof(T)>(d + k, src + k, true);
-  for (int k = n + tid; k < n_fill; k += NT) d[k] = T(0);
+// rows at dst + staged_phase<T>(src).  bf16 elements into a float tile (S =
+// __nv_bfloat16, T = float) are widened on the way by plain loads and
+// stores (cp.async copies bytes): 16-byte loads of 8 values over src's
+// 16-byte aligned body, element loads at its ends, into dst[k] (ph = 0);
+// they are in place when the call returns.
+template <typename T, int NT, typename S>
+__device__ __forceinline__ void stage_flat(T* dst, const S* __restrict__ src, int n, int n_fill, int tid) {
+  if constexpr (!std::is_same<S, T>::value) {
+    static_assert(std::is_same<S, __nv_bfloat16>::value && std::is_same<T, float>::value, "bf16 into float");
+    const int ph = phase16(src);  // in bf16 elements
+    const int head = min(n, (8 - ph) % 8), n_vec = (n - head) / 8, tail = head + n_vec * 8;
+    for (int k = tid; k < head; k += NT) dst[k] = ldg_widen(src + k);
+    for (int j = tid; j < n_vec; j += NT) {
+      float f[8];
+      widen8(__ldg(reinterpret_cast<const uint4*>(src + head + j * 8)), f);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) dst[head + j * 8 + q] = f[q];
+    }
+    for (int k = tail + tid; k < n; k += NT) dst[k] = ldg_widen(src + k);
+    for (int k = n + tid; k < n_fill; k += NT) dst[k] = T(0);
+  } else {
+    constexpr int V = 16 / sizeof(T);
+    const int ph = phase16(src);
+    T* d = dst + ph;
+    const int head = min(n, (V - ph) % V), n_vec = (n - head) / V, tail = head + n_vec * V;
+    for (int k = tid; k < head; k += NT) cp_async_elem<sizeof(T)>(d + k, src + k, true);
+    for (int j = tid; j < n_vec; j += NT) cp_async_16(d + head + j * V, src + head + j * V, true);
+    for (int k = tail + tid; k < n; k += NT) cp_async_elem<sizeof(T)>(d + k, src + k, true);
+    for (int k = n + tid; k < n_fill; k += NT) d[k] = T(0);
+  }
+}
+
+// Where stage_flat put src[0] in its T tile: at src's 16-byte phase when it
+// copied the elements as they are, at 0 when it widened bf16.
+template <typename T, typename S>
+__device__ __forceinline__ int staged_phase(const S* src) {
+  if constexpr (std::is_same<S, T>::value)
+    return phase16(src);
+  else
+    return 0;
 }
 
 // Starts the gather of TILE rows of n elements, dst[e * n + c] = src[idx[e]
@@ -133,19 +165,24 @@ __device__ __forceinline__ void stage_rows(T* dst, const S* __restrict__ src, co
 }
 
 // dst[0, n) = src[0, n) from shared to global memory: 16-byte stores for
-// the 16-byte aligned body of dst, element stores for its head and tail.
-template <typename T, int NT>
-__device__ __forceinline__ void store_flat(T* __restrict__ dst, const T* src, int n, int tid) {
-  constexpr int V = 16 / sizeof(T);
-  const int head = min(n, (V - phase16(dst)) % V), n_vec = (n - head) / V, tail = head + n_vec * V;
-  for (int k = tid; k < head; k += NT) dst[k] = src[k];
-  for (int j = tid; j < n_vec; j += NT) {
-    T v[V];
+// the 16-byte aligned body of dst, element stores for its head and tail; a
+// bf16 dst from a float tile takes element stores, each rounded once.
+template <typename T, int NT, typename O>
+__device__ __forceinline__ void store_flat(O* __restrict__ dst, const T* src, int n, int tid) {
+  if constexpr (!std::is_same<O, T>::value) {
+    for (int k = tid; k < n; k += NT) dst[k] = narrow<O>(src[k]);
+  } else {
+    constexpr int V = 16 / sizeof(T);
+    const int head = min(n, (V - phase16(dst)) % V), n_vec = (n - head) / V, tail = head + n_vec * V;
+    for (int k = tid; k < head; k += NT) dst[k] = src[k];
+    for (int j = tid; j < n_vec; j += NT) {
+      T v[V];
 #pragma unroll
-    for (int q = 0; q < V; ++q) v[q] = src[head + j * V + q];
-    store16(dst + head + j * V, v);
+      for (int q = 0; q < V; ++q) v[q] = src[head + j * V + q];
+      store16(dst + head + j * V, v);
+    }
+    for (int k = tail + tid; k < n; k += NT) dst[k] = src[k];
   }
-  for (int k = tail + tid; k < n; k += NT) dst[k] = src[k];
 }
 
 // Shared memory of one device: what a block may opt in to, and what an SM
@@ -187,7 +224,9 @@ inline cudaError_t smem_limits(SmemLimits& out) {
 // cached before.  The opt-in is the process's, so the cache is too: a
 // thread of its own (autograd's backward thread launches the forward
 // kernels under remat) would set a smaller opt-in than another thread's
-// cached sizes need, and their next launch would be refused.
+// cached sizes need, and their next launch would be refused.  It holds 64
+// entries: a bf16 training step alone launches K4-acc, K5, K6 and K7 at
+// each layer's size, and a process may run them in f32 and f64 too.
 template <typename Kernel>
 inline cudaError_t persistent_grid(Kernel kernel, int threads, int dev, size_t smem, int& grid) {
   struct Entry {
@@ -195,7 +234,7 @@ inline cudaError_t persistent_grid(Kernel kernel, int threads, int dev, size_t s
     int dev = -1, grid = 0;
     size_t smem = 0;
   };
-  constexpr int kEntries = 16;
+  constexpr int kEntries = 64;
   static Entry cache[kEntries];
   static int next = 0;
   static std::mutex mutex;

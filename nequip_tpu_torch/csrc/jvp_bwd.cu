@@ -49,6 +49,18 @@
 // 4.1x the bound (3.94 ms before).  clock64 marks (chip_cg_profile.py,
 // layer 1, cycles per 16-edge tile of one block): staging 12.0k, dx and dtx
 // 29.5k, cw, cdw and partials 37.4k, dy and dty 10.5k, stores 2.0k.
+//
+// bf16 (nequip_jvp_bwd_bf16, the bf16 fr sweep's): the eight operands are
+// bf16 in device memory, and so are the six per-edge outputs.  The kernel
+// is the f32 design on float32 tiles, each operand widened as it is staged
+// (g and gt through L1), every product and sum in float32, and each of the
+// six per-edge streams rounded once, on its store; K3 then sums dx_e and
+// dtx_e onto the sources.  The plain version (tp_scatter.jvp_bwd_plain)
+// rounds at the same points.  Registers (nvcc -Xptxas -v): 125-128 at two
+// blocks an SM, 149-159 at one, no spills.  Measured (chip_smoke.py phase
+// 16a, phase 16 alone; H100 80GB HBM3, 700 W): 2.27 ms on one of 4 fr
+// slices over the three layers against 2.11 for f32 in the same call,
+// 9.6x its 0.24 ms bound.
 #include "cg_vjp.cuh"
 #include "dense_tiles.cuh"
 
@@ -57,13 +69,16 @@ namespace {
 
 constexpr int kCgEdges = 4;  // edges of one CG-VJP item
 
-template <typename T>
+// S: the storage type of the operands and outputs; the kernel computes in
+// T = Acc<S> (tp_common.cuh), the type of the tables
+template <typename S>
 struct JvpBwdArgs {
-  const T *x, *tx, *y, *ty, *w, *dw;
+  using T = Acc<S>;
+  const S *x, *tx, *y, *ty, *w, *dw;
   const int32_t *edge_src, *dst_ptr;
-  const T *g, *gt;
+  const S *g, *gt;
   cg::Tables<T> tab;
-  T *dx_edge, *dtx_edge, *dy, *dty, *cw, *cdw;
+  S *dx_edge, *dtx_edge, *dy, *dty, *cw, *cdw;
   int n_nodes, dim_in, sh_dim, wn, mid_dim;
 };
 
@@ -95,8 +110,9 @@ __host__ __device__ inline JvpBwdSmem jvp_bwd_smem(int tile, int stages, int dim
   return L;
 }
 
-template <typename T, int TILE, int STAGES, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const JvpBwdArgs<T> a) {
+template <typename S, int TILE, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const JvpBwdArgs<S> a) {
+  using T = Acc<S>;  // shared memory, registers and sums
   constexpr int NT = kThreads, NW = NT / 32, TC = TILE < kCgEdges ? TILE : kCgEdges;
   static_assert(TILE <= 32 && TILE % TC == 0 && (STAGES == 1 || STAGES == 2), "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -153,11 +169,11 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const Jvp
     const int64_t ow = static_cast<int64_t>(base) * wn, oy = static_cast<int64_t>(base) * sh_dim;
     const int64_t ox = static_cast<int64_t>(base) * dim_in;
     T* sb = base_t + buf * L.stage;
-    T* s_w = sb + phase16(a.w + ow);  // [TILE][wn]: w, then cw in place
-    T* s_dw = sb + L.o_dw + phase16(a.dw + ow);  // [TILE][wn]: dw, then cdw in place
-    const T* s_y = sb + L.o_y + phase16(a.y + oy);     // [TILE][sh_dim]
-    const T* s_ty = sb + L.o_ty + phase16(a.ty + oy);  // [TILE][sh_dim]
-    const cg::GRows<T, false> gr{a.g, 0, mid_dim}, gtr{a.gt, 0, mid_dim};
+    T* s_w = sb + staged_phase<T>(a.w + ow);  // [TILE][wn]: w, then cw in place
+    T* s_dw = sb + L.o_dw + staged_phase<T>(a.dw + ow);  // [TILE][wn]: dw, then cdw in place
+    const T* s_y = sb + L.o_y + staged_phase<T>(a.y + oy);     // [TILE][sh_dim]
+    const T* s_ty = sb + L.o_ty + staged_phase<T>(a.ty + oy);  // [TILE][sh_dim]
+    const cg::GRows<T, false, S> gr{a.g, 0, mid_dim}, gtr{a.gt, 0, mid_dim};
     cg::dx_items_jvp<T, TILE, TC, NW>(a.tab, gr, gtr, s_dst, s_y, s_ty, sh_dim, s_w, s_dw, wn, cnt, dim_in,
                                       a.dx_edge + ox, a.dtx_edge + ox);
     __syncthreads();  // dx and dtx have read w and dw
@@ -172,9 +188,9 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const Jvp
   }
 }
 
-template <typename T, int TILE, int STAGES, int MIN_BLOCKS>
-cudaError_t launch_tile(const JvpBwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
-  auto kernel = jvp_bwd_kernel<T, TILE, STAGES, MIN_BLOCKS>;
+template <typename S, int TILE, int STAGES, int MIN_BLOCKS>
+cudaError_t launch_tile(const JvpBwdArgs<S>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = jvp_bwd_kernel<S, TILE, STAGES, MIN_BLOCKS>;
   int grid = 0;
   const cudaError_t err = persistent_grid(kernel, kThreads, dev, smem, grid);
   if (err != cudaSuccess) return err;
@@ -183,9 +199,11 @@ cudaError_t launch_tile(const JvpBwdArgs<T>& args, int dev, size_t smem, cudaStr
 }
 
 // The first shape whose shared memory fits: two blocks an SM before one,
-// larger tiles before smaller, double-buffered before single.
-template <typename T>
-int launch_jvp_bwd(const JvpBwdArgs<T>& a, void* stream) {
+// larger tiles before smaller, double-buffered before single.  The tile is
+// Acc<S> whatever S (bf16 tiles are f32's).
+template <typename S>
+int launch_jvp_bwd(const JvpBwdArgs<S>& a, void* stream) {
+  using T = Acc<S>;
   if (a.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t rows = a.n_nodes + 1;  // g offsets are int32
   if (rows * a.mid_dim >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
@@ -197,13 +215,13 @@ int launch_jvp_bwd(const JvpBwdArgs<T>& a, void* stream) {
   };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (lim.fit(smem(32, 2), 2)) e = launch_tile<T, 32, 2, 2>(a, lim.dev, smem(32, 2), s);
-  else if (lim.fit(smem(32, 1), 2)) e = launch_tile<T, 32, 1, 2>(a, lim.dev, smem(32, 1), s);
-  else if (lim.fit(smem(16, 1), 2)) e = launch_tile<T, 16, 1, 2>(a, lim.dev, smem(16, 1), s);
-  else if (lim.fit(smem(8, 1), 2)) e = launch_tile<T, 8, 1, 2>(a, lim.dev, smem(8, 1), s);
-  else if (lim.fit(smem(16, 1), 1)) e = launch_tile<T, 16, 1, 1>(a, lim.dev, smem(16, 1), s);
-  else if (lim.fit(smem(8, 1), 1)) e = launch_tile<T, 8, 1, 1>(a, lim.dev, smem(8, 1), s);
-  else e = launch_tile<T, 4, 1, 1>(a, lim.dev, smem(4, 1), s);  // refused if it does not fit either
+  if (lim.fit(smem(32, 2), 2)) e = launch_tile<S, 32, 2, 2>(a, lim.dev, smem(32, 2), s);
+  else if (lim.fit(smem(32, 1), 2)) e = launch_tile<S, 32, 1, 2>(a, lim.dev, smem(32, 1), s);
+  else if (lim.fit(smem(16, 1), 2)) e = launch_tile<S, 16, 1, 2>(a, lim.dev, smem(16, 1), s);
+  else if (lim.fit(smem(8, 1), 2)) e = launch_tile<S, 8, 1, 2>(a, lim.dev, smem(8, 1), s);
+  else if (lim.fit(smem(16, 1), 1)) e = launch_tile<S, 16, 1, 1>(a, lim.dev, smem(16, 1), s);
+  else if (lim.fit(smem(8, 1), 1)) e = launch_tile<S, 8, 1, 1>(a, lim.dev, smem(8, 1), s);
+  else e = launch_tile<S, 4, 1, 1>(a, lim.dev, smem(4, 1), s);  // refused if it does not fit either
   return static_cast<int>(e);
 }
 
@@ -218,15 +236,16 @@ int launch_jvp_bwd(const JvpBwdArgs<T>& a, void* stream) {
       const void* path_terms, const void* path_coef, void* dx_edge, void* dtx_edge, void* dy, void* dty,      \
       void* cw, void* cdw, int n_paths, int n_nodes, int dim_in, int sh_dim, int wn, int mid_dim,             \
       void* stream) {                                                                                         \
+    using A = nequip::Acc<T>;                                                                                 \
     const nequip::JvpBwdArgs<T> args{                                                                         \
         static_cast<const T*>(x), static_cast<const T*>(tx), static_cast<const T*>(y),                        \
         static_cast<const T*>(ty), static_cast<const T*>(w), static_cast<const T*>(dw),                       \
         static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),                          \
         static_cast<const T*>(g), static_cast<const T*>(gt),                                                  \
         {static_cast<const int32_t*>(dx_groups), static_cast<const int32_t*>(dx_terms),                       \
-         static_cast<const T*>(dx_coef), static_cast<const int32_t*>(dx_col_group),                           \
+         static_cast<const A*>(dx_coef), static_cast<const int32_t*>(dx_col_group),                           \
          static_cast<const int32_t*>(paths), static_cast<const int32_t*>(path_terms),                         \
-         static_cast<const T*>(path_coef), n_paths},                                                          \
+         static_cast<const A*>(path_coef), n_paths},                                                          \
         static_cast<T*>(dx_edge), static_cast<T*>(dtx_edge), static_cast<T*>(dy), static_cast<T*>(dty),       \
         static_cast<T*>(cw), static_cast<T*>(cdw), n_nodes, dim_in, sh_dim, wn, mid_dim};                     \
     return nequip::launch_jvp_bwd<T>(args, stream);                                                           \
@@ -234,3 +253,4 @@ int launch_jvp_bwd(const JvpBwdArgs<T>& a, void* stream) {
 
 NEQUIP_JVP_BWD(f32, float)
 NEQUIP_JVP_BWD(f64, double)
+NEQUIP_JVP_BWD(bf16, __nv_bfloat16)

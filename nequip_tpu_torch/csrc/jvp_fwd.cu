@@ -46,18 +46,43 @@
 // tiles 103, 4-edge 96); f64 122-128; no spills.  Four blocks an SM (K4's
 // choice in the narrow layers) gained K6 at most ~0.03 ms there, inside
 // the noise, so K6 keeps two.
+//
+// bf16 (nequip_jvp_fwd_bf16, nequip_jvp_fwd_acc_bf16): the six operands
+// are bf16 in device memory, and so are msg and tmsg; the _acc form's two
+// accumulators are float32.  The kernel is the f32 design on float32
+// tiles, each operand widened as it is staged, every product and sum in
+// float32; msg and tmsg are both compensated sums (hi + lo,
+// cg_forward_jvp_compensated), split destinations wait in float32 carry
+// rows [n_tiles][2][2][2][mid_dim] (slot, hi/lo, msg/tmsg: cg_fwd.cuh
+// carry_slots) and the second launch adds them in tile order.  Each output
+// is rounded once (the _acc form: added onto its float32 accumulator,
+// rounded to float32 once; tp_scatter.ChunkedJvpConv rounds the
+// accumulators to bf16 after the last slice), as in K4's bf16 form
+// (tri_fwd.cu).  The plain version (tp_scatter.jvp_fwd_plain) rounds at
+// the same points.  bf16 tiles stop at 16 edges (kTopTile); registers
+// (nvcc -Xptxas -v) 128 at 16 edges, 117-118 at 8, 96-102 at 4, no spills.
+// Measured (chip_smoke.py phase 16a, phase 16 alone; H100 80GB HBM3, 700
+// W): 1.75 ms on one of 4 fr slices over the three layers against 1.07
+// for f32 in the same call, 14.6x its 0.12 ms bound.
+#include <type_traits>
+
 #include "cg_fwd.cuh"
 #include "dense_tiles.cuh"
 
 namespace nequip {
 namespace {
 
-template <typename T>
+// S: the storage type of the operands and outputs; the kernel computes in
+// T = Acc<S> (tp_common.cuh), the type of the tables, the carry rows and
+// the _acc form's accumulators
+template <typename S>
 struct JvpFwdArgs {
-  const T *x, *tx, *y, *ty, *w, *dw;
+  using T = Acc<S>;
+  const S *x, *tx, *y, *ty, *w, *dw;
   const int32_t *edge_src, *dst_ptr;
   cgf::Tables<T> tab;
-  T *out, *tout, *carry;
+  void *out, *tout;  // [N, mid_dim] of S, or the _acc form's accumulators of T
+  T* carry;
   int n_nodes, dim_in, sh_dim, wn, mid_dim;
 };
 
@@ -86,8 +111,11 @@ __host__ __device__ inline JvpFwdSmem jvp_fwd_smem(int tile, int dim_in, int sh_
   return L;
 }
 
-template <typename T, int TILE, bool kAcc, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_fwd_kernel(const JvpFwdArgs<T> a) {
+template <typename S, int TILE, bool kAcc, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_fwd_kernel(const JvpFwdArgs<S> a) {
+  using T = Acc<S>;  // shared memory, registers and sums
+  using O = typename std::conditional<kAcc, T, S>::type;
+  constexpr bool kRound = !std::is_same<S, T>::value;  // bf16: compensated sums, rounded once (see the header)
   constexpr int NT = kThreads;
   static_assert(TILE <= 32, "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -100,6 +128,8 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_fwd_kernel(const Jvp
   T* s_cty = base_t + L.o_cty;  // [n_terms][TILE]
   int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
   int32_t* s_flags = s_dst + TILE;  // [0]: where segments end in the tile; [1]: the last one continues
+  O* const out = static_cast<O*>(a.out);
+  O* const tout = static_cast<O*>(a.tout);
 
   const int tid = threadIdx.x;
   const int n_real = __ldg(a.dst_ptr + a.n_nodes);
@@ -119,34 +149,57 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_fwd_kernel(const Jvp
     if (tid < 32) cgf::tile_segments<TILE>(a.dst_ptr, a.n_nodes, base, cnt, s_dst, s_flags);  // warp 0
     cp_async_wait<1>();  // y and ty have landed
     __syncthreads();
-    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_y + phase16(a.y + oy), sh_dim, s_cy, tid);
-    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_ty + phase16(a.ty + oy), sh_dim, s_cty, tid);
+    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_y + staged_phase<T>(a.y + oy), sh_dim, s_cy, tid);
+    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_ty + staged_phase<T>(a.ty + oy), sh_dim, s_cty, tid);
     cp_async_wait<0>();
     __syncthreads();
 
-    // a last segment that continues into the next tile goes to this tile's carry rows (msg, then tmsg)
-    T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * 2 * mid_dim : nullptr;
-    cgf::cg_forward_jvp<T, TILE, NT>(
-        a.tab, s_cy, s_cty, s_x, s_tx, dim_in, base_t + phase16(a.w + ow), base_t + L.o_dw + phase16(a.dw + ow),
-        wn, mid_dim, static_cast<unsigned>(s_flags[0]), [&](int o, int e, T v, T tv) {
-          const int64_t at = static_cast<int64_t>(s_dst[e]) * mid_dim + o;
-          if (e == cnt - 1 && carry_row != nullptr) {
-            carry_row[o] = v;
-            carry_row[mid_dim + o] = tv;
-          } else if (kAcc) {
-            a.out[at] += v;
-            a.tout[at] += tv;
-          } else {
-            a.out[at] = v;
-            a.tout[at] = tv;
-          }
-        });
+    const T* const s_w = base_t + staged_phase<T>(a.w + ow);
+    const T* const s_dw = base_t + L.o_dw + staged_phase<T>(a.dw + ow);
+    const unsigned ends = static_cast<unsigned>(s_flags[0]);
+    if constexpr (!kRound) {
+      // a last segment that continues into the next tile goes to this tile's carry rows (msg, then tmsg)
+      T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * 2 * mid_dim : nullptr;
+      cgf::cg_forward_jvp<T, TILE, NT>(a.tab, s_cy, s_cty, s_x, s_tx, dim_in, s_w, s_dw, wn, mid_dim, ends,
+                                       [&](int o, int e, T v, T tv) {
+                                         const int64_t at = static_cast<int64_t>(s_dst[e]) * mid_dim + o;
+                                         if (e == cnt - 1 && carry_row != nullptr) {
+                                           carry_row[o] = v;
+                                           carry_row[mid_dim + o] = tv;
+                                         } else if (kAcc) {
+                                           out[at] += v;
+                                           tout[at] += tv;
+                                         } else {
+                                           out[at] = v;
+                                           tout[at] = tv;
+                                         }
+                                       });
+    } else {
+      // bf16: segments that another tile shares to the carry slots, every
+      // other one rounded once into out and tout, or added onto the accumulators
+      const auto slots = cgf::carry_slots<2>(a.dst_ptr, s_dst, s_flags, a.carry, tile, base, mid_dim);
+      cgf::cg_forward_jvp_compensated<TILE, NT>(
+          a.tab, s_cy, s_cty, s_x, s_tx, dim_in, s_w, s_dw, wn, mid_dim, ends,
+          [&](int o, int e, const SumF32x2& v, const SumF32x2& tv) {
+            const int64_t at = static_cast<int64_t>(s_dst[e]) * mid_dim + o;
+            if (T* const row = slots.at(e, cnt)) {
+              slots.put(row, 0, o, v);
+              slots.put(row, 1, o, tv);
+            } else if constexpr (kAcc) {
+              out[at] = add_onto(out[at], v);
+              tout[at] = add_onto(tout[at], tv);
+            } else {
+              out[at] = bf16_of_sum(v.hi, v.lo);
+              tout[at] = bf16_of_sum(tv.hi, tv.lo);
+            }
+          });
+    }
   }
 }
 
-template <typename T, int TILE, bool kAcc, int MIN_BLOCKS>
-cudaError_t launch_tile(const JvpFwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
-  auto kernel = jvp_fwd_kernel<T, TILE, kAcc, MIN_BLOCKS>;
+template <typename S, int TILE, bool kAcc, int MIN_BLOCKS>
+cudaError_t launch_tile(const JvpFwdArgs<S>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = jvp_fwd_kernel<S, TILE, kAcc, MIN_BLOCKS>;
   int grid = 0;
   const cudaError_t err = persistent_grid(kernel, kThreads, dev, smem, grid);
   if (err != cudaSuccess) return err;
@@ -154,9 +207,10 @@ cudaError_t launch_tile(const JvpFwdArgs<T>& args, int dev, size_t smem, cudaStr
   return cudaGetLastError();
 }
 
-// m and tm of 32 f64 edges would take 128 registers: f64 tiles stop at 16
-template <typename T>
-constexpr int kTopTile = sizeof(T) == 4 ? 32 : 16;
+// m and tm of 32 f64 edges would take 128 registers: f64 tiles stop at 16;
+// so do bf16 tiles, whose compensated sums spill at 32 edges (104-112 bytes)
+template <typename S>
+constexpr int kTopTile = std::is_same<S, float>::value ? 32 : 16;
 
 // The launch shape: the first of 32- (f32 only), 16-, 8- and 4-edge tiles
 // whose shared memory lets two blocks share an SM, else 4-edge tiles at one
@@ -165,43 +219,53 @@ struct Shape {
   int tile, blocks;
 };
 
-template <typename T>
+template <typename S>
 Shape pick_shape(const SmemLimits& lim, int dim_in, int sh_dim, int wn, int n_terms) {
+  using T = Acc<S>;
   for (const int tile : {32, 16, 8, 4})
-    if (tile <= kTopTile<T> && lim.fit(jvp_fwd_smem<T>(tile, dim_in, sh_dim, wn, n_terms).bytes, 2))
+    if (tile <= kTopTile<S> && lim.fit(jvp_fwd_smem<T>(tile, dim_in, sh_dim, wn, n_terms).bytes, 2))
       return {tile, 2};
   return {lim.fit(jvp_fwd_smem<T>(4, dim_in, sh_dim, wn, n_terms).bytes, 1) ? 4 : 0, 1};
 }
 
 // Tile kernel, then the finish kernel.  `tile` must be pick_shape's (the
-// caller sized carry [ceil(n_real / tile), 2 * mid_dim] by it).
-template <typename T, bool kAcc>
-int launch_jvp_fwd(const JvpFwdArgs<T>& a, int tile, void* stream) {
+// caller sized carry by it: [ceil(n_real / tile), 2 * mid_dim], bf16
+// [ceil(n_real / tile) * 4, 2 * mid_dim] of float32).
+template <typename S, bool kAcc>
+int launch_jvp_fwd(const JvpFwdArgs<S>& a, int tile, void* stream) {
+  using T = Acc<S>;
   if (a.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
   SmemLimits lim;
   cudaError_t e = smem_limits(lim);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Shape sh = pick_shape<T>(lim, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms);
+  const Shape sh = pick_shape<S>(lim, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms);
   if (sh.tile == 0 || tile != sh.tile) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = jvp_fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms).bytes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 32) e = launch_tile<T, kTopTile<T>, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 16) e = launch_tile<T, 16, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 8) e = launch_tile<T, 8, kAcc, 2>(a, lim.dev, smem, s);
-  else if (sh.blocks == 2) e = launch_tile<T, 4, kAcc, 2>(a, lim.dev, smem, s);
-  else e = launch_tile<T, 4, kAcc, 1>(a, lim.dev, smem, s);
+  if (tile == 32) e = launch_tile<S, kTopTile<S>, kAcc, 2>(a, lim.dev, smem, s);
+  else if (tile == 16) e = launch_tile<S, 16, kAcc, 2>(a, lim.dev, smem, s);
+  else if (tile == 8) e = launch_tile<S, 8, kAcc, 2>(a, lim.dev, smem, s);
+  else if (sh.blocks == 2) e = launch_tile<S, 4, kAcc, 2>(a, lim.dev, smem, s);
+  else e = launch_tile<S, 4, kAcc, 1>(a, lim.dev, smem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cgf::launch_finish<T, 2, kAcc>(a.dst_ptr, a.carry, a.out, a.tout, a.n_nodes, a.mid_dim,
-                                                         tile, s));
+  using O = typename std::conditional<kAcc, T, S>::type;
+  O* const out = static_cast<O*>(a.out);
+  O* const tout = static_cast<O*>(a.tout);
+  if constexpr (std::is_same<S, T>::value)
+    return static_cast<int>(cgf::launch_finish<T, 2, kAcc>(a.dst_ptr, a.carry, out, tout, a.n_nodes, a.mid_dim,
+                                                           tile, s));
+  else
+    return static_cast<int>(cgf::launch_finish_compensated<S, 2, kAcc>(a.dst_ptr, a.carry, out, tout, a.n_nodes,
+                                                                       a.mid_dim, tile, s));
 }
 
 // pick_shape's tile for the given widths on the current device; a CUDA error as -err
-template <typename T>
+template <typename S>
 int jvp_fwd_tile(int dim_in, int sh_dim, int wn, int n_terms) {
   SmemLimits lim;
   const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  return pick_shape<T>(lim, dim_in, sh_dim, wn, n_terms).tile;
+  return pick_shape<S>(lim, dim_in, sh_dim, wn, n_terms).tile;
 }
 
 }  // namespace
@@ -218,9 +282,8 @@ int jvp_fwd_tile(int dim_in, int sh_dim, int wn, int n_terms) {
         static_cast<const T*>(ty), static_cast<const T*>(w), static_cast<const T*>(dw),                          \
         static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),                             \
         {static_cast<const int32_t*>(groups), static_cast<const int32_t*>(terms),                                \
-         static_cast<const T*>(coef), static_cast<const int32_t*>(col_group), n_terms},                          \
-        static_cast<T*>(out), static_cast<T*>(tout), static_cast<T*>(carry), n_nodes, dim_in, sh_dim, wn,        \
-        mid_dim};                                                                                                \
+         static_cast<const nequip::Acc<T>*>(coef), static_cast<const int32_t*>(col_group), n_terms},             \
+        out, tout, static_cast<nequip::Acc<T>*>(carry), n_nodes, dim_in, sh_dim, wn, mid_dim};                   \
     return nequip::launch_jvp_fwd<T, ACC>(args, tile, stream);                                                   \
   }
 
@@ -231,7 +294,10 @@ int jvp_fwd_tile(int dim_in, int sh_dim, int wn, int n_terms) {
 
 NEQUIP_JVP_FWD(nequip_jvp_fwd, f32, float, false)
 NEQUIP_JVP_FWD(nequip_jvp_fwd, f64, double, false)
+NEQUIP_JVP_FWD(nequip_jvp_fwd, bf16, __nv_bfloat16, false)
 NEQUIP_JVP_FWD(nequip_jvp_fwd_acc, f32, float, true)
 NEQUIP_JVP_FWD(nequip_jvp_fwd_acc, f64, double, true)
+NEQUIP_JVP_FWD(nequip_jvp_fwd_acc, bf16, __nv_bfloat16, true)
 NEQUIP_JVP_FWD_TILE(f32, float)
 NEQUIP_JVP_FWD_TILE(f64, double)
+NEQUIP_JVP_FWD_TILE(bf16, __nv_bfloat16)

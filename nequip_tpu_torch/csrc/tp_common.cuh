@@ -7,11 +7,12 @@
 // Storage and sum types: a kernel instantiated for a storage type S reads
 // and writes S in device memory and computes in Acc<S> (shared memory,
 // registers, every product and sum): S itself for float and double, float
-// for __nv_bfloat16 (K1, K2's inference variant and K3; bf16 sums run in
-// float32, as the TPU kernels' _acc_dtype).  widen / narrow convert between
-// the two with the intrinsics only; round_as<S> rounds a sum to S's
-// precision and keeps it in Acc<S> (a kernel's stated rounding points).
-// SumF32x2 is a compensated float32 sum (K1's bf16 sums over edges).
+// for __nv_bfloat16 (K1, K2's inference variant, K3, K4/K4-acc, K5, K6 and
+// K7; bf16 sums run in float32, as the TPU kernels' _acc_dtype).  widen /
+// narrow convert between the two with the intrinsics only; round_as<S>
+// rounds a sum to S's precision and keeps it in Acc<S> (a kernel's stated
+// rounding points).  SumF32x2 is a compensated float32 sum (the bf16 sums
+// over edges of K1, K4 and K6).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +82,14 @@ struct SumF32x2 {
     lo = __fadd_rn(lo, o.lo);
   }
 };
+
+// a + v rounded to float32 once (a float32 accumulator of the bf16 forms
+// of K4-acc and K6-acc taking one slice's compensated sum)
+__device__ __forceinline__ float add_onto(float a, const SumF32x2& v) {
+  SumF32x2 s{a, 0.f};
+  s.add(v);
+  return __fadd_rn(s.hi, s.lo);
+}
 
 // The bf16 nearest to hi + lo (ties to even): fl(hi + lo) rounded, unless
 // it is a bf16 tie that the rest of the sum breaks.

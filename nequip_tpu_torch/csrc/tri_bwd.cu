@@ -59,6 +59,20 @@
 // not measured: ncu does not run on the card's machine).  An L2 prefetch
 // of the next tile, deeper unrolling, 4-edge items and 16-edge tiles were
 // no faster (PERF.md).
+//
+// bf16 (nequip_tri_bwd_bf16, the fast mode's forces on the fused_tp route
+// and the bf16 fr sweep's K4 backward): x, y, w and g are bf16 in device
+// memory, and so are dx_e, dy and dw.  The kernel is the f32 design on
+// float32 tiles (f32's shared-memory layout and shape choice), each operand
+// widened as it is staged (plain loads; g through L1 where it is not
+// staged) and every product and sum taken in float32.  Each output element
+// is rounded once, on its store; K3 then sums dx_e onto the sources in its
+// canonical per-source order.  The plain version (tp_scatter.tri_bwd_plain)
+// rounds at the same points.  Registers (nvcc -Xptxas -v): 128 at two
+// blocks an SM, 148 at one, no spills.  Measured (chip_smoke.py phase 16a,
+// phase 16 alone; H100 80GB HBM3, 700 W): 3.93 ms over the three layers
+// against 3.53 for f32 in the same call, 8.4x its 0.47 ms bound (2 B a
+// value).
 #include "cg_vjp.cuh"
 #include "dense_tiles.cuh"
 
@@ -68,13 +82,16 @@ namespace {
 constexpr int kCgEdges = 8;  // edges of one CG-VJP item
 constexpr int kGRows = 3;    // g rows staged for a tile whose destinations span at most this many nodes
 
-template <typename T>
+// S: the storage type of the operands and outputs; the kernel computes in
+// T = Acc<S> (tp_common.cuh), the type of the tables
+template <typename S>
 struct TriBwdArgs {
-  const T *x, *y, *w;
+  using T = Acc<S>;
+  const S *x, *y, *w;
   const int32_t *edge_src, *dst_ptr;
-  const T* g;
+  const S* g;
   cg::Tables<T> tab;
-  T *dx_edge, *dy, *dw;
+  S *dx_edge, *dy, *dw;
   int n_nodes, dim_in, sh_dim, wn, mid_dim;
   int g_rows;  // g rows the shared memory holds: kGRows, or 0 where they do not fit
 };
@@ -104,8 +121,9 @@ __host__ __device__ inline TriBwdSmem tri_bwd_smem(int tile, int stages, int dim
   return L;
 }
 
-template <typename T, int TILE, int STAGES, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const TriBwdArgs<T> a) {
+template <typename S, int TILE, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const TriBwdArgs<S> a) {
+  using T = Acc<S>;  // shared memory, registers and sums
   constexpr int NT = kThreads, NW = NT / 32, TC = TILE < kCgEdges ? TILE : kCgEdges;
   static_assert(TILE <= 32 && TILE % TC == 0 && (STAGES == 1 || STAGES == 2), "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -164,8 +182,8 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const Tri
     __syncthreads();
 
     T* sb = base_t + buf * L.stage;
-    T* s_w = sb + phase16(a.w + static_cast<int64_t>(base) * wn);            // [TILE][wn]
-    const T* s_y = sb + L.o_y + phase16(a.y + static_cast<int64_t>(base) * sh_dim);  // [TILE][sh_dim]
+    T* s_w = sb + staged_phase<T>(a.w + static_cast<int64_t>(base) * wn);  // [TILE][wn]
+    const T* s_y = sb + L.o_y + staged_phase<T>(a.y + static_cast<int64_t>(base) * sh_dim);  // [TILE][sh_dim]
     const T* s_x = sb + L.o_x;                                               // [TILE][dim_in]
     auto cg_vjp = [&](auto gr) {
       cg::dx_items<T, TILE, TC, NW>(a.tab, gr, s_dst, s_y, sh_dim, s_w, wn, cnt, dim_in,
@@ -176,18 +194,18 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const Tri
     };
     const int g0 = *s_g0;  // block-uniform
     if (g0 >= 0)
-      cg_vjp(cg::GRows<T, true>{s_g + phase16(a.g + static_cast<int64_t>(g0) * mid_dim), g0, mid_dim});
+      cg_vjp(cg::GRows<T, true>{s_g + staged_phase<T>(a.g + static_cast<int64_t>(g0) * mid_dim), g0, mid_dim});
     else
-      cg_vjp(cg::GRows<T, false>{a.g, 0, mid_dim});
+      cg_vjp(cg::GRows<T, false, S>{a.g, 0, mid_dim});
     __syncthreads();
     cg::path_sum<T, NT>(a.tab, s_part, cnt, sh_dim, a.dy + static_cast<int64_t>(base) * sh_dim);
     store_flat<T, NT>(a.dw + static_cast<int64_t>(base) * wn, s_w, cnt * wn, tid);
   }
 }
 
-template <typename T, int TILE, int STAGES, int MIN_BLOCKS>
-cudaError_t launch_tile(const TriBwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
-  auto kernel = tri_bwd_kernel<T, TILE, STAGES, MIN_BLOCKS>;
+template <typename S, int TILE, int STAGES, int MIN_BLOCKS>
+cudaError_t launch_tile(const TriBwdArgs<S>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = tri_bwd_kernel<S, TILE, STAGES, MIN_BLOCKS>;
   int grid = 0;
   const cudaError_t err = persistent_grid(kernel, kThreads, dev, smem, grid);
   if (err != cudaSuccess) return err;
@@ -197,9 +215,11 @@ cudaError_t launch_tile(const TriBwdArgs<T>& args, int dev, size_t smem, cudaStr
 
 // The first shape whose shared memory fits: two blocks an SM before one,
 // 32-edge tiles before 16 and 8, double-buffered before single, each with
-// kGRows staged g rows before none.
-template <typename T>
-int launch_tri_bwd(TriBwdArgs<T> a, void* stream) {
+// kGRows staged g rows before none.  The tile is Acc<S> whatever S (bf16
+// tiles are f32's).
+template <typename S>
+int launch_tri_bwd(TriBwdArgs<S> a, void* stream) {
+  using T = Acc<S>;
   if (a.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t rows = a.n_nodes + 1;  // g offsets are int32
   if (rows * a.mid_dim >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
@@ -217,14 +237,14 @@ int launch_tri_bwd(TriBwdArgs<T> a, void* stream) {
   };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (fits(32, 2, 2)) e = launch_tile<T, 32, 2, 2>(a, lim.dev, smem, s);
-  else if (fits(32, 1, 2)) e = launch_tile<T, 32, 1, 2>(a, lim.dev, smem, s);
-  else if (fits(16, 1, 2)) e = launch_tile<T, 16, 1, 2>(a, lim.dev, smem, s);
-  else if (fits(32, 1, 1)) e = launch_tile<T, 32, 1, 1>(a, lim.dev, smem, s);
-  else if (fits(16, 1, 1)) e = launch_tile<T, 16, 1, 1>(a, lim.dev, smem, s);
+  if (fits(32, 2, 2)) e = launch_tile<S, 32, 2, 2>(a, lim.dev, smem, s);
+  else if (fits(32, 1, 2)) e = launch_tile<S, 32, 1, 2>(a, lim.dev, smem, s);
+  else if (fits(16, 1, 2)) e = launch_tile<S, 16, 1, 2>(a, lim.dev, smem, s);
+  else if (fits(32, 1, 1)) e = launch_tile<S, 32, 1, 1>(a, lim.dev, smem, s);
+  else if (fits(16, 1, 1)) e = launch_tile<S, 16, 1, 1>(a, lim.dev, smem, s);
   else {
     fits(8, 1, 1);  // the smallest shape, without g rows: refused at launch if it does not fit
-    e = launch_tile<T, 8, 1, 1>(a, lim.dev, smem, s);
+    e = launch_tile<S, 8, 1, 1>(a, lim.dev, smem, s);
   }
   return static_cast<int>(e);
 }
@@ -238,13 +258,14 @@ int launch_tri_bwd(TriBwdArgs<T> a, void* stream) {
       const void* dx_groups, const void* dx_terms, const void* dx_coef, const void* dx_col_group,             \
       const void* paths, const void* path_terms, const void* path_coef, void* dx_edge, void* dy, void* dw,    \
       int n_paths, int n_nodes, int dim_in, int sh_dim, int wn, int mid_dim, void* stream) {                  \
+    using A = nequip::Acc<T>;                                                                                 \
     const nequip::TriBwdArgs<T> args{                                                                         \
         static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(w),                         \
         static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr), static_cast<const T*>(g), \
         {static_cast<const int32_t*>(dx_groups), static_cast<const int32_t*>(dx_terms),                       \
-         static_cast<const T*>(dx_coef), static_cast<const int32_t*>(dx_col_group),                           \
+         static_cast<const A*>(dx_coef), static_cast<const int32_t*>(dx_col_group),                           \
          static_cast<const int32_t*>(paths), static_cast<const int32_t*>(path_terms),                         \
-         static_cast<const T*>(path_coef), n_paths},                                                          \
+         static_cast<const A*>(path_coef), n_paths},                                                          \
         static_cast<T*>(dx_edge), static_cast<T*>(dy), static_cast<T*>(dw),                                   \
         n_nodes, dim_in, sh_dim, wn, mid_dim, 0};                                                                \
     return nequip::launch_tri_bwd<T>(args, stream);                                                           \
@@ -252,3 +273,4 @@ int launch_tri_bwd(TriBwdArgs<T> a, void* stream) {
 
 NEQUIP_TRI_BWD(f32, float)
 NEQUIP_TRI_BWD(f64, double)
+NEQUIP_TRI_BWD(bf16, __nv_bfloat16)

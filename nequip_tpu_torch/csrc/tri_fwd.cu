@@ -63,18 +63,49 @@
 // CG product and sums 10.7k.  A double-buffered stage was no faster.
 // Registers (nvcc -Xptxas -v): f32 64 at four blocks an SM, 127-128 at two
 // (4-edge tiles 114); f64 64 / 128 (4-edge at one block 147); no spills.
+//
+// bf16 (the fast mode's nequip_tri_fwd_bf16, nequip_tri_fwd_acc_bf16): x, y
+// and w are bf16 in device memory, and so is out; K4-acc's accumulator is
+// float32.  The kernel is the f32 design on a float32 tile (f32's shared-
+// memory layout), every operand widened as it is staged (plain loads:
+// cp.async has no converting copy) and every product and sum taken in
+// float32.  As in K1's bf16 form (conv_fwd.cu), the sums over edges are
+// compensated float32 sums (hi + lo), a destination's parts that tiles
+// split wait in float32 carry rows ([n_tiles][2][2][mid_dim], cg_fwd.cuh
+// carry_slots) and the second launch adds them in tile order, so a sum
+// does not depend on how its edges fall into tiles.  K4 rounds each output
+// once, to the bf16 nearest to its sum.  K4-acc adds each slice's sum onto
+// the float32 accumulator, rounded to float32 once; the caller rounds the
+// accumulator to bf16 once, after the last slice (tp_scatter.ChunkedConv),
+// so fr over C slices equals fr over one to within that rounding.  JAX
+// instead sums each chunk's messages into a bf16 block and keeps the
+// accumulator in bf16 (ROADMAP.md, Known quirks).  The plain versions
+// (tp_scatter.tri_fwd_plain) round at the same points.  bf16 takes two
+// blocks an SM (kTop4): at four its compensated sums spill.  Registers
+// (nvcc -Xptxas -v): 127-128 for 32-, 16- and 8-edge tiles, 117-119 for
+// 4-edge ones, no spills.  Measured (chip_smoke.py phase 16a, phase 16
+// alone; H100 80GB HBM3, 700 W): K4 2.39 ms over the three layers against
+// 1.22 for f32 in the same call (13.7x its 0.17 ms bound at 2 B a value);
+// K4-acc on one of 4 fr slices 0.78 against 0.52.
+#include <type_traits>
+
 #include "cg_fwd.cuh"
 #include "dense_tiles.cuh"
 
 namespace nequip {
 namespace {
 
-template <typename T>
+// S: the storage type of x, y, w and out; the kernel computes in T =
+// Acc<S> (tp_common.cuh), the type of the tables, the carry rows and
+// K4-acc's accumulator
+template <typename S>
 struct TriFwdArgs {
-  const T *x, *y, *w;
+  using T = Acc<S>;
+  const S *x, *y, *w;
   const int32_t *edge_src, *dst_ptr;
   cgf::Tables<T> tab;
-  T *out, *carry;
+  void* out;  // [N, mid_dim] of S, or K4-acc's accumulator of T
+  T* carry;
   int n_nodes, dim_in, sh_dim, wn, mid_dim;
 };
 
@@ -99,8 +130,11 @@ __host__ __device__ inline TriFwdSmem tri_fwd_smem(int tile, int dim_in, int sh_
   return L;
 }
 
-template <typename T, int TILE, bool kAcc, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_fwd_kernel(const TriFwdArgs<T> a) {
+template <typename S, int TILE, bool kAcc, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_fwd_kernel(const TriFwdArgs<S> a) {
+  using T = Acc<S>;  // shared memory, registers and sums
+  using O = typename std::conditional<kAcc, T, S>::type;
+  constexpr bool kRound = !std::is_same<S, T>::value;  // bf16: compensated sums, rounded once (see the header)
   constexpr int NT = kThreads;
   static_assert(TILE <= 32, "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -111,6 +145,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_fwd_kernel(const Tri
   T* s_cy = base_t + L.o_cy;  // [n_terms][TILE]
   int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
   int32_t* s_flags = s_dst + TILE;  // [0]: where segments end in the tile; [1]: the last one continues
+  O* const out = static_cast<O*>(a.out);
 
   const int tid = threadIdx.x;
   const int n_real = __ldg(a.dst_ptr + a.n_nodes);
@@ -127,28 +162,44 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_fwd_kernel(const Tri
     if (tid < 32) cgf::tile_segments<TILE>(a.dst_ptr, a.n_nodes, base, cnt, s_dst, s_flags);  // warp 0
     cp_async_wait<1>();  // y has landed
     __syncthreads();
-    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_y + phase16(a.y + oy), sh_dim, s_cy, tid);  // while x, w land
+    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_y + staged_phase<T>(a.y + oy), sh_dim, s_cy, tid);  // while x, w land
     cp_async_wait<0>();
     __syncthreads();
 
-    // a last segment that continues into the next tile goes to this tile's carry row
-    T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * mid_dim : nullptr;
-    cgf::cg_forward<T, TILE, NT>(
-        a.tab, s_cy, s_x, dim_in, base_t + phase16(a.w + ow), wn, mid_dim, static_cast<unsigned>(s_flags[0]),
-        [&](int o, int e, T v) {
-          if (e == cnt - 1 && carry_row != nullptr)
-            carry_row[o] = v;
-          else if (kAcc)
-            a.out[static_cast<int64_t>(s_dst[e]) * mid_dim + o] += v;
-          else
-            a.out[static_cast<int64_t>(s_dst[e]) * mid_dim + o] = v;
-        });
+    const T* const s_w = base_t + staged_phase<T>(a.w + ow);
+    const unsigned ends = static_cast<unsigned>(s_flags[0]);
+    if constexpr (!kRound) {
+      // a last segment that continues into the next tile goes to this tile's carry row
+      T* const carry_row = s_flags[1] ? a.carry + static_cast<int64_t>(tile) * mid_dim : nullptr;
+      cgf::cg_forward<T, TILE, NT>(a.tab, s_cy, s_x, dim_in, s_w, wn, mid_dim, ends, [&](int o, int e, T v) {
+        if (e == cnt - 1 && carry_row != nullptr)
+          carry_row[o] = v;
+        else if (kAcc)
+          out[static_cast<int64_t>(s_dst[e]) * mid_dim + o] += v;
+        else
+          out[static_cast<int64_t>(s_dst[e]) * mid_dim + o] = v;
+      });
+    } else {
+      // bf16: segments that another tile shares to the carry slots, every
+      // other one rounded once into out, or added onto the accumulator
+      const auto slots = cgf::carry_slots<1>(a.dst_ptr, s_dst, s_flags, a.carry, tile, base, mid_dim);
+      cgf::cg_forward_compensated<TILE, NT>(
+          a.tab, s_cy, s_x, dim_in, s_w, wn, mid_dim, ends, [&](int o, int e, const SumF32x2& v) {
+            O* const at = out + static_cast<int64_t>(s_dst[e]) * mid_dim + o;
+            if (T* const row = slots.at(e, cnt))
+              slots.put(row, 0, o, v);
+            else if constexpr (kAcc)
+              *at = add_onto(*at, v);
+            else
+              *at = bf16_of_sum(v.hi, v.lo);
+          });
+    }
   }
 }
 
-template <typename T, int TILE, bool kAcc, int MIN_BLOCKS>
-cudaError_t launch_tile(const TriFwdArgs<T>& args, int dev, size_t smem, cudaStream_t stream) {
-  auto kernel = tri_fwd_kernel<T, TILE, kAcc, MIN_BLOCKS>;
+template <typename S, int TILE, bool kAcc, int MIN_BLOCKS>
+cudaError_t launch_tile(const TriFwdArgs<S>& args, int dev, size_t smem, cudaStream_t stream) {
+  auto kernel = tri_fwd_kernel<S, TILE, kAcc, MIN_BLOCKS>;
   int grid = 0;
   const cudaError_t err = persistent_grid(kernel, kThreads, dev, smem, grid);
   if (err != cudaSuccess) return err;
@@ -157,9 +208,11 @@ cudaError_t launch_tile(const TriFwdArgs<T>& args, int dev, size_t smem, cudaStr
 }
 
 // The largest tile whose column products fit the 64 registers of four
-// blocks an SM: 32 edges in f32, 16 in f64.
-template <typename T>
-constexpr int kTop4 = sizeof(T) == 4 ? 32 : 16;
+// blocks an SM: 32 edges in f32, 16 in f64; none in bf16, whose
+// compensated sums spill there (40 bytes at 16-edge tiles), so bf16 takes
+// two blocks an SM.
+template <typename S>
+constexpr int kTop4 = std::is_same<S, float>::value ? 32 : std::is_same<S, double>::value ? 16 : 0;
 
 // The launch shape: four blocks an SM at the largest tile up to kTop4 whose
 // shared memory allows them (more blocks hide the destination search and
@@ -170,49 +223,59 @@ struct Shape {
   int tile, blocks;
 };
 
-template <typename T>
+template <typename S>
 Shape pick_shape(const SmemLimits& lim, int dim_in, int sh_dim, int wn, int n_terms) {
   auto fits = [&](int tile, int blocks) {
-    return lim.fit(tri_fwd_smem<T>(tile, dim_in, sh_dim, wn, n_terms).bytes, blocks);
+    return lim.fit(tri_fwd_smem<Acc<S>>(tile, dim_in, sh_dim, wn, n_terms).bytes, blocks);
   };
   for (const int tile : {32, 16})
-    if (tile <= kTop4<T> && fits(tile, 4)) return {tile, 4};
+    if (tile <= kTop4<S> && fits(tile, 4)) return {tile, 4};
   for (const int tile : {32, 16, 8, 4})
     if (fits(tile, 2)) return {tile, 2};
   return {fits(4, 1) ? 4 : 0, 1};
 }
 
 // Tile kernel, then the finish kernel.  `tile` must be pick_shape's (the
-// caller sized carry [ceil(n_real / tile), mid_dim] by it).
-template <typename T, bool kAcc>
-int launch_tri_fwd(const TriFwdArgs<T>& a, int tile, void* stream) {
+// caller sized carry by it: [ceil(n_real / tile), mid_dim], bf16
+// [ceil(n_real / tile) * 4, mid_dim] of float32).
+template <typename S, bool kAcc>
+int launch_tri_fwd(const TriFwdArgs<S>& a, int tile, void* stream) {
+  using T = Acc<S>;
   if (a.n_nodes <= 0) return static_cast<int>(cudaGetLastError());
   SmemLimits lim;
   cudaError_t e = smem_limits(lim);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Shape sh = pick_shape<T>(lim, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms);
+  const Shape sh = pick_shape<S>(lim, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms);
   if (sh.tile == 0 || tile != sh.tile) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = tri_fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms).bytes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.blocks == 4 && tile == 32) e = launch_tile<T, kTop4<T>, kAcc, 4>(a, lim.dev, smem, s);
-  else if (sh.blocks == 4) e = launch_tile<T, 16, kAcc, 4>(a, lim.dev, smem, s);
-  else if (tile == 32) e = launch_tile<T, 32, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 16) e = launch_tile<T, 16, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 8) e = launch_tile<T, 8, kAcc, 2>(a, lim.dev, smem, s);
-  else if (sh.blocks == 2) e = launch_tile<T, 4, kAcc, 2>(a, lim.dev, smem, s);
-  else e = launch_tile<T, 4, kAcc, 1>(a, lim.dev, smem, s);
+  if (sh.blocks == 4) {
+    if constexpr (kTop4<S> > 0)
+      e = tile == 32 ? launch_tile<S, kTop4<S>, kAcc, 4>(a, lim.dev, smem, s)
+                     : launch_tile<S, 16, kAcc, 4>(a, lim.dev, smem, s);
+  } else if (tile == 32) e = launch_tile<S, 32, kAcc, 2>(a, lim.dev, smem, s);
+  else if (tile == 16) e = launch_tile<S, 16, kAcc, 2>(a, lim.dev, smem, s);
+  else if (tile == 8) e = launch_tile<S, 8, kAcc, 2>(a, lim.dev, smem, s);
+  else if (sh.blocks == 2) e = launch_tile<S, 4, kAcc, 2>(a, lim.dev, smem, s);
+  else e = launch_tile<S, 4, kAcc, 1>(a, lim.dev, smem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cgf::launch_finish<T, 1, kAcc>(a.dst_ptr, a.carry, a.out, nullptr, a.n_nodes, a.mid_dim,
-                                                         tile, s));
+  using O = typename std::conditional<kAcc, T, S>::type;
+  O* const out = static_cast<O*>(a.out);
+  if constexpr (std::is_same<S, T>::value)
+    return static_cast<int>(cgf::launch_finish<T, 1, kAcc>(a.dst_ptr, a.carry, out, nullptr, a.n_nodes, a.mid_dim,
+                                                           tile, s));
+  else
+    return static_cast<int>(cgf::launch_finish_compensated<S, 1, kAcc>(a.dst_ptr, a.carry, out, nullptr, a.n_nodes,
+                                                                       a.mid_dim, tile, s));
 }
 
 // pick_shape's tile for the given widths on the current device; a CUDA error as -err
-template <typename T>
+template <typename S>
 int tri_fwd_tile(int dim_in, int sh_dim, int wn, int n_terms) {
   SmemLimits lim;
   const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  return pick_shape<T>(lim, dim_in, sh_dim, wn, n_terms).tile;
+  return pick_shape<S>(lim, dim_in, sh_dim, wn, n_terms).tile;
 }
 
 }  // namespace
@@ -227,8 +290,8 @@ int tri_fwd_tile(int dim_in, int sh_dim, int wn, int n_terms) {
         static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(w),                        \
         static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),                         \
         {static_cast<const int32_t*>(groups), static_cast<const int32_t*>(terms),                            \
-         static_cast<const T*>(coef), static_cast<const int32_t*>(col_group), n_terms},                      \
-        static_cast<T*>(out), static_cast<T*>(carry), n_nodes, dim_in, sh_dim, wn, mid_dim};                 \
+         static_cast<const nequip::Acc<T>*>(coef), static_cast<const int32_t*>(col_group), n_terms},         \
+        out, static_cast<nequip::Acc<T>*>(carry), n_nodes, dim_in, sh_dim, wn, mid_dim};                     \
     return nequip::launch_tri_fwd<T, ACC>(args, tile, stream);                                               \
   }
 
@@ -239,7 +302,10 @@ int tri_fwd_tile(int dim_in, int sh_dim, int wn, int n_terms) {
 
 NEQUIP_TRI_FWD(nequip_tri_fwd, f32, float, false)
 NEQUIP_TRI_FWD(nequip_tri_fwd, f64, double, false)
+NEQUIP_TRI_FWD(nequip_tri_fwd, bf16, __nv_bfloat16, false)
 NEQUIP_TRI_FWD(nequip_tri_fwd_acc, f32, float, true)
 NEQUIP_TRI_FWD(nequip_tri_fwd_acc, f64, double, true)
+NEQUIP_TRI_FWD(nequip_tri_fwd_acc, bf16, __nv_bfloat16, true)
 NEQUIP_TRI_FWD_TILE(f32, float)
 NEQUIP_TRI_FWD_TILE(f64, double)
+NEQUIP_TRI_FWD_TILE(bf16, __nv_bfloat16)

@@ -80,10 +80,15 @@ def enable_bf16_fast_mode(model):
     bfloat16.  Features, SH, radial embeddings and the weights at their use
     are bf16, the parameters stay float32, the energy sum and forces stay in
     the positions' float64.  Serving and MD run K1, K2's inference variant
-    and K3 in bf16 (float32 sums) with ``tp_impl="fused"``, or plain
-    PyTorch with ``"torch"``; the ``"fused_tp"`` route and training on the
-    kernels raise (``nn/interaction_block.py``).  It rebuilds the model:
-    apply it before ``enable_TPUFusedTPScatter``."""
+    and K3 in bf16 (float32 sums) with ``tp_impl="fused"``, K4, K5 and K3
+    on the ``"fused_tp"`` route (and a radial MLP K1 does not take), or
+    plain PyTorch with ``"torch"``; a compiled bf16 model runs the
+    registered ops (``--no-check``).  Training runs on ``"fused_tp"`` (rr
+    and fr) and in fr over edge slices on either kernel route (K4-acc to
+    K7), with float32 parameters and gradients; rr and unsliced fr on the
+    ``"fused"`` route raise (K2's training variant and the dW reduction
+    have no bf16 form, ``nn/interaction_block.py``).  It rebuilds the
+    model: apply it before ``enable_TPUFusedTPScatter``."""
     return modify_model_dtype(model, model_dtype="bfloat16")
 
 

@@ -24,12 +24,21 @@ kernel impl, ``forward`` runs the conv over C slices of the edge stream
 (``ChunkedConv``: K4-acc, backward K5 + K3) and ``jvp`` runs the dual
 sweep over them (``ChunkedJvpConv``: K6, backward K7 + K3).
 
-bfloat16 (``enable_bf16_fast_mode``) serves and runs MD on two routes:
-``"fused"`` with frozen weights (K1, K2's inference variant and K3 in bf16,
-float32 sums) and ``"torch"`` (plain PyTorch in bf16).  The kernels of the
-``"fused_tp"`` route and of training (K2's training variant, the dW
-reduction, K4-acc to K7) have no bf16 form yet: a bf16 block on those
-raises ``NotImplementedError`` and never falls back to another route.
+bfloat16 (``enable_bf16_fast_mode``; bf16 storage, float32 sums, float32
+parameters cast at use) runs on every route but one mode:
+
+* ``"fused_tp"`` serves, runs MD, compiles and trains, rr and fr, with K4,
+  K5 and K3 in bf16 (and, over edge slices, K4-acc, K6 and K7);
+* ``"fused"`` serves and runs MD with frozen weights (K1, K2's inference
+  variant and K3), and trains in fr over edge slices (``fr_edge_chunks >
+  1``: ``ChunkedConv`` and ``ChunkedJvpConv`` take K1's MLP in plain
+  PyTorch);
+* ``"torch"`` is plain PyTorch in bf16.
+
+Training on the ``"fused"`` route without edge slices (rr, and unsliced
+fr) needs K2's training variant and the dW reduction, which have no bf16
+form yet: a bf16 block there raises ``NotImplementedError`` and never
+falls back to another route.
 
 ``forward`` is ``tail(conv(head(data)))``: ``ConvNetLayer``'s
 ``remat="save_tp"`` checkpoints the head and the tail and keeps the conv's
@@ -180,18 +189,14 @@ class InteractionBlock(GraphModule):
 
     def _check_bf16(self, x: torch.Tensor, training: bool) -> None:
         """Refuse what the kernels cannot do in bfloat16 (module docstring):
-        the ``"fused_tp"`` route, and training on a kernel route."""
-        if x.dtype != torch.bfloat16 or self.route == "torch":
+        training on the ``"fused"`` route without edge slices."""
+        if x.dtype != torch.bfloat16 or self.route != "fused" or self._chunked():
             return
-        if self.route == "fused_tp":
+        if training or not self._frozen():
             raise NotImplementedError(
-                "bfloat16 on the fused_tp route (the depth-2 radial MLP, K4/K5) has no kernel yet (ROADMAP.md); "
-                "run this model with tp_impl='torch' in bfloat16, or in float32"
-            )
-        if training or self._chunked() or not self._frozen():
-            raise NotImplementedError(
-                "bfloat16 training through the kernels (K2's training variant, the dW reduction, K4-acc to K7) "
-                "has no kernel yet (ROADMAP.md); the fused route serves frozen bfloat16 weights only"
+                "bfloat16 training on the fused route needs K2's training variant and the dW reduction, which "
+                "have no bfloat16 kernel yet (ROADMAP.md); train this model in fr with fr_edge_chunks > 1, on "
+                "tp_impl='fused_tp', or in float32"
             )
 
     def conv(self, data: dict, x: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,8 @@ Each C entry point launches on the stream it is given, allocates nothing,
 and returns the ``cudaError_t`` of the launch; the Python wrappers raise if
 it is not 0.  Every kernel is instantiated for float32 and float64
 (suffixes ``f32``, ``f64``); the bfloat16 fast mode's kernels (``BF16``: K1,
-K2's inference variant and K3, bf16 storage with float32 sums) also for
-bfloat16 (``bf16``).
+K2's inference variant, K3, and the trilinear kernels K4/K4-acc, K5, K6
+and K7; bf16 storage with float32 sums) also for bfloat16 (``bf16``).
 """
 
 from __future__ import annotations
@@ -56,7 +56,9 @@ _SIGNATURES: Dict[str, List] = {
 }
 # the entry points that are instantiated for bfloat16 too; ``entry_point``
 # refuses bfloat16 for every other name before the library loads
-BF16 = ("nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_scatter_rows")
+BF16 = ("nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_scatter_rows",
+        "nequip_tri_fwd", "nequip_tri_fwd_acc", "nequip_tri_fwd_tile", "nequip_tri_bwd",
+        "nequip_jvp_fwd", "nequip_jvp_fwd_acc", "nequip_jvp_fwd_tile", "nequip_jvp_bwd")
 # dtype-free entry points (a copy moves bytes), registered under their own names
 _BYTE_SIGNATURES: Dict[str, List] = {
     "nequip_row_gather_bytes": [_P] * 3 + [_I] * 4 + [_P],
@@ -170,8 +172,9 @@ def entry_point(name: str, dtype) -> ctypes._CFuncPtr:
 
     if dtype == torch.bfloat16 and name not in BF16:
         raise TypeError(
-            f"{name}: no bfloat16 kernel; the bfloat16 fast mode has K1, K2's inference variant and K3 "
-            f"({', '.join(BF16)}), and the other kernels in bfloat16 are later work (ROADMAP.md)"
+            f"{name}: no bfloat16 kernel; the bfloat16 fast mode has K1, K2's inference variant, K3 and the "
+            f"trilinear kernels K4-K7 ({', '.join(BF16)}); K2's training variant and the dW reduction in "
+            "bfloat16 are the next bring-up, and the microbenchmarks run in float32 only (ROADMAP.md)"
         )
     suffix = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}.get(dtype)
     if suffix is None:

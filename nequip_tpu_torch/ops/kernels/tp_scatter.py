@@ -26,16 +26,19 @@ Each wrapper runs its plain PyTorch twin (``*_plain``) when its tensors lie
 on the CPU, launches its kernel when they lie on a CUDA device, and raises
 for any other device.  Each counts its kernel launches in ``.launches``.
 
-bfloat16 (the fast mode): K1, K2's inference variant and K3 take bf16
-operands and return bf16 outputs, with every sum in float32
-(``acc_dtype``: their term tables and K1's carry rows are float32).  Their
-plain twins, given bf16, compute in float32 and round where the kernels
-round (stated in each kernel's header): K1 rounds ``w`` and each output,
-K2 ``h``, ``w`` and each output, K3 each output.  K1 sums over edges in
-compensated float32 (hi + lo), so that its output does not depend on how
-the edge stream falls into tiles; its twin sums in float64.  On the card a
-kernel then differs from its twin only by the order of its sums.  The
-other kernels have no bf16 form (``build.BF16``).
+bfloat16 (the fast mode): K1, K2's inference variant, K3 and the
+trilinear kernels K4/K4-acc, K5, K6 and K7 take bf16 operands and return
+bf16 outputs, with every sum in float32 (``acc_dtype``: their term tables
+and the carry rows of K1, K4 and K6 are float32).  Their plain twins, given
+bf16, compute in float32 and round where the kernels round (stated in each
+kernel's header): K1 rounds ``w`` and each output, K2 ``h``, ``w`` and each
+output, K3, K4, K5, K6 and K7 each output.  K1, K4 and K6 sum over edges in
+compensated float32 (hi + lo), so that an output does not depend on how the
+edge stream falls into tiles; their twins sum in float64.  K4-acc and
+K6-acc add onto float32 accumulators (``acc_dtype``), which the edge-sliced
+convolutions round to bf16 once, after the last slice.  On the card a
+kernel then differs from its twin only by the order of its sums.  K2's
+training variant and the dW reduction have no bf16 form (``build.BF16``).
 
 Serving (frozen radial-MLP weights) runs K1, K2's inference variant and K3
 as registered ops, ``torch.ops.nequip_torch.{conv_fwd, conv_bwd,
@@ -509,14 +512,31 @@ def dw_reduce_plain(a, b, scale: float, n: int):
     return scale * (a[:n].t() @ b[:n])
 
 
+def _sum_rows(dst, msgs, num_nodes: int, dtype, acc):
+    """The per-edge ``msgs`` summed onto their destination rows: onto
+    ``acc`` in place (returned), or into new rows.  bf16 (``dtype``): the
+    sums run in float64 and each new row is rounded once to the nearest
+    bf16, or each accumulator row (float32) takes its sum rounded to
+    float32 once (the compensated sums of K4 and K6 agree with float64 to
+    far below either rounding)."""
+    if dtype != torch.bfloat16:
+        out = msgs.new_zeros(num_nodes, msgs.shape[1]) if acc is None else acc
+        return out.index_add_(0, dst, msgs)
+    wide = (torch.zeros(num_nodes, msgs.shape[1], dtype=torch.float64, device=msgs.device) if acc is None
+            else acc.double()).index_add_(0, dst, msgs.double())
+    return _bf16_nearest(wide) if acc is None else acc.copy_(wide)
+
+
 def tri_fwd_plain(plan, x, y, w, layout: EdgeLayout, acc=None):
-    """K4 (``acc`` None) or K4-acc (adds onto ``acc`` in place, returns it)."""
+    """K4 (``acc`` None) or K4-acc (adds onto ``acc`` in place, returns it);
+    bf16 inputs run in float32 and sum as ``_sum_rows`` says."""
+    dtype = x.dtype
+    x, y, w = _wide(x, y, w)
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
     msg = plan.tp(torch.index_select(x, 0, src), y[:n_real], w[:n_real])
-    out = x.new_zeros(layout.num_nodes, plan.mid_dim) if acc is None else acc
-    return out.index_add_(0, dst, msg)
+    return _sum_rows(dst, msg, layout.num_nodes, dtype, acc)
 
 
 def _jvp_terms(plan, x, tx, y, ty, w, dw):
@@ -526,21 +546,26 @@ def _jvp_terms(plan, x, tx, y, ty, w, dw):
 
 def jvp_fwd_plain(plan, x, tx, y, ty, w, dw, layout: EdgeLayout, acc=None):
     """K6: ``(msg, tmsg)``, added onto ``acc = (msg_acc, tmsg_acc)`` in place
-    when it is given."""
+    when it is given; bf16 inputs run in float32 and sum as ``_sum_rows``
+    says."""
+    dtype = x.dtype
+    x, tx, y, ty, w, dw = _wide(x, tx, y, ty, w, dw)
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
-    msg, tmsg = _jvp_terms(
+    msgs = _jvp_terms(
         plan, torch.index_select(x, 0, src), torch.index_select(tx, 0, src),
         y[:n_real], ty[:n_real], w[:n_real], dw[:n_real],
     )
-    if acc is None:
-        acc = tuple(x.new_zeros(layout.num_nodes, plan.mid_dim) for _ in range(2))
-    return acc[0].index_add_(0, dst, msg), acc[1].index_add_(0, dst, tmsg)
+    return tuple(_sum_rows(dst, m, layout.num_nodes, dtype, None if acc is None else a)
+                 for m, a in zip(msgs, acc or (None, None)))
 
 
 def jvp_bwd_plain(plan, x, tx, y, ty, w, dw, layout: EdgeLayout, g, gt):
-    """K7: per-edge ``(dx, dtx, dy, dty, cw, cdw)`` of K6 for ``(g, gt)``."""
+    """K7: per-edge ``(dx, dtx, dy, dty, cw, cdw)`` of K6 for ``(g, gt)``;
+    bf16 inputs run in float32 with each output rounded once."""
+    dtype = x.dtype
+    x, tx, y, ty, w, dw, g, gt = _wide(x, tx, y, ty, w, dw, g, gt)
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
@@ -548,10 +573,14 @@ def jvp_bwd_plain(plan, x, tx, y, ty, w, dw, layout: EdgeLayout, g, gt):
         ins = tuple(t.detach().requires_grad_(True)
                     for t in (x[src], tx[src], y[:n_real], ty[:n_real], w[:n_real], dw[:n_real]))
         grads = torch.autograd.grad(_jvp_terms(plan, *ins), ins, (g[dst], gt[dst]))
-    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n_real)) for gr in grads)
+    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n_real)).to(dtype) for gr in grads)
 
 
 def tri_bwd_plain(plan, x, y, w, layout: EdgeLayout, g):
+    """K5: per-edge ``(dx, dy, dw)`` of K4 for ``g``; bf16 inputs run in
+    float32 with each output rounded once."""
+    dtype = x.dtype
+    x, y, w, g = _wide(x, y, w, g)
     n_real = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n_real].long()
@@ -559,7 +588,7 @@ def tri_bwd_plain(plan, x, y, w, layout: EdgeLayout, g):
         ins = tuple(t.detach().requires_grad_(True) for t in (x[src], y[:n_real], w[:n_real]))
         grads = torch.autograd.grad(plan.tp(*ins), ins, g[dst])
     # per-edge outputs over all slots, zero at masked ones
-    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n_real)) for gr in grads)
+    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n_real)).to(dtype) for gr in grads)
 
 
 def scatter_rows_plain(values, perm, ptr):
@@ -669,10 +698,11 @@ def conv_fwd_carry_rows(n_edges: int, tile: int, dtype: torch.dtype = torch.floa
     """Rows of the carry buffer of K1, K4 and K6 over ``n_edges`` edges (at
     least the real ones): one per tile of ``tile`` edges (a tile whose last
     destination continues into the next tile writes its part there, see
-    ``csrc/cg_fwd.cuh``); four per tile for K1 in bf16 (two parts, each a
+    ``csrc/cg_fwd.cuh``); four per tile in bf16 (two parts, each a
     compensated float32 sum's hi and lo rows; the second part is a tile's
-    first destination's that began in an earlier tile, see
-    ``csrc/conv_fwd.cu``).  The rows are in ``acc_dtype(dtype)``."""
+    first destination's that began in an earlier tile, see ``carry_slots``
+    in ``csrc/cg_fwd.cuh``).  The rows are in ``acc_dtype(dtype)``, of
+    ``mid_dim`` values (K6: ``2 * mid_dim``, msg and tmsg)."""
     return _cdiv(n_edges, tile) * (4 if dtype == torch.bfloat16 else 1)
 
 
@@ -859,10 +889,13 @@ def dw_reduce(a, b, scale: float, n: int):
 
 
 def _check_acc(name: str, acc, layout: EdgeLayout, plan: TPPlan, ref: torch.Tensor) -> None:
+    """Accumulators lie contiguous ``[N, mid_dim]`` on ``ref``'s device in
+    ``acc_dtype(ref.dtype)`` (float32 for bf16 inputs)."""
+    dtype = acc_dtype(ref.dtype)
     for a in acc:
         if (a.shape != (layout.num_nodes, plan.mid_dim) or a.device != ref.device
-                or a.dtype != ref.dtype or not a.is_contiguous()):
-            raise ValueError(f"{name}: accumulators must be contiguous [N, mid_dim] of the inputs' device and dtype")
+                or a.dtype != dtype or not a.is_contiguous()):
+            raise ValueError(f"{name}: accumulators must be contiguous [N, mid_dim] {dtype} on the inputs' device")
 
 
 def tri_fwd(plan: TPPlan, x, y, w, layout: EdgeLayout, acc=None):
@@ -871,7 +904,8 @@ def tri_fwd(plan: TPPlan, x, y, w, layout: EdgeLayout, acc=None):
     K1).  With ``acc`` (K4-acc, counted as ``tri_fwd_acc``) the messages are
     added onto ``acc`` in place and ``acc`` is returned: one slice of the
     edge-chunked sweep.  It allocates its output (none with ``acc``) and
-    the carry rows of destinations that tiles split."""
+    the carry rows of destinations that tiles split.  bf16: ``out`` is bf16,
+    ``acc`` float32 (``acc_dtype``)."""
     if acc is not None:
         return tri_fwd_acc(plan, x, y, w, layout, acc)
     if not _route("tri_fwd", x, y, w):
@@ -884,9 +918,9 @@ def tri_fwd(plan: TPPlan, x, y, w, layout: EdgeLayout, acc=None):
 
 def tri_fwd_acc(plan: TPPlan, x, y, w, layout: EdgeLayout, acc):
     """K4-acc: ``acc += F(x, y, w)`` in place over one edge slice."""
-    if not _route("tri_fwd_acc", x, y, w, acc):
-        return tri_fwd_plain(plan, x, y, w, layout, acc)
     _check_acc("tri_fwd_acc", (acc,), layout, plan, x)
+    if not _route("tri_fwd_acc", x, y, w):
+        return tri_fwd_plain(plan, x, y, w, layout, acc)
     _launch_tri_fwd("nequip_tri_fwd_acc", plan, x, y, w, layout, acc)
     tri_fwd_acc.launches += 1
     return acc
@@ -894,8 +928,8 @@ def tri_fwd_acc(plan: TPPlan, x, y, w, layout: EdgeLayout, acc):
 
 def _launch_tri_fwd(entry: str, plan: TPPlan, x, y, w, layout: EdgeLayout, out) -> None:
     _check_layout(layout, x.device)
-    _launch_tri_fwd_raw(entry, x, y, w, layout.edge_src, layout.dst_ptr, plan.device_tables(x.device, x.dtype),
-                        out, layout.n_real)
+    _launch_tri_fwd_raw(entry, x, y, w, layout.edge_src, layout.dst_ptr,
+                        plan.device_tables(x.device, acc_dtype(x.dtype)), out, layout.n_real)
 
 
 def _launch_tri_fwd_raw(entry: str, x, y, w, edge_src, dst_ptr, tab: Dict[str, torch.Tensor], out,
@@ -905,7 +939,8 @@ def _launch_tri_fwd_raw(entry: str, x, y, w, edge_src, dst_ptr, tab: Dict[str, t
     n_terms, mid_dim = tab["fwd_coef"].shape[0], tab["fwd_col"].shape[0]
     dim_in, sh_dim, wn = x.shape[1], y.shape[1], w.shape[1]
     tile = _tile("tri_fwd", x.dtype, x.device, (dim_in, sh_dim, wn, n_terms))
-    carry = torch.empty(conv_fwd_carry_rows(n_edges, tile), mid_dim, dtype=x.dtype, device=x.device)
+    carry = torch.empty(conv_fwd_carry_rows(n_edges, tile, x.dtype), mid_dim, dtype=acc_dtype(x.dtype),
+                        device=x.device)
     err = build.entry_point(entry, x.dtype)(
         x.data_ptr(), y.data_ptr(), w.data_ptr(), edge_src.data_ptr(),
         dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(), tab["fwd_terms"].data_ptr(),
@@ -921,8 +956,11 @@ def jvp_fwd(plan: TPPlan, x, tx, y, ty, w, dw, layout: EdgeLayout, acc=None):
     in one pass (see ``csrc/jvp_fwd.cu``).  With ``acc = (msg_acc,
     tmsg_acc)`` both are added onto the accumulators in place, which are
     returned.  It allocates its outputs (none with ``acc``) and ``[n_tiles,
-    2 mid_dim]`` carry rows."""
-    if not _route("jvp_fwd", x, tx, y, ty, w, dw, *(acc or ())):
+    2 mid_dim]`` carry rows.  bf16: the outputs are bf16, the accumulators
+    float32 (``acc_dtype``)."""
+    if acc is not None:
+        _check_acc("jvp_fwd", acc, layout, plan, x)
+    if not _route("jvp_fwd", x, tx, y, ty, w, dw):
         return jvp_fwd_plain(plan, x, tx, y, ty, w, dw, layout, acc)
     _check_layout(layout, x.device)
     if acc is None:
@@ -930,11 +968,11 @@ def jvp_fwd(plan: TPPlan, x, tx, y, ty, w, dw, layout: EdgeLayout, acc=None):
                     for _ in range(2))
         entry = "nequip_jvp_fwd"
     else:
-        _check_acc("jvp_fwd", acc, layout, plan, x)
         entry = "nequip_jvp_fwd_acc"
-    tab = plan.device_tables(x.device, x.dtype)
+    tab = plan.device_tables(x.device, acc_dtype(x.dtype))
     tile = tri_fwd_tile(plan, "jvp_fwd", x.dtype, x.device)
-    carry = torch.empty(conv_fwd_carry_rows(layout.n_real, tile), 2 * plan.mid_dim, dtype=x.dtype, device=x.device)
+    carry = torch.empty(conv_fwd_carry_rows(layout.n_real, tile, x.dtype), 2 * plan.mid_dim,
+                        dtype=acc_dtype(x.dtype), device=x.device)
     err = build.entry_point(entry, x.dtype)(
         x.data_ptr(), tx.data_ptr(), y.data_ptr(), ty.data_ptr(), w.data_ptr(), dw.data_ptr(),
         layout.edge_src.data_ptr(), layout.dst_ptr.data_ptr(), tab["fwd_groups"].data_ptr(),
@@ -956,7 +994,7 @@ def jvp_bwd(plan: TPPlan, x, tx, y, ty, w, dw, layout: EdgeLayout, g, gt):
     if not _route("jvp_bwd", x, tx, y, ty, w, dw, g, gt):
         return jvp_bwd_plain(plan, x, tx, y, ty, w, dw, layout, g, gt)
     _check_layout(layout, x.device)
-    tab = plan.device_tables(x.device, x.dtype)
+    tab = plan.device_tables(x.device, acc_dtype(x.dtype))
     outs = tuple(
         torch.empty(y.shape[0], width, dtype=x.dtype, device=x.device)
         for width in (plan.dim_in, plan.dim_in, plan.sh_dim, plan.sh_dim, plan.weight_numel, plan.weight_numel)
@@ -984,7 +1022,7 @@ def tri_bwd(plan: TPPlan, x, y, w, layout: EdgeLayout, g):
     if not _route("tri_bwd", x, y, w, g):
         return tri_bwd_plain(plan, x, y, w, layout, g)
     _check_layout(layout, x.device)
-    tab = plan.device_tables(x.device, x.dtype)
+    tab = plan.device_tables(x.device, acc_dtype(x.dtype))
     n_real = layout.n_real
     outs = tuple(
         torch.empty(y.shape[0], width, dtype=x.dtype, device=x.device)
@@ -1240,7 +1278,7 @@ def fused_tp_scatter(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout
     K3, first order only."""
     if not frozen or layout.n_real is not None:
         return TriConv.apply(x, edge_attr, edge_weight, plan, layout)
-    tables = plan.device_tables(x.device, x.dtype).values()
+    tables = plan.device_tables(x.device, acc_dtype(x.dtype)).values()
     return torch.ops.nequip_torch.tri_fwd(x, edge_attr, edge_weight, layout.edge_src, layout.dst_ptr,
                                           layout.src_perm, layout.src_ptr, *tables)
 
@@ -1366,7 +1404,8 @@ def _tri_fwd_op(x, y, w, edge_src, dst_ptr, src_perm, src_ptr, *tables):
 
 @_tri_fwd_op.register_kernel("cuda")
 def _tri_fwd_cuda(x, y, w, edge_src, dst_ptr, src_perm, src_ptr, *tables):
-    _route("tri_fwd", x, y, w, *(tables[i] for i in _COEF))
+    _route("tri_fwd", x, y, w)
+    _check_coefs("tri_fwd", tables, x)
     _check_index(x.device, edge_src, dst_ptr, src_perm, src_ptr)
     tab = dict(zip(TABLE_NAMES, tables))
     out = torch.empty(dst_ptr.shape[0] - 1, tab["fwd_col"].shape[0], dtype=x.dtype, device=x.device)
@@ -1403,16 +1442,20 @@ _tri_fwd_op.register_autograd(_tri_fwd_backward, setup_context=_tri_fwd_setup)
            "-> (Tensor, Tensor, Tensor)",
 )
 def _tri_bwd_op(x, y, w, g, edge_src, dst_ptr, *tables):
-    # K5's twin written out (``_table_tp_vjp``): a CPU kernel runs no autograd
+    # K5's twin written out (``_table_tp_vjp``): a CPU kernel runs no autograd;
+    # bf16 inputs run in float32 with each output rounded once
+    dtype = x.dtype
+    x, y, w, g = _wide(x, y, w, g)
     n = int(dst_ptr[-1])
     src = edge_src[:n].long()
     grads = _table_tp_vjp(dict(zip(TABLE_NAMES, tables)), x[src], y[:n], w[:n], g[_segment_rows(dst_ptr)])
-    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n)) for gr in grads)
+    return tuple(F.pad(gr, (0, 0, 0, y.shape[0] - n)).to(dtype) for gr in grads)
 
 
 @_tri_bwd_op.register_kernel("cuda")
 def _tri_bwd_cuda(x, y, w, g, edge_src, dst_ptr, *tables):
-    _route("tri_bwd", x, y, w, g, *(tables[i] for i in _COEF))
+    _route("tri_bwd", x, y, w, g)
+    _check_coefs("tri_bwd", tables, x)
     _check_index(x.device, edge_src, dst_ptr)
     # zeroed whole: the kernel writes the real slots, whose count stays on the device
     outs = tuple(torch.zeros(y.shape[0], width, dtype=x.dtype, device=x.device)
@@ -1430,12 +1473,30 @@ def _tri_bwd_fake(x, y, w, g, edge_src, dst_ptr, *tables):
 # ---------------------------------------------------------------------------
 # the edge-chunked convolutions of fr training (first order only)
 # ---------------------------------------------------------------------------
+def _mlp(mlp, weights, emb):
+    """The radial MLP on ``emb`` with ``weights`` cast to ``emb``'s dtype at
+    use: a bf16 model's weights are float32 parameters, and their
+    gradients land in float32."""
+    return mlp.with_weights(emb, [w.to(emb.dtype) for w in weights])
+
+
 def _mlp_jvp(mlp, weights, emb, temb):
     """``(w, dw) = jvp(MLP)(emb; temb)`` in plain torch.  ``torch.func.jvp``
     works inside an autograd Function's forward (where forward-mode dual
     tensors do not), and reverse mode differentiates through both outputs."""
-    w, dw = torch.func.jvp(lambda e: mlp.with_weights(e, weights), (emb,), (temb,))
+    w, dw = torch.func.jvp(lambda e: _mlp(mlp, weights, e), (emb,), (temb,))
     return w.contiguous(), dw.contiguous()
+
+
+def _slice_acc(x, plan: TPPlan, n: int = 1):
+    """The accumulators the first slice of an edge-sliced conv starts from:
+    none in float32 and float64 (the first slice's kernel writes its own
+    output), float32 zeros for bf16 inputs, so that the sum over the slices
+    is rounded to bf16 once, after the last (``.to(x.dtype)``)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    acc = tuple(torch.zeros(x.shape[0], plan.mid_dim, dtype=acc_dtype(x.dtype), device=x.device) for _ in range(n))
+    return acc[0] if n == 1 else acc
 
 
 def _slice_inputs(need, ts, weights, rows):
@@ -1463,21 +1524,24 @@ class ChunkedConv(torch.autograd.Function):
     """The primal conv ``scatter_dst(TP(x[src], sh, MLP(emb)))`` over the
     slices of ``layout.slices(C)`` (JAX ``chunked_conv``): per slice, the
     radial MLP in plain torch, then K4 for the first slice and K4-acc for
-    the others, so ``[E, WN]`` weights exist one slice at a time.  Backward,
-    per slice: recompute the slice's weights, K5, K3 for ``dx``, and the
-    MLP's VJP; node cotangents and weight gradients are summed in place in
-    slice order.  First order only, as in JAX."""
+    the others, so ``[E, WN]`` weights exist one slice at a time.  bf16:
+    K4-acc for every slice onto a float32 accumulator, rounded to bf16 once
+    after the last (JAX keeps its accumulator in bf16).  Backward, per
+    slice: recompute the slice's weights, K5, K3 for ``dx``, and the MLP's
+    VJP; node cotangents (``acc_dtype``) and weight gradients (the weights'
+    dtype) are summed in place in slice order.  First order only, as in
+    JAX."""
 
     @staticmethod
     def forward(ctx, x, sh, emb, plan, mlp, slices, *weights):
         ctx.plan, ctx.mlp, ctx.slices = plan, mlp, slices
         ctx.save_for_backward(x, sh, emb, *weights)
-        msg = None
+        msg = _slice_acc(x, plan)
         for sl in slices:
             rows = slice(sl.start, sl.stop)
-            w_s = mlp.with_weights(emb[rows], weights).contiguous()
+            w_s = _mlp(mlp, weights, emb[rows]).contiguous()
             msg = tri_fwd(plan, x, sh[rows], w_s, sl.layout, acc=msg)
-        return msg
+        return msg.to(x.dtype)
 
     @staticmethod
     @once_differentiable
@@ -1485,13 +1549,14 @@ class ChunkedConv(torch.autograd.Function):
         x, sh, emb, *weights = ctx.saved_tensors
         need = ctx.needs_input_grad
         plan, g = ctx.plan, g.contiguous()
-        dx, dsh, demb = torch.zeros_like(x), torch.zeros_like(sh), torch.zeros_like(emb)
+        dx = torch.zeros_like(x, dtype=acc_dtype(x.dtype))
+        dsh, demb = torch.zeros_like(sh), torch.zeros_like(emb)
         dws = [torch.zeros_like(w) for w in weights]
         for sl in ctx.slices:
             rows = slice(sl.start, sl.stop)
             with torch.enable_grad():
                 (e_s,), ws = _slice_inputs((need[2],) + need[6:], (emb,), weights, rows)
-                w_s = ctx.mlp.with_weights(e_s, ws)
+                w_s = _mlp(ctx.mlp, ws, e_s)
             dx_e, dsh_s, dw_s = tri_bwd(plan, x, sh[rows], w_s.detach().contiguous(), sl.layout, g)
             if need[0]:
                 dx.add_(scatter_rows(dx_e, sl.layout.src_perm, sl.layout.src_ptr))
@@ -1499,6 +1564,7 @@ class ChunkedConv(torch.autograd.Function):
             demb_s = torch.zeros_like(e_s)
             _mlp_vjp(w_s, dw_s, [e_s] + ws, [demb_s] + dws)
             demb[rows] = demb_s
+        dx = dx.to(x.dtype)
         return (dx if need[0] else None, dsh if need[1] else None, demb if need[2] else None,
                 None, None, None, *(d if nd else None for d, nd in zip(dws, need[6:])))
 
@@ -1511,23 +1577,24 @@ class ChunkedJvpConv(torch.autograd.Function):
         (w, dw) = jvp(MLP)(emb; temb)
 
     Forward, per slice: ``(w_s, dw_s)`` in plain torch, then K6 (its
-    accumulating form after the first slice).  Backward, per slice:
-    recompute ``(w_s, dw_s)``, K7, K3 for ``dx`` and for ``dtx``, and the
-    reverse of the MLP jvp with respect to ``emb``, ``temb`` and the MLP
-    weights.  Node cotangents and weight gradients are summed in place in
-    slice order; per-edge cotangents fill their slice's rows.  First order
-    only, as in JAX."""
+    accumulating form after the first slice; bf16: for every slice, onto
+    float32 accumulators rounded to bf16 once after the last).  Backward,
+    per slice: recompute ``(w_s, dw_s)``, K7, K3 for ``dx`` and for
+    ``dtx``, and the reverse of the MLP jvp with respect to ``emb``,
+    ``temb`` and the MLP weights.  Node cotangents (``acc_dtype``) and
+    weight gradients are summed in place in slice order; per-edge
+    cotangents fill their slice's rows.  First order only, as in JAX."""
 
     @staticmethod
     def forward(ctx, x, tx, sh, tsh, emb, temb, plan, mlp, slices, *weights):
         ctx.plan, ctx.mlp, ctx.slices = plan, mlp, slices
         ctx.save_for_backward(x, tx, sh, tsh, emb, temb, *weights)
-        acc = None
+        acc = _slice_acc(x, plan, 2)
         for sl in slices:
             rows = slice(sl.start, sl.stop)
             w_s, dw_s = _mlp_jvp(mlp, weights, emb[rows], temb[rows])
             acc = jvp_fwd(plan, x, tx, sh[rows], tsh[rows], w_s, dw_s, sl.layout, acc=acc)
-        return acc
+        return tuple(a.to(x.dtype) for a in acc)
 
     @staticmethod
     @once_differentiable
@@ -1535,7 +1602,7 @@ class ChunkedJvpConv(torch.autograd.Function):
         x, tx, sh, tsh, emb, temb, *weights = ctx.saved_tensors
         need = ctx.needs_input_grad
         plan, g, gt = ctx.plan, g.contiguous(), gt.contiguous()
-        dx, dtx = torch.zeros_like(x), torch.zeros_like(tx)
+        dx, dtx = (torch.zeros_like(t, dtype=acc_dtype(t.dtype)) for t in (x, tx))
         dsh, dtsh = torch.zeros_like(sh), torch.zeros_like(tsh)
         demb, dtemb = torch.zeros_like(emb), torch.zeros_like(temb)
         dws = [torch.zeros_like(w) for w in weights]
@@ -1555,20 +1622,19 @@ class ChunkedJvpConv(torch.autograd.Function):
             demb_s, dtemb_s = torch.zeros_like(e_s), torch.zeros_like(te_s)
             _mlp_vjp((w_s, dw_s), (cw, cdw), [e_s, te_s] + ws, [demb_s, dtemb_s] + dws)
             demb[rows], dtemb[rows] = demb_s, dtemb_s
-        grads = (dx, dtx, dsh, dtsh, demb, dtemb)
+        grads = (dx.to(x.dtype), dtx.to(tx.dtype), dsh, dtsh, demb, dtemb)
         return (*(gr if nd else None for gr, nd in zip(grads, need[:6])), None, None, None,
                 *(d if nd else None for d, nd in zip(dws, need[9:])))
 
 
 def chunked_conv(plan: TPPlan, mlp, x, sh, emb, layout: EdgeLayout, n_chunks: int) -> torch.Tensor:
     """``ChunkedConv`` over ``n_chunks`` slices of the stream; ``mlp`` is the
-    block's radial ``ops.mlp.ScalarMLP``."""
-    weights = [w.to(x.dtype) for w in mlp.weights()]
-    return ChunkedConv.apply(x, sh, emb, plan, mlp, layout.slices(n_chunks), *weights)
+    block's radial ``ops.mlp.ScalarMLP``, whose weights enter as they are
+    (float32 in a bf16 model) and are cast at use."""
+    return ChunkedConv.apply(x, sh, emb, plan, mlp, layout.slices(n_chunks), *mlp.weights())
 
 
 def chunked_jvp_conv(plan: TPPlan, mlp, x, tx, sh, tsh, emb, temb, layout: EdgeLayout, n_chunks: int):
     """``ChunkedJvpConv`` over ``n_chunks`` slices of the stream:
     ``(msg, tmsg)``."""
-    weights = [w.to(x.dtype) for w in mlp.weights()]
-    return ChunkedJvpConv.apply(x, tx, sh, tsh, emb, temb, plan, mlp, layout.slices(n_chunks), *weights)
+    return ChunkedJvpConv.apply(x, tx, sh, tsh, emb, temb, plan, mlp, layout.slices(n_chunks), *mlp.weights())

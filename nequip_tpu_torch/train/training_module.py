@@ -28,6 +28,13 @@ so no residual of a force VJP is ever kept.  With ``fr_edge_chunks = C > 1``
 passes run each conv over C slices of the edge stream (``ChunkedConv``,
 ``ChunkedJvpConv``), so the ``[E, *]`` transients shrink to 1/C.
 
+A bfloat16 model (``enable_bf16_fast_mode``) trains as the JAX package
+trains one: its parameters, their gradients and the optimizer state are
+float32, the model casts the weights to bf16 where it uses them, and the
+loss reads the float64 energy and forces.  rr runs on ``"fused_tp"``, fr
+on it and, over edge slices, on ``"fused"`` too; rr and unsliced fr on
+``"fused"`` raise (``nn/interaction_block.py``).
+
 Built from a config (the training CLI), ``model`` is a ``_target_`` dict
 built without recursion and ``loss``/``*_metrics`` are dicts too; the
 module puts the model on ``device`` (the card by default).  The epoch form

@@ -19,10 +19,12 @@
 * (c) A bf16 model's parameters are float32; a JAX bf16 parameter tree
   loads; float32 -> bfloat16 -> float32 through ``modify_model_dtype``
   gives the float32 outputs back bitwise.
-* (d) What bf16 refuses: the ``"fused_tp"`` route and training on the
-  kernels (``NotImplementedError``), the kernels with no bf16 form
+* (d) What bf16 refuses: training on the ``"fused"`` route without edge
+  slices (``NotImplementedError``: K2's training variant and the dW
+  reduction have no bf16 form), the kernels with no bf16 form
   (``build.entry_point``: ``TypeError``), and the compile self-check (no
-  bf16 tolerance, as in JAX: ``KeyError``).
+  bf16 tolerance, as in JAX: ``KeyError``); what runs now that K4-K7 have
+  bf16 forms (``tests/test_torch_port_bf16_tri.py`` holds them to JAX).
 * (e) A bf16 calculator request and a few host-loop MD steps run, with
   finite float64 forces.
 
@@ -373,31 +375,68 @@ def _bf16_batch(model):
 
 @pytest.mark.parametrize("case", ["fused_tp", "depth2_fused", "training", "fr_chunked"])
 def test_bf16_refuses_what_has_no_kernel(case):
+    """``training``: rr on the ``"fused"`` route needs K2's training variant
+    and the dW reduction, which have no bf16 form: ``NotImplementedError``
+    naming them.  The other cases have kernels now (K4-K7 in bf16) and run
+    on their twins: the ``"fused_tp"`` route and the depth-2 radial MLP
+    (K4's route) serving frozen weights, and the forward of fr training
+    over 2 edge slices (K4-acc), each within a sanity bound of the same
+    model in float32 (forces 5e-2 of max|F|, energy 5e-3 eV an atom; the
+    golden tests hold bf16 to JAX's gate)."""
     kw = dict(SMALL, radial_mlp_depth=2) if case == "depth2_fused" else SMALL
     tp_impl = "fused_tp" if case == "fused_tp" else "fused"
-    model = NequIPGNNModel(seed=0, model_dtype="bfloat16", tp_impl=tp_impl, **kw)
+    f32 = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **kw)
+    model = modify(f32, [{"modifier": "enable_bf16_fast_mode"}])
     batch = _bf16_batch(model)
-    if case == "fr_chunked":
-        for m in model.modules():
-            if hasattr(m, "fr_edge_chunks"):
-                m.fr_edge_chunks = 2
-    if case in ("fused_tp", "depth2_fused"):
-        model.requires_grad_(False)
-        match = "fused_tp route"
-    else:
-        match = "bfloat16 training"
-    with pytest.raises(NotImplementedError, match=match):
-        model(batch)
+    if case == "training":
+        with pytest.raises(NotImplementedError, match="K2's training variant and the dW reduction"):
+            model(batch)
+        return
+    routes = {m.route for m in model.modules() if hasattr(m, "route")}
+    assert routes == ({"fused"} if case == "fr_chunked" else {"fused_tp"})
+    outs = []
+    for m in (f32, model):
+        if case == "fr_chunked":
+            for b in m.modules():
+                if hasattr(b, "fr_edge_chunks"):
+                    b.fr_edge_chunks = 2
+        else:
+            m.requires_grad_(False)
+        outs.append({k: v.detach() for k, v in m(batch).items() if k in ("forces", "total_energy")})
+    want, got = outs
+    n = int(batch["num_atoms"].sum())
+    assert got["forces"].dtype == torch.float64 and bool(got["forces"].isfinite().all())
+    scale = float(want["forces"][:n].abs().max())
+    assert float((got["forces"][:n] - want["forces"][:n]).abs().max()) <= 5e-2 * scale
+    assert abs(float(got["total_energy"].sum()) - float(want["total_energy"].sum())) <= 5e-3 * n
 
 
-@pytest.mark.parametrize("name", ["nequip_conv_bwd_train", "nequip_dw_reduce", "nequip_tri_fwd",
-                                  "nequip_tri_fwd_acc", "nequip_tri_bwd", "nequip_jvp_fwd", "nequip_jvp_bwd",
-                                  "nequip_mb_fwd", "nequip_mb_bwd"])
+@pytest.mark.parametrize("name", ["nequip_conv_bwd_train", "nequip_dw_reduce", "nequip_mb_fwd", "nequip_mb_bwd"])
 def test_entry_point_refuses_bf16_without_a_kernel(name):
-    """Raised before the library loads (there is no nvcc here)."""
-    with pytest.raises(TypeError, match=f"{name}: no bfloat16 kernel.*ROADMAP"):
+    """Raised before the library loads (there is no nvcc here), naming K2's
+    training variant and the dW reduction as the next bring-up."""
+    with pytest.raises(TypeError, match=f"{name}: no bfloat16 kernel.*K2's training variant and the dW reduction.*"
+                                        "ROADMAP"):
         build.entry_point(name, BF16)
-    assert set(build.BF16) == {"nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_scatter_rows"}
+    assert set(build.BF16) == {
+        "nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_scatter_rows",
+        "nequip_tri_fwd", "nequip_tri_fwd_acc", "nequip_tri_fwd_tile", "nequip_tri_bwd",
+        "nequip_jvp_fwd", "nequip_jvp_fwd_acc", "nequip_jvp_fwd_tile", "nequip_jvp_bwd",
+    }
+
+
+@pytest.mark.parametrize("name", ["nequip_tri_fwd", "nequip_tri_fwd_acc", "nequip_tri_fwd_tile", "nequip_tri_bwd",
+                                  "nequip_jvp_fwd", "nequip_jvp_fwd_acc", "nequip_jvp_fwd_tile", "nequip_jvp_bwd"])
+def test_trilinear_entry_points_have_bf16_forms(name):
+    """The trilinear kernels' entry points are instantiated for bf16 too
+    (``build.BF16``), with the float32 forms' C signatures: the launches of
+    every dtype share their wrappers."""
+    assert name in build.BF16 and name in build._SIGNATURES
+    sig = build._SIGNATURES[name]
+    if name.endswith("_tile"):
+        assert sig == [build._I] * 4
+    else:
+        assert sig[-1] is build._P and all(t in (build._P, build._I) for t in sig)
 
 
 def test_compile_self_check_has_no_bf16_tolerance():

@@ -904,3 +904,196 @@ def test_cuda_bf16_model_serves_through_k1_k2_k3(cuda, bf16_sums):
     scale = np.abs(ref["forces"]).max()
     assert np.abs(got["forces"] - ref["forces"]).max() <= 5e-2 * scale
     assert abs(got["energy"] - ref["energy"]) <= 5e-3 * len(pos)
+
+
+# --- bfloat16: the trilinear kernels K4/K4-acc, K5, K6 and K7 ----------------------
+def _bf16_tri_operands(kind, device, degrees, seed):
+    """``_tri_operands`` in bf16, with float32 accumulators for the _acc
+    forms (``acc_dtype``)."""
+    plan, lay, n_real, *ops = _tri_operands(kind, device, torch.bfloat16, degrees, seed)
+    return plan, lay, n_real, ops, (ops[-2].float(), ops[-1].float())
+
+
+def _bf16_fwd_check(name, run, plain, lay, acc):
+    """One launch, the twin's values within two bf16 ulps of max|out| (the
+    accumulators of the _acc forms, float32, within 8e-3 of max|out| too),
+    bitwise equal on a repeat call; rows of nodes without an edge exactly
+    zero, or the accumulators' bitwise."""
+    counter = name.replace("jvp_fwd_acc", "jvp_fwd")
+    before = K.KERNELS[counter].launches
+    got = run()
+    torch.cuda.synchronize()
+    assert K.KERNELS[counter].launches == before + 1
+    want = plain()
+    dtype = torch.float32 if name.endswith("_acc") else torch.bfloat16
+    for a, b, c in zip(got, want, run()):
+        assert a.dtype == dtype == b.dtype and bool(a.isfinite().all())
+        assert float((a.float() - b.float()).abs().max()) <= BF16_TOL * float(b.float().abs().max())
+        assert torch.equal(a, c)
+    empty = lay.dst_ptr[1:] == lay.dst_ptr[:-1]
+    for i, a in enumerate(got):
+        if name.endswith("_acc"):
+            assert torch.equal(a[empty], acc[i][empty])
+        else:
+            assert not a[empty].any()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FWD_KERNELS)
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_cuda_bf16_tri_fwd_jvp_fwd_dense_tiles(cuda, case, name):
+    """K4, K4-acc and K6 (both forms) in bf16 on streams whose tiles cross
+    node boundaries in every way (split destinations through both carry
+    slots), with padding nodes, against their twins; masked slots poisoned
+    with NaN change nothing."""
+    kind, degrees = DENSE_TILE_CASES[case]
+    degrees = list(degrees) + [0] * 3
+    plan, lay, n_real, (x, tx, sh, tsh, w, dw, _, _), acc = _bf16_tri_operands(kind, cuda, degrees, seed=13)
+    got = _bf16_fwd_check(name, *_fwd_call(name, plan, lay, x, tx, sh, tsh, w, dw, acc), lay, acc)
+    poisoned = [v.clone() for v in (sh, tsh, w, dw)]
+    for v in poisoned:
+        v[n_real:] = float("nan")
+    for a, b in zip(_fwd_call(name, plan, lay, x, tx, *poisoned, acc)[0](), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tri_bwd", "jvp_bwd"])
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_cuda_bf16_tri_bwd_jvp_bwd_dense_tiles(cuda, bf16_sums, case, name):
+    """K5 and K7 in bf16 on every dense-tile pattern against their twins
+    (each output rounded once) within two bf16 ulps of max|out|, bitwise
+    equal on a repeat call, masked slots zero and unread."""
+    kind, degrees = DENSE_TILE_CASES[case]
+    plan, lay, n_real, ops, _ = _bf16_tri_operands(kind, cuda, degrees, seed=11)
+    run, plain = _tri_call(name, plan, lay, *ops)
+    before = K.KERNELS[name].launches
+    got = run()
+    torch.cuda.synchronize()
+    assert K.KERNELS[name].launches == before + 1
+    _bf16_check(got, plain())
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    for a in got:
+        assert not a[n_real:].any()
+    poisoned = [v.clone() for v in ops]
+    for v in poisoned[2:6]:
+        v[n_real:] = float("nan")
+    for a, b in zip(_tri_call(name, plan, lay, *poisoned)[0](), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tri_fwd_acc", "jvp_fwd_acc", "tri_bwd", "jvp_bwd"])
+@pytest.mark.parametrize("case", list(SLICE_STARTS))
+def test_cuda_bf16_kernels_on_slices(cuda, case, name):
+    """K4-acc, K6-acc, K5 and K7 in bf16 on both slices of a two-slice cut of
+    the flagship's layer-1 stream (a destination split over the slices, or
+    an odd first row: bf16 rows at any 2-byte phase), against their twins;
+    both slices in turn onto the same float32 accumulators give the whole
+    stream's sum, rounded to bf16, within two bf16 ulps of max|out|."""
+    degrees = [18] * 40 + [7]
+    plan, lay, n_real, ops, acc = _bf16_tri_operands("flagship1", cuda, degrees, seed=14)
+    x, tx, sh, tsh, w, dw, g, gt = ops
+    slices = K.edge_slices(lay, 2, [0, SLICE_STARTS[case], n_real])
+    running = tuple(a.clone() for a in acc)
+    for sl in slices:
+        rows = slice(sl.start, sl.stop)
+        s_ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows])
+        if name.endswith("_acc"):
+            _bf16_fwd_check(name, *_fwd_call(name, plan, sl.layout, *s_ops, acc), sl.layout, acc)
+            if name == "tri_fwd_acc":
+                K.tri_fwd(plan, x, s_ops[2], s_ops[4], sl.layout, acc=running[0])
+            else:
+                K.jvp_fwd(plan, *s_ops, sl.layout, acc=running)
+        else:
+            run, plain = _tri_call(name, plan, sl.layout, *s_ops, g, gt)
+            got = run()
+            _bf16_check(got, plain())
+            assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    if name.endswith("_acc"):
+        whole = _fwd_call(name, plan, lay, x, tx, sh, tsh, w, dw, acc)[1]()
+        _bf16_check(tuple(a.to(torch.bfloat16) for a in running), tuple(b.to(torch.bfloat16) for b in whole))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_fused_tp_op_takes_float32_tables(cuda, bf16_sums):
+    """The registered ops of the fused_tp route (a traced program's K4 and
+    K5) in bf16 take float32 term tables (``acc_dtype``) and agree with the
+    eager route (TriConv) within two bf16 ulps of max|out|, forward and
+    backward."""
+    kind, degrees = DENSE_TILE_CASES["flagship_layer1"]
+    plan, lay, n_real, (x, _, sh, _, w, _, g, _), _ = _bf16_tri_operands(kind, cuda, degrees, seed=15)
+    traced = K.layout_from_fields(K.layout_fields(lay))  # the real-edge count stays on the card
+    outs = []
+    for layout in (lay, traced):
+        xx = x.clone().requires_grad_(True)
+        out = K.fused_tp_scatter(plan, xx, sh, w, layout, frozen=True)
+        (dx,) = torch.autograd.grad(out, xx, g)
+        outs.append((out.detach(), dx))
+    _bf16_check(outs[1], outs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_model_trains_on_fused_tp_and_in_sliced_fr(cuda, bf16_sums):
+    """A bf16 depth-2 model on the fused_tp route serves through K4, K5 and
+    K3 only, its forces within 5e-2 of max|F| of the float32 model's; a
+    bf16 rr step on fused_tp and an fr step over 3 edge slices on both
+    kernel routes launch K4, K5 and K3 (rr) or K4-acc, K5, K6, K7 and K3
+    (fr) and give float32 gradients within 0.1 of max|grad| of the float32
+    model's (the CPU tests hold the bf16 steps to the float64 golden at
+    that gate, which JAX's own bf16 step meets)."""
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.model.modify_utils import modify
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    cfg = dict(seed=0, model_dtype="float32", type_names=["Cu"], r_max=4.0, num_layers=2, l_max=2,
+               parity=False, num_features=16, avg_num_neighbors=18.0)
+    r = np.random.RandomState(3)
+    a = 3.61
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]]) * a
+    pos = np.concatenate([base + np.array([i, j, k]) * a for i in range(3) for j in range(3) for k in range(3)])
+    raw = {"pos": pos + r.normal(0, 0.1, pos.shape), "cell": np.diag([3 * a] * 3), "pbc": np.array([True] * 3),
+           "atomic_numbers": np.full(len(pos), 29)}
+    frame = from_dict(dict(raw, total_energy=np.array([-380.0]), forces=r.normal(0, 0.3, pos.shape)))
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+
+    data = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(frame), 4.0)
+    batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(data["edge_index"].shape[1], 256), 2),
+                       cuda)
+
+    serving = []
+    for bf16 in (False, True):
+        model = NequIPGNNModel(tp_impl="fused", radial_mlp_depth=2, **cfg)
+        if bf16:
+            model = modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+        K.reset_launch_counts()
+        serving.append(NequIPCalculator.from_model(model, device=cuda).calculate(raw))
+    assert {k for k, fn in K.KERNELS.items() if fn.launches} == {"tri_fwd", "tri_bwd", "scatter_rows"}
+    f32, f16 = (res["forces"] for res in serving)
+    assert np.isfinite(f16).all() and np.abs(f16 - f32).max() <= 5e-2 * np.abs(f32).max()
+
+    def grads(tp_impl, mode, chunks, bf16):
+        model = NequIPGNNModel(tp_impl=tp_impl, **cfg)
+        if bf16:
+            model = modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+        m = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), force_grad_mode=mode,
+                              fr_edge_chunks=chunks, device=cuda)
+        m.training_step(batch)
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    for tp_impl, mode, chunks in (("fused_tp", "rr", 0), ("fused", "fr", 3), ("fused_tp", "fr", 3)):
+        want = grads(tp_impl, mode, chunks, False)
+        K.reset_launch_counts()
+        got = grads(tp_impl, mode, chunks, True)
+        launched = {k for k, fn in K.KERNELS.items() if fn.launches}
+        if mode == "rr":
+            assert launched == {"tri_fwd", "tri_bwd", "scatter_rows"}
+        else:
+            assert launched == {"tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd", "scatter_rows"}
+        assert set(got) == set(want)
+        for k, gr in got.items():
+            assert gr.dtype == torch.float32 and bool(gr.isfinite().all()), k
+            scale = float(want[k].abs().max())
+            assert float((gr - want[k]).abs().max()) <= 0.1 * scale + 1e-30, k
