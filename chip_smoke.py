@@ -203,20 +203,29 @@ Phases (each prints a line; any failure exits non-zero):
      accumulating forms on float32 accumulators) in bf16 against their
      twins at the same gate, each bitwise equal on a repeat call, timed
      beside the f32 kernel on the same values in one call (the twin 3
-     times); 16f the flagship with a depth-2 radial MLP in bf16 (K4's
+     times), and K2's training variant (with its two dW reductions; dx,
+     dsh and demb bitwise K2's inference variant's) at the same gate and
+     the dW reduction alone at both shapes at phase 2's f32 gate, each
+     bitwise equal on a repeat call, timed beside the f32 kernel on the
+     same values, the dW reduction beside torch.mm on its bf16 operands;
+     16f the flagship with a depth-2 radial MLP in bf16 (K4's
      route): three 23k-atom requests beside the f32 model's (model ms and
      peak; launches K4, K5, K3 only), the options golden's depth-2 model
      in bf16 against its f64 golden at JAX's bf16 gate, 16e's compile
      check of its checkpoint, and 20 host MD steps; 16g Trainer.fit at
      23k atoms (phase 6's frames, 2 epochs) in fr over 4 edge slices with
-     remat_conv="save_tp" on the fused route and in rr on fused_tp, each
-     beside the same fit in f32 (later steps' median and peak), the bf16
-     fits launching K4-acc, K5, K6, K7, K3 (fr) or K4, K5, K3 (rr) and
-     neither K2's training variant nor the dW reduction; then one rr and
-     one fr step of the bf16 flagship from the f64 training golden's
-     parameters against that golden: loss rel 1e-3, every gradient 0.1 of
-     its tensor's max|grad| (JAX's own bf16 step meets both: loss 2.2e-4,
-     gradients 4.2e-2), the gradients float32.
+     remat_conv="save_tp" on the fused route, in rr on fused_tp and in rr
+     on fused, each beside the same fit in f32 (later steps' median and
+     peak), the bf16 fits launching K4-acc, K5, K6, K7, K3 (fr), K4, K5,
+     K3 (rr on fused_tp) or K1, K2's training variant, the dW reduction,
+     K3, K4, K5 (rr on fused, the only fit that launches the latter two);
+     then rr on fused_tp, fr over 4 slices on fused, rr on fused and
+     unsliced fr on fused, one step each of the bf16 flagship from the f64
+     training golden's parameters against that golden: loss rel 1e-3,
+     every gradient 0.1 of its tensor's max|grad| (JAX's own bf16 step
+     meets both: loss 2.2e-4, gradients 4.2e-2), the gradients float32;
+     and three rr steps of preset M in bf16 on fused at 23k atoms (median
+     and peak beside 14b's f32 step).
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -230,9 +239,11 @@ random-pattern gather (T5) rows, and phase 9h's f64 numbers for the
 device list, whose "replaces" names the XLA function it replaces (no pallas_call); "max_abs_err": the largest
 f32 difference from plain, 0 for the device list, whose output equals
 its twin's); the rows conv_fwd_bf16 ... jvp_bwd_bf16 are phase 16a's
-bf16 numbers (K4-acc, K6 and K7 on one of 4 slices), the launches of K1,
-K2 and K3 phase 16c's three bf16 requests, of K4-K7 phase 16f's three
-bf16 requests and 16g's two bf16 fits; the last line is {"ok": true,
+bf16 numbers (K4-acc, K6 and K7 on one of 4 slices; conv_bwd_train_bf16
+with its dW reductions, dw_reduce_bf16 over both shapes, library_ms
+torch.mm in bf16), the launches of K1, K2 and K3 phase 16c's three bf16
+requests, of K4-K7, K2's training variant and the dW reduction phase
+16f's three bf16 requests and 16g's three bf16 fits; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -2961,10 +2972,12 @@ def phase15_train_modules(smi: str, dm, rr: dict) -> dict:
     return out
 
 
-# phase 16: the bfloat16 fast mode (enable_bf16_fast_mode) through K1, K2 and K3 in bf16
+# phase 16: the bfloat16 fast mode (enable_bf16_fast_mode) through every conv kernel in bf16
 BF16_FLOP_S = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet): the bf16 kernels' operation bound
-BF16_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows", "tri_fwd", "tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd")
+BF16_KERNELS = ("conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_fwd_acc",
+                "tri_bwd", "jvp_fwd", "jvp_bwd")
 BF16_TRILINEAR = ("tri_fwd", "tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd")  # 16a's second half
+BF16_TRAINING = ("conv_bwd_train", "dw_reduce")  # 16a's third part; launched by 16g's rr fit on "fused"
 BF16_FR_KERNELS = ("tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd", "scatter_rows")  # 16g: fr over edge slices
 # a bf16 training step against the f64 training golden (loss rel; each tensor's max err / max|grad|): JAX's own
 # bf16 step (XLA, CPU) on that golden measures loss 2.2e-4, gradients 4.2e-2 (tests/test_torch_port_bf16_tri.py)
@@ -2992,12 +3005,32 @@ def _bf16_model(tp_impl: str = "fused", **kw):
     return modify(model, [{"modifier": "enable_bf16_fast_mode"}])
 
 
+def _bf16_check(label: str, got, ref, li: int) -> tuple:
+    """(largest |got - ref| / max|ref|, largest |got - ref|) over the
+    outputs of a bf16 kernel against its twin: each output bf16 (or
+    float32: accumulators, the weight gradients) as the twin's; raises
+    beyond BF16_KERNEL_TOL of max|ref| or on a non-finite value."""
+    import torch
+
+    err = abs_err = 0.0
+    for out_i, (a, b) in enumerate(zip(got, ref)):
+        if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32) or not bool(a.float().isfinite().all()):
+            raise RuntimeError(f"phase 16a: {label} output {out_i} layer {li} is not finite bf16 (or float32)")
+        diff, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        if diff > BF16_KERNEL_TOL * scale:
+            raise RuntimeError(f"phase 16a: {label} output {out_i} layer {li} disagrees with plain: max |diff| "
+                               f"{diff:.3e}, max |ref| {scale:.3e} (limit {BF16_KERNEL_TOL:.0e} of it)")
+        err, abs_err = max(err, diff / scale), max(abs_err, diff)
+    return err, abs_err
+
+
 def phase16a_kernels(n_atoms: int, reps: int) -> dict:
     """K1, K2 (inference) and K3 in bf16 against their plain versions at
     the flagship's three layer shapes on the 23k-atom graph, each bitwise
     equal on a repeat call, with kernel, plain and bound ms (index_add_ in
-    bf16 beside K3); then K4-K7 (_bf16_trilinear); returns the report rows,
-    summed over the layers."""
+    bf16 beside K3); then K4-K7 (_bf16_trilinear), K2's training variant
+    and the dW reduction (_bf16_training); returns the report rows, summed
+    over the layers."""
     import torch
 
     from nequip_tpu_torch.nn.interaction_block import InteractionBlock
@@ -3041,15 +3074,7 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
             torch.cuda.synchronize()
             if counter.launches != before + 1:
                 raise RuntimeError(f"phase 16a: {name} bf16 launch counter did not move")
-            err = abs_err = 0.0
-            for out_i, (a, b) in enumerate(zip(got, _tuple(plain()))):
-                if a.dtype != torch.bfloat16 or not bool(a.float().isfinite().all()):
-                    raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} is not finite bf16")
-                diff, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
-                if diff > BF16_KERNEL_TOL * scale:
-                    raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} disagrees with plain: max |diff| "
-                                       f"{diff:.3e}, max |ref| {scale:.3e} (limit {BF16_KERNEL_TOL:.0e} of it)")
-                err, abs_err = max(err, diff / scale), max(abs_err, diff)
+            err, abs_err = _bf16_check(name, got, _tuple(plain()), li)
             if not all(torch.equal(a, b) for a, b in zip(got, _tuple(kern()))):
                 raise RuntimeError(f"phase 16a: {name} bf16 differs on a repeat call")
             ms, plain_ms = cuda_median_ms(kern, reps), cuda_median_ms(plain, reps)
@@ -3074,13 +3099,112 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
         del x, sh, emb, w1, w2, g, dx_edge, buf, calls
         torch.cuda.empty_cache()
     _bf16_trilinear(layout, N, E, n_real, n_src, n_dst, blocks, rng, reps, report)
+    _bf16_training(layout, N, E, n_real, n_src, n_dst, blocks, rng, reps, report)
     for name, r in report.items():
         r["bound_by"] = "operations" if r.pop("ops") / BF16_FLOP_S > r.pop("bytes") / HBM_BYTES_S else "bytes"
         print(f"phase 16a {name} bf16, sum of 3 layers: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
               + ("" if r.get("f32_ms") is None else f", f32 kernel {r.pop('f32_ms'):.3f} ms")
-              + ("" if r["library_ms"] is None else f", index_add_ {r['library_ms']:.3f} ms"), flush=True)
+              + ("" if r["library_ms"] is None else
+                 f", {'torch.mm bf16' if name == 'dw_reduce' else 'index_add_'} {r['library_ms']:.3f} ms"),
+              flush=True)
     return report
+
+
+def _bf16_training(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, blocks, rng, reps: int,
+                   report: dict) -> None:
+    """16a's third part: K2's training variant (with its two dW reductions,
+    as phase 2 times it) and the dW reduction alone at both shapes (dW2 = h
+    (x) dW_e, dW1 = emb (x) dh_pre) at the flagship's three layer shapes on
+    the 23k-atom stream, in bf16 against their twins (K2-train at
+    BF16_KERNEL_TOL of max|out|, with dx, dsh and demb bitwise K2's
+    inference variant's; the dW reduction at phase 2's f32 gate), each
+    bitwise equal on a repeat call; the kernel's and the f32 kernel's
+    CUDA-event medians on the same values in one call, the twin's
+    (BF16_PLAIN_REPS), torch.mm on the same bf16 operands beside the dW
+    reduction, and the bound at 2 B a bf16 value and 4 B a float32 one;
+    added to ``report``."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    dev = torch.device("cuda")
+    dw_sums = {}  # per shape, over the layers: bf16 kernel, f32 kernel, plain, bound, torch.mm bf16
+    for li, blk in enumerate(blocks):
+        plan = blk.tp_scatter.plan
+        a0, a1 = blk.edge_mlp.alphas
+        n_emb, hidden = blk.edge_mlp.w0.shape
+
+        def t(*shape):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=torch.bfloat16, device=dev)
+
+        x, sh, emb, w1, w2, g = (t(N, plan.dim_in), t(E, plan.sh_dim), t(E, n_emb), t(n_emb, hidden),
+                                 t(hidden, plan.weight_numel), t(N, plan.mid_dim))
+        h_e, dw_e, dh_pre = t(n_real, hidden), t(n_real, plan.weight_numel), t(n_real, hidden)
+        args16 = (plan, x, sh, emb, w1, w2, a0, a1, layout, g)
+        args32 = tuple(v.float() if isinstance(v, torch.Tensor) else v for v in args16)
+        emb32, h32, dw32, dh32 = (v.float() for v in (emb, h_e, dw_e, dh_pre))
+        calls = {
+            "conv_bwd_train": ((lambda: K.conv_bwd_train(*args16)), (lambda: K.conv_bwd_train_plain(*args16)),
+                               (lambda: K.conv_bwd_train(*args32)), None),
+            "dw_reduce dW2": ((lambda: K.dw_reduce(h_e, dw_e, a1, n_real)),
+                              (lambda: K.dw_reduce_plain(h_e, dw_e, a1, n_real)),
+                              (lambda: K.dw_reduce(h32, dw32, a1, n_real)), (lambda: torch.mm(h_e.t(), dw_e))),
+            "dw_reduce dW1": ((lambda: K.dw_reduce(emb, dh_pre, a0, n_real)),
+                              (lambda: K.dw_reduce_plain(emb, dh_pre, a0, n_real)),
+                              (lambda: K.dw_reduce(emb32, dh32, a0, n_real)),
+                              (lambda: torch.mm(emb[:n_real].t(), dh_pre))),
+        }
+        for label, (kern, plain, kern32, library) in calls.items():
+            name = label.split()[0]
+            counter = K.KERNELS[name]
+            before = counter.launches
+            got = _tuple(kern())
+            torch.cuda.synchronize()
+            if counter.launches != before + 1:
+                raise RuntimeError(f"phase 16a: {label} bf16 launch counter did not move")
+            ref = _tuple(plain())
+            if name == "dw_reduce":
+                abs_err = _check(label, got, ref, 1e-4, 1e-5, f"layer {li} bf16", phase="phase 16a")
+            else:
+                abs_err = _bf16_check(label, got, ref, li)[1]
+                if not all(torch.equal(a, b) for a, b in zip(got[:3], K.conv_bwd(*args16))):
+                    raise RuntimeError(f"phase 16a: conv_bwd_train's dx, dsh, demb in bf16 are not conv_bwd's, "
+                                       f"layer {li}")
+            if not all(torch.equal(a, b) for a, b in zip(got, _tuple(kern()))):
+                raise RuntimeError(f"phase 16a: {label} bf16 differs on a repeat call")
+            del got, ref
+            ms, f32_ms = interleaved_median_ms([kern, kern32], reps, rounds=1)
+            plain_ms = cuda_median_ms(plain, BF16_PLAIN_REPS, warmup=1)
+            lib_ms = None if library is None else cuda_median_ms(library, reps)
+            if name == "dw_reduce":
+                P, Q = (n_emb, hidden) if label.endswith("dW1") else (hidden, plan.weight_numel)
+                ops, _ = dw_work(n_real, P, Q, 2)
+                nbytes = 2 * n_real * (P + Q) + 4 * P * Q  # a float32 result
+            else:
+                ops, nbytes = work(name, plan, n_real, n_dst, n_src, N, hidden, n_emb, 2)
+            t_ops, t_bytes = ops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+            bound = max(t_ops, t_bytes)
+            print(f"phase 16a {label} bf16 layer {li}: max abs err {abs_err:.3e}, kernel {ms:.3f} ms, f32 kernel "
+                  f"{f32_ms:.3f} ms (same call), plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+                  f"({'operations' if t_ops > t_bytes else 'bytes'})"
+                  + ("" if lib_ms is None else f", torch.mm bf16 {lib_ms:.3f} ms"), flush=True)
+            r = report[name]
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            r["ms"] += ms
+            r["f32_ms"] = (r.get("f32_ms") or 0.0) + f32_ms
+            r["plain_ms"] += plain_ms
+            r["bound_ms"] += bound
+            r["ops"] += ops
+            r["bytes"] += nbytes
+            if lib_ms is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+                dw_sums.setdefault(label, np.zeros(5))[:] += (ms, f32_ms, plain_ms, bound, lib_ms)
+        del x, sh, emb, w1, w2, g, h_e, dw_e, dh_pre, args16, args32, emb32, h32, dw32, dh32, calls
+        torch.cuda.empty_cache()
+    for label, (ms, f32_ms, plain_ms, bound, lib_ms) in dw_sums.items():
+        print(f"phase 16a {label} bf16, sum of 3 layers: kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.3f} ms, torch.mm bf16 {lib_ms:.3f} ms", flush=True)
 
 
 def _bf16_trilinear(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, blocks, rng, reps: int,
@@ -3146,16 +3270,8 @@ def _bf16_trilinear(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int,
                 torch.cuda.synchronize()
                 if counter.launches != before + 1:
                     raise RuntimeError(f"phase 16a: {name} bf16 launch counter did not move")
-                for out_i, (a, b) in enumerate(zip(got, _tuple(ref_run()))):
-                    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32) \
-                            or not bool(a.float().isfinite().all()):
-                        raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} is not finite bf16 "
-                                           f"(or a float32 accumulator)")
-                    diff, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
-                    if diff > BF16_KERNEL_TOL * scale:
-                        raise RuntimeError(f"phase 16a: {name} output {out_i} layer {li} disagrees with plain: max "
-                                           f"|diff| {diff:.3e}, max |ref| {scale:.3e} (limit {BF16_KERNEL_TOL:.0e} of it)")
-                    err, abs_err = max(err, diff / scale), max(abs_err, diff)
+                e, a_e = _bf16_check(name, got, _tuple(ref_run()), li)
+                err, abs_err = max(err, e), max(abs_err, a_e)
                 if not all(torch.equal(a, b) for a, b in zip(got, _tuple(run()))):
                     raise RuntimeError(f"phase 16a: {name} bf16 differs on a repeat call")
             kern, plain = c16[name]
@@ -3476,12 +3592,17 @@ def phase16f_depth2(smi: str, n_atoms: int = 23000, n_requests: int = 3) -> dict
     return launches
 
 
+BF16_FR_UNSLICED = TRAINING_KERNELS + ("conv_bwd",)  # fr on "fused" without slices: pass 1 serves, pass 2 trains
+
+
 def _bf16_golden_steps(smi: str) -> None:
     """16g's gate: the bf16 flagship from the f64 training golden's
-    parameters (float32) takes one rr step on fused_tp and one fr step over
-    N_CHUNKS edge slices with remat_conv="save_tp" on fused; its loss and
-    gradients against the f64 golden within BF16_LOSS_TOL and
-    BF16_GRAD_TOL (JAX's own bf16 step meets them), its gradients float32."""
+    parameters (float32) takes one rr step on fused_tp, one fr step over
+    N_CHUNKS edge slices with remat_conv="save_tp" on fused, and one rr and
+    one unsliced fr step on fused (K2's training variant and the dW
+    reduction); its loss and gradients against the f64 golden within
+    BF16_LOSS_TOL and BF16_GRAD_TOL (JAX's own bf16 step meets them), its
+    gradients float32."""
     import torch
 
     from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up
@@ -3499,7 +3620,9 @@ def _bf16_golden_steps(smi: str) -> None:
     batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(data["edge_index"].shape[1], 256), 2),
                        "cuda")
     want = {k[len("grads/"):]: z[k] for k in z.files if k.startswith("grads/")}
-    for tp_impl, mode, n_chunks, kw in (("fused_tp", "rr", 0, {}), ("fused", "fr", N_CHUNKS, {"remat_conv": "save_tp"})):
+    steps = {("fused_tp", "rr", 0): ({}, K4_ROUTE), ("fused", "fr", N_CHUNKS): ({"remat_conv": "save_tp"}, BF16_FR_KERNELS),
+             ("fused", "rr", 0): ({}, TRAINING_KERNELS), ("fused", "fr", 0): ({}, BF16_FR_UNSLICED)}
+    for (tp_impl, mode, n_chunks), (kw, path) in steps.items():
         model = NequIPGNNModel(seed=0, model_dtype="float64", tp_impl=tp_impl, **dict(FLAGSHIP, **kw))
         load_jax_params(model, flat)
         model = modify(model, [{"modifier": "enable_bf16_fast_mode"}]).to("cuda")
@@ -3520,7 +3643,6 @@ def _bf16_golden_steps(smi: str) -> None:
               f"{smi}): loss rel err {loss_err:.3e} (limit {BF16_LOSS_TOL:.0e}), grads max err / max|grad| "
               f"{grad_err:.3e} (limit {BF16_GRAD_TOL:.0e}), grad dtypes {sorted(map(str, dtypes))}, launches {launches}",
               flush=True)
-        path = K4_ROUTE if mode == "rr" else BF16_FR_KERNELS
         if set(launches) != set(path):
             raise RuntimeError(f"phase 16g: the bf16 {mode} step launched {launches}, not {path}")
         if dtypes != {torch.float32}:
@@ -3531,15 +3653,17 @@ def _bf16_golden_steps(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-def phase16g_train(smi: str, dm=None, epochs: int = 2) -> dict:
+def phase16g_train(smi: str, dm=None, epochs: int = 2, preset_m_f32=None) -> dict:
     """bf16 training at 23k atoms: Trainer.fit (phase 6's LJ frames, 2
     steps and a validation an epoch) in fr over N_CHUNKS edge slices with
     remat_conv="save_tp" on the fused route (JAX's bf16 fr training row),
-    and in rr on fused_tp, each beside the same fit in f32 (later steps'
-    median and peak); the bf16 fits launch the sliced fr kernels (or K4's
-    route) and neither K2's training variant nor the dW reduction; then the
-    gradient gate (_bf16_golden_steps).  Returns the bf16 fits' launches
-    by mode."""
+    in rr on fused_tp and in rr on fused, each beside the same fit in f32
+    (later steps' median and peak); the bf16 fits launch the sliced fr
+    kernels, K4's route, or K1's training path (K1, K2's training variant,
+    the dW reduction, K3, K4 and K5; only this fit launches the latter
+    two); then the gradient gate (_bf16_golden_steps) and preset-M rr steps
+    in bf16 (_bf16_preset_m, beside ``preset_m_f32``, phase 14b's f32 rr
+    step).  Returns the bf16 fits' launches by "mode route"."""
     import torch
 
     from nequip_tpu_torch.model import NequIPGNNModel
@@ -3549,7 +3673,8 @@ def phase16g_train(smi: str, dm=None, epochs: int = 2) -> dict:
 
     dm = lj_datamodule("phase 16g") if dm is None else dm
     out = {}
-    for mode, tp_impl, n_chunks, kw in (("fr", "fused", N_CHUNKS, {"remat_conv": "save_tp"}), ("rr", "fused_tp", 0, {})):
+    fits = (("fr", "fused", N_CHUNKS, {"remat_conv": "save_tp"}), ("rr", "fused_tp", 0, {}), ("rr", "fused", 0, {}))
+    for mode, tp_impl, n_chunks, kw in fits:
         rows = {}
         for dtype in ("float32", "bfloat16"):
             model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **dict(FLAGSHIP, **kw))
@@ -3582,22 +3707,79 @@ def phase16g_train(smi: str, dm=None, epochs: int = 2) -> dict:
               f"{f['first_ms']:.1f}), {f['peak_gib']:.3f} GiB; epoch train losses bf16 "
               f"{', '.join(f'{x:.6e}' for x in b['losses'])}, f32 {', '.join(f'{x:.6e}' for x in f['losses'])}; "
               f"bf16 launches {b['launches']}", flush=True)
-        need = BF16_FR_KERNELS if mode == "fr" else K4_ROUTE
-        if not all(b["launches"].get(k) for k in need) or any(k in b["launches"] for k in ("conv_bwd_train", "dw_reduce")):
-            raise RuntimeError(f"phase 16g: the bf16 {mode} fit launched {b['launches']}")
-        out[mode] = b["launches"]
+        need = BF16_FR_KERNELS if mode == "fr" else K4_ROUTE if tp_impl == "fused_tp" else TRAINING_KERNELS
+        trains_k2 = any(k in b["launches"] for k in BF16_TRAINING)
+        if not all(b["launches"].get(k) for k in need) or trains_k2 != (need == TRAINING_KERNELS):
+            raise RuntimeError(f"phase 16g: the bf16 {mode} fit on {tp_impl} launched {b['launches']}")
+        out[f"{mode} {tp_impl}"] = b["launches"]
     _bf16_golden_steps(smi)
+    _bf16_preset_m(smi, preset_m_f32)
     return out
 
 
-def phase16_bf16(smi: str, n_atoms: int = 23000, dm=None) -> tuple:
+def _bf16_preset_m(smi: str, f32=None, steps: int = 3) -> None:
+    """Preset M at full width in bf16 on the 23k-atom frame (phase 14b's
+    batch and labels): rr steps on "fused", whose layers (480 / 2368 / 768
+    WN) run the wide K2-train tiles; the median of ``steps`` steps and the
+    peak, beside ``f32`` (phase 14b's f32 rr step in this run: "ms",
+    "peak"); finite float32 gradients, and K2's training variant and the
+    dW reduction launched."""
+    import torch
+
+    from nequip_tpu_torch.model import PresetNequIPGNNModel
+    from nequip_tpu_torch.model.modify_utils import modify
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    batch, n, e = graph(23000, "cuda", seed=1)
+    lab = torch.Generator(device="cuda").manual_seed(1)
+    batch = dict(batch, total_energy=torch.randn(2, 1, device="cuda", generator=lab, dtype=torch.float64),
+                 forces=torch.randn(batch["pos"].shape, device="cuda", generator=lab, dtype=torch.float64))
+    m = modify(PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **PRESET_M),
+               [{"modifier": "enable_bf16_fast_mode"}])
+    module = NequIPTrainModule(m.to("cuda"), loss=EnergyForceLoss(type_names=["Cu"]),
+                               optimizer={"_target_": "optax.adam", "learning_rate": 1e-3})
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(steps):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _, _ = module.compute_loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        if step == 0:
+            launches = _launches()
+            grads = [p.grad for p in m.parameters() if p.grad is not None]
+            if not grads or any(g.dtype != torch.float32 or not bool(g.isfinite().all()) for g in grads):
+                raise RuntimeError("phase 16g: preset M's bf16 rr gradients are not finite float32")
+            del grads
+        m.zero_grad(set_to_none=True)
+        del loss
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 16g preset M rr step in bf16 on fused, {n} atoms ({smi}): routes {_routes(m)}, median "
+          f"{float(np.median(times)):.1f} ms of {[round(t, 1) for t in times]}, max_memory_allocated {peak:.3f} GiB; "
+          + ("phase 14b's f32 rr step not run" if f32 is None else
+             f"phase 14b's f32 rr step {f32['ms']:.1f} ms, {f32['peak']:.3f} GiB")
+          + f"; losses {losses}, launches a step {launches}", flush=True)
+    if set(_routes(m)) != {"fused"} or not all(launches.get(k) for k in TRAINING_KERNELS):
+        raise RuntimeError(f"phase 16g: preset M's bf16 rr step launched {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError("phase 16g: preset M's bf16 rr losses are not finite")
+    del module, m, batch
+    torch.cuda.empty_cache()
+
+
+def phase16_bf16(smi: str, n_atoms: int = 23000, dm=None, preset_m_f32=None) -> tuple:
     """Phase 16: the bf16 fast mode (16a kernels, 16b golden, 16c serving,
     16d MD, 16e compile, 16f the depth-2 flagship on K4's route, 16g
     training), with cuBLAS's bf16 products summed in float32 (as JAX sums
     them) for the phase; ``dm`` phase 6's data (built anew when None).
     Returns (the bf16 kernels' report rows, their launches on the main
     paths: 16c's requests for K1, K2 and K3, 16f's requests and 16g's fits
-    for K4-K7)."""
+    for K4-K7, K2's training variant and the dW reduction)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3611,8 +3793,8 @@ def phase16_bf16(smi: str, n_atoms: int = 23000, dm=None) -> tuple:
         phase16e_compile(smi)
         t1 = time.perf_counter()
         depth2 = phase16f_depth2(smi, n_atoms)
-        fits = phase16g_train(smi, dm)
-        for name in BF16_TRILINEAR:
+        fits = phase16g_train(smi, dm, preset_m_f32=preset_m_f32)
+        for name in BF16_TRILINEAR + BF16_TRAINING:
             launches[name] = depth2.get(name, 0) + sum(f.get(name, 0) for f in fits.values())
         print(f"phase 16f-16g {time.perf_counter() - t1:.1f} s", flush=True)
     finally:
@@ -3644,9 +3826,9 @@ def main() -> int:
     phase12_pair_style(smi)
     phase13_files(smi, lj_frames, rr)
     del lj_frames
-    phase14_options(smi)
+    options = phase14_options(smi)
     phase15_train_modules(smi, dm, rr)
-    bf16_report, bf16_launches = phase16_bf16(smi, dm=dm)
+    bf16_report, bf16_launches = phase16_bf16(smi, dm=dm, preset_m_f32=options["rr"]["none"])
     del dm
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES

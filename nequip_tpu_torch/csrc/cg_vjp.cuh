@@ -44,6 +44,13 @@
 namespace nequip {
 namespace cg {
 
+// X itself, in a context where X is not deduced (a defaulted template
+// argument then stands when the argument is a bare nullptr)
+template <typename X>
+struct Id {
+  using type = X;
+};
+
 // TPPlan's term tables (layouts in ops/kernels/tp_scatter.py):
 // dx_groups int32 [Gx, 4] = (x_row, unused, t_begin, t_end), one per input row;
 // dx_terms int32 [Tx, 3] = (out_row, y_index, w_off), dx_coef [Tx]; dx_col_group int32 [dim_in];
@@ -216,13 +223,14 @@ __device__ __forceinline__ void dx_items(const Tables<T>& tab, const GR gr, cons
   }
 }
 
-// dW_e in place of w (and, if dw_out is not null, into dw_out [cnt][wn]) and
-// the dy partials s_part [TILE][n_paths][kMaxYDim] (zero before the call,
-// summed into by each m2 run); xr an XRows, gr a GRows.
-template <typename T, int TILE, int TC, int NW, typename XR, typename GR>
+// dW_e in place of w (and, if dw_out is not null, into dw_out [cnt][wn], of
+// O: T or, rounded once, bf16) and the dy partials s_part [TILE][n_paths]
+// [kMaxYDim] (zero before the call, summed into by each m2 run); xr an
+// XRows, gr a GRows.  O is given (K2's bf16 training variant) or is T.
+template <typename T, int TILE, int TC, int NW, typename O = T, typename XR, typename GR>
 __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_order, const XR xr, const GR gr,
                                          const int32_t* s_dst, const T* s_y, int ldy, T* s_w, int ldw, int cnt,
-                                         T* s_part, T* __restrict__ dw_out, int wn) {
+                                         T* s_part, typename Id<O>::type* __restrict__ dw_out, int wn) {
   constexpr int NG = TILE / TC;
   const int lane = threadIdx.x & 31, n_paths = tab.n_paths;
   for (int k0 = 0; k0 < NG * n_paths; k0 += NW) {
@@ -278,7 +286,8 @@ __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_
 #pragma unroll
           for (int i = 0; i < TC; ++i) {
             s_w[(e0 + i) * ldw + w_off + u] = dw[i];
-            if (dw_out != nullptr && e0 + i < cnt) dw_out[static_cast<int64_t>(e0 + i) * wn + w_off + u] = dw[i];
+            if (dw_out != nullptr && e0 + i < cnt)
+              dw_out[static_cast<int64_t>(e0 + i) * wn + w_off + u] = narrow<O>(dw[i]);
           }
         }
       }

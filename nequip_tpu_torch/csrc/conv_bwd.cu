@@ -77,16 +77,22 @@
 // an SM), 8 bytes of spill; f64 one block an SM 255, 12 bytes (two blocks:
 // 128, 88-272 bytes); PERF.md lists every tile.
 //
-// bf16 (the fast mode's forces: nequip_conv_bwd_bf16, the inference
-// variant only; bf16 training is not instantiated): x, sh, emb, W1, W2,
-// W2^T and g are bf16 in device memory, and so are dx_edge, dsh and demb.
-// The kernel is the f32 design on a float32 tile (f32's shared-memory
-// layout and tile choice): each operand is widened as it is staged or read
-// (x and g through L1, as in f32), and every product and sum runs in
-// float32.  Rounding points, the same in the plain version
-// (tp_scatter.conv_bwd_plain): h = silu(h_pre) and w = alpha1 h . W2 are
-// rounded to bf16, as JAX's K2 rounds them; dW_e, dh_pre and every sum
-// stay float32, and each output element is rounded once, on its store.
+// bf16 (the fast mode: nequip_conv_bwd_bf16 for its forces,
+// nequip_conv_bwd_train_bf16 for its training): x, sh, emb, W1, W2, W2^T and
+// g are bf16 in device memory, and so are dx_edge, dsh and demb and the
+// training variant's per-edge factors dW_e, h_e and dh_pre_e.  The kernel is
+// the f32 design on a float32 tile (f32's shared-memory layout and tile
+// choice): each operand is widened as it is staged or read (x and g through
+// L1, as in f32), and every product and sum runs in float32.  Rounding
+// points, the same in the plain version (tp_scatter.conv_bwd_plain): h =
+// silu(h_pre) and w = alpha1 h . W2 are rounded to bf16, as JAX's K2 rounds
+// them; dW_e, dh_pre and every sum stay float32 in the tile, and each output
+// element is rounded once, on its store.  So the training variant's dx_edge,
+// dsh and demb are bitwise the inference variant's, and its factors are
+// rounded where JAX's kernel_bwd rounds them (dw_scr in x.dtype, h_t and
+// dh_pre_t cast to the embedding's dtype); dw_reduce.cu sums them in
+// float32.  Stored in bf16, the factors of the flagship's layer 1 at 23k
+// atoms take 419,904 x (352 + 128 + 128) x 2 B = 0.51 GB, half of f32's.
 #include <type_traits>
 
 #include "cg_vjp.cuh"
@@ -102,9 +108,9 @@ constexpr int kBwdBK = 16;    // W2 rows per slab of the ring
 constexpr int kBwdStages = 3;
 constexpr int kCgEdges = 8;  // edges of one CG-VJP item: its loads per term in flight
 
-// S: the storage type of the operands and of dx_edge, dsh, demb; the kernel
-// computes in Acc<S> (tp_common.cuh), the type of the tables, the training
-// variant's per-edge factors and alphas
+// S: the storage type of the operands, of dx_edge, dsh, demb and of the
+// training variant's per-edge factors; the kernel computes in Acc<S>
+// (tp_common.cuh), the type of the tables and alphas
 template <typename S>
 struct ConvBwdArgs {
   using T = Acc<S>;
@@ -116,7 +122,7 @@ struct ConvBwdArgs {
   const int32_t *dx_col_group, *paths, *path_terms;
   const T* path_coef;
   S *dx_edge, *dsh, *demb;
-  T *dw_edge, *h_edge, *dh_edge;
+  S *dw_edge, *h_edge, *dh_edge;
   int n_paths, n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim;
   T alpha0, alpha1;
 };
@@ -211,7 +217,7 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
         T v = T(0);
         if (t < hidden) {
           v = round_as<S>(hp[j] * sigmoid(hp[j]));  // bf16: h rounded
-          if (a.h_edge != nullptr && e < cnt) a.h_edge[static_cast<int64_t>(base + e) * hidden + t] = v;
+          if (a.h_edge != nullptr && e < cnt) a.h_edge[static_cast<int64_t>(base + e) * hidden + t] = narrow<S>(v);
         }
         s_h[e * L.ldh + t] = v;
       }
@@ -234,7 +240,7 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
     cg::dx_items<T, TILE, TC, NW>(tab, gr, s_dst, s_y, sh_dim, s_w, L.ldw, cnt, dim_in,
                                   a.dx_edge + static_cast<int64_t>(base) * dim_in);
     __syncthreads();  // dx has read w; the dsh partials are zero
-    cg::dw_items<T, TILE, TC, NW>(
+    cg::dw_items<T, TILE, TC, NW, S>(
         tab, s_order, cg::XRows<T, false, S>{a.x, s_src, dim_in}, gr, s_dst, s_y, sh_dim, s_w, L.ldw, cnt, s_dshp,
         a.dw_edge == nullptr ? nullptr : a.dw_edge + static_cast<int64_t>(base) * wn, wn);
     __syncthreads();
@@ -255,7 +261,8 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
               if (t < hidden) {
                 const T sg = sigmoid(hp[j]);
                 v = a.alpha1 * acc[i][j] * (sg * (T(1) + hp[j] * (T(1) - sg)));
-                if (a.dh_edge != nullptr && e < cnt) a.dh_edge[static_cast<int64_t>(base + e) * hidden + t] = v;
+                if (a.dh_edge != nullptr && e < cnt)
+                  a.dh_edge[static_cast<int64_t>(base + e) * hidden + t] = narrow<S>(v);  // bf16: rounded once
               }
               s_h[e * L.ldh + t] = v;
             }
@@ -314,7 +321,8 @@ int launch_conv_bwd(const ConvBwdArgs<S>& args, void* stream) {
 }  // namespace
 }  // namespace nequip
 
-#define NEQUIP_CONV_BWD(SUFFIX, T)                                                                               \
+// S the storage type; the tables and alphas are Acc<S> (float32 for bf16)
+#define NEQUIP_CONV_BWD(SUFFIX, S)                                                                               \
   extern "C" int nequip_conv_bwd_train_##SUFFIX(                                                                \
       const void* x, const void* sh, const void* emb, const void* w1, const void* w2, const void* w2t,          \
       const void* edge_src, const void* dst_ptr, const void* g, const void* dx_groups, const void* dx_terms,     \
@@ -322,21 +330,22 @@ int launch_conv_bwd(const ConvBwdArgs<S>& args, void* stream) {
       const void* path_coef, void* dx_edge, void* dsh, void* demb, void* dw_edge, void* h_edge, void* dh_edge,   \
       int n_paths, int n_nodes, int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,              \
       double alpha0, double alpha1, void* stream) {                                                             \
-    const nequip::ConvBwdArgs<T> args{                                                                          \
-        static_cast<const T*>(x),           static_cast<const T*>(sh),                                          \
-        static_cast<const T*>(emb),         static_cast<const T*>(w1),                                          \
-        static_cast<const T*>(w2),          static_cast<const T*>(w2t),                                         \
+    using T = nequip::Acc<S>;                                                                                   \
+    const nequip::ConvBwdArgs<S> args{                                                                          \
+        static_cast<const S*>(x),           static_cast<const S*>(sh),                                          \
+        static_cast<const S*>(emb),         static_cast<const S*>(w1),                                          \
+        static_cast<const S*>(w2),          static_cast<const S*>(w2t),                                         \
         static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),                            \
-        static_cast<const T*>(g),           static_cast<const int32_t*>(dx_groups),                             \
+        static_cast<const S*>(g),           static_cast<const int32_t*>(dx_groups),                             \
         static_cast<const int32_t*>(dx_terms), static_cast<const T*>(dx_coef),                                  \
         static_cast<const int32_t*>(dx_col_group), static_cast<const int32_t*>(paths),                         \
         static_cast<const int32_t*>(path_terms), static_cast<const T*>(path_coef),                              \
-        static_cast<T*>(dx_edge),           static_cast<T*>(dsh),                                               \
-        static_cast<T*>(demb),              static_cast<T*>(dw_edge),                                           \
-        static_cast<T*>(h_edge),            static_cast<T*>(dh_edge),                                           \
+        static_cast<S*>(dx_edge),           static_cast<S*>(dsh),                                               \
+        static_cast<S*>(demb),              static_cast<S*>(dw_edge),                                           \
+        static_cast<S*>(h_edge),            static_cast<S*>(dh_edge),                                           \
         n_paths, n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim,                                           \
         static_cast<T>(alpha0),             static_cast<T>(alpha1)};                                            \
-    return nequip::launch_conv_bwd<T>(args, stream);                                                            \
+    return nequip::launch_conv_bwd<S>(args, stream);                                                            \
   }                                                                                                             \
   extern "C" int nequip_conv_bwd_##SUFFIX(                                                                      \
       const void* x, const void* sh, const void* emb, const void* w1, const void* w2, const void* w2t,          \
@@ -352,29 +361,4 @@ int launch_conv_bwd(const ConvBwdArgs<S>& args, void* stream) {
 
 NEQUIP_CONV_BWD(f32, float)
 NEQUIP_CONV_BWD(f64, double)
-
-// bf16: the inference variant only (nequip_conv_bwd's arguments)
-extern "C" int nequip_conv_bwd_bf16(const void* x, const void* sh, const void* emb, const void* w1, const void* w2,
-                                    const void* w2t, const void* edge_src, const void* dst_ptr, const void* g,
-                                    const void* dx_groups, const void* dx_terms, const void* dx_coef,
-                                    const void* dx_col_group, const void* paths, const void* path_terms,
-                                    const void* path_coef, void* dx_edge, void* dsh, void* demb, int n_paths,
-                                    int n_nodes, int dim_in, int sh_dim, int n_emb, int hidden, int wn, int mid_dim,
-                                    double alpha0, double alpha1, void* stream) {
-  using S = __nv_bfloat16;
-  const nequip::ConvBwdArgs<S> args{
-      static_cast<const S*>(x),       static_cast<const S*>(sh),
-      static_cast<const S*>(emb),     static_cast<const S*>(w1),
-      static_cast<const S*>(w2),      static_cast<const S*>(w2t),
-      static_cast<const int32_t*>(edge_src), static_cast<const int32_t*>(dst_ptr),
-      static_cast<const S*>(g),       static_cast<const int32_t*>(dx_groups),
-      static_cast<const int32_t*>(dx_terms), static_cast<const float*>(dx_coef),
-      static_cast<const int32_t*>(dx_col_group), static_cast<const int32_t*>(paths),
-      static_cast<const int32_t*>(path_terms), static_cast<const float*>(path_coef),
-      static_cast<S*>(dx_edge),       static_cast<S*>(dsh),
-      static_cast<S*>(demb),          nullptr,
-      nullptr,                        nullptr,
-      n_paths, n_nodes, dim_in, sh_dim, n_emb, hidden, wn, mid_dim,
-      static_cast<float>(alpha0),     static_cast<float>(alpha1)};
-  return nequip::launch_conv_bwd<S>(args, stream);
-}
+NEQUIP_CONV_BWD(bf16, __nv_bfloat16)

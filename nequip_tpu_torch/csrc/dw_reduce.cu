@@ -48,13 +48,34 @@
 //   thread keeping a few columns for all 8 rows) for P <= 8.
 // - The 16-byte copies need P and Q times sizeof(T) to be multiples of 16
 //   and 16-byte aligned bases (true at every shape of the flagship); any
-//   other shape is staged element by element (cp.async.ca of sizeof(T)) in
-//   the same kernel.  Rows past the chunk's end and columns past P or Q are
-//   filled with zeros.  n = 0 gives zeros.
+//   other shape is staged element by element (cp.async.ca of sizeof(T); a
+//   plain copy for bf16, which cp.async cannot move alone) in the same
+//   kernel.  Rows past the chunk's end and columns past P or Q are filled
+//   with zeros.  n = 0 gives zeros.
+//
+// bf16 (the fast mode's training: nequip_dw_reduce_bf16): a and b are bf16,
+// the partials, out and scale float32 (Acc<S>, tp_common.cuh).  The ring
+// stages the bf16 rows unchanged (a 16-byte cp.async carries 8 values, so it
+// stays asynchronous), and each 16-byte shared load is widened to 8 floats
+// in registers; every product and sum is float32 (a bf16 x bf16 product is
+// exact in float32), in the f32 order of _dw_split's chunks, and out is
+// rounded to float32 once.  JAX's kernel_bwd instead adds each 256-edge
+// chunk's product, rounded to bf16, onto bf16 dw1/dw2 blocks.  With 8 values
+// to a 16-byte load, the wide tile runs rows fastest over the threads (ty =
+// tid % THR_M): the 8 threads of a load phase read 128 contiguous bytes of
+// a and one word of b (a broadcast), where f32's column-fast order would
+// put two b words on one bank (THR_N = 12 does not divide the phases).  Its
+// bound at the flagship's shapes is bytes (~0.34 ms over the three layers
+// and both shapes at 3.35 TB/s), but it does f32's FFMA work with fewer
+// FFMAs an instruction (the widening; 16 threads a narrow block): 2.98 ms
+// against f32's 1.86 in one call, and torch.mm on the bf16 operands 0.60
+// (H100 80GB HBM3, 700 W; PERF.md, kernel table).  bf16 mma.sync with float32
+// accumulators gives the same products and is the lever for a faster form.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "tp_common.cuh"
 
 namespace nequip {
 namespace {
@@ -65,7 +86,7 @@ namespace {
 template <typename T, int BK, int W, int THREADS>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int e0, int e_end, int c0, int ld,
                                       bool vec, int tid) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(T);  // T: the storage type
   if (vec) {
     constexpr int kCopies = BK * W / V;
 #pragma unroll
@@ -81,16 +102,30 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int e0,
     for (int i = tid; i < BK * W; i += THREADS) {
       const int r = i / W, c = i % W;
       const bool ok = e0 + r < e_end && c0 + c < ld;
-      cp_async_elem<sizeof(T)>(dst + i, ok ? src + static_cast<int64_t>(e0 + r) * ld + c0 + c : src, ok);
+      if constexpr (sizeof(T) >= 4) {
+        cp_async_elem<sizeof(T)>(dst + i, ok ? src + static_cast<int64_t>(e0 + r) * ld + c0 + c : src, ok);
+      } else {  // a 2-byte copy: the barrier before the slab is read orders it
+        *reinterpret_cast<unsigned short*>(dst + i) =
+            ok ? *reinterpret_cast<const unsigned short*>(src + static_cast<int64_t>(e0 + r) * ld + c0 + c) : 0;
+      }
     }
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, int STAGES, int MIN_BLOCKS>
+// V values of S at s (16 bytes of shared memory) into d, widened to Acc<S>
+__device__ __forceinline__ void load16w(float* d, const float* s) { load16(d, s); }
+__device__ __forceinline__ void load16w(double* d, const double* s) { load16(d, s); }
+__device__ __forceinline__ void load16w(float* d, const __nv_bfloat16* s) {
+  widen8(*reinterpret_cast<const uint4*>(s), d);
+}
+
+// S: the storage type of a and b (the ring's type); the sums run in Acc<S>
+template <typename S, int BM, int BN, int BK, int TM, int TN, int STAGES, int MIN_BLOCKS>
 struct Tile {
-  static constexpr int V = 16 / sizeof(T);
+  static constexpr int V = 16 / sizeof(S);
   static constexpr int THR_M = BM / TM, THR_N = BN / TN, THREADS = THR_M * THR_N;
-  static constexpr int SMEM = STAGES * BK * (BM + BN) * static_cast<int>(sizeof(T));
+  static constexpr bool ROWS_FAST = V == 8;  // bf16: ty = tid % THR_M (the file's header)
+  static constexpr int SMEM = STAGES * BK * (BM + BN) * static_cast<int>(sizeof(S));
   static_assert(TM % V == 0 && TN % V == 0, "micro-tiles are whole 16-byte vectors");
   static_assert(BM % TM == 0 && BN % TN == 0, "micro-tiles divide the block tile");
   static_assert(STAGES >= 3, "the ring keeps at least two slabs in flight");
@@ -99,18 +134,19 @@ struct Tile {
 // Pass 1: block (x, c, z) writes partial[c][p][q] = sum over the edges
 // [c * chunk, min(n, (c + 1) * chunk)) of a[e, p] b[e, q] for its tile,
 // p in [z BM, z BM + BM), q in [x BN, x BN + BN).
-template <typename T, int BM, int BN, int BK, int TM, int TN, int STAGES, int MIN_BLOCKS>
+template <typename S, int BM, int BN, int BK, int TM, int TN, int STAGES, int MIN_BLOCKS>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
-    outer_partial_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ partial, int n, int P,
-                         int Q, int chunk, bool vec) {
-  using C = Tile<T, BM, BN, BK, TM, TN, STAGES, MIN_BLOCKS>;
+    outer_partial_kernel(const S* __restrict__ a, const S* __restrict__ b, Acc<S>* __restrict__ partial, int n,
+                         int P, int Q, int chunk, bool vec) {
+  using T = Acc<S>;
+  using C = Tile<S, BM, BN, BK, TM, TN, STAGES, MIN_BLOCKS>;
   constexpr int V = C::V, THR_M = C::THR_M, THR_N = C::THR_N, THREADS = C::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_a = reinterpret_cast<T*>(smem_raw);  // [STAGES][BK][BM]
-  T* s_b = s_a + STAGES * BK * BM;          // [STAGES][BK][BN]
+  S* s_a = reinterpret_cast<S*>(smem_raw);  // [STAGES][BK][BM]
+  S* s_b = s_a + STAGES * BK * BM;          // [STAGES][BK][BN]
 
   const int tid = threadIdx.x;
-  const int tx = tid % THR_N, ty = tid / THR_N;
+  const int tx = C::ROWS_FAST ? tid / THR_M : tid % THR_N, ty = C::ROWS_FAST ? tid % THR_M : tid / THR_N;
   const int q0 = blockIdx.x * BN, c_idx = blockIdx.y, p0 = blockIdx.z * BM;
   const int e_begin = min(n, c_idx * chunk);
   const int e_end = min(n, e_begin + chunk);
@@ -118,8 +154,8 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
 
   auto load = [&](int slab) {
     const int st = slab % STAGES, e0 = e_begin + slab * BK;
-    stage<T, BK, BM, THREADS>(s_a + st * BK * BM, a, e0, e_end, p0, P, vec, tid);
-    stage<T, BK, BN, THREADS>(s_b + st * BK * BN, b, e0, e_end, q0, Q, vec, tid);
+    stage<S, BK, BM, THREADS>(s_a + st * BK * BM, a, e0, e_end, p0, P, vec, tid);
+    stage<S, BK, BN, THREADS>(s_b + st * BK * BN, b, e0, e_end, q0, Q, vec, tid);
   };
 
   T acc[TM][TN];
@@ -138,15 +174,15 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
     __syncthreads();              // ... for every thread, and slab t - 1 is consumed
     if (t + STAGES - 1 < n_slabs) load(t + STAGES - 1);
     cp_async_commit();
-    const T* sa = s_a + (t % STAGES) * BK * BM + ty * V;
-    const T* sb = s_b + (t % STAGES) * BK * BN + tx * V;
+    const S* sa = s_a + (t % STAGES) * BK * BM + ty * V;
+    const S* sb = s_b + (t % STAGES) * BK * BN + tx * V;
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       T fa[TM], fb[TN];
 #pragma unroll
-      for (int r = 0; r < TM / V; ++r) load16(fa + r * V, sa + k * BM + r * THR_M * V);
+      for (int r = 0; r < TM / V; ++r) load16w(fa + r * V, sa + k * BM + r * THR_M * V);
 #pragma unroll
-      for (int j = 0; j < TN / V; ++j) load16(fb + j * V, sb + k * BN + j * THR_N * V);
+      for (int j = 0; j < TN / V; ++j) load16w(fb + j * V, sb + k * BN + j * THR_N * V);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -180,11 +216,11 @@ __global__ void __launch_bounds__(128) sum_partials_kernel(const T* __restrict__
   out[i] = scale * acc;
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, int STAGES, int MIN_BLOCKS>
-cudaError_t launch_partials(const T* a, const T* b, T* partial, int n, int P, int Q, int chunk, int n_chunks,
+template <typename S, int BM, int BN, int BK, int TM, int TN, int STAGES, int MIN_BLOCKS>
+cudaError_t launch_partials(const S* a, const S* b, Acc<S>* partial, int n, int P, int Q, int chunk, int n_chunks,
                             bool vec, cudaStream_t s) {
-  using C = Tile<T, BM, BN, BK, TM, TN, STAGES, MIN_BLOCKS>;
-  auto kernel = outer_partial_kernel<T, BM, BN, BK, TM, TN, STAGES, MIN_BLOCKS>;
+  using C = Tile<S, BM, BN, BK, TM, TN, STAGES, MIN_BLOCKS>;
+  auto kernel = outer_partial_kernel<S, BM, BN, BK, TM, TN, STAGES, MIN_BLOCKS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((Q + BN - 1) / BN, n_chunks, (P + BM - 1) / BM);
@@ -205,8 +241,12 @@ constexpr int kNarrowRows = 8;  // P <= kNarrowRows takes the narrow tile (dW1)
 //   f32 narrow: BM 8, BN 128, BK 32, 8 x 4 per thread, 32 threads, 4 stages, 69,632 B, 3 per SM
 //   f64 wide:   BM 128, BN 96, BK 16, 8 x 6 per thread, 256 threads, 3 stages, 86,016 B
 //   f64 narrow: BM 8, BN 128, BK 16, 8 x 2 per thread, 64 threads, 4 stages, 69,632 B
-template <typename T>
-cudaError_t launch_pass1(const T* a, const T* b, T* partial, int n, int P, int Q, int chunk, int n_chunks,
+// bf16 keeps f32's block tiles, ring bytes and blocks per SM (so
+// _dw_split's wave fits it too), with micro-tiles of whole 8-value vectors:
+//   bf16 wide:   BM 128, BN 96, BK 32, 8 x 8 per thread, 192 threads, 6 stages, 86,016 B, 2 per SM
+//   bf16 narrow: BM 8, BN 128, BK 64, 8 x 8 per thread, 16 threads, 4 stages, 69,632 B, 3 per SM
+template <typename S>
+cudaError_t launch_pass1(const S* a, const S* b, Acc<S>* partial, int n, int P, int Q, int chunk, int n_chunks,
                          bool vec, cudaStream_t s);
 
 template <>
@@ -225,14 +265,24 @@ cudaError_t launch_pass1<double>(const double* a, const double* b, double* parti
   return launch_partials<double, 128, 96, 16, 8, 6, 3, 1>(a, b, partial, n, P, Q, chunk, n_chunks, vec, s);
 }
 
-template <typename T>
+template <>
+cudaError_t launch_pass1<__nv_bfloat16>(const __nv_bfloat16* a, const __nv_bfloat16* b, float* partial, int n,
+                                        int P, int Q, int chunk, int n_chunks, bool vec, cudaStream_t s) {
+  if (P <= kNarrowRows)
+    return launch_partials<__nv_bfloat16, 8, 128, 64, 8, 8, 4, 3>(a, b, partial, n, P, Q, chunk, n_chunks, vec, s);
+  return launch_partials<__nv_bfloat16, 128, 96, 32, 8, 8, 6, 2>(a, b, partial, n, P, Q, chunk, n_chunks, vec, s);
+}
+
+// S the storage type of a and b; partial, out and scale are Acc<S>
+template <typename S>
 int launch_dw_reduce(const void* a, const void* b, void* partial, void* out, int n, int P, int Q, int chunk,
                      int n_chunks, double scale, void* stream) {
+  using T = Acc<S>;
   if (P <= 0 || Q <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = (P * sizeof(T)) % 16 == 0 && (Q * sizeof(T)) % 16 == 0 &&
+  const bool vec = (P * sizeof(S)) % 16 == 0 && (Q * sizeof(S)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  cudaError_t err = launch_pass1<T>(static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(partial),
+  cudaError_t err = launch_pass1<S>(static_cast<const S*>(a), static_cast<const S*>(b), static_cast<T*>(partial),
                                     n, P, Q, chunk, n_chunks, vec, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int pq = P * Q;
@@ -252,4 +302,10 @@ extern "C" int nequip_dw_reduce_f32(const void* a, const void* b, void* partial,
 extern "C" int nequip_dw_reduce_f64(const void* a, const void* b, void* partial, void* out, int n, int P, int Q,
                                     int chunk, int n_chunks, double scale, void* stream) {
   return nequip::launch_dw_reduce<double>(a, b, partial, out, n, P, Q, chunk, n_chunks, scale, stream);
+}
+
+// a and b bf16; partial [n_chunks][P][Q] and out [P][Q] float32
+extern "C" int nequip_dw_reduce_bf16(const void* a, const void* b, void* partial, void* out, int n, int P, int Q,
+                                     int chunk, int n_chunks, double scale, void* stream) {
+  return nequip::launch_dw_reduce<__nv_bfloat16>(a, b, partial, out, n, P, Q, chunk, n_chunks, scale, stream);
 }

@@ -83,12 +83,11 @@ def enable_bf16_fast_mode(model):
     and K3 in bf16 (float32 sums) with ``tp_impl="fused"``, K4, K5 and K3
     on the ``"fused_tp"`` route (and a radial MLP K1 does not take), or
     plain PyTorch with ``"torch"``; a compiled bf16 model runs the
-    registered ops (``--no-check``).  Training runs on ``"fused_tp"`` (rr
-    and fr) and in fr over edge slices on either kernel route (K4-acc to
-    K7), with float32 parameters and gradients; rr and unsliced fr on the
-    ``"fused"`` route raise (K2's training variant and the dW reduction
-    have no bf16 form, ``nn/interaction_block.py``).  It rebuilds the
-    model: apply it before ``enable_TPUFusedTPScatter``."""
+    registered ops (``--no-check``).  Training runs on every route, rr and
+    fr, with float32 parameters and gradients: on ``"fused"`` through K1,
+    K2's training variant and the dW reduction in bf16, on ``"fused_tp"``
+    through K4 and K5, and in fr over edge slices through K4-acc to K7.
+    It rebuilds the model: apply it before ``enable_TPUFusedTPScatter``."""
     return modify_model_dtype(model, model_dtype="bfloat16")
 
 

@@ -25,20 +25,22 @@ kernel impl, ``forward`` runs the conv over C slices of the edge stream
 sweep over them (``ChunkedJvpConv``: K6, backward K7 + K3).
 
 bfloat16 (``enable_bf16_fast_mode``; bf16 storage, float32 sums, float32
-parameters cast at use) runs on every route but one mode:
+parameters cast at use) runs on every route and in every mode, each on its
+own kernels in bf16:
 
-* ``"fused_tp"`` serves, runs MD, compiles and trains, rr and fr, with K4,
-  K5 and K3 in bf16 (and, over edge slices, K4-acc, K6 and K7);
 * ``"fused"`` serves and runs MD with frozen weights (K1, K2's inference
-  variant and K3), and trains in fr over edge slices (``fr_edge_chunks >
-  1``: ``ChunkedConv`` and ``ChunkedJvpConv`` take K1's MLP in plain
-  PyTorch);
+  variant and K3) and trains in rr and unsliced fr (K1, K2's training
+  variant, the dW reduction and K3; second order through K4 and K5), with
+  ``remat_conv`` and under ConFIG; over edge slices (``fr_edge_chunks >
+  1``) ``ChunkedConv`` and ``ChunkedJvpConv`` take K1's MLP in plain
+  PyTorch;
+* ``"fused_tp"`` serves, runs MD, compiles and trains, rr and fr, with K4,
+  K5 and K3 (and, over edge slices, K4-acc, K6 and K7);
 * ``"torch"`` is plain PyTorch in bf16.
 
-Training on the ``"fused"`` route without edge slices (rr, and unsliced
-fr) needs K2's training variant and the dW reduction, which have no bf16
-form yet: a bf16 block there raises ``NotImplementedError`` and never
-falls back to another route.
+The radial-MLP weights enter the fused kernels as bf16 copies of the
+float32 parameters (``.to(x.dtype)``, as JAX's ``astype``), so their
+gradients reach the parameters rounded to bf16 once, at that cast.
 
 ``forward`` is ``tail(conv(head(data)))``: ``ConvNetLayer``'s
 ``remat="save_tp"`` checkpoints the head and the tail and keeps the conv's
@@ -187,21 +189,8 @@ class InteractionBlock(GraphModule):
         sc = self.sc_tp(x, data[_keys.NODE_ATTRS_KEY], self.sc.to(x.dtype)) if self.sc_tp is not None else None
         return self._feature_maps(data, self.linear_1(x)), sc
 
-    def _check_bf16(self, x: torch.Tensor, training: bool) -> None:
-        """Refuse what the kernels cannot do in bfloat16 (module docstring):
-        training on the ``"fused"`` route without edge slices."""
-        if x.dtype != torch.bfloat16 or self.route != "fused" or self._chunked():
-            return
-        if training or not self._frozen():
-            raise NotImplementedError(
-                "bfloat16 training on the fused route needs K2's training variant and the dW reduction, which "
-                "have no bfloat16 kernel yet (ROADMAP.md); train this model in fr with fr_edge_chunks > 1, on "
-                "tp_impl='fused_tp', or in float32"
-            )
-
     def conv(self, data: dict, x: torch.Tensor) -> torch.Tensor:
         """The ``[N, mid_dim]`` messages of the route's kernels."""
-        self._check_bf16(x, training=False)
         emb, sh = data[_keys.EDGE_EMBEDDING_KEY], data[_keys.EDGE_ATTRS_KEY]
         if self._chunked():
             return chunked_conv(self.tp_scatter.plan, self.edge_mlp, x, sh, emb, data[LAYOUT_KEY],
@@ -262,7 +251,6 @@ class InteractionBlock(GraphModule):
         through the same maps.  Forward mode never enters a kernel.
         """
         x = data[_keys.NODE_FEATURES_KEY]
-        self._check_bf16(x, training=True)  # the dual sweep is fr training's
         tx = tangents.get(_keys.NODE_FEATURES_KEY)
         n_attrs = data[_keys.NODE_ATTRS_KEY]
         t_attrs = tangents.get(_keys.NODE_ATTRS_KEY)

@@ -26,7 +26,7 @@ Each wrapper runs its plain PyTorch twin (``*_plain``) when its tensors lie
 on the CPU, launches its kernel when they lie on a CUDA device, and raises
 for any other device.  Each counts its kernel launches in ``.launches``.
 
-bfloat16 (the fast mode): K1, K2's inference variant, K3 and the
+bfloat16 (the fast mode): K1, K2 (both variants), K3 and the
 trilinear kernels K4/K4-acc, K5, K6 and K7 take bf16 operands and return
 bf16 outputs, with every sum in float32 (``acc_dtype``: their term tables
 and the carry rows of K1, K4 and K6 are float32).  Their plain twins, given
@@ -36,9 +36,10 @@ output, K3, K4, K5, K6 and K7 each output.  K1, K4 and K6 sum over edges in
 compensated float32 (hi + lo), so that an output does not depend on how the
 edge stream falls into tiles; their twins sum in float64.  K4-acc and
 K6-acc add onto float32 accumulators (``acc_dtype``), which the edge-sliced
-convolutions round to bf16 once, after the last slice.  On the card a
-kernel then differs from its twin only by the order of its sums.  K2's
-training variant and the dW reduction have no bf16 form (``build.BF16``).
+convolutions round to bf16 once, after the last slice.  K2's training
+variant stores its per-edge dW factors in bf16, rounded once, and the dW
+reduction sums them in float32 into float32 ``dw1``/``dw2``.  On the card a
+kernel then differs from its twin only by the order of its sums.
 
 Serving (frozen radial-MLP weights) runs K1, K2's inference variant and K3
 as registered ops, ``torch.ops.nequip_torch.{conv_fwd, conv_bwd,
@@ -476,39 +477,54 @@ def conv_fwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout)
     return x.new_zeros(layout.num_nodes, plan.mid_dim).index_add_(0, dst, msg)
 
 
-def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
-    """K2's inference variant in plain torch: the VJP of the radial MLP and
-    of the TP written out (``_table_tp_vjp``), no autograd inside, since it
-    is the CPU kernel of a registered op.  bf16 inputs run in float32 with
-    ``h``, ``w`` and the outputs rounded to bf16 (K2's rounding points)."""
+def _conv_bwd_terms(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
+    """K2's arithmetic over the real edges in plain torch: the VJP of the
+    radial MLP and of the TP written out (``_table_tp_vjp``), no autograd
+    inside (the CPU kernel of a registered op runs it).  Returns ``(dx_edge,
+    dsh, demb)`` and the per-edge factors ``(h, dW, dh_pre)`` of the weight
+    gradients, in ``acc_dtype``; bf16 inputs run in float32 with ``h`` and
+    ``w`` rounded to bf16 (K2's rounding points inside the tile)."""
     dtype = x.dtype
     x, sh, emb, w1, w2, g = _wide(x, sh, emb, w1, w2, g)
-    n, n_pad = layout.n_real, sh.shape[0] - layout.n_real
+    n = layout.n_real
     dst = _segment_rows(layout.dst_ptr)
     src = layout.edge_src[:n].long()
     a = emb[:n] @ (w1 * alpha0)
     s = torch.sigmoid(a)
-    W = _round_as(_round_as(a * s, dtype) @ (w2 * alpha1), dtype)
+    h = _round_as(a * s, dtype)
+    W = _round_as(h @ (w2 * alpha1), dtype)
     dx_edge, dsh, dW = _table_tp_vjp(plan.device_tables(x.device, x.dtype), x[src], sh[:n], W, g[dst])
     dh_pre = (dW @ (w2 * alpha1).t()) * (s * (1 + a * (1 - s)))
-    return tuple(F.pad(t, (0, 0, 0, n_pad)).to(dtype) for t in (dx_edge, dsh, dh_pre @ (w1 * alpha0).t()))
+    return (dx_edge, dsh, dh_pre @ (w1 * alpha0).t()), (h, dW, dh_pre)
+
+
+def conv_bwd_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
+    """K2's inference variant in plain torch (``_conv_bwd_terms``); bf16
+    outputs are rounded once (K2's rounding points: ``h``, ``w`` and each
+    output)."""
+    outs, _ = _conv_bwd_terms(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
+    return tuple(F.pad(t, (0, 0, 0, sh.shape[0] - layout.n_real)).to(x.dtype) for t in outs)
 
 
 def conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout: EdgeLayout, g):
-    """K2's training variant in plain torch (autograd through ``plan.tp``):
-    ``conv_bwd``'s three outputs and ``dw1``, ``dw2``."""
-    n_real = layout.n_real
-    dst = _segment_rows(layout.dst_ptr)
-    src = layout.edge_src[:n_real].long()
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(True) for t in (x[src], sh[:n_real], emb[:n_real], w1, w2)]
-        msg = plan.tp(ins[0], ins[1], radial_weights(*ins[2:], alpha0, alpha1))
-        grads = torch.autograd.grad(msg, ins, g[dst])
-    n_pad = sh.shape[0] - n_real
-    return tuple(F.pad(gr, (0, 0, 0, n_pad)) for gr in grads[:3]) + tuple(grads[3:])
+    """K2's training variant in plain torch: ``conv_bwd_plain``'s three
+    outputs and ``dw1 = dw_reduce(emb, dh_pre, alpha0)``, ``dw2 =
+    dw_reduce(h, dW, alpha1)`` over the per-edge factors, each factor
+    rounded to the inputs' dtype as the kernel stores it (bf16: ``dw1`` and
+    ``dw2`` are float32, ``dw_reduce_plain``)."""
+    n = layout.n_real
+    outs, (h, dW, dh_pre) = _conv_bwd_terms(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
+    h, dW, dh_pre = (t.to(x.dtype) for t in (h, dW, dh_pre))
+    return tuple(F.pad(t, (0, 0, 0, sh.shape[0] - n)).to(x.dtype) for t in outs) + (
+        dw_reduce_plain(emb, dh_pre, alpha0, n), dw_reduce_plain(h, dW, alpha1, n))
 
 
 def dw_reduce_plain(a, b, scale: float, n: int):
+    """``dw_reduce``'s twin; bf16 operands are summed in float64 and the
+    result rounded to float32 once (the kernel's float32 sums, ``acc_dtype``,
+    agree with that to a few float32 roundings)."""
+    if a.dtype == torch.bfloat16:
+        return (scale * (a[:n].double().t() @ b[:n].double())).float()
     return scale * (a[:n].t() @ b[:n])
 
 
@@ -840,14 +856,17 @@ def conv_bwd(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, lay
 def conv_bwd_train(plan: TPPlan, x, sh, emb, w1, w2, alpha0: float, alpha1: float, layout: EdgeLayout, g):
     """K2, training variant: ``conv_bwd``'s three outputs and the radial-MLP
     weight gradients ``dw1 [n_emb, hidden]``, ``dw2 [hidden, WN]``.  The
-    kernel writes the per-edge ``dW_e``, ``h_e`` and ``dh_pre_e``;
-    ``dw_reduce`` sums them over the edges."""
+    kernel writes the per-edge ``dW_e``, ``h_e`` and ``dh_pre_e`` (in the
+    inputs' dtype: bf16 rounded once); ``dw_reduce`` sums them over the
+    edges (bf16: into float32 ``dw1``, ``dw2``)."""
     if not _route("conv_bwd_train", x, sh, emb, w1, w2, g):
         return conv_bwd_train_plain(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
     _check_layout(layout, x.device)
     n = layout.n_real
-    outs, (dw_e, h_e, dh_e) = _launch_conv_bwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr, g,
-                                               plan.device_tables(x.device, x.dtype), alpha0, alpha1, n_real=n)
+    tab = plan.device_tables(x.device, acc_dtype(x.dtype))
+    _check_coefs("conv_bwd_train", tuple(tab.values()), x)
+    outs, (dw_e, h_e, dh_e) = _launch_conv_bwd(x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr, g, tab,
+                                               alpha0, alpha1, n_real=n)
     return outs + (dw_reduce(emb, dh_e, alpha0, n), dw_reduce(h_e, dw_e, alpha1, n))
 
 
@@ -870,15 +889,16 @@ def _dw_split(n: int, P: int, Q: int) -> Tuple[int, int]:
 def dw_reduce(a, b, scale: float, n: int):
     """``scale * a[:n]^T b[:n]`` (``[P, Q]``) in a fixed summation order (see
     ``csrc/dw_reduce.cu`` and ``_dw_split``): two calls give bitwise equal
-    results."""
+    results.  bf16 operands are summed in float32 into a float32 result
+    (``acc_dtype``)."""
     if not _route("dw_reduce", a, b):
         return dw_reduce_plain(a, b, scale, n)
     if a.dim() != 2 or b.dim() != 2 or not (0 <= n <= a.shape[0] and n <= b.shape[0]):
         raise ValueError("dw_reduce: a [M, P] and b [M, Q] need at least n rows")
     P, Q = a.shape[1], b.shape[1]
     n_chunks, chunk = _dw_split(n, P, Q)
-    partial = torch.empty(n_chunks, P, Q, dtype=a.dtype, device=a.device)
-    out = torch.empty(P, Q, dtype=a.dtype, device=a.device)
+    partial = torch.empty(n_chunks, P, Q, dtype=acc_dtype(a.dtype), device=a.device)
+    out = torch.empty(P, Q, dtype=acc_dtype(a.dtype), device=a.device)
     err = build.entry_point("nequip_dw_reduce", a.dtype)(
         a.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(), n, P, Q, chunk, n_chunks,
         scale, torch.cuda.current_stream(a.device).cuda_stream,
@@ -1154,9 +1174,14 @@ def _conv_bwd_composition(plan, x, sh, emb, w1, w2, g, alpha0, alpha1, layout: E
 
 class FusedConvBwd(torch.autograd.Function):
     """``(dx, dsh, demb, dw1, dw2)`` of ``FusedConv`` for the node cotangent
-    ``g``: K2's training variant, then K3 for ``dx``.  Its backward (the JAX
-    ``kernel_bwd_bwd``) differentiates ``_conv_bwd_composition``, whose
-    trilinear part runs K4 and K5."""
+    ``g``: K2's training variant, then K3 for ``dx``.  ``dw1``/``dw2`` come
+    in the dtype of the ``w1``/``w2`` given: a bf16 block passes bf16 copies
+    of its float32 parameters (``InteractionBlock.conv``), so their float32
+    sums (``dw_reduce``) are rounded to bf16 once here and reach the
+    parameters through the copy's cast, as JAX's ``astype`` of the
+    parameters rounds them.  Its backward (the JAX ``kernel_bwd_bwd``)
+    differentiates ``_conv_bwd_composition``, whose trilinear part runs K4
+    and K5."""
 
     @staticmethod
     def forward(ctx, x, sh, emb, w1, w2, g, plan, alpha0, alpha1, layout):
@@ -1164,7 +1189,7 @@ class FusedConvBwd(torch.autograd.Function):
         ctx.save_for_backward(x, sh, emb, w1, w2, g)
         ctx.set_materialize_grads(False)
         dx_edge, dsh, demb, dw1, dw2 = conv_bwd_train(plan, x, sh, emb, w1, w2, alpha0, alpha1, layout, g)
-        return _dx_nodes(dx_edge, layout), dsh, demb, dw1, dw2
+        return _dx_nodes(dx_edge, layout), dsh, demb, dw1.to(w1.dtype), dw2.to(w2.dtype)
 
     @staticmethod
     def backward(ctx, *cts):

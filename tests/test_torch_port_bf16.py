@@ -7,24 +7,29 @@
   the float64 golden at JAX's own bf16 gate: energy rel 1e-3, forces 2e-2
   of max|F| (``tests/integration/test_deploy.py``).  Each route's error is
   printed beside JAX's.
-* (b) The plain twins of K1, K2 (inference) and K3 on bf16 inputs, against
-  the same function in float64 on the bf16-rounded inputs, rounded at the
-  kernels' stated points (K1: w and the output; K2: h, w and the outputs;
-  K3: the output), within one bf16 ulp of max|out|; and against the JAX
-  Pallas kernels in bf16 (interpret mode) within ``JAX_BF16_TOL`` (the JAX
-  kernels round more often: they sum chunks of messages and each path's
-  products in bf16 and round W1 alpha0 and W2 alpha1 to bf16).  K1's
-  bf16 split of destinations across tiles (four carry rows a tile) is
-  modelled in numpy, as ``test_torch_port_kernels.py`` models f32's.
+* (b) The plain twins of K1, K2 (both variants), the dW reduction and K3
+  on bf16 inputs, against the same function in float64 on the bf16-rounded
+  inputs, rounded at the kernels' stated points (K1: w and the output; K2:
+  h, w and the outputs, and in the training variant the per-edge factors
+  dW_e, h_e and dh_pre_e, whose sums dw1/dw2 are float32; K3: the output),
+  within one bf16 ulp of max|out|; and against the JAX Pallas kernels in
+  bf16 (interpret mode), the VJP with respect to the radial-MLP weights
+  included, within ``JAX_BF16_TOL`` (the JAX kernels round more often:
+  they sum chunks of messages, each path's products and dw1/dw2 in bf16
+  and round W1 alpha0 and W2 alpha1 to bf16).  K1's bf16 split of
+  destinations across tiles (four carry rows a tile) is modelled in numpy,
+  as ``test_torch_port_kernels.py`` models f32's.
 * (c) A bf16 model's parameters are float32; a JAX bf16 parameter tree
   loads; float32 -> bfloat16 -> float32 through ``modify_model_dtype``
   gives the float32 outputs back bitwise.
-* (d) What bf16 refuses: training on the ``"fused"`` route without edge
-  slices (``NotImplementedError``: K2's training variant and the dW
-  reduction have no bf16 form), the kernels with no bf16 form
-  (``build.entry_point``: ``TypeError``), and the compile self-check (no
-  bf16 tolerance, as in JAX: ``KeyError``); what runs now that K4-K7 have
-  bf16 forms (``tests/test_torch_port_bf16_tri.py`` holds them to JAX).
+* (d) What bf16 refuses: the kernels with no bf16 form (the
+  microbenchmarks and the neighbour list: ``build.entry_point`` raises
+  ``TypeError``) and the compile self-check (no bf16 tolerance, as in JAX:
+  ``KeyError``); what runs now that every conv kernel has a bf16 form
+  (``tests/test_torch_port_bf16_tri.py`` holds the training steps to JAX):
+  rr training on the ``"fused"`` route (K2's training variant and the dW
+  reduction), the ``"fused_tp"`` route, the depth-2 radial MLP and fr over
+  edge slices.
 * (e) A bf16 calculator request and a few host-loop MD steps run, with
   finite float64 forces.
 
@@ -207,6 +212,47 @@ def test_bf16_conv_bwd_twin_rounds_at_its_points():
         assert np.abs(out[:n].double().numpy() - ref).max() <= _ulp(ref)
 
 
+def test_bf16_conv_bwd_train_twin_rounds_at_its_points():
+    """K2's training twin in bf16: its dx, dsh and demb are bitwise the
+    inference twin's; its dw1/dw2 are float32 sums of the per-edge factors
+    rounded to bf16 where the kernel stores them (h_e, dW_e, dh_pre_e),
+    within one bf16 ulp of max|dw| of the same in float64 (a factor near a
+    rounding boundary may land one ulp apart) and, for the twin's own
+    factors, the float64 sum rounded once to float32."""
+    p, plan, (a0, a1), lay, ops, g = _bf16_problem()
+    got = K.conv_bwd_train_plain(plan, *ops.values(), a0, a1, lay, g)
+    for a, b in zip(got[:3], K.conv_bwd_plain(plan, *ops.values(), a0, a1, lay, g)):
+        assert a.dtype == BF16 and torch.equal(a, b)
+    v = {k: t.double().numpy() for k, t in ops.items()}
+    n = lay.n_real
+    pre, h = _ref_radial(v["emb"], v["w1"], v["w2"], a0, a1, n)
+    h = _bf16(h)
+    w = _bf16(h @ (v["w2"] * a1))
+    tab = plan.device_tables(torch.device("cpu"), torch.float64)
+    src, dst = lay.edge_src[:n].long(), K._segment_rows(lay.dst_ptr)
+    _, _, dw = K._table_tp_vjp(tab, torch.as_tensor(v["x"])[src], torch.as_tensor(v["sh"][:n]),
+                               torch.as_tensor(w), g.double()[dst])
+    s = 1 / (1 + np.exp(-pre))
+    dh_pre = (dw.numpy() @ (v["w2"] * a1).T) * (s * (1 + pre * (1 - s)))
+    refs = [a0 * v["emb"][:n].T @ _bf16(dh_pre), a1 * h.T @ _bf16(dw.numpy())]
+    for out, ref in zip(got[3:], refs):
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        assert np.abs(out.double().numpy() - ref).max() <= _ulp(ref)
+
+
+@pytest.mark.parametrize("n", [0, 1, 37, 300])
+def test_bf16_dw_reduce_twin_rounds_once(n):
+    """The dW reduction's twin on bf16 factors: the float64 sum, scaled,
+    rounded to float32 once (the kernel sums in float32); float32 zeros for
+    n = 0."""
+    r = np.random.RandomState(n)
+    a, b = (torch.as_tensor(r.standard_normal((300, q))).to(BF16) for q in (8, 40))
+    got = K.dw_reduce(a, b, 0.37, n)
+    want = (0.37 * (a.double().numpy()[:n].T @ b.double().numpy()[:n])).astype(np.float32)
+    assert got.dtype == torch.float32 and got.shape == (8, 40)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2.0**-23, atol=0)
+
+
 def test_bf16_scatter_rows_twin_rounds_once():
     r = np.random.RandomState(3)
     vals = torch.as_tensor(r.standard_normal((1000, 96))).to(BF16)
@@ -224,34 +270,43 @@ def test_bf16_scatter_rows_twin_rounds_once():
 
 
 def test_bf16_conv_twins_match_jax_pallas():
-    """K1 forward and its gradients (K2 with K3 for dx) in bf16 against the
-    JAX fused call in bf16 (its K1 and K2 Pallas kernels, interpret), on
-    the same bf16 values, within JAX_BF16_TOL of max|out|."""
+    """K1 forward and its gradients in bf16 against the JAX fused call in
+    bf16 (its K1 and K2 Pallas kernels, interpret), on the same bf16 values,
+    within JAX_BF16_TOL of max|out|: with frozen radial-MLP weights (the
+    serving op: K2's inference variant with K3 for dx), and with weights
+    that need gradients (FusedConv: K2's training variant and the dW
+    reduction), whose dw1/dw2 JAX's kernel_bwd returns in bf16."""
     p, plan, (a0, a1), lay, ops, g = _bf16_problem()
     order = np.argsort(np.where(p["mask"], p["edge_index"][0], p["n_nodes"]), kind="stable")
     inv = np.argsort(order)
-    x = ops["x"].clone().requires_grad_(True)
-    sh, emb = (ops[k].clone().requires_grad_(True) for k in ("sh", "emb"))
-    out = K.fused_tp_scatter_mlp(plan, x, sh, emb, ops["w1"], ops["w2"], a0, a1, lay)
-    dx, dsh, demb = torch.autograd.grad(out, (x, sh, emb), g)
     jb = lambda t: jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)  # noqa: E731
-    jparams = {"w0": jb(ops["w1"]), "w1": jb(ops["w2"])}
 
-    def call(x_, sh_, emb_):
+    def call(x_, sh_, emb_, w0_, w1_):
         ei = jnp.asarray(p["edge_index"], dtype=jnp.int32)
         from nequip_tpu.ops.pallas.tp_scatter import fused_tp_scatter_mlp as j_fused
 
-        return j_fused(p["jtp"], p["mlp"], x_, sh_, emb_, jparams, ei[0], ei[1], jnp.asarray(p["mask"]), p["n_nodes"])
+        return j_fused(p["jtp"], p["mlp"], x_, sh_, emb_, {"w0": w0_, "w1": w1_}, ei[0], ei[1],
+                       jnp.asarray(p["mask"]), p["n_nodes"])
 
     jx, jsh, jemb = jb(ops["x"]), jb(ops["sh"])[inv], jb(ops["emb"])[inv]  # the JAX stream is the original order
-    want, vjp = jax.vjp(call, jx, jsh, jemb)
-    jdx, jdsh, jdemb = vjp(jb(g))
-    pairs = [(out, want), (dx, jdx), (dsh, jnp.asarray(jdsh)[order]), (demb, jnp.asarray(jdemb)[order])]
-    for got, ref in pairs:
-        ref = np.asarray(ref, dtype=np.float64)
-        got = got.detach().double().numpy()
-        assert got.dtype == np.float64 and np.isfinite(got).all()
-        assert np.abs(got - ref).max() <= JAX_BF16_TOL * np.abs(ref).max()
+    want, vjp = jax.vjp(call, jx, jsh, jemb, jb(ops["w1"]), jb(ops["w2"]))
+    jdx, jdsh, jdemb, jdw1, jdw2 = vjp(jb(g))
+    assert jdw1.dtype == jdw2.dtype == jnp.bfloat16
+    for train in (False, True):
+        x, sh, emb, w1, w2 = (ops[k].clone().requires_grad_(k in ("x", "sh", "emb") or train)
+                              for k in ("x", "sh", "emb", "w1", "w2"))
+        out = K.fused_tp_scatter_mlp(plan, x, sh, emb, w1, w2, a0, a1, lay)
+        grads = torch.autograd.grad(out, (x, sh, emb, w1, w2) if train else (x, sh, emb), g)
+        pairs = [(out, want), (grads[0], jdx), (grads[1], jnp.asarray(jdsh)[order]),
+                 (grads[2], jnp.asarray(jdemb)[order])]
+        if train:
+            pairs += [(grads[3], jdw1), (grads[4], jdw2)]
+        for got, ref in pairs:
+            assert got.dtype == BF16
+            ref = np.asarray(ref, dtype=np.float64)
+            got = got.detach().double().numpy()
+            assert np.isfinite(got).all()
+            assert np.abs(got - ref).max() <= JAX_BF16_TOL * np.abs(ref).max()
 
 
 def _tile_split_sum_bf16(dst_ptr, msg, tile):
@@ -373,56 +428,77 @@ def _bf16_batch(model):
     return K.relayout_edge_stream(batch) if model.uses_fused_kernels else batch
 
 
+GRAD_TOL = 0.1  # of a tensor's max|grad|: the bf16 training gate (tests/test_torch_port_bf16_tri.py)
+
+
 @pytest.mark.parametrize("case", ["fused_tp", "depth2_fused", "training", "fr_chunked"])
 def test_bf16_refuses_what_has_no_kernel(case):
-    """``training``: rr on the ``"fused"`` route needs K2's training variant
-    and the dW reduction, which have no bf16 form: ``NotImplementedError``
-    naming them.  The other cases have kernels now (K4-K7 in bf16) and run
-    on their twins: the ``"fused_tp"`` route and the depth-2 radial MLP
-    (K4's route) serving frozen weights, and the forward of fr training
-    over 2 edge slices (K4-acc), each within a sanity bound of the same
-    model in float32 (forces 5e-2 of max|F|, energy 5e-3 eV an atom; the
-    golden tests hold bf16 to JAX's gate)."""
+    """What bf16 once refused runs now, each on its kernels' twins, within
+    a sanity bound of the same model in float32 (forces 5e-2 of max|F|,
+    energy 5e-3 eV an atom; the golden tests hold bf16 to JAX's gate): the
+    ``"fused_tp"`` route and the depth-2 radial MLP (K4's route) serving
+    frozen weights, the forward of fr training over 2 edge slices (K4-acc),
+    and ``training``, a rr step on the ``"fused"`` route (K1, K2's training
+    variant and the dW reduction, second order through K4 and K5), whose
+    float32 gradients of a force and energy loss lie within 0.1 of the
+    float32 model's max|grad| for each tensor."""
     kw = dict(SMALL, radial_mlp_depth=2) if case == "depth2_fused" else SMALL
     tp_impl = "fused_tp" if case == "fused_tp" else "fused"
     f32 = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl=tp_impl, **kw)
     model = modify(f32, [{"modifier": "enable_bf16_fast_mode"}])
     batch = _bf16_batch(model)
-    if case == "training":
-        with pytest.raises(NotImplementedError, match="K2's training variant and the dW reduction"):
-            model(batch)
-        return
     routes = {m.route for m in model.modules() if hasattr(m, "route")}
-    assert routes == ({"fused"} if case == "fr_chunked" else {"fused_tp"})
-    outs = []
+    assert routes == ({"fused"} if case in ("fr_chunked", "training") else {"fused_tp"})
+    outs, grads = [], []
     for m in (f32, model):
         if case == "fr_chunked":
             for b in m.modules():
                 if hasattr(b, "fr_edge_chunks"):
                     b.fr_edge_chunks = 2
-        else:
+        elif case != "training":
             m.requires_grad_(False)
-        outs.append({k: v.detach() for k, v in m(batch).items() if k in ("forces", "total_energy")})
+        res = m(batch)
+        if case == "training":
+            ((res["forces"] ** 2).sum() + res["total_energy"].sum()).backward()
+            grads.append({k: p.grad for k, p in m.named_parameters() if p.grad is not None})
+        outs.append({k: v.detach() for k, v in res.items() if k in ("forces", "total_energy")})
     want, got = outs
     n = int(batch["num_atoms"].sum())
     assert got["forces"].dtype == torch.float64 and bool(got["forces"].isfinite().all())
     scale = float(want["forces"][:n].abs().max())
     assert float((got["forces"][:n] - want["forces"][:n]).abs().max()) <= 5e-2 * scale
     assert abs(float(got["total_energy"].sum()) - float(want["total_energy"].sum())) <= 5e-3 * n
+    if case == "training":
+        want_g, got_g = grads
+        assert set(got_g) == set(want_g) and got_g
+        for k, gr in got_g.items():
+            assert gr.dtype == torch.float32 and bool(gr.isfinite().all()), k
+            assert float((gr - want_g[k]).abs().max()) <= GRAD_TOL * float(want_g[k].abs().max()) + 1e-30, k
 
 
-@pytest.mark.parametrize("name", ["nequip_conv_bwd_train", "nequip_dw_reduce", "nequip_mb_fwd", "nequip_mb_bwd"])
+@pytest.mark.parametrize("name", ["nequip_mb_fwd", "nequip_mb_bwd", "nequip_device_nl"])
 def test_entry_point_refuses_bf16_without_a_kernel(name):
-    """Raised before the library loads (there is no nvcc here), naming K2's
-    training variant and the dW reduction as the next bring-up."""
-    with pytest.raises(TypeError, match=f"{name}: no bfloat16 kernel.*K2's training variant and the dW reduction.*"
-                                        "ROADMAP"):
+    """Raised before the library loads (there is no nvcc here), naming the
+    kernels that have bf16 forms: the microbenchmarks run in float32 only
+    (the JAX tools build float32 operands), the neighbour list in float32
+    or float64."""
+    with pytest.raises(TypeError, match=f"{name}: no bfloat16 kernel.*nequip_conv_bwd_train.*nequip_dw_reduce.*"
+                                        "microbenchmarks run in float32 only"):
         build.entry_point(name, BF16)
     assert set(build.BF16) == {
-        "nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_scatter_rows",
-        "nequip_tri_fwd", "nequip_tri_fwd_acc", "nequip_tri_fwd_tile", "nequip_tri_bwd",
+        "nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_conv_bwd_train", "nequip_dw_reduce",
+        "nequip_scatter_rows", "nequip_tri_fwd", "nequip_tri_fwd_acc", "nequip_tri_fwd_tile", "nequip_tri_bwd",
         "nequip_jvp_fwd", "nequip_jvp_fwd_acc", "nequip_jvp_fwd_tile", "nequip_jvp_bwd",
     }
+
+
+@pytest.mark.parametrize("name", ["nequip_conv_bwd_train", "nequip_dw_reduce"])
+def test_training_entry_points_have_bf16_forms(name):
+    """K2's training variant and the dW reduction are instantiated for bf16
+    too (``build.BF16``), with the float32 forms' C signatures: the
+    launches of every dtype share their wrappers."""
+    assert name in build.BF16 and name in build._SIGNATURES
+    assert build._SIGNATURES[name][-1] is build._P and build._D in build._SIGNATURES[name]
 
 
 @pytest.mark.parametrize("name", ["nequip_tri_fwd", "nequip_tri_fwd_acc", "nequip_tri_fwd_tile", "nequip_tri_bwd",

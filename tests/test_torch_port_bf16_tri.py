@@ -20,13 +20,17 @@ the edge-sliced convolutions round to bf16 once, after the last slice.
 * (d) A depth-2 model (the options golden's ``depth2``, K4's route) in bf16
   against its float64 golden at JAX's bf16 gate (E rel 1e-3, F 2e-2 of
   max|F|), beside JAX's own bf16 errors on the frame.
-* (e) One rr step on ``"fused_tp"`` and fr steps over 2 edge slices on both
-  kernel routes (one with ``remat_conv="save_tp"``), the flagship in bf16
-  from the float32 parameters of the training golden: loss within 1e-3
-  (relative) and every gradient within 0.1 of its tensor's max|grad| of
-  the float64 golden and of JAX's bf16 step (XLA), whose own errors meet
-  the same gates (measured: loss 2.2e-4, gradients 4.2e-2); the gradients
-  are float32.
+* (e) rr steps on both kernel routes (on ``"fused"`` through K2's training
+  variant and the dW reduction, once with ``remat_conv="save_tp"``), an
+  unsliced fr step on ``"fused"`` and fr steps over 2 edge slices on both
+  routes (one with ``remat_conv="save_tp"``), the flagship in bf16 from the
+  float32 parameters of the training golden: loss within 1e-3 (relative)
+  and every gradient within 0.1 of its tensor's max|grad| of the float64
+  golden and of JAX's bf16 step (XLA), whose own errors meet the same
+  gates (measured: loss 2.2e-4, gradients 4.2e-2); the gradients are
+  float32.  One EMA-ConFIG step on ``"fused"`` in bf16 (its k rr passes
+  through the same kernels) gives a finite float32 direction within 0.1 of
+  max|grad| of the same step in float32.
 * (f) The registered op of the ``"fused_tp"`` route (a traced program's K4
   and K5) takes float32 term tables for bf16 inputs and agrees with the
   eager route.
@@ -368,22 +372,38 @@ def _loss_grad_gaps(loss, grads, want_loss, want_grads):
                       / np.abs(want_grads[k]).max()) for k in grads))
 
 
-@pytest.mark.parametrize("tp_impl,mode,n_chunks,remat", [("fused_tp", "rr", 0, False), ("fused", "fr", 2, False),
-                                                         ("fused", "fr", 2, True), ("fused_tp", "fr", 2, False)])
-def test_bf16_training_step_matches_golden_and_jax(train_golden, tp_impl, mode, n_chunks, remat):
-    """A bf16 training step through the kernels' twins from the float32
-    parameters: rr on fused_tp (K4, K5, K3 to second order), fr over 2 edge
-    slices (K4-acc, K5, K6, K7, K3) on both kernel routes, once with
-    remat_conv="save_tp" as JAX's bf16 fr benchmark row runs it."""
-    z, params, j_loss, j_grads = train_golden
-    golden = {k[len("grads/"):]: z[k] for k in z.files if k.startswith("grads/")}
+def _golden_model(params, tp_impl, remat=False, dtype="bfloat16"):
+    """The flagship with the golden's parameters, in ``dtype`` (bf16 through
+    enable_bf16_fast_mode, from the float32 parameters)."""
     model = NequIPGNNModel(seed=0, model_dtype="float64", tp_impl=tp_impl,
                            **dict(FLAGSHIP, **({"remat_conv": "save_tp"} if remat else {})))
     load_jax_params(model, params)
-    model = modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+    if dtype == "bfloat16":
+        return modify(model, [{"modifier": "enable_bf16_fast_mode"}])
+    return modify(model, [{"modifier": "modify_model_dtype", "model_dtype": dtype}])
+
+
+def _golden_batch(z):
     frame = {k: z[k] for k in ("pos", "cell", "pbc", "atomic_numbers", "total_energy", "forces")}
     data = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame)), 4.0)
-    batch = to_tensors(pad_batch(batched_from_list([data]), 128, round_up(data["edge_index"].shape[1], 256), 2))
+    return to_tensors(pad_batch(batched_from_list([data]), 128, round_up(data["edge_index"].shape[1], 256), 2))
+
+
+@pytest.mark.parametrize("tp_impl,mode,n_chunks,remat", [("fused_tp", "rr", 0, False), ("fused", "fr", 2, False),
+                                                         ("fused", "fr", 2, True), ("fused_tp", "fr", 2, False),
+                                                         ("fused", "rr", 0, False), ("fused", "fr", 0, False),
+                                                         ("fused", "rr", 0, True)])
+def test_bf16_training_step_matches_golden_and_jax(train_golden, tp_impl, mode, n_chunks, remat):
+    """A bf16 training step through the kernels' twins from the float32
+    parameters: rr on fused_tp (K4, K5, K3 to second order), rr and unsliced
+    fr on fused (K1, K2's training variant, the dW reduction and K3, second
+    order through K4 and K5), fr over 2 edge slices (K4-acc, K5, K6, K7, K3)
+    on both kernel routes, once each on fused with remat_conv="save_tp", as
+    JAX's bf16 fr benchmark row runs it."""
+    z, params, j_loss, j_grads = train_golden
+    golden = {k[len("grads/"):]: z[k] for k in z.files if k.startswith("grads/")}
+    model = _golden_model(params, tp_impl, remat)
+    batch = _golden_batch(z)
     module = NequIPTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), force_grad_mode=mode,
                                fr_edge_chunks=n_chunks, device="cpu")
     if mode == "rr":
@@ -401,6 +421,34 @@ def test_bf16_training_step_matches_golden_and_jax(train_golden, tp_impl, mode, 
           + "; ".join(f"{k}: loss rel {a:.2e}, grads {b:.2e} of max|grad|" for k, (a, b) in gaps.items()))
     for loss_gap, grad_gap in gaps.values():
         assert loss_gap <= LOSS_TOL and grad_gap <= GRAD_TOL
+
+
+def test_bf16_ema_config_step_on_fused(train_golden):
+    """One EMA-ConFIG step (its two component gradients are rr passes over
+    one graph: K2's training variant and the dW reduction, then K4 and K5)
+    of the bf16 flagship on ``"fused"`` against the same step in float32:
+    the direction it sets as the gradients is finite float32 and within 0.1
+    of max|grad| of float32's for each tensor; the averaged weights stay
+    finite."""
+    from nequip_tpu_torch.train import EMAConFIGTrainModule
+
+    z, params, _, _ = train_golden
+    batch = _golden_batch(z)
+    steps = []
+    for dtype in ("float32", "bfloat16"):
+        model = _golden_model(params, "fused", dtype=dtype)
+        module = EMAConFIGTrainModule(model, loss=EnergyForceLoss(type_names=["Cu"]), device="cpu",
+                                      optimizer={"_target_": "optax.adam", "learning_rate": 1e-3})
+        module.training_step(batch)
+        steps.append(({k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}, module))
+    (want, _), (got, module) = steps
+    assert set(got) == set(want) and got
+    gaps = {k: float((g - want[k]).abs().max()) / float(want[k].abs().max()) for k, g in got.items()}
+    print(f"bf16 EMA-ConFIG step on fused against float32: max gap {max(gaps.values()):.2e} of max|grad|")
+    for k, g in got.items():
+        assert g.dtype == torch.float32 and bool(g.isfinite().all()), k
+        assert gaps[k] <= GRAD_TOL, k
+    assert module.ema_step == 1 and all(bool(t.isfinite().all()) for t in module.ema_model.parameters())
 
 
 # --- (f) the registered op's tables ----------------------------------------------------------

@@ -474,20 +474,22 @@ DW_NS = [0, 1, K._DW_MIN_CHUNK - 1, K._DW_MIN_CHUNK + 1, DW_ROWS]
 
 
 def _dw_check(a, b, n, dtype):
-    """dw_reduce against its plain twin, bitwise equal on a repeat call, one
-    launch each."""
+    """dw_reduce against its plain twin at the result dtype's tolerance
+    (bf16 operands: a float32 result at the f32 gate), bitwise equal on a
+    repeat call, one launch each."""
     before = K.KERNELS["dw_reduce"].launches
     got = K.dw_reduce(a, b, 0.5, n)
     torch.cuda.synchronize()
     assert K.KERNELS["dw_reduce"].launches == before + 1
     want = K.dw_reduce_plain(a, b, 0.5, n)
-    rtol, atol = _tol(dtype, want)
+    assert got.dtype == want.dtype == K.acc_dtype(dtype)
+    rtol, atol = _tol(want.dtype, want)
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     assert torch.equal(got, K.dw_reduce(a, b, 0.5, n))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("n", DW_NS)
 @pytest.mark.parametrize("shape", DW_SHAPES)
 def test_cuda_dw_reduce_matches_plain(cuda, shape, n, dtype):
@@ -497,10 +499,10 @@ def test_cuda_dw_reduce_matches_plain(cuda, shape, n, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 def test_cuda_dw_reduce_unaligned_base(cuda, dtype):
     """Operands one element past a 16-byte boundary take the element-wise
-    staging path of the same kernel."""
+    staging path of the same kernel (bf16: two-byte copies)."""
     r = np.random.RandomState(4)
     flat = lambda m: torch.as_tensor(r.standard_normal(m * 128 + 1), dtype=dtype, device=cuda)[1:]
     a, b = flat(DW_ROWS).view(DW_ROWS, 128), flat(DW_ROWS).view(DW_ROWS, 128)
@@ -857,6 +859,39 @@ def test_cuda_bf16_conv_dense_tiles(cuda, bf16_sums, case, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DENSE_TILE_CASES))
+def test_cuda_bf16_conv_bwd_train_dense_tiles(cuda, bf16_sums, case):
+    """K2's training variant in bf16 on every dense-tile pattern: its dx,
+    dsh and demb bitwise equal to the inference variant's (the per-edge
+    factors stay float32 in the tile) and zero at masked slots; its float32
+    dw1/dw2 (the dW reduction over the bf16 factors) within two bf16 ulps
+    of max|out| of the twin's; every output bitwise equal on a repeat call,
+    one launch of K2 and two of the dW reduction."""
+    kind, degrees = DENSE_TILE_CASES[case]
+    plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, cuda, torch.float32)
+    r = np.random.RandomState(12)
+    lay, n_slots = _tile_stream(degrees, cuda, r)
+    n_nodes, n_real = len(degrees), lay.n_real
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=torch.bfloat16, device=cuda)
+    args = (plan, t(n_nodes, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+            t(hidden, plan.weight_numel), a0, a1, lay, t(n_nodes, plan.mid_dim))
+    before = {k: K.KERNELS[k].launches for k in ("conv_bwd_train", "dw_reduce")}
+    got = K.conv_bwd_train(*args)
+    torch.cuda.synchronize()
+    assert K.KERNELS["conv_bwd_train"].launches == before["conv_bwd_train"] + 1
+    assert K.KERNELS["dw_reduce"].launches == before["dw_reduce"] + 2
+    want = K.conv_bwd_train_plain(*args)
+    _bf16_check(got[:3], want[:3])
+    for a, b in zip(got[3:], want[3:]):
+        assert a.dtype == b.dtype == torch.float32 and bool(a.isfinite().all())
+        assert float((a - b).abs().max()) <= BF16_TOL * float(b.abs().max())
+    for a, b in zip(got[:3], K.conv_bwd(*args)):
+        assert torch.equal(a, b)
+        assert not a[n_real:].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, K.conv_bwd_train(*args)))
+
+
+@pytest.mark.cuda
 def test_cuda_bf16_scatter_rows_matches_plain(cuda):
     """K3 in bf16: float32 sums in edge order, rounded once; bitwise equal
     on a repeat call, and within one bf16 ulp of max|out| of the twin."""
@@ -1038,11 +1073,12 @@ def test_cuda_bf16_fused_tp_op_takes_float32_tables(cuda, bf16_sums):
 def test_cuda_bf16_model_trains_on_fused_tp_and_in_sliced_fr(cuda, bf16_sums):
     """A bf16 depth-2 model on the fused_tp route serves through K4, K5 and
     K3 only, its forces within 5e-2 of max|F| of the float32 model's; a
-    bf16 rr step on fused_tp and an fr step over 3 edge slices on both
-    kernel routes launch K4, K5 and K3 (rr) or K4-acc, K5, K6, K7 and K3
-    (fr) and give float32 gradients within 0.1 of max|grad| of the float32
-    model's (the CPU tests hold the bf16 steps to the float64 golden at
-    that gate, which JAX's own bf16 step meets)."""
+    bf16 rr step on each kernel route and an fr step over 3 edge slices on
+    both launch K4, K5 and K3 (rr on fused_tp), K1, K2's training variant,
+    the dW reduction, K3, K4 and K5 (rr on fused) or K4-acc, K5, K6, K7 and
+    K3 (fr) and give float32 gradients within 0.1 of max|grad| of the
+    float32 model's (the CPU tests hold the bf16 steps to the float64
+    golden at that gate, which JAX's own bf16 step meets)."""
     from nequip_tpu_torch.integrations import NequIPCalculator
     from nequip_tpu_torch.model import NequIPGNNModel
     from nequip_tpu_torch.model.modify_utils import modify
@@ -1083,12 +1119,15 @@ def test_cuda_bf16_model_trains_on_fused_tp_and_in_sliced_fr(cuda, bf16_sums):
         m.training_step(batch)
         return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
 
-    for tp_impl, mode, chunks in (("fused_tp", "rr", 0), ("fused", "fr", 3), ("fused_tp", "fr", 3)):
+    for tp_impl, mode, chunks in (("fused_tp", "rr", 0), ("fused", "rr", 0), ("fused", "fr", 3),
+                                  ("fused_tp", "fr", 3)):
         want = grads(tp_impl, mode, chunks, False)
         K.reset_launch_counts()
         got = grads(tp_impl, mode, chunks, True)
         launched = {k for k, fn in K.KERNELS.items() if fn.launches}
-        if mode == "rr":
+        if mode == "rr" and tp_impl == "fused":
+            assert launched == {"conv_fwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd"}
+        elif mode == "rr":
             assert launched == {"tri_fwd", "tri_bwd", "scatter_rows"}
         else:
             assert launched == {"tri_fwd_acc", "tri_bwd", "jvp_fwd", "jvp_bwd", "scatter_rows"}
