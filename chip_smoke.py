@@ -207,7 +207,10 @@ Phases (each prints a line; any failure exits non-zero):
      dsh and demb bitwise K2's inference variant's) at the same gate and
      the dW reduction alone at both shapes at phase 2's f32 gate, each
      bitwise equal on a repeat call, timed beside the f32 kernel on the
-     same values, the dW reduction beside torch.mm on its bf16 operands;
+     same values, the dW reduction beside torch.mm on its bf16 operands
+     (single calls and ten back to back; faster than the f32 kernel over
+     the layers and both shapes, or the phase fails), and at preset M's
+     layer-1 dW2 shape (hidden x 768) too;
      16f the flagship with a depth-2 radial MLP in bf16 (K4's
      route): three 23k-atom requests beside the f32 model's (model ms and
      peak; launches K4, K5, K3 only), the options golden's depth-2 model
@@ -621,9 +624,8 @@ def phase2_kernels(n_atoms: int, reps: int):
                     unfused = cuda_median_ms(
                         lambda: K.tri_fwd(plan, x, sh, K.radial_weights(emb, w1, w2, a0, a1), layout), reps)
                     burst = f"; unfused radial_weights + K4 {unfused:.3f} ms"
-                if name == "dw_reduce":  # ten calls back to back: the host's cost per call hides
-                    ms10, lib10 = (cuda_median_ms(lambda f=f: [f() for _ in range(10)], reps) / 10
-                                   for f in (kern, library[label]))
+                if name == "dw_reduce":
+                    ms10, lib10 = _ten_back_to_back((kern, library[label]), reps)
                     burst = f"; 10 back to back, per call: kernel {ms10:.3f} ms, library {lib10:.3f} ms"
                 print(
                     f"phase 2 {label} layer {li} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e}, "
@@ -3122,14 +3124,17 @@ def _bf16_training(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, 
     bitwise equal on a repeat call; the kernel's and the f32 kernel's
     CUDA-event medians on the same values in one call, the twin's
     (BF16_PLAIN_REPS), torch.mm on the same bf16 operands beside the dW
-    reduction, and the bound at 2 B a bf16 value and 4 B a float32 one;
-    added to ``report``."""
+    reduction (also ten calls back to back, as phase 2 times it), and the
+    bound at 2 B a bf16 value and 4 B a float32 one; added to ``report``.
+    Then the dW2 reduction at preset M's layer-1 shape (_bf16_dw_preset_m)."""
     import torch
 
     from nequip_tpu_torch.ops.kernels import tp_scatter as K
 
     dev = torch.device("cuda")
-    dw_sums = {}  # per shape, over the layers: bf16 kernel, f32 kernel, plain, bound, torch.mm bf16
+    # per shape, over the layers: bf16 kernel, f32 kernel, plain, bound, torch.mm bf16, and ten back to back:
+    # bf16 kernel, f32 kernel, torch.mm bf16
+    dw_sums = {}
     for li, blk in enumerate(blocks):
         plan = blk.tp_scatter.plan
         a0, a1 = blk.edge_mlp.alphas
@@ -3177,10 +3182,13 @@ def _bf16_training(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, 
             ms, f32_ms = interleaved_median_ms([kern, kern32], reps, rounds=1)
             plain_ms = cuda_median_ms(plain, BF16_PLAIN_REPS, warmup=1)
             lib_ms = None if library is None else cuda_median_ms(library, reps)
+            burst = ""
             if name == "dw_reduce":
                 P, Q = (n_emb, hidden) if label.endswith("dW1") else (hidden, plan.weight_numel)
-                ops, _ = dw_work(n_real, P, Q, 2)
-                nbytes = 2 * n_real * (P + Q) + 4 * P * Q  # a float32 result
+                ops, nbytes = _dw_bf16_work(n_real, P, Q)
+                ten = _ten_back_to_back((kern, kern32, library), reps)
+                burst = (f"; 10 back to back, per call: kernel {ten[0]:.3f} ms, f32 kernel {ten[1]:.3f} ms, "
+                         f"torch.mm bf16 {ten[2]:.3f} ms")
             else:
                 ops, nbytes = work(name, plan, n_real, n_dst, n_src, N, hidden, n_emb, 2)
             t_ops, t_bytes = ops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
@@ -3188,7 +3196,7 @@ def _bf16_training(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, 
             print(f"phase 16a {label} bf16 layer {li}: max abs err {abs_err:.3e}, kernel {ms:.3f} ms, f32 kernel "
                   f"{f32_ms:.3f} ms (same call), plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
                   f"({'operations' if t_ops > t_bytes else 'bytes'})"
-                  + ("" if lib_ms is None else f", torch.mm bf16 {lib_ms:.3f} ms"), flush=True)
+                  + ("" if lib_ms is None else f", torch.mm bf16 {lib_ms:.3f} ms") + burst, flush=True)
             r = report[name]
             r["max_abs_err"] = max(r["max_abs_err"], abs_err)
             r["ms"] += ms
@@ -3199,12 +3207,72 @@ def _bf16_training(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, 
             r["bytes"] += nbytes
             if lib_ms is not None:
                 r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
-                dw_sums.setdefault(label, np.zeros(5))[:] += (ms, f32_ms, plain_ms, bound, lib_ms)
+                dw_sums.setdefault(label, np.zeros(8))[:] += (ms, f32_ms, plain_ms, bound, lib_ms, *ten)
         del x, sh, emb, w1, w2, g, h_e, dw_e, dh_pre, args16, args32, emb32, h32, dw32, dh32, calls
         torch.cuda.empty_cache()
-    for label, (ms, f32_ms, plain_ms, bound, lib_ms) in dw_sums.items():
+    dw_sums["both shapes"] = sum(dw_sums.values())
+    for label, (ms, f32_ms, plain_ms, bound, lib_ms, ms10, f32_10, lib10) in dw_sums.items():
         print(f"phase 16a {label} bf16, sum of 3 layers: kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.3f} ms, torch.mm bf16 {lib_ms:.3f} ms", flush=True)
+              f"{plain_ms:.3f} ms, bound {bound:.3f} ms, torch.mm bf16 {lib_ms:.3f} ms; 10 back to back, per call: "
+              f"kernel {ms10:.3f} ms, f32 kernel {f32_10:.3f} ms, torch.mm bf16 {lib10:.3f} ms", flush=True)
+    if not dw_sums["both shapes"][0] < dw_sums["both shapes"][1]:
+        raise RuntimeError("phase 16a: the bf16 dW reduction is not faster than the f32 kernel on the same values")
+    _bf16_dw_preset_m(layout, n_real, rng, reps)
+
+
+def _dw_bf16_work(n: int, P: int, Q: int):
+    """(operations, bytes) of one bf16 dw_reduce call: bf16 a [n, P] and
+    b [n, Q] read once, the float32 out [P, Q] written once."""
+    return dw_work(n, P, Q, 2)[0], 2 * n * (P + Q) + 4 * P * Q
+
+
+def _ten_back_to_back(fns, reps: int) -> list:
+    """Each function's CUDA-event median of ten calls back to back, per
+    call: the host's cost per call hides behind the card's work."""
+    return [cuda_median_ms(lambda f=f: [f() for _ in range(10)], reps) / 10 for f in fns]
+
+
+def _bf16_dw_preset_m(layout, n_real: int, rng, reps: int) -> None:
+    """16a's dW2 reduction at preset M's layer-1 shape (hidden x 768 WN,
+    the widest the port's presets train) on the 23k-atom stream's edges:
+    within phase 2's f32 gate of the twin, bitwise on a repeat, one launch;
+    the kernel beside the f32 kernel and torch.mm in bf16 (single calls and
+    ten back to back) and the bound."""
+    import torch
+
+    from nequip_tpu_torch.model import PresetNequIPGNNModel
+    from nequip_tpu_torch.nn.interaction_block import InteractionBlock
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    model = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **PRESET_M)
+    blk = [m for m in model.modules() if isinstance(m, InteractionBlock)][1]
+    P, Q, a1 = blk.edge_mlp.w0.shape[1], blk.tp_scatter.plan.weight_numel, blk.edge_mlp.alphas[1]
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+    h_e, dw_e = (torch.randn(n_real, q, generator=gen, device="cuda").bfloat16() for q in (P, Q))
+    h32, dw32 = h_e.float(), dw_e.float()
+    kern, kern32, library = ((lambda: K.dw_reduce(h_e, dw_e, a1, n_real)),
+                             (lambda: K.dw_reduce(h32, dw32, a1, n_real)), (lambda: torch.mm(h_e.t(), dw_e)))
+    before = K.KERNELS["dw_reduce"].launches
+    got = kern()
+    torch.cuda.synchronize()
+    if K.KERNELS["dw_reduce"].launches != before + 1:
+        raise RuntimeError("phase 16a: dw_reduce preset M bf16 launch counter did not move")
+    abs_err = _check("dw_reduce preset M dW2", (got,), (K.dw_reduce_plain(h_e, dw_e, a1, n_real),), 1e-4, 1e-5,
+                     "layer 1 bf16", phase="phase 16a")
+    if not torch.equal(got, kern()):
+        raise RuntimeError("phase 16a: dw_reduce preset M dW2 bf16 differs on a repeat call")
+    ms, f32_ms = interleaved_median_ms([kern, kern32], reps, rounds=1)
+    lib_ms = cuda_median_ms(library, reps)
+    ten = _ten_back_to_back((kern, kern32, library), reps)
+    ops, nbytes = _dw_bf16_work(n_real, P, Q)
+    t_ops, t_bytes = ops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    print(f"phase 16a dw_reduce dW2 bf16, preset M layer 1 ({P} x {Q}, {n_real} edges): max abs err {abs_err:.3e}, "
+          f"kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms (same call), bound {max(t_ops, t_bytes):.3f} ms "
+          f"({'operations' if t_ops > t_bytes else 'bytes'}), torch.mm bf16 "
+          f"{lib_ms:.3f} ms; 10 back to back, per call: kernel {ten[0]:.3f} ms, f32 kernel {ten[1]:.3f} ms, "
+          f"torch.mm bf16 {ten[2]:.3f} ms", flush=True)
+    del model, h_e, dw_e, h32, dw32, got
+    torch.cuda.empty_cache()
 
 
 def _bf16_trilinear(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, blocks, rng, reps: int,

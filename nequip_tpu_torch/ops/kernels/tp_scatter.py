@@ -93,9 +93,17 @@ from . import build
 
 LAYOUT_KEY = _keys.EDGE_LAYOUT_KEY_PREFIX + "csr"
 _MAX_YDIM = 9  # kMaxYDim in csrc/tp_common.cuh
-# dw_reduce's f32 block tiles (csrc/dw_reduce.cu): (rows, columns, resident
-# blocks per SM), the narrow one for P <= 8 (dW1), the wide one otherwise (dW2)
+# dw_reduce's f32 block tiles (csrc/dw_reduce.cu), which f64 shares: (rows,
+# columns, resident blocks per SM), the narrow one for P <= 8 (dW1), the wide
+# one otherwise (dW2)
 _DW_NARROW, _DW_WIDE = (8, 128, 3), (128, 96, 2)
+# bf16's tensor-core tiles, the same way: the narrow one, and the wide one's
+# rows, widest column tile and column step (_dw_tile); chunks are whole
+# slabs of 64 edges, and at most _DW_BF16_MAX_CHUNK edges long: the tensor
+# cores' float32 sums round at each k16 step, so an accumulator's error
+# grows with the edges it sums (_dw_split)
+_DW_BF16_NARROW, _DW_BF16_WIDE = (8, 128, 1), (128, 352, 32)
+_DW_BF16_SLAB, _DW_BF16_MAX_CHUNK = 64, 4096
 _DW_SMS = 132  # SMs of an H100 SXM: the split fills one wave of them
 _DW_MIN_CHUNK = 64  # fewest edges in a chunk of dw_reduce
 
@@ -874,16 +882,45 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _dw_split(n: int, P: int, Q: int) -> Tuple[int, int]:
+def _dw_tile(P: int, Q: int, dtype=torch.float32) -> Tuple[int, int, int]:
+    """``dw_reduce``'s block tile for ``a [n, P]``, ``b [n, Q]`` of
+    ``dtype``: (rows of P, columns of Q, resident blocks per SM).  bf16's
+    wide tile takes the fewest column tiles of at most 352 columns, each
+    the narrowest multiple of 32 that covers Q (``launch_pass1`` in
+    ``csrc/dw_reduce.cu``)."""
+    if dtype != torch.bfloat16:
+        return _DW_NARROW if P <= _DW_NARROW[0] else _DW_WIDE
+    if P <= _DW_BF16_NARROW[0]:
+        return _DW_BF16_NARROW
+    rows, widest, step = _DW_BF16_WIDE
+    return rows, step * _cdiv(_cdiv(Q, _cdiv(Q, widest)), step), 1
+
+
+def _dw_chunks(n: int, tiles: int, per_sm: int, depth: int, cap: Optional[int] = None) -> Tuple[int, int]:
+    """``(S, chunk)`` for ``tiles`` block tiles a chunk at ``per_sm`` blocks
+    an SM: ``S`` times ``tiles`` fills one wave of the card's SMs, or whole
+    waves where a chunk would be longer than ``cap`` edges; chunks are a
+    multiple of ``depth`` edges, at least ``_DW_MIN_CHUNK``."""
+    per_wave = _cdiv(_DW_SMS * per_sm, tiles)
+    S = per_wave if cap is None else per_wave * _cdiv(max(1, _cdiv(n, cap)), per_wave)
+    chunk = max(_DW_MIN_CHUNK, depth * _cdiv(_cdiv(n, S), depth))
+    return max(1, _cdiv(n, chunk)), chunk
+
+
+def _dw_split(n: int, P: int, Q: int, dtype=torch.float32) -> Tuple[int, int]:
     """``(S, chunk)``: ``dw_reduce`` sums the edges ``[c * chunk, min(n, (c +
     1) * chunk))`` of each chunk ``c < S`` into a partial, then the partials
-    in chunk order, so the summation order depends on ``(n, P, Q)`` alone.
-    ``S`` times the output's block tiles fills one wave of the card's SMs,
-    with chunks of at least ``_DW_MIN_CHUNK`` edges, a multiple of 32."""
-    rows, cols, per_sm = _DW_NARROW if P <= _DW_NARROW[0] else _DW_WIDE
+    in chunk order, so the summation order depends on ``(n, P, Q)`` and the
+    dtype alone.  ``S`` times the output's block tiles (``_dw_tile``) fills
+    one wave of the card's SMs, with chunks of at least ``_DW_MIN_CHUNK``
+    edges, a multiple of 32; bf16's chunks are whole slabs
+    (``_DW_BF16_SLAB``) of at most ``_DW_BF16_MAX_CHUNK`` edges, in whole
+    waves."""
+    rows, cols, per_sm = _dw_tile(P, Q, dtype)
     tiles = _cdiv(P, rows) * _cdiv(Q, cols)
-    chunk = max(_DW_MIN_CHUNK, 32 * _cdiv(_cdiv(n, _cdiv(_DW_SMS * per_sm, tiles)), 32))
-    return max(1, _cdiv(n, chunk)), chunk
+    if dtype == torch.bfloat16:
+        return _dw_chunks(n, tiles, per_sm, _DW_BF16_SLAB, _DW_BF16_MAX_CHUNK)
+    return _dw_chunks(n, tiles, per_sm, 32)
 
 
 def dw_reduce(a, b, scale: float, n: int):
@@ -896,7 +933,7 @@ def dw_reduce(a, b, scale: float, n: int):
     if a.dim() != 2 or b.dim() != 2 or not (0 <= n <= a.shape[0] and n <= b.shape[0]):
         raise ValueError("dw_reduce: a [M, P] and b [M, Q] need at least n rows")
     P, Q = a.shape[1], b.shape[1]
-    n_chunks, chunk = _dw_split(n, P, Q)
+    n_chunks, chunk = _dw_split(n, P, Q, a.dtype)
     partial = torch.empty(n_chunks, P, Q, dtype=acc_dtype(a.dtype), device=a.device)
     out = torch.empty(P, Q, dtype=acc_dtype(a.dtype), device=a.device)
     err = build.entry_point("nequip_dw_reduce", a.dtype)(

@@ -466,9 +466,10 @@ def test_cuda_tri_bwd_jvp_bwd_on_slices(cuda, case, name, dtype):
         _check_once_and_repeat(name, *_tri_call(name, plan, sl.layout, *ops), dtype)
 
 
-# dw_reduce's shapes (P, Q): the flagship's dW1 and dW2, two ragged ones
-# (masked rows and columns, two row tiles) and one staged element by element
-DW_SHAPES = [(8, 128), (128, 96), (128, 352), (24, 40), (136, 20), (5, 7)]
+# dw_reduce's shapes (P, Q): the flagship's dW1 and dW2, preset M's widest
+# dW2, two ragged ones (masked rows and columns, two row tiles) and one
+# staged element by element
+DW_SHAPES = [(8, 128), (128, 96), (128, 352), (128, 768), (24, 40), (136, 20), (5, 7)]
 DW_ROWS = 300
 DW_NS = [0, 1, K._DW_MIN_CHUNK - 1, K._DW_MIN_CHUNK + 1, DW_ROWS]
 
@@ -496,6 +497,35 @@ def test_cuda_dw_reduce_matches_plain(cuda, shape, n, dtype):
     r = np.random.RandomState(3)
     t = lambda *s: torch.as_tensor(r.standard_normal(s), dtype=dtype, device=cuda)
     _dw_check(t(DW_ROWS, shape[0]), t(DW_ROWS, shape[1]), n, dtype)
+
+
+# bf16 at a row count whose chunks each take several turns of the ring
+# (8 slabs of 32 or 64 edges): at least 1,536 edges a chunk at every shape
+DW_MANY_ROWS = 200_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (128, 96), (128, 352), (128, 768)])
+def test_cuda_dw_reduce_bf16_many_chunks(cuda, shape):
+    """bf16 over many chunks and many slabs a chunk: the tensor-core sums
+    within the f32 gate of the twin's float64 sum, bitwise on a repeat."""
+    assert K._dw_split(DW_MANY_ROWS, *shape, torch.bfloat16)[1] >= 3 * 8 * 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    t = lambda q: torch.randn(DW_MANY_ROWS, q, generator=g, device=cuda).bfloat16()
+    _dw_check(t(shape[0]), t(shape[1]), DW_MANY_ROWS, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (128, 352)])
+def test_cuda_dw_reduce_bf16_mixed_magnitudes(cuda, shape):
+    """Rows of a and b scaled by 2^8 or 2^-8 at random, so that one k16
+    group of the tensor cores adds products 2^32 apart: its float32 sums
+    stay within the f32 gate of the twin."""
+    r = np.random.RandomState(6)
+    n = 20_000
+    t = lambda q: torch.as_tensor(r.standard_normal((n, q)) * 2.0 ** (8 * r.choice([-1, 1], (n, 1))),
+                                  dtype=torch.bfloat16, device=cuda)
+    _dw_check(t(shape[0]), t(shape[1]), n, torch.bfloat16)
 
 
 @pytest.mark.cuda

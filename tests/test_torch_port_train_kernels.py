@@ -12,7 +12,8 @@ package's Pallas kernels in interpret mode, on the small problem of
   on the card (``DEGREE_CASES``);
 * K2's ``dw1``/``dw2`` against ``jax.vjp`` of ``fused_tp_scatter_mlp``: 1e-9;
 * ``dw_reduce`` (plain on the CPU) against numpy: 1e-13; its split of the
-  edges into chunks (``_dw_split``) tiles them once, in order;
+  edges into chunks (``_dw_split``) tiles them once, in order, per dtype,
+  with f32's chunks at the flagship's shapes pinned and bf16's whole slabs;
 * the second order, the VJP of ``FusedConvBwd`` and of ``TriConvBwd`` with
   random cotangents, against ``jax.vjp`` of the JAX VJP: 1e-9.
 
@@ -236,13 +237,23 @@ def test_dw_reduce_plain_is_the_outer_product_sum(shape, n):
     _close(got, 0.5 * a[:n].T @ b[:n], 1e-13)
 
 
-@pytest.mark.parametrize("shape", DW_SHAPES)
-def test_dw_split_covers_the_edges_once_in_order(shape):
+DW_DTYPES = [torch.float32, torch.float64, torch.bfloat16]
+DW_SPLIT_NS = DW_NS + [K._DW_MIN_CHUNK, 4096, 20_000, 419_904, 10**7]
+FLAGSHIP_EDGES = 419_904  # the 23k-atom frame's real edges
+# the flagship's three dW shapes (P, Q) and their f32 split at its edge
+# count: the f32 (and f64) summation order, which the bf16 tiles leave alone
+FLAGSHIP_F32_SPLITS = {(8, 128): (386, 1088), (128, 96): (263, 1600), (128, 352): (66, 6368)}
+
+
+@pytest.mark.parametrize("dtype", DW_DTYPES)
+@pytest.mark.parametrize("shape", DW_SHAPES + [(128, 768)])
+def test_dw_split_covers_the_edges_once_in_order(shape, dtype):
     """The chunks of ``_dw_split`` tile ``[0, n)`` in order, none empty; one
-    chunk for ``n = 0``; the flagship's edge count fills a wave of SMs."""
-    for n in DW_NS + [K._DW_MIN_CHUNK, 4096, 419_904, 10**7]:
-        S, chunk = K._dw_split(n, *shape)
-        assert (S, chunk) == K._dw_split(n, *shape)
+    chunk for ``n = 0``; the flagship's edge count fills a wave of SMs with
+    the dtype's own block tiles (bf16: whole waves, its chunks capped)."""
+    for n in DW_SPLIT_NS:
+        S, chunk = K._dw_split(n, *shape, dtype)
+        assert (S, chunk) == K._dw_split(n, *shape, dtype)
         assert chunk % 32 == 0 and chunk >= K._DW_MIN_CHUNK
         if n == 0:
             assert S == 1
@@ -251,10 +262,45 @@ def test_dw_split_covers_the_edges_once_in_order(shape):
         assert bounds[0][0] == 0 and bounds[-1][1] == n
         assert all(lo < hi for lo, hi in bounds)
         assert all(hi == lo for (_, hi), (lo, _) in zip(bounds, bounds[1:]))
-    rows, cols, per_sm = K._DW_NARROW if shape[0] <= K._DW_NARROW[0] else K._DW_WIDE
+    rows, cols, per_sm = K._dw_tile(*shape, dtype)
     tiles = -(-shape[0] // rows) * -(-shape[1] // cols)
-    S, chunk = K._dw_split(419_904, *shape)
-    assert 0.95 * K._DW_SMS * per_sm <= S * tiles <= K._DW_SMS * per_sm
+    S, chunk = K._dw_split(FLAGSHIP_EDGES, *shape, dtype)
+    wave = K._DW_SMS * per_sm
+    waves = -(-S * tiles // wave)
+    assert waves == 1 or (dtype == torch.bfloat16 and chunk <= K._DW_BF16_MAX_CHUNK < 2 * chunk)
+    assert 0.95 * waves * wave <= S * tiles <= waves * wave
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", list(FLAGSHIP_F32_SPLITS))
+def test_dw_split_keeps_the_f32_order_at_the_flagships_shapes(shape, dtype):
+    """f32 and f64 keep their tiles and chunks: ``(S, chunk)`` at the
+    flagship's dW shapes and edge count are the values of the split before
+    bf16 had tiles of its own, and the default dtype is f32's."""
+    assert K._dw_tile(*shape, dtype) == (K._DW_NARROW if shape[0] <= 8 else K._DW_WIDE)
+    assert K._dw_split(FLAGSHIP_EDGES, *shape, dtype) == FLAGSHIP_F32_SPLITS[shape]
+    assert K._dw_split(FLAGSHIP_EDGES, *shape) == FLAGSHIP_F32_SPLITS[shape]
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES + [(128, 768), (128, 224), (128, 1000)])
+def test_dw_split_bf16_chunks_are_whole_slabs(shape):
+    """bf16's chunks are whole slabs of its deepest ring (64 edges) and at
+    most _DW_BF16_MAX_CHUNK edges (the tensor cores' accumulation error
+    grows with a chunk's length), and its wide tile takes the fewest column
+    tiles of at most 352 columns, each the narrowest multiple of 32 that
+    covers Q (96 -> 96, 352 -> 352, 768 -> 3 x 256)."""
+    for n in DW_SPLIT_NS:
+        chunk = K._dw_split(n, *shape, torch.bfloat16)[1]
+        assert chunk % K._DW_BF16_SLAB == 0 and chunk <= K._DW_BF16_MAX_CHUNK
+    rows, cols, per_sm = K._dw_tile(*shape, torch.bfloat16)
+    assert per_sm == 1
+    if shape[0] <= 8:
+        assert (rows, cols) == K._DW_BF16_NARROW[:2]
+        return
+    tiles = -(-shape[1] // 352)
+    assert rows == 128 and cols % 32 == 0 and cols <= 352
+    assert tiles * cols >= shape[1] > tiles * (cols - 32)
+    assert cols == {96: 96, 352: 352, 768: 256, 224: 224}.get(shape[1], cols)
 
 
 def test_train_variant_runs_only_when_weights_need_grads(monkeypatch):
