@@ -2,18 +2,24 @@
 """Where the conv kernels on dense edge tiles spend their time, and what
 their variants cost, on one NVIDIA GPU.
 
-    python3 chip_cg_profile.py [VARIANT ...]        (default: base clocks)
-    python3 chip_cg_profile.py --fwd [VARIANT ...]  (default: base owner)
+    python3 chip_cg_profile.py [--dtype bf16] [--parent DIR] [VARIANT ...]  (default: base clocks)
+    python3 chip_cg_profile.py --fwd [VARIANT ...]                         (default: base owner)
 
 The kernels (K5 ``csrc/tri_bwd.cu`` and K7 ``csrc/jvp_bwd.cu``; with
 ``--fwd`` K4 and K4-acc ``csrc/tri_fwd.cu`` and K6 ``csrc/jvp_fwd.cu``) are
 built once per variant, each from a patched copy of its source in its own
 library under ``nequip_tpu_torch/_build/``, and timed (CUDA events, median
-of 3 x 10 calls, the variants in turns) at the f32 shapes phase 2 of
+of 3 x 10 calls, the variants in turns) at the shapes phase 2 of
 ``chip_smoke.py`` gives them: K5 and K4 on the whole 23k-atom stream, K7,
 K4-acc and K6 on the second of 4 edge slices, at each of the flagship's 3
-conv layers.  Each result is checked against the plain version (f32, rtol
-1e-4 with atol 1e-5 max|ref|).  Variants of K5 and K7:
+conv layers.  Each result is checked against the plain version: f32 at
+rtol 1e-4 with atol 1e-5 max|ref|; with ``--dtype bf16`` (K5 and K7 only)
+the bf16 entry points on bf16 operands, each output within phase 16a's
+gate of the bf16 twin (8e-3 of max|ref|).  ``--parent DIR`` builds every
+variant a second time from DIR's ``nequip_tpu_torch/csrc`` (another commit
+unpacked by ``git archive``, whose kernels take the same C arguments),
+keyed ``<variant>@parent``, and times both in turns in the same process.
+Variants of K5 and K7:
 
   base          the kernels as they are;
   clocks        clock64 marks: cycles per tile of thread 0 in each phase
@@ -23,9 +29,20 @@ conv layers.  Each result is checked against the plain version (f32, rtol
                 edge) instead of by a reduce-scatter;
   edges<N>      N edges an item (8 in K5, 4 in K7);
   g_rows0       no g rows staged in shared memory (K5; K7 stages none);
-  tile<T>x<S>x<B>  the launch shape forced: T edges, S stages, B blocks an SM;
+  tile<T>x<S>x<B>[t<N>]  the launch shape forced: T edges, S stages, B
+                blocks an SM, N threads a block (256 unless given);
   prefetch      the next tile's weight rows prefetched into L2;
   unroll4       the term loops unrolled by 4 instead of 2.
+
+With ``--k2`` the kernel is K2's training variant (``csrc/conv_bwd.cu``,
+``nequip_conv_bwd_train``) on the whole 23k-atom stream, its dx, dsh and
+demb checked against ``conv_bwd_plain`` (f32 or bf16 as above); variants:
+
+  base          the kernel as it is;
+  clocks        clock64 marks: cycles per tile of thread 0 in each phase
+                (staging and destinations, hidden layer, w product, dx,
+                dW and dsh partials, dsh sum, dh product, demb);
+  mma<BK>x<S>   bf16: tile_mma's ring of S slabs of BK rows.
 
 Variants of K4 and K6 (``--fwd``):
 
@@ -56,6 +73,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -68,12 +86,12 @@ KERNELS = ("tri_bwd", "jvp_bwd")
 FWD_KERNELS = ("tri_fwd", "jvp_fwd")  # K4-acc is timed from tri_fwd's library
 
 MARKS = """
-__device__ unsigned long long cg_clk[8];
+__device__ unsigned long long cg_clk[16];
 extern "C" int cg_read_clk(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, cg_clk, sizeof(cg_clk)));
 }
 extern "C" int cg_zero_clk() {
-  const unsigned long long z[8] = {};
+  const unsigned long long z[16] = {};
   return static_cast<int>(cudaMemcpyToSymbol(cg_clk, z, sizeof(z)));
 }
 #define CG_MARK(i) if (tid == 0) { const long long t_ = clock64(); cg_acc[i] += t_ - cg_t; cg_t = t_; }
@@ -98,15 +116,47 @@ def clocks(src: str) -> str:
     src = _once(src, "    __syncthreads();\n    cg::path_sum",
                 "    __syncthreads();\n    CG_MARK(2);\n    cg::path_sum")
     lines = src.split("\n")
-    lines.insert(max(j for j, ln in enumerate(lines) if "store_flat<T, NT>(" in ln) + 1, "    CG_MARK(4);")
+    lines.insert(max(j for j, ln in enumerate(lines) if re.search(r"store_flat<\w, NT>\(", ln)) + 1, "    CG_MARK(4);")
     lines.insert(max(j for j, ln in enumerate(lines) if "cg::path_sum<T, NT>(" in ln) + 1, "    CG_MARK(3);")
     src = "\n".join(lines)
-    launcher = src.index("template <typename T, int TILE, int STAGES, int MIN_BLOCKS>\ncudaError_t launch_tile")
+    launcher = re.search(r"template <typename \w+, int TILE, int STAGES, int MIN_BLOCKS[^>]*>\ncudaError_t launch_tile",
+                         src).start()
     end = src.rindex("}\n", 0, launcher)  # the kernel's last line
     return src[:end] + (
         "  if (tid == 0) {\n"
         "    for (int i = 0; i < 5; ++i) atomicAdd(&cg_clk[i], static_cast<unsigned long long>(cg_acc[i]));\n"
-        "    atomicAdd(&cg_clk[5], static_cast<unsigned long long>(cg_n));\n  }\n") + src[end:]
+        "    atomicAdd(&cg_clk[15], static_cast<unsigned long long>(cg_n));\n  }\n") + src[end:]
+
+
+K2_PHASES = ("staging", "hidden layer", "w product", "dx", "dW and dsh partials", "dsh sum", "dh product", "demb")
+
+
+def clocks_k2(src: str) -> str:
+    """clocks for K2: cycles per tile of thread 0 between the marks (a mark
+    just before a phase that starts at a barrier counts that phase's wait in
+    the next phase)."""
+    src = _once(src, '#include "radial_mlp.cuh"\n', '#include "radial_mlp.cuh"\n' + MARKS)
+    src = _once(src, "  cg::order_paths(tab, s_order);\n",
+                "  cg::order_paths(tab, s_order);\n  long long cg_acc[8] = {}, cg_t = clock64();\n  int cg_n = 0;\n")
+    src = _once(src, "    __syncthreads();  // s_w1 is staged; the previous tile's readers are done\n",
+                "    __syncthreads();  // s_w1 is staged; the previous tile's readers are done\n"
+                "    if (tid == 0) cg_t = clock64();\n    ++cg_n;\n")
+    src = _once(src, " : T(0);\n    __syncthreads();\n\n", " : T(0);\n    __syncthreads();\n    CG_MARK(0);\n\n")
+    src = re.sub(r"\n(\s+)// w = alpha1 \* h \. W2", r"\n\1CG_MARK(1);\n\1// w = alpha1 * h . W2", src)
+    src = _once(src, "    // the CG-VJP (cg_vjp.cuh)", "    CG_MARK(2);\n    // the CG-VJP (cg_vjp.cuh)")
+    src = _once(src, "    __syncthreads();  // dx has read w; the dsh partials are zero\n",
+                "    __syncthreads();  // dx has read w; the dsh partials are zero\n    CG_MARK(3);\n")
+    src = _once(src, "    __syncthreads();\n    cg::path_sum",
+                "    __syncthreads();\n    CG_MARK(4);\n    cg::path_sum")
+    for i, anchor in ((5, "    // dh_pre = alpha1 * (dW_e . W2^T)"), (6, "    // demb = alpha0 * dh_pre . W1^T")):
+        src = _once(src, anchor, f"    CG_MARK({i});\n{anchor}")
+    src = _once(src, "narrow<S>(a.alpha0 * acc);\n    }\n", "narrow<S>(a.alpha0 * acc);\n    }\n    CG_MARK(7);\n")
+    launcher = re.search(r"template <typename S, int TILE, int MIN_BLOCKS>\ncudaError_t launch_tile", src).start()
+    end = src.rindex("}\n", 0, launcher)  # the kernel's last line
+    return src[:end] + (
+        "  if (tid == 0) {\n"
+        "    for (int i = 0; i < 8; ++i) atomicAdd(&cg_clk[i], static_cast<unsigned long long>(cg_acc[i]));\n"
+        "    atomicAdd(&cg_clk[15], static_cast<unsigned long long>(cg_n));\n  }\n") + src[end:]
 
 
 FWD_PHASES = ("barrier (the other warps' sums)", "staging, destinations, y", "c * y, x and w",
@@ -129,10 +179,10 @@ def clocks_fwd(src: str) -> str:
     return src[:end] + (
         "    CG_MARK(3);\n  }\n  if (tid == 0) {\n"
         "    for (int i = 0; i < 4; ++i) atomicAdd(&cg_clk[i], static_cast<unsigned long long>(cg_acc[i]));\n"
-        "    atomicAdd(&cg_clk[5], static_cast<unsigned long long>(cg_n));\n  }\n}\n") + src[end + len("  }\n}\n"):]
+        "    atomicAdd(&cg_clk[15], static_cast<unsigned long long>(cg_n));\n  }\n}\n") + src[end + len("  }\n}\n"):]
 
 
-def force(tile: int, stages: int, blocks: int):
+def force(tile: int, stages: int, blocks: int, threads: int = 256):
     def patch(src: str) -> str:
         if "pick_shape" in src:  # K4, K6: the shape their launcher and tile query take
             if stages != 1:
@@ -141,14 +191,17 @@ def force(tile: int, stages: int, blocks: int):
                          src)  # the register cap for B blocks an SM
             return re.sub(r"pick_shape<T>\([^;]*\)", f"Shape{{{tile}, {blocks}}}", src)
         i = src.index("  cudaError_t e;\n")
+        if "  if constexpr (std::is_same<S, T>::value) {\n    if (fits(" in src:  # K5's f32/f64 first shape
+            i = src.index("  if constexpr (std::is_same<S, T>::value) {\n    if (fits(")
         j = src.index("  return static_cast<int>(e);\n", i)
         if "auto fits = " in src:  # K5: fits() picks the staged g rows and sets smem
             check, smem = f"fits({tile}, {stages}, {blocks})", "smem"
         else:
             check, smem = f"lim.fit(smem({tile}, {stages}), {blocks})", f"smem({tile}, {stages})"
-        launch = f"launch_tile<T, {tile}, {stages}, {blocks}>(a, lim.dev, {smem}, s)"
-        forced = f"  if (!{check}) return 999;  // no such shape here\n  const cudaError_t e = {launch};\n"
-        return src[:i] + forced + src[j:]
+        launch = f"launch_tile<S, {tile}, {stages}, {blocks}>(a, lim.dev, {smem}, s)"
+        forced = f"  if (!({check})) return 999;  // no such shape here\n  const cudaError_t e = {launch};\n"
+        src = src[:i] + forced + src[j:]
+        return src if threads == 256 else re.sub(r"\bkThreads\b", str(threads), src)  # the kernel's block size
     return patch
 
 
@@ -411,26 +464,33 @@ VARIANTS = {
 
 
 def variant(name: str, kernel: str = ""):
-    m = re.fullmatch(r"tile(\d+)x(\d+)x(\d+)", name)
+    m = re.fullmatch(r"tile(\d+)x(\d+)x(\d+)(?:t(\d+))?", name)
     if m:
-        return force(*map(int, m.groups())), None
+        return force(*(int(v) for v in m.groups() if v is not None)), None
     m = re.fullmatch(r"edges(\d+)", name)
     if m:
         return _sub(r"constexpr int kCgEdges = \d+;", f"constexpr int kCgEdges = {m.group(1)};"), None
+    m = re.fullmatch(r"mma(\d+)x(\d+)", name)
+    if m:
+        bk, st = m.groups()
+        return (lambda src: re.sub(r"constexpr int kMmaStages = \d+;", f"constexpr int kMmaStages = {st};",
+                                   re.sub(r"constexpr int kMmaBK = \d+;", f"constexpr int kMmaBK = {bk};", src))), None
     if name == "clocks" and kernel in FWD_KERNELS:
         return clocks_fwd, None
+    if name == "clocks" and kernel == "conv_bwd":
+        return clocks_k2, None
     if name not in VARIANTS:
-        raise SystemExit(f"unknown variant {name!r}: {', '.join(VARIANTS)}, edges<N> or tile<T>x<S>x<B>")
+        raise SystemExit(f"unknown variant {name!r}: {', '.join(VARIANTS)}, edges<N> or tile<T>x<S>x<B>[t<N>]")
     return VARIANTS[name]
 
 
-def build_variant(name: str, kernel: str, root: str) -> str:
+def build_variant(name: str, kernel: str, root: str, csrc=build.CSRC) -> str:
     cu_patch, h_patch = variant(name, kernel)
     d = os.path.join(root, f"{name}_{kernel}")
     os.makedirs(d)
-    for f in os.listdir(build.CSRC):
+    for f in os.listdir(csrc):
         if f.endswith(".cuh") or f == f"{kernel}.cu":
-            src = (build.CSRC / f).read_text()
+            src = (Path(csrc) / f).read_text()
             patch = h_patch if f.endswith(".cuh") else cu_patch
             with open(os.path.join(d, f), "w") as out:
                 out.write(patch(src) if patch else src)
@@ -465,38 +525,73 @@ def main() -> int:
         raise SystemExit("chip_cg_profile.py needs an NVIDIA GPU")
     args = sys.argv[1:]
     fwd = "--fwd" in args
+    k2 = "--k2" in args
+    args = [a for a in args if a != "--k2"]
+    dtype = torch.float32
+    if "--dtype" in args:
+        i = args.index("--dtype")
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args[i + 1]]
+        del args[i:i + 2]
+        if fwd and dtype != torch.float32:
+            raise SystemExit("--dtype bf16 times K5 and K7 (without --fwd)")
+    parent = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = Path(args[i + 1]) / "nequip_tpu_torch" / "csrc"
+        del args[i:i + 2]
     names = [a for a in args if a != "--fwd"] or (["base", "owner"] if fwd else ["base", "clocks"])
-    kernels = FWD_KERNELS if fwd else KERNELS
+    if parent is not None:
+        names = [n for name in names for n in (name, f"{name}@parent")]
+    kernels = FWD_KERNELS if fwd else ("conv_bwd",) if k2 else KERNELS
     keys = [f"{n}#{i}" if names.count(n) > 1 else n for i, n in enumerate(names)]  # a variant may repeat
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root, ThreadPoolExecutor(os.cpu_count()) as ex:
-        futs = {(k, kern): ex.submit(build_variant, k.split("#")[0], kern, os.path.join(root, k.replace("#", "_")))
+        futs = {(k, kern): ex.submit(build_variant, k.split("#")[0].split("@")[0], kern,
+                                     os.path.join(root, k.replace("#", "_").replace("@", "_")),
+                                     parent if "@parent" in k else build.CSRC)
                 for k in keys for kern in kernels}
         libs = {key: ctypes.CDLL(f.result()) for key, f in futs.items()}
         print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
         for (k, kern), lib in libs.items():
-            for entry in [kern] + ([kern + "_acc", kern + "_tile"] if fwd else []):
-                fn = getattr(lib, f"nequip_{entry}_f32")
+            entries = [kern + "_train"] if k2 else [kern] + ([kern + "_acc", kern + "_tile"] if fwd else [])
+            for entry in entries:
+                fn = getattr(lib, f"nequip_{entry}_{SUFFIX[dtype]}")
                 fn.argtypes, fn.restype = build._SIGNATURES[f"nequip_{entry}"], ctypes.c_int
-        (run_fwd if fwd else run)(keys, libs)
+        if fwd:
+            run_fwd(keys, libs)
+        elif k2:
+            run_k2(keys, libs, dtype)
+        else:
+            run(keys, libs, dtype)
     return 0
 
 
-def run(keys, libs) -> None:
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def agrees(outs, refs, dtype) -> bool:
+    """f32: rtol 1e-4 with atol 1e-5 max|ref|; bf16: phase 16a's gate,
+    max|out - ref| <= 8e-3 max|ref| for each output."""
+    if dtype == torch.bfloat16:
+        return all(float((a.float() - b.float()).abs().max()) <= CS.BF16_KERNEL_TOL * float(b.float().abs().max())
+                   for a, b in zip(outs, refs))
+    return all(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-5 * float(b.abs().max())).all()) for a, b in zip(outs, refs))
+
+
+def run(keys, libs, dtype=torch.float32) -> None:
     dev = torch.device("cuda")
-    dtype = torch.float32
     data, layout, sl, blocks, rng = flagship_inputs()
     N, E = data["pos"].shape[0], data["edge_index"].shape[1]
     lay_s, rows = sl.layout, slice(sl.start, sl.stop)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
-    sums = {}
+    sums, bad = {}, []
     for li, blk in enumerate(blocks):
         plan = blk.tp_scatter.plan
         t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)  # noqa: E731
         x, sh, g, w = t(N, plan.dim_in), t(E, plan.sh_dim), t(N, plan.mid_dim), t(E, plan.weight_numel)
         tx, tsh, dw, gt = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel), t(N, plan.mid_dim)
-        tab = plan.device_tables(dev, dtype)
+        tab = plan.device_tables(dev, K.acc_dtype(dtype))
         tabs = [tab[k].data_ptr() for k in ("dx_groups", "dx_terms", "dx_coef", "dx_col", "paths", "path_terms",
                                             "path_coef")]
         widths = {"tri_bwd": (plan.dim_in, plan.sh_dim, plan.weight_numel),
@@ -512,7 +607,7 @@ def run(keys, libs) -> None:
             else:
                 ops = [x, tx, sh[rows], tsh[rows], w[rows], dw[rows], lay_s.edge_src, lay_s.dst_ptr, g, gt]
                 n_nodes = lay_s.num_nodes
-            err = getattr(lib, f"nequip_{kern}_f32")(
+            err = getattr(lib, f"nequip_{kern}_{SUFFIX[dtype]}")(
                 *(o.data_ptr() for o in ops), *tabs, *(o.data_ptr() for o in outs), len(plan.paths), n_nodes,
                 plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim, stream())
             if err:
@@ -528,22 +623,82 @@ def run(keys, libs) -> None:
                     lib.cg_zero_clk()
                 call(kern, lib, outs)
                 torch.cuda.synchronize()
-                rec["ok"] = all(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-5 * float(b.abs().max())).all())
-                                for a, b in zip(outs, refs[kern]))
+                rec["ok"] = agrees(outs, refs[kern], dtype)
                 if clk:
-                    buf = (ctypes.c_ulonglong * 8)()
+                    buf = (ctypes.c_ulonglong * 16)()
                     lib.cg_read_clk(buf)
-                    rec["cycles_per_tile"] = {p: buf[i] / buf[5] for i, p in enumerate(PHASES)}
+                    rec["cycles_per_tile"] = {p: buf[i] / buf[15] for i, p in enumerate(PHASES)}
                 rec["ms"] = float(np.median([CS.cuda_median_ms(lambda: call(kern, lib, outs), 10) for _ in range(3)]))
             except RuntimeError as exc:  # a forced shape that does not fit
                 rec.update(ok=False, ms=float("nan"), error=str(exc))
             sums.setdefault((k, kern), []).append(rec["ms"])
+            if not rec["ok"] and "error" not in rec:
+                bad.append((k, kern, li))
             print(json.dumps(rec), flush=True)
         del refs
         torch.cuda.empty_cache()
     for (k, kern), ms in sums.items():
-        print(f"{kern} {k} f32, sum of 3 layers: {sum(ms):.3f} ms ({', '.join(f'{m:.3f}' for m in ms)})",
+        print(f"{kern} {k} {SUFFIX[dtype]}, sum of 3 layers: {sum(ms):.3f} ms ({', '.join(f'{m:.3f}' for m in ms)})",
               flush=True)
+    if bad:
+        raise SystemExit(f"disagree with plain: {bad}")
+
+
+def run_k2(keys, libs, dtype) -> None:
+    """K2's training variant on the whole stream, per variant and layer."""
+    dev = torch.device("cuda")
+    data, layout, _, blocks, rng = flagship_inputs()
+    N, E = data["pos"].shape[0], data["edge_index"].shape[1]
+    n_real = layout.n_real
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    sums, bad = {}, []
+    for li, blk in enumerate(blocks):
+        plan = blk.tp_scatter.plan
+        a0, a1 = blk.edge_mlp.alphas
+        n_emb, hidden = blk.edge_mlp.w0.shape
+        t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)  # noqa: E731
+        x, sh, emb, w1, w2, g = (t(N, plan.dim_in), t(E, plan.sh_dim), t(E, n_emb), t(n_emb, hidden),
+                                 t(hidden, plan.weight_numel), t(N, plan.mid_dim))
+        w2t = w2.t().contiguous()
+        tab = plan.device_tables(dev, K.acc_dtype(dtype))
+        tabs = [tab[k].data_ptr() for k in ("dx_groups", "dx_terms", "dx_coef", "dx_col", "paths", "path_terms",
+                                            "path_coef")]
+        ref = K.conv_bwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g)
+        outs = (torch.zeros_like(ref[0]), torch.zeros_like(sh), torch.zeros_like(emb))
+        per_edge = tuple(torch.empty(n_real, wd, dtype=dtype, device=dev) for wd in (plan.weight_numel, hidden, hidden))
+
+        def call(lib):
+            err = getattr(lib, f"nequip_conv_bwd_train_{SUFFIX[dtype]}")(
+                *(o.data_ptr() for o in (x, sh, emb, w1, w2, w2t, layout.edge_src, layout.dst_ptr, g)), *tabs,
+                *(o.data_ptr() for o in outs + per_edge), len(plan.paths), layout.num_nodes, plan.dim_in,
+                plan.sh_dim, n_emb, hidden, plan.weight_numel, plan.mid_dim, a0, a1, stream())
+            if err:
+                raise RuntimeError(f"conv_bwd_train: cudaError {err}")
+
+        for (k, kern), lib in libs.items():
+            rec = dict(variant=k, kernel="conv_bwd_train", layer=li)
+            clk = k.startswith("clocks")
+            if clk:
+                lib.cg_zero_clk()
+            call(lib)
+            torch.cuda.synchronize()
+            rec["ok"] = agrees(outs, ref, dtype)
+            if clk:
+                buf = (ctypes.c_ulonglong * 16)()
+                lib.cg_read_clk(buf)
+                rec["cycles_per_tile"] = {p: buf[i] / buf[15] for i, p in enumerate(K2_PHASES)}
+            rec["ms"] = float(np.median([CS.cuda_median_ms(lambda: call(lib), 10) for _ in range(3)]))
+            sums.setdefault(k, []).append(rec["ms"])
+            if not rec["ok"]:
+                bad.append((k, li))
+            print(json.dumps(rec), flush=True)
+        del ref, outs, per_edge
+        torch.cuda.empty_cache()
+    for k, ms in sums.items():
+        print(f"conv_bwd_train {k} {SUFFIX[dtype]}, sum of 3 layers: {sum(ms):.3f} ms "
+              f"({', '.join(f'{m:.3f}' for m in ms)})", flush=True)
+    if bad:
+        raise SystemExit(f"disagree with plain: {bad}")
 
 
 def run_fwd(keys, libs) -> None:
@@ -599,9 +754,9 @@ def run_fwd(keys, libs) -> None:
                     call(entry, lib, outs, carry, tile)
                     torch.cuda.synchronize()
                     if clk:
-                        buf = (ctypes.c_ulonglong * 8)()
+                        buf = (ctypes.c_ulonglong * 16)()
                         lib.cg_read_clk(buf)
-                        rec["cycles_per_tile"] = {p: buf[i] / buf[5] for i, p in enumerate(FWD_PHASES)}
+                        rec["cycles_per_tile"] = {p: buf[i] / buf[15] for i, p in enumerate(FWD_PHASES)}
                     rec["ok"] = all(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-5 * float(b.abs().max())).all())
                                     for a, b in zip(outs, refs[entry]))
                     rec["ms"] = float(np.median([CS.cuda_median_ms(lambda: call(entry, lib, outs, carry, tile), 10)

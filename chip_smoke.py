@@ -3281,7 +3281,8 @@ def _bf16_trilinear(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int,
     K6 and K7 on one of N_CHUNKS slices (phase 2's cut, a boundary inside a
     destination's segment), in bf16 against their twins at BF16_KERNEL_TOL
     of max|out| (the accumulating forms once each, on fresh float32
-    accumulators), bitwise equal on a repeat call; the kernel's and the f32
+    accumulators; K5 once more on the slice, untimed), bitwise equal on a
+    repeat call; the kernel's and the f32
     kernel's CUDA-event medians on the same values in one call, the twin's
     (BF16_PLAIN_REPS), and the bound at 2 B a value (K4-acc's accumulator
     4 B); added to ``report``."""
@@ -3322,6 +3323,9 @@ def _bf16_trilinear(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int,
                                       lambda: K.tri_fwd_plain(plan, x, sh[rows], w[rows], lay_s, acc[0].clone())),
                 "jvp_fwd_acc check": (lambda: K.jvp_fwd(plan, *s_ops, acc=tuple(a.clone() for a in acc)),
                                       lambda: K.jvp_fwd_plain(plan, *s_ops, tuple(a.clone() for a in acc))),
+                # K5 on the slice too: its bf16 tiles staged at y's 2-byte phase (sh[rows] of an fr slice)
+                "tri_bwd slice check": (lambda: K.tri_bwd(plan, x, sh[rows], w[rows], lay_s, g),
+                                        lambda: K.tri_bwd_plain(plan, x, sh[rows], w[rows], lay_s, g)),
             }
 
         c16 = calls(ops16, acc[0].clone())  # the timed K4-acc calls keep adding onto their accumulator
@@ -3329,8 +3333,9 @@ def _bf16_trilinear(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int,
         for name in BF16_TRILINEAR:
             counter = K.KERNELS[name]
             checked = [c16[f"{name} check"]] if name == "tri_fwd_acc" else [c16[name]]
-            if name == "jvp_fwd":
-                checked.append(c16["jvp_fwd_acc check"])
+            extra = {"jvp_fwd": "jvp_fwd_acc check", "tri_bwd": "tri_bwd slice check"}.get(name)
+            if extra is not None:
+                checked.append(c16[extra])
             err = abs_err = 0.0
             for run, ref_run in checked:
                 before = counter.launches

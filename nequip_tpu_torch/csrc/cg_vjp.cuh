@@ -1,9 +1,14 @@
 // The CG-VJP of the uvu conv tensor product on a dense edge tile, shared by
 // the kernels that take its cotangents per edge: K2 (conv_bwd.cu, the fused
 // conv's backward), K5 (tri_bwd.cu, the trilinear conv's) and K7
-// (jvp_bwd.cu, the fr dual sweep's, three families at once).  Their bf16
-// forms run it on float32 tiles and write each per-edge output rounded
-// once (the O template arguments).
+// (jvp_bwd.cu, the fr dual sweep's, three families at once).  The tiles it
+// reads are of a storage type S (the S template arguments, T by default)
+// and every value is widened to T as it is read: K2 and K7 stage float32
+// tiles in every form (bf16 widened on the way), K5's bf16 form stages its
+// bf16 tiles raw (XRows, GRows, dx_items and dw_items read them; dw_items
+// writes dW_e into them rounded once).  The bf16 forms write each per-edge
+// output rounded once (the O template arguments); the dy partials and their
+// sums (path_sum) stay T.
 //
 // For an edge e (source s, destination n) with node cotangent g = g[n], the
 // weights w of the edge and its SH row y, over the CG terms (path p, m1, m2,
@@ -67,7 +72,8 @@ struct Tables {
 
 // The x[src] rows of the tile: staged in shared memory as rows [TILE][ld]
 // (STAGED: K5, K7), or gathered from global memory through L1 at row
-// s_src[e] (K2), stored as S (bf16 in K2's bf16 form) and widened to T.
+// s_src[e] (K2), stored as S (bf16 in K2's global rows and K5's bf16 tile)
+// and widened to T.
 template <typename T, bool STAGED, typename S = T>
 struct XRows {
   const S* x;
@@ -76,7 +82,7 @@ struct XRows {
   __device__ __forceinline__ int row(int e) const { return (STAGED ? e : s_src[e]) * ld; }
   __device__ __forceinline__ T at(int off) const {
     if constexpr (STAGED)
-      return x[off];
+      return widen(x[off]);
     else
       return ldg_widen(x + off);
   }
@@ -92,7 +98,7 @@ struct GRows {
   __device__ __forceinline__ int row(int dst) const { return (dst - d0) * ld; }
   __device__ __forceinline__ T at(int off) const {
     if constexpr (STAGED)
-      return g[off];
+      return widen(g[off]);
     else
       return ldg_widen(g + off);
   }
@@ -182,10 +188,10 @@ __device__ __forceinline__ void add_run(T (&v)[TC], T* part, int e0, int p, int 
 
 // dx_e for the tile's edges < cnt into dx_out [cnt][dim_in] (row e of the
 // tile at dx_out + e * dim_in, of T or, rounded once, bf16); y rows s_y
-// [TILE][ldy], w rows s_w [TILE][ldw]; gr a GRows.
-template <typename T, int TILE, int TC, int NW, typename GR, typename O>
+// [TILE][ldy], w rows s_w [TILE][ldw], of S; gr a GRows.
+template <typename T, int TILE, int TC, int NW, typename GR, typename O, typename S = T>
 __device__ __forceinline__ void dx_items(const Tables<T>& tab, const GR gr, const int32_t* s_dst,
-                                         const T* s_y, int ldy, const T* s_w, int ldw, int cnt, int dim_in,
+                                         const S* s_y, int ldy, const S* s_w, int ldw, int cnt, int dim_in,
                                          O* __restrict__ dx_out) {
   constexpr int NG = TILE / TC;
   static_assert(TILE % TC == 0, "whole edge groups");
@@ -214,7 +220,8 @@ __device__ __forceinline__ void dx_items(const Tables<T>& tab, const GR gr, cons
         for (int i = 0; i < NGV; ++i) gv[i] = gr.at(go[i] + out_row);
 #pragma unroll
         for (int i = 0; i < TC; ++i)
-          acc[i] += coef * s_y[(e0 + i) * ldy + yi] * gv[NGV == 1 ? 0 : i] * s_w[(e0 + i) * ldw + wo];
+          acc[i] += coef * widen(s_y[(e0 + i) * ldy + yi]) * gv[NGV == 1 ? 0 : i] *
+                    widen(s_w[(e0 + i) * ldw + wo]);
       }
 #pragma unroll
       for (int i = 0; i < TC; ++i)
@@ -223,13 +230,14 @@ __device__ __forceinline__ void dx_items(const Tables<T>& tab, const GR gr, cons
   }
 }
 
-// dW_e in place of w (and, if dw_out is not null, into dw_out [cnt][wn], of
-// O: T or, rounded once, bf16) and the dy partials s_part [TILE][n_paths]
-// [kMaxYDim] (zero before the call, summed into by each m2 run); xr an
-// XRows, gr a GRows.  O is given (K2's bf16 training variant) or is T.
-template <typename T, int TILE, int TC, int NW, typename O = T, typename XR, typename GR>
+// dW_e in place of w (of S: rounded once where S is bf16; and, if dw_out is
+// not null, into dw_out [cnt][wn], of O: T or, rounded once, bf16) and the
+// dy partials s_part [TILE][n_paths][kMaxYDim] (T, zero before the call,
+// summed into by each m2 run); xr an XRows, gr a GRows.  O is given (K2's
+// bf16 training variant) or is T.
+template <typename T, int TILE, int TC, int NW, typename O = T, typename XR, typename GR, typename S = T>
 __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_order, const XR xr, const GR gr,
-                                         const int32_t* s_dst, const T* s_y, int ldy, T* s_w, int ldw, int cnt,
+                                         const int32_t* s_dst, const S* s_y, int ldy, S* s_w, int ldw, int cnt,
                                          T* s_part, typename Id<O>::type* __restrict__ dw_out, int wn) {
   constexpr int NG = TILE / TC;
   const int lane = threadIdx.x & 31, n_paths = tab.n_paths;
@@ -253,7 +261,7 @@ __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_
 #pragma unroll
         for (int i = 0; i < TC; ++i) {
           xo[i] = xr.row(e0 + i) + u;
-          wv[i] = on ? s_w[(e0 + i) * ldw + w_off + u] : T(0);
+          wv[i] = on ? widen(s_w[(e0 + i) * ldw + w_off + u]) : T(0);
           dw[i] = T(0);
         }
         for (int k = t0, run_end; k < t1; k = run_end) {  // one run of terms per m2
@@ -277,7 +285,7 @@ __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_
           T v[TC];
 #pragma unroll
           for (int i = 0; i < TC; ++i) {
-            dw[i] += s_y[(e0 + i) * ldy + y_off + m] * am[i];
+            dw[i] += widen(s_y[(e0 + i) * ldy + y_off + m]) * am[i];
             v[i] = wv[i] * am[i];
           }
           add_run<T, TC>(v, s_part, e0, p, m, n_paths, lane);
@@ -285,7 +293,7 @@ __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_
         if (on) {
 #pragma unroll
           for (int i = 0; i < TC; ++i) {
-            s_w[(e0 + i) * ldw + w_off + u] = dw[i];
+            s_w[(e0 + i) * ldw + w_off + u] = narrow<S>(dw[i]);
             if (dw_out != nullptr && e0 + i < cnt)
               dw_out[static_cast<int64_t>(e0 + i) * wn + w_off + u] = narrow<O>(dw[i]);
           }

@@ -80,19 +80,63 @@
 // bf16 (the fast mode: nequip_conv_bwd_bf16 for its forces,
 // nequip_conv_bwd_train_bf16 for its training): x, sh, emb, W1, W2, W2^T and
 // g are bf16 in device memory, and so are dx_edge, dsh and demb and the
-// training variant's per-edge factors dW_e, h_e and dh_pre_e.  The kernel is
-// the f32 design on a float32 tile (f32's shared-memory layout and tile
-// choice): each operand is widened as it is staged or read (x and g through
-// L1, as in f32), and every product and sum runs in float32.  Rounding
-// points, the same in the plain version (tp_scatter.conv_bwd_plain): h =
-// silu(h_pre) and w = alpha1 h . W2 are rounded to bf16, as JAX's K2 rounds
-// them; dW_e, dh_pre and every sum stay float32 in the tile, and each output
-// element is rounded once, on its store.  So the training variant's dx_edge,
-// dsh and demb are bitwise the inference variant's, and its factors are
-// rounded where JAX's kernel_bwd rounds them (dw_scr in x.dtype, h_t and
+// training variant's per-edge factors dW_e, h_e and dh_pre_e.  The tile is
+// float32 (f32's layout and tile choice) and the CG-VJP runs f32's code on
+// it, x and g widened as they are read through L1; every sum runs in
+// float32.  Its two W2 products run on the tensor cores (radial_mlp.cuh,
+// tile_mma): bf16 mma.sync m16n8k16 with float32 accumulators, W2 and W2^T
+// streamed raw through a bf16 cp.async ring (4 slabs of 32 rows x 128
+// columns, rows padded by 16 bytes: 34.8 KB), B fragments by ldmatrix.trans.
+// - w = alpha1 h . W2: h is rounded to bf16 where the hidden layer writes
+//   it, so its bf16 copy is exact as the A operand (ldmatrix; K = hidden =
+//   128 is 8 k16 steps).  That copy, [TILE][ldh16] with zeros up to the next
+//   k16 step, lives in the s_h region, which later holds dh_pre in float32
+//   [TILE][ldh] for the demb loop.  The epilogue rounds w to bf16 into the
+//   float32 tile the CG-VJP reads (zero past WN: the dh product's padding).
+// - dh = dW_e . W2^T: dW_e stays float32 in the tile (its rounding point;
+//   the training variant's stored factor is rounded separately).  Each value
+//   enters as hi = bf16(dW_e) and lo = bf16(dW_e - hi) through registers
+//   (cvt.rn.bf16x2.f32; ldmatrix moves 16-bit values only), two MMAs a
+//   fragment into the same accumulators: float32's product to ~2^-17
+//   relative (tests/test_torch_port_bf16_mma.py models it as the card sums
+//   it: 2.4e-6 to 2.9e-6 of max|product| at K2's widths, 1.7e-3 with hi
+//   alone).  K = WN is 6 / 22 / 6 k16 steps on the flagship, 48 on preset
+//   M, far below the ~1,544-step runs that left phase 2's gate in
+//   dw_reduce.cu.  The epilogue applies alpha1 and silu'(h_pre), h_pre
+//   recomputed (the same sum in the same order as the hidden layer's).
+// - mma.sync and not wgmma: a tile is 32 edges, and wgmma takes 64 rows;
+//   64-edge tiles were slower in f32 (above).  The hidden layer (K = n_emb)
+//   and demb (N = n_emb) stay on FFMA.
+// - Shared memory (32-edge tile, layer 1): s_w [32][392] 50.2 KB (+ 8
+//   floats a row: the float2 A loads of 8 rows fall on other banks), s_h
+//   16.9, the ring 34.8 (the dsh partials, 12.7, share it), emb, y and W1
+//   6.5: 108.6 KB, two blocks an SM, 128 registers with 8 bytes of spill
+//   stores and loads (nvcc -Xptxas -v; f32's: 44 and 88); preset M's layer
+//   1, one block an SM.
+// Rounding points, the same in the plain version (tp_scatter.conv_bwd_plain):
+// h = silu(h_pre) and w = alpha1 h . W2 are rounded to bf16, as JAX's K2
+// rounds them; dW_e, dh_pre and every sum stay float32 in the tile, and each
+// output element is rounded once, on its store.  So the training variant's
+// dx_edge, dsh and demb are bitwise the inference variant's, and its factors
+// are rounded where JAX's kernel_bwd rounds them (dw_scr in x.dtype, h_t and
 // dh_pre_t cast to the embedding's dtype); dw_reduce.cu sums them in
 // float32.  Stored in bf16, the factors of the flagship's layer 1 at 23k
 // atoms take 419,904 x (352 + 128 + 128) x 2 B = 0.51 GB, half of f32's.
+// Measured (chip_cg_profile.py --k2 --dtype bf16 --parent: the FFMA form,
+// each W2 slab widened through registers, built from the previous commit's
+// sources, in turns in one process; H100 80GB HBM3, 700 W): the training
+// variant alone 10.383 ->
+// 7.890 ms over the three layers; layer 1, cycles per tile of thread 0: w
+// product 57.9k -> 19.0k, dh product 63.1k -> 31.2k (from 49% of the tile
+// to 29%), the CG-VJP unchanged (dx 31.8k, dW_e and dsh partials 62.8k:
+// 55%).  What holds the products: the W2 stream, 2 x 90 KB a 32-edge tile
+// from L2, near the SMs' cp.async intake (~3.2 TB/s over the card,
+// dw_reduce.cu) when both blocks of an SM stream; the dh phase also holds
+// its epilogue (silu', h_pre recomputed) and the hi/lo split, which the
+// marks do not separate.
+// Other rings (BK x stages, the three layers): 32 x 4 7.953 ms, 32 x 3
+// 8.049, 16 x 6 8.716, 64 x 3 8.787, 32 x 6 9.009 (above 34.8 KB layer 1
+// holds one block an SM).
 #include <type_traits>
 
 #include "cg_vjp.cuh"
@@ -107,6 +151,13 @@ constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kBwdBK = 16;    // W2 rows per slab of the ring
 constexpr int kBwdStages = 3;
 constexpr int kCgEdges = 8;  // edges of one CG-VJP item: its loads per term in flight
+constexpr int kMmaBK = 32;    // bf16 (tile_mma): W2 rows per slab of the ring
+constexpr int kMmaStages = 4;
+
+// The bf16 instantiation runs its two W2 products on the tensor cores
+// (mlp::tile_mma); f32 and f64 on FFMA (mlp::tile_gemm)
+template <typename S>
+constexpr bool kMma = std::is_same<S, __nv_bfloat16>::value;
 
 // S: the storage type of the operands, of dx_edge, dsh, demb and of the
 // training variant's per-edge factors; the kernel computes in Acc<S>
@@ -127,27 +178,39 @@ struct ConvBwdArgs {
   T alpha0, alpha1;
 };
 
-// Shared-memory carve-up of one tile, in elements of T from the base (every
-// region starts on 16 bytes), then two int32 [TILE] arrays and int32
-// [n_paths] (the paths' order of cg::order_paths).
+// Shared-memory carve-up of one tile, in elements of T = Acc<S> from the
+// base (every region starts on 16 bytes), then two int32 [TILE] arrays and
+// int32 [n_paths] (the paths' order of cg::order_paths).  bf16 (tile_mma):
+// the s_h region holds h first as a bf16 tile [TILE][ldh16] (the w
+// product's A), later dh_pre in float32 [TILE][ldh]; the ring is bf16.
 struct BwdSmem {
   int ldw, ldh, ldw1;  // row strides of s_w [TILE][ldw], s_h [TILE][ldh], s_w1 [n_emb][ldw1]
+  int ldh16;           // bf16: row stride of h's bf16 tile in the s_h region
   int o_h, o_ring, o_emb, o_y, o_w1, o_idx;
   size_t bytes;
 };
 
-template <typename T>
+template <typename S>
 __host__ __device__ inline BwdSmem bwd_smem(int tile, int wn, int hidden, int n_emb, int sh_dim, int n_paths) {
+  using T = Acc<S>;
   constexpr int V = mlp::Vec<T>::V, CW = 32 * V;
   BwdSmem L;
-  L.ldw = mlp::round_up(wn, CW);          // whole column chunks: the w GEMM writes them
+  if constexpr (kMma<S>) {
+    // whole column chunks of tile_mma, + 8 floats: the float2 A loads of 8 rows fall on other banks
+    L.ldw = mlp::round_up(wn, mlp::kMmaCols) + 8;
+    L.ldh16 = padded_row(mlp::round_up(hidden, 16));  // the w product's k16 steps; ldmatrix rows on other banks
+  } else {
+    L.ldw = mlp::round_up(wn, CW);  // whole column chunks: the w GEMM writes them
+  }
   L.ldh = mlp::round_up(hidden, CW) + V;  // + 16 bytes: the demb loop's rows fall on other banks
   L.ldw1 = mlp::round_up(hidden, V) + V;  // 16-byte rows; the demb loop's 8 rows of W1 fall on other banks
   int o = tile * L.ldw;
   L.o_h = o;
   o += tile * L.ldh;
   L.o_ring = o;  // the ring, or the dsh partials [TILE][n_paths][kMaxYDim] between the GEMMs
-  const int ring = mlp::ring_elems<T, kBwdBK, kBwdStages>(), part = tile * n_paths * kMaxYDim;
+  int ring = mlp::ring_elems<T, kBwdBK, kBwdStages>();
+  if constexpr (kMma<S>) ring = mlp::mma_ring_bytes<kMmaBK, kMmaStages>() / static_cast<int>(sizeof(T));
+  const int part = tile * n_paths * kMaxYDim;
   o += mlp::round_up(ring > part ? ring : part, V);
   L.o_emb = o;
   o += mlp::round_up(tile * n_emb, V);
@@ -169,7 +232,7 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hidden = a.hidden, wn = a.wn, n_emb = a.n_emb, sh_dim = a.sh_dim, dim_in = a.dim_in;
   const int mid_dim = a.mid_dim, n_paths = a.n_paths;
-  const BwdSmem L = bwd_smem<T>(TILE, wn, hidden, n_emb, sh_dim, n_paths);
+  const BwdSmem L = bwd_smem<S>(TILE, wn, hidden, n_emb, sh_dim, n_paths);
   T* base_t = reinterpret_cast<T*>(smem_raw);
   T* s_w = base_t;                 // [TILE][ldw]: w, then dW_e in place
   T* s_h = base_t + L.o_h;         // [TILE][ldh]: h, then dh_pre
@@ -206,33 +269,63 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
       s_y[i] = i < cnt * sh_dim ? widen(a.sh[static_cast<int64_t>(base) * sh_dim + i]) : T(0);
     __syncthreads();
 
-    // hidden layer h = silu(h_pre), V columns of one edge per step, zero in the padding columns
-    for (int i = tid; i < TILE * (L.ldh / V); i += NT) {
-      const int e = i / (L.ldh / V), t0 = (i - e * (L.ldh / V)) * V;
-      T hp[V] = {};
-      if (t0 < hidden) mlp::hidden_pre(s_emb + e * n_emb, s_w1 + t0, L.ldw1, n_emb, a.alpha0, hp);
+    if constexpr (kMma<S>) {
+      // hidden layer h = silu(h_pre) rounded to bf16, two columns of one edge per step, into h's bf16 tile
+      // (exact: the w product's A), zero in its columns [hidden, round_up(hidden, 16))
+      __nv_bfloat16* s_h16 = reinterpret_cast<__nv_bfloat16*>(s_h);  // [TILE][ldh16]
+      const int kh2 = mlp::round_up(hidden, 16) / 2;
+      for (int i = tid; i < TILE * kh2; i += NT) {
+        const int e = i / kh2, t0 = (i - e * kh2) * 2;
+        T hp[2] = {};
+        if (t0 < hidden) mlp::hidden_pre2(s_emb + e * n_emb, s_w1 + t0, L.ldw1, n_emb, a.alpha0, hp);
+        __nv_bfloat16 hv[2];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int t = t0 + j;
-        T v = T(0);
-        if (t < hidden) {
-          v = round_as<S>(hp[j] * sigmoid(hp[j]));  // bf16: h rounded
-          if (a.h_edge != nullptr && e < cnt) a.h_edge[static_cast<int64_t>(base + e) * hidden + t] = narrow<S>(v);
-        }
-        s_h[e * L.ldh + t] = v;
-      }
-    }
-    // w = alpha1 * h . W2 (tile_gemm starts at a barrier: s_h is complete)
-    mlp::tile_gemm<T, TILE, kBwdBK, kBwdStages>(
-        s_h, L.ldh, a.w2, hidden, wn, s_ring, [&](int r0, int c0, T (&acc)[TE][V]) {
-#pragma unroll
-          for (int i = 0; i < TE; ++i) {
-            T v[V];
-#pragma unroll
-            for (int j = 0; j < V; ++j) v[j] = round_as<S>(a.alpha1 * acc[i][j]);  // bf16: w rounded
-            store16(s_w + (r0 + i) * L.ldw + c0, v);
+        for (int j = 0; j < 2; ++j) {
+          hv[j] = narrow<S>(T(0));
+          if (t0 + j < hidden) {
+            hv[j] = narrow<S>(hp[j] * sigmoid(hp[j]));
+            if (a.h_edge != nullptr && e < cnt) a.h_edge[static_cast<int64_t>(base + e) * hidden + t0 + j] = hv[j];
           }
-        });
+        }
+        *reinterpret_cast<__nv_bfloat162*>(s_h16 + e * L.ldh16 + t0) = __halves2bfloat162(hv[0], hv[1]);
+      }
+      // w = alpha1 * h . W2 on the tensor cores, rounded to bf16 into the float tile the CG-VJP reads
+      // (tile_mma starts at a barrier: h's tile is complete)
+      mlp::tile_mma<TILE, kMmaBK, kMmaStages>(
+          mlp::MmaRowsBf16<TILE>{s_h16, L.ldh16}, a.w2, hidden, wn, reinterpret_cast<__nv_bfloat16*>(s_ring),
+          [&](int r, int c, T v0, T v1) {
+            *reinterpret_cast<float2*>(s_w + r * L.ldw + c) =
+                make_float2(round_as<S>(a.alpha1 * v0), round_as<S>(a.alpha1 * v1));
+          });
+    } else {
+      // hidden layer h = silu(h_pre), V columns of one edge per step, zero in the padding columns
+      for (int i = tid; i < TILE * (L.ldh / V); i += NT) {
+        const int e = i / (L.ldh / V), t0 = (i - e * (L.ldh / V)) * V;
+        T hp[V] = {};
+        if (t0 < hidden) mlp::hidden_pre(s_emb + e * n_emb, s_w1 + t0, L.ldw1, n_emb, a.alpha0, hp);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int t = t0 + j;
+          T v = T(0);
+          if (t < hidden) {
+            v = round_as<S>(hp[j] * sigmoid(hp[j]));
+            if (a.h_edge != nullptr && e < cnt) a.h_edge[static_cast<int64_t>(base + e) * hidden + t] = narrow<S>(v);
+          }
+          s_h[e * L.ldh + t] = v;
+        }
+      }
+      // w = alpha1 * h . W2 (tile_gemm starts at a barrier: s_h is complete)
+      mlp::tile_gemm<T, TILE, kBwdBK, kBwdStages>(
+          s_h, L.ldh, a.w2, hidden, wn, s_ring, [&](int r0, int c0, T (&acc)[TE][V]) {
+#pragma unroll
+            for (int i = 0; i < TE; ++i) {
+              T v[V];
+#pragma unroll
+              for (int j = 0; j < V; ++j) v[j] = round_as<S>(a.alpha1 * acc[i][j]);
+              store16(s_w + (r0 + i) * L.ldw + c0, v);
+            }
+          });
+    }
 
     // the CG-VJP (cg_vjp.cuh): dx, then dW_e in place of w and the dsh partials, then dsh
     for (int i = tid; i < TILE * n_paths * kMaxYDim; i += NT) s_dshp[i] = T(0);
@@ -246,28 +339,51 @@ __global__ void __launch_bounds__(kBwdThreads, MIN_BLOCKS) conv_bwd_kernel(const
     __syncthreads();
     cg::path_sum<T, NT>(tab, s_dshp, cnt, sh_dim, a.dsh + static_cast<int64_t>(base) * sh_dim);
     // dh_pre = alpha1 * (dW_e . W2^T) * silu'(h_pre), W2^T is [wn, hidden]
-    // (tile_gemm starts at a barrier: the dsh partials are read, the ring is free)
-    mlp::tile_gemm<T, TILE, kBwdBK, kBwdStages>(
-        s_w, L.ldw, a.w2t, wn, hidden, s_ring, [&](int r0, int c0, T (&acc)[TE][V]) {
+    // (tile_gemm and tile_mma start at a barrier: the dsh partials are read, the ring is free)
+    if constexpr (kMma<S>) {
+      // on the tensor cores: dW_e stays float32 in the tile (its rounding point), as hi + lo bf16 terms
+      mlp::tile_mma<TILE, kMmaBK, kMmaStages>(
+          mlp::MmaRowsSplit<TILE>{s_w, L.ldw}, a.w2t, wn, hidden, reinterpret_cast<__nv_bfloat16*>(s_ring),
+          [&](int e, int t0, T v0, T v1) {
+            T hp[2] = {}, v[2] = {v0, v1};
+            if (t0 < hidden) mlp::hidden_pre2(s_emb + e * n_emb, s_w1 + t0, L.ldw1, n_emb, a.alpha0, hp);
 #pragma unroll
-          for (int i = 0; i < TE; ++i) {
-            const int e = r0 + i;
-            T hp[V] = {};
-            if (c0 < hidden) mlp::hidden_pre(s_emb + e * n_emb, s_w1 + c0, L.ldw1, n_emb, a.alpha0, hp);
-#pragma unroll
-            for (int j = 0; j < V; ++j) {
-              const int t = c0 + j;
-              T v = T(0);
+            for (int j = 0; j < 2; ++j) {
+              const int t = t0 + j;
+              T d = T(0);
               if (t < hidden) {
                 const T sg = sigmoid(hp[j]);
-                v = a.alpha1 * acc[i][j] * (sg * (T(1) + hp[j] * (T(1) - sg)));
+                d = a.alpha1 * v[j] * (sg * (T(1) + hp[j] * (T(1) - sg)));
                 if (a.dh_edge != nullptr && e < cnt)
-                  a.dh_edge[static_cast<int64_t>(base + e) * hidden + t] = narrow<S>(v);  // bf16: rounded once
+                  a.dh_edge[static_cast<int64_t>(base + e) * hidden + t] = narrow<S>(d);  // rounded once
               }
-              s_h[e * L.ldh + t] = v;
+              v[j] = d;
             }
-          }
-        });
+            *reinterpret_cast<float2*>(s_h + e * L.ldh + t0) = make_float2(v[0], v[1]);
+          });
+    } else {
+      mlp::tile_gemm<T, TILE, kBwdBK, kBwdStages>(
+          s_w, L.ldw, a.w2t, wn, hidden, s_ring, [&](int r0, int c0, T (&acc)[TE][V]) {
+#pragma unroll
+            for (int i = 0; i < TE; ++i) {
+              const int e = r0 + i;
+              T hp[V] = {};
+              if (c0 < hidden) mlp::hidden_pre(s_emb + e * n_emb, s_w1 + c0, L.ldw1, n_emb, a.alpha0, hp);
+#pragma unroll
+              for (int j = 0; j < V; ++j) {
+                const int t = c0 + j;
+                T v = T(0);
+                if (t < hidden) {
+                  const T sg = sigmoid(hp[j]);
+                  v = a.alpha1 * acc[i][j] * (sg * (T(1) + hp[j] * (T(1) - sg)));
+                  if (a.dh_edge != nullptr && e < cnt)
+                    a.dh_edge[static_cast<int64_t>(base + e) * hidden + t] = narrow<S>(v);
+                }
+                s_h[e * L.ldh + t] = v;
+              }
+            }
+          });
+    }
     // demb = alpha0 * dh_pre . W1^T (tile_gemm ended at a barrier: dh_pre is complete)
     for (int i = tid; i < cnt * n_emb; i += NT) {
       const int e = i / n_emb, c = i - e * n_emb;
@@ -307,7 +423,7 @@ int launch_conv_bwd(const ConvBwdArgs<S>& args, void* stream) {
   const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto smem = [&](int tile) {
-    return bwd_smem<T>(tile, args.wn, args.hidden, args.n_emb, args.sh_dim, args.n_paths).bytes;
+    return bwd_smem<S>(tile, args.wn, args.hidden, args.n_emb, args.sh_dim, args.n_paths).bytes;
   };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lim.fit(smem(32), 1)) {

@@ -2,11 +2,11 @@
 // the kernels that take TILE consecutive real slots across node boundaries
 // (K1, conv_fwd.cu; K2, conv_bwd.cu; K4, tri_fwd.cu; K5, tri_bwd.cu; K6,
 // jvp_fwd.cu; K7, jvp_bwd.cu): each edge's destination, the cp.async
-// staging of a tile's rows (bf16 rows widened into float tiles on the way)
-// and the stores of its per-edge outputs, and the launch geometry of a grid
-// of every block that fits on the card at once.  A bf16 form takes the
-// float32 form's tile shapes (its tiles are float32), and its kernels are
-// other functions with opt-ins and cache entries of their own.
+// staging of a tile's rows (bf16 rows widened into float tiles on the way,
+// or, in K5, kept bf16 in bf16 tiles) and the stores of its per-edge
+// outputs, and the launch geometry of a grid of every block that fits on
+// the card at once.  A bf16 form's kernels are other functions with opt-ins
+// and cache entries of their own.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,7 +80,11 @@ __device__ __forceinline__ int phase16(const T* p) {
 // __nv_bfloat16, T = float) are widened on the way by plain loads and
 // stores (cp.async copies bytes): 16-byte loads of 8 values over src's
 // 16-byte aligned body, element loads at its ends, into dst[k] (ph = 0);
-// they are in place when the call returns.
+// they are in place when the call returns.  bf16 into a bf16 tile (S = T =
+// __nv_bfloat16) counts its phase in 8-value steps: 16-byte copies over the
+// body, and plain 2-byte copies of its at most 14 end elements (cp.async
+// has no 2-byte form), issued after the body's copies so that their loads
+// overlap them; the barrier that publishes the tile orders them too.
 template <typename T, int NT, typename S>
 __device__ __forceinline__ void stage_flat(T* dst, const S* __restrict__ src, int n, int n_fill, int tid) {
   if constexpr (!std::is_same<S, T>::value) {
@@ -96,6 +100,16 @@ __device__ __forceinline__ void stage_flat(T* dst, const S* __restrict__ src, in
     }
     for (int k = tail + tid; k < n; k += NT) dst[k] = ldg_widen(src + k);
     for (int k = n + tid; k < n_fill; k += NT) dst[k] = T(0);
+  } else if constexpr (sizeof(T) == 2) {
+    const int ph = phase16(src);  // in bf16 elements
+    T* d = dst + ph;
+    const int head = min(n, (8 - ph) % 8), n_vec = (n - head) / 8, tail = head + n_vec * 8;
+    for (int j = tid; j < n_vec; j += NT) cp_async_16(d + head + j * 8, src + head + j * 8, true);
+    for (int k = tid; k < head + n - tail; k += NT) {
+      const int i = k < head ? k : tail + k - head;
+      d[i] = src[i];
+    }
+    for (int k = n + tid; k < n_fill; k += NT) d[k] = narrow<T>(0.f);
   } else {
     constexpr int V = 16 / sizeof(T);
     const int ph = phase16(src);
@@ -125,6 +139,8 @@ __device__ __forceinline__ int staged_phase(const S* src) {
 // by plain loads and stores (cp.async copies bytes, and has no 2-byte
 // form): 16-byte loads of 8 values where every row is 16-byte aligned,
 // element loads otherwise; those rows are in place when the call returns.
+// bf16 rows into a bf16 tile take 16-byte copies where every row is 16-byte
+// aligned, plain 2-byte copies otherwise.
 template <typename T, int TILE, int NT, typename S>
 __device__ __forceinline__ void stage_rows(T* dst, const S* __restrict__ src, const int32_t* __restrict__ idx,
                                            int cnt, int n, int tid) {
@@ -155,6 +171,11 @@ __device__ __forceinline__ void stage_rows(T* dst, const S* __restrict__ src, co
       const bool ok = e < cnt;
       cp_async_16(dst + e * n + c, ok ? src + static_cast<int64_t>(__ldg(idx + e)) * n + c : src, ok);
     }
+  } else if constexpr (sizeof(T) == 2) {
+    for (int i = tid; i < TILE * n; i += NT) {
+      const int e = i / n, c = i - e * n;
+      dst[i] = e < cnt ? src[static_cast<int64_t>(__ldg(idx + e)) * n + c] : narrow<T>(0.f);
+    }
   } else {
     for (int i = tid; i < TILE * n; i += NT) {
       const int e = i / n, c = i - e * n;
@@ -166,11 +187,34 @@ __device__ __forceinline__ void stage_rows(T* dst, const S* __restrict__ src, co
 
 // dst[0, n) = src[0, n) from shared to global memory: 16-byte stores for
 // the 16-byte aligned body of dst, element stores for its head and tail; a
-// bf16 dst from a float tile takes element stores, each rounded once.
+// bf16 dst from a float tile takes element stores, each rounded once; a
+// bf16 tile's values leave as they are (16-byte loads where src's phase is
+// dst's, else 8 element loads a word).
 template <typename T, int NT, typename O>
 __device__ __forceinline__ void store_flat(O* __restrict__ dst, const T* src, int n, int tid) {
   if constexpr (!std::is_same<O, T>::value) {
     for (int k = tid; k < n; k += NT) dst[k] = narrow<O>(src[k]);
+  } else if constexpr (sizeof(T) == 2) {
+    const int head = min(n, (8 - phase16(dst)) % 8), n_vec = (n - head) / 8, tail = head + n_vec * 8;
+    const bool same_phase = phase16(src) == phase16(dst);
+    for (int j = tid; j < n_vec; j += NT) {
+      const int i = head + j * 8;
+      uint4 v;
+      if (same_phase) {
+        v = *reinterpret_cast<const uint4*>(src + i);
+      } else {
+        unsigned short h[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) h[q] = __bfloat16_as_ushort(src[i + q]);
+        v = make_uint4(h[0] | (unsigned{h[1]} << 16), h[2] | (unsigned{h[3]} << 16), h[4] | (unsigned{h[5]} << 16),
+                       h[6] | (unsigned{h[7]} << 16));
+      }
+      *reinterpret_cast<uint4*>(dst + i) = v;
+    }
+    for (int k = tid; k < head + n - tail; k += NT) {
+      const int i = k < head ? k : tail + k - head;
+      dst[i] = src[i];
+    }
   } else {
     constexpr int V = 16 / sizeof(T);
     const int head = min(n, (V - phase16(dst)) % V), n_vec = (n - head) / V, tail = head + n_vec * V;

@@ -99,6 +99,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "mma_bf16.cuh"
 #include "tp_common.cuh"
 
 namespace nequip {
@@ -235,37 +236,6 @@ __global__ void __launch_bounds__(128) sum_partials_kernel(const T* __restrict__
   for (int c = 0; c < n_chunks; ++c) acc += partial[static_cast<int64_t>(c) * pq + i];
   out[i] = scale * acc;
 }
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
-// the address of row l % 8 of matrix l / 8 (16 bytes), and d[j] receives
-// the values (row 2 (l % 4), column l / 4) and (row 2 (l % 4) + 1, column
-// l / 4) of matrix j, the lower row in the lower half.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], const __nv_bfloat16* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(smem_addr(row)));
-}
-
-// The same for two matrices (lanes 0-15 give the addresses)
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&d)[2], const __nv_bfloat16* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(d[0]), "=r"(d[1])
-               : "r"(smem_addr(row)));
-}
-
-// c[16 x 8] += a[16 x 16] b[16 x 8] on the tensor cores: bf16 operands,
-// float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A ring row of w bf16 values, padded by 16 bytes when its 16-byte count
-// is even: 8 rows at an odd count of 16 bytes apart start on 8 different
-// bank groups
-__host__ __device__ constexpr int padded_row(int w) { return (w / 8) % 2 ? w : w + 8; }
 
 // bf16's block tile: WARPS_M x WARPS_N warps, each MT m16 tiles by NT n8
 // tiles of the output; slabs of BK edges in a ring of STAGES

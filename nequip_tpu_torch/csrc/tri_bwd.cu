@@ -62,17 +62,44 @@
 //
 // bf16 (nequip_tri_bwd_bf16, the fast mode's forces on the fused_tp route
 // and the bf16 fr sweep's K4 backward): x, y, w and g are bf16 in device
-// memory, and so are dx_e, dy and dw.  The kernel is the f32 design on
-// float32 tiles (f32's shared-memory layout and shape choice), each operand
-// widened as it is staged (plain loads; g through L1 where it is not
-// staged) and every product and sum taken in float32.  Each output element
-// is rounded once, on its store; K3 then sums dx_e onto the sources in its
-// canonical per-source order.  The plain version (tp_scatter.tri_bwd_plain)
-// rounds at the same points.  Registers (nvcc -Xptxas -v): 128 at two
-// blocks an SM, 148 at one, no spills.  Measured (chip_smoke.py phase 16a,
-// phase 16 alone; H100 80GB HBM3, 700 W): 3.93 ms over the three layers
-// against 3.53 for f32 in the same call, 8.4x its 0.47 ms bound (2 B a
-// value).
+// memory, and so are dx_e, dy and dw.  Every product and sum runs in
+// float32 and each output element is rounded once, on its store; K3 then
+// sums dx_e onto the sources in its canonical per-source order.  The plain
+// version (tp_scatter.tri_bwd_plain) rounds at the same points.  Design (the
+// first bf16 form ran the f32 design on float32 tiles, each operand widened
+// by plain loads as it was staged, which lost cp.async's overlap):
+// - The operand tiles stay bf16 in shared memory: w, y, the x[src] rows and
+//   the staged g rows come in raw by 16-byte cp.async (stage_flat,
+//   stage_rows on the storage type), and cg_vjp.cuh reads tiles of storage
+//   type S, widening each value in registers where the CG-VJP reads it.  The
+//   dy partials stay float32.
+// - The 16-byte phase: a row of y is 9 values (18 B), so an fr slice's y =
+//   sh[rows] starts at any 2-byte phase.  tri_bwd_smem counts in elements
+//   of S (V = 16 / sizeof(S): 8-value phases), and stage_flat copies the at
+//   most 14 values outside the 16-byte body by plain 2-byte copies
+//   (cp.async has no 2-byte form), issued after the body's copies.
+// - dW_e is rounded once to bf16 and written in place of the tile's w row
+//   (by the thread that read that w value last; dx has read w by then), and
+//   leaves by 16-byte stores.  Two calls give bitwise equal results.
+// - Shared memory (32-edge tile, layer 1): a stage is w 22.5 + x 18.4 + y
+//   0.6 KB, with the dy partials (12.7) and 3 g rows (6.7) 61.2 KB single-
+//   buffered or 102.7 double-buffered; both fit two blocks an SM.  The
+//   launch shape is chosen by measurement (chip_cg_profile.py --dtype bf16,
+//   the three layers summed, H100 80GB HBM3, 700 W): 32-edge tiles, single-
+//   buffered, two blocks of 256 threads an SM, 2.983 ms; double-buffered
+//   3.122-3.149 (layer 1 2.06 against 1.93 ms; its larger shared memory
+//   leaves L1 less room for the term tables and the g rows read through
+//   it, a reading the card's tools cannot confirm); 128-thread blocks two
+//   an SM 3.034, three an SM 3.124, 16-edge tiles 3.28-4.04.  Registers:
+//   124 at two blocks an SM, 126 (32- and 16-edge tiles) and 151 (8-edge)
+//   at one, no spills.
+// Measured (chip_cg_profile.py --dtype bf16 --parent: the float32-tile form,
+// built from the previous commit's sources, in turns in one process; H100
+// 80GB HBM3, 700 W): 3.512 -> 3.055 ms over the three layers, at or below
+// f32's in the same call (PERF.md); layer 1 cycles per tile of one block: staging 19.4k ->
+// 7.4k, dx 23.1k -> 23.7k, dW_e and dy partials 35.2k -> 34.2k, dy 4.6k ->
+// 5.5k, stores 0.9k -> 0.8k.  The CG-VJP phases, about 80% of the tile,
+// are f32's, plus one widening instruction a value read.
 #include "cg_vjp.cuh"
 #include "dense_tiles.cuh"
 
@@ -96,43 +123,43 @@ struct TriBwdArgs {
   int g_rows;  // g rows the shared memory holds: kGRows, or 0 where they do not fit
 };
 
-// Shared-memory carve-up, in elements of T: STAGES buffers of (w, y with
-// room for a 16-byte phase, x rows), the dy partials, g_rows g rows, then
-// int32 [TILE + 1 + n_paths] (the destinations, the first staged node and
-// the paths' order).
+// Shared-memory carve-up, in elements of S (the operand tiles' storage
+// type): STAGES buffers of (w, y with room for a 16-byte phase, x rows), the
+// dy partials (T = Acc<S>), g_rows g rows, then int32 [TILE + 1 + n_paths]
+// (the destinations, the first staged node and the paths' order).
 struct TriBwdSmem {
   int o_y, o_x, stage, o_part, o_g, o_dst;
   size_t bytes;
 };
 
-template <typename T>
+template <typename T, typename S = T>
 __host__ __device__ inline TriBwdSmem tri_bwd_smem(int tile, int stages, int dim_in, int sh_dim, int wn,
                                                    int n_paths, int mid_dim, int g_rows) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(S);
   auto up = [](int a) { return (a + V - 1) / V * V; };
   TriBwdSmem L;
   L.o_y = up(tile * wn + V - 1);
   L.o_x = L.o_y + up(tile * sh_dim + V - 1);
   L.stage = L.o_x + up(tile * dim_in);
   L.o_part = stages * L.stage;
-  L.o_g = L.o_part + up(tile * n_paths * kMaxYDim);
+  L.o_g = L.o_part + up(tile * n_paths * kMaxYDim * static_cast<int>(sizeof(T) / sizeof(S)));
   L.o_dst = L.o_g + up(g_rows * mid_dim + V - 1);
-  L.bytes = static_cast<size_t>(L.o_dst) * sizeof(T) + sizeof(int32_t) * (tile + 1 + n_paths);
+  L.bytes = static_cast<size_t>(L.o_dst) * sizeof(S) + sizeof(int32_t) * (tile + 1 + n_paths);
   return L;
 }
 
 template <typename S, int TILE, int STAGES, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const TriBwdArgs<S> a) {
-  using T = Acc<S>;  // shared memory, registers and sums
+  using T = Acc<S>;  // registers, sums and the dy partials; the operand tiles are S
   constexpr int NT = kThreads, NW = NT / 32, TC = TILE < kCgEdges ? TILE : kCgEdges;
   static_assert(TILE <= 32 && TILE % TC == 0 && (STAGES == 1 || STAGES == 2), "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dim_in = a.dim_in, sh_dim = a.sh_dim, wn = a.wn, mid_dim = a.mid_dim;
-  const TriBwdSmem L = tri_bwd_smem<T>(TILE, STAGES, dim_in, sh_dim, wn, a.tab.n_paths, mid_dim, a.g_rows);
-  T* base_t = reinterpret_cast<T*>(smem_raw);
-  T* s_part = base_t + L.o_part;                                  // [TILE][n_paths][kMaxYDim]
-  T* s_g = base_t + L.o_g;                                        // [g_rows][mid_dim]
-  int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_dst);  // [TILE]
+  const TriBwdSmem L = tri_bwd_smem<T, S>(TILE, STAGES, dim_in, sh_dim, wn, a.tab.n_paths, mid_dim, a.g_rows);
+  S* base_s = reinterpret_cast<S*>(smem_raw);
+  T* s_part = reinterpret_cast<T*>(base_s + L.o_part);            // [TILE][n_paths][kMaxYDim]
+  S* s_g = base_s + L.o_g;                                        // [g_rows][mid_dim]
+  int32_t* s_dst = reinterpret_cast<int32_t*>(base_s + L.o_dst);  // [TILE]
   int32_t* s_g0 = s_dst + TILE;  // the first node of the staged g rows, -1 if g is read from global memory
   int32_t* s_order = s_g0 + 1;   // [n_paths], heaviest first (cg::order_paths)
 
@@ -144,10 +171,10 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const Tri
   // starts the copies of a tile's w, y and x[src] rows into buffer buf
   auto stage = [&](int tile, int buf) {
     const int base = tile * TILE, cnt = min(TILE, n_real - base);
-    T* sb = base_t + buf * L.stage;
-    stage_flat<T, NT>(sb, a.w + static_cast<int64_t>(base) * wn, cnt * wn, TILE * wn, tid);
-    stage_flat<T, NT>(sb + L.o_y, a.y + static_cast<int64_t>(base) * sh_dim, cnt * sh_dim, TILE * sh_dim, tid);
-    stage_rows<T, TILE, NT>(sb + L.o_x, a.x, a.edge_src + base, cnt, dim_in, tid);
+    S* sb = base_s + buf * L.stage;
+    stage_flat<S, NT>(sb, a.w + static_cast<int64_t>(base) * wn, cnt * wn, TILE * wn, tid);
+    stage_flat<S, NT>(sb + L.o_y, a.y + static_cast<int64_t>(base) * sh_dim, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_rows<S, TILE, NT>(sb + L.o_x, a.x, a.edge_src + base, cnt, dim_in, tid);
     cp_async_commit();
   };
   cg::order_paths(a.tab, s_order);  // the loop's first barrier publishes it
@@ -163,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const Tri
       if (lane < TILE) s_dst[lane] = d < 0 ? d1 : d;  // sorted; rows past cnt compute values not written
       const bool staged = d1 - d0 < a.g_rows;
       if (staged) {
-        stage_flat<T, 32>(s_g, a.g + static_cast<int64_t>(d0) * mid_dim, (d1 - d0 + 1) * mid_dim, 0, lane);
+        stage_flat<S, 32>(s_g, a.g + static_cast<int64_t>(d0) * mid_dim, (d1 - d0 + 1) * mid_dim, 0, lane);
         cp_async_commit();
       }
       if (lane == 0) *s_g0 = staged ? d0 : -1;
@@ -181,25 +208,25 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_bwd_kernel(const Tri
     if (STAGES == 1) cp_async_wait<0>();
     __syncthreads();
 
-    T* sb = base_t + buf * L.stage;
-    T* s_w = sb + staged_phase<T>(a.w + static_cast<int64_t>(base) * wn);  // [TILE][wn]
-    const T* s_y = sb + L.o_y + staged_phase<T>(a.y + static_cast<int64_t>(base) * sh_dim);  // [TILE][sh_dim]
-    const T* s_x = sb + L.o_x;                                               // [TILE][dim_in]
+    S* sb = base_s + buf * L.stage;
+    S* s_w = sb + staged_phase<S>(a.w + static_cast<int64_t>(base) * wn);  // [TILE][wn]
+    const S* s_y = sb + L.o_y + staged_phase<S>(a.y + static_cast<int64_t>(base) * sh_dim);  // [TILE][sh_dim]
+    const S* s_x = sb + L.o_x;                                               // [TILE][dim_in]
     auto cg_vjp = [&](auto gr) {
       cg::dx_items<T, TILE, TC, NW>(a.tab, gr, s_dst, s_y, sh_dim, s_w, wn, cnt, dim_in,
                                     a.dx_edge + static_cast<int64_t>(base) * dim_in);
       __syncthreads();  // dx has read w
-      cg::dw_items<T, TILE, TC, NW>(a.tab, s_order, cg::XRows<T, true>{s_x, nullptr, dim_in}, gr, s_dst, s_y,
+      cg::dw_items<T, TILE, TC, NW>(a.tab, s_order, cg::XRows<T, true, S>{s_x, nullptr, dim_in}, gr, s_dst, s_y,
                                     sh_dim, s_w, wn, cnt, s_part, nullptr, wn);
     };
     const int g0 = *s_g0;  // block-uniform
     if (g0 >= 0)
-      cg_vjp(cg::GRows<T, true>{s_g + staged_phase<T>(a.g + static_cast<int64_t>(g0) * mid_dim), g0, mid_dim});
+      cg_vjp(cg::GRows<T, true, S>{s_g + staged_phase<S>(a.g + static_cast<int64_t>(g0) * mid_dim), g0, mid_dim});
     else
       cg_vjp(cg::GRows<T, false, S>{a.g, 0, mid_dim});
     __syncthreads();
     cg::path_sum<T, NT>(a.tab, s_part, cnt, sh_dim, a.dy + static_cast<int64_t>(base) * sh_dim);
-    store_flat<T, NT>(a.dw + static_cast<int64_t>(base) * wn, s_w, cnt * wn, tid);
+    store_flat<S, NT>(a.dw + static_cast<int64_t>(base) * wn, s_w, cnt * wn, tid);
   }
 }
 
@@ -214,9 +241,9 @@ cudaError_t launch_tile(const TriBwdArgs<S>& args, int dev, size_t smem, cudaStr
 }
 
 // The first shape whose shared memory fits: two blocks an SM before one,
-// 32-edge tiles before 16 and 8, double-buffered before single, each with
-// kGRows staged g rows before none.  The tile is Acc<S> whatever S (bf16
-// tiles are f32's).
+// 32-edge tiles before 16 and 8, double-buffered before single (f32, f64;
+// bf16 takes single-buffered tiles, measured faster), each with kGRows
+// staged g rows before none.
 template <typename S>
 int launch_tri_bwd(TriBwdArgs<S> a, void* stream) {
   using T = Acc<S>;
@@ -230,15 +257,17 @@ int launch_tri_bwd(TriBwdArgs<S> a, void* stream) {
   auto fits = [&](int tile, int stages, int blocks) {
     for (const int g_rows : {kGRows, 0}) {
       a.g_rows = g_rows;
-      smem = tri_bwd_smem<T>(tile, stages, a.dim_in, a.sh_dim, a.wn, a.tab.n_paths, a.mid_dim, g_rows).bytes;
+      smem = tri_bwd_smem<T, S>(tile, stages, a.dim_in, a.sh_dim, a.wn, a.tab.n_paths, a.mid_dim, g_rows).bytes;
       if (lim.fit(smem, blocks)) return true;
     }
     return false;
   };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<S, T>::value) {
+    if (fits(32, 2, 2)) return static_cast<int>(launch_tile<S, 32, 2, 2>(a, lim.dev, smem, s));
+  }
   cudaError_t e;
-  if (fits(32, 2, 2)) e = launch_tile<S, 32, 2, 2>(a, lim.dev, smem, s);
-  else if (fits(32, 1, 2)) e = launch_tile<S, 32, 1, 2>(a, lim.dev, smem, s);
+  if (fits(32, 1, 2)) e = launch_tile<S, 32, 1, 2>(a, lim.dev, smem, s);
   else if (fits(16, 1, 2)) e = launch_tile<S, 16, 1, 2>(a, lim.dev, smem, s);
   else if (fits(32, 1, 1)) e = launch_tile<S, 32, 1, 1>(a, lim.dev, smem, s);
   else if (fits(16, 1, 1)) e = launch_tile<S, 16, 1, 1>(a, lim.dev, smem, s);

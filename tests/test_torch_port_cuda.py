@@ -143,11 +143,24 @@ DENSE_TILE_CASES = {
 
 
 def _tile_plan(kind, device, dtype):
-    """(plan, w1 shape, alphas): the test TP with hidden 16, or one of the
-    flagship's conv layers (hidden 128, WN 96 or 352)."""
+    """(plan, w1 shape, alphas): the test TP with hidden 16, a TP of
+    ``wide<mul>`` channels with hidden 16 (``odd``: 5 channels, dim_in 45,
+    WN 75, hidden 20), one of the flagship's conv layers (hidden 128, WN 96
+    or 352), or preset M's layer 1 (``preset_m1``: dim_in 480, WN 768)."""
     if kind == "small":
         args, _, _ = _problem(device, dtype)
         return args[0], (8, 16), args[6:8]
+    if kind == "odd":
+        plan, _, _ = _tile_plan("wide5", device, dtype)
+        return plan, (8, 20), ScalarMLP(8, plan.weight_numel, hidden_layers_depth=1, hidden_layers_width=20).alphas
+    if kind == "preset_m1":
+        from nequip_tpu_torch.model import PresetNequIPGNNModel
+        from nequip_tpu_torch.nn.interaction_block import InteractionBlock
+
+        model = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", type_names=["Cu"], r_max=4.0,
+                                     preset="M", avg_num_neighbors=18.0)
+        blk = [m for m in model.modules() if isinstance(m, InteractionBlock)][1]
+        return blk.tp_scatter.plan, tuple(blk.edge_mlp.w0.shape), blk.edge_mlp.alphas
     if kind.startswith("wide"):
         mul = int(kind[4:])
         feats, sh = f"{mul}x0e+{mul}x1o+{mul}x2e", "1x0e+1x1o+1x2e"
@@ -922,6 +935,39 @@ def test_cuda_bf16_conv_bwd_train_dense_tiles(cuda, bf16_sums, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flagship0", "flagship1", "preset_m1", "odd"])
+def test_cuda_bf16_conv_bwd_train_mma_widths(cuda, bf16_sums, kind):
+    """K2's training variant in bf16, whose two W2 products run on the
+    tensor cores (tile_mma: 128-column chunks, k16 steps), at widths that
+    leave the last chunk or k step part full: WN 96 and 352 (the flagship),
+    768 (preset M's widest, one block an SM) and an odd model (WN 75,
+    hidden 20, dim_in 45: W2's rows not 16-byte aligned, so its slabs are
+    copied 2 bytes at a time).  Against the twin within two bf16 ulps of
+    max|out| (dw1/dw2 float32 at the same gate), dx, dsh and demb bitwise
+    the inference variant's, everything bitwise equal on a repeat call."""
+    plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, cuda, torch.float32)
+    r = np.random.RandomState(24)
+    lay, n_slots = _tile_stream([18] * 40 + [7], cuda, r)
+    n_nodes, n_real = 41, lay.n_real
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=torch.bfloat16, device=cuda)
+    args = (plan, t(n_nodes, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+            t(hidden, plan.weight_numel), a0, a1, lay, t(n_nodes, plan.mid_dim))
+    before = K.KERNELS["conv_bwd_train"].launches
+    got = K.conv_bwd_train(*args)
+    torch.cuda.synchronize()
+    assert K.KERNELS["conv_bwd_train"].launches == before + 1
+    want = K.conv_bwd_train_plain(*args)
+    _bf16_check(got[:3], want[:3])
+    for a, b in zip(got[3:], want[3:]):
+        assert a.dtype == b.dtype == torch.float32 and bool(a.isfinite().all())
+        assert float((a - b).abs().max()) <= BF16_TOL * float(b.abs().max())
+    for a, b in zip(got[:3], K.conv_bwd(*args)):
+        assert torch.equal(a, b)
+        assert not a[n_real:].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, K.conv_bwd_train(*args)))
+
+
+@pytest.mark.cuda
 def test_cuda_bf16_scatter_rows_matches_plain(cuda):
     """K3 in bf16: float32 sums in edge order, rounded once; bitwise equal
     on a repeat call, and within one bf16 ulp of max|out| of the twin."""
@@ -1079,6 +1125,32 @@ def test_cuda_bf16_kernels_on_slices(cuda, case, name):
     if name.endswith("_acc"):
         whole = _fwd_call(name, plan, lay, x, tx, sh, tsh, w, dw, acc)[1]()
         _bf16_check(tuple(a.to(torch.bfloat16) for a in running), tuple(b.to(torch.bfloat16) for b in whole))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flagship1", "odd"])
+@pytest.mark.parametrize("phase", range(8))
+def test_cuda_bf16_tri_bwd_every_y_phase(cuda, bf16_sums, phase, kind):
+    """K5 in bf16, whose tiles are staged raw as bf16, on an fr slice whose
+    y = sh[rows] starts at each 16-byte phase of bf16 values: a row is 9
+    values, so a slice from row 96 + phase starts at phase (mod 8), inside a
+    destination's segment.  The odd model (WN 75, dim_in 45) puts w's rows
+    at other phases than dw's and its x rows off 16 bytes.  Against the
+    twin within two bf16 ulps of max|out|, bitwise equal on a repeat call,
+    one launch."""
+    degrees = [18] * 40 + [7]
+    plan, lay, n_real, (x, _, sh, _, w, _, g, _), _ = _bf16_tri_operands(kind, cuda, degrees, seed=16)
+    start = 96 + phase
+    assert sh.data_ptr() % 16 == 0 and start not in lay.dst_ptr.tolist()
+    sl = K.edge_slices(lay, 2, [0, start, n_real])[1]
+    y, ws = sh[sl.start:sl.stop], w[sl.start:sl.stop]
+    assert (y.data_ptr() % 16) // 2 == phase
+    before = K.KERNELS["tri_bwd"].launches
+    got = K.tri_bwd(plan, x, y, ws, sl.layout, g)
+    torch.cuda.synchronize()
+    assert K.KERNELS["tri_bwd"].launches == before + 1
+    _bf16_check(got, K.tri_bwd_plain(plan, x, y, ws, sl.layout, g))
+    assert all(torch.equal(a, b) for a, b in zip(got, K.tri_bwd(plan, x, y, ws, sl.layout, g)))
 
 
 @pytest.mark.cuda
