@@ -2,8 +2,7 @@
 """Where the conv kernels on dense edge tiles spend their time, and what
 their variants cost, on one NVIDIA GPU.
 
-    python3 chip_cg_profile.py [--dtype bf16] [--parent DIR] [VARIANT ...]  (default: base clocks)
-    python3 chip_cg_profile.py --fwd [VARIANT ...]                         (default: base owner)
+    python3 chip_cg_profile.py [--fwd | --k2] [--dtype bf16] [--parent DIR] [VARIANT ...]  (default: base clocks)
 
 The kernels (K5 ``csrc/tri_bwd.cu`` and K7 ``csrc/jvp_bwd.cu``; with
 ``--fwd`` K4 and K4-acc ``csrc/tri_fwd.cu`` and K6 ``csrc/jvp_fwd.cu``) are
@@ -13,12 +12,13 @@ of 3 x 10 calls, the variants in turns) at the shapes phase 2 of
 ``chip_smoke.py`` gives them: K5 and K4 on the whole 23k-atom stream, K7,
 K4-acc and K6 on the second of 4 edge slices, at each of the flagship's 3
 conv layers.  Each result is checked against the plain version: f32 at
-rtol 1e-4 with atol 1e-5 max|ref|; with ``--dtype bf16`` (K5 and K7 only)
-the bf16 entry points on bf16 operands, each output within phase 16a's
-gate of the bf16 twin (8e-3 of max|ref|).  ``--parent DIR`` builds every
-variant a second time from DIR's ``nequip_tpu_torch/csrc`` (another commit
-unpacked by ``git archive``, whose kernels take the same C arguments),
-keyed ``<variant>@parent``, and times both in turns in the same process.
+rtol 1e-4 with atol 1e-5 max|ref|; with ``--dtype bf16`` the bf16 entry
+points on bf16 operands, each output within phase 16a's gate of the bf16
+twin (8e-3 of max|ref|).  ``--parent DIR`` builds every variant a second
+time from DIR's ``nequip_tpu_torch/csrc`` (another commit unpacked by
+``git archive``, whose kernels take the same C arguments), keyed
+``<variant>@parent``, and times both in turns in the same process.  A
+variant name may join variants with ``+`` (``tile32x1x4+part8``).
 Variants of K5 and K7:
 
   base          the kernels as they are;
@@ -44,27 +44,33 @@ demb checked against ``conv_bwd_plain`` (f32 or bf16 as above); variants:
                 dW and dsh partials, dsh sum, dh product, demb);
   mma<BK>x<S>   bf16: tile_mma's ring of S slabs of BK rows.
 
-Variants of K4 and K6 (``--fwd``):
+With ``--fwd`` the kernels are K4, K4-acc (``csrc/tri_fwd.cu``), K6 and
+K6-acc (``csrc/jvp_fwd.cu``), each entry point on the whole 23k-atom stream
+and on the second of 4 edge slices (phase 2 times K4 on the first, the
+others on the second), at the flagship's 3 conv layers and at preset M's
+layer 1 (its widest: dim_in 480, WN 768, mid_dim 2368) on the same graph.
+With ``--parent`` each output of a variant is also compared with the same
+variant's from the parent build: ``same_as_parent`` in its record, and the
+run fails if any differs.  Variants:
 
   base          the kernels as they are (destinations split across tiles
                 as K1 sums them: carry rows and a second launch);
-  owner         owner-computes instead: a tile owns the nodes whose first
-                edge lies in it and walks their edges in chunks of TILE, a
-                running sum parked in the node's output row between chunks;
-                no carry rows, no second launch;
   clocks        clock64 marks: cycles per tile of thread 0 in each phase
                 (the barrier that waits for the other warps' sums; staging,
                 destinations and y; c * y with x and w; the CG product and
-                sums);
-  cy_rows       c * y edge-major, one 4- or 8-byte load an edge, as before
-                the term-major 16-byte loads (K1 shares the header);
-  tile<T>x1x<B> the launch shape forced: T edges, B blocks an SM (and the
-                register cap of B blocks).
+                sums, split into the product and the walk: the column's
+                sums, the stores and the column's table lookups);
+  tile<T>x1x<B>[t<N>]  the launch shape forced: T edges, B blocks an SM
+                (and the register cap of B blocks), N threads a block;
+  part<P>       bf16: the walk forms P edges' products at a time (kWalkPart);
+  unroll_parts  bf16: the walk's loop over the parts unrolled.
+Every build prints its kernels' registers and spills (ptxas -v).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import re
@@ -78,6 +84,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import chip_ptxas
 import chip_smoke as CS
 from nequip_tpu_torch.ops.kernels import build
 from nequip_tpu_torch.ops.kernels import tp_scatter as K
@@ -160,13 +167,16 @@ def clocks_k2(src: str) -> str:
 
 
 FWD_PHASES = ("barrier (the other warps' sums)", "staging, destinations, y", "c * y, x and w",
-              "CG product and sums")
+              "CG product and sums", "of which the CG product", "of which the walk")
+SPLIT = """
+#define CGF_SPLIT(i) { const long long t_ = clock64(); cgf_acc[i] += t_ - cgf_t; cgf_t = t_; }
+"""
 
 
 def clocks_fwd(src: str) -> str:
     """clocks for K4 and K6: cycles per tile of thread 0 (warp 0, which also
-    finds the destinations) in each phase between the barriers of a tile."""
-    src = _once(src, '#include "dense_tiles.cuh"\n', '#include "dense_tiles.cuh"\n' + MARKS)
+    finds the destinations) in each phase between the barriers of a tile
+    (the marks' definitions come with clocks_fwd_header)."""
     src = _once(src, "  const int n_tiles = (n_real + TILE - 1) / TILE;\n",
                 "  const int n_tiles = (n_real + TILE - 1) / TILE;\n"
                 "  long long cg_acc[5] = {0, 0, 0, 0, 0}, cg_t = clock64();\n  int cg_n = 0;\n")
@@ -174,7 +184,8 @@ def clocks_fwd(src: str) -> str:
     src = re.sub(r"(cp_async_wait<1>\(\);[^\n]*\n    __syncthreads\(\);\n)", r"\1    CG_MARK(1);\n", src, count=1)
     src = _once(src, "    cp_async_wait<0>();\n    __syncthreads();\n",
                 "    cp_async_wait<0>();\n    __syncthreads();\n    CG_MARK(2);\n")
-    launcher = src.index("template <typename T, int TILE, bool kAcc, int MIN_BLOCKS>\ncudaError_t launch_tile")
+    launcher = re.search(r"template <typename \w+, int TILE, bool kAcc, int MIN_BLOCKS>\ncudaError_t launch_tile",
+                         src).start()
     end = src.rindex("  }\n}\n", 0, launcher)  # the end of the tile loop
     return src[:end] + (
         "    CG_MARK(3);\n  }\n  if (tid == 0) {\n"
@@ -182,14 +193,39 @@ def clocks_fwd(src: str) -> str:
         "    atomicAdd(&cg_clk[15], static_cast<unsigned long long>(cg_n));\n  }\n}\n") + src[end + len("  }\n}\n"):]
 
 
+def clocks_fwd_header(src: str) -> str:
+    """The marks' definitions in cg_fwd.cuh, and the split of each column
+    walk's cycles (thread 0, summed over its calls) into the CG product
+    (cg_clk[4]) and the rest of the column loop (cg_clk[5]: the walk's sums
+    and stores, and the column's table lookups)."""
+    if "namespace cgf" not in src:  # the other headers
+        return src
+    src = _once(src, '#include "dense_tiles.cuh"\n', '#include "dense_tiles.cuh"\n' + MARKS + SPLIT)
+    for fn in ("cg_forward", "cg_forward_compensated", "cg_forward_jvp", "cg_forward_jvp_compensated"):
+        start = src.index("{\n", re.search(rf"void {fn}\(", src).end()) + 2
+        end = src.index("\n}\n", start)
+        body, n = re.subn(r"(\n\s*)(product(?:_jvp)?<[^;]*;)", r"\1CGF_SPLIT(5);\1\2\1CGF_SPLIT(4);", src[start:end])
+        if n != 1:
+            raise RuntimeError(f"{fn}: {n} product calls")
+        src = (src[:start] + "  long long cgf_acc[6] = {}, cgf_t = clock64();\n" + body +
+               "\n  CGF_SPLIT(5);\n  if (threadIdx.x == 0) {\n"
+               "    atomicAdd(&cg_clk[4], static_cast<unsigned long long>(cgf_acc[4]));\n"
+               "    atomicAdd(&cg_clk[5], static_cast<unsigned long long>(cgf_acc[5]));\n  }" + src[end:])
+    return src
+
+
 def force(tile: int, stages: int, blocks: int, threads: int = 256):
     def patch(src: str) -> str:
         if "pick_shape" in src:  # K4, K6: the shape their launcher and tile query take
             if stages != 1:
                 raise SystemExit("K4 and K6 have one stage: tile<T>x1x<B>")
-            src = re.sub(rf"launch_tile<T, ({tile}|kTopTile<T>), kAcc, 2>", f"launch_tile<T, {tile}, kAcc, {blocks}>",
-                         src)  # the register cap for B blocks an SM
-            return re.sub(r"pick_shape<T>\([^;]*\)", f"Shape{{{tile}, {blocks}}}", src)
+            if "cudaError_t launch_shape(" not in src:
+                raise SystemExit("tile<T>x1x<B> of K4 and K6 patches their launch_shape, which these sources lack")
+            src = re.sub(r"pick_shape<S>\([^;]*\)", f"Shape{{{tile}, {blocks}}}", src)
+            i = src.index("{\n", src.index("cudaError_t launch_shape(")) + 2  # B blocks' register cap
+            launch = f"  return launch_tile<S, {tile}, kAcc, {blocks}>(a, dev, smem, s);"
+            src = src[:i] + launch + src[src.index("\n}\n", i):]
+            return src if threads == 256 else re.sub(r"\bkThreads\b", str(threads), src)
         i = src.index("  cudaError_t e;\n")
         if "  if constexpr (std::is_same<S, T>::value) {\n    if (fits(" in src:  # K5's f32/f64 first shape
             i = src.index("  if constexpr (std::is_same<S, T>::value) {\n    if (fits(")
@@ -230,222 +266,6 @@ SHUFFLE_SUMS = ("""  const T s = reduce_scatter<T, TC>(v, lane);
 """)
 
 
-# Owner-computes in K4 and K6, the alternative to their carry rows: a tile
-# owns the nodes whose first edge lies in it and walks their edges [lo, hi)
-# in chunks of TILE; a chunk writes the part of a segment that continues
-# past it to the node's output row, and the next chunk adds its part onto
-# the row; without accumulators the blocks zero the rows of nodes without
-# edges first.  No carry rows and no second launch.
-OWNER_DEFS = r"""
-__device__ __forceinline__ int2 owned_edges(const int32_t* __restrict__ dst_ptr, int n_nodes, int base, int cnt) {
-  const int d = tile_dst(dst_ptr, n_nodes, base, cnt);
-  const int d0 = __shfl_sync(0xffffffffu, d, 0), d1 = __shfl_sync(0xffffffffu, d, cnt - 1);
-  const int lo = __ldg(dst_ptr + d0) == base ? base : __ldg(dst_ptr + d0 + 1);
-  return lo < base + cnt ? make_int2(lo, __ldg(dst_ptr + d1 + 1)) : make_int2(lo, lo);
-}
-
-template <int TILE>
-__device__ __forceinline__ unsigned chunk_ends(const int32_t* __restrict__ dst_ptr, int n_nodes, int cb, int ccnt,
-                                               int32_t* s_dst, bool& cont) {
-  const int lane = threadIdx.x & 31;
-  const int d = tile_dst(dst_ptr, n_nodes, cb, ccnt);
-  const bool real = lane < ccnt;
-  if (lane < TILE) s_dst[lane] = real ? d : 0;
-  cont = __ldg(dst_ptr + __shfl_sync(0xffffffffu, d, 0)) < cb;
-  return __ballot_sync(0xffffffffu, real && __ldg(dst_ptr + d + 1) == cb + lane + 1);
-}
-
-template <typename T>
-__device__ __forceinline__ void zero_empty_rows(const int32_t* __restrict__ dst_ptr, T* __restrict__ out,
-                                                int n_nodes, int mid_dim) {
-  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  for (int n = blockIdx.x * warps + (threadIdx.x >> 5); n < n_nodes; n += gridDim.x * warps) {
-    if (__ldg(dst_ptr + n) != __ldg(dst_ptr + n + 1)) continue;
-    T* row = out + static_cast<int64_t>(n) * mid_dim;
-    for (int c = lane; c < mid_dim; c += 32) row[c] = T(0);
-  }
-}
-
-"""
-OWNER_LOOPS = {
-    "tri_fwd": r"""  if (!kAcc) zero_empty_rows(a.dst_ptr, a.out, a.n_nodes, mid_dim);
-  const int n_tiles = (n_real + TILE - 1) / TILE;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * TILE;
-    __syncthreads();  // the previous tile's readers are done
-    if (warp == 0) {
-      const int2 r = owned_edges(a.dst_ptr, a.n_nodes, base, min(TILE, n_real - base));
-      if (tid == 0) s_range[0] = r.x, s_range[1] = r.y;
-    }
-    __syncthreads();
-    const int lo = s_range[0], hi = s_range[1];
-    for (int cb = lo; cb < hi; cb += TILE) {
-      const int ccnt = min(TILE, hi - cb);
-      if (cb != lo) __syncthreads();  // the previous chunk's readers are done
-      const int64_t oy = static_cast<int64_t>(cb) * sh_dim, ow = static_cast<int64_t>(cb) * wn;
-      stage_flat<T, NT>(base_t + L.o_y, a.y + oy, ccnt * sh_dim, TILE * sh_dim, tid);
-      cp_async_commit();
-      stage_flat<T, NT>(base_t, a.w + ow, ccnt * wn, TILE * wn, tid);
-      stage_rows<T, TILE, NT>(s_x, a.x, a.edge_src + cb, ccnt, dim_in, tid);
-      cp_async_commit();
-      if (warp == 0) {
-        bool cont;
-        const unsigned ends = chunk_ends<TILE>(a.dst_ptr, a.n_nodes, cb, ccnt, s_dst, cont);
-        if (tid == 0) s_cont[0] = cont, s_cont[1] = static_cast<int32_t>(ends);
-      }
-      cp_async_wait<1>();  // y has landed
-      __syncthreads();
-      const T* s_y = base_t + L.o_y + phase16(a.y + oy);
-      cgf::scale_y<T, TILE, NT>(a.tab, s_y, sh_dim, s_cy, tid);  // while x and w land
-      cp_async_wait<0>();
-      __syncthreads();
-
-      const bool cont_in = s_cont[0];
-      // the node ends, and the chunk's last edge, where a continuing segment's part goes to its row
-      const unsigned ends = static_cast<unsigned>(s_cont[1]) | (1u << (ccnt - 1));
-      const int first = __ffs(ends) - 1;  // where the chunk's first segment ends
-      cgf::cg_forward<T, TILE, NT>(
-          a.tab, s_cy, s_x, dim_in, base_t + phase16(a.w + ow), wn, mid_dim, ends, [&](int o, int e, T v) {
-            T* r = a.out + static_cast<int64_t>(s_dst[e]) * mid_dim + o;
-            if (kAcc || (cont_in && e == first))  // onto the accumulator, or onto the previous chunk's part
-              *r += v;
-            else
-              *r = v;
-          });
-    }
-  }
-""",
-    "jvp_fwd": r"""  if (!kAcc) {
-    zero_empty_rows(a.dst_ptr, a.out, a.n_nodes, mid_dim);
-    zero_empty_rows(a.dst_ptr, a.tout, a.n_nodes, mid_dim);
-  }
-  const int n_tiles = (n_real + TILE - 1) / TILE;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * TILE;
-    __syncthreads();  // the previous tile's readers are done
-    if (warp == 0) {
-      const int2 r = owned_edges(a.dst_ptr, a.n_nodes, base, min(TILE, n_real - base));
-      if (tid == 0) s_range[0] = r.x, s_range[1] = r.y;
-    }
-    __syncthreads();
-    const int lo = s_range[0], hi = s_range[1];
-    for (int cb = lo; cb < hi; cb += TILE) {
-      const int ccnt = min(TILE, hi - cb);
-      if (cb != lo) __syncthreads();  // the previous chunk's readers are done
-      const int64_t oy = static_cast<int64_t>(cb) * sh_dim, ow = static_cast<int64_t>(cb) * wn;
-      stage_flat<T, NT>(base_t + L.o_y, a.y + oy, ccnt * sh_dim, TILE * sh_dim, tid);
-      stage_flat<T, NT>(base_t + L.o_ty, a.ty + oy, ccnt * sh_dim, TILE * sh_dim, tid);
-      cp_async_commit();
-      stage_flat<T, NT>(base_t, a.w + ow, ccnt * wn, TILE * wn, tid);
-      stage_flat<T, NT>(base_t + L.o_dw, a.dw + ow, ccnt * wn, TILE * wn, tid);
-      stage_rows<T, TILE, NT>(s_x, a.x, a.edge_src + cb, ccnt, dim_in, tid);
-      stage_rows<T, TILE, NT>(s_tx, a.tx, a.edge_src + cb, ccnt, dim_in, tid);
-      cp_async_commit();
-      if (warp == 0) {
-        bool cont;
-        const unsigned ends = chunk_ends<TILE>(a.dst_ptr, a.n_nodes, cb, ccnt, s_dst, cont);
-        if (tid == 0) s_cont[0] = cont, s_cont[1] = static_cast<int32_t>(ends);
-      }
-      cp_async_wait<1>();  // y and ty have landed
-      __syncthreads();
-      cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_y + phase16(a.y + oy), sh_dim, s_cy, tid);
-      cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_ty + phase16(a.ty + oy), sh_dim, s_cty, tid);
-      cp_async_wait<0>();
-      __syncthreads();
-
-      const bool cont_in = s_cont[0];
-      // the node ends, and the chunk's last edge, where a continuing segment's part goes to its row
-      const unsigned ends = static_cast<unsigned>(s_cont[1]) | (1u << (ccnt - 1));
-      const int first = __ffs(ends) - 1;  // where the chunk's first segment ends
-      cgf::cg_forward_jvp<T, TILE, NT>(
-          a.tab, s_cy, s_cty, s_x, s_tx, dim_in, base_t + phase16(a.w + ow),
-          base_t + L.o_dw + phase16(a.dw + ow), wn, mid_dim, ends, [&](int o, int e, T v, T tv) {
-            const int64_t at = static_cast<int64_t>(s_dst[e]) * mid_dim + o;
-            if (kAcc || (cont_in && e == first)) {  // onto the accumulator, or onto the previous chunk's part
-              a.out[at] += v;
-              a.tout[at] += tv;
-            } else {
-              a.out[at] = v;
-              a.tout[at] = tv;
-            }
-          });
-    }
-  }
-""",
-}
-
-
-def owner(src: str) -> str:
-    kern = "jvp_fwd" if "tout" in src else "tri_fwd"
-    src = _once(src, "sizeof(int32_t) * (tile + 2);", "sizeof(int32_t) * (tile + 4);")
-    i = src.index("  const int n_tiles = (n_real + TILE - 1) / TILE;\n")
-    j = src.index("\n}\n\ntemplate <typename T, int TILE, bool kAcc, int MIN_BLOCKS>\ncudaError_t launch_tile")
-    src = (src[:i] + "  const int warp = tid >> 5;\n  int32_t* s_range = s_flags;  // the tile's owned edges [lo, hi)\n"
-           "  int32_t* s_cont = s_flags + 2;  // [0]: the chunk continues a segment; [1]: the chunk's ends\n"
-           + OWNER_LOOPS[kern] + src[j:])
-    src = _once(src, "template <typename T, int TILE, bool kAcc, int MIN_BLOCKS>\n__global__",
-                OWNER_DEFS + "\ntemplate <typename T, int TILE, bool kAcc, int MIN_BLOCKS>\n__global__")
-    return re.sub(r"  return static_cast<int>\(cgf::launch_finish<[^;]*;\n", "  return 0;  // no second launch\n", src)
-
-
-# c * y edge-major, [TILE][n_terms], read one edge at a time (the layout before
-# the 16-byte term-major loads of cg_fwd.cuh): (new text, old text) pairs
-CY_ROWS = (
-    (r"""    const int k = i / TILE, e = i - k * TILE;
-""",
-     r"""    const int e = i / tab.n_terms, k = i - e * tab.n_terms;
-"""),
-    (r"""    const int xr = __ldg(tab.terms + 2 * k) + c.u;
-#pragma unroll
-    for (int e0 = 0; e0 < TILE; e0 += V) {
-      T cv[V];
-      load16(cv, cy + k * TILE + e0);
-#pragma unroll
-      for (int j = 0; j < V; ++j) m[e0 + j] += cv[j] * x[(e0 + j) * ldx + xr];
-    }
-""",
-     r"""    const int xr = __ldg(tab.terms + 2 * k) + c.u;
-#pragma unroll
-    for (int e = 0; e < TILE; ++e) m[e] += cy[e * tab.n_terms + k] * x[e * ldx + xr];
-"""),
-    (r"""      const int xr = __ldg(tab.terms + 2 * k) + c.u;
-#pragma unroll
-      for (int e0 = 0; e0 < TILE; e0 += V) {
-        T cv[V], ctv[V];
-        load16(cv, cy + k * TILE + e0);
-        load16(ctv, cty + k * TILE + e0);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const int e = e0 + j;
-          const T xa = x[e * ldx + xr];
-          m[e] += cv[j] * xa;
-          tm[e] += ctv[j] * xa + cv[j] * tx[e * ldx + xr];
-        }
-      }
-    }
-""",
-     r"""      const int xr = __ldg(tab.terms + 2 * k) + c.u;
-#pragma unroll
-      for (int e = 0; e < TILE; ++e) {
-        const T a = cy[e * tab.n_terms + k], xa = x[e * ldx + xr];
-        m[e] += a * xa;
-        tm[e] += cty[e * tab.n_terms + k] * xa + a * tx[e * ldx + xr];
-      }
-    }
-"""),
-)
-
-
-def cy_rows(src: str) -> str:
-    if "namespace cgf" not in src:  # the other headers
-        return src
-    for new, old in CY_ROWS:
-        src = _once(src, new, old)
-    return src
-
-
 def _sub(pattern: str, repl: str):
     return lambda src: re.sub(pattern, repl, src)
 
@@ -458,12 +278,19 @@ VARIANTS = {
     "g_rows0": (_sub(r"constexpr int kGRows = \d+;", "constexpr int kGRows = 0;"), None),
     "prefetch": (prefetch, None),
     "unroll4": (None, _sub(r"#pragma unroll 2", "#pragma unroll 4")),
-    "owner": (owner, None),
-    "cy_rows": (None, cy_rows),
+    "unroll_parts": (None, _sub(r"#pragma unroll 1\n(\s+for \(int e0 = 0; e0 < TILE; e0 \+= PART\))",
+                                r"#pragma unroll\n\1")),
 }
 
 
 def variant(name: str, kernel: str = ""):
+    if "+" in name:  # variants joined: each one's patches in turn
+        parts = [variant(n, kernel) for n in name.split("+")]
+        return tuple((lambda src, fs=[q[i] for q in parts if q[i]]: functools.reduce(lambda t, f: f(t), fs, src))
+                     for i in (0, 1))
+    m = re.fullmatch(r"part(\d+)", name)
+    if m:
+        return _sub(r"constexpr int kWalkPart = \d+;", f"constexpr int kWalkPart = {m.group(1)};"), None
     m = re.fullmatch(r"tile(\d+)x(\d+)x(\d+)(?:t(\d+))?", name)
     if m:
         return force(*(int(v) for v in m.groups() if v is not None)), None
@@ -476,11 +303,12 @@ def variant(name: str, kernel: str = ""):
         return (lambda src: re.sub(r"constexpr int kMmaStages = \d+;", f"constexpr int kMmaStages = {st};",
                                    re.sub(r"constexpr int kMmaBK = \d+;", f"constexpr int kMmaBK = {bk};", src))), None
     if name == "clocks" and kernel in FWD_KERNELS:
-        return clocks_fwd, None
+        return clocks_fwd, clocks_fwd_header
     if name == "clocks" and kernel == "conv_bwd":
         return clocks_k2, None
     if name not in VARIANTS:
-        raise SystemExit(f"unknown variant {name!r}: {', '.join(VARIANTS)}, edges<N> or tile<T>x<S>x<B>[t<N>]")
+        raise SystemExit(f"unknown variant {name!r}: {', '.join(VARIANTS)}, edges<N>, part<P>, mma<BK>x<S> "
+                         "or tile<T>x<S>x<B>[t<N>]")
     return VARIANTS[name]
 
 
@@ -496,11 +324,23 @@ def build_variant(name: str, kernel: str, root: str, csrc=build.CSRC) -> str:
                 out.write(patch(src) if patch else src)
     lib = os.path.join(d, f"lib{kernel}.so")
     r = subprocess.run([build._find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                        "-Xcompiler", "-fPIC", "-shared", f"-I{d}", os.path.join(d, f"{kernel}.cu"), "-o", lib],
-                       capture_output=True, text=True)
+                        "-Xcompiler", "-fPIC", "-shared", "-Xptxas=-v", f"-I{d}", os.path.join(d, f"{kernel}.cu"),
+                        "-o", lib], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"{name} {kernel}: nvcc failed\n{r.stderr[-3000:]}")
-    return lib
+    return lib, r.stdout + r.stderr
+
+
+def print_registers(key: str, ptxas: str, dtype) -> None:
+    """One line a kernel of the build's dtype: registers and spill bytes."""
+    recs = chip_ptxas.kernels(ptxas)
+    names = chip_ptxas.demangle(list(recs))
+    want = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    for mangled, rec in sorted(recs.items(), key=lambda kv: names[kv[0]]):
+        name = chip_ptxas.normal(names[mangled])
+        if chip_ptxas.precision(name) == want and "_kernel<" in name:
+            print(f"{key}: {name.split('(')[0]}: {rec.get('registers')} registers, spill "
+                  f"{rec.get('spill_stores')} / {rec.get('spill_loads')} bytes", flush=True)
 
 
 def flagship_inputs(seed=0):
@@ -532,14 +372,12 @@ def main() -> int:
         i = args.index("--dtype")
         dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args[i + 1]]
         del args[i:i + 2]
-        if fwd and dtype != torch.float32:
-            raise SystemExit("--dtype bf16 times K5 and K7 (without --fwd)")
     parent = None
     if "--parent" in args:
         i = args.index("--parent")
         parent = Path(args[i + 1]) / "nequip_tpu_torch" / "csrc"
         del args[i:i + 2]
-    names = [a for a in args if a != "--fwd"] or (["base", "owner"] if fwd else ["base", "clocks"])
+    names = [a for a in args if a != "--fwd"] or ["base", "clocks"]
     if parent is not None:
         names = [n for name in names for n in (name, f"{name}@parent")]
     kernels = FWD_KERNELS if fwd else ("conv_bwd",) if k2 else KERNELS
@@ -551,15 +389,18 @@ def main() -> int:
                                      os.path.join(root, k.replace("#", "_").replace("@", "_")),
                                      parent if "@parent" in k else build.CSRC)
                 for k in keys for kern in kernels}
-        libs = {key: ctypes.CDLL(f.result()) for key, f in futs.items()}
-        print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+        built = {key: f.result() for key, f in futs.items()}
+        print(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+        for (k, kern), (_, ptxas) in built.items():
+            print_registers(f"{k} {kern}", ptxas, dtype)
+        libs = {key: ctypes.CDLL(lib) for key, (lib, _) in built.items()}
         for (k, kern), lib in libs.items():
             entries = [kern + "_train"] if k2 else [kern] + ([kern + "_acc", kern + "_tile"] if fwd else [])
             for entry in entries:
                 fn = getattr(lib, f"nequip_{entry}_{SUFFIX[dtype]}")
                 fn.argtypes, fn.restype = build._SIGNATURES[f"nequip_{entry}"], ctypes.c_int
         if fwd:
-            run_fwd(keys, libs)
+            run_fwd(keys, libs, dtype)
         elif k2:
             run_k2(keys, libs, dtype)
         else:
@@ -618,7 +459,7 @@ def run(keys, libs, dtype=torch.float32) -> None:
             outs = tuple(torch.zeros(rows_out, wd, dtype=dtype, device=dev) for wd in widths[kern])
             rec = dict(variant=k, kernel=kern, layer=li)
             try:
-                clk = k.startswith("clocks")
+                clk = "clocks" in k.split("@")[0].split("#")[0].split("+")
                 if clk:
                     lib.cg_zero_clk()
                 call(kern, lib, outs)
@@ -677,7 +518,7 @@ def run_k2(keys, libs, dtype) -> None:
 
         for (k, kern), lib in libs.items():
             rec = dict(variant=k, kernel="conv_bwd_train", layer=li)
-            clk = k.startswith("clocks")
+            clk = "clocks" in k.split("@")[0].split("#")[0].split("+")
             if clk:
                 lib.cg_zero_clk()
             call(lib)
@@ -701,79 +542,116 @@ def run_k2(keys, libs, dtype) -> None:
         raise SystemExit(f"disagree with plain: {bad}")
 
 
-def run_fwd(keys, libs) -> None:
-    """K4 on the whole stream, K4-acc and K6 on the second of 4 slices, per
-    variant and layer."""
+def fwd_layers(blocks):
+    """(label, plan) of the flagship's 3 conv layers and of preset M's layer 1."""
+    from nequip_tpu_torch.model import PresetNequIPGNNModel
+    from nequip_tpu_torch.nn.interaction_block import InteractionBlock
+
+    preset_m = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", type_names=["Cu"], r_max=4.0,
+                                    preset="M", avg_num_neighbors=18.0)
+    widest = [m for m in preset_m.modules() if isinstance(m, InteractionBlock)][1]
+    return [(f"flagship {i}", b.tp_scatter.plan) for i, b in enumerate(blocks)] + [("preset M 1",
+                                                                                     widest.tp_scatter.plan)]
+
+
+FWD_ENTRIES = ("tri_fwd", "tri_fwd_acc", "jvp_fwd", "jvp_fwd_acc")
+
+
+def run_fwd(keys, libs, dtype) -> None:
+    """K4, K4-acc, K6 and K6-acc on the whole stream and on the second of 4
+    slices, per variant and layer; with --parent each output against the
+    same variant's from the parent build, bitwise."""
     dev = torch.device("cuda")
-    dtype = torch.float32
+    acc_dt = K.acc_dtype(dtype)
     data, layout, sl, blocks, rng = flagship_inputs()
     N, E = data["pos"].shape[0], data["edge_index"].shape[1]
-    lay_s, rows = sl.layout, slice(sl.start, sl.stop)
+    rows = slice(sl.start, sl.stop)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
-    sums, bad = {}, []
-    for li, blk in enumerate(blocks):
-        plan = blk.tp_scatter.plan
-        t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)  # noqa: E731
+    sums, bad, differ = {}, [], []
+    for label, plan in fwd_layers(blocks):
+        t = lambda *s, dt=dtype: torch.as_tensor(rng.standard_normal(s), dtype=dt, device=dev)  # noqa: E731
         x, sh, w, tx, tsh, dw = (t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel), t(N, plan.dim_in),
                                  t(E, plan.sh_dim), t(E, plan.weight_numel))
-        acc, tacc = t(N, plan.mid_dim), t(N, plan.mid_dim)
-        tab = plan.device_tables(dev, dtype)
+        acc = (t(N, plan.mid_dim, dt=acc_dt), t(N, plan.mid_dim, dt=acc_dt))
+        tab = plan.device_tables(dev, acc_dt)
         tabs = [tab[k].data_ptr() for k in ("fwd_groups", "fwd_terms", "fwd_coef", "fwd_col")]
         n_terms = tab["fwd_coef"].shape[0]
         dims = (n_terms, N, plan.dim_in, plan.sh_dim, plan.weight_numel, plan.mid_dim)
-        s_ops = (x, tx, sh[rows], tsh[rows], w[rows], dw[rows], lay_s)
-        refs = {"tri_fwd": (K.tri_fwd_plain(plan, x, sh, w, layout),),
-                "tri_fwd_acc": (K.tri_fwd_plain(plan, x, sh[rows], w[rows], lay_s, acc.clone()),),
-                "jvp_fwd": K.jvp_fwd_plain(plan, *s_ops)}
+        ops = {"stream": (x, tx, sh, tsh, w, dw, layout), "slice": (x, tx, sh[rows], tsh[rows], w[rows], dw[rows],
+                                                                     sl.layout)}
+        fresh = lambda entry: tuple(a.clone() for a in acc[:2 if entry == "jvp_fwd_acc" else 1])  # noqa: E731
 
-        def call(entry, lib, outs, carry, tile):
-            if entry == "jvp_fwd":
-                ops = [x, tx, sh[rows], tsh[rows], w[rows], dw[rows], lay_s.edge_src, lay_s.dst_ptr]
-            elif entry == "tri_fwd_acc":
-                ops = [x, sh[rows], w[rows], lay_s.edge_src, lay_s.dst_ptr]
-            else:
-                ops = [x, sh, w, layout.edge_src, layout.dst_ptr]
-            err = getattr(lib, f"nequip_{entry}_f32")(
-                *(o.data_ptr() for o in ops), *tabs, *(o.data_ptr() for o in outs), carry.data_ptr(), *dims, tile,
-                stream())
+        def plain(entry, on):
+            x_, tx_, y, ty, w_, dw_, lay = ops[on]
+            if entry.startswith("tri_fwd"):
+                return (K.tri_fwd_plain(plan, x_, y, w_, lay, fresh(entry)[0] if entry.endswith("_acc") else None),)
+            return K.jvp_fwd_plain(plan, x_, tx_, y, ty, w_, dw_, lay, fresh(entry) if entry.endswith("_acc") else None)
+
+        def call(entry, on, lib, outs, carry, tile):
+            x_, tx_, y, ty, w_, dw_, lay = ops[on]
+            ins = [x_, tx_, y, ty, w_, dw_] if entry.startswith("jvp_fwd") else [x_, y, w_]
+            err = getattr(lib, f"nequip_{entry}_{SUFFIX[dtype]}")(
+                *(o.data_ptr() for o in ins + [lay.edge_src, lay.dst_ptr]), *tabs, *(o.data_ptr() for o in outs),
+                carry.data_ptr(), *dims, tile, stream())
             if err:
                 raise RuntimeError(f"{entry}: cudaError {err}")
 
-        for (k, kern), lib in libs.items():
-            tile = getattr(lib, f"nequip_{kern}_tile_f32")(plan.dim_in, plan.sh_dim, plan.weight_numel, n_terms)
-            for entry in (("tri_fwd", "tri_fwd_acc") if kern == "tri_fwd" else (kern,)):
-                n_carry = K.conv_fwd_carry_rows(layout.n_real if entry == "tri_fwd" else lay_s.n_real, tile)
-                carry = torch.empty(n_carry, (2 if kern == "jvp_fwd" else 1) * plan.mid_dim, dtype=dtype, device=dev)
-                outs = (tuple(torch.empty(N, plan.mid_dim, dtype=dtype, device=dev) for _ in range(2))
-                        if entry == "jvp_fwd" else (acc.clone() if entry == "tri_fwd_acc" else torch.empty_like(acc),))
-                rec = dict(variant=k, kernel=entry, layer=li, tile=tile)
-                try:
-                    clk = k.startswith("clocks")
-                    if clk:
-                        lib.cg_zero_clk()
-                    call(entry, lib, outs, carry, tile)
-                    torch.cuda.synchronize()
-                    if clk:
-                        buf = (ctypes.c_ulonglong * 16)()
-                        lib.cg_read_clk(buf)
-                        rec["cycles_per_tile"] = {p: buf[i] / buf[15] for i, p in enumerate(FWD_PHASES)}
-                    rec["ok"] = all(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-5 * float(b.abs().max())).all())
-                                    for a, b in zip(outs, refs[entry]))
-                    rec["ms"] = float(np.median([CS.cuda_median_ms(lambda: call(entry, lib, outs, carry, tile), 10)
-                                                 for _ in range(3)]))
-                except RuntimeError as exc:  # a forced shape that does not fit
-                    rec.update(ok=False, ms=float("nan"), error=str(exc))
-                sums.setdefault((k, entry), []).append(rec["ms"])
-                if not rec["ok"] and "error" not in rec:
-                    bad.append((k, entry, li))
-                print(json.dumps(rec), flush=True)
-        del refs
+        first = {}  # (variant, entry, on) -> the first call's outputs, for the parent's comparison
+        for entry in FWD_ENTRIES:
+            for on in ("stream", "slice"):
+                ref = plain(entry, on)
+                for (k, kern), lib in libs.items():
+                    if not entry.startswith(kern):
+                        continue
+                    tile = getattr(lib, f"nequip_{kern}_tile_{SUFFIX[dtype]}")(plan.dim_in, plan.sh_dim,
+                                                                              plan.weight_numel, n_terms)
+                    n_edges = ops[on][-1].n_real
+                    carry = torch.empty(K.conv_fwd_carry_rows(n_edges, max(tile, 1), dtype),
+                                        (2 if kern == "jvp_fwd" else 1) * plan.mid_dim, dtype=acc_dt, device=dev)
+                    outs = (fresh(entry) if entry.endswith("_acc") else
+                            tuple(torch.empty(N, plan.mid_dim, dtype=dtype, device=dev)
+                                  for _ in range(2 if kern == "jvp_fwd" else 1)))
+                    rec = dict(variant=k, kernel=entry, on=on, layer=label, tile=tile)
+                    try:
+                        clk = "clocks" in k.split("@")[0].split("#")[0].split("+")
+                        if clk:
+                            lib.cg_zero_clk()
+                        call(entry, on, lib, outs, carry, tile)
+                        torch.cuda.synchronize()
+                        if clk:
+                            buf = (ctypes.c_ulonglong * 16)()
+                            lib.cg_read_clk(buf)
+                            rec["cycles_per_tile"] = {p: buf[i] / buf[15] for i, p in enumerate(FWD_PHASES)}
+                        rec["ok"] = agrees(outs, ref, dtype)
+                        name = k.split("@")[0]
+                        if "@parent" in k and (name, entry, on) in first:
+                            rec["same_as_parent"] = all(torch.equal(a, b) for a, b in zip(outs, first[name, entry, on]))
+                            if not rec["same_as_parent"]:
+                                differ.append((k, entry, on, label))
+                        elif "@parent" not in k:
+                            first[name, entry, on] = tuple(o.clone() for o in outs)
+                        rec["ms"] = float(np.median([CS.cuda_median_ms(lambda: call(entry, on, lib, outs, carry, tile),
+                                                                       10) for _ in range(3)]))
+                    except RuntimeError as exc:  # a forced shape that does not fit
+                        rec.update(ok=False, ms=float("nan"), error=str(exc))
+                    sums.setdefault((k, entry, on), []).append(rec["ms"])
+                    if not rec["ok"] and "error" not in rec:
+                        bad.append((k, entry, on, label))
+                    print(json.dumps(rec), flush=True)
+                del ref
+                first = {key: v for key, v in first.items() if key[1:] != (entry, on)}
+        del ops, acc
         torch.cuda.empty_cache()
-    for (k, entry), ms in sums.items():
-        print(f"{entry} {k} f32, sum of 3 layers: {sum(ms):.3f} ms ({', '.join(f'{m:.3f}' for m in ms)})",
-              flush=True)
-    if bad:
-        raise SystemExit(f"disagree with plain: {bad}")
+    for (k, entry, on), ms in sums.items():
+        print(f"{entry} on the {on} {k} {SUFFIX[dtype]}: flagship's 3 layers {sum(ms[:3]):.3f} ms "
+              f"({', '.join(f'{m:.3f}' for m in ms[:3])}), preset M layer 1 {ms[3]:.3f} ms", flush=True)
+    if differ:
+        print(f"outputs that differ from the parent build's: {differ}", flush=True)
+    else:
+        print("every output of every variant with a parent build is bitwise equal to the parent's"
+              if any("@parent" in k for k, _ in libs) else "", flush=True)
+    if bad or differ:
+        raise SystemExit(f"disagree with plain: {bad}; differ from the parent: {differ}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """What ptxas makes of the port's CUDA kernels: registers, spills and, against
-another tree, whether the float32 and float64 kernels compile to the same code.
+another tree, whether the kernels compile to the same code.
 
-    python3 chip_ptxas.py [--against DIR] [SOURCE ...]
+    python3 chip_ptxas.py [--against DIR [--except SOURCE ...]] [SOURCE ...]
 
 Compiles each source of ``nequip_tpu_torch/csrc`` (or the named ones, e.g.
 ``tri_bwd.cu``) with ``ops/kernels/build.py``'s nvcc line plus
@@ -10,12 +10,14 @@ Compiles each source of ``nequip_tpu_torch/csrc`` (or the named ones, e.g.
 a kernel: registers, spill stores and loads, stack frame.  With ``--against
 DIR`` (a tree holding ``nequip_tpu_torch/csrc``, such as another commit
 unpacked by ``git archive``) it compiles DIR's sources too and compares
-every kernel of a float32 or float64 instantiation that both trees have, by
-name: its registers and spills, and its SASS (``cuobjdump -sass``) where the
-toolkit has cuobjdump.  Names are compared demangled, without the anonymous
+every kernel that both trees have, source by source and by name: its
+registers and spills, and its SASS (``cuobjdump -sass``) where the toolkit
+has cuobjdump.  ``--except`` names sources whose bfloat16 kernels are meant
+to change: those are listed but not compared (their float32 and float64
+kernels are).  Names are compared demangled, without the anonymous
 namespace and without a trailing block-size argument of 256 (a defaulted
-template argument).  Exits 1 if such a kernel differs.  Needs nvcc (the
-machine with the card).
+template argument).  Exits 1 if a compared kernel differs or is missing
+from this tree.  Needs nvcc (the machine with the card).
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def sass(obj: Path) -> dict:
 
 
 def table(csrc: Path, names, out: Path) -> dict:
-    """{normalised demangled name: (source, mangled, ptxas record, sass)}"""
+    """{(source, normalised demangled name): (source, mangled, ptxas record, sass)}"""
     built = compile_all(csrc, names, out)
     rows = {}
     for name, (obj, text) in built.items():
@@ -111,7 +113,7 @@ def table(csrc: Path, names, out: Path) -> dict:
         code = sass(obj)
         dem = demangle(list(ks))
         for mangled, rec in ks.items():
-            rows[normal(dem[mangled])] = (name, mangled, rec, code.get(mangled))
+            rows[name, normal(dem[mangled])] = (name, mangled, rec, code.get(mangled))
     return rows
 
 
@@ -123,35 +125,44 @@ def precision(name: str) -> str:
 
 def main() -> int:
     args = sys.argv[1:]
-    against = None
+    against, changed = None, set()
     if "--against" in args:
         i = args.index("--against")
         against = Path(args[i + 1])
         del args[i:i + 2]
+    if "--except" in args:
+        i = args.index("--except")
+        j = next((k for k in range(i + 1, len(args)) if args[k].startswith("--")), len(args))
+        changed = set(args[i + 1:j])
+        del args[i:j]
     names = args or sorted(p.name for p in build.CSRC.glob("*.cu"))
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "this").mkdir()
         rows = table(build.CSRC, names, Path(tmp) / "this")
-        for key, (src, _, rec, _) in sorted(rows.items(), key=lambda kv: (kv[1][0], kv[0])):
+        for (src, key), (_, _, rec, _) in sorted(rows.items()):
             print(f"{src}: {key}: {rec.get('registers')} registers, spill {rec.get('spill_stores')} / "
                   f"{rec.get('spill_loads')} bytes, stack {rec.get('stack')} bytes", flush=True)
         if against is None:
             return 0
         (Path(tmp) / "other").mkdir()
         other = table(against / "nequip_tpu_torch" / "csrc", names, Path(tmp) / "other")
-    differ = compared = with_sass = 0
+    def compares(key) -> bool:
+        return not (precision(key[1]) == "bf16" and key[0] in changed)
+
+    differ, compared, with_sass = 0, {}, 0
     for key, (src, _, rec, code) in sorted(rows.items()):
-        if precision(key) not in ("f32", "f64") or key not in other:
+        if not compares(key) or key not in other:
             continue
         _, _, orec, ocode = other[key]
-        compared += 1
+        compared[precision(key[1])] = compared.get(precision(key[1]), 0) + 1
         same_sass = None if code is None or ocode is None else code == ocode
         with_sass += same_sass is not None
         if rec != orec or same_sass is False:
             differ += 1
-            print(f"DIFFERS {src}: {key}: {orec} -> {rec}, sass {'same' if same_sass else 'differs'}", flush=True)
-    missing = [k for k in other if precision(k) in ("f32", "f64") and k not in rows]
-    print(f"compared {compared} f32/f64 kernels against {against} ({with_sass} with their SASS): {differ} differ"
+            print(f"DIFFERS {src}: {key[1]}: {orec} -> {rec}, sass {'same' if same_sass else 'differs'}", flush=True)
+    missing = [k for k in other if compares(k) and k not in rows]
+    print(f"compared {sum(compared.values())} kernels against {against} ({compared}; {with_sass} with their SASS; "
+          f"bf16 kernels of {sorted(changed)} not compared): {differ} differ"
           f"{'' if not missing else f'; only in {against}: {missing}'}", flush=True)
     return 1 if differ or missing else 0
 

@@ -3566,7 +3566,8 @@ def phase16e_compile(smi: str, label: str = "16e", route: tuple = K1_ROUTE, **mo
         raise RuntimeError(f"phase {label}: the compiled bf16 model disagrees with eager bf16")
     del compiled, eager
     for f in BF16_DIR.glob("*"):
-        f.unlink()
+        if f.is_file():  # the artifacts; a folder is 16g's, from an earlier run in this checkout
+            f.unlink()
     torch.cuda.empty_cache()
 
 

@@ -30,12 +30,20 @@
 // tile holding a node's first edge finishing it in chunks: slower,
 // PERF.md.)
 //
-// The bf16 forms (K1, K4 and K6 with bf16 storage on float32 tiles) sum
-// over edges in compensated float32 (cg_forward_compensated,
-// cg_forward_jvp_compensated), and a tile puts the part of a destination
-// that another tile shares in float32 carry rows, hi and lo (carry_slots),
-// so that each output is rounded once, from a sum that does not depend on
-// how its edges fall into tiles (finish_split_rows_compensated).
+// The bf16 forms sum over edges in compensated float32
+// (cg_forward_compensated, cg_forward_jvp_compensated), and a tile puts the
+// part of a destination that another tile shares in float32 carry rows, hi
+// and lo (carry_slots), so that each output is rounded once, from a sum that
+// does not depend on how its edges fall into tiles
+// (finish_split_rows_compensated).  K1's bf16 form reads float32 tiles (its
+// operands widened as they are staged); K4's and K6's read bf16 tiles of x
+// (tx), y (ty) and w (dw), staged raw, and widen each value where it is read
+// (S, the tiles' storage type: widening bf16 is exact, so the products and
+// sums are the float32 tiles' bit for bit).  c * y (c * ty) is a float32
+// tile in every form.  Their walks form a column's products PART edges at a
+// time (the compensated sum carried across the parts in edge order, so the
+// sums are those of one pass over the tile), which keeps the registers of
+// the products and the two-word sums within what more blocks an SM allow.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,12 +69,13 @@ struct Tables {
 };
 
 // cy[k * TILE + e] = coef[k] * y[e * ldy + y_index(k)] for the TILE edges
-// of a tile (zero where y's rows are); cy 16-byte aligned
-template <typename T, int TILE, int NT>
-__device__ __forceinline__ void scale_y(const Tables<T>& tab, const T* y, int ldy, T* cy, int tid) {
+// of a tile (zero where y's rows are); cy 16-byte aligned; y of a storage
+// type S, widened as it is read
+template <typename T, int TILE, int NT, typename S>
+__device__ __forceinline__ void scale_y(const Tables<T>& tab, const S* y, int ldy, T* cy, int tid) {
   for (int i = tid; i < TILE * tab.n_terms; i += NT) {
     const int k = i / TILE, e = i - k * TILE;
-    cy[i] = __ldg(tab.coef + k) * y[e * ldy + __ldg(tab.terms + 2 * k + 1)];
+    cy[i] = __ldg(tab.coef + k) * widen(y[e * ldy + __ldg(tab.terms + 2 * k + 1)]);
   }
 }
 
@@ -82,22 +91,24 @@ __device__ __forceinline__ Column column(const Tables<T>& tab, int o) {
   return {u, __ldg(gr + 1) + u, __ldg(gr + 2), __ldg(gr + 3)};
 }
 
-// m[e] = sum over the column's terms of cy[k][e] * x[e][x_row + u]
-template <typename T, int TILE>
-__device__ __forceinline__ void product(const Tables<T>& tab, const Column& c, const T* cy, const T* x, int ldx,
-                                        T (&m)[TILE]) {
+// m[e] = sum over the column's terms of cy[k][e] * x[e][x_row + u] for the
+// N edges of a part of the tile (cy and x at the part's first edge, cy's
+// rows TILE apart); x of a storage type S, widened as it is read
+template <typename T, int TILE, int N = TILE, typename S>
+__device__ __forceinline__ void product(const Tables<T>& tab, const Column& c, const T* cy, const S* x, int ldx,
+                                        T (&m)[N]) {
   constexpr int V = 16 / sizeof(T);
-  static_assert(TILE % V == 0, "whole 16-byte loads of c * y");
+  static_assert(TILE % V == 0 && N % V == 0, "whole 16-byte loads of c * y");
 #pragma unroll
-  for (int e = 0; e < TILE; ++e) m[e] = T(0);
+  for (int e = 0; e < N; ++e) m[e] = T(0);
   for (int k = c.t0; k < c.t1; ++k) {
     const int xr = __ldg(tab.terms + 2 * k) + c.u;
 #pragma unroll
-    for (int e0 = 0; e0 < TILE; e0 += V) {
+    for (int e0 = 0; e0 < N; e0 += V) {
       T cv[V];
       load16(cv, cy + k * TILE + e0);
 #pragma unroll
-      for (int j = 0; j < V; ++j) m[e0 + j] += cv[j] * x[(e0 + j) * ldx + xr];
+      for (int j = 0; j < V; ++j) m[e0 + j] += cv[j] * widen(x[(e0 + j) * ldx + xr]);
     }
   }
 }
@@ -130,23 +141,35 @@ __device__ __forceinline__ void cg_forward(const Tables<T>& tab, const T* cy, co
 // (SumF32x2), which emit(o, e, sum) takes.  Its value does not depend on
 // how the segment's edges fall into tiles, nor on zero terms among them,
 // so a bf16 output rounded from it does not either (MD's neighbour lists,
-// rebuilt at other steps, give other tilings of the same edges).
-template <int TILE, int NT, typename Emit>
-__device__ __forceinline__ void cg_forward_compensated(const Tables<float>& tab, const float* cy, const float* x,
-                                                       int ldx, const float* w, int ldw, int mid_dim, unsigned ends,
-                                                       Emit emit) {
+// rebuilt at other steps, give other tilings of the same edges).  The
+// column's products are formed PART edges at a time, the sum carried across
+// the parts; x and w are tiles of a storage type S (float, or bf16 widened
+// as read).
+template <int TILE, int NT, int PART = TILE, typename S, typename Emit>
+__device__ __forceinline__ void cg_forward_compensated(const Tables<float>& tab, const float* cy, const S* x, int ldx,
+                                                       const S* w, int ldw, int mid_dim, unsigned ends, Emit emit) {
+  static_assert(TILE % PART == 0, "whole parts");
   for (int o = threadIdx.x; o < mid_dim; o += NT) {
     const Column c = column(tab, o);
-    float m[TILE];
-    product<float, TILE>(tab, c, cy, x, ldx, m);
     SumF32x2 acc;
+    auto part = [&](int e0) {  // the products of edges [e0, e0 + PART), then their sums
+      float m[PART];
+      product<float, TILE, PART>(tab, c, cy + e0, x + e0 * ldx, ldx, m);
 #pragma unroll
-    for (int e = 0; e < TILE; ++e) {
-      acc.add(__fmul_rn(w[e * ldw + c.wc], m[e]));
-      if ((ends >> e) & 1u) {
-        emit(o, e, acc);
-        acc = SumF32x2{};
+      for (int j = 0; j < PART; ++j) {
+        const int e = e0 + j;
+        acc.add(__fmul_rn(widen(w[e * ldw + c.wc]), m[j]));
+        if ((ends >> e) & 1u) {
+          emit(o, e, acc);
+          acc = SumF32x2{};
+        }
       }
+    };
+    if constexpr (PART == TILE) {
+      part(0);
+    } else {
+#pragma unroll 1
+      for (int e0 = 0; e0 < TILE; e0 += PART) part(e0);  // rolled: one part's offsets live at a time
     }
   }
 }
@@ -154,26 +177,27 @@ __device__ __forceinline__ void cg_forward_compensated(const Tables<float>& tab,
 // m[e] and tm[e] of the fr dual sweep for column c: with tangents tx (rows
 // beside x) and c * ty (cty, laid out as cy),
 //   m = sum c y x,  tm = sum c (ty x + y tx)
-template <typename T, int TILE>
+// for the N edges of a part of the tile, as product
+template <typename T, int TILE, int N = TILE, typename S>
 __device__ __forceinline__ void product_jvp(const Tables<T>& tab, const Column& c, const T* cy, const T* cty,
-                                            const T* x, const T* tx, int ldx, T (&m)[TILE], T (&tm)[TILE]) {
+                                            const S* x, const S* tx, int ldx, T (&m)[N], T (&tm)[N]) {
   constexpr int V = 16 / sizeof(T);
-  static_assert(TILE % V == 0, "whole 16-byte loads of c * y");
+  static_assert(TILE % V == 0 && N % V == 0, "whole 16-byte loads of c * y");
 #pragma unroll
-  for (int e = 0; e < TILE; ++e) m[e] = tm[e] = T(0);
+  for (int e = 0; e < N; ++e) m[e] = tm[e] = T(0);
   for (int k = c.t0; k < c.t1; ++k) {
     const int xr = __ldg(tab.terms + 2 * k) + c.u;
 #pragma unroll
-    for (int e0 = 0; e0 < TILE; e0 += V) {
+    for (int e0 = 0; e0 < N; e0 += V) {
       T cv[V], ctv[V];
       load16(cv, cy + k * TILE + e0);
       load16(ctv, cty + k * TILE + e0);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const int e = e0 + j;
-        const T xa = x[e * ldx + xr];
+        const T xa = widen(x[e * ldx + xr]);
         m[e] += cv[j] * xa;
-        tm[e] += ctv[j] * xa + cv[j] * tx[e * ldx + xr];
+        tm[e] += ctv[j] * xa + cv[j] * widen(tx[e * ldx + xr]);
       }
     }
   }
@@ -207,27 +231,38 @@ __device__ __forceinline__ void cg_forward_jvp(const Tables<T>& tab, const T* cy
 // cg_forward_jvp for K6's bf16 form (jvp_fwd.cu): the same products, each
 // w m, w tm and dw m rounded to float32 once and added to a compensated
 // sum (SumF32x2, as cg_forward_compensated), both of which emit(o, e, sum,
-// tsum) takes.
-template <int TILE, int NT, typename Emit>
+// tsum) takes; PART edges' products at a time, from tiles of a storage
+// type S, as cg_forward_compensated.
+template <int TILE, int NT, int PART = TILE, typename S, typename Emit>
 __device__ __forceinline__ void cg_forward_jvp_compensated(const Tables<float>& tab, const float* cy,
-                                                           const float* cty, const float* x, const float* tx,
-                                                           int ldx, const float* w, const float* dw, int ldw,
-                                                           int mid_dim, unsigned ends, Emit emit) {
+                                                           const float* cty, const S* x, const S* tx, int ldx,
+                                                           const S* w, const S* dw, int ldw, int mid_dim,
+                                                           unsigned ends, Emit emit) {
+  static_assert(TILE % PART == 0, "whole parts");
   for (int o = threadIdx.x; o < mid_dim; o += NT) {
     const Column c = column(tab, o);
-    float m[TILE], tm[TILE];
-    product_jvp<float, TILE>(tab, c, cy, cty, x, tx, ldx, m, tm);
     SumF32x2 acc, tacc;
+    auto part = [&](int e0) {  // the products of edges [e0, e0 + PART), then their sums
+      float m[PART], tm[PART];
+      product_jvp<float, TILE, PART>(tab, c, cy + e0, cty + e0, x + e0 * ldx, tx + e0 * ldx, ldx, m, tm);
 #pragma unroll
-    for (int e = 0; e < TILE; ++e) {
-      const float we = w[e * ldw + c.wc];
-      acc.add(__fmul_rn(we, m[e]));
-      tacc.add(__fmul_rn(we, tm[e]));
-      tacc.add(__fmul_rn(dw[e * ldw + c.wc], m[e]));
-      if ((ends >> e) & 1u) {
-        emit(o, e, acc, tacc);
-        acc = tacc = SumF32x2{};
+      for (int j = 0; j < PART; ++j) {
+        const int e = e0 + j;
+        const float we = widen(w[e * ldw + c.wc]);
+        acc.add(__fmul_rn(we, m[j]));
+        tacc.add(__fmul_rn(we, tm[j]));
+        tacc.add(__fmul_rn(widen(dw[e * ldw + c.wc]), m[j]));
+        if ((ends >> e) & 1u) {
+          emit(o, e, acc, tacc);
+          acc = tacc = SumF32x2{};
+        }
       }
+    };
+    if constexpr (PART == TILE) {
+      part(0);
+    } else {
+#pragma unroll 1
+      for (int e0 = 0; e0 < TILE; e0 += PART) part(e0);  // rolled: one part's offsets live at a time
     }
   }
 }

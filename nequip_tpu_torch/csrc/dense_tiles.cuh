@@ -3,7 +3,7 @@
 // (K1, conv_fwd.cu; K2, conv_bwd.cu; K4, tri_fwd.cu; K5, tri_bwd.cu; K6,
 // jvp_fwd.cu; K7, jvp_bwd.cu): each edge's destination, the cp.async
 // staging of a tile's rows (bf16 rows widened into float tiles on the way,
-// or, in K5, kept bf16 in bf16 tiles) and the stores of its per-edge
+// or, in K4, K5 and K6, kept bf16 in bf16 tiles) and the stores of its per-edge
 // outputs, and the launch geometry of a grid of every block that fits on
 // the card at once.  A bf16 form's kernels are other functions with opt-ins
 // and cache entries of their own.

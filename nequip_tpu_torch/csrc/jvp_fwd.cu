@@ -49,9 +49,8 @@
 //
 // bf16 (nequip_jvp_fwd_bf16, nequip_jvp_fwd_acc_bf16): the six operands
 // are bf16 in device memory, and so are msg and tmsg; the _acc form's two
-// accumulators are float32.  The kernel is the f32 design on float32
-// tiles, each operand widened as it is staged, every product and sum in
-// float32; msg and tmsg are both compensated sums (hi + lo,
+// accumulators are float32.  Every product and sum is taken in float32;
+// msg and tmsg are both compensated sums (hi + lo,
 // cg_forward_jvp_compensated), split destinations wait in float32 carry
 // rows [n_tiles][2][2][2][mid_dim] (slot, hi/lo, msg/tmsg: cg_fwd.cuh
 // carry_slots) and the second launch adds them in tile order.  Each output
@@ -59,11 +58,32 @@
 // rounded to float32 once; tp_scatter.ChunkedJvpConv rounds the
 // accumulators to bf16 after the last slice), as in K4's bf16 form
 // (tri_fwd.cu).  The plain version (tp_scatter.jvp_fwd_plain) rounds at
-// the same points.  bf16 tiles stop at 16 edges (kTopTile); registers
-// (nvcc -Xptxas -v) 128 at 16 edges, 117-118 at 8, 96-102 at 4, no spills.
-// Measured (chip_smoke.py phase 16a, phase 16 alone; H100 80GB HBM3, 700
-// W): 1.75 ms on one of 4 fr slices over the three layers against 1.07
-// for f32 in the same call, 14.6x its 0.12 ms bound.
+// the same points.  Design (the first bf16 form ran the f32 design on
+// float32 tiles, widened as staged, in 16-edge tiles: its walk spilled at
+// 32; 1.648 ms on one of 4 slices against f32's 0.971):
+// - As K4's bf16 form: x[src], tx[src], y, ty, w and dw stay bf16 in shared
+//   memory, staged raw by cp.async (jvp_fwd_smem in elements of S), c * y
+//   and c * ty float32 tiles, each value widened where it is read; every
+//   output is the float32-tile form's bit for bit (chip_cg_profile.py
+//   --fwd --dtype bf16 --parent).
+// - The walk forms m and tm kWalkPart = 8 edges at a time (rolled loop),
+//   under an 80-register cap (kMinBlocks = 3): 32-edge tiles, three blocks
+//   an SM in layers 0 and 2, two in layer 1, where a tile takes 104 KB.
+// - Launch shapes tried (chip_cg_profile.py --fwd --dtype bf16, K6 on one
+//   of 4 slices, the three layers summed; H100 80GB HBM3, 700 W): 32 edges
+//   under the 3-block cap, parts of 8: 0.947-0.984 ms; parts of 16 (32
+//   bytes of spill) 1.044-1.048; 32 at two blocks (128 registers) parts of
+//   8: 1.039-1.091, parts of 16 1.086, the whole tile 1.431 (116 bytes of
+//   spill); 16 at four blocks 1.029-1.054; 16 at two 1.267.
+// - Registers (nvcc -Xptxas -v): 78-80 under the cap, 96-104 for 4-edge
+//   tiles at one block; no spills.
+// Measured (chip_cg_profile.py --fwd --dtype bf16 --parent, both builds in
+// turns in one process; H100 80GB HBM3, 700 W): 1.648 -> 0.984 ms on one of
+// 4 slices over the three layers (f32, in another run:
+// 0.971), the _acc form 1.582 -> 0.976 (f32 1.010).  Layer 1, cycles per
+// tile of thread 0 (this: 32-edge tiles; the parent: 16): staging,
+// destinations and y 11.8k (24.6k), the CG phase 54.1k (28.2k), of which
+// the products 25.3k (9.1k) and the compensated walk 28.4k (18.7k).
 #include <type_traits>
 
 #include "cg_fwd.cuh"
@@ -86,17 +106,20 @@ struct JvpFwdArgs {
   int n_nodes, dim_in, sh_dim, wn, mid_dim;
 };
 
-// Shared-memory carve-up, in elements of T: w, dw [TILE][wn] and y, ty
-// [TILE][sh_dim] (each with room for a 16-byte phase), x, tx [TILE][dim_in],
-// c * y, c * ty [n_terms][TILE], then int32 s_dst [TILE] and two flags.
+// Shared-memory carve-up, in elements of S (the operand tiles' storage
+// type; 16-byte phases of V = 16 / sizeof(S) elements): w, dw [TILE][wn] and
+// y, ty [TILE][sh_dim] (each with room for a 16-byte phase), x, tx
+// [TILE][dim_in], c * y, c * ty [n_terms][TILE] of T = Acc<S>, then int32
+// s_dst [TILE] and two flags.
 struct JvpFwdSmem {
   int o_dw, o_y, o_ty, o_x, o_tx, o_cy, o_cty, o_idx;
   size_t bytes;
 };
 
-template <typename T>
+template <typename T, typename S = T>
 __host__ __device__ inline JvpFwdSmem jvp_fwd_smem(int tile, int dim_in, int sh_dim, int wn, int n_terms) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(S);
+  constexpr int R = static_cast<int>(sizeof(T) / sizeof(S));  // elements of S a value of T takes
   auto up = [](int a) { return (a + V - 1) / V * V; };
   JvpFwdSmem L;
   L.o_dw = up(tile * wn + V - 1);
@@ -105,28 +128,35 @@ __host__ __device__ inline JvpFwdSmem jvp_fwd_smem(int tile, int dim_in, int sh_
   L.o_x = L.o_ty + up(tile * sh_dim + V - 1);
   L.o_tx = L.o_x + up(tile * dim_in);
   L.o_cy = L.o_tx + up(tile * dim_in);
-  L.o_cty = L.o_cy + up(tile * n_terms);
-  L.o_idx = L.o_cty + up(tile * n_terms);
-  L.bytes = static_cast<size_t>(L.o_idx) * sizeof(T) + sizeof(int32_t) * (tile + 2);
+  L.o_cty = L.o_cy + up(tile * n_terms * R);
+  L.o_idx = L.o_cty + up(tile * n_terms * R);
+  L.bytes = static_cast<size_t>(L.o_idx) * sizeof(S) + sizeof(int32_t) * (tile + 2);
   return L;
 }
 
+// bf16: the edges whose column products (m and tm) a thread holds at once
+// (the compensated walk runs over the tile part by part)
+constexpr int kWalkPart = 8;
+
+template <int TILE>
+constexpr int kPart = TILE < kWalkPart ? TILE : kWalkPart;
+
 template <typename S, int TILE, bool kAcc, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_fwd_kernel(const JvpFwdArgs<S> a) {
-  using T = Acc<S>;  // shared memory, registers and sums
+  using T = Acc<S>;  // c * y, c * ty, registers and sums; the operand tiles are S
   using O = typename std::conditional<kAcc, T, S>::type;
   constexpr bool kRound = !std::is_same<S, T>::value;  // bf16: compensated sums, rounded once (see the header)
   constexpr int NT = kThreads;
   static_assert(TILE <= 32, "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dim_in = a.dim_in, sh_dim = a.sh_dim, wn = a.wn, mid_dim = a.mid_dim;
-  const JvpFwdSmem L = jvp_fwd_smem<T>(TILE, dim_in, sh_dim, wn, a.tab.n_terms);
-  T* base_t = reinterpret_cast<T*>(smem_raw);
-  T* s_x = base_t + L.o_x;      // [TILE][dim_in]
-  T* s_tx = base_t + L.o_tx;    // [TILE][dim_in]
-  T* s_cy = base_t + L.o_cy;    // [n_terms][TILE]
-  T* s_cty = base_t + L.o_cty;  // [n_terms][TILE]
-  int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
+  const JvpFwdSmem L = jvp_fwd_smem<T, S>(TILE, dim_in, sh_dim, wn, a.tab.n_terms);
+  S* base_s = reinterpret_cast<S*>(smem_raw);
+  S* s_x = base_s + L.o_x;                              // [TILE][dim_in]
+  S* s_tx = base_s + L.o_tx;                            // [TILE][dim_in]
+  T* s_cy = reinterpret_cast<T*>(base_s + L.o_cy);    // [n_terms][TILE]
+  T* s_cty = reinterpret_cast<T*>(base_s + L.o_cty);  // [n_terms][TILE]
+  int32_t* s_dst = reinterpret_cast<int32_t*>(base_s + L.o_idx);  // [TILE]
   int32_t* s_flags = s_dst + TILE;  // [0]: where segments end in the tile; [1]: the last one continues
   O* const out = static_cast<O*>(a.out);
   O* const tout = static_cast<O*>(a.tout);
@@ -138,24 +168,24 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_fwd_kernel(const Jvp
     const int base = tile * TILE, cnt = min(TILE, n_real - base);
     const int64_t oy = static_cast<int64_t>(base) * sh_dim, ow = static_cast<int64_t>(base) * wn;
     __syncthreads();  // the previous tile's readers are done
-    stage_flat<T, NT>(base_t + L.o_y, a.y + oy, cnt * sh_dim, TILE * sh_dim, tid);
-    stage_flat<T, NT>(base_t + L.o_ty, a.ty + oy, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_flat<S, NT>(base_s + L.o_y, a.y + oy, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_flat<S, NT>(base_s + L.o_ty, a.ty + oy, cnt * sh_dim, TILE * sh_dim, tid);
     cp_async_commit();
-    stage_flat<T, NT>(base_t, a.w + ow, cnt * wn, TILE * wn, tid);
-    stage_flat<T, NT>(base_t + L.o_dw, a.dw + ow, cnt * wn, TILE * wn, tid);
-    stage_rows<T, TILE, NT>(s_x, a.x, a.edge_src + base, cnt, dim_in, tid);
-    stage_rows<T, TILE, NT>(s_tx, a.tx, a.edge_src + base, cnt, dim_in, tid);
+    stage_flat<S, NT>(base_s, a.w + ow, cnt * wn, TILE * wn, tid);
+    stage_flat<S, NT>(base_s + L.o_dw, a.dw + ow, cnt * wn, TILE * wn, tid);
+    stage_rows<S, TILE, NT>(s_x, a.x, a.edge_src + base, cnt, dim_in, tid);
+    stage_rows<S, TILE, NT>(s_tx, a.tx, a.edge_src + base, cnt, dim_in, tid);
     cp_async_commit();
     if (tid < 32) cgf::tile_segments<TILE>(a.dst_ptr, a.n_nodes, base, cnt, s_dst, s_flags);  // warp 0
     cp_async_wait<1>();  // y and ty have landed
     __syncthreads();
-    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_y + staged_phase<T>(a.y + oy), sh_dim, s_cy, tid);
-    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_ty + staged_phase<T>(a.ty + oy), sh_dim, s_cty, tid);
+    cgf::scale_y<T, TILE, NT>(a.tab, base_s + L.o_y + staged_phase<S>(a.y + oy), sh_dim, s_cy, tid);
+    cgf::scale_y<T, TILE, NT>(a.tab, base_s + L.o_ty + staged_phase<S>(a.ty + oy), sh_dim, s_cty, tid);
     cp_async_wait<0>();
     __syncthreads();
 
-    const T* const s_w = base_t + staged_phase<T>(a.w + ow);
-    const T* const s_dw = base_t + L.o_dw + staged_phase<T>(a.dw + ow);
+    const S* const s_w = base_s + staged_phase<S>(a.w + ow);
+    const S* const s_dw = base_s + L.o_dw + staged_phase<S>(a.dw + ow);
     const unsigned ends = static_cast<unsigned>(s_flags[0]);
     if constexpr (!kRound) {
       // a last segment that continues into the next tile goes to this tile's carry rows (msg, then tmsg)
@@ -178,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_fwd_kernel(const Jvp
       // bf16: segments that another tile shares to the carry slots, every
       // other one rounded once into out and tout, or added onto the accumulators
       const auto slots = cgf::carry_slots<2>(a.dst_ptr, s_dst, s_flags, a.carry, tile, base, mid_dim);
-      cgf::cg_forward_jvp_compensated<TILE, NT>(
+      cgf::cg_forward_jvp_compensated<TILE, NT, kPart<TILE>>(
           a.tab, s_cy, s_cty, s_x, s_tx, dim_in, s_w, s_dw, wn, mid_dim, ends,
           [&](int o, int e, const SumF32x2& v, const SumF32x2& tv) {
             const int64_t at = static_cast<int64_t>(s_dst[e]) * mid_dim + o;
@@ -207,14 +237,21 @@ cudaError_t launch_tile(const JvpFwdArgs<S>& args, int dev, size_t smem, cudaStr
   return cudaGetLastError();
 }
 
-// m and tm of 32 f64 edges would take 128 registers: f64 tiles stop at 16;
-// so do bf16 tiles, whose compensated sums spill at 32 edges (104-112 bytes)
+// m and tm of 32 f64 edges would take 128 registers: f64 tiles stop at 16
+// (f32 and bf16, whose walk holds kWalkPart edges' products at a time, at 32)
 template <typename S>
-constexpr int kTopTile = std::is_same<S, float>::value ? 32 : 16;
+constexpr int kTopTile = std::is_same<S, double>::value ? 16 : 32;
 
-// The launch shape: the first of 32- (f32 only), 16-, 8- and 4-edge tiles
-// whose shared memory lets two blocks share an SM, else 4-edge tiles at one
-// block an SM; tile 0 if none fits.
+// The register cap of the tile kernels (MIN_BLOCKS of the 2-block shapes):
+// bf16 takes 80 registers, three blocks an SM where their shared memory
+// fits (layers 0 and 2), else two under the same cap (measured faster than
+// 128 registers at two blocks, with 8-edge parts)
+template <typename S>
+constexpr int kMinBlocks = std::is_same<S, __nv_bfloat16>::value ? 3 : 2;
+
+// The launch shape: the first of 32- (f32 and bf16), 16-, 8- and 4-edge
+// tiles whose shared memory lets two blocks share an SM, else 4-edge tiles
+// at one block an SM; tile 0 if none fits.
 struct Shape {
   int tile, blocks;
 };
@@ -223,9 +260,20 @@ template <typename S>
 Shape pick_shape(const SmemLimits& lim, int dim_in, int sh_dim, int wn, int n_terms) {
   using T = Acc<S>;
   for (const int tile : {32, 16, 8, 4})
-    if (tile <= kTopTile<S> && lim.fit(jvp_fwd_smem<T>(tile, dim_in, sh_dim, wn, n_terms).bytes, 2))
+    if (tile <= kTopTile<S> && lim.fit(jvp_fwd_smem<T, S>(tile, dim_in, sh_dim, wn, n_terms).bytes, 2))
       return {tile, 2};
-  return {lim.fit(jvp_fwd_smem<T>(4, dim_in, sh_dim, wn, n_terms).bytes, 1) ? 4 : 0, 1};
+  return {lim.fit(jvp_fwd_smem<T, S>(4, dim_in, sh_dim, wn, n_terms).bytes, 1) ? 4 : 0, 1};
+}
+
+// The kernel of launch shape sh
+template <typename S, bool kAcc>
+cudaError_t launch_shape(const JvpFwdArgs<S>& a, Shape sh, int dev, size_t smem, cudaStream_t s) {
+  constexpr int B = kMinBlocks<S>;
+  if (sh.tile == 32) return launch_tile<S, kTopTile<S>, kAcc, B>(a, dev, smem, s);
+  if (sh.tile == 16) return launch_tile<S, 16, kAcc, B>(a, dev, smem, s);
+  if (sh.tile == 8) return launch_tile<S, 8, kAcc, B>(a, dev, smem, s);
+  if (sh.blocks == 2) return launch_tile<S, 4, kAcc, B>(a, dev, smem, s);
+  return launch_tile<S, 4, kAcc, 1>(a, dev, smem, s);
 }
 
 // Tile kernel, then the finish kernel.  `tile` must be pick_shape's (the
@@ -240,13 +288,9 @@ int launch_jvp_fwd(const JvpFwdArgs<S>& a, int tile, void* stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const Shape sh = pick_shape<S>(lim, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms);
   if (sh.tile == 0 || tile != sh.tile) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = jvp_fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms).bytes;
+  const size_t smem = jvp_fwd_smem<T, S>(tile, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms).bytes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 32) e = launch_tile<S, kTopTile<S>, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 16) e = launch_tile<S, 16, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 8) e = launch_tile<S, 8, kAcc, 2>(a, lim.dev, smem, s);
-  else if (sh.blocks == 2) e = launch_tile<S, 4, kAcc, 2>(a, lim.dev, smem, s);
-  else e = launch_tile<S, 4, kAcc, 1>(a, lim.dev, smem, s);
+  e = launch_shape<S, kAcc>(a, sh, lim.dev, smem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   using O = typename std::conditional<kAcc, T, S>::type;
   O* const out = static_cast<O*>(a.out);

@@ -5,8 +5,9 @@
 // TPPlan); their layouts are documented there and at each kernel.
 //
 // Storage and sum types: a kernel instantiated for a storage type S reads
-// and writes S in device memory and computes in Acc<S> (shared memory,
-// registers, every product and sum): S itself for float and double, float
+// and writes S in device memory and computes in Acc<S> (registers, every
+// product and sum, and shared memory but for the bf16 tiles that K4, K5 and
+// K6 keep raw and widen as they read): S itself for float and double, float
 // for __nv_bfloat16 (K1, K2's inference variant, K3, K4/K4-acc, K5, K6 and
 // K7; bf16 sums run in float32, as the TPU kernels' _acc_dtype).  widen /
 // narrow convert between the two with the intrinsics only; round_as<S>

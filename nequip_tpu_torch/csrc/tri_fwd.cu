@@ -46,7 +46,7 @@
 //   layer 1 in f32) live only inside the call.  Owner-computes (the tile
 //   holding a node's first edge walks all its edges, in chunks) needs no
 //   carry and no second launch, but took 1.95 ms against 1.13-1.14 here
-//   (chip_cg_profile.py --fwd owner; PERF.md): about half the tiles
+//   (a patched copy timed when this design was chosen; PERF.md): about half the tiles
 //   take a second chunk at the flagship's 18-edge segments, each as costly
 //   as a whole tile.
 // - Four blocks an SM where their shared memory fits, the column products
@@ -66,27 +66,57 @@
 //
 // bf16 (the fast mode's nequip_tri_fwd_bf16, nequip_tri_fwd_acc_bf16): x, y
 // and w are bf16 in device memory, and so is out; K4-acc's accumulator is
-// float32.  The kernel is the f32 design on a float32 tile (f32's shared-
-// memory layout), every operand widened as it is staged (plain loads:
-// cp.async has no converting copy) and every product and sum taken in
-// float32.  As in K1's bf16 form (conv_fwd.cu), the sums over edges are
-// compensated float32 sums (hi + lo), a destination's parts that tiles
-// split wait in float32 carry rows ([n_tiles][2][2][mid_dim], cg_fwd.cuh
-// carry_slots) and the second launch adds them in tile order, so a sum
-// does not depend on how its edges fall into tiles.  K4 rounds each output
-// once, to the bf16 nearest to its sum.  K4-acc adds each slice's sum onto
-// the float32 accumulator, rounded to float32 once; the caller rounds the
-// accumulator to bf16 once, after the last slice (tp_scatter.ChunkedConv),
-// so fr over C slices equals fr over one to within that rounding.  JAX
-// instead sums each chunk's messages into a bf16 block and keeps the
-// accumulator in bf16 (ROADMAP.md, Known quirks).  The plain versions
-// (tp_scatter.tri_fwd_plain) round at the same points.  bf16 takes two
-// blocks an SM (kTop4): at four its compensated sums spill.  Registers
-// (nvcc -Xptxas -v): 127-128 for 32-, 16- and 8-edge tiles, 117-119 for
-// 4-edge ones, no spills.  Measured (chip_smoke.py phase 16a, phase 16
-// alone; H100 80GB HBM3, 700 W): K4 2.39 ms over the three layers against
-// 1.22 for f32 in the same call (13.7x its 0.17 ms bound at 2 B a value);
-// K4-acc on one of 4 fr slices 0.78 against 0.52.
+// float32.  Every product and sum is taken in float32.  As in K1's bf16 form
+// (conv_fwd.cu), the sums over edges are compensated float32 sums (hi +
+// lo), a destination's parts that tiles split wait in float32 carry rows
+// ([n_tiles][2][2][mid_dim], cg_fwd.cuh carry_slots) and the second launch
+// adds them in tile order, so a sum does not depend on how its edges fall
+// into tiles.  K4 rounds each output once, to the bf16 nearest to its sum.
+// K4-acc adds each slice's sum onto the float32 accumulator, rounded to
+// float32 once; the caller rounds the accumulator to bf16 once, after the
+// last slice (tp_scatter.ChunkedConv), so fr over C slices equals fr over
+// one to within that rounding.  JAX instead sums each chunk's messages into
+// a bf16 block and keeps the accumulator in bf16 (ROADMAP.md, Known
+// quirks).  The plain versions (tp_scatter.tri_fwd_plain) round at the same
+// points.  Design (the first bf16 form ran the f32 design on float32 tiles,
+// each operand widened by plain loads as it was staged, at two blocks an
+// SM, since its compensated walk spilled at four: 2.28 ms over the three
+// layers against f32's 1.20):
+// - The operand tiles stay bf16 in shared memory: y, w and the x[src] rows
+//   come in raw by 16-byte cp.async (stage_flat, stage_rows on the storage
+//   type; an fr slice's y starts at any 2-byte phase, and its at most 14
+//   end values go by plain 2-byte copies), in f32's two commit groups, so
+//   scale_y and warp 0's destination search run while x and w land.
+//   tri_fwd_smem counts in elements of S.  c * y stays a float32 tile.
+//   cg_fwd.cuh widens each value where it reads it, exactly, so every
+//   output is the float32-tile form's bit for bit (chip_cg_profile.py --fwd
+//   --dtype bf16 --parent: the four entries, three layers, the whole stream
+//   and one of 4 slices).
+// - The walk forms a column's products kWalkPart = 16 edges at a time in a
+//   rolled loop over the parts, the compensated sum carried across them in
+//   edge order: one part's per-edge offsets are live at a time, so a
+//   32-edge tile runs at four blocks an SM in 64 registers without a spill
+//   (the same parts unrolled spilled 184 bytes and took 2.00 ms).  A bf16
+//   tile of layer 1 is w 22.5 + x 18.4 + y 0.6 + c * y 10.6 = 52 KB, so
+//   every flagship layer takes 32-edge tiles at four blocks.
+// - Launch shapes tried (chip_cg_profile.py --fwd --dtype bf16, K4 on the
+//   whole 23k-atom stream, the three layers summed; H100 80GB HBM3, 700 W):
+//   32 edges at four blocks, parts of 16: 1.348-1.390 ms; parts of 8
+//   1.450-1.518; 32 at three blocks 1.489-1.498 (parts of 8: 1.569); 16 at
+//   four 1.693-1.719; 32 at two (128 registers) 1.784-1.798 (whole-tile
+//   walk: 1.933); 16 at two 2.313.  Preset M's layer 1 (16 edges at four
+//   blocks) 1.90-1.96 ms, within 0.05 of every other shape.
+// - Registers (nvcc -Xptxas -v): 63-64 at four blocks (32- and 16-edge
+//   tiles), 90-126 at two, 87-88 for 4-edge tiles; no spills.
+// Measured (chip_cg_profile.py --fwd --dtype bf16 --parent, both builds in
+// turns in one process; H100 80GB HBM3, 700 W): 2.275 -> 1.390 ms over the
+// three layers (f32, in another run: 1.197); K4-acc on
+// one of 4 slices 0.686 -> 0.463 (f32 0.426).  Layer 1, cycles per tile of
+// thread 0 (32-edge tiles; four blocks an SM against the parent's two):
+// staging, destinations and y 12.2k -> 7.7k; the CG phase 28.4k -> 38.4k,
+// of which the products 8.5k -> 13.1k and the compensated walk 19.4k ->
+// 24.9k.  The walk, about 10 instructions an edge where f32 issues one
+// FFMA, is what keeps K4 above f32.
 #include <type_traits>
 
 #include "cg_fwd.cuh"
@@ -109,41 +139,51 @@ struct TriFwdArgs {
   int n_nodes, dim_in, sh_dim, wn, mid_dim;
 };
 
-// Shared-memory carve-up, in elements of T: w [TILE][wn] and y [TILE][sh_dim]
-// (each with room for a 16-byte phase), x [TILE][dim_in], c * y
-// [n_terms][TILE], then int32 s_dst [TILE] and two flags.
+// Shared-memory carve-up, in elements of S (the operand tiles' storage
+// type; 16-byte phases of V = 16 / sizeof(S) elements): w [TILE][wn] and y
+// [TILE][sh_dim] (each with room for a 16-byte phase), x [TILE][dim_in], c *
+// y [n_terms][TILE] of T = Acc<S>, then int32 s_dst [TILE] and two flags.
 struct TriFwdSmem {
   int o_y, o_x, o_cy, o_idx;
   size_t bytes;
 };
 
-template <typename T>
+template <typename T, typename S = T>
 __host__ __device__ inline TriFwdSmem tri_fwd_smem(int tile, int dim_in, int sh_dim, int wn, int n_terms) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(S);
   auto up = [](int a) { return (a + V - 1) / V * V; };
   TriFwdSmem L;
   L.o_y = up(tile * wn + V - 1);
   L.o_x = L.o_y + up(tile * sh_dim + V - 1);
   L.o_cy = L.o_x + up(tile * dim_in);
-  L.o_idx = L.o_cy + up(tile * n_terms);
-  L.bytes = static_cast<size_t>(L.o_idx) * sizeof(T) + sizeof(int32_t) * (tile + 2);
+  L.o_idx = L.o_cy + up(tile * n_terms * static_cast<int>(sizeof(T) / sizeof(S)));
+  L.bytes = static_cast<size_t>(L.o_idx) * sizeof(S) + sizeof(int32_t) * (tile + 2);
   return L;
 }
 
+// bf16: the edges whose column products a thread holds at once (the
+// compensated walk runs over the tile part by part): kWalkPart of a 32-edge
+// tile, 8 of a smaller one (a 16-edge tile walked whole spills at 64
+// registers)
+constexpr int kWalkPart = 16;
+
+template <int TILE>
+constexpr int kPart = TILE >= 32 ? kWalkPart : TILE < 8 ? TILE : 8;
+
 template <typename S, int TILE, bool kAcc, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_fwd_kernel(const TriFwdArgs<S> a) {
-  using T = Acc<S>;  // shared memory, registers and sums
+  using T = Acc<S>;  // c * y, registers and sums; the operand tiles are S
   using O = typename std::conditional<kAcc, T, S>::type;
   constexpr bool kRound = !std::is_same<S, T>::value;  // bf16: compensated sums, rounded once (see the header)
   constexpr int NT = kThreads;
   static_assert(TILE <= 32, "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dim_in = a.dim_in, sh_dim = a.sh_dim, wn = a.wn, mid_dim = a.mid_dim;
-  const TriFwdSmem L = tri_fwd_smem<T>(TILE, dim_in, sh_dim, wn, a.tab.n_terms);
-  T* base_t = reinterpret_cast<T*>(smem_raw);
-  T* s_x = base_t + L.o_x;    // [TILE][dim_in]
-  T* s_cy = base_t + L.o_cy;  // [n_terms][TILE]
-  int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_idx);  // [TILE]
+  const TriFwdSmem L = tri_fwd_smem<T, S>(TILE, dim_in, sh_dim, wn, a.tab.n_terms);
+  S* base_s = reinterpret_cast<S*>(smem_raw);
+  S* s_x = base_s + L.o_x;                            // [TILE][dim_in]
+  T* s_cy = reinterpret_cast<T*>(base_s + L.o_cy);  // [n_terms][TILE]
+  int32_t* s_dst = reinterpret_cast<int32_t*>(base_s + L.o_idx);  // [TILE]
   int32_t* s_flags = s_dst + TILE;  // [0]: where segments end in the tile; [1]: the last one continues
   O* const out = static_cast<O*>(a.out);
 
@@ -154,19 +194,19 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_fwd_kernel(const Tri
     const int base = tile * TILE, cnt = min(TILE, n_real - base);
     const int64_t oy = static_cast<int64_t>(base) * sh_dim, ow = static_cast<int64_t>(base) * wn;
     __syncthreads();  // the previous tile's readers are done
-    stage_flat<T, NT>(base_t + L.o_y, a.y + oy, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_flat<S, NT>(base_s + L.o_y, a.y + oy, cnt * sh_dim, TILE * sh_dim, tid);
     cp_async_commit();
-    stage_flat<T, NT>(base_t, a.w + ow, cnt * wn, TILE * wn, tid);
-    stage_rows<T, TILE, NT>(s_x, a.x, a.edge_src + base, cnt, dim_in, tid);
+    stage_flat<S, NT>(base_s, a.w + ow, cnt * wn, TILE * wn, tid);
+    stage_rows<S, TILE, NT>(s_x, a.x, a.edge_src + base, cnt, dim_in, tid);
     cp_async_commit();
     if (tid < 32) cgf::tile_segments<TILE>(a.dst_ptr, a.n_nodes, base, cnt, s_dst, s_flags);  // warp 0
     cp_async_wait<1>();  // y has landed
     __syncthreads();
-    cgf::scale_y<T, TILE, NT>(a.tab, base_t + L.o_y + staged_phase<T>(a.y + oy), sh_dim, s_cy, tid);  // while x, w land
+    cgf::scale_y<T, TILE, NT>(a.tab, base_s + L.o_y + staged_phase<S>(a.y + oy), sh_dim, s_cy, tid);  // while x, w land
     cp_async_wait<0>();
     __syncthreads();
 
-    const T* const s_w = base_t + staged_phase<T>(a.w + ow);
+    const S* const s_w = base_s + staged_phase<S>(a.w + ow);
     const unsigned ends = static_cast<unsigned>(s_flags[0]);
     if constexpr (!kRound) {
       // a last segment that continues into the next tile goes to this tile's carry row
@@ -183,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) tri_fwd_kernel(const Tri
       // bf16: segments that another tile shares to the carry slots, every
       // other one rounded once into out, or added onto the accumulator
       const auto slots = cgf::carry_slots<1>(a.dst_ptr, s_dst, s_flags, a.carry, tile, base, mid_dim);
-      cgf::cg_forward_compensated<TILE, NT>(
+      cgf::cg_forward_compensated<TILE, NT, kPart<TILE>>(
           a.tab, s_cy, s_x, dim_in, s_w, wn, mid_dim, ends, [&](int o, int e, const SumF32x2& v) {
             O* const at = out + static_cast<int64_t>(s_dst[e]) * mid_dim + o;
             if (T* const row = slots.at(e, cnt))
@@ -208,17 +248,17 @@ cudaError_t launch_tile(const TriFwdArgs<S>& args, int dev, size_t smem, cudaStr
 }
 
 // The largest tile whose column products fit the 64 registers of four
-// blocks an SM: 32 edges in f32, 16 in f64; none in bf16, whose
-// compensated sums spill there (40 bytes at 16-edge tiles), so bf16 takes
-// two blocks an SM.
+// blocks an SM: 32 edges in f32 and in bf16 (its walk holds kWalkPart edges'
+// products at a time), 16 in f64.
 template <typename S>
-constexpr int kTop4 = std::is_same<S, float>::value ? 32 : std::is_same<S, double>::value ? 16 : 0;
+constexpr int kTop4 = std::is_same<S, double>::value ? 16 : 32;
 
 // The launch shape: four blocks an SM at the largest tile up to kTop4 whose
 // shared memory allows them (more blocks hide the destination search and
-// the gather; layers 0 and 2 take 32-edge tiles, layer 1 16), else the
-// first of 32-, 16-, 8- and 4-edge tiles that lets two blocks share an SM,
-// else 4-edge tiles at one block an SM; tile 0 if none fits.
+// the gather; f32 layers 0 and 2 take 32-edge tiles, layer 1 16; bf16 32 in
+// every layer), else the first of 32-, 16-, 8- and 4-edge tiles that lets
+// two blocks share an SM, else 4-edge tiles at one block an SM; tile 0 if
+// none fits.
 struct Shape {
   int tile, blocks;
 };
@@ -226,13 +266,25 @@ struct Shape {
 template <typename S>
 Shape pick_shape(const SmemLimits& lim, int dim_in, int sh_dim, int wn, int n_terms) {
   auto fits = [&](int tile, int blocks) {
-    return lim.fit(tri_fwd_smem<Acc<S>>(tile, dim_in, sh_dim, wn, n_terms).bytes, blocks);
+    return lim.fit(tri_fwd_smem<Acc<S>, S>(tile, dim_in, sh_dim, wn, n_terms).bytes, blocks);
   };
   for (const int tile : {32, 16})
     if (tile <= kTop4<S> && fits(tile, 4)) return {tile, 4};
   for (const int tile : {32, 16, 8, 4})
     if (fits(tile, 2)) return {tile, 2};
   return {fits(4, 1) ? 4 : 0, 1};
+}
+
+// The kernel of launch shape sh
+template <typename S, bool kAcc>
+cudaError_t launch_shape(const TriFwdArgs<S>& a, Shape sh, int dev, size_t smem, cudaStream_t s) {
+  if (sh.blocks == 4 && sh.tile == 32) return launch_tile<S, kTop4<S>, kAcc, 4>(a, dev, smem, s);
+  if (sh.blocks == 4) return launch_tile<S, 16, kAcc, 4>(a, dev, smem, s);
+  if (sh.tile == 32) return launch_tile<S, 32, kAcc, 2>(a, dev, smem, s);
+  if (sh.tile == 16) return launch_tile<S, 16, kAcc, 2>(a, dev, smem, s);
+  if (sh.tile == 8) return launch_tile<S, 8, kAcc, 2>(a, dev, smem, s);
+  if (sh.blocks == 2) return launch_tile<S, 4, kAcc, 2>(a, dev, smem, s);
+  return launch_tile<S, 4, kAcc, 1>(a, dev, smem, s);
 }
 
 // Tile kernel, then the finish kernel.  `tile` must be pick_shape's (the
@@ -247,17 +299,9 @@ int launch_tri_fwd(const TriFwdArgs<S>& a, int tile, void* stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const Shape sh = pick_shape<S>(lim, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms);
   if (sh.tile == 0 || tile != sh.tile) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tri_fwd_smem<T>(tile, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms).bytes;
+  const size_t smem = tri_fwd_smem<T, S>(tile, a.dim_in, a.sh_dim, a.wn, a.tab.n_terms).bytes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.blocks == 4) {
-    if constexpr (kTop4<S> > 0)
-      e = tile == 32 ? launch_tile<S, kTop4<S>, kAcc, 4>(a, lim.dev, smem, s)
-                     : launch_tile<S, 16, kAcc, 4>(a, lim.dev, smem, s);
-  } else if (tile == 32) e = launch_tile<S, 32, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 16) e = launch_tile<S, 16, kAcc, 2>(a, lim.dev, smem, s);
-  else if (tile == 8) e = launch_tile<S, 8, kAcc, 2>(a, lim.dev, smem, s);
-  else if (sh.blocks == 2) e = launch_tile<S, 4, kAcc, 2>(a, lim.dev, smem, s);
-  else e = launch_tile<S, 4, kAcc, 1>(a, lim.dev, smem, s);
+  e = launch_shape<S, kAcc>(a, sh, lim.dev, smem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   using O = typename std::conditional<kAcc, T, S>::type;
   O* const out = static_cast<O*>(a.out);

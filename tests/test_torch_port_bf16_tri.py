@@ -15,8 +15,9 @@ the edge-sliced convolutions round to bf16 once, after the last slice.
 * (b) Each twin against the same function in float64 on the bf16 values,
   rounded at the kernel's points: within one bf16 ulp of max|out| (the
   accumulators: 1e-6 of max|out|, a few float32 roundings).
-* (c) The edge-sliced conv and dual sweep in bf16 agree at C = 2 and C = 4
-  with the unsliced K4 and K6 within two bf16 ulps of max|out|.
+* (c) The edge-sliced conv and dual sweep in bf16 agree at C = 2 and C = 4,
+  and over three slices that start at every 16-byte phase of y's bf16
+  rows, with the unsliced K4 and K6 within two bf16 ulps of max|out|.
 * (d) A depth-2 model (the options golden's ``depth2``, K4's route) in bf16
   against its float64 golden at JAX's bf16 gate (E rel 1e-3, F 2e-2 of
   max|F|), beside JAX's own bf16 errors on the frame.
@@ -267,10 +268,9 @@ def test_bf16_tri_bwd_op_matches_the_twin():
 
 
 # --- (c) the slice count ---------------------------------------------------------------
-@pytest.mark.parametrize("n_chunks", [2, 4])
-def test_bf16_sliced_conv_and_dual_sweep_agree_across_slice_counts(p, n_chunks):
-    """The conv over C slices (K4-acc onto one float32 accumulator, rounded
-    once) against the unsliced K4, and the dual sweep over C slices (K6-acc)
+def _sliced_against_whole(p, slices):
+    """The conv over ``slices`` (K4-acc onto one float32 accumulator, rounded
+    once) against the unsliced K4, and the dual sweep over them (K6-acc)
     against the unsliced K6, on the same bf16 radial weights: within two
     bf16 ulps of max|out|."""
     mlp = _bf16_mlp(p)
@@ -279,14 +279,33 @@ def test_bf16_sliced_conv_and_dual_sweep_agree_across_slice_counts(p, n_chunks):
     lay = p["lay"]
     w, dw = K._mlp_jvp(mlp, weights, emb, temb)
     with torch.no_grad():
-        sliced = K.chunked_conv(p["plan"], mlp, x, sh, emb, lay, n_chunks)
+        sliced = K.ChunkedConv.apply(x, sh, emb, p["plan"], mlp, slices, *weights)
         whole = K.tri_fwd(p["plan"], x, sh, w, lay)
-        sliced_jvp = K.chunked_jvp_conv(p["plan"], mlp, x, tx, sh, tsh, emb, temb, lay, n_chunks)
+        sliced_jvp = K.ChunkedJvpConv.apply(x, tx, sh, tsh, emb, temb, p["plan"], mlp, slices, *weights)
         whole_jvp = K.jvp_fwd(p["plan"], x, tx, sh, tsh, w, dw, lay)
     for a, b in zip((sliced,) + sliced_jvp, (whole,) + whole_jvp):
         assert a.dtype == b.dtype == BF16
         ref = b.double().numpy()
         assert np.abs(a.double().numpy() - ref).max() <= 2 * _ulp(ref)
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4])
+def test_bf16_sliced_conv_and_dual_sweep_agree_across_slice_counts(p, n_chunks):
+    """The edge-sliced conv and dual sweep over C near-equal slices against
+    the unsliced K4 and K6 (``_sliced_against_whole``)."""
+    _sliced_against_whole(p, p["lay"].slices(n_chunks))
+
+
+@pytest.mark.parametrize("residue", range(8))
+def test_bf16_sliced_conv_and_dual_sweep_agree_at_every_slice_phase(p, residue):
+    """The same over three slices whose bounds put the second slice's first
+    edge at ``residue`` mod 8 and the third's at ``residue + 5``: a y row is
+    9 bf16 values, so the slices' y = sh[rows] start at every 16-byte phase
+    that the kernels' bf16 staging handles (``edge_slices(bounds=)``)."""
+    n = p["lay"].n_real
+    b1, b2 = n // 3 // 8 * 8 + residue, 2 * n // 3 // 8 * 8 + (residue + 5) % 8
+    assert [b % 8 for b in (b1, b2)] == [residue, (residue + 5) % 8]
+    _sliced_against_whole(p, K.edge_slices(p["lay"], 3, [0, b1, b2, n]))
 
 
 # --- (d) a depth-2 model against its golden ----------------------------------------------

@@ -1154,6 +1154,42 @@ def test_cuda_bf16_tri_bwd_every_y_phase(cuda, bf16_sums, phase, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tri_fwd_acc", "jvp_fwd_acc"])
+@pytest.mark.parametrize("kind", ["flagship1", "odd"])
+@pytest.mark.parametrize("phase", range(8))
+def test_cuda_bf16_tri_fwd_jvp_fwd_every_y_phase(cuda, phase, kind, name):
+    """K4-acc and K6-acc in bf16, whose operand tiles are staged raw as bf16,
+    on an fr slice whose y = sh[rows] (and ty) starts at each 16-byte phase
+    of bf16 values, inside a destination's segment (as in
+    ``test_cuda_bf16_tri_bwd_every_y_phase``; the odd model also puts w's
+    rows at other phases and its x rows off 16 bytes).  Against the twin
+    within two bf16 ulps of max|out|, bitwise equal on a repeat call, one
+    launch, rows of nodes without an edge in the slice left as they were."""
+    degrees = [18] * 40 + [7]
+    plan, lay, n_real, (x, tx, sh, tsh, w, dw, _, _), acc = _bf16_tri_operands(kind, cuda, degrees, seed=17)
+    start = 96 + phase
+    assert sh.data_ptr() % 16 == 0 and start not in lay.dst_ptr.tolist()
+    sl = K.edge_slices(lay, 2, [0, start, n_real])[1]
+    rows = slice(sl.start, sl.stop)
+    assert (sh[rows].data_ptr() % 16) // 2 == phase
+    _bf16_fwd_check(name, *_fwd_call(name, plan, sl.layout, x, tx, sh[rows], tsh[rows], w[rows], dw[rows], acc),
+                    sl.layout, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FWD_KERNELS)
+@pytest.mark.parametrize("kind", ["odd", "preset_m1"])
+def test_cuda_bf16_tri_fwd_jvp_fwd_widths(cuda, kind, name):
+    """K4, K4-acc and K6 (both forms) in bf16 at odd widths (dim_in 45: x
+    rows gathered by 2-byte copies; WN 75) and at preset M's layer-1 widths
+    (dim_in 480, WN 768, mid_dim 2368), against their twins within two bf16
+    ulps of max|out|, bitwise equal on a repeat call."""
+    degrees = [18] * 40 + [7]
+    plan, lay, n_real, (x, tx, sh, tsh, w, dw, _, _), acc = _bf16_tri_operands(kind, cuda, degrees, seed=18)
+    _bf16_fwd_check(name, *_fwd_call(name, plan, lay, x, tx, sh, tsh, w, dw, acc), lay, acc)
+
+
+@pytest.mark.cuda
 def test_cuda_bf16_fused_tp_op_takes_float32_tables(cuda, bf16_sums):
     """The registered ops of the fused_tp route (a traced program's K4 and
     K5) in bf16 take float32 term tables (``acc_dtype``) and agree with the
