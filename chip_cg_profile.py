@@ -2,7 +2,7 @@
 """Where the conv kernels on dense edge tiles spend their time, and what
 their variants cost, on one NVIDIA GPU.
 
-    python3 chip_cg_profile.py [--fwd | --k2] [--dtype bf16] [--parent DIR] [VARIANT ...]  (default: base clocks)
+    python3 chip_cg_profile.py [--fwd | --k1 | --k2] [--dtype bf16] [--parent DIR] [VARIANT ...]  (default: base clocks)
 
 The kernels (K5 ``csrc/tri_bwd.cu`` and K7 ``csrc/jvp_bwd.cu``; with
 ``--fwd`` K4 and K4-acc ``csrc/tri_fwd.cu`` and K6 ``csrc/jvp_fwd.cu``) are
@@ -17,7 +17,9 @@ points on bf16 operands, each output within phase 16a's gate of the bf16
 twin (8e-3 of max|ref|).  ``--parent DIR`` builds every variant a second
 time from DIR's ``nequip_tpu_torch/csrc`` (another commit unpacked by
 ``git archive``, whose kernels take the same C arguments), keyed
-``<variant>@parent``, and times both in turns in the same process.  A
+``<variant>@parent``, and times both in turns in the same process; each
+output of K5 and K7 is then also compared with the same variant's from the
+parent build (``same_as_parent``; the run fails if one differs).  A
 variant name may join variants with ``+`` (``tile32x1x4+part8``).
 Variants of K5 and K7:
 
@@ -43,6 +45,24 @@ demb checked against ``conv_bwd_plain`` (f32 or bf16 as above); variants:
                 (staging and destinations, hidden layer, w product, dx,
                 dW and dsh partials, dsh sum, dh product, demb);
   mma<BK>x<S>   bf16: tile_mma's ring of S slabs of BK rows.
+
+With ``--k1`` the kernel is K1 (``csrc/conv_fwd.cu``, ``nequip_conv_fwd``)
+on the whole 23k-atom stream at the flagship's 3 conv layers and at preset
+M's layer 1, its output checked against ``conv_fwd_plain`` (f32 or bf16 as
+above) and bitwise against a repeat call; with ``--parent`` the share of
+outputs that differ from the parent build's is printed (K1's bf16 w
+product may round otherwise; the run does not fail on it).  Variants:
+
+  base          the kernel as it is;
+  clocks        clock64 marks: cycles per tile of thread 0 in each phase
+                (destinations and staging, hidden layer, w product, x
+                staging with c * y, CG walk; a mark just before a phase that
+                starts at a barrier counts that wait in the phase), and the
+                finish (the second launch) in ms by CUDA events;
+  mma<BK>x<S>   bf16: tile_mma's ring of S slabs of BK rows;
+  tile<T>x<B>   the launch shape forced: T-edge tiles at B blocks an SM (and
+                the register cap of B blocks);
+  part<P>       bf16: the walk forms P edges' products at a time (kWalkPart).
 
 With ``--fwd`` the kernels are K4, K4-acc (``csrc/tri_fwd.cu``), K6 and
 K6-acc (``csrc/jvp_fwd.cu``), each entry point on the whole 23k-atom stream
@@ -104,6 +124,12 @@ extern "C" int cg_zero_clk() {
 #define CG_MARK(i) if (tid == 0) { const long long t_ = clock64(); cg_acc[i] += t_ - cg_t; cg_t = t_; }
 """
 PHASES = ("staging", "dx", "dW and dy partials", "dy sum", "stores")
+K1_PHASES = ("destinations and staging", "hidden layer", "w product", "x staging with c * y", "CG walk")
+FINISH_TIMER = """
+static float cg_finish_ms_ = 0.f;
+extern "C" float cg_read_finish_ms() { return cg_finish_ms_; }
+extern "C" void cg_zero_finish_ms() { cg_finish_ms_ = 0.f; }
+"""
 
 
 def _once(src: str, old: str, new: str) -> str:
@@ -164,6 +190,57 @@ def clocks_k2(src: str) -> str:
         "  if (tid == 0) {\n"
         "    for (int i = 0; i < 8; ++i) atomicAdd(&cg_clk[i], static_cast<unsigned long long>(cg_acc[i]));\n"
         "    atomicAdd(&cg_clk[15], static_cast<unsigned long long>(cg_n));\n  }\n") + src[end:]
+
+
+def clocks_k1(src: str) -> str:
+    """clocks for K1 (each of its paths, f32/f64 and bf16, or the one path of
+    an earlier tree): cycles per tile of thread 0 between the marks, and,
+    where the launcher marks its second launch, that launch's time by CUDA
+    events (cg_read_finish_ms; cg_finish_timed says whether it is)."""
+    src = _once(src, '#include "radial_mlp.cuh"\n', '#include "radial_mlp.cuh"\n' + MARKS + FINISH_TIMER)
+    src = _once(src, "  extern __shared__ __align__(16) unsigned char smem_raw[];\n",
+                "  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+                "  long long cg_acc[5] = {}, cg_t = 0;\n  int cg_n = 0;\n")
+
+    def each(pattern: str, repl: str, flags=0) -> None:
+        nonlocal src
+        src, n = re.subn(pattern, repl, src, flags=flags)
+        if n not in (1, 2):
+            raise RuntimeError(f"K1 clocks: {n} matches of {pattern!r}, not one a path")
+
+    each(r"(\n(\s+)__syncthreads\(\);  // s_w1 is staged; the previous tile's readers are done\n)",
+         r"\1\2if (tid == 0) cg_t = clock64();\n\2++cg_n;\n")
+    for i, anchor in enumerate(("// hidden layer", "// w = alpha1 * h . W2", "// x[src] rows", "// CG product")):
+        each(r"\n([ \t]+)" + re.escape(anchor), r"\n\1CG_MARK(%d);\n\1%s" % (i, anchor))
+    each(r"(\n([ \t]+)cgf::cg_forward(?:_compensated)?<.*?\n\s*\}\);\n)", r"\1\2CG_MARK(4);\n", re.S)
+    launcher = src.index("// shared memory of one block")
+    end = src.rindex("}\n", 0, launcher)  # the kernel's last line
+    src = src[:end] + (
+        "  if (threadIdx.x == 0) {\n"
+        "    for (int i = 0; i < 5; ++i) atomicAdd(&cg_clk[i], static_cast<unsigned long long>(cg_acc[i]));\n"
+        "    atomicAdd(&cg_clk[15], static_cast<unsigned long long>(cg_n));\n  }\n") + src[end:]
+    if "  // the second launch" not in src:
+        return src + 'extern "C" int cg_finish_timed() { return 0; }\n'
+    src += 'extern "C" int cg_finish_timed() { return 1; }\n'
+    i = src.index("  // the second launch")
+    j = src.index("  return static_cast<int>(err);\n", i)
+    return (src[:i] + "  cudaEvent_t cg_e0, cg_e1;\n  cudaEventCreate(&cg_e0);\n  cudaEventCreate(&cg_e1);\n"
+            "  cudaEventRecord(cg_e0, s);\n" + src[i:j] +
+            "  cudaEventRecord(cg_e1, s);\n  cudaEventSynchronize(cg_e1);\n  float cg_ms = 0.f;\n"
+            "  cudaEventElapsedTime(&cg_ms, cg_e0, cg_e1);\n  cg_finish_ms_ += cg_ms;\n"
+            "  cudaEventDestroy(cg_e0);\n  cudaEventDestroy(cg_e1);\n" + src[j:])
+
+
+def force_k1(tile: int, blocks: int):
+    """K1's launch shape forced: pick_shape (which the tile query and the
+    launcher take) returns it, launch_shape launches it."""
+    def patch(src: str) -> str:
+        for fn, body in (("Shape pick_shape(", f"  return {{{tile}, {blocks}}};\n"),
+                         ("cudaError_t launch_shape(", f"  return launch_tile<S, {tile}, {blocks}>(a, dev, smem, s);\n")):
+            i = src.index("{\n", src.index(fn)) + 2
+            src = src[:i] + body + src[src.index("\n}\n", i) + 1:]
+        return src
+    return patch
 
 
 FWD_PHASES = ("barrier (the other warps' sums)", "staging, destinations, y", "c * y, x and w",
@@ -291,6 +368,9 @@ def variant(name: str, kernel: str = ""):
     m = re.fullmatch(r"part(\d+)", name)
     if m:
         return _sub(r"constexpr int kWalkPart = \d+;", f"constexpr int kWalkPart = {m.group(1)};"), None
+    m = re.fullmatch(r"tile(\d+)x(\d+)", name)
+    if m and kernel == "conv_fwd":
+        return force_k1(*(int(v) for v in m.groups())), None
     m = re.fullmatch(r"tile(\d+)x(\d+)x(\d+)(?:t(\d+))?", name)
     if m:
         return force(*(int(v) for v in m.groups() if v is not None)), None
@@ -306,6 +386,8 @@ def variant(name: str, kernel: str = ""):
         return clocks_fwd, clocks_fwd_header
     if name == "clocks" and kernel == "conv_bwd":
         return clocks_k2, None
+    if name == "clocks" and kernel == "conv_fwd":
+        return clocks_k1, None
     if name not in VARIANTS:
         raise SystemExit(f"unknown variant {name!r}: {', '.join(VARIANTS)}, edges<N>, part<P>, mma<BK>x<S> "
                          "or tile<T>x<S>x<B>[t<N>]")
@@ -365,8 +447,9 @@ def main() -> int:
         raise SystemExit("chip_cg_profile.py needs an NVIDIA GPU")
     args = sys.argv[1:]
     fwd = "--fwd" in args
+    k1 = "--k1" in args
     k2 = "--k2" in args
-    args = [a for a in args if a != "--k2"]
+    args = [a for a in args if a not in ("--k1", "--k2")]
     dtype = torch.float32
     if "--dtype" in args:
         i = args.index("--dtype")
@@ -380,7 +463,7 @@ def main() -> int:
     names = [a for a in args if a != "--fwd"] or ["base", "clocks"]
     if parent is not None:
         names = [n for name in names for n in (name, f"{name}@parent")]
-    kernels = FWD_KERNELS if fwd else ("conv_bwd",) if k2 else KERNELS
+    kernels = FWD_KERNELS if fwd else ("conv_fwd",) if k1 else ("conv_bwd",) if k2 else KERNELS
     keys = [f"{n}#{i}" if names.count(n) > 1 else n for i, n in enumerate(names)]  # a variant may repeat
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -395,12 +478,15 @@ def main() -> int:
             print_registers(f"{k} {kern}", ptxas, dtype)
         libs = {key: ctypes.CDLL(lib) for key, (lib, _) in built.items()}
         for (k, kern), lib in libs.items():
-            entries = [kern + "_train"] if k2 else [kern] + ([kern + "_acc", kern + "_tile"] if fwd else [])
+            entries = ([kern + "_train"] if k2 else [kern, kern + "_tile"] if k1 else
+                       [kern] + ([kern + "_acc", kern + "_tile"] if fwd else []))
             for entry in entries:
                 fn = getattr(lib, f"nequip_{entry}_{SUFFIX[dtype]}")
                 fn.argtypes, fn.restype = build._SIGNATURES[f"nequip_{entry}"], ctypes.c_int
         if fwd:
             run_fwd(keys, libs, dtype)
+        elif k1:
+            run_k1(keys, libs, dtype)
         elif k2:
             run_k2(keys, libs, dtype)
         else:
@@ -426,7 +512,7 @@ def run(keys, libs, dtype=torch.float32) -> None:
     N, E = data["pos"].shape[0], data["edge_index"].shape[1]
     lay_s, rows = sl.layout, slice(sl.start, sl.stop)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
-    sums, bad = {}, []
+    sums, bad, differ = {}, [], []
     for li, blk in enumerate(blocks):
         plan = blk.tp_scatter.plan
         t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)  # noqa: E731
@@ -454,6 +540,7 @@ def run(keys, libs, dtype=torch.float32) -> None:
             if err:
                 raise RuntimeError(f"{kern}: cudaError {err}")
 
+        first = {}  # (variant, kernel) -> the first call's outputs, for the parent's comparison
         for (k, kern), lib in libs.items():
             rows_out = E if kern == "tri_bwd" else sl.stop - sl.start
             outs = tuple(torch.zeros(rows_out, wd, dtype=dtype, device=dev) for wd in widths[kern])
@@ -465,6 +552,13 @@ def run(keys, libs, dtype=torch.float32) -> None:
                 call(kern, lib, outs)
                 torch.cuda.synchronize()
                 rec["ok"] = agrees(outs, refs[kern], dtype)
+                name = k.split("@")[0]
+                if "@parent" in k and (name, kern) in first:
+                    rec["same_as_parent"] = all(torch.equal(a, b) for a, b in zip(outs, first[name, kern]))
+                    if not rec["same_as_parent"]:
+                        differ.append((k, kern, li))
+                elif "@parent" not in k:
+                    first[name, kern] = tuple(o.clone() for o in outs)
                 if clk:
                     buf = (ctypes.c_ulonglong * 16)()
                     lib.cg_read_clk(buf)
@@ -476,13 +570,16 @@ def run(keys, libs, dtype=torch.float32) -> None:
             if not rec["ok"] and "error" not in rec:
                 bad.append((k, kern, li))
             print(json.dumps(rec), flush=True)
-        del refs
+        del refs, first
         torch.cuda.empty_cache()
     for (k, kern), ms in sums.items():
         print(f"{kern} {k} {SUFFIX[dtype]}, sum of 3 layers: {sum(ms):.3f} ms ({', '.join(f'{m:.3f}' for m in ms)})",
               flush=True)
-    if bad:
-        raise SystemExit(f"disagree with plain: {bad}")
+    if any("@parent" in k for k, _ in libs):
+        print(f"outputs that differ from the parent build's: {differ}" if differ else
+              "every output of every variant with a parent build is bitwise equal to the parent's", flush=True)
+    if bad or differ:
+        raise SystemExit(f"disagree with plain: {bad}; differ from the parent: {differ}")
 
 
 def run_k2(keys, libs, dtype) -> None:
@@ -543,15 +640,92 @@ def run_k2(keys, libs, dtype) -> None:
 
 
 def fwd_layers(blocks):
-    """(label, plan) of the flagship's 3 conv layers and of preset M's layer 1."""
+    """(label, conv block) of the flagship's 3 conv layers and of preset M's layer 1."""
     from nequip_tpu_torch.model import PresetNequIPGNNModel
     from nequip_tpu_torch.nn.interaction_block import InteractionBlock
 
     preset_m = PresetNequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", type_names=["Cu"], r_max=4.0,
                                     preset="M", avg_num_neighbors=18.0)
     widest = [m for m in preset_m.modules() if isinstance(m, InteractionBlock)][1]
-    return [(f"flagship {i}", b.tp_scatter.plan) for i, b in enumerate(blocks)] + [("preset M 1",
-                                                                                     widest.tp_scatter.plan)]
+    return [(f"flagship {i}", b) for i, b in enumerate(blocks)] + [("preset M 1", widest)]
+
+
+def run_k1(keys, libs, dtype) -> None:
+    """K1 on the whole stream at the flagship's 3 layers and preset M's
+    layer 1, per variant; with --parent the share of outputs that differ
+    from the parent build's."""
+    dev = torch.device("cuda")
+    acc_dt = K.acc_dtype(dtype)
+    data, layout, _, blocks, rng = flagship_inputs()
+    N, E = data["pos"].shape[0], data["edge_index"].shape[1]
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    sums, bad = {}, []
+    for label, blk in fwd_layers(blocks):
+        plan = blk.tp_scatter.plan
+        a0, a1 = blk.edge_mlp.alphas
+        n_emb, hidden = blk.edge_mlp.w0.shape
+        t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)  # noqa: E731
+        x, sh, emb, w1, w2 = (t(N, plan.dim_in), t(E, plan.sh_dim), t(E, n_emb), t(n_emb, hidden),
+                              t(hidden, plan.weight_numel))
+        tab = plan.device_tables(dev, acc_dt)
+        tabs = [tab[k].data_ptr() for k in ("fwd_groups", "fwd_terms", "fwd_coef", "fwd_col")]
+        n_terms = tab["fwd_coef"].shape[0]
+        ref = K.conv_fwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout)
+        first = {}  # variant -> its output, for the parent's comparison
+        for (k, kern), lib in libs.items():
+            tile = getattr(lib, f"nequip_conv_fwd_tile_{SUFFIX[dtype]}")(plan.dim_in, plan.sh_dim, n_emb, hidden,
+                                                                         plan.weight_numel, n_terms)
+            carry = torch.empty(K.conv_fwd_carry_rows(E, max(tile, 1), dtype), plan.mid_dim, dtype=acc_dt, device=dev)
+            out = torch.empty(N, plan.mid_dim, dtype=dtype, device=dev)
+
+            def call(out=out, carry=carry, lib=lib, tile=tile):
+                err = getattr(lib, f"nequip_conv_fwd_{SUFFIX[dtype]}")(
+                    *(o.data_ptr() for o in (x, sh, emb, w1, w2, layout.edge_src, layout.dst_ptr)), *tabs,
+                    out.data_ptr(), carry.data_ptr(), layout.num_nodes, plan.dim_in, plan.sh_dim, n_emb, hidden,
+                    plan.weight_numel, plan.mid_dim, n_terms, tile, a0, a1, stream())
+                if err:
+                    raise RuntimeError(f"conv_fwd: cudaError {err}")
+
+            rec = dict(variant=k, kernel="conv_fwd", layer=label, tile=tile)
+            try:
+                clk = "clocks" in k.split("@")[0].split("#")[0].split("+")
+                if clk:
+                    lib.cg_zero_clk()
+                    lib.cg_zero_finish_ms()
+                call()
+                torch.cuda.synchronize()
+                if clk:
+                    buf = (ctypes.c_ulonglong * 16)()
+                    lib.cg_read_clk(buf)
+                    rec["cycles_per_tile"] = {p: buf[i] / buf[15] for i, p in enumerate(K1_PHASES)}
+                    if lib.cg_finish_timed():
+                        lib.cg_read_finish_ms.restype = ctypes.c_float
+                        rec["finish_ms"] = lib.cg_read_finish_ms()
+                got = out.clone()
+                rec["ok"] = agrees((got,), (ref,), dtype)
+                call()
+                torch.cuda.synchronize()
+                rec["repeat_equal"] = torch.equal(out, got)
+                rec["ok"] = rec["ok"] and rec["repeat_equal"]
+                name = k.split("@")[0]
+                if "@parent" in k and name in first:
+                    rec["share_differing_from_parent"] = float((got != first[name]).float().mean())
+                elif "@parent" not in k:
+                    first[name] = got
+                rec["ms"] = float(np.median([CS.cuda_median_ms(call, 10) for _ in range(3)]))
+            except RuntimeError as exc:  # a forced shape that does not fit
+                rec.update(ok=False, ms=float("nan"), error=str(exc))
+            sums.setdefault(k, []).append(rec["ms"])
+            if not rec["ok"] and "error" not in rec:
+                bad.append((k, label))
+            print(json.dumps(rec), flush=True)
+        del ref, first
+        torch.cuda.empty_cache()
+    for k, ms in sums.items():
+        print(f"conv_fwd {k} {SUFFIX[dtype]}: flagship's 3 layers {sum(ms[:3]):.3f} ms "
+              f"({', '.join(f'{m:.3f}' for m in ms[:3])}), preset M layer 1 {ms[3]:.3f} ms", flush=True)
+    if bad:
+        raise SystemExit(f"disagree with plain or with a repeat call: {bad}")
 
 
 FWD_ENTRIES = ("tri_fwd", "tri_fwd_acc", "jvp_fwd", "jvp_fwd_acc")
@@ -568,7 +742,8 @@ def run_fwd(keys, libs, dtype) -> None:
     rows = slice(sl.start, sl.stop)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     sums, bad, differ = {}, [], []
-    for label, plan in fwd_layers(blocks):
+    for label, blk in fwd_layers(blocks):
+        plan = blk.tp_scatter.plan
         t = lambda *s, dt=dtype: torch.as_tensor(rng.standard_normal(s), dtype=dt, device=dev)  # noqa: E731
         x, sh, w, tx, tsh, dw = (t(N, plan.dim_in), t(E, plan.sh_dim), t(E, plan.weight_numel), t(N, plan.dim_in),
                                  t(E, plan.sh_dim), t(E, plan.weight_numel))

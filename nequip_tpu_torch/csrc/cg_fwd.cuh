@@ -35,9 +35,9 @@
 // part of a destination that another tile shares in float32 carry rows, hi
 // and lo (carry_slots), so that each output is rounded once, from a sum that
 // does not depend on how its edges fall into tiles
-// (finish_split_rows_compensated).  K1's bf16 form reads float32 tiles (its
-// operands widened as they are staged); K4's and K6's read bf16 tiles of x
-// (tx), y (ty) and w (dw), staged raw, and widen each value where it is read
+// (finish_split_rows_compensated).  The bf16 forms read bf16 tiles of x
+// (tx), y (ty) and w (dw), staged raw (K1's w from its W2 product's
+// epilogue, rounded once), and widen each value where it is read
 // (S, the tiles' storage type: widening bf16 is exact, so the products and
 // sums are the float32 tiles' bit for bit).  c * y (c * ty) is a float32
 // tile in every form.  Their walks form a column's products PART edges at a

@@ -3,12 +3,13 @@
 // conv's backward), K5 (tri_bwd.cu, the trilinear conv's) and K7
 // (jvp_bwd.cu, the fr dual sweep's, three families at once).  The tiles it
 // reads are of a storage type S (the S template arguments, T by default)
-// and every value is widened to T as it is read: K2 and K7 stage float32
-// tiles in every form (bf16 widened on the way), K5's bf16 form stages its
-// bf16 tiles raw (XRows, GRows, dx_items and dw_items read them; dw_items
-// writes dW_e into them rounded once).  The bf16 forms write each per-edge
-// output rounded once (the O template arguments); the dy partials and their
-// sums (path_sum) stay T.
+// and every value is widened to T as it is read: K2 stages float32 tiles in
+// every form (bf16 widened on the way), the bf16 forms of K5 and K7 stage
+// their bf16 tiles raw (XRows, GRows, dx_items, dw_items, dx_items_jvp and
+// dw_items_jvp read them; dw_items writes dW_e, dw_items_jvp cw and cdw
+// into them rounded once).  The bf16 forms write each per-edge output
+// rounded once (the O template arguments); the dy partials and their sums
+// (path_sum) stay T.
 //
 // For an edge e (source s, destination n) with node cotangent g = g[n], the
 // weights w of the edge and its SH row y, over the CG terms (path p, m1, m2,
@@ -306,11 +307,12 @@ __device__ __forceinline__ void dw_items(const Tables<T>& tab, const int32_t* s_
 // The fr sweep's dx and dtx (K7): with gt = gt[n], ty the SH tangent and dw
 // the weight tangent of the edge,
 //   dx_e  = sum_terms c [w (y g + ty gt) + dw y gt],   dtx_e = sum_terms c w y gt;
-// gr and gtr GRows, the outputs of T or, rounded once, bf16.
-template <typename T, int TILE, int TC, int NW, typename GR, typename O>
+// gr and gtr GRows, the tiles y, ty, w and dw of S, the outputs of T or,
+// rounded once, bf16.
+template <typename T, int TILE, int TC, int NW, typename GR, typename O, typename S = T>
 __device__ __forceinline__ void dx_items_jvp(const Tables<T>& tab, const GR gr, const GR gtr,
-                                             const int32_t* s_dst, const T* s_y, const T* s_ty, int ldy,
-                                             const T* s_w, const T* s_dw, int ldw, int cnt, int dim_in,
+                                             const int32_t* s_dst, const S* s_y, const S* s_ty, int ldy,
+                                             const S* s_w, const S* s_dw, int ldw, int cnt, int dim_in,
                                              O* __restrict__ dx_out, O* __restrict__ dtx_out) {
   constexpr int NG = TILE / TC;
   static_assert(TILE % TC == 0, "whole edge groups");
@@ -340,9 +342,9 @@ __device__ __forceinline__ void dx_items_jvp(const Tables<T>& tab, const GR gr, 
 #pragma unroll
         for (int i = 0; i < TC; ++i) {
           const int ey = (e0 + i) * ldy + yi, ew = (e0 + i) * ldw + wo, j = NGV == 1 ? 0 : i;
-          const T cy = coef * s_y[ey], cw = coef * s_w[ew];
-          acc[i] += cw * (s_y[ey] * gv[j] + s_ty[ey] * gtv[j]) + s_dw[ew] * cy * gtv[j];
-          tacc[i] += cw * s_y[ey] * gtv[j];
+          const T cy = coef * widen(s_y[ey]), cw = coef * widen(s_w[ew]);
+          acc[i] += cw * (widen(s_y[ey]) * gv[j] + widen(s_ty[ey]) * gtv[j]) + widen(s_dw[ew]) * cy * gtv[j];
+          tacc[i] += cw * widen(s_y[ey]) * gtv[j];
         }
       }
 #pragma unroll
@@ -359,12 +361,13 @@ __device__ __forceinline__ void dx_items_jvp(const Tables<T>& tab, const GR gr, 
 // three families P1 = sum c x g, P2 = sum c x gt, P3 = sum c tx gt, then
 //   cw  += y (P1 + P3) + ty P2,   cdw += y P2,
 //   dy partial  = w (P1 + P3) + dw P2,   dty partial = w P2;
-// cw overwrites w and cdw overwrites dw in place; gr and gtr GRows.
-template <typename T, int TILE, int TC, int NW, typename GR>
-__device__ __forceinline__ void dw_items_jvp(const Tables<T>& tab, const XRows<T, true> xr,
-                                             const XRows<T, true> txr, const GR gr,
+// cw overwrites w and cdw overwrites dw in place (of S: rounded once where
+// S is bf16, by the lane that read that w and dw value); gr and gtr GRows.
+template <typename T, int TILE, int TC, int NW, typename GR, typename S = T>
+__device__ __forceinline__ void dw_items_jvp(const Tables<T>& tab, const XRows<T, true, S> xr,
+                                             const XRows<T, true, S> txr, const GR gr,
                                              const GR gtr, const int32_t* s_order, const int32_t* s_dst,
-                                             const T* s_y, const T* s_ty, int ldy, T* s_w, T* s_dw, int ldw, int cnt,
+                                             const S* s_y, const S* s_ty, int ldy, S* s_w, S* s_dw, int ldw, int cnt,
                                              T* s_part, T* s_tpart) {
   constexpr int NG = TILE / TC;
   const int lane = threadIdx.x & 31, n_paths = tab.n_paths;
@@ -388,8 +391,8 @@ __device__ __forceinline__ void dw_items_jvp(const Tables<T>& tab, const XRows<T
 #pragma unroll
         for (int i = 0; i < TC; ++i) {
           xo[i] = xr.row(e0 + i) + u;
-          wv[i] = on ? s_w[(e0 + i) * ldw + w_off + u] : T(0);
-          dwv[i] = on ? s_dw[(e0 + i) * ldw + w_off + u] : T(0);
+          wv[i] = on ? widen(s_w[(e0 + i) * ldw + w_off + u]) : T(0);
+          dwv[i] = on ? widen(s_dw[(e0 + i) * ldw + w_off + u]) : T(0);
           cw[i] = cdw[i] = T(0);
         }
         for (int k = t0, run_end; k < t1; k = run_end) {
@@ -421,8 +424,8 @@ __device__ __forceinline__ void dw_items_jvp(const Tables<T>& tab, const XRows<T
           for (int i = 0; i < TC; ++i) {
             const int ey = (e0 + i) * ldy + y_off + m;
             const T p13 = a1[i] + a3[i];
-            cw[i] += s_y[ey] * p13 + s_ty[ey] * a2[i];
-            cdw[i] += s_y[ey] * a2[i];
+            cw[i] += widen(s_y[ey]) * p13 + widen(s_ty[ey]) * a2[i];
+            cdw[i] += widen(s_y[ey]) * a2[i];
             v[i] = wv[i] * p13 + dwv[i] * a2[i];
             tv[i] = wv[i] * a2[i];
           }
@@ -432,8 +435,8 @@ __device__ __forceinline__ void dw_items_jvp(const Tables<T>& tab, const XRows<T
         if (on) {
 #pragma unroll
           for (int i = 0; i < TC; ++i) {
-            s_w[(e0 + i) * ldw + w_off + u] = cw[i];
-            s_dw[(e0 + i) * ldw + w_off + u] = cdw[i];
+            s_w[(e0 + i) * ldw + w_off + u] = narrow<S>(cw[i]);
+            s_dw[(e0 + i) * ldw + w_off + u] = narrow<S>(cdw[i]);
           }
         }
       }

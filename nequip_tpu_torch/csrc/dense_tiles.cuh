@@ -2,10 +2,9 @@
 // the kernels that take TILE consecutive real slots across node boundaries
 // (K1, conv_fwd.cu; K2, conv_bwd.cu; K4, tri_fwd.cu; K5, tri_bwd.cu; K6,
 // jvp_fwd.cu; K7, jvp_bwd.cu): each edge's destination, the cp.async
-// staging of a tile's rows (bf16 rows widened into float tiles on the way,
-// or, in K4, K5 and K6, kept bf16 in bf16 tiles) and the stores of its per-edge
-// outputs, and the launch geometry of a grid of every block that fits on
-// the card at once.  A bf16 form's kernels are other functions with opt-ins
+// staging of a tile's rows (bf16 rows kept bf16 in bf16 tiles) and the
+// stores of its per-edge outputs, and the launch geometry of a grid of
+// every block that fits on the card at once.  A bf16 form's kernels are other functions with opt-ins
 // and cache entries of their own.
 #pragma once
 
@@ -76,31 +75,14 @@ __device__ __forceinline__ int phase16(const T* p) {
 // whatever src's alignment (an operand that is a row slice of a larger
 // tensor): element copies for the head and tail, 16-byte copies between.
 // dst[ph + k] for k in [n, n_fill) is set to zero.  The readers find the
-// rows at dst + staged_phase<T>(src).  bf16 elements into a float tile (S =
-// __nv_bfloat16, T = float) are widened on the way by plain loads and
-// stores (cp.async copies bytes): 16-byte loads of 8 values over src's
-// 16-byte aligned body, element loads at its ends, into dst[k] (ph = 0);
-// they are in place when the call returns.  bf16 into a bf16 tile (S = T =
-// __nv_bfloat16) counts its phase in 8-value steps: 16-byte copies over the
-// body, and plain 2-byte copies of its at most 14 end elements (cp.async
-// has no 2-byte form), issued after the body's copies so that their loads
-// overlap them; the barrier that publishes the tile orders them too.
-template <typename T, int NT, typename S>
-__device__ __forceinline__ void stage_flat(T* dst, const S* __restrict__ src, int n, int n_fill, int tid) {
-  if constexpr (!std::is_same<S, T>::value) {
-    static_assert(std::is_same<S, __nv_bfloat16>::value && std::is_same<T, float>::value, "bf16 into float");
-    const int ph = phase16(src);  // in bf16 elements
-    const int head = min(n, (8 - ph) % 8), n_vec = (n - head) / 8, tail = head + n_vec * 8;
-    for (int k = tid; k < head; k += NT) dst[k] = ldg_widen(src + k);
-    for (int j = tid; j < n_vec; j += NT) {
-      float f[8];
-      widen8(__ldg(reinterpret_cast<const uint4*>(src + head + j * 8)), f);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) dst[head + j * 8 + q] = f[q];
-    }
-    for (int k = tail + tid; k < n; k += NT) dst[k] = ldg_widen(src + k);
-    for (int k = n + tid; k < n_fill; k += NT) dst[k] = T(0);
-  } else if constexpr (sizeof(T) == 2) {
+// rows at dst + staged_phase(src).  bf16 counts its phase in 8-value steps:
+// 16-byte copies over the body, and plain 2-byte copies of its at most 14
+// end elements (cp.async has no 2-byte form), issued after the body's copies
+// so that their loads overlap them; the barrier that publishes the tile
+// orders them too.
+template <typename T, int NT>
+__device__ __forceinline__ void stage_flat(T* dst, const T* __restrict__ src, int n, int n_fill, int tid) {
+  if constexpr (sizeof(T) == 2) {
     const int ph = phase16(src);  // in bf16 elements
     T* d = dst + ph;
     const int head = min(n, (8 - ph) % 8), n_vec = (n - head) / 8, tail = head + n_vec * 8;
@@ -122,49 +104,21 @@ __device__ __forceinline__ void stage_flat(T* dst, const S* __restrict__ src, in
   }
 }
 
-// Where stage_flat put src[0] in its T tile: at src's 16-byte phase when it
-// copied the elements as they are, at 0 when it widened bf16.
-template <typename T, typename S>
-__device__ __forceinline__ int staged_phase(const S* src) {
-  if constexpr (std::is_same<S, T>::value)
-    return phase16(src);
-  else
-    return 0;
+// Where stage_flat put src[0] in its tile: at src's 16-byte phase.
+template <typename T>
+__device__ __forceinline__ int staged_phase(const T* src) {
+  return phase16(src);
 }
 
 // Starts the gather of TILE rows of n elements, dst[e * n + c] = src[idx[e]
 // * n + c] for the edges e < cnt and zero for the others: 16-byte copies
-// where every row is 16-byte aligned, element copies otherwise.  bf16 rows
-// into a float tile (S = __nv_bfloat16, T = float) are widened on the way
-// by plain loads and stores (cp.async copies bytes, and has no 2-byte
-// form): 16-byte loads of 8 values where every row is 16-byte aligned,
-// element loads otherwise; those rows are in place when the call returns.
-// bf16 rows into a bf16 tile take 16-byte copies where every row is 16-byte
-// aligned, plain 2-byte copies otherwise.
-template <typename T, int TILE, int NT, typename S>
-__device__ __forceinline__ void stage_rows(T* dst, const S* __restrict__ src, const int32_t* __restrict__ idx,
+// where every row is 16-byte aligned, element copies otherwise (bf16: plain
+// 2-byte copies, which the barrier that publishes the tile orders).
+template <typename T, int TILE, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, const int32_t* __restrict__ idx,
                                            int cnt, int n, int tid) {
   constexpr int V = 16 / sizeof(T);
-  if constexpr (!std::is_same<S, T>::value) {
-    static_assert(std::is_same<S, __nv_bfloat16>::value && std::is_same<T, float>::value, "bf16 rows into float");
-    if (n % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      const int per_row = n / 8;
-      for (int i = tid; i < TILE * per_row; i += NT) {
-        const int e = i / per_row, c = (i - e * per_row) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (e < cnt) v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<int64_t>(__ldg(idx + e)) * n + c));
-        float f[8];
-        widen8(v, f);
-        store16(dst + e * n + c, f);
-        store16(dst + e * n + c + 4, f + 4);
-      }
-    } else {
-      for (int i = tid; i < TILE * n; i += NT) {
-        const int e = i / n, c = i - e * n;
-        dst[i] = e < cnt ? widen(src[static_cast<int64_t>(__ldg(idx + e)) * n + c]) : T(0);
-      }
-    }
-  } else if ((n % V) == 0 && phase16(src) == 0) {
+  if ((n % V) == 0 && phase16(src) == 0) {
     const int per_row = n / V;
     for (int i = tid; i < TILE * per_row; i += NT) {
       const int e = i / per_row, c = (i - e * per_row) * V;
@@ -187,14 +141,11 @@ __device__ __forceinline__ void stage_rows(T* dst, const S* __restrict__ src, co
 
 // dst[0, n) = src[0, n) from shared to global memory: 16-byte stores for
 // the 16-byte aligned body of dst, element stores for its head and tail; a
-// bf16 dst from a float tile takes element stores, each rounded once; a
 // bf16 tile's values leave as they are (16-byte loads where src's phase is
 // dst's, else 8 element loads a word).
-template <typename T, int NT, typename O>
-__device__ __forceinline__ void store_flat(O* __restrict__ dst, const T* src, int n, int tid) {
-  if constexpr (!std::is_same<O, T>::value) {
-    for (int k = tid; k < n; k += NT) dst[k] = narrow<O>(src[k]);
-  } else if constexpr (sizeof(T) == 2) {
+template <typename T, int NT>
+__device__ __forceinline__ void store_flat(T* __restrict__ dst, const T* src, int n, int tid) {
+  if constexpr (sizeof(T) == 2) {
     const int head = min(n, (8 - phase16(dst)) % 8), n_vec = (n - head) / 8, tail = head + n_vec * 8;
     const bool same_phase = phase16(src) == phase16(dst);
     for (int j = tid; j < n_vec; j += NT) {

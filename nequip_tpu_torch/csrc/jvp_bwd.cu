@@ -51,16 +51,41 @@
 // 29.5k, cw, cdw and partials 37.4k, dy and dty 10.5k, stores 2.0k.
 //
 // bf16 (nequip_jvp_bwd_bf16, the bf16 fr sweep's): the eight operands are
-// bf16 in device memory, and so are the six per-edge outputs.  The kernel
-// is the f32 design on float32 tiles, each operand widened as it is staged
-// (g and gt through L1), every product and sum in float32, and each of the
-// six per-edge streams rounded once, on its store; K3 then sums dx_e and
-// dtx_e onto the sources.  The plain version (tp_scatter.jvp_bwd_plain)
-// rounds at the same points.  Registers (nvcc -Xptxas -v): 125-128 at two
-// blocks an SM, 149-159 at one, no spills.  Measured (chip_smoke.py phase
-// 16a, phase 16 alone; H100 80GB HBM3, 700 W): 2.27 ms on one of 4 fr
-// slices over the three layers against 2.11 for f32 in the same call,
-// 9.6x its 0.24 ms bound.
+// bf16 in device memory, and so are the six per-edge outputs.  Every
+// product and sum runs in float32, and each of the six per-edge streams is
+// rounded once, on its store; K3 then sums dx_e and dtx_e onto the sources.
+// The plain version (tp_scatter.jvp_bwd_plain) rounds at the same points.
+// Design, as K5's bf16 form (tri_bwd.cu; the first bf16 form ran
+// the f32 design on float32 tiles, each operand widened by plain loads as
+// it was staged, at f32's 16-edge tiles in layer 1: 2.27 ms on one of 4 fr
+// slices over the three layers against f32's 2.11):
+// - The six operand tiles stay bf16 in shared memory: w, dw, y, ty and the
+//   x[src] and tx[src] rows come in raw by 16-byte cp.async (stage_flat,
+//   stage_rows on the storage type; an fr slice's y and ty = sh[rows] start
+//   at any 2-byte phase, and their at most 14 end values go by plain 2-byte
+//   copies), and cg_vjp.cuh's dx_items_jvp and dw_items_jvp widen each value
+//   in registers where they read it.  g and gt are read through L1, widened
+//   as read.  The dy and dty partials stay float32.
+// - cw and cdw are rounded once to bf16 and written in place of the tile's
+//   w and dw rows, by the lane that read those values (dx and dtx have read
+//   w and dw by then), and leave by 16-byte stores.
+// - jvp_bwd_smem counts in elements of S: a 32-edge tile of layer 1 is w,
+//   dw 22.5 KB each, x, tx 18.4 KB each, y, ty 0.6 KB each, with the
+//   float32 dy and dty partials (25.4 KB) 108 KB single-buffered, so two
+//   blocks share an SM at 32-edge tiles (layers 0 and 2 double-buffered).
+// - Widening is exact, and a tile's sums do not depend on its size or
+//   buffering (each output is one lane's sum over its terms, each dy
+//   partial a fixed reduce-scatter over a 4-edge item), so the outputs are
+//   the float32-tile form's bit for bit (chip_cg_profile.py --dtype bf16
+//   --parent: every output of every layer and variant).
+// Measured (chip_cg_profile.py --dtype bf16 --parent, both builds in turns
+// in one process; H100 80GB HBM3, 700 W): on one of 4 fr slices, 1.989 ->
+// 1.828 ms over the three layers (f32 1.835 in the same call); forced
+// shapes: single-buffered 32-edge tiles in every layer 1.807, 16-edge tiles
+// 2.055.  Layer 1, cycles per tile of thread 0 (32-edge tiles against the
+// parent's 16): staging 20.2k -> 12.9k, dx and dtx 26.9k -> 60.0k, cw, cdw
+// and partials 37.6k -> 82.3k, dy and dty 8.8k -> 8.8k.  Registers (nvcc
+// -Xptxas -v): 128 at two blocks an SM, 138-144 at one; no spills.
 #include "cg_vjp.cuh"
 #include "dense_tiles.cuh"
 
@@ -82,19 +107,20 @@ struct JvpBwdArgs {
   int n_nodes, dim_in, sh_dim, wn, mid_dim;
 };
 
-// Shared-memory carve-up, in elements of T: STAGES buffers of (w, dw, y,
-// ty, each with room for a 16-byte phase; x, tx rows), the dy and dty
-// partials, then int32 [TILE + n_paths] (the destinations and the paths'
-// order).
+// Shared-memory carve-up, in elements of S (the operand tiles' storage
+// type; 16-byte phases of V = 16 / sizeof(S) elements): STAGES buffers of
+// (w, dw, y, ty, each with room for a 16-byte phase; x, tx rows), the dy
+// and dty partials (T = Acc<S>), then int32 [TILE + n_paths] (the
+// destinations and the paths' order).
 struct JvpBwdSmem {
   int o_dw, o_y, o_ty, o_x, o_tx, stage, o_part, o_tpart, o_dst;
   size_t bytes;
 };
 
-template <typename T>
+template <typename T, typename S = T>
 __host__ __device__ inline JvpBwdSmem jvp_bwd_smem(int tile, int stages, int dim_in, int sh_dim, int wn,
                                                    int n_paths) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(S);
   auto up = [](int a) { return (a + V - 1) / V * V; };
   JvpBwdSmem L;
   L.o_dw = up(tile * wn + V - 1);
@@ -104,24 +130,24 @@ __host__ __device__ inline JvpBwdSmem jvp_bwd_smem(int tile, int stages, int dim
   L.o_tx = L.o_x + up(tile * dim_in);
   L.stage = L.o_tx + up(tile * dim_in);
   L.o_part = stages * L.stage;
-  L.o_tpart = L.o_part + up(tile * n_paths * kMaxYDim);
-  L.o_dst = L.o_tpart + up(tile * n_paths * kMaxYDim);
-  L.bytes = static_cast<size_t>(L.o_dst) * sizeof(T) + sizeof(int32_t) * (tile + n_paths);
+  L.o_tpart = L.o_part + up(tile * n_paths * kMaxYDim * static_cast<int>(sizeof(T) / sizeof(S)));
+  L.o_dst = L.o_tpart + up(tile * n_paths * kMaxYDim * static_cast<int>(sizeof(T) / sizeof(S)));
+  L.bytes = static_cast<size_t>(L.o_dst) * sizeof(S) + sizeof(int32_t) * (tile + n_paths);
   return L;
 }
 
 template <typename S, int TILE, int STAGES, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const JvpBwdArgs<S> a) {
-  using T = Acc<S>;  // shared memory, registers and sums
+  using T = Acc<S>;  // registers, sums and the dy/dty partials; the operand tiles are S
   constexpr int NT = kThreads, NW = NT / 32, TC = TILE < kCgEdges ? TILE : kCgEdges;
   static_assert(TILE <= 32 && TILE % TC == 0 && (STAGES == 1 || STAGES == 2), "one warp finds the destinations");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dim_in = a.dim_in, sh_dim = a.sh_dim, wn = a.wn, mid_dim = a.mid_dim;
-  const JvpBwdSmem L = jvp_bwd_smem<T>(TILE, STAGES, dim_in, sh_dim, wn, a.tab.n_paths);
-  T* base_t = reinterpret_cast<T*>(smem_raw);
-  T* s_part = base_t + L.o_part;    // [TILE][n_paths][kMaxYDim], dy
-  T* s_tpart = base_t + L.o_tpart;  // the same, dty
-  int32_t* s_dst = reinterpret_cast<int32_t*>(base_t + L.o_dst);  // [TILE]
+  const JvpBwdSmem L = jvp_bwd_smem<T, S>(TILE, STAGES, dim_in, sh_dim, wn, a.tab.n_paths);
+  S* base_s = reinterpret_cast<S*>(smem_raw);
+  T* s_part = reinterpret_cast<T*>(base_s + L.o_part);    // [TILE][n_paths][kMaxYDim], dy
+  T* s_tpart = reinterpret_cast<T*>(base_s + L.o_tpart);  // the same, dty
+  int32_t* s_dst = reinterpret_cast<int32_t*>(base_s + L.o_dst);  // [TILE]
   int32_t* s_order = s_dst + TILE;                                // [n_paths], heaviest first (cg::order_paths)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -132,13 +158,13 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const Jvp
   auto stage = [&](int tile, int buf) {
     const int base = tile * TILE, cnt = min(TILE, n_real - base);
     const int64_t ow = static_cast<int64_t>(base) * wn, oy = static_cast<int64_t>(base) * sh_dim;
-    T* sb = base_t + buf * L.stage;
-    stage_flat<T, NT>(sb, a.w + ow, cnt * wn, TILE * wn, tid);
-    stage_flat<T, NT>(sb + L.o_dw, a.dw + ow, cnt * wn, TILE * wn, tid);
-    stage_flat<T, NT>(sb + L.o_y, a.y + oy, cnt * sh_dim, TILE * sh_dim, tid);
-    stage_flat<T, NT>(sb + L.o_ty, a.ty + oy, cnt * sh_dim, TILE * sh_dim, tid);
-    stage_rows<T, TILE, NT>(sb + L.o_x, a.x, a.edge_src + base, cnt, dim_in, tid);
-    stage_rows<T, TILE, NT>(sb + L.o_tx, a.tx, a.edge_src + base, cnt, dim_in, tid);
+    S* sb = base_s + buf * L.stage;
+    stage_flat<S, NT>(sb, a.w + ow, cnt * wn, TILE * wn, tid);
+    stage_flat<S, NT>(sb + L.o_dw, a.dw + ow, cnt * wn, TILE * wn, tid);
+    stage_flat<S, NT>(sb + L.o_y, a.y + oy, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_flat<S, NT>(sb + L.o_ty, a.ty + oy, cnt * sh_dim, TILE * sh_dim, tid);
+    stage_rows<S, TILE, NT>(sb + L.o_x, a.x, a.edge_src + base, cnt, dim_in, tid);
+    stage_rows<S, TILE, NT>(sb + L.o_tx, a.tx, a.edge_src + base, cnt, dim_in, tid);
     cp_async_commit();
   };
   cg::order_paths(a.tab, s_order);  // the loop's first barrier publishes it
@@ -168,23 +194,23 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) jvp_bwd_kernel(const Jvp
 
     const int64_t ow = static_cast<int64_t>(base) * wn, oy = static_cast<int64_t>(base) * sh_dim;
     const int64_t ox = static_cast<int64_t>(base) * dim_in;
-    T* sb = base_t + buf * L.stage;
-    T* s_w = sb + staged_phase<T>(a.w + ow);  // [TILE][wn]: w, then cw in place
-    T* s_dw = sb + L.o_dw + staged_phase<T>(a.dw + ow);  // [TILE][wn]: dw, then cdw in place
-    const T* s_y = sb + L.o_y + staged_phase<T>(a.y + oy);     // [TILE][sh_dim]
-    const T* s_ty = sb + L.o_ty + staged_phase<T>(a.ty + oy);  // [TILE][sh_dim]
+    S* sb = base_s + buf * L.stage;
+    S* s_w = sb + staged_phase<S>(a.w + ow);  // [TILE][wn]: w, then cw in place
+    S* s_dw = sb + L.o_dw + staged_phase<S>(a.dw + ow);  // [TILE][wn]: dw, then cdw in place
+    const S* s_y = sb + L.o_y + staged_phase<S>(a.y + oy);     // [TILE][sh_dim]
+    const S* s_ty = sb + L.o_ty + staged_phase<S>(a.ty + oy);  // [TILE][sh_dim]
     const cg::GRows<T, false, S> gr{a.g, 0, mid_dim}, gtr{a.gt, 0, mid_dim};
     cg::dx_items_jvp<T, TILE, TC, NW>(a.tab, gr, gtr, s_dst, s_y, s_ty, sh_dim, s_w, s_dw, wn, cnt, dim_in,
                                       a.dx_edge + ox, a.dtx_edge + ox);
     __syncthreads();  // dx and dtx have read w and dw
-    cg::dw_items_jvp<T, TILE, TC, NW>(a.tab, cg::XRows<T, true>{sb + L.o_x, nullptr, dim_in},
-                                      cg::XRows<T, true>{sb + L.o_tx, nullptr, dim_in}, gr, gtr, s_order, s_dst, s_y,
-                                      s_ty, sh_dim, s_w, s_dw, wn, cnt, s_part, s_tpart);
+    cg::dw_items_jvp<T, TILE, TC, NW>(a.tab, cg::XRows<T, true, S>{sb + L.o_x, nullptr, dim_in},
+                                      cg::XRows<T, true, S>{sb + L.o_tx, nullptr, dim_in}, gr, gtr, s_order, s_dst,
+                                      s_y, s_ty, sh_dim, s_w, s_dw, wn, cnt, s_part, s_tpart);
     __syncthreads();
     cg::path_sum<T, NT>(a.tab, s_part, cnt, sh_dim, a.dy + oy);
     cg::path_sum<T, NT>(a.tab, s_tpart, cnt, sh_dim, a.dty + oy);
-    store_flat<T, NT>(a.cw + ow, s_w, cnt * wn, tid);
-    store_flat<T, NT>(a.cdw + ow, s_dw, cnt * wn, tid);
+    store_flat<S, NT>(a.cw + ow, s_w, cnt * wn, tid);
+    store_flat<S, NT>(a.cdw + ow, s_dw, cnt * wn, tid);
   }
 }
 
@@ -199,8 +225,8 @@ cudaError_t launch_tile(const JvpBwdArgs<S>& args, int dev, size_t smem, cudaStr
 }
 
 // The first shape whose shared memory fits: two blocks an SM before one,
-// larger tiles before smaller, double-buffered before single.  The tile is
-// Acc<S> whatever S (bf16 tiles are f32's).
+// larger tiles before smaller, double-buffered before single, each counted
+// in its storage type's bytes (bf16 tiles are half of f32's).
 template <typename S>
 int launch_jvp_bwd(const JvpBwdArgs<S>& a, void* stream) {
   using T = Acc<S>;
@@ -211,7 +237,7 @@ int launch_jvp_bwd(const JvpBwdArgs<S>& a, void* stream) {
   const cudaError_t err = smem_limits(lim);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto smem = [&](int tile, int stages) {
-    return jvp_bwd_smem<T>(tile, stages, a.dim_in, a.sh_dim, a.wn, a.tab.n_paths).bytes;
+    return jvp_bwd_smem<T, S>(tile, stages, a.dim_in, a.sh_dim, a.wn, a.tab.n_paths).bytes;
   };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;

@@ -7,8 +7,8 @@
 // inside are block GEMMs: A [TILE, K] lives in shared memory, B [K, N] is a
 // weight matrix in global memory (L2-resident: at most a few hundred KB)
 // that streams through a small cp.async ring in k-slabs and is reused by
-// every edge of the tile.  The products run on f32 (or f64) FFMA: no
-// tensor-core form is f32-exact, and the kernels are held to plain f32 at
+// every edge of the tile.  tile_gemm, the f32 and f64 form, runs on FFMA:
+// no tensor-core form is f32-exact, and the kernels are held to plain f32 at
 // 1e-4 of max|ref|.
 //
 // Thread layout of tile_gemm (8 warps): warp w owns the TE = TILE / 8 rows
@@ -22,8 +22,9 @@
 // layout with warps over columns and lanes over 8 rows x 4 column groups,
 // which reads B with 2.5 times fewer shared-memory wavefronts, was no faster.)
 //
-// tile_mma, the bf16 form (K2's bf16 instantiation; K1's bf16 form keeps
-// tile_gemm and can take this one): the same C = A . B on the tensor cores,
+// tile_mma, the bf16 form (the bf16 instantiations of K1, conv_fwd.cu: w =
+// alpha1 h . W2 with h float32 as MmaRowsSplit; and of K2, conv_bwd.cu, its
+// two W2 products): the same C = A . B on the tensor cores,
 // mma.sync m16n8k16 with bf16 operands and float32 accumulators.  A bf16 x
 // bf16 product is exact in float32, so only the sums differ from FFMA's:
 // the tensor core's float32 sum of one k16 group is not a sequential IEEE
@@ -32,10 +33,9 @@
 // 768; dw_reduce.cu caps its own runs at 256 steps).
 // - B (bf16 in device memory, row-major [k, n]) streams through a ring of
 //   STAGES slabs of BK rows x kMmaCols columns by 16-byte cp.async copies,
-//   raw, with no widening: the ring keeps its asynchrony (tile_gemm's bf16
-//   slabs go through registers).  Rows are padded by 16 bytes (padded_row),
-//   so ldmatrix.trans takes the B fragments of a row-major slab without
-//   bank conflicts.  B whose rows are not 16-byte aligned is copied 2 bytes
+//   raw, with no widening, so the ring keeps its asynchrony.  Rows are
+//   padded by 16 bytes (padded_row), so ldmatrix.trans takes the B
+//   fragments of a row-major slab without bank conflicts.  B whose rows are not 16-byte aligned is copied 2 bytes
 //   at a time (cp.async has no 2-byte form), ordered by the same barriers.
 // - A comes from shared memory through a fragment policy: MmaRowsBf16 (a
 //   bf16 tile, by ldmatrix) or MmaRowsSplit (a float32 tile, each value
@@ -88,18 +88,12 @@ __device__ __forceinline__ bool vec_ok(const T* b, int n) {
 
 // Starts the copy of rows [k0, k0 + BK) x columns [c0, c0 + CW) of the
 // row-major b [k, n] into dst [BK][CW]; rows >= k and columns >= n read as
-// zero.  A b of another type S than T (bf16 weights into a float ring) is
-// widened by plain loads and stores, in place when the call returns.
-template <typename T, int BK, int CW, int NT, typename S>
-__device__ __forceinline__ void stage_slab(T* dst, const S* __restrict__ b, int k0, int k, int c0, int n, bool vec,
+// zero.
+template <typename T, int BK, int CW, int NT>
+__device__ __forceinline__ void stage_slab(T* dst, const T* __restrict__ b, int k0, int k, int c0, int n, bool vec,
                                            int tid) {
   constexpr int V = Vec<T>::V;
-  if constexpr (!std::is_same<S, T>::value) {
-    for (int i = tid; i < BK * CW; i += NT) {
-      const int r = i / CW, c = i % CW;
-      dst[i] = k0 + r < k && c0 + c < n ? widen(b[static_cast<int64_t>(k0 + r) * n + c0 + c]) : T(0);
-    }
-  } else if (vec) {
+  if (vec) {
     constexpr int kCopies = BK * CW / V;
 #pragma unroll
     for (int j = 0; j < (kCopies + NT - 1) / NT; ++j) {
@@ -133,17 +127,9 @@ __host__ __device__ constexpr int ring_elems() {
 // thread calls epi(row0, col0, acc) with acc[i][j] the value of row row0 + i
 // and column col0 + j.  Starts with a barrier (the caller's writes of A,
 // and its reads of whatever shared the ring's memory, are done) and ends at
-// one with no copy in flight, so the caller may reuse the ring at once.  B
-// may be stored as bf16 (S = __nv_bfloat16, T = float): its slabs are
-// widened into the float ring by plain loads and stores, which the ring's
-// barriers order as they order the copies.  Where B's rows are 16-byte
-// aligned, slab q + STAGES - 1 is loaded into registers (16-byte words of
-// 8 values) before slab q's products and stored after them, into the slot
-// every thread finished reading before this iteration's barrier, so the
-// loads' latency hides behind the products; otherwise stage_slab loads
-// element by element where the copy would be issued.
-template <typename T, int TILE, int BK, int STAGES, typename S, typename Epi>
-__device__ __forceinline__ void tile_gemm(const T* a, int lda, const S* __restrict__ b, int k, int n, T* ring,
+// one with no copy in flight, so the caller may reuse the ring at once.
+template <typename T, int TILE, int BK, int STAGES, typename Epi>
+__device__ __forceinline__ void tile_gemm(const T* a, int lda, const T* __restrict__ b, int k, int n, T* ring,
                                           Epi&& epi) {
   constexpr int V = Vec<T>::V, CW = 32 * V, NT = 256, TE = TILE / 8;
   static_assert(TILE % 8 == 0 && BK % V == 0 && STAGES >= 2, "tile_gemm shape");
@@ -154,35 +140,6 @@ __device__ __forceinline__ void tile_gemm(const T* a, int lda, const S* __restri
   auto load = [&](int q) {
     const int c = q / nk, s = q - c * nk;
     stage_slab<T, BK, CW, NT>(ring + (q % STAGES) * BK * CW, b, s * BK, k, c * CW, n, vec, tid);
-  };
-  constexpr bool kWiden = !std::is_same<S, T>::value;
-  constexpr int kWords = BK * CW / 8, kWordsPerThread = (kWords + NT - 1) / NT;  // 16-byte words of 8 bf16 a slab
-  const bool prefetch = kWiden && n % 8 == 0 && (reinterpret_cast<uintptr_t>(b) & 15) == 0;
-  uint4 pre[kWordsPerThread];  // prefetch: the next slab's words
-  auto fetch = [&](int q) {
-    const int c = q / nk, s = q - c * nk;
-#pragma unroll
-    for (int j = 0; j < kWordsPerThread; ++j) {
-      const int i = tid + j * NT, r = i / (CW / 8), cc = (i % (CW / 8)) * 8;
-      pre[j] = make_uint4(0u, 0u, 0u, 0u);
-      if ((kWords % NT == 0 || i < kWords) && s * BK + r < k && c * CW + cc < n)
-        pre[j] = __ldg(reinterpret_cast<const uint4*>(b + static_cast<int64_t>(s * BK + r) * n + c * CW + cc));
-    }
-  };
-  auto put = [&](int q) {
-    T* dst = ring + (q % STAGES) * BK * CW;
-#pragma unroll
-    for (int j = 0; j < kWordsPerThread; ++j) {
-      const int i = tid + j * NT, r = i / (CW / 8), cc = (i % (CW / 8)) * 8;
-      if (kWords % NT == 0 || i < kWords) {
-        if constexpr (kWiden) {
-          float f[8];
-          widen8(pre[j], f);
-          store16(dst + r * CW + cc, f);
-          store16(dst + r * CW + cc + 4, f + 4);
-        }
-      }
-    }
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -199,13 +156,7 @@ __device__ __forceinline__ void tile_gemm(const T* a, int lda, const S* __restri
   for (int q = 0; q < nq; ++q) {
     cp_async_wait<STAGES - 2>();  // slab q has landed
     __syncthreads();              // ... for every thread, and slab q - 1 is consumed
-    const bool next = q + STAGES - 1 < nq;
-    if (next) {
-      if (prefetch)
-        fetch(q + STAGES - 1);
-      else
-        load(q + STAGES - 1);
-    }
+    if (q + STAGES - 1 < nq) load(q + STAGES - 1);
     cp_async_commit();
     const int c = q / nk, s = q - c * nk;
     const T* sb = ring + (q % STAGES) * BK * CW + col;
@@ -225,7 +176,6 @@ __device__ __forceinline__ void tile_gemm(const T* a, int lda, const S* __restri
           for (int j = 0; j < V; ++j) acc[i][j] += fa[i][v] * fb[j];
       }
     }
-    if (next && prefetch) put(q + STAGES - 1);
     if (s == nk - 1) {  // the chunk's sums are complete
       epi(warp * TE, c * CW + col, acc);
 #pragma unroll
@@ -240,9 +190,11 @@ __device__ __forceinline__ void tile_gemm(const T* a, int lda, const S* __restri
 
 // h_pre[j] = alpha0 * emb_e . W1[:, c0 + j] for the V columns j < V of
 // one edge, each summed over i in increasing order; w1 points at W1[0][c0]
-// of a shared copy with row stride ldw1 (c0 and ldw1 multiples of V).
-template <typename T>
-__device__ __forceinline__ void hidden_pre(const T* emb_e, const T* w1, int ldw1, int n_emb, T alpha0,
+// of a shared copy with row stride ldw1 (c0 and ldw1 multiples of V).  emb
+// and W1 may be bf16 copies (S = __nv_bfloat16, T = float: K1's bf16 form),
+// each value widened where it is read (exact: the float copies' sums).
+template <typename T, typename S = T>
+__device__ __forceinline__ void hidden_pre(const S* emb_e, const S* w1, int ldw1, int n_emb, T alpha0,
                                            T (&hp)[Vec<T>::V]) {
   constexpr int V = Vec<T>::V;
   T acc[V];
@@ -250,8 +202,15 @@ __device__ __forceinline__ void hidden_pre(const T* emb_e, const T* w1, int ldw1
   for (int j = 0; j < V; ++j) acc[j] = T(0);
   for (int i = 0; i < n_emb; ++i) {
     T wv[V];
-    load16(wv, w1 + i * ldw1);
-    const T ev = emb_e[i];
+    if constexpr (std::is_same<S, T>::value) {
+      load16(wv, w1 + i * ldw1);
+    } else {  // 4 bf16 values, one 8-byte load (a float's upper half is its bf16)
+      static_assert(V == 4, "bf16 W1 into float columns");
+      const uint2 q = *reinterpret_cast<const uint2*>(w1 + i * ldw1);
+      wv[0] = __uint_as_float(q.x << 16), wv[1] = __uint_as_float(q.x & 0xffff0000u);
+      wv[2] = __uint_as_float(q.y << 16), wv[3] = __uint_as_float(q.y & 0xffff0000u);
+    }
+    const T ev = widen(emb_e[i]);
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] += ev * wv[j];
   }

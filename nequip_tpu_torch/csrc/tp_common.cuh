@@ -6,10 +6,11 @@
 //
 // Storage and sum types: a kernel instantiated for a storage type S reads
 // and writes S in device memory and computes in Acc<S> (registers, every
-// product and sum, and shared memory but for the bf16 tiles that K4, K5 and
-// K6 keep raw and widen as they read): S itself for float and double, float
-// for __nv_bfloat16 (K1, K2's inference variant, K3, K4/K4-acc, K5, K6 and
-// K7; bf16 sums run in float32, as the TPU kernels' _acc_dtype).  widen /
+// product and sum, and shared memory but for the bf16 tiles that K1, K4, K5,
+// K6 and K7 keep raw and widen as they read): S itself for float and
+// double, float for __nv_bfloat16 (K1, K2's inference variant, K3,
+// K4/K4-acc, K5, K6 and K7; bf16 sums run in float32, as the TPU kernels'
+// _acc_dtype).  widen /
 // narrow convert between the two with the intrinsics only; round_as<S>
 // rounds a sum to S's precision and keeps it in Acc<S> (a kernel's stated
 // rounding points).  SumF32x2 is a compensated float32 sum (the bf16 sums
@@ -103,17 +104,6 @@ __device__ __forceinline__ __nv_bfloat16 bf16_of_sum(float hi, float lo) {
     return __ushort_as_bfloat16(static_cast<unsigned short>(rb >> 16));
   }
   return __float2bfloat16_rn(s);
-}
-
-// the 8 bf16 values of one 16-byte word, widened in order to d[0, 8)
-// (a float's upper half is its bf16)
-__device__ __forceinline__ void widen8(const uint4& v, float* d) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    d[2 * i] = __uint_as_float(w[i] << 16);
-    d[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // one value of S through the read-only cache, widened

@@ -1,12 +1,14 @@
-"""The arithmetic of K2's bf16 W2 products on the tensor cores, on the CPU.
+"""The arithmetic of the bf16 W2 products on the tensor cores, on the CPU.
 
 K2's bf16 form (``csrc/conv_bwd.cu``, ``radial_mlp.cuh`` ``tile_mma``) runs
 ``dh = dW_e . W2^T`` as bf16 ``mma.sync`` with float32 accumulators.  dW_e
 is a float32 tile (its rounding point), so each value enters as two bf16
 terms, ``hi = bf16(dW_e)`` and ``lo = bf16(dW_e - hi)``, two MMAs into the
-same accumulators.  These tests model that product in numpy as the card
-takes it: every product exact, each k16 step's 16 products summed and
-rounded to float32, then added onto a float32 accumulator.
+same accumulators.  K1's bf16 form (``csrc/conv_fwd.cu``) runs ``w = alpha1
+h . W2`` the same way, with h the float32 hidden layer.  These tests model
+that product in numpy as the card takes it: every product exact, each k16
+step's 16 products summed and rounded to float32, then added onto a float32
+accumulator.
 
 * (a) At K2's widths the two-term product stays within 1e-4 of max|product|
   (the f32 kernels' gate) of the float64 product; the measured ratio is
@@ -15,6 +17,13 @@ rounded to float32, then added onto a float32 accumulator.
   float32 ``dh`` product gives demb and dw1 (the outputs that read dh)
   within K2's bf16 twin gate (8e-3 of max|out|), the gate that
   ``chip_smoke.py`` phase 16a holds the kernel to.
+
+* K1 (a): ``alpha1 h . W2`` with h split hi + lo stays within 1e-4 of
+  max|product| of the float64 product.
+* K1 (b): a twin of ``conv_fwd_plain`` with that product in place of its
+  float32 w product gives ``out`` within phase 16a's gate (8e-3 of
+  max|out|) of ``conv_fwd_plain``'s; the share of w entries that round to
+  another bf16 value is printed.
 
 Each is parametrised over the flagship's three conv layers (WN 96, 352,
 96) and preset M's widest (WN 768), hidden 128.
@@ -138,3 +147,54 @@ def test_conv_bwd_twin_with_split_product_keeps_gate(blocks, shape):
         err = float((got.float() - ref.float()).abs().max()) / scale
         print(f"{shape}: {label} {err:.3e} of max|out| (gate {TWIN_GATE:.0e})")
         assert got.dtype == ref.dtype and err <= TWIN_GATE
+
+
+def _hidden(emb, w1, a0):
+    """K1's hidden layer in float32 from bf16 emb and W1 (not rounded)."""
+    return torch.nn.functional.silu(emb.float() @ (w1.float() * a0))
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_k1_split_product_keeps_float32_gate(blocks, shape):
+    """K1 (a): w = alpha1 h . W2 from the two bf16 terms of float32 h, W2
+    bf16, against the float64 product, within 1e-4 of max|product|."""
+    plan, (n_emb, hidden), (a0, a1) = _layer(blocks, shape)
+    r = np.random.RandomState(26)
+    t = lambda *s: torch.as_tensor(r.standard_normal(s), dtype=torch.bfloat16)  # noqa: E731
+    h = _hidden(t(256, n_emb), t(n_emb, hidden), a0).numpy()
+    w2 = t(hidden, plan.weight_numel).float().numpy()
+    exact = a1 * (h.astype(np.float64) @ w2.astype(np.float64))
+    scale = float(np.abs(exact).max())
+    err = float(np.abs(a1 * card_product(h, w2) - exact).max()) / scale
+    hi_only = float(np.abs(a1 * card_product(h, w2, terms=("hi",)) - exact).max()) / scale
+    print(f"{shape}: hidden {hidden}, WN {plan.weight_numel}: hi + lo {err:.3e} of max|product|, hi alone "
+          f"{hi_only:.3e} (gate {F32_GATE:.0e})")
+    assert err <= F32_GATE
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_k1_twin_with_split_product_keeps_gate(blocks, shape):
+    """K1 (b): conv_fwd_plain's bf16 arithmetic with w = bf16(alpha1 h . W2)
+    taken as the card takes it (h float32 as hi + lo, W2 bf16, float32 sums
+    per k16 step) in place of its float32 product: out within 8e-3 of
+    max|out| of conv_fwd_plain's."""
+    plan, (n_emb, hidden), (a0, a1) = _layer(blocks, shape)
+    r = np.random.RandomState(27)
+    lay = _stream("cpu", r)
+    n_nodes, n_slots, n = lay.num_nodes, 256, lay.n_real
+    t = lambda *s: torch.as_tensor(r.standard_normal(s), dtype=torch.bfloat16)  # noqa: E731
+    x, sh, emb, w1, w2 = (t(n_nodes, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+                          t(hidden, plan.weight_numel))
+    want = K.conv_fwd_plain(plan, x, sh, emb, w1, w2, a0, a1, lay)
+    h = _hidden(emb[:n], w1, a0)
+    w_card = _bf16(a1 * card_product(h.numpy(), w2.float().numpy()))
+    w_plain = K._round_as(K.radial_weights(emb.float()[:n], w1.float(), w2.float(), a0, a1), torch.bfloat16)
+    moved = float((torch.from_numpy(w_card) != w_plain).double().mean())
+    dst, src = K._segment_rows(lay.dst_ptr), lay.edge_src[:n].long()
+    msg = plan.tp(x.float()[src], sh.float()[:n], torch.from_numpy(w_card))
+    got = K._bf16_nearest(torch.zeros(n_nodes, plan.mid_dim, dtype=torch.float64).index_add_(0, dst, msg.double()))
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max()) / scale
+    print(f"{shape}: out {err:.3e} of max|out| (gate {TWIN_GATE:.0e}); w entries rounding to another bf16: "
+          f"{moved:.3e}")
+    assert got.dtype == want.dtype and err <= TWIN_GATE

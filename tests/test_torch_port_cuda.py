@@ -1274,3 +1274,148 @@ def test_cuda_bf16_model_trains_on_fused_tp_and_in_sliced_fr(cuda, bf16_sums):
             assert gr.dtype == torch.float32 and bool(gr.isfinite().all()), k
             scale = float(want[k].abs().max())
             assert float((gr - want[k]).abs().max()) <= 0.1 * scale + 1e-30, k
+
+
+# --- bfloat16: K1 and K7 on bf16 tiles (K1's W2 product on the tensor cores) -------
+# The launch shapes of the bf16 forms, whose shared memory counts bf16 tiles:
+# K1's tile (conv_fwd.cu pick_shape: 32 edges at two blocks an SM at the
+# flagship's and preset M's widths, one block from 64 channels, 16- and
+# 8-edge tiles wider still) and K7's (edges, stages, blocks an SM) from
+# jvp_bwd.cu's ladder on an H100's 227 KB a block.
+BF16_K1_TILES = {"flagship1": 32, "preset_m1": 32, "wide64": 32, "wide160": 16, "wide320": 8}
+BF16_K7_SHAPES = {"small": (32, 2, 2), "wide16": (32, 1, 2), "flagship1": (32, 1, 2), "preset_m1": (16, 1, 2),
+                  "wide64": (8, 1, 2), "wide160": (8, 1, 1), "wide320": (4, 1, 1)}
+
+
+def _bf16_conv_fwd_args(kind, device, degrees, seed):
+    """K1's bf16 arguments on the stream of ``degrees`` for ``_tile_plan(kind)``."""
+    plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, device, torch.float32)
+    r = np.random.RandomState(seed)
+    lay, n_slots = _tile_stream(degrees, device, r)
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=torch.bfloat16, device=device)
+    return (plan, t(len(degrees), plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+            t(hidden, plan.weight_numel), a0, a1, lay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(BF16_K1_TILES))
+def test_cuda_bf16_conv_fwd_launch_shapes(cuda, bf16_sums, kind):
+    """K1 in bf16 at widths that take each of its launch shapes (32-edge
+    tiles at two blocks an SM and at one, 16- and 8-edge tiles, whose
+    tile_mma runs one m16 tile a warp and an 8-row tile reads its rows
+    again): the tile the library reports, the twin's values within two bf16
+    ulps of max|out|, bitwise equal on a repeat call, one launch, rows of
+    nodes without an edge zero."""
+    degrees = [18] * 40 + [7] + [0] * 3
+    args = _bf16_conv_fwd_args(kind, cuda, degrees, seed=26)
+    plan, w1 = args[0], args[4]
+    assert K.conv_fwd_tile(plan, w1.shape[0], w1.shape[1], torch.bfloat16, cuda) == BF16_K1_TILES[kind]
+    before = K.KERNELS["conv_fwd"].launches
+    got = K.conv_fwd(*args)
+    torch.cuda.synchronize()
+    assert K.KERNELS["conv_fwd"].launches == before + 1
+    _bf16_check((got,), (K.conv_fwd_plain(*args),))
+    assert torch.equal(got, K.conv_fwd(*args))
+    assert not got[-3:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flagship1", "preset_m1", "odd"])
+def test_cuda_bf16_conv_fwd_zero_message_edges_change_nothing(cuda, bf16_sums, kind):
+    """K1 in bf16 on two edge streams with the same real pairs, one of them
+    with extra pairs whose messages are zero (their radial embedding is
+    zero, as for pairs beyond r_max in an MD neighbour list rebuilt at
+    another step) before and after each destination's pairs, so that the
+    pairs fall into tiles otherwise: ``out`` bitwise equal.  A row's w does
+    not depend on its place in a tile, and the sums over edges are
+    compensated."""
+    plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, cuda, torch.float32)
+    r = np.random.RandomState(28)
+    n_nodes = 41
+    real = r.randint(6, 30, n_nodes)
+    before_n, after_n = r.randint(0, 5, n_nodes), r.randint(0, 4, n_nodes)
+    t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=torch.bfloat16, device=cuda)
+    x, w1, w2 = t(n_nodes, plan.dim_in), t(n_emb, hidden), t(hidden, plan.weight_numel)
+    n_real = int(real.sum())
+    src, sh, emb = r.randint(0, n_nodes, n_real), t(n_real, plan.sh_dim), t(n_real, n_emb)
+
+    def stream(with_extra):
+        dst, srcs, rows = [], [], []  # rows: the real pair's index, or -1 for a zero-message pair
+        k = 0
+        for n in range(n_nodes):
+            pre, post = (before_n[n], after_n[n]) if with_extra else (0, 0)
+            rows += [-1] * pre + list(range(k, k + real[n])) + [-1] * post
+            k += real[n]
+            dst += [n] * (pre + real[n] + post)
+        rows = np.asarray(rows)
+        srcs = np.where(rows >= 0, src[np.maximum(rows, 0)], r.randint(0, n_nodes, rows.size))
+        n_masked = 9
+        mask = np.arange(rows.size + n_masked) < rows.size
+        ei = np.stack([np.concatenate([dst, r.randint(0, n_nodes, n_masked)]),
+                       np.concatenate([srcs, r.randint(0, n_nodes, n_masked)])])
+        lay = K.relayout_edge_stream({
+            _keys.POSITIONS_KEY: torch.zeros(n_nodes, 3, device=cuda),
+            _keys.EDGE_INDEX_KEY: torch.as_tensor(ei, device=cuda),
+            _keys.EDGE_MASK_KEY: torch.as_tensor(mask, device=cuda),
+        })[K.LAYOUT_KEY]
+        assert lay.n_real == rows.size
+        pad = np.concatenate([rows, np.full(n_masked, -1)])
+        take = torch.as_tensor(np.maximum(pad, 0), device=cuda)
+        on = torch.as_tensor(pad >= 0, device=cuda)[:, None]
+        e_sh = torch.where(on, sh[take], t(pad.size, plan.sh_dim))  # zero-message pairs keep their own SH
+        e_emb = torch.where(on, emb[take], torch.zeros_like(emb[take]))
+        return lay, e_sh, e_emb
+
+    outs = []
+    for with_extra in (False, True):
+        lay, e_sh, e_emb = stream(with_extra)
+        args = (plan, x, e_sh, e_emb, w1, w2, a0, a1, lay)
+        got = K.conv_fwd(*args)
+        _bf16_check((got,), (K.conv_fwd_plain(*args),))
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(BF16_K7_SHAPES))
+def test_cuda_bf16_jvp_bwd_launch_shapes(cuda, bf16_sums, kind):
+    """K7 in bf16, on bf16 tiles, at widths that take each of its launch
+    shapes (32-edge tiles double- and single-buffered, 16-, 8- and 4-edge
+    tiles, two blocks an SM or one): the twin's values within two bf16 ulps
+    of max|out|, bitwise equal on a repeat call, one launch, masked slots
+    zero."""
+    plan, lay, n_real, ops, _ = _bf16_tri_operands(kind, cuda, [18] * 40 + [7], seed=27)
+    run, plain = _tri_call("jvp_bwd", plan, lay, *ops)
+    before = K.KERNELS["jvp_bwd"].launches
+    got = run()
+    torch.cuda.synchronize()
+    assert K.KERNELS["jvp_bwd"].launches == before + 1
+    _bf16_check(got, plain())
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    for a in got:
+        assert not a[n_real:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flagship1", "odd"])
+@pytest.mark.parametrize("phase", range(8))
+def test_cuda_bf16_jvp_bwd_every_y_phase(cuda, bf16_sums, phase, kind):
+    """K7 in bf16, whose six operand tiles are staged raw as bf16, on an fr
+    slice whose y = sh[rows] and ty start at each 16-byte phase of bf16
+    values (odd phases among them), inside a destination's segment; the odd
+    model (WN 75, dim_in 45) also puts w's and dw's rows at other phases
+    and its x and tx rows off 16 bytes.  Against the twin within two bf16
+    ulps of max|out|, bitwise equal on a repeat call, one launch."""
+    plan, lay, n_real, (x, tx, sh, tsh, w, dw, g, gt), _ = _bf16_tri_operands(kind, cuda, [18] * 40 + [7], seed=29)
+    start = 96 + phase
+    assert sh.data_ptr() % 16 == 0 and start not in lay.dst_ptr.tolist()
+    sl = K.edge_slices(lay, 2, [0, start, n_real])[1]
+    rows = slice(sl.start, sl.stop)
+    assert (sh[rows].data_ptr() % 16) // 2 == phase and (tsh[rows].data_ptr() % 16) // 2 == phase
+    run, plain = _tri_call("jvp_bwd", plan, sl.layout, x, tx, sh[rows], tsh[rows], w[rows], dw[rows], g, gt)
+    before = K.KERNELS["jvp_bwd"].launches
+    got = run()
+    torch.cuda.synchronize()
+    assert K.KERNELS["jvp_bwd"].launches == before + 1
+    _bf16_check(got, plain())
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
