@@ -91,7 +91,10 @@ def kernels(ptxas: str) -> dict:
 
 
 def sass(obj: Path) -> dict:
-    """{mangled function name: its SASS without the header line}, or {} without cuobjdump."""
+    """{mangled function name: its SASS instruction lines (addresses, instructions and encodings)},
+    or {} without cuobjdump.  What cuobjdump prints after a function's last instruction depends on
+    which function or section follows it in the object, and it pads every line to the longest
+    instruction of the object, so the trailer is left out and runs of blanks count as one."""
     tool = shutil.which("cuobjdump") or ("/usr/local/cuda/bin/cuobjdump"
                                          if os.path.exists("/usr/local/cuda/bin/cuobjdump") else None)
     if tool is None:
@@ -100,7 +103,8 @@ def sass(obj: Path) -> dict:
     res = {}
     for part in text.split("Function : ")[1:]:
         head, _, body = part.partition("\n")
-        res[head.strip()] = body
+        res[head.strip()] = "\n".join(" ".join(line.split()) for line in body.splitlines()
+                                       if line.lstrip().startswith("/*"))
     return res
 
 

@@ -184,7 +184,12 @@ Phases (each prints a line; any failure exits non-zero):
      within 8e-3 of max|out| (two bf16 ulps: the two round at the same
      points and differ by the order of their sums), each bitwise equal on
      a repeat call, with kernel, plain and bound ms (bytes at 2 B,
-     operations at 989 TFLOP/s bf16) and index_add_ in bf16 beside K3;
+     operations at 989 TFLOP/s bf16) and index_add_ in bf16 and the f32
+     K3 on the same values (timed in turns, single calls and ten back to
+     back) beside K3, whose output must
+     also be bitwise its edge-order float32 reference
+     (scatter_rows_edge_order), there and on a values view 2 bytes off
+     16-byte alignment with D = 36 (the kernel's 2-byte load path);
      16b phase 3's golden in bf16 through the kernels, E rel 1e-3 and F
      2e-2 of max|F| (JAX's bf16 gate); 16c three bf16 requests at 23k
      atoms beside three f32 requests on the same frames: launches K1, K2,
@@ -3030,7 +3035,9 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
     """K1, K2 (inference) and K3 in bf16 against their plain versions at
     the flagship's three layer shapes on the 23k-atom graph, each bitwise
     equal on a repeat call, with kernel, plain and bound ms (index_add_ in
-    bf16 beside K3); then K4-K7 (_bf16_trilinear), K2's training variant
+    bf16 and the f32 kernel on the same values beside K3, whose outputs
+    must be bitwise its edge-order reference, as on a misaligned view:
+    _k3_misaligned); then K4-K7 (_bf16_trilinear), K2's training variant
     and the dW reduction (_bf16_training); returns the report rows, summed
     over the layers."""
     import torch
@@ -3059,6 +3066,7 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
         x, sh, emb = t(N, plan.dim_in), t(E, plan.sh_dim), t(E, n_emb)
         w1, w2, g = t(n_emb, hidden), t(hidden, plan.weight_numel), t(N, plan.mid_dim)
         dx_edge = K.conv_bwd_plain(plan, x, sh, emb, w1, w2, a0, a1, layout, g)[0]
+        dx32 = dx_edge.float()
         src_idx = layout.edge_src[:n_real].long()
         buf = torch.zeros(N, plan.dim_in, dtype=torch.bfloat16, device=dev)
         calls = {
@@ -3079,16 +3087,26 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
             err, abs_err = _bf16_check(name, got, _tuple(plain()), li)
             if not all(torch.equal(a, b) for a, b in zip(got, _tuple(kern()))):
                 raise RuntimeError(f"phase 16a: {name} bf16 differs on a repeat call")
-            ms, plain_ms = cuda_median_ms(kern, reps), cuda_median_ms(plain, reps)
-            lib_ms = cuda_median_ms(lambda: buf.index_add_(0, src_idx, dx_edge[:n_real]), reps) \
-                if name == "scatter_rows" else None
+            f32_ms = lib_ms = None
+            if name == "scatter_rows":
+                _k3_edge_order(f"layer {li}", got[0], dx_edge, layout.src_perm, layout.src_ptr)
+                kern32 = lambda: K.scatter_rows(dx32, layout.src_perm, layout.src_ptr)  # noqa: E731
+                ms, f32_ms = interleaved_median_ms([kern, kern32], reps, rounds=1)
+                ten_ms, ten32_ms = _ten_back_to_back((kern, kern32), reps)
+                lib_ms = cuda_median_ms(lambda: buf.index_add_(0, src_idx, dx_edge[:n_real]), reps)
+            else:
+                ms = cuda_median_ms(kern, reps)
+            plain_ms = cuda_median_ms(plain, reps)
             ops, nbytes = work(name, plan, n_real, n_dst, n_src, N, hidden, n_emb, 2)
             t_ops, t_bytes = ops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
             bound = max(t_ops, t_bytes)
             print(f"phase 16a {name} bf16 layer {li}: max err {err:.3e} of max|out| (limit {BF16_KERNEL_TOL:.0e}), "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
                   f"({'operations' if t_ops > t_bytes else 'bytes'})"
-                  + ("" if lib_ms is None else f", index_add_ bf16 {lib_ms:.3f} ms"), flush=True)
+                  + ("" if lib_ms is None else
+                     f", index_add_ bf16 {lib_ms:.3f} ms, f32 kernel {f32_ms:.3f} ms (same call); ten back to "
+                     f"back, per call: kernel {ten_ms:.4f} ms, f32 kernel {ten32_ms:.4f} ms; geometry "
+                     f"{K.scatter_rows_geometry(plan.dim_in, dx_edge.data_ptr() % 16 == 0)}"), flush=True)
             r = report[name]
             r["max_abs_err"] = max(r["max_abs_err"], abs_err)
             r["ms"] += ms
@@ -3098,8 +3116,10 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
             r["bytes"] += nbytes
             if lib_ms is not None:
                 r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
-        del x, sh, emb, w1, w2, g, dx_edge, buf, calls
+                r["f32_ms"] = r.get("f32_ms", 0.0) + f32_ms
+        del x, sh, emb, w1, w2, g, dx_edge, dx32, buf, calls
         torch.cuda.empty_cache()
+    _k3_misaligned(layout, E, rng, reps)
     _bf16_trilinear(layout, N, E, n_real, n_src, n_dst, blocks, rng, reps, report)
     _bf16_training(layout, N, E, n_real, n_src, n_dst, blocks, rng, reps, report)
     for name, r in report.items():
@@ -3111,6 +3131,48 @@ def phase16a_kernels(n_atoms: int, reps: int) -> dict:
                  f", {'torch.mm bf16' if name == 'dw_reduce' else 'index_add_'} {r['library_ms']:.3f} ms"),
               flush=True)
     return report
+
+
+def _k3_edge_order(label: str, got, values, perm, ptr) -> None:
+    """K3 bf16's output must be bitwise its edge-order float32 reference
+    (tp_scatter.scatter_rows_edge_order: the same additions in the same
+    order, rounded once)."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    want = K.scatter_rows_edge_order(values, perm, ptr)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        diff = float((got.float() - want.float()).abs().max())
+        raise RuntimeError(f"phase 16a: scatter_rows bf16 {label} is not bitwise its edge-order reference "
+                           f"(max |diff| {diff:.3e})")
+
+
+def _k3_misaligned(layout, E: int, rng, reps: int) -> None:
+    """K3 bf16 on a values view 2 bytes off 16-byte alignment with D = 36
+    (D % 8 != 0), on the 23k stream: the kernel's 2-byte load path, bitwise
+    its edge-order reference and its repeat call, the counter moving."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    d = 36
+    flat = torch.as_tensor(rng.standard_normal(E * d + 1), dtype=torch.bfloat16, device="cuda")
+    v = flat[1:].view(E, d)
+    geom = K.scatter_rows_geometry(d, v.data_ptr() % 16 == 0)
+    if v.data_ptr() % 16 != 2 or geom.vec != 1:
+        raise RuntimeError(f"phase 16a: the misaligned K3 case does not take 2-byte loads: {geom}")
+    before = K.KERNELS["scatter_rows"].launches
+    got = K.scatter_rows(v, layout.src_perm, layout.src_ptr)
+    torch.cuda.synchronize()
+    if K.KERNELS["scatter_rows"].launches != before + 1:
+        raise RuntimeError("phase 16a: scatter_rows bf16 (misaligned) launch counter did not move")
+    _k3_edge_order(f"D {d} at a 2-byte offset", got, v, layout.src_perm, layout.src_ptr)
+    if not torch.equal(got, K.scatter_rows(v, layout.src_perm, layout.src_ptr)):
+        raise RuntimeError("phase 16a: scatter_rows bf16 (misaligned) differs on a repeat call")
+    ms = cuda_median_ms(lambda: K.scatter_rows(v, layout.src_perm, layout.src_ptr), reps)
+    print(f"phase 16a scatter_rows bf16, D {d} at a 2-byte offset: bitwise its edge-order reference and its repeat "
+          f"call, geometry {geom}, kernel {ms:.3f} ms", flush=True)
 
 
 def _bf16_training(layout, N: int, E: int, n_real: int, n_src: int, n_dst: int, blocks, rng, reps: int,

@@ -61,6 +61,11 @@ _SIGNATURES: Dict[str, List] = {
 BF16 = ("nequip_conv_fwd", "nequip_conv_fwd_tile", "nequip_conv_bwd", "nequip_conv_bwd_train", "nequip_dw_reduce",
         "nequip_scatter_rows", "nequip_tri_fwd", "nequip_tri_fwd_acc", "nequip_tri_fwd_tile", "nequip_tri_bwd",
         "nequip_jvp_fwd", "nequip_jvp_fwd_acc", "nequip_jvp_fwd_tile", "nequip_jvp_bwd")
+# bfloat16 forms whose C signature is not the float32 and float64 forms': K3's
+# bf16 kernel takes its launch geometry from the host (tp_scatter.scatter_rows_geometry)
+_BF16_SIGNATURES: Dict[str, List] = {
+    "nequip_scatter_rows": [_P] * 4 + [_I] * 5 + [_P],
+}
 # dtype-free entry points (a copy moves bytes), registered under their own names
 _BYTE_SIGNATURES: Dict[str, List] = {
     "nequip_row_gather_bytes": [_P] * 3 + [_I] * 4 + [_P],
@@ -151,7 +156,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         for suffix in ("f32", "f64") + (("bf16",) if name in BF16 else ()):
             fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = argtypes
+            fn.argtypes = _BF16_SIGNATURES.get(name, argtypes) if suffix == "bf16" else argtypes
             fn.restype = ctypes.c_int
     for name, argtypes in _BYTE_SIGNATURES.items():
         fn = getattr(lib, name)

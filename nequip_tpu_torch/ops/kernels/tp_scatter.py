@@ -77,6 +77,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -623,6 +624,22 @@ def scatter_rows_plain(values, perm, ptr):
     return out.index_add_(0, rows, wide[perm[: rows.shape[0]].long()]).to(values.dtype)
 
 
+def scatter_rows_edge_order(values, perm, ptr):
+    """K3's arithmetic as the kernels do it: each row's sum in its sum dtype
+    (float32 for bf16), from +0 in edge order ``ptr[n] -> ptr[n+1]``, rounded
+    once; the card's kernels are bitwise equal to it.  A loop over segment
+    positions (it reads the longest segment on the host: a reference, not a
+    kernel's launch)."""
+    (wide,) = _wide(values)
+    start, deg = ptr[:-1].long(), (ptr[1:] - ptr[:-1]).long()
+    acc = wide.new_zeros((ptr.shape[0] - 1,) + tuple(values.shape[1:]))
+    for k in range(int(deg.max()) if deg.numel() else 0):
+        live = deg > k
+        rows = perm[torch.where(live, start + k, 0)].long()
+        acc = torch.where(live[:, None], acc + wide[rows], acc)
+    return acc.to(values.dtype)
+
+
 def _table_pairs(tab: Dict[str, torch.Tensor]):
     """The weighted ``uvu`` TP as K1's tables give it: column ``c`` of group
     ``(row, w_off, t0, t1)`` is ``w[:, w_off + u] * sum_t coef[t] *
@@ -1116,6 +1133,50 @@ def scatter_rows(values, perm, ptr):
     return _launch_scatter_rows(values, perm, ptr)
 
 
+SCATTER_THREADS = 128  # threads of a bf16 K3 block (scatter_rows.cu kScatterThreads)
+SCATTER_MAX_PER_LANE = 4  # vectors a lane holds a pass (scatter_rows.cu kScatterMaxK)
+
+
+class ScatterGeometry(NamedTuple):
+    """The launch of bf16 K3 (``scatter_rows_bf16_kernel``): loads of ``vec``
+    bf16 values, ``lanes`` lanes a row, each holding ``per_lane`` vectors a
+    pass (lane ``sub``: vectors ``sub + k lanes``), ``32 // lanes`` rows a
+    warp, blocks of ``SCATTER_THREADS``."""
+
+    vec: int
+    lanes: int
+    per_lane: int
+
+    @property
+    def rows_per_warp(self) -> int:
+        return 32 // self.lanes
+
+    @property
+    def rows_per_block(self) -> int:
+        return SCATTER_THREADS // 32 * self.rows_per_warp
+
+
+@lru_cache(maxsize=None)
+def scatter_rows_geometry(d: int, aligned: bool) -> ScatterGeometry:
+    """bf16 K3's launch for rows of ``d`` values, from ``d`` and whether the
+    values' base is 16-byte aligned alone (no value of the data): 16-byte
+    loads (8 values) where both allow, else 2-byte ones; then the lanes a
+    row that cover it in the fewest passes (one up to 128 vectors) and leave
+    the fewest of a warp's vector slots idle, ties to fewer vectors a lane
+    (registers), then fewer lanes."""
+    vec = 8 if aligned and d % 8 == 0 else 1
+    nv = d // vec
+    best = None
+    for lanes in range(1, 33):
+        per_lane = max(1, min(-(-nv // lanes), SCATTER_MAX_PER_LANE))
+        passes = max(1, -(-nv // (lanes * per_lane)))
+        used = nv * (32 // lanes) / (32 * per_lane * passes)
+        key = (passes, -used, per_lane, lanes)
+        if best is None or key < best[0]:
+            best = (key, ScatterGeometry(vec, lanes, per_lane))
+    return best[1]
+
+
 def _launch_scatter_rows(values, perm, ptr):
     for t in (perm, ptr):
         if t.device != values.device or t.dtype != torch.int32 or not t.is_contiguous():
@@ -1124,10 +1185,19 @@ def _launch_scatter_rows(values, perm, ptr):
         raise ValueError("scatter_rows: values must be [M, D]")
     n_rows = ptr.shape[0] - 1
     out = torch.empty(n_rows, values.shape[1], dtype=values.dtype, device=values.device)
-    err = build.entry_point("nequip_scatter_rows", values.dtype)(
-        values.data_ptr(), perm.data_ptr(), ptr.data_ptr(), out.data_ptr(),
-        n_rows, values.shape[1], torch.cuda.current_stream(values.device).cuda_stream,
-    )
+    if values.dtype == torch.bfloat16:
+        # the stream handle from _cuda_getCurrentRawStream: 0.2 us on the card's host against 10 us for
+        # current_stream(device).cuda_stream, host time the card waits for when nothing else is queued
+        g = scatter_rows_geometry(values.shape[1], values.data_ptr() % 16 == 0)
+        err = build.entry_point("nequip_scatter_rows", values.dtype)(
+            values.data_ptr(), perm.data_ptr(), ptr.data_ptr(), out.data_ptr(), n_rows, values.shape[1],
+            g.vec, g.lanes, g.per_lane, torch._C._cuda_getCurrentRawStream(values.device.index),
+        )
+    else:
+        err = build.entry_point("nequip_scatter_rows", values.dtype)(
+            values.data_ptr(), perm.data_ptr(), ptr.data_ptr(), out.data_ptr(),
+            n_rows, values.shape[1], torch.cuda.current_stream(values.device).cuda_stream,
+        )
     build.check(err, "scatter_rows")
     scatter_rows.launches += 1
     return out

@@ -981,6 +981,101 @@ def test_cuda_bf16_scatter_rows_matches_plain(cuda):
     assert torch.equal(got, K.scatter_rows(v, lay.src_perm, lay.src_ptr))
 
 
+def _k3_case(device, d: int, degrees, seed: int = 0, offset: int = 0):
+    """bf16 values over distinct rows, a source-sorted CSR with the given
+    degrees, ``perm`` a permutation's prefix; the values a contiguous view
+    ``offset`` values into a flat buffer (1: 2 bytes off 16-byte alignment)."""
+    r = np.random.RandomState(seed)
+    deg = np.asarray(degrees)
+    m = int(deg.sum()) + 37
+    ptr = torch.as_tensor(np.concatenate([[0], np.cumsum(deg)]), dtype=torch.int32, device=device)
+    perm = torch.as_tensor(r.permutation(m)[: int(deg.sum())], dtype=torch.int32, device=device)
+    flat = torch.as_tensor(r.standard_normal(m * d + offset), dtype=torch.bfloat16, device=device)
+    return flat[offset:].view(m, d), perm, ptr
+
+
+def _k3_holds(v, perm, ptr):
+    """One launch (the counter moves by one), bitwise the edge-order float32
+    reference and the repeat call."""
+    before = K.KERNELS["scatter_rows"].launches
+    got = K.scatter_rows(v, perm, ptr)
+    torch.cuda.synchronize()
+    assert K.KERNELS["scatter_rows"].launches == before + 1
+    want = K.scatter_rows_edge_order(v, perm, ptr)
+    assert got.dtype == want.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.equal(got, K.scatter_rows(v, perm, ptr))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 7, 8, 32, 36, 288, 480])
+def test_cuda_bf16_scatter_rows_is_edge_order(cuda, d):
+    """K3 in bf16 (rows packed into warps at the host's geometry) at widths
+    that take both load widths (D % 8 == 0: 16 bytes, else 2) and several
+    lane packings, on
+    300 rows of 0-30 edges, a quarter of them empty (zeros): bitwise the
+    float32 sum in edge order rounded once."""
+    r = np.random.RandomState(d)
+    deg = r.randint(1, 31, 300) * (r.rand(300) > 0.25)
+    v, perm, ptr = _k3_case(cuda, d, deg, seed=d)
+    assert K.scatter_rows_geometry(d, v.data_ptr() % 16 == 0).vec == (8 if d % 8 == 0 else 1)
+    got = _k3_holds(v, perm, ptr)
+    assert not got[torch.as_tensor(deg == 0, device=cuda)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 288])
+def test_cuda_bf16_scatter_rows_long_segment(cuda, d):
+    """One segment of 200 edges (several chunks of a row's indices) among
+    short and empty ones, bitwise the edge-order reference."""
+    _k3_holds(*_k3_case(cuda, d, [3, 0, 200, 5, 0, 17, 1], seed=5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 36, 288])
+def test_cuda_bf16_scatter_rows_misaligned_view(cuda, d):
+    """A values view whose data_ptr is 2 bytes off 16-byte alignment takes
+    the kernel's 2-byte load path (not the twin), bitwise the edge-order
+    reference."""
+    v, perm, ptr = _k3_case(cuda, d, np.random.RandomState(7).randint(0, 25, 200), seed=7, offset=1)
+    assert v.data_ptr() % 16 == 2 and K.scatter_rows_geometry(d, False).vec == 1
+    _k3_holds(v, perm, ptr)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_scatter_rows_registered_op(cuda):
+    """``torch.ops.nequip_torch.scatter_rows`` (serving, exported programs)
+    launches the same kernel: bitwise the edge-order reference."""
+    v, perm, ptr = _k3_case(cuda, 288, np.random.RandomState(3).randint(0, 25, 200), seed=3)
+    before = K.KERNELS["scatter_rows"].launches
+    got = torch.ops.nequip_torch.scatter_rows(v, perm, ptr)
+    torch.cuda.synchronize()
+    assert K.KERNELS["scatter_rows"].launches == before + 1
+    assert torch.equal(got, K.scatter_rows_edge_order(v, perm, ptr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 288])
+def test_cuda_bf16_scatter_rows_in_a_cuda_graph(cuda, d):
+    """Captured in a CUDA graph (as MD's blocks capture it: the launch reads
+    nothing on the host but D and the alignment), a replay on new values
+    equals the eager call on them."""
+    v, perm, ptr = _k3_case(cuda, d, np.random.RandomState(4).randint(0, 25, 200), seed=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.scatter_rows(v, perm, ptr)  # loads the library before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.scatter_rows(v, perm, ptr)
+    v.copy_(torch.as_tensor(np.random.RandomState(9).standard_normal(tuple(v.shape)), dtype=torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.scatter_rows(v, perm, ptr))
+    assert torch.equal(out, K.scatter_rows_edge_order(v, perm, ptr))
+
+
 @pytest.mark.cuda
 def test_cuda_bf16_model_serves_through_k1_k2_k3(cuda, bf16_sums):
     """A bf16 model (enable_bf16_fast_mode, tp_impl="fused") on the card:
