@@ -6,7 +6,9 @@
 Phases (each prints a line; any failure exits non-zero):
   0. device: require CUDA, print the card's name and power limit, TF32 off;
   1. build the CUDA kernels with nvcc from nequip_tpu_torch/csrc (one nvcc
-     per source, all at once);
+     per source, all at once) and, beside them, the ops library
+     (csrc/torch_ops.cpp, the registered ops in C++, linked with the objects
+     of K1-K5);
   2. every kernel against its plain PyTorch version on the card, at the three
      conv-layer shapes of the flagship on the 23k-atom fcc Cu graph, f32 and
      f64, with median kernel and plain times (CUDA events): K1 conv_fwd
@@ -99,7 +101,11 @@ Phases (each prints a line; any failure exits non-zero):
      at the final positions, and a further replayed block against a fresh
      list from the positions of the last build.  9g: the force call on
      the MD graph against tp_impl="torch" (phase 4's gates).  9f: the
-     host run's NVE drift per atom.
+     host run's NVE drift per atom.  9j: K4's route (the flagship's widths
+     with a depth-2 radial MLP) with nl_backend="device" and block
+     integration from 9's start, 50 timed steps, against the host-list
+     block run of the same model at 9d's gates, at least one device
+     rebuild, K4, K5 and K3 (and the device list) launched, nothing else.
  10. the training CLI (nequip-torch-train) on the flagship: 10a train/val/
      test, 10b resume, 10c fr over edge slices, 10d the LJ accuracy gate;
  11. deployment: 11a the f64 golden flagship through save_compiled_model at
@@ -113,7 +119,19 @@ Phases (each prints a line; any failure exits non-zero):
      K3 alike, no training kernel); 11d 12 warm requests each, compiled and
      eager in turns, host-clock medians of prepare and model time, compiled
      against eager at E rel 1e-5, F and stress 1e-4 of their max; 11e a
-     27k-atom frame served from rung 1 at the same gates;
+     27k-atom frame served from rung 1 at the same gates; 11f the
+     standalone consumer (nequip_tpu_torch/tools/standalone_artifact_consumer.py)
+     in a subprocess where importing nequip_tpu_torch raises, on 11c's
+     artifact (the trained f32 flagship, K1's route) and on the depth-2
+     twin of the f32 flagship (K4's route) compiled on the card at one rung
+     holding the 23k-atom frame, with one request after the first: each
+     artifact carries the
+     ops library built in phase 1 (csrc/torch_ops.cpp with the K1-K5
+     objects) and names its ops; the consumer loads the library from the
+     artifact alone, its nequip_torch schemas equal the package's, and its
+     outputs equal load_compiled_model's on the same frame bitwise (both
+     with deterministic algorithms); the library's build time and the
+     consumer's request times are printed;
  12. the MD-engine pair style (flagship, f32, fused) on phase 9's frame
      with the C++ list's pairs at r_max: 12a energy (rel 1e-5) and edge
      forces summed onto atoms (1e-4 of max |F|) against the calculator,
@@ -353,11 +371,18 @@ def phase0_device():
 
 
 def phase1_build():
+    """Build the kernels and the ops library (one step); returns build.Built.
+    Fails if either did not build."""
     from nequip_tpu_torch.ops.kernels import build
 
-    path, seconds = build.build()
+    built = build.build()
+    if built.ops is None:
+        raise RuntimeError(f"phase 1: {built.ops_error}")
     build.load_library()
-    print(f"phase 1 build: {path.name} in {seconds:.1f} s", flush=True)
+    print(f"phase 1 build: {built.kernels.name} and {built.ops.name} in {built.seconds:.1f} s (the ops library's "
+          f"binding compiled in {built.binding_seconds:.1f} s beside nvcc, linked in {built.ops_link_seconds:.1f} s; "
+          f"{built.ops.stat().st_size / 2**20:.2f} MiB)", flush=True)
+    return built
 
 
 def graph(n_atoms: int, device, seed: int = 0, jitter: float = 0.05):
@@ -1549,6 +1574,7 @@ def phase9_md(smi: str) -> dict:
             for label, integration in (("b", "host"), ("c", "block"))}
     torch.cuda.empty_cache()
     nl_report["launches"] = phase9i_device_md(smi, model, frame, v0, runs["block"])
+    phase9j_k4_device_md(smi, frame, v0)
 
     host, block = runs["host"]["out"], runs["block"]["out"]
     pos_gap = float(np.abs(host["positions"] - block["positions"]).max())
@@ -1642,6 +1668,43 @@ def phase9i_device_md(smi: str, model, frame: dict, v0, host_nl: dict) -> int:
     if dev["rebuilds"] < 1:
         raise RuntimeError("phase 9i: no device rebuild in the timed run at skin 0.5")
     return dev["launches"]["device_nl"]
+
+
+K4_MD_STEPS = 50  # 9j's timed steps (phase 9i's 100 rebuilt 5 times on this frame)
+
+
+def phase9j_k4_device_md(smi: str, frame: dict, v0) -> None:
+    """The flagship's widths with a depth-2 radial MLP (K4's route, phase
+    14c's model): MDDriver(nl_backend="device", integration="block") from
+    phase 9's start against the host-list block run of the same model, at
+    9d's gates, with at least one device rebuild; both runs launch K4, K5's
+    inference variant and K3 only (and the device list)."""
+    import torch
+
+    from nequip_tpu_torch.model import NequIPGNNModel
+
+    t_phase = time.perf_counter()
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", radial_mlp_depth=2, **FLAGSHIP)
+    if set(_routes(model)) != {"fused_tp"}:
+        raise RuntimeError("phase 9j: the depth-2 layers did not take K4's route")
+    host_nl = _md_run("j.host", smi, model, frame, v0, "block", steps=K4_MD_STEPS, route=K4_ROUTE)
+    torch.cuda.empty_cache()
+    dev = _md_run("j", smi, model, frame, v0, "block", nl_backend="device", steps=K4_MD_STEPS, route=K4_ROUTE)
+    torch.cuda.empty_cache()
+    got, want = dev["out"], host_nl["out"]
+    pos_gap = float(np.abs(got["positions"] - want["positions"]).max())
+    f_scale = float(np.abs(want["forces"]).max())
+    f_gap = float(np.abs(got["forces"] - want["forces"]).max())
+    print(f"phase 9j K4's route (depth-2 radial MLP): device list vs host list, block integration, after "
+          f"{K4_MD_STEPS + 10} steps from one start: positions max gap {pos_gap:.3e} A (limit {MD_POS_TOL:.0e}), forces "
+          f"max gap {f_gap:.3e} (max |F| {f_scale:.3e}, limit {MD_FORCE_TOL:.0e} of it); {dev['rebuilds']} device "
+          f"rebuilds {dev['rebuild_ms']:.3f} ms each; step median / mean {dev['median_ms']:.2f} / "
+          f"{dev['mean_ms']:.2f} ms (host list: {host_nl['median_ms']:.2f} / {host_nl['mean_ms']:.2f} ms); launches "
+          f"{dev['launches']} ({smi}); phase 9j {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not (pos_gap <= MD_POS_TOL and f_gap <= MD_FORCE_TOL * f_scale):
+        raise RuntimeError("phase 9j: the device-list and host-list MD runs on K4's route disagree")
+    if dev["rebuilds"] < 1:
+        raise RuntimeError("phase 9j: no device rebuild in the timed run at skin 0.5")
 
 
 CLI_DIR = ROOT / "chiprun_out" / "chip_smoke_cli"
@@ -1890,11 +1953,12 @@ def _deploy_gap(got: dict, want: dict) -> tuple:
             float(np.abs(got["stress"] - want["stress"]).max()) / float(np.abs(want["stress"]).max()))
 
 
-def phase11_deploy(smi: str) -> dict:
+def phase11_deploy(smi: str, built) -> dict:
     """Deployment on the card: 11a the f64 golden flagship exported and
     loaded, 11b nequip-torch-package on phase 10a's best.ckpt, 11c
     nequip-torch-compile of it with a 2-rung ladder, 11d compiled against
-    eager requests, 11e a frame on rung 1."""
+    eager requests, 11e a frame on rung 1, 11f the standalone consumer on
+    11c's artifact (K1's route; ``_consumer_check``)."""
     import contextlib
     import io
     import os
@@ -2022,10 +2086,156 @@ def phase11_deploy(smi: str) -> dict:
     if rung != 1 or not (gap[0] <= 1e-5 and gap[1] <= 1e-4 and gap[2] <= 1e-4):
         raise RuntimeError("phase 11e: the frame beyond rung 0 was not served from rung 1 within the gates")
     del compiled, eager
+    torch.cuda.empty_cache()
+    frame23 = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(frame23)), 4.0)
+    _consumer_check(smi, built, "K1", K1_ROUTE, Path(art), frame23, f"nequip-torch-compile {compile_s:.1f} s")
     for f in list(CLI_DIR.glob("*/*.ckpt")) + list(DEPLOY_DIR.glob("*.zip")):  # configs and metrics.csv stay
         f.unlink()
     torch.cuda.empty_cache()
     return {"compile_s": compile_s, "load_s": load_s, "model_ms": med}
+
+
+CONSUMER = ROOT / "nequip_tpu_torch" / "tools" / "standalone_artifact_consumer.py"
+CONSUMER_REQUESTS = 2  # the first request, and one warm one
+# runs the consumer with nequip_tpu_torch import-poisoned: the artifact must suffice
+CONSUMER_BLOCKER = """
+import sys, runpy
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "nequip_tpu_torch" or name.startswith("nequip_tpu_torch."):
+            raise ImportError(name + " is blocked: the standalone consumer must not import the package")
+        return None
+
+sys.meta_path.insert(0, _Block())
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def _consumer_inputs(frame: dict) -> dict:
+    """A frame with its neighbour list as the contract's real inputs."""
+    n = len(frame["pos"])
+    return {"pos": np.asarray(frame["pos"], np.float64), "edge_index": np.asarray(frame["edge_index"], np.int64),
+            "edge_cell_shift": np.asarray(frame["edge_cell_shift"], np.float64),
+            "cell": np.asarray(frame["cell"], np.float64).reshape(1, 3, 3),
+            "atom_types": np.asarray(frame["atom_types"], np.int64).reshape(-1), "batch": np.zeros(n, np.int64),
+            "num_atoms": np.full(1, n, np.int64)}
+
+
+def phase11f_consumer(smi: str, built) -> None:
+    """The standalone consumer (nequip_tpu_torch/tools/standalone_artifact_consumer.py)
+    in a subprocess where importing nequip_tpu_torch raises, on the depth-2
+    radial-MLP twin of the f32 flagship (K4's route: K4, K5, K3) compiled on
+    the card at one rung holding the 23k-atom frame (``_consumer_check``;
+    K1's route runs on phase 11c's artifact)."""
+    import torch
+
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up
+    from nequip_tpu_torch.data import to_tensors
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper
+    from nequip_tpu_torch.model import NequIPGNNModel, save_compiled_model
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    DEPLOY_DIR.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    frame = compute_neighborlist_(ChemicalSpeciesToAtomTypeMapper(["Cu"])(from_dict(fcc_frame(23000, seed=1))), 4.0)
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", radial_mlp_depth=2, **FLAGSHIP)
+    n, e = len(frame["pos"]), frame["edge_index"].shape[1]
+    batch = K.relayout_edge_stream(to_tensors(pad_batch(batched_from_list([frame]), round_up(n, 128),
+                                                        round_up(e, 256), 2), "cuda"))
+    art = DEPLOY_DIR / "consumer_K4.nequip_tpu_torch.zip"
+    t0 = time.perf_counter()
+    save_compiled_model(str(art), model.to("cuda"), [batch])
+    export = f"export {time.perf_counter() - t0:.1f} s"
+    del batch, model
+    _consumer_check(smi, built, "K4", K4_ROUTE, art, frame, export)
+    print(f"phase 11f K4 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _consumer_check(smi: str, built, label: str, route: tuple, art: Path, frame: dict, made: str) -> None:
+    """The consumer on the artifact ``art`` (compiled on the card, ``made``
+    says how) and ``frame`` (with its neighbour list) with the package
+    blocked: the artifact carries the ops library and names the route's
+    ops; the consumer loads the library from the artifact alone, its
+    nequip_torch schemas equal the package's, and its outputs equal
+    load_compiled_model's at the rung it chose, bitwise (both sides with
+    deterministic algorithms: PyTorch's index_add on the card sums in any
+    order otherwise); the package's request launches the route's kernels."""
+    import os
+    import subprocess
+    import zipfile
+
+    import torch
+
+    from nequip_tpu_torch.data import batched_from_list, pad_batch, to_tensors
+    from nequip_tpu_torch.model import load_compiled_model
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    n, e = len(frame["pos"]), frame["edge_index"].shape[1]
+    with zipfile.ZipFile(art) as zf:
+        md = json.loads(zf.read("metadata.json"))
+    want_ops = sorted(f"nequip_torch::{op}" for op in route[:2] + ("scatter_rows",))
+    if md["custom_ops"] != want_ops or md.get("ops_library", {}).get("arch") != "sm_90a":
+        raise RuntimeError(f"phase 11f {label}: the artifact names {md['custom_ops']} and "
+                           f"{md.get('ops_library')}, not {want_ops} and an sm_90a library")
+    inputs = DEPLOY_DIR / f"consumer_{label}_inputs.npz"
+    np.savez(inputs, **_consumer_inputs(frame))
+    out = DEPLOY_DIR / f"consumer_{label}_out.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CONSUMER_BLOCKER, str(CONSUMER), str(art), str(inputs), str(out),
+                           "--repeat", str(CONSUMER_REQUESTS), "--deterministic"],
+                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    consumer_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 11f {label}: the consumer failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    schemas = json.loads(next(ln for ln in lines if ln.startswith("nequip_torch schemas: ")).split(": ", 1)[1])
+    package_schemas = {op: str(getattr(torch.ops.nequip_torch, op.split("::")[1]).default._schema)
+                       for op in md["custom_ops"]}
+    request_ms = [float(ln.split()[-1]) for ln in lines if ln.startswith("request ms ")]
+    rung_line = next(ln for ln in lines if ln.startswith("rung "))
+    got = dict(np.load(out))
+
+    compiled = load_compiled_model(str(art))
+    caps = compiled.select_capacities(n, e)
+    rung = compiled.capacity_ladder.index(caps)
+    padded = to_tensors(pad_batch(batched_from_list([frame]), caps["n_nodes"], caps["n_edges"], caps["n_frames"]),
+                        "cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        K.reset_launch_counts()
+        res = compiled(padded)
+        launches = _launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    rows = {"total_energy": 1, "stress": 1, "virial": 1}
+    want = {k: v[: rows.get(k, n)].cpu().numpy() for k, v in res.items()}
+    differ = [k for k in want if not (k in got and got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]))]
+    finite = all(np.isfinite(v).all() for v in got.values())
+    print(f"phase 11f standalone consumer, {label} ({smi}): artifact {os.path.getsize(art) / 2**20:.2f} MiB "
+          f"({made}; ops library {md['ops_library']['member']}, sha256 "
+          f"{md['ops_library']['sha256'][:12]}..., built in phase 1 in {built.seconds:.1f} s with the kernels: "
+          f"binding {built.binding_seconds:.1f} s beside nvcc, link {built.ops_link_seconds:.1f} s); consumer "
+          f"process {consumer_s:.1f} s with the package blocked, {n} atoms, {e} edges, {rung_line.split(';')[0]}, "
+          f"requests {', '.join(f'{t:.1f}' for t in request_ms)} ms (host clock, card synchronised: padding, "
+          f"layout, program, read-back); ops {sorted(schemas)} with the package's schemas: "
+          f"{schemas == package_schemas}; outputs bitwise load_compiled_model's at rung {rung}: {not differ} "
+          f"({sorted(want)}); package launches {launches}", flush=True)
+    if schemas != package_schemas:
+        raise RuntimeError(f"phase 11f {label}: the library's schemas differ from the package's")
+    if not rung_line.startswith(f"rung {rung} "):
+        raise RuntimeError(f"phase 11f {label}: the consumer chose {rung_line!r}, the package rung {rung}")
+    if differ or not finite:
+        raise RuntimeError(f"phase 11f {label}: the consumer's outputs differ from load_compiled_model's: {differ}")
+    _check_route(f"phase 11f {label} package", "fused" if route == K1_ROUTE else "fused_tp", launches)
+    del compiled, res
+    for f in DEPLOY_DIR.glob(f"consumer_{label}*"):
+        f.unlink()
+    torch.cuda.empty_cache()
 
 
 PAIR_E_TOL = 1e-5  # relative (f32)
@@ -3945,7 +4155,7 @@ def main() -> int:
 
     smi = phase0_device()
     t0 = time.perf_counter()
-    phase1_build()
+    built = phase1_build()
     report = phase2_kernels(n_atoms=23000, reps=10)
     phase3_golden()
     phase4_serve(n_atoms=23000)
@@ -3958,7 +4168,8 @@ def main() -> int:
     mb_launches = phase8c_tools()
     report["device_nl"] = phase9_md(smi)
     phase10_cli(smi, rr)
-    phase11_deploy(smi)
+    phase11_deploy(smi, built)
+    phase11f_consumer(smi, built)
     phase12_pair_style(smi)
     phase13_files(smi, lj_frames, rr)
     del lj_frames

@@ -12,9 +12,11 @@ once per force call.  Two neighbour-list backends, as in the JAX package:
   CUDA kernel) writes the edge stream in kernel order straight into the
   padded batch's tensors, and ``fill_edge_layout_`` refills the layout on
   the device: no position or edge crosses the host link.  Needs
-  ``integration="block"``, a fully periodic box at least ``3 * (r_max +
-  skin)`` thick, and ``tp_impl`` "fused" or "torch" (the force call then
-  runs the registered ops, which read the real-edge count on the card).
+  ``integration="block"`` and a fully periodic box at least ``3 * (r_max +
+  skin)`` thick; any ``tp_impl``.  On the kernels' routes the force call
+  runs the registered ops (K1's route: ``conv_fwd``, ``conv_bwd``,
+  ``scatter_rows``; K4's: ``tri_fwd``, ``tri_bwd``, ``scatter_rows``),
+  which read the real-edge count on the card.
 
 Two ways to integrate, as in the JAX package:
 
@@ -327,12 +329,6 @@ class MDDriver:
     def _setup_device_nl(self) -> None:
         """Size the device cell list from the first (host) build, as the JAX
         driver does, then rebuild the batch's edges with it."""
-        routes = {m.route for m in self.model.modules() if hasattr(m, "route")}
-        if "fused_tp" in routes:
-            # K4's route (tp_impl "fused_tp", or "fused" with a radial MLP K1
-            # does not take) has not been run in the device-list graphs
-            raise ValueError("nl_backend='device' takes K1's route or the plain one: use tp_impl 'fused' or "
-                             "'torch' (with 'fused', the depth-1 radial MLP)")
         if _keys.CELL_KEY not in self._frame:
             raise ValueError("nl_backend='device' needs a periodic box (a cell)")
         cell = np.asarray(self._frame[_keys.CELL_KEY], dtype=np.float64).reshape(3, 3)

@@ -15,6 +15,13 @@ Artifact layout (``*.nequip_tpu_torch.zip``):
                              model_dtype, ...)
     exported.pt2             rung 0's ``torch.export.save``d ExportedProgram
     exported_{i}.pt2         rung i's (i >= 1); none in "eager" mode
+    libnequip_ops.so         the ops library (``ops/kernels/build.py``: the
+                             registered ops ``nequip_torch::*`` in C++ and the
+                             CUDA kernels they launch), where the programs
+                             call the ops and run on "cuda"; the metadata's
+                             ``custom_ops`` names the ops the programs call,
+                             ``ops_library`` the member, its sha256 and the
+                             arch it is built for (``sm_90a``)
     model_config.json, params.pkl   the eager fallback (params.pkl is the
                              JAX parameter tree, ``jax_params_tree``)
 
@@ -37,10 +44,16 @@ energies and the edge forces (``ForceStressOutput``'s edge branch).  Its
 example batches carry the vectors (``with_edge_vector_inputs``).  Called on
 a batch without the layout, ``CompiledModel`` puts the stream into kernel
 order itself and returns the edge forces in the batch's own edge order.
+
+A process that imports this package runs the programs through the ops it
+registers in Python and ignores the ops library; one that does not
+(``tools/standalone_artifact_consumer.py``) loads the library with
+``torch.ops.load_library``, under the torch version in the metadata.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import pickle
@@ -64,6 +77,7 @@ from .jax_params import jax_params_tree
 
 FORMAT_VERSION = 1
 MODES = ("torchexport", "eager")
+OPS_LIBRARY_MEMBER = "libnequip_ops.so"
 
 # which fields each target's program consumes and produces
 # (parity: the JAX package's presets, plus the edge layout's tensors)
@@ -143,6 +157,15 @@ def export_program(model, input_fields: List[str], output_fields: List[str], ten
     return program
 
 
+def custom_ops(program: torch.export.ExportedProgram) -> List[str]:
+    """The registered ops (``nequip_torch::*``) a program calls, sorted."""
+    return sorted({
+        node.target.name().split(".")[0] for node in program.graph.nodes
+        if node.op == "call_function" and isinstance(node.target, torch._ops.OpOverload)
+        and node.target.namespace == "nequip_torch"
+    })
+
+
 def save_compiled_model(out_path: str, model, example_batch, target: str = "ase", mode: str = "torchexport") -> dict:
     """Export the model's ``target`` outputs on padded batches on the
     model's device (one batch, or a list of batches of ascending capacities:
@@ -177,16 +200,28 @@ def save_compiled_model(out_path: str, model, example_batch, target: str = "ase"
         "torch_version": torch.__version__,
         **{k: str(v) for k, v in model.metadata.items()},
     }
-    programs = []
+    programs, ops = [], set()
     if mode == "torchexport":
         for b in batches:
             buf = io.BytesIO()
-            torch.export.save(export_program(model, input_fields, output_fields, [b[k] for k in input_fields]), buf)
+            program = export_program(model, input_fields, output_fields, [b[k] for k in input_fields])
+            ops.update(custom_ops(program))
+            torch.export.save(program, buf)
             programs.append(buf.getvalue())
+    metadata["custom_ops"] = sorted(ops)
+    library = None
+    if ops and device.type == "cuda":
+        from ..ops.kernels import build
+
+        library = build.ops_library().read_bytes()
+        metadata["ops_library"] = {"member": OPS_LIBRARY_MEMBER, "sha256": hashlib.sha256(library).hexdigest(),
+                                   "arch": build.OPS_ARCH}
     with zipfile.ZipFile(out_path, "w") as zf:
         zf.writestr("metadata.json", json.dumps(metadata, indent=2))
         for i, blob in enumerate(programs):
             zf.writestr(rung_file(i), blob)
+        if library is not None:
+            zf.writestr(OPS_LIBRARY_MEMBER, library)
         zf.writestr("model_config.json", json.dumps(getattr(model, "model_config", {}) or {}))
         zf.writestr("params.pkl", pickle.dumps(jax_params_tree(model)))
     return metadata
@@ -204,8 +239,9 @@ class CompiledModel:
     ``__call__`` runs the rung whose capacities the batch was padded to.
     A "torchexport" artifact runs its programs only: one that cannot load,
     build or launch its kernels raises, and never falls back to the eager
-    model.  Loading needs the ``nequip_torch`` ops registered (importing
-    ``nequip_tpu_torch`` does so)."""
+    model.  It runs the programs through the ops this package registers;
+    the ops library an artifact carries is for processes without the
+    package."""
 
     def __init__(self, path: str, device="cuda"):
         self.path = path
@@ -353,6 +389,7 @@ def validate_artifact(path: str, device=None) -> dict:
         float(md["r_max"])  # parseable
         if not md["type_names"].split():
             raise ValueError("type_names must name at least one type")
+        _validate_ops_library(zf, md, names)
 
         if md["mode"] == "torchexport":
             device = resolve_device(md["platform"] if device is None else device)
@@ -375,3 +412,24 @@ def validate_artifact(path: str, device=None) -> dict:
                     if vals[spec.arg.name].device.type != device.type:
                         raise ValueError(f"rung {i}: {field} lives on {vals[spec.arg.name].device}, not {device}")
     return md
+
+
+def _validate_ops_library(zf: zipfile.ZipFile, md: dict, names: set) -> None:
+    """The ops library the metadata names is in the archive with its sha256;
+    a "cuda" artifact whose programs call the ops carries one."""
+    ops = md.get("custom_ops", [])
+    if not isinstance(ops, list) or not all(isinstance(op, str) and op.startswith("nequip_torch::") for op in ops):
+        raise ValueError(f"custom_ops must list nequip_torch ops, got {ops!r}")
+    lib = md.get("ops_library")
+    if lib is None:
+        if ops and md["platform"] == "cuda":
+            raise ValueError(f"the programs call {ops} on cuda but the artifact carries no ops_library")
+        return
+    for key in ("member", "sha256", "arch"):
+        if not isinstance(lib.get(key), str):
+            raise ValueError(f"ops_library missing string key {key!r}")
+    if lib["member"] not in names:
+        raise ValueError(f"artifact missing its ops library member {lib['member']!r}")
+    digest = hashlib.sha256(zf.read(lib["member"])).hexdigest()
+    if digest != lib["sha256"]:
+        raise ValueError(f"ops library {lib['member']!r}: sha256 {digest} != the metadata's {lib['sha256']}")

@@ -14,7 +14,7 @@ Port of ``nequip_tpu/model/saved_models.py``:
   installed code can no longer build raises with the archive's code
   snapshot as the way out;
 * ``load_saved_model`` dispatches on the file (and resolves ``nequip.net:``
-  ids already in the local cache, ``utils/model_cache.py``).
+  ids through the local cache, fetching on a miss, ``utils/model_cache.py``).
 
 Models come back on the CPU with trainable weights; the calculator and the
 compiler move and freeze them.
@@ -97,8 +97,8 @@ def ModelFromPackage(package_path: str):
 
 
 def load_saved_model(path: str, use_ema: bool = True):
-    """A checkpoint or a package archive (or a ``nequip.net:`` id in the
-    local cache), by what the file is."""
+    """A checkpoint or a package archive (or a ``nequip.net:`` id, from the
+    local cache or fetched into it), by what the file is."""
     if str(path).startswith("nequip.net:"):
         from ..utils.model_cache import resolve_model_id
 

@@ -6,6 +6,18 @@ linked into one shared library with a plain C interface, at first CUDA use,
 into ``nequip_tpu_torch/_build/`` (named by a hash of the sources, so a
 changed source rebuilds).  Importing this module needs no ``nvcc``.
 
+In the same step, beside them, the host compiler builds ``csrc/torch_ops.cpp``
+(the registered ops ``nequip_torch::{conv_fwd, conv_bwd, scatter_rows,
+tri_fwd, tri_bwd}`` in C++, against ``torch/library.h``, with the header
+path and ``_GLIBCXX_USE_CXX11_ABI`` value of the installed ``torch``), and
+links it with the objects of the five kernels it launches into the ops
+library ``libnequip_ops_<hash>.so``, against ``torch``'s libraries (its
+hash also covers the binding, the torch version and the ABI value): a
+compiled artifact carries it so that a process that does not import the
+package can run the artifact's programs (``model/inference_models.py``).
+The package itself never loads it: its ops are registered in Python, and a
+binding that fails to build leaves the kernel library usable.
+
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns the ``cudaError_t`` of the launch; the Python wrappers raise if
 it is not 0.  Every kernel is instantiated for float32 and float64
@@ -27,7 +39,7 @@ import tempfile
 import time
 from functools import lru_cache
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -103,56 +115,149 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources() -> Tuple[List[Path], str]:
-    files = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-    h = hashlib.sha256()
+# the registered ops' C++ binding (with the header it includes), and the
+# kernels it launches (K1, K2, K3, K4, K5)
+OPS_BINDING = CSRC / "torch_ops.cpp"
+OPS_HEADERS = (CSRC / "scatter_geometry.h",)
+OPS_KERNELS = ("conv_fwd", "conv_bwd", "scatter_rows", "tri_fwd", "tri_bwd")
+OPS_ARCH = "sm_90a"
+
+
+class Built(NamedTuple):
+    """What ``build`` made: the kernel library (plain C, for ``ctypes``), the
+    ops library (None if its binding failed to compile or link, with the
+    report in ``ops_error``: the kernel library does not depend on it), the
+    wall seconds of the whole build (0 when both existed), and of the ops
+    library's own steps: the binding's compile (run beside the ``nvcc``
+    processes) and its link."""
+
+    kernels: Path
+    ops: Optional[Path]
+    seconds: float
+    binding_seconds: float
+    ops_link_seconds: float
+    ops_error: str = ""
+
+
+def _digest(files: List[Path], extra: str = "") -> str:
+    h = hashlib.sha256(extra.encode())
     for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return [f for f in files if f.suffix == ".cu"], h.hexdigest()[:16]
+    return h.hexdigest()[:16]
 
 
-def build() -> Tuple[Path, float]:
-    """Compile the kernels if needed; returns (library path, build seconds)."""
-    sources, digest = _sources()
+def _sources() -> Tuple[List[Path], str, str]:
+    """The kernel sources, the kernel library's digest (the .cu and .cuh
+    files) and the ops library's: those files, the binding, and the torch
+    version and C++ ABI it compiles and links against, so that another
+    torch builds another library."""
+    import torch
+
+    files = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    torch_abi = f"torch {torch.__version__} _GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"
+    return ([f for f in files if f.suffix == ".cu"], _digest(files),
+            _digest(files + [OPS_BINDING, *OPS_HEADERS], torch_abi))
+
+
+def _torch_build_flags() -> Tuple[List[str], List[str]]:
+    """(compile, link) flags of a host object that uses torch's C++ API: its
+    headers, the C++ standard and ABI it was built with, its libraries."""
+    import torch
+
+    root = Path(torch.__file__).resolve().parent
+    lib = root / "lib"
+    compile_flags = ["-std=c++20", "-O2", "-fPIC", f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+                     f"-I{root / 'include'}"]
+    link_flags = [f"-L{lib}", "-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch", "-Xlinker", f"-rpath={lib}"]
+    return compile_flags, link_flags
+
+
+def _finish(name: str, proc: subprocess.Popen) -> str:
+    """Wait for a compile; its error report, or "" if it succeeded."""
+    out, _ = proc.communicate()
+    return f"{name} ({proc.returncode}):\n{out}" if proc.returncode != 0 else ""
+
+
+def _link(cmd: List[str]) -> str:
+    """Run a link; its error report, or "" if it succeeded."""
+    link = subprocess.run(cmd, capture_output=True, text=True)
+    return f"link failed ({link.returncode}): {' '.join(cmd)}\n{link.stdout}\n{link.stderr}" if link.returncode else ""
+
+
+def build() -> Built:
+    """Compile the kernels and the ops library if needed.  A kernel that
+    fails to compile raises; a binding that fails leaves the kernel library
+    built and the ops library None (``ops_library`` raises with the report)."""
+    sources, digest, ops_digest = _sources()
     lib_path = BUILD_DIR / f"libnequip_kernels_{digest}.so"
-    if lib_path.exists():
-        return lib_path, 0.0
+    ops_path = BUILD_DIR / f"libnequip_ops_{ops_digest}.so"
+    need_kernels, need_ops = not lib_path.exists(), not ops_path.exists()
+    if not (need_kernels or need_ops):
+        return Built(lib_path, ops_path, 0.0, 0.0, 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _find_nvcc()
-    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    flags = ["-gencode", f"arch=compute_90a,code={OPS_ARCH}", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    cxx = os.environ.get("CXX", "c++")
+    if not need_kernels:  # the ops library alone needs the objects of the kernels it launches
+        sources = [src for src in sources if src.stem in OPS_KERNELS]
+    binding_s = link_s = 0.0
+    ops_error = ""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *flags, f"-I{CSRC}", "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        objs = {src.stem: Path(tmp) / f"{src.stem}.o" for src in sources}
+        binding_obj = Path(tmp) / "torch_ops.o"
+        binding = None
+        if need_ops:
+            torch_compile, torch_link = _torch_build_flags()
+            binding = subprocess.Popen(
+                [cxx, *torch_compile, f"-I{Path(nvcc).resolve().parents[1] / 'include'}", "-c", str(OPS_BINDING),
+                 "-o", str(binding_obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            for src, obj in zip(sources, objs)
+        procs = [
+            (src.name, subprocess.Popen(
+                [nvcc, *flags, f"-I{CSRC}", "-c", str(src), "-o", str(objs[src.stem])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+            for src in sources
         ]
-        failed = []
-        for src, proc in zip(sources, procs):
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        lib_tmp = Path(tmp) / lib_path.name
-        link = subprocess.run(
-            [nvcc, "-shared", *map(str, objs), "-o", str(lib_tmp)], capture_output=True, text=True
-        )
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
-        os.replace(lib_tmp, lib_path)
-    return lib_path, time.perf_counter() - t0
+        if binding is not None:
+            ops_error = _finish(OPS_BINDING.name, binding)
+            binding_s = time.perf_counter() - t0
+        failed = [_finish(name, proc) for name, proc in procs]  # every process ends before a failure raises
+        if any(failed):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f for f in failed if f))
+        if need_kernels:
+            lib_tmp = Path(tmp) / lib_path.name
+            failed = _link([nvcc, "-shared", *map(str, objs.values()), "-o", str(lib_tmp)])
+            if failed:
+                raise RuntimeError(failed)
+            os.replace(lib_tmp, lib_path)
+        if need_ops and not ops_error:
+            ops_tmp = Path(tmp) / ops_path.name
+            t1 = time.perf_counter()
+            ops_error = _link([nvcc, "-shared", str(binding_obj), *(str(objs[k]) for k in OPS_KERNELS), "-o",
+                               str(ops_tmp), *torch_link])
+            link_s = time.perf_counter() - t1
+            if not ops_error:
+                os.replace(ops_tmp, ops_path)
+    return Built(lib_path, None if ops_error else ops_path, time.perf_counter() - t0, binding_s, link_s,
+                 ops_error and f"the ops library did not build ({OPS_BINDING.name}):\n{ops_error}")
+
+
+def ops_library() -> Path:
+    """Build (if needed) the ops library; its path, or RuntimeError with the
+    compile or link report."""
+    built = build()
+    if built.ops is None:
+        raise RuntimeError(built.ops_error)
+    return built.ops
 
 
 @lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with argtypes set."""
-    lib_path, _ = build()
-    lib = ctypes.CDLL(str(lib_path))
+    lib = ctypes.CDLL(str(build().kernels))
     for name, argtypes in _SIGNATURES.items():
         for suffix in ("f32", "f64") + (("bf16",) if name in BF16 else ()):
             fn = getattr(lib, f"{name}_{suffix}")

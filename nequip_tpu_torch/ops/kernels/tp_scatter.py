@@ -1405,9 +1405,10 @@ def fused_tp_scatter(plan: TPPlan, x, edge_attr, edge_weight, layout: EdgeLayout
     wrappers size the carry rows by the real edges and zero only the masked
     tail.  ``frozen`` (the weights that make ``edge_weight`` need no
     gradient) with the count on the device (``n_real`` None: a traced or
-    exported program) takes the registered op ``nequip_torch::tri_fwd``,
-    whose backward is the inference op ``nequip_torch::tri_bwd`` (K5), then
-    K3, first order only."""
+    exported program, or MD's device-built layout, which a CUDA graph
+    captures) takes the registered op ``nequip_torch::tri_fwd``, whose
+    backward is the inference op ``nequip_torch::tri_bwd`` (K5), then K3,
+    first order only."""
     if not frozen or layout.n_real is not None:
         return TriConv.apply(x, edge_attr, edge_weight, plan, layout)
     tables = plan.device_tables(x.device, acc_dtype(x.dtype)).values()

@@ -33,3 +33,9 @@ def set_tf32(enabled: bool) -> None:
 
 def tf32_enabled() -> bool:
     return bool(_GLOBAL_STATE["allow_tf32"])
+
+
+def get_latest_global_state() -> dict:
+    """The process's numerical state: the TF32 switch, and ``x64`` (PyTorch's
+    default float dtype is float64)."""
+    return {"allow_tf32": _GLOBAL_STATE["allow_tf32"], "x64": torch.get_default_dtype() is torch.float64}

@@ -806,18 +806,21 @@ def test_cuda_device_nl_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_md_device_nl_graphs(cuda):
-    """nl_backend="device" on the card: the block graph, then at each rebuild
-    (skin 1e-6: after every block) the rebuild and force-refresh graphs,
-    captured once; it follows the host-list block run (float64) and its
-    last forces equal those from a fresh host list at the final positions."""
+@pytest.mark.parametrize("tp_impl,extra", [("fused", {}), ("fused_tp", {}), ("fused", {"radial_mlp_depth": 2})],
+                         ids=["k1", "k4", "k4_depth2"])
+def test_cuda_md_device_nl_graphs(cuda, tp_impl, extra):
+    """nl_backend="device" on the card, on K1's route and both ways onto K4's:
+    the block graph, then at each rebuild (skin 1e-6: after every block)
+    the rebuild and force-refresh graphs, captured once; it follows the
+    host-list block run (float64) and its last forces equal those from a
+    fresh host list at the final positions."""
     from nequip_tpu_torch.data.dataset import LJTestDataset
     from nequip_tpu_torch.integrations import MDDriver, VelocityVerlet
     from nequip_tpu_torch.model import NequIPGNNModel
 
     cfg = dict(seed=0, model_dtype="float64", type_names=["Cu"], r_max=4.0, num_layers=3, l_max=2,
                parity=False, num_features=8, radial_mlp_width=16, avg_num_neighbors=18.0)
-    model = NequIPGNNModel(tp_impl="fused", **cfg)
+    model = NequIPGNNModel(tp_impl=tp_impl, **cfg, **extra)
     f = LJTestDataset(supercell=(4, 4, 4), num_frames=1, seed=31).frames[0]
     n = len(f["pos"])
     frame = {"pos": f["pos"], "cell": f["cell"], "pbc": np.array([True] * 3), "atom_types": np.zeros(n, dtype=int)}
@@ -1514,3 +1517,106 @@ def test_cuda_bf16_jvp_bwd_every_y_phase(cuda, bf16_sums, phase, kind):
     assert K.KERNELS["jvp_bwd"].launches == before + 1
     _bf16_check(got, plain())
     assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+# loads the ops library in a process where importing nequip_tpu_torch raises,
+# runs each case's op on the card and prints the cases whose outputs are not
+# bitwise the package's
+_LIBRARY_RUNNER = """
+import json, sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "nequip_tpu_torch" or name.startswith("nequip_tpu_torch."):
+            raise ImportError(name + " is blocked")
+        return None
+
+sys.meta_path.insert(0, _Block())
+import torch
+
+torch.ops.load_library(sys.argv[1])
+differ = []
+for case in torch.load(sys.argv[2]):
+    args = []
+    for a in case["args"]:
+        if isinstance(a, dict):  # a view `offset` values into a flat buffer
+            flat = a["flat"].cuda()
+            a = flat[a["offset"]:a["offset"] + a["numel"]].view(a["shape"])
+        elif isinstance(a, torch.Tensor):
+            a = a.cuda()
+        args.append(a)
+    got = getattr(torch.ops.nequip_torch, case["op"])(*args)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    for i, (g, w) in enumerate(zip(got, case["want"], strict=True)):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g.cpu(), w):
+            differ.append(case["name"] + f"[{i}]")
+torch.cuda.synchronize()
+print(json.dumps(differ))
+"""
+
+
+def _library_cases(device, dtype):
+    """The five registered ops through the package on the card, at the
+    flagship's layer 1, preset M's layer 1 (dim_in 480) and the odd model
+    (dim_in 45, WN 75), on a stream with masked slots, and K3 at D 32, 36,
+    288 and 480 with D = 36 also as a view 2 bytes off 16-byte alignment;
+    each case's arguments and the package's outputs, on the CPU."""
+    cpu = lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t
+    cases = []
+
+    def call(name, op, args, views=()):
+        want = getattr(torch.ops.nequip_torch, op)(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        args = [views[i] if i in views else cpu(a) for i, a in enumerate(args)]
+        cases.append({"name": name, "op": op, "args": args, "want": [cpu(w) for w in want]})
+
+    for kind in ("flagship1", "preset_m1", "odd"):
+        plan, (n_emb, hidden), (a0, a1) = _tile_plan(kind, device, torch.float64 if dtype == torch.float64
+                                                     else torch.float32)
+        r = np.random.RandomState(11)
+        lay, n_slots = _tile_stream([18] * 40 + [7, 0, 3], device, r)
+        t = lambda *shape: torch.as_tensor(r.standard_normal(shape), dtype=dtype, device=device)
+        x, sh, emb, w1, w2 = (t(43, plan.dim_in), t(n_slots, plan.sh_dim), t(n_slots, n_emb), t(n_emb, hidden),
+                              t(hidden, plan.weight_numel))
+        w, g = t(n_slots, plan.weight_numel), t(43, plan.mid_dim)
+        tables = list(plan.device_tables(device, K.acc_dtype(dtype)).values())
+        full = (lay.edge_src, lay.dst_ptr, lay.src_perm, lay.src_ptr)
+        call(f"conv_fwd {kind}", "conv_fwd", [x, sh, emb, w1, w2, *full, *tables, a0, a1])
+        call(f"conv_bwd {kind}", "conv_bwd", [x, sh, emb, w1, w2, g, *full[:2], *tables, a0, a1])
+        call(f"tri_fwd {kind}", "tri_fwd", [x, sh, w, *full, *tables])
+        call(f"tri_bwd {kind}", "tri_bwd", [x, sh, w, g, *full[:2], *tables])
+    for d, offset in ((32, 0), (36, 0), (36, 1), (288, 0), (480, 0)):
+        r = np.random.RandomState(d)
+        deg = r.randint(0, 25, 200)
+        m = int(deg.sum()) + 37
+        ptr = torch.as_tensor(np.concatenate([[0], np.cumsum(deg)]), dtype=torch.int32, device=device)
+        perm = torch.as_tensor(r.permutation(m)[: int(deg.sum())], dtype=torch.int32, device=device)
+        flat = torch.as_tensor(r.standard_normal(m * d + offset), dtype=dtype, device=device)
+        v = flat[offset:].view(m, d)
+        assert (v.data_ptr() % 16 == 0) == (offset == 0)
+        call(f"scatter_rows D={d} offset={offset}", "scatter_rows", [v, perm, ptr],
+             views={0: {"flat": cpu(flat), "offset": offset, "numel": m * d, "shape": [m, d]}})
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64], ids=["bf16", "f32", "f64"])
+def test_cuda_ops_library_matches_the_package_bitwise(cuda, dtype, tmp_path):
+    """The ops library (``csrc/torch_ops.cpp`` with K1-K5, which compiled
+    artifacts carry), loaded in a process that cannot import the package,
+    gives outputs bitwise the package's registered ops' on the same inputs:
+    the two launch paths make the same tile queries, carry rows, zeroing
+    and bf16 K3 geometry (misaligned D = 36 views among them)."""
+    import json
+    import subprocess
+    import sys
+
+    from nequip_tpu_torch.ops.kernels import build
+
+    cases = _library_cases(cuda, dtype)
+    path = tmp_path / "cases.pt"
+    torch.save(cases, path)
+    proc = subprocess.run([sys.executable, "-c", _LIBRARY_RUNNER, str(build.ops_library()), str(path)],
+                          capture_output=True, text=True, timeout=600, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.splitlines()[-1]) == [], proc.stdout

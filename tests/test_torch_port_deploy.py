@@ -59,7 +59,7 @@ from nequip_tpu_torch.scripts import compile as port_compile
 from nequip_tpu_torch.scripts import package as port_package
 from nequip_tpu_torch.scripts import train as port_train
 from nequip_tpu_torch.train.checkpoint import load_checkpoint
-from nequip_tpu_torch.utils import model_cache
+from nequip_tpu_torch.utils import model_cache, model_repository
 from nequip_tpu_torch.utils.config import instantiate, resolve, retarget
 from nequip_tpu_torch.utils.versions import get_current_code_versions
 
@@ -279,6 +279,8 @@ def test_package_durability(port_pkg, tmp_path):
 
 def test_model_cache_resolves_cached_ids(port_pkg, tmp_path, monkeypatch):
     monkeypatch.setenv(model_cache.CACHE_ENV, str(tmp_path))
+    # a miss fetches from the repository: point it at a closed local port, never the network
+    monkeypatch.setenv(model_repository.REPOSITORY_URL_ENV, "http://127.0.0.1:1")
     path = Path(model_cache.model_id_to_path("nequip.net:group/lj:v1"))
     assert path.parent == tmp_path and path.name == "group__lj__v1.zip"
     with pytest.raises(FileNotFoundError, match=re.escape(str(path))):

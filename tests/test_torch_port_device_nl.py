@@ -15,6 +15,8 @@ positions atol 1e-9, forces 1e-8 against the JAX device driver and the
 port's host driver.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -155,13 +157,37 @@ def test_stream_form_and_device_layout(e_cap_factor):
 # ---------------------------------------------------------------------------
 # MD with the device list
 # ---------------------------------------------------------------------------
+# the kernels' routes of the force call: K1's (tp_impl "fused", the depth-1
+# radial MLP), and both ways onto K4's (tp_impl "fused_tp"; "fused" with a
+# depth-2 radial MLP, which K1 does not take)
+ROUTES = {
+    "k1": ("fused", {}),
+    "k4": ("fused_tp", {}),
+    "k4_depth2": ("fused", {"radial_mlp_depth": 2}),
+}
+# the registered ops each route's force call takes on a device-built layout
+ROUTE_OPS = {"fused": ("conv_fwd", "conv_bwd"), "fused_tp": ("tri_fwd", "tri_bwd")}
+
+
+def _models(route):
+    tp_impl, extra = ROUTES[route]
+    jmodel = JModel(tp_impl="xla", **CONFIG, **extra)
+    params = jmodel.init_params()
+    port = NequIPGNNModel(tp_impl=tp_impl, **CONFIG, **extra)
+    load_jax_params(port, jax.tree.map(np.asarray, params))
+    assert {m.route for m in port.modules() if hasattr(m, "route")} == {"fused" if route == "k1" else "fused_tp"}
+    return jmodel, params, port
+
+
 @pytest.fixture(scope="module")
 def models():
-    jmodel = JModel(tp_impl="xla", **CONFIG)
-    params = jmodel.init_params()
-    port = NequIPGNNModel(tp_impl="fused", **CONFIG)
-    load_jax_params(port, jax.tree.map(np.asarray, params))
-    return jmodel, params, port
+    return _models("k1")
+
+
+@pytest.fixture(scope="module", params=list(ROUTES))
+def route_models(request):
+    return request.param, (_models(request.param) if request.param != "k1"
+                           else request.getfixturevalue("models"))
 
 
 def _box_frame(seed=31):
@@ -171,11 +197,11 @@ def _box_frame(seed=31):
     return {"pos": f["pos"], "cell": f["cell"], "pbc": np.array([True] * 3), "atom_types": np.zeros(n, dtype=int)}
 
 
-def test_md_device_list_matches_jax_device_driver(models):
+def test_md_device_list_matches_jax_device_driver(route_models):
     """Twin of tests/integration/test_deploy.py's device-list case: a rebuild
     after every block (skin 1e-6), against the JAX device driver and the
-    port's host-list driver."""
-    jmodel, params, port = models
+    port's host-list driver, on K1's route and both ways onto K4's."""
+    _, (jmodel, params, port) = route_models
     frame = _box_frame()
     n = len(frame["pos"])
     v0 = 0.02 * np.random.RandomState(3).standard_normal((n, 3))
@@ -198,11 +224,13 @@ def test_md_device_list_matches_jax_device_driver(models):
     assert layout.n_real is None and int(layout.dst_ptr[-1]) == int(driver._batch[_keys.EDGE_MASK_KEY].sum())
 
 
-def test_force_call_on_a_device_layout_takes_the_registered_ops(models, monkeypatch):
+def test_force_call_on_a_device_layout_takes_the_registered_ops(route_models, monkeypatch):
     """The force call on the device-built layout runs the registered ops
-    (K1, K2's inference variant, K3) and never reads the real-edge count on
-    the host: the autograd-Function routes raise, and so does n_real."""
-    _, _, port = models
+    (K1's route: K1, K2's inference variant, K3; K4's: K4, K5's inference
+    variant, K3) and never reads the real-edge count on the host: the
+    autograd-Function routes raise, and so does any read of n_real but K4's
+    dispatch asking whether the count is on the host (it is None here)."""
+    route, (_, _, port) = route_models
     frame = _box_frame(7)
     kw = dict(masses=np.full(len(frame["pos"]), MASS), device="cpu")
     driver = MDDriver(port, dict(frame), VelocityVerlet(dt_fs=2.0), nl_backend="device", **kw)
@@ -212,7 +240,7 @@ def test_force_call_on_a_device_layout_takes_the_registered_ops(models, monkeypa
 
     class NoHostCount(K.EdgeLayout):
         def __getattribute__(self, name):
-            if name == "n_real":
+            if name == "n_real" and sys._getframe(1).f_code is not K.fused_tp_scatter.__code__:
                 raise AssertionError("the force call read the layout's n_real")
             return super().__getattribute__(name)
 
@@ -224,7 +252,16 @@ def test_force_call_on_a_device_layout_takes_the_registered_ops(models, monkeypa
 
     for fn in (K.FusedConv, K.FusedConvBwd, K.TriConv, K.TriConvBwd):
         monkeypatch.setattr(fn, "forward", staticmethod(refuse))
+    calls = []
+    for name in ("conv_fwd", "conv_bwd", "tri_fwd", "tri_bwd", "scatter_rows"):
+        plain = {"conv_fwd": K.conv_fwd_plain, "conv_bwd": K.conv_bwd_plain, "tri_fwd": K.tri_fwd_plain,
+                 "scatter_rows": K.scatter_rows_plain}.get(name)
+        if plain is not None:  # the ops' CPU kernels run the twins: record which ones ran
+            monkeypatch.setattr(K, plain.__name__, lambda *a, _f=plain, _n=name, **kw: calls.append(_n) or _f(*a, **kw))
     torch.testing.assert_close(driver.forces(pos), want, rtol=0, atol=1e-10)
+    want_ops = ROUTE_OPS["fused" if route == "k1" else "fused_tp"]
+    assert want_ops[0] in calls and "scatter_rows" in calls
+    assert not set(calls) & set(ROUTE_OPS["fused_tp" if route == "k1" else "fused"])
 
 
 def test_device_driver_options(models):
@@ -239,8 +276,6 @@ def test_device_driver_options(models):
         MDDriver(port, frame, v, nl_backend="device", skin=1.0, device="cpu")
     with pytest.raises(ValueError, match="nl_backend"):
         MDDriver(port, frame, v, nl_backend="gpu", device="cpu")
-    with pytest.raises(ValueError, match="use tp_impl 'fused' or 'torch'"):
-        MDDriver(NequIPGNNModel(tp_impl="fused_tp", **CONFIG), frame, v, nl_backend="device", device="cpu")
 
 
 def test_device_driver_raises_on_overflow(models):

@@ -12,8 +12,9 @@ ZBL prior, the model builder's options (a preset with the norm
 nonlinearity, a categorical embedding, trainable leaves and remat; a
 depth-2 radial MLP on the K4 route; the shipped model suite and its
 assertion library), a step of ConFIG (AdamW) and of schedule-free (Muon +
-Adam under a per-step cosine schedule) and ``WandbWatch`` without
-``wandb`` load neither JAX, nor optax or flax, nor the JAX package
+Adam under a per-step cosine schedule), ``WandbWatch`` without
+``wandb``, the e3nn import/export, the model repository client, the
+logger and the profiling utilities load neither JAX, nor optax or flax, nor the JAX package
 (the GPU machine has none of them), and import neither ``h5py`` nor ``lmdb`` until a
 dataset that reads them is built."""
 
@@ -141,6 +142,16 @@ for cls, kw in ((ConFIGTrainModule, dict(optimizer={"_target_": "optax.adamw", "
     logs = m.training_step(lj_batch)
     train_modules_ok = train_modules_ok and bool(np.isfinite(float(logs["train_loss_step/weighted_sum"])))
 callbacks.WandbWatch().on_train_start(None, None)
+from nequip_tpu_torch import utils
+from nequip_tpu_torch.model.e3nn_import import export_to_e3nn_npz, import_e3nn_npz
+from nequip_tpu_torch.utils import model_repository
+weights = export_to_e3nn_npz(model)
+import_e3nn_npz(weights, model)
+utilities_ok = (sorted(weights) == sorted(export_to_e3nn_npz(model)) and model_repository.NequIPNetAPIClient(
+    "http://127.0.0.1:1").base_url == "http://127.0.0.1:1" and utils.flops_per_step(
+    __import__("torch").mm, __import__("torch").ones(4, 4), __import__("torch").ones(4, 4)) == 128
+    and set(utils.get_latest_global_state()) == {"allow_tf32", "x64"})
+utils.RankedLogger().info("isolation")
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
@@ -157,6 +168,7 @@ print(json.dumps({
     "options": options_ok,
     "train_modules": train_modules_ok,
     "wandb": [m for m in sys.modules if m.split(".")[0] == "wandb"],
+    "utilities": utilities_ok,
 }))
 """
 
@@ -170,4 +182,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"finite": True, "cli": True, "deploy": True, "pair": True, "jax": [], "nequip_tpu": [],
                    "optax_flax": [], "files": True, "lazy": [], "options": True, "train_modules": True,
-                   "wandb": []}
+                   "wandb": [], "utilities": True}

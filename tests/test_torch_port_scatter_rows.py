@@ -10,7 +10,11 @@ is held here against a float32 loop and against the plain twin.  The card
 runs the kernel itself (``tests/test_torch_port_cuda.py``).
 """
 
+import ctypes
+import os
 import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -90,6 +94,41 @@ def test_scatter_rows_source_matches_the_host_geometry():
     assert len(entry.split(",")) == len(build._BF16_SIGNATURES["nequip_scatter_rows"])
     assert [a.split()[0] for a in entry.split(",")[6:9]] == ["int"] * 3
 
+
+
+@pytest.fixture(scope="module")
+def library_geometry(tmp_path_factory):
+    """The ops library's copy of the geometry rule (``csrc/scatter_geometry.h``,
+    which ``csrc/torch_ops.cpp`` includes), compiled on its own by the host
+    compiler, through its C entry."""
+    cxx = shutil.which(os.environ.get("CXX", "c++"))
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    lib = tmp_path_factory.mktemp("geometry") / "libgeometry.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++", str(build.CSRC / "scatter_geometry.h"),
+                    "-o", str(lib)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).nequip_scatter_rows_geometry
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)], None
+
+    def geometry(d: int, aligned: bool) -> K.ScatterGeometry:
+        out = (ctypes.c_int * 3)()
+        fn(d, int(aligned), out)
+        return K.ScatterGeometry(*out)
+
+    return geometry
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ops_library_geometry_matches_the_host_geometry(library_geometry, aligned):
+    """The ops library launches bf16 K3 at the package's geometry, at every
+    D from 1 to 512 at both alignments, and ``torch_ops.cpp`` takes it from
+    the shared header (the library's outputs are then bitwise the package's:
+    ``tests/test_torch_port_cuda.py``)."""
+    for d in range(1, 513):
+        assert library_geometry(d, aligned) == K.scatter_rows_geometry(d, aligned), d
+    binding = (build.CSRC / "torch_ops.cpp").read_text()
+    assert '#include "scatter_geometry.h"' in binding and "nequip::scatter_rows_geometry(d, " in binding
+    assert "kMaxPerLane = 4;" in (build.CSRC / "scatter_geometry.h").read_text() and K.SCATTER_MAX_PER_LANE == 4
 
 def _graph(seed: int, n_rows: int, max_deg: int, n_values: int):
     """A source-sorted CSR over distinct value rows: degrees 0 ... max_deg
