@@ -252,6 +252,28 @@ Phases (each prints a line; any failure exits non-zero):
      meets both: loss 2.2e-4, gradients 4.2e-2), the gradients float32;
      and three rr steps of preset M in bf16 on fused at 23k atoms (median
      and peak beside 14b's f32 step).
+ 17. parallel execution (nequip_tpu_torch.parallel) as ranks: processes
+     spawned on cuda:0 over gloo, asked for by name (NCCL refuses two ranks
+     on one card; gloo copies every collective through the host, so no
+     time here is a parallel speed), a process-group timeout and a join
+     deadline, each rank loading phase 1's library and reporting its caps
+     L, G and E, its step time (host clock, synced), peak memory and
+     launches, each route's kernels launched on every rank or the phase
+     fails.  Two ranks: (a) sharded serving of the f32 flagship (phase 4's
+     weights and first frame) against the single-device request (E rel
+     1e-5, F 1e-4 of max|F|), and the f64 golden frame against phase 3's
+     golden (E rel 1e-10, F 1e-8); (b) sharded loss_and_grad on phase 6's
+     first LJ frame, rr and fr over 4 edge slices, against the
+     single-device rr step (loss rel 1e-4, gradients 1e-4 of max); (c)
+     Trainer(devices=2), batch 1 a rank over phase 6's three frames (the
+     second step's second micro-batch a masked filler), SGD, against the
+     single-device trainer at batch 2 in this process (each step's loss
+     and gradients, the final parameters, 1e-4), the parameters the same
+     bytes on both ranks after every step.  Four ranks: (d)
+     SpatialTrainModule on a (2, 2) mesh over two 6,912-atom LJ frames, an
+     untimed rr step, then one rr and one fr step, against the
+     single-device rr step on the same frames (1e-4), the parameters the
+     same bytes on all four ranks.
 The second-to-last line is the kernel report as JSON ("launches": the
 kernel's launches on the path that runs it, phase 6 (rr) for K1, K2, K2
 train, the dW reduction and K4, phase 7 (fr, chunked) for the other
@@ -4148,6 +4170,429 @@ def phase16_bf16(smi: str, n_atoms: int = 23000, dm=None, preset_m_f32=None) -> 
     print(f"phase 16 {time.perf_counter() - t0:.1f} s", flush=True)
     return report, launches
 
+# --- phase 17: parallel execution, ranks sharing the one card over gloo -------------
+PARALLEL_DIR = ROOT / "chiprun_out" / "chip_smoke_parallel"
+SHARED_CARD = "ranks sharing one H100, gloo"  # no parallel speed: gloo copies every collective through the host
+FR_UNCHUNKED_KERNELS = ("conv_fwd", "conv_bwd", "conv_bwd_train", "dw_reduce", "scatter_rows", "tri_fwd", "tri_bwd")
+SGD = {"_target_": "optax.sgd", "learning_rate": 1e-3}  # updates linear in the gradients: comparable in f32
+PARALLEL_TOL = 1e-4  # f32: loss relative, gradients and parameters of each tensor's max
+
+
+def _rank_main(fn, rank: int, world_size: int, workdir: str, threads: int, pg_timeout_s: float) -> None:
+    """A spawned rank: ``threads`` torch threads, the default group on
+    ``cuda:0`` over gloo (by name: NCCL refuses two ranks on one card),
+    ``fn(rank)``, its result or its traceback pickled for the parent."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch
+
+    from nequip_tpu_torch.parallel.distributed import destroy_distributed, init_distributed
+
+    torch.set_num_threads(threads)
+    try:
+        init_distributed(backend="gloo", device="cuda:0", init_method=f"file://{workdir}/store", rank=rank,
+                         world_size=world_size, timeout=datetime.timedelta(seconds=pg_timeout_s))
+        result = ("ok", fn(rank))
+    except BaseException:  # reported to the parent, which raises
+        result = ("error", traceback.format_exc())
+    finally:
+        destroy_distributed()
+    with open(Path(workdir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_ranks(fn, world_size: int, threads: int, deadline_s: float, pg_timeout_s: float) -> list:
+    """``[fn(rank) for rank in range(world_size)]``, each rank a spawned
+    process meeting the others in a ``FileStore`` under PARALLEL_DIR with
+    ``threads`` torch threads; a rank's exception, or a rank still running
+    at ``deadline_s`` (then killed), raises here."""
+    import multiprocessing
+    import pickle
+
+    work = PARALLEL_DIR / f"pg_{fn.__name__}_{world_size}"
+    work.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, world_size, str(work), threads, pg_timeout_s))
+             for r in range(world_size)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline_s
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if hung:
+        raise TimeoutError(f"ranks {hung} of {world_size} still ran after {deadline_s} s")
+    results = []
+    for r, p in enumerate(procs):
+        path = work / f"rank{r}.pkl"
+        if not path.exists():
+            raise RuntimeError(f"rank {r} exited with code {p.exitcode} and no result")
+        with open(path, "rb") as f:
+            status, value = pickle.load(f)  # written by the rank above
+        if status != "ok":
+            raise RuntimeError(f"rank {r} failed:\n{value}")
+        results.append(value)
+    return results
+
+
+def _rank_start() -> float:
+    """A rank's set-up: TF32 off (as phase 0), and the kernel library phase 1
+    built (its build seconds: 0 when nothing was compiled again)."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    built = build.build()
+    build.load_library()
+    return built.seconds
+
+
+def _rank_timed(fn):
+    """``(fn(), {ms: host clock synced, peak_gib, launches})`` of one call,
+    with the launch counts set to 0 just before it."""
+    import torch
+
+    from nequip_tpu_torch.ops.kernels import tp_scatter as K
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "launches": {k: f.launches for k, f in K.KERNELS.items() if f.launches}}
+
+
+def _param_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, t in model.jax_named_tensors():
+        h.update(k.encode())
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grads_np(model) -> dict:
+    return {k: p.grad.detach().cpu().numpy().copy() for k, p in model.jax_named_tensors() if getattr(p, "grad", None)
+            is not None}
+
+
+def _single_device_rr(model, frame: dict, e_ref: float, f_ref: np.ndarray, device):
+    """The loss and gradients of ``loss_and_grad`` on one device, as the
+    ordinary rr step computes them (the model's own force output)."""
+    import torch
+
+    batch = graph_of(frame, device)
+    n = len(frame["pos"])
+    out = model(batch)
+    de = (out["total_energy"][0, 0] - e_ref) / n
+    fe = out["forces"][:n] - torch.as_tensor(f_ref, dtype=out["forces"].dtype, device=out["forces"].device)
+    loss = de**2 + (fe * fe).sum() / (3.0 * n)
+    names, params = zip(*[(k, p) for k, p in model.jax_named_tensors()
+                          if isinstance(p, torch.nn.Parameter) and p.requires_grad])
+    grads = torch.autograd.grad(loss, params)
+    return float(loss), {k: g.cpu().numpy() for k, g in zip(names, grads)}
+
+
+def graph_of(frame: dict, device):
+    """A padded, kernel-ordered one-frame batch of ``frame`` (with atom types)."""
+    from nequip_tpu_torch.data import batched_from_list, compute_neighborlist_, from_dict, pad_batch, round_up, to_tensors
+    from nequip_tpu_torch.ops.kernels.tp_scatter import relayout_edge_stream
+
+    data = compute_neighborlist_(from_dict(dict(frame)), 4.0)
+    b = batched_from_list([data])
+    padded = pad_batch(b, round_up(b["pos"].shape[0], 128), round_up(b["edge_index"].shape[1], 256), 2)
+    return relayout_edge_stream(to_tensors(padded, device))
+
+
+def _lj(supercell: int, num_frames: int) -> list:
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+
+    ds = LJTestDataset(supercell=(supercell,) * 3, num_frames=num_frames, seed=0)
+    return [dict(f, atom_types=np.zeros(len(f["pos"]), dtype=np.int64)) for f in ds.frames]
+
+
+def _rank_17abc(rank: int) -> dict:
+    """Phase 17 (a)-(c) on one of two ranks: sharded serving, sharded rr and
+    fr training, and Trainer(devices=2)."""
+    import torch
+
+    from nequip_tpu_torch.data import NequIPDataModule
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
+    from nequip_tpu_torch.integrations import NequIPCalculator
+    from nequip_tpu_torch.model import NequIPGNNModel, load_jax_params
+    from nequip_tpu_torch.parallel import ShardedGraphEvaluator, disable_MeshGhostExchange
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule, Trainer
+    from nequip_tpu_torch.train.callbacks.base import Callback
+
+    dev = torch.device("cuda:0")
+    out = {"built_s": _rank_start()}
+
+    # (a) serving: phase 4's model and first frame, and phase 3's f64 golden
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP).to(dev)
+    frame = dict(fcc_frame(23000, seed=1), atom_types=np.zeros(23328, dtype=np.int64))
+    ev = ShardedGraphEvaluator(model, device=dev)
+    ev.evaluate(frame)  # the first request: partition, layout
+    (energy, forces), out["serve"] = _rank_timed(lambda: ev.evaluate(frame))
+    out["serve"]["caps"] = dict(ev.caps)
+    if rank == 0:
+        ref = NequIPCalculator.from_model(NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP),
+                                          device=dev).calculate(fcc_frame(23000, seed=1))
+        out["serve"]["e_rel"] = abs(energy - ref["energy"]) / abs(ref["energy"])
+        out["serve"]["f_err"] = float(np.abs(forces - ref["forces"]).max() / np.abs(ref["forces"]).max())
+    z = np.load(GOLDEN)
+    golden = NequIPGNNModel(seed=0, model_dtype="float64", tp_impl="fused", **FLAGSHIP)
+    load_jax_params(golden, {k[len("params/"):]: z[k] for k in z.files if k.startswith("params/")})
+    gframe = {"pos": z["pos"], "cell": z["cell"], "pbc": z["pbc"], "atom_types": np.zeros(len(z["pos"]), np.int64)}
+    gev = ShardedGraphEvaluator(golden.to(dev), device=dev)
+    (energy, forces), out["golden"] = _rank_timed(lambda: gev.evaluate(gframe))
+    out["golden"].update(caps=dict(gev.caps), e_rel=abs(energy - float(z["energy"])) / abs(float(z["energy"])),
+                         f_err=float(np.abs(forces - z["forces"]).max()))
+    del golden, gev, ev, model
+    torch.cuda.empty_cache()
+
+    # (b) loss_and_grad on phase 6's first LJ frame, rr and fr over N_CHUNKS slices
+    lj = _lj(18, 1)[0]
+    e_ref = float(np.asarray(lj["total_energy"]).reshape(-1)[0])
+    model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP).to(dev)
+    for mode, chunks in (("rr", 0), ("fr", N_CHUNKS)):
+        ev = ShardedGraphEvaluator(model, force_grad_mode=mode, fr_edge_chunks=chunks, device=dev)
+        ev.loss_and_grad(lj, e_ref, lj["forces"])  # the first step: partition, layout
+        (loss, grads), out[mode] = _rank_timed(lambda: ev.loss_and_grad(lj, e_ref, lj["forces"]))
+        out[mode].update(caps=dict(ev.caps), loss=loss, grads={k: g.cpu().numpy() for k, g in grads.items()})
+    if rank == 0:
+        disable_MeshGhostExchange(model)
+        out["ref_loss"], out["ref_grads"] = _single_device_rr(model, lj, e_ref, lj["forces"], dev)
+    del model, ev
+    torch.cuda.empty_cache()
+
+    # (c) Trainer(devices=2): one epoch of batch 1 over phase 6's three frames (the tail a masked filler)
+    class Steps(Callback):
+        def __init__(self):
+            self.rows = []
+
+        def on_train_batch_end(self, trainer, module, logs, step):
+            self.rows.append({"loss": logs["train_loss_step/weighted_sum"], "digest": _param_digest(module.model),
+                              "grads": _grads_np(module.model)})
+
+    ds = LJTestDataset(supercell=(18,) * 3, num_frames=3, seed=0,
+                       transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]), NeighborListTransform(4.0)])
+    dm = NequIPDataModule(seed=0, train_dataset=ds, train_dataloader={"batch_size": 1, "shuffle": False}, device=dev)
+    module = NequIPTrainModule(NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP),
+                               loss=EnergyForceLoss(type_names=["Cu"]), optimizer=SGD, device=dev)
+    steps = Steps()
+    trainer = Trainer(max_epochs=1, devices=2, callbacks=[steps], ckpt_dir=str(PARALLEL_DIR / "dp"),
+                      save_last=False, save_best=False)
+    _, out["dp"] = _rank_timed(lambda: trainer.fit(module, dm))
+    out["dp"].update(fit_ms=out["dp"]["ms"], ms=trainer.step_seconds[-1] * 1e3,
+                     step_ms=[t * 1e3 for t in trainer.step_seconds], steps=steps.rows,
+                     params={k: t.detach().cpu().numpy() for k, t in module.model.jax_named_tensors()},
+                     epoch=trainer.metrics_rows[-1])
+    return out
+
+
+def _rank_17d(rank: int) -> dict:
+    """Phase 17 (d) on one of four ranks: SpatialTrainModule on a (2, 2)
+    mesh, one rr step and one unsliced fr step from the same weights."""
+    import torch
+
+    from nequip_tpu_torch.data import DataLoader
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.parallel import SpatialFrameLoader, SpatialTrainModule, make_2d_mesh
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule
+
+    dev = torch.device("cuda:0")
+    out = {"built_s": _rank_start()}
+    mesh = make_2d_mesh(2, 2)
+    ds = LJTestDataset(supercell=(12,) * 3, num_frames=2, seed=0,
+                       transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]), NeighborListTransform(4.0)])
+    batch = next(iter(SpatialFrameLoader(ds, mesh, 4.0, device=dev)))
+    out["coords"] = dict(mesh.coords)
+    out["caps"] = {"L": batch["arrays"]["local_pos"].shape[0], "G": batch["arrays"]["ghost_mask"].shape[0],
+                   "E": batch["arrays"]["edge_mask"].shape[0]}
+    def step(mode: str) -> dict:
+        module = SpatialTrainModule(NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP),
+                                    loss=EnergyForceLoss(type_names=["Cu"]), optimizer=SGD, force_grad_mode=mode,
+                                    mesh=mesh, device=dev)
+        logs, rep = _rank_timed(lambda: module.training_step(batch))
+        rep.update(loss=float(logs["train_loss_step/weighted_sum"]), grads=_grads_np(module.model),
+                   digest=_param_digest(module.model))
+        return rep
+
+    step("rr")  # the process's first step, not timed
+    out["rr"], out["fr"] = step("rr"), step("fr")
+    if rank == 0:
+        ref = NequIPTrainModule(NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP),
+                                loss=EnergyForceLoss(type_names=["Cu"]), optimizer=SGD, device=dev)
+        logs = ref.training_step(next(iter(DataLoader(ds, batch_size=2, device=dev))))
+        out["ref_loss"], out["ref_grads"] = float(logs["train_loss_step/weighted_sum"]), _grads_np(ref.model)
+    return out
+
+
+def _rel_gap(got: dict, want: dict) -> float:
+    """Largest per-tensor max |diff| / max |want|."""
+    return max(float(np.abs(got[k] - want[k]).max()) / max(float(np.abs(want[k]).max()), 1e-30) for k in want)
+
+
+def _rank_line(label: str, rank: int, n: int, r: dict) -> str:
+    caps = r.get("caps")
+    ghost = "" if caps is None else (f"caps L {caps['L']}, G {caps['G']}, E {caps['E']} (G/L "
+                                     f"{caps['G'] / caps['L']:.3f}), ")
+    return (f"phase 17{label} rank {rank}: {ghost}step {r['ms']:.1f} ms ({n} {SHARED_CARD}), max_memory_allocated "
+            f"{r['peak_gib']:.3f} GiB, launches {r['launches']}")
+
+
+def _need(label: str, rank: int, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"phase 17{label}: rank {rank} did not launch {missing} ({launches})")
+
+
+def phase17_parallel(smi: str) -> dict:
+    """Phase 17: the parallel paths as ranks on the one card over gloo (by
+    name: NCCL refuses two ranks on one card), each rank a process of its
+    own that reports its caps, step time, peak memory and launches: (a)
+    sharded serving of the f32 flagship on 23k atoms against the
+    single-device request and of the f64 golden frame against the golden;
+    (b) sharded loss_and_grad, rr and fr over N_CHUNKS slices, on phase
+    6's LJ frame against the single-device rr step; (c) Trainer(devices=2)
+    against the single-device trainer at batch 2 (this process), the
+    replicated parameters the same bytes on both ranks after each step;
+    (d) SpatialTrainModule on a (2, 2) mesh of four ranks, one rr and one
+    fr step (after an untimed rr step), against the single-device step.
+    Returns each kernel's launches summed over the ranks' main paths."""
+    import shutil
+
+    import torch
+
+    from nequip_tpu_torch.data import NequIPDataModule
+    from nequip_tpu_torch.data.dataset import LJTestDataset
+    from nequip_tpu_torch.data.transforms import ChemicalSpeciesToAtomTypeMapper, NeighborListTransform
+    from nequip_tpu_torch.model import NequIPGNNModel
+    from nequip_tpu_torch.train import EnergyForceLoss, NequIPTrainModule, Trainer
+    from nequip_tpu_torch.train.callbacks.base import Callback
+
+    gather = "all_gather_single" if hasattr(torch.distributed, "all_gather_single") else "all_gather_into_tensor"
+    print(f"phase 17 collectives on gloo's CUDA tensors: the ghost gather by torch.distributed.{gather}, its "
+          f"transpose by all_reduce (torch {torch.__version__})", flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    totals: dict = {}
+
+    def tally(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    two = run_ranks(_rank_17abc, 2, threads=4, deadline_s=420, pg_timeout_s=300)
+    t1 = time.perf_counter()
+    for rank, r in enumerate(two):
+        if r["built_s"] != 0.0:
+            raise RuntimeError(f"phase 17: rank {rank} compiled the kernels again ({r['built_s']:.1f} s)")
+        for label, key, kernels in (("a", "serve", SERVING_KERNELS), ("a", "golden", SERVING_KERNELS),
+                                    ("b", "rr", TRAINING_KERNELS), ("b", "fr", FR_CHUNKED_KERNELS),
+                                    ("c", "dp", TRAINING_KERNELS)):
+            print(_rank_line(f"{label} {key}", rank, 2, r[key]) + (
+                f"; fit {r[key]['fit_ms']:.1f} ms, steps {[round(t, 1) for t in r[key]['step_ms']]} ms"
+                if key == "dp" else ""), flush=True)
+            _need(label, rank, r[key]["launches"], kernels)
+            tally(r[key]["launches"])
+        if any(k not in SERVING_KERNELS for k in r["serve"]["launches"]):
+            raise RuntimeError(f"phase 17a: sharded serving launched a training kernel: {r['serve']['launches']}")
+        if not (r["golden"]["e_rel"] <= 1e-10 and r["golden"]["f_err"] <= 1e-8):
+            raise RuntimeError(f"phase 17a: rank {rank}'s sharded f64 golden: E rel {r['golden']['e_rel']:.3e}, "
+                               f"F max err {r['golden']['f_err']:.3e}")
+    a, g = two[0]["serve"], two[0]["golden"]
+    print(f"phase 17a sharded serving vs the single-device request (f32, 23,328 atoms): E rel {a['e_rel']:.3e}, "
+          f"F max err / max|F| {a['f_err']:.3e}; f64 golden over 2 ranks: E rel {g['e_rel']:.3e}, F max err "
+          f"{g['f_err']:.3e}", flush=True)
+    if not (a["e_rel"] <= 1e-5 and a["f_err"] <= 1e-4):
+        raise RuntimeError("phase 17a: sharded serving disagrees with the single-device request")
+    for mode in ("rr", "fr"):
+        gaps = [(abs(r[mode]["loss"] - two[0]["ref_loss"]) / abs(two[0]["ref_loss"]),
+                 _rel_gap(r[mode]["grads"], two[0]["ref_grads"])) for r in two]
+        print(f"phase 17b sharded {mode}{f' over {N_CHUNKS} slices' if mode == 'fr' else ''} vs the single-device rr "
+              f"step (f32): loss {two[0][mode]['loss']:.6e} (single {two[0]['ref_loss']:.6e}), per rank (loss rel, "
+              f"grads max err / max|grad|) {[(f'{x:.2e}', f'{y:.2e}') for x, y in gaps]}", flush=True)
+        if not all(x <= PARALLEL_TOL and y <= PARALLEL_TOL for x, y in gaps):
+            raise RuntimeError(f"phase 17b: sharded {mode} training disagrees with the single-device rr step")
+
+    # (c) the single-device trainer at batch 2 over the same frames, here
+    class Steps(Callback):
+        def __init__(self):
+            self.rows = []
+
+        def on_train_batch_end(self, trainer, module, logs, step):
+            self.rows.append({"loss": logs["train_loss_step/weighted_sum"], "grads": _grads_np(module.model)})
+
+    ds = LJTestDataset(supercell=(18,) * 3, num_frames=3, seed=0,
+                       transforms=[ChemicalSpeciesToAtomTypeMapper(["Cu"]), NeighborListTransform(4.0)])
+    module = NequIPTrainModule(NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP),
+                               loss=EnergyForceLoss(type_names=["Cu"]), optimizer=SGD, device="cuda")
+    steps = Steps()
+    Trainer(max_epochs=1, callbacks=[steps], ckpt_dir=str(PARALLEL_DIR / "single"), save_last=False,
+            save_best=False).fit(module, NequIPDataModule(
+                seed=0, train_dataset=ds, train_dataloader={"batch_size": 2, "shuffle": False}, device="cuda"))
+    single = {k: t.detach().cpu().numpy() for k, t in module.model.jax_named_tensors()}
+    del module, ds
+    torch.cuda.empty_cache()
+    dp = [r["dp"] for r in two]
+    if len(steps.rows) != 2 or any(len(d["steps"]) != 2 for d in dp):
+        raise RuntimeError(f"phase 17c: {[len(d['steps']) for d in dp]} data-parallel steps, {len(steps.rows)} "
+                           "single-device steps; 2 each expected")
+    for i, want in enumerate(steps.rows):
+        if len({d["steps"][i]["digest"] for d in dp}) != 1:
+            raise RuntimeError(f"phase 17c: the ranks' parameters differ after step {i}")
+        loss_rel = max(abs(d["steps"][i]["loss"] - want["loss"]) / abs(want["loss"]) for d in dp)
+        grad_gap = max(_rel_gap(d["steps"][i]["grads"], want["grads"]) for d in dp)
+        print(f"phase 17c step {i}: Trainer(devices=2) vs the single-device trainer at batch 2 (f32, SGD): loss "
+              f"{dp[0]['steps'][i]['loss']:.6e} rel {loss_rel:.2e}, grads max err / max|grad| {grad_gap:.2e}; "
+              f"parameters the same bytes on both ranks; step {dp[0]['step_ms'][i]:.1f} ms ({2} {SHARED_CARD})",
+              flush=True)
+        if not (loss_rel <= PARALLEL_TOL and grad_gap <= PARALLEL_TOL):
+            raise RuntimeError(f"phase 17c: step {i} disagrees with the single-device trainer")
+    p_gap = _rel_gap(dp[0]["params"], single)
+    print(f"phase 17c parameters after the epoch vs single device: max err / max|p| {p_gap:.2e}", flush=True)
+    if not p_gap <= PARALLEL_TOL:
+        raise RuntimeError("phase 17c: the data-parallel parameters disagree with the single-device trainer's")
+    t2 = time.perf_counter()
+
+    four = run_ranks(_rank_17d, 4, threads=2, deadline_s=300, pg_timeout_s=240)
+    for rank, r in enumerate(four):
+        for mode, kernels in (("rr", TRAINING_KERNELS), ("fr", FR_UNCHUNKED_KERNELS)):
+            print(_rank_line(f"d {mode} {tuple(r['coords'].values())}", rank, 4, dict(r[mode], caps=r["caps"])),
+                  flush=True)
+            _need("d", rank, r[mode]["launches"], kernels)
+            tally(r[mode]["launches"])
+    ref = four[0]
+    for mode in ("rr", "fr"):
+        if len({r[mode]["digest"] for r in four}) != 1:
+            raise RuntimeError(f"phase 17d: the four ranks' parameters differ after the {mode} step")
+        loss_rel = max(abs(r[mode]["loss"] - ref["ref_loss"]) / abs(ref["ref_loss"]) for r in four)
+        gap = max(_rel_gap(r[mode]["grads"], ref["ref_grads"]) for r in four)
+        print(f"phase 17d 2-D {mode} step vs the single-device rr step on the same 2 frames of 6,912 atoms (f32): "
+              f"loss {ref[mode]['loss']:.6e} rel {loss_rel:.2e}, grads max err / max|grad| {gap:.2e}", flush=True)
+        if not (loss_rel <= PARALLEL_TOL and gap <= PARALLEL_TOL):
+            raise RuntimeError(f"phase 17d: the 2-D {mode} step disagrees with the single-device step")
+    print(f"phase 17 {time.perf_counter() - t0:.1f} s ((a)-(c) ranks {t1 - t0:.1f} s, (c)'s reference "
+          f"{t2 - t1:.1f} s, (d) {time.perf_counter() - t2:.1f} s; {smi})", flush=True)
+    return totals
+
 
 def main() -> int:
     sys.path.insert(0, str(ROOT))
@@ -4177,6 +4622,8 @@ def main() -> int:
     phase15_train_modules(smi, dm, rr)
     bf16_report, bf16_launches = phase16_bf16(smi, dm=dm, preset_m_f32=options["rr"]["none"])
     del dm
+    parallel_launches = phase17_parallel(smi)
+    print(f"phase 17 launches over the ranks' main paths {parallel_launches}", flush=True)
 
     from nequip_tpu_torch.ops.kernels.build import KERNEL_SOURCES
 

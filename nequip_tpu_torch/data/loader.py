@@ -18,8 +18,13 @@ Capacity policy:
 Shuffling is keyed by (seed, epoch); ``num_samples_per_epoch`` splits one
 pass over a large dataset into many short epochs (``PartialSampler``).
 ``state_dict`` holds the epoch counter and the sampler's, which is what a
-resumed run restores to continue at the same data position.  Not ported
-yet: per-process sharding (``process_index``/``process_count``).
+resumed run restores to continue at the same data position.
+
+``process_index``/``process_count`` give each of several processes a
+disjoint, deterministic stride of the (seed, epoch)-keyed order, as in the
+JAX loader (its per-host sharding).  The port's data-parallel trainer does
+not need it: every rank runs the whole loader and ``DataParallel`` hands
+each its micro-batch of every group.
 """
 
 from __future__ import annotations
@@ -53,7 +58,13 @@ class DataLoader:
         device="cuda",
         n_buckets: int = 1,
         num_samples_per_epoch: Optional[int] = None,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if not 0 <= int(process_index) < int(process_count):
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -180,13 +191,16 @@ class DataLoader:
     # --- iteration -----------------------------------------------------
     def _order(self) -> np.ndarray:
         if self.sampler is not None:
-            return np.fromiter(iter(self.sampler), dtype=np.int64)
-        if self.shuffle:
-            return np.random.RandomState(self.seed + self._epoch).permutation(len(self.dataset))
-        return np.arange(len(self.dataset))
+            order = np.fromiter(iter(self.sampler), dtype=np.int64)
+        elif self.shuffle:
+            order = np.random.RandomState(self.seed + self._epoch).permutation(len(self.dataset))
+        else:
+            order = np.arange(len(self.dataset))
+        return order[self.process_index::self.process_count]
 
     def __len__(self) -> int:
         n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        n = len(range(self.process_index, n, self.process_count))
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def host_batches(self) -> Iterator[dict]:

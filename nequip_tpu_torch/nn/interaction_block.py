@@ -2,8 +2,14 @@
 
 Port of ``InteractionBlock.__call__`` (``nequip_tpu/nn/interaction_block.py``):
 
-    linear_1 -> avg-num-neighbor norm -> TP-scatter with radial-MLP edge
-    weights -> merge of same-irrep mid chunks -> linear_2 -> + self-connection
+    linear_1 -> avg-num-neighbor norm (-> ghost exchange, every layer but
+    the first) -> TP-scatter with radial-MLP edge weights -> merge of
+    same-irrep mid chunks -> linear_2 -> + self-connection
+
+The ghost exchange is a no-op (``nn/ghost_exchange.py``) unless a sharded
+graph swaps in ``parallel.ghost.MeshGhostExchange``, which refreshes the
+ghost rows from their owners on other ranks; the fr sweep's tangent goes
+through it too (``_feature_maps``).
 
 The conv runs one of three routes (``InteractionBlock.route``), fixed when
 the implementation is set, by the JAX package's own rule
@@ -67,6 +73,7 @@ from ..ops.kernels.tp_scatter import (
 from ..ops.linear import Linear
 from ..ops.mlp import ScalarMLP as ScalarMLPFunction
 from ..ops.tensor_product import fully_connected_tensor_product, uvu_instructions
+from .ghost_exchange import NoOpGhostExchange
 from .module import GraphModule
 from .norm import AvgNumNeighborsNorm
 from .tp_scatter import KERNEL_IMPLS, TensorProductScatter
@@ -160,6 +167,8 @@ class InteractionBlock(GraphModule):
             self.sc = nn.Parameter(torch.empty(self.sc_tp.weight_numel, dtype=self.param_dtype))
         # edge slices of the fr sweep; set by the fr train step, 0 otherwise
         self.fr_edge_chunks = 0
+        # refreshes ghost rows on a sharded graph (parallel/ghost.py); a no-op otherwise
+        self.ghost_exchange = NoOpGhostExchange(field=_keys.NODE_FEATURES_KEY, irreps_in=self.irreps_in)
 
     def set_tp_impl(self, tp_impl: str) -> None:
         """Switch the conv's implementation (``TP_IMPLS``); the weights stay.
@@ -232,8 +241,12 @@ class InteractionBlock(GraphModule):
         return self.fr_edge_chunks > 1 and self.tp_scatter.impl in KERNEL_IMPLS
 
     def _feature_maps(self, data: dict, feats: torch.Tensor) -> torch.Tensor:
-        """The neighbour norm, linear in the features (applied to tangents too)."""
-        return self.avg_num_neighbors_norm(dict(data, **{_keys.NODE_FEATURES_KEY: feats}))[_keys.NODE_FEATURES_KEY]
+        """The neighbour norm and, in every layer but the first, the ghost
+        exchange: linear in the features (applied to tangents too)."""
+        data = self.avg_num_neighbors_norm(dict(data, **{_keys.NODE_FEATURES_KEY: feats}))
+        if not self.is_first_layer:
+            data = self.ghost_exchange(data)
+        return data[_keys.NODE_FEATURES_KEY]
 
     def jvp(self, data: dict, tangents: dict):
         """Hand-written forward-mode rule (JAX ``InteractionBlock.jvp``).

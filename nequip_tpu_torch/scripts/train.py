@@ -15,6 +15,12 @@ falls back to the CPU.
 Usage:
     nequip-torch-train -cn config.yaml [-cp /path/to/config/dir] [--device cuda|cpu]
     nequip-torch-train -cn config.yaml ++trainer.max_epochs=5 ++ckpt_path=ckpt/last.ckpt
+    torchrun --nproc-per-node 4 -m nequip_tpu_torch.scripts.train -cn config.yaml ++trainer.devices=4
+
+Under ``torchrun`` (or SLURM) the script calls ``parallel.init_distributed``
+before it builds anything: each rank runs on ``cuda:<LOCAL_RANK>`` (with
+``--device cpu``, on the CPU over gloo), and ``trainer.devices`` equal to
+the world size (or ``auto``) trains data-parallel.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Optional
 
 import yaml
 
+from ..parallel.distributed import current_device, init_distributed
 from ..train.checkpoint import load_checkpoint
 from ..utils.config import instantiate, load_config, register_resolver, resolve, unregister_resolver
 from ..utils.global_state import set_global_state
@@ -109,6 +116,9 @@ def main(argv=None) -> None:
                         help="overrides such as ++trainer.max_epochs=5, and ++ckpt_path=<checkpoint> to resume")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s [%(levelname)s] %(message)s")
+    device = args.device
+    if init_distributed(device=None if device == "cuda" else device):
+        device = current_device()
 
     name = args.config_name
     if not name.endswith((".yaml", ".yml")):
@@ -125,7 +135,7 @@ def main(argv=None) -> None:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = yaml.safe_load(value)
-    run_config(config, ckpt_path=ckpt_path, device=args.device)
+    run_config(config, ckpt_path=ckpt_path, device=device)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,14 @@ One step:
   as the JAX module's optimizer chain has it, the base module's global-norm
   clip at the same value, the optimizer and the EMA.
 
+With a process ``group`` (data parallel) the loss sums are merged over its
+ranks before the k passes (``psum_batch``: the value global, the gradient
+through this rank's term) and the k x P rows are all-reduced before the
+SVD, so every rank solves the same system, that of the global batch: the
+step is the single-device step over the same frames.  (The JAX package's
+data-parallel ConFIG step merges the sums but not the rows, so each of its
+devices solves with its own micro-batch's gradients.)
+
 As in the JAX package ``force_grad_mode`` is not used: the gradients are
 always reverse over reverse.  ``A`` spans the trainable parameters; the JAX
 package's spans every leaf of its tree, the frozen per-type scales and
@@ -76,12 +84,15 @@ class ConFIGTrainModule(NequIPTrainModule):
         if not self._component_index:
             raise ValueError("ConFIG needs at least one loss entry with a coefficient")
 
-    def component_grads(self, batch: dict):
+    def component_grads(self, batch: dict, group=None):
         """``(A_raw, batch loss sums, loss values)``: the k components'
-        gradients over the trainable parameters, flattened, as rows."""
+        gradients over the trainable parameters, flattened, as rows (summed
+        over the ranks of ``group``)."""
+        from ..parallel._collectives import all_reduce
+
         batch = self._prepare(batch)
         out = self.model(batch)
-        bs = self.loss.batch_state(out, batch)
+        bs = self._merge(self.loss, self.loss.batch_state(out, batch), group)
         _, values = self.loss.values(bs)
         params = [p for _, p in self.named_trainable()]
         names = [self.loss.entries[i]["name"] for i in self._component_index]
@@ -90,12 +101,14 @@ class ConFIGTrainModule(NequIPTrainModule):
             grads = torch.autograd.grad(values[name], params, retain_graph=i < len(names) - 1, allow_unused=True)
             rows.append(torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                                    for g, p in zip(grads, params)]))
-        return torch.stack(rows), bs, values
+        A_raw = torch.stack(rows)
+        return (A_raw if group is None else all_reduce(A_raw, group)), bs, values
 
-    def training_step(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None) -> Dict[str, torch.Tensor]:
+    def training_step(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None,
+                      group=None) -> Dict[str, torch.Tensor]:
         self._check_sole_model()
         self.optimizer.zero_grad(set_to_none=True)
-        A_raw, bs, values = self.component_grads(batch)
+        A_raw, bs, values = self.component_grads(batch, group)
         coeffs = ([float(loss_coeffs[i]) for i in self._component_index] if loss_coeffs is not None
                   else [self.loss.coeffs[self.loss.entries[i]["name"]] for i in self._component_index])
         flat = config_direction(A_raw, torch.tensor(coeffs, dtype=A_raw.dtype, device=A_raw.device), self.lsqr,

@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..data import _keys
 from ..data.modifier import BaseModifier, PerAtomModifier
@@ -141,6 +142,30 @@ class MetricsManager:
 
     def batch_state(self, output: dict, target: dict) -> Dict[str, Dict[str, torch.Tensor]]:
         return {e["name"]: self._batch_sums(e, output, target) for e in self.entries}
+
+    def psum_batch(self, bs, group):
+        """Merge the batch sums over the ranks of ``group`` (JAX ``psum_batch``).
+
+        The parameter-dependent sums are linearised: the value is the sum
+        over the ranks, the gradient flows through this rank's term only,
+        so the gradients all-reduced after the backward are the exact
+        global-batch gradient (differentiating an all-reduced loss and
+        all-reducing again would count every term world-size times).
+        """
+        from ..parallel._collectives import all_reduce
+
+        def lin(x):
+            return x + (all_reduce(x, group) - x).detach()
+
+        return {
+            name: {
+                "abs": lin(s["abs"]),
+                "sq": lin(s["sq"]),
+                "count": all_reduce(s["count"], group),
+                "max": all_reduce(s["max"], group, op=torch.distributed.ReduceOp.MAX),
+            }
+            for name, s in bs.items()
+        }
 
     def values(self, bs, coeffs: Optional[Sequence[float]] = None):
         """``(weighted_loss, values)`` of a batch state; ``coeffs`` (one per

@@ -15,7 +15,20 @@ would.  ``validate``, ``test`` and ``predict`` run the module's
 evaluation model, from a checkpoint with ``ckpt_path`` (``"best"`` is
 ``<ckpt_dir>/best.ckpt``).  The loss coefficients the step uses are the
 trainer's float32 vector, which callbacks change through
-``set_loss_coeffs``.  Not ported yet: data parallel (``devices > 1``).
+``set_loss_coeffs``.
+
+``devices > 1`` (or ``"auto"``: the world size) trains data-parallel over
+the ranks of an initialised process group (``parallel.init_distributed``,
+one process per device, e.g. under ``torchrun``), as the JAX trainer does
+over a mesh: ``devices`` must equal the world size, every rank runs the
+same loader, and ``parallel.DataParallel`` groups the micro-batches and
+runs each step and evaluation with merged loss and metric sums and
+all-reduced gradients, so every rank takes the global-batch step.  Under
+an initialised process group (data parallel, or a 2-D
+``parallel.SpatialTrainModule``) every rank runs ``fit``, which ends in a
+barrier; only rank 0 writes checkpoints, ``metrics.csv`` and logs, and
+every rank resumes from the same checkpoint.  Under data parallel the
+model outputs stay on their ranks, so writer callbacks get none.
 
 ``step_seconds`` holds the host-clock time of every training step; each
 step ends when its loss sums reach the host, so the time covers the
@@ -30,6 +43,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from ..utils.config import instantiate
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -53,8 +67,7 @@ class Trainer:
         save_best: bool = True,
         devices: Optional[int] = None,
     ):
-        if devices not in (None, 1, "1"):
-            raise NotImplementedError("data-parallel training (trainer.devices > 1) is not ported yet")
+        self.devices = devices
         if monitor_mode not in ("min", "max"):
             raise ValueError(f"monitor_mode must be 'min' or 'max', got {monitor_mode!r}")
         self.max_epochs = int(max_epochs)
@@ -79,6 +92,7 @@ class Trainer:
         self._scalars: Dict[str, float] = {}
         self._lr_scale = np.float32(1.0)
         self._loss_coeffs: Optional[np.ndarray] = None
+        self._dp = None
 
     # --- loss coefficients and scalars (for callbacks) ---------------------
     def set_loss_coeffs(self, coeffs: Dict[str, float]) -> None:
@@ -100,6 +114,51 @@ class Trainer:
     def log_scalar(self, name: str, value: float) -> None:
         self._scalars[name] = value
 
+    # --- data parallel -----------------------------------------------------
+    def _n_devices(self) -> int:
+        """The data-parallel width ``devices`` asks for (``"auto"``: the world size)."""
+        from ..parallel.mesh import device_count
+
+        if self.devices in (None, 1, "1"):
+            return 1
+        return device_count() if self.devices == "auto" else int(self.devices)
+
+    def _setup_data_parallel(self, module) -> None:
+        from ..parallel.mesh import device_count, make_mesh
+
+        n = self._n_devices()
+        if n == 1:
+            self._dp = None
+            return
+        if n != device_count():
+            raise ValueError(
+                f"trainer.devices={self.devices!r} asks for {n} data-parallel ranks but the process group has "
+                f"{device_count()}: start one process per device (torchrun --nproc-per-node {n}) and call "
+                "nequip_tpu_torch.parallel.init_distributed() before building the trainer"
+            )
+        from ..parallel.dp import DataParallel
+
+        self._dp = DataParallel(module, make_mesh((n,), ("dp",)))
+        self._log(f"data-parallel training over {n} ranks")
+
+    def _batches(self, loader):
+        """The loader's batches, or this rank's micro-batch of each group under data parallel."""
+        return loader if self._dp is None else self._dp.group_batches(iter(loader))
+
+    def _training_step(self, batch):
+        if self._dp is not None:
+            return self._dp.training_step(batch, self._loss_coeffs)
+        return self.module.training_step(batch, self._loss_coeffs)
+
+    @property
+    def is_global_zero(self) -> bool:
+        """Whether this process writes (rank 0, or the only process)."""
+        return not dist.is_initialized() or dist.get_rank() == 0
+
+    def _log(self, msg: str) -> None:
+        if self.is_global_zero:
+            log.info(msg)
+
     # --- fit ---------------------------------------------------------------
     def fit(self, module, datamodule, ckpt_path: Optional[str] = None) -> None:
         if module.loss is None:
@@ -110,10 +169,11 @@ class Trainer:
         train_loader = datamodule.train_dataloader()
         val_loaders = datamodule.val_dataloaders()
         self._loss_coeffs = np.asarray(module.loss.coeff_vector(), dtype=np.float32)
+        self._setup_data_parallel(module)
 
         if ckpt_path is not None:
             self._resume(load_checkpoint(ckpt_path), train_loader)
-            log.info(f"resumed from {ckpt_path} at epoch {self.epoch}")
+            self._log(f"resumed from {ckpt_path} at epoch {self.epoch}")
         module.set_lr_scale(self._lr_scale)
         for cb in self.callbacks:
             cb.on_train_start(self, module)
@@ -126,15 +186,15 @@ class Trainer:
                 cb.on_train_epoch_start(self, module, self.epoch)
             module.loss_state = module.loss.init_state()
             n_batches = 0
-            for batch in train_loader:
+            for batch in self._batches(train_loader):
                 t0 = time.perf_counter()
-                logs = module.training_step(batch, self._loss_coeffs)
+                logs = self._training_step(batch)
                 self.step_seconds.append(time.perf_counter() - t0)
                 self.global_step += 1
                 n_batches += 1
                 if self.global_step % self.log_every_n_steps == 0:
-                    log.info(f"epoch {self.epoch} step {self.global_step} "
-                             f"loss {float(logs['train_loss_step/weighted_sum']):.6f}")
+                    self._log(f"epoch {self.epoch} step {self.global_step} "
+                              f"loss {float(logs['train_loss_step/weighted_sum']):.6f}")
                 host_logs = None
                 for cb in self.callbacks:
                     if hasattr(cb, "on_train_batch_end"):
@@ -147,7 +207,8 @@ class Trainer:
             metrics: Dict[str, float] = {}
             if n_batches:
                 metrics.update({f"train_loss_epoch/{k}": v for k, v in module.loss.compute(module.loss_state).items()})
-            metrics["padding_waste"] = train_loader.padding_waste()
+            if hasattr(train_loader, "padding_waste"):
+                metrics["padding_waste"] = train_loader.padding_waste()
             if val_loaders and module.val_metrics is not None and (self.epoch + 1) % self.check_val_every_n_epoch == 0:
                 metrics.update(self._run_eval("val", val_loaders))
             metrics.update(self._scalars)
@@ -163,7 +224,7 @@ class Trainer:
             new_scale = module.lr_scheduler_epoch_end(self.epoch, metrics)
             if new_scale is not None:
                 if float(new_scale) != float(self._lr_scale):
-                    log.info(f"lr scale -> {float(new_scale):.3e}")
+                    self._log(f"lr scale -> {float(new_scale):.3e}")
                 self._lr_scale = np.float32(new_scale)
                 module.set_lr_scale(self._lr_scale)
                 metrics["lr_scale"] = float(new_scale)
@@ -171,8 +232,10 @@ class Trainer:
             self.epoch += 1
             self._checkpoint(metrics)
             mon = metrics.get(self.monitor)
-            log.info(f"epoch {self.epoch - 1} done in {metrics['epoch_time']:.1f}s"
-                     + (f"; {self.monitor}={mon:.6f}" if mon is not None else ""))
+            self._log(f"epoch {self.epoch - 1} done in {metrics['epoch_time']:.1f}s"
+                      + (f"; {self.monitor}={mon:.6f}" if mon is not None else ""))
+        if dist.is_initialized():
+            dist.barrier()  # rank 0's checkpoints are written before any rank reads them
 
     def _resume(self, payload: dict, train_loader) -> None:
         module = self.module
@@ -203,9 +266,12 @@ class Trainer:
         out_metrics: Dict[str, float] = {}
         for i, loader in enumerate(loaders):
             state = mgr.init_state()
-            for batch in loader:
-                state, out = module.evaluation_step(mgr, state, batch)
-                for cb in writers:
+            for batch in self._batches(loader):
+                if self._dp is not None:
+                    state, out = self._dp.evaluation_step(mgr, state, batch)
+                else:
+                    state, out = module.evaluation_step(mgr, state, batch)
+                for cb in writers if out is not None else ():
                     cb.on_eval_batch(out, batch)
             out_metrics.update({f"{stage}{i}_epoch/{k}": v for k, v in mgr.compute(state).items()})
         return out_metrics
@@ -226,6 +292,7 @@ class Trainer:
 
     def _standalone_eval(self, stage, module, datamodule, ckpt_path) -> Dict[str, float]:
         self.module = module
+        self._setup_data_parallel(module)
         datamodule.setup(stage)
         loaders = datamodule.val_dataloaders() if stage == "val" else datamodule.test_dataloaders()
         self._load_for_eval(module, ckpt_path)
@@ -234,7 +301,7 @@ class Trainer:
             for cb in self.callbacks:
                 cb.on_test_epoch_end(self, module, metrics)
         for k, v in sorted(metrics.items()):
-            log.info(f"{k}: {v:.6f}")
+            self._log(f"{k}: {v:.6f}")
         self.metrics_rows.append(metrics)
         self._write_metrics_csv()
         return metrics
@@ -260,7 +327,7 @@ class Trainer:
 
     # --- checkpoints and metrics.csv ---------------------------------------
     def _checkpoint(self, metrics: Dict[str, float]) -> None:
-        if not (self.save_last or self.save_best):
+        if not (self.save_last or self.save_best) or not self.is_global_zero:
             return
         os.makedirs(self.ckpt_dir, exist_ok=True)
         module = self.module
@@ -291,6 +358,8 @@ class Trainer:
                 save_checkpoint(os.path.join(self.ckpt_dir, "best.ckpt"), state, config, meta)
 
     def _write_metrics_csv(self) -> None:
+        if not self.is_global_zero:
+            return
         os.makedirs(self.ckpt_dir, exist_ok=True)
         keys = sorted({k for row in self.metrics_rows for k in row})
         with open(os.path.join(self.ckpt_dir, "metrics.csv"), "w") as f:

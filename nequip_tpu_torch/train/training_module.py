@@ -286,15 +286,21 @@ class NequIPTrainModule:
             batch = relayout_edge_stream(batch)
         return batch
 
-    def compute_loss(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None):
+    def compute_loss(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None, group=None):
         """``(loss, batch loss sums, loss values)`` of the model on a padded
         batch, with the graph for ``loss.backward()``; ``loss_coeffs`` (one
-        per loss entry) default to the loss manager's."""
+        per loss entry) default to the loss manager's.  With a process
+        ``group`` (data parallel) the sums are merged over its ranks before
+        the loss is formed (``MetricsManager.psum_batch``)."""
         batch = self._prepare(batch)
         out = self.model(batch)
-        bs = self.loss.batch_state(out, batch)
+        bs = self._merge(self.loss, self.loss.batch_state(out, batch), group)
         loss, values = self.loss.values(bs, self._coeffs(loss_coeffs))
         return loss, bs, values
+
+    @staticmethod
+    def _merge(mgr: MetricsManager, bs, group):
+        return bs if group is None else mgr.psum_batch(bs, group)
 
     def _coeffs(self, loss_coeffs):
         return self.loss.coeff_vector() if loss_coeffs is None else list(loss_coeffs)
@@ -310,10 +316,10 @@ class NequIPTrainModule:
                 fields.append(f)
         return fields
 
-    def compute_grads_fr(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None):
+    def compute_grads_fr(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None, group=None):
         """fr: ``(loss, batch loss sums, loss values)`` with the parameter
         gradients of the loss accumulated into ``.grad`` (JAX
-        ``_make_train_step_fr``)."""
+        ``_make_train_step_fr``); ``group`` as in ``compute_loss``."""
         batch = self._prepare(batch)
         if self.fr_edge_chunks:
             check_edge_chunks(self.fr_edge_chunks, batch[LAYOUT_KEY].n_real)
@@ -325,7 +331,7 @@ class NequIPTrainModule:
             # the output cotangents v = dL/dout (a small elementwise graph)
             fields = {f: out[f].detach().requires_grad_(True) for f in self._loss_output_fields(out)}
             with torch.enable_grad():
-                bs = self.loss.batch_state(dict(out, **fields), batch)
+                bs = self._merge(self.loss, self.loss.batch_state(dict(out, **fields), batch), group)
                 loss, values = self.loss.values(bs, coeffs)
             grads = torch.autograd.grad(loss, list(fields.values()), allow_unused=True)
             v = {f: g for f, g in zip(fields, grads) if g is not None}
@@ -333,17 +339,35 @@ class NequIPTrainModule:
             self.model.loss_surrogate(batch, v).backward()
         return loss.detach(), bs, values
 
-    def training_step(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None) -> Dict[str, torch.Tensor]:
+    def training_step(self, batch: dict, loss_coeffs: Optional[Sequence[float]] = None,
+                      group=None) -> Dict[str, torch.Tensor]:
         """One step on a padded batch (``force_grad_mode``); returns the
-        step's loss values."""
+        step's loss values.  With a process ``group`` (data parallel, JAX's
+        step under ``axis_name``) each rank passes its own micro-batch: the
+        loss sums are merged before the loss and the gradients all-reduced
+        after the backward, so every rank takes the global-batch step."""
         self._check_sole_model()
         self.optimizer.zero_grad(set_to_none=True)
         if self.force_grad_mode == "fr":
-            loss, bs, values = self.compute_grads_fr(batch, loss_coeffs)
+            loss, bs, values = self.compute_grads_fr(batch, loss_coeffs, group)
         else:
-            loss, bs, values = self.compute_loss(batch, loss_coeffs)
+            loss, bs, values = self.compute_loss(batch, loss_coeffs, group)
             loss.backward()
+        if group is not None:
+            self._all_reduce_grads(group)
         return self._apply_update(bs, values)
+
+    def _all_reduce_grads(self, group) -> None:
+        """Sum every trainable parameter's ``.grad`` over ``group`` in place
+        (one collective; a missing gradient counts as zeros)."""
+        from ..parallel._collectives import all_reduce_grads
+
+        params = [p for _, p in self.named_trainable()]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for p, g in zip(params, all_reduce_grads([p.grad for p in params], group)):
+            p.grad.copy_(g)
 
     def _check_sole_model(self) -> None:
         if len(self.models) > 1:
@@ -372,11 +396,12 @@ class NequIPTrainModule:
     def evaluation_model(self) -> torch.nn.Module:
         return self.model
 
-    def evaluation_step(self, metrics: MetricsManager, state, batch: dict):
-        """Accumulate ``metrics`` of the evaluation model on a batch."""
+    def evaluation_step(self, metrics: MetricsManager, state, batch: dict, group=None):
+        """Accumulate ``metrics`` of the evaluation model on a batch (merged
+        over the ranks of ``group`` under data parallel)."""
         batch = self._prepare(batch)
         out = self.predict_step(batch)
-        return metrics.update_state(state, out, batch), out
+        return metrics.accumulate(state, self._merge(metrics, metrics.batch_state(out, batch), group)), out
 
     def predict_step(self, batch: dict) -> dict:
         """The evaluation model's outputs on a padded batch (serving kernels)."""

@@ -14,7 +14,8 @@ depth-2 radial MLP on the K4 route; the shipped model suite and its
 assertion library), a step of ConFIG (AdamW) and of schedule-free (Muon +
 Adam under a per-step cosine schedule), ``WandbWatch`` without
 ``wandb``, the e3nn import/export, the model repository client, the
-logger and the profiling utilities load neither JAX, nor optax or flax, nor the JAX package
+logger, the profiling utilities and the parallel package (a one-rank gloo
+``ShardedGraphEvaluator.evaluate``) load neither JAX, nor optax or flax, nor the JAX package
 (the GPU machine has none of them), and import neither ``h5py`` nor ``lmdb`` until a
 dataset that reads them is built."""
 
@@ -152,6 +153,16 @@ utilities_ok = (sorted(weights) == sorted(export_to_e3nn_npz(model)) and model_r
     __import__("torch").mm, __import__("torch").ones(4, 4), __import__("torch").ones(4, 4)) == 128
     and set(utils.get_latest_global_state()) == {"allow_tf32", "x64"})
 utils.RankedLogger().info("isolation")
+import nequip_tpu_torch.parallel
+from nequip_tpu_torch.parallel import ShardedGraphEvaluator, init_distributed
+from nequip_tpu_torch.parallel.distributed import destroy_distributed
+with tempfile.TemporaryDirectory() as tmp:
+    init_distributed(backend="gloo", device="cpu", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    sharded = ShardedGraphEvaluator(model, device="cpu").evaluate({"pos": box + 0.05, "cell": np.eye(3) * 4 * a,
+                                                                   "pbc": np.ones(3, bool),
+                                                                   "atom_types": np.zeros(len(box), int)})
+    destroy_distributed()
+parallel_ok = bool(np.isfinite(sharded[0]) and np.isfinite(sharded[1]).all() and sharded[1].shape == (len(box), 3))
 mods = sorted(sys.modules)
 print(json.dumps({
     "finite": bool(np.isfinite(res["forces"]).all() and np.isfinite(res["energy"])
@@ -169,6 +180,7 @@ print(json.dumps({
     "train_modules": train_modules_ok,
     "wandb": [m for m in sys.modules if m.split(".")[0] == "wandb"],
     "utilities": utilities_ok,
+    "parallel": parallel_ok,
 }))
 """
 
@@ -182,4 +194,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"finite": True, "cli": True, "deploy": True, "pair": True, "jax": [], "nequip_tpu": [],
                    "optax_flax": [], "files": True, "lazy": [], "options": True, "train_modules": True,
-                   "wandb": [], "utilities": True}
+                   "wandb": [], "utilities": True, "parallel": True}
