@@ -3020,7 +3020,8 @@ OPTIM_GOLDEN_STEPS = 3
 # 15a: every case of the golden, and ConFIG with lsqr=True from EMA-ConFIG's steps (the EMA leaves the weights alone)
 OPTIM_GOLDEN_RUNS = (("config_pinv", None), ("ema_config_lsqr", None), ("ema_config_lsqr", "ConFIGTrainModule"),
                      ("muon_adam", None), ("schedule_free", None), ("adam_eps_root", None),
-                     ("adam_warmup_cosine", None))
+                     ("adam_warmup_cosine", None), ("lion_warmup_cosine", None), ("adafactor_factored", None),
+                     ("lamb_mask", None), ("polyak_sgd", None), ("reduce_on_plateau", None))
 MODULES_TOL = 1e-4  # 15c: of max |g|, f32
 
 
@@ -3153,7 +3154,9 @@ def phase15c_second_pass(smi: str, dm) -> None:
 def phase15b_fit(smi: str, dm, rr: dict) -> dict:
     """Trainer.fit of the flagship at full width (f32, fused) with
     EMA-ConFIG, Muon + Adam and schedule-free, then Muon + Adam under fr
-    over N_CHUNKS edge slices; step times, peaks, launches and losses."""
+    over N_CHUNKS edge slices, then optax's Lion with a schedule as its
+    rate and the plateau scale (which reads each step's loss) on optax
+    chains; step times, peaks, launches and losses."""
     import torch
 
     from nequip_tpu_torch.model import NequIPGNNModel
@@ -3162,10 +3165,18 @@ def phase15b_fit(smi: str, dm, rr: dict) -> dict:
 
     adam = {"_target_": "optax.adam", "learning_rate": 1e-3}
     muon = {"_target_": "nequip_tpu_torch.train.muon_adam", "muon_lr": 0.02, "adam_lr": 1e-3}
+    lion = {"_target_": "optax.lion", "learning_rate": {
+        "_target_": "optax.warmup_cosine_decay_schedule", "init_value": 1e-4, "peak_value": 1e-3, "warmup_steps": 1,
+        "decay_steps": 4}}
+    plateau = {"_target_": "optax.contrib.reduce_on_plateau", "factor": 0.5, "patience": 1, "rtol": 0.9}
     runs = (("ema_config", "EMAConFIGTrainModule", adam, dict(lsqr=True)),
             ("muon_adam", "NequIPTrainModule", muon, {}),
             ("schedule_free", "ScheduleFreeTrainModule", adam, dict(warmup_steps=2)),
-            ("muon_adam_fr", "NequIPTrainModule", muon, dict(force_grad_mode="fr", fr_edge_chunks=N_CHUNKS)))
+            ("muon_adam_fr", "NequIPTrainModule", muon, dict(force_grad_mode="fr", fr_edge_chunks=N_CHUNKS)),
+            ("lion_schedule", "NequIPTrainModule", lion, {}),
+            # the bare plateau scale times a constant -1e-3 schedule: SGD whose rate halves on a plateau
+            ("reduce_on_plateau", "NequIPTrainModule", plateau,
+             dict(lr_scheduler={"_target_": "optax.constant_schedule", "value": -1e-3})))
     out = {}
     for label, cls, optimizer, kwargs in runs:
         model = NequIPGNNModel(seed=0, model_dtype="float32", tp_impl="fused", **FLAGSHIP).to("cuda")
@@ -3189,6 +3200,10 @@ def phase15b_fit(smi: str, dm, rr: dict) -> dict:
             print(f"phase 15b {label} epoch {row['epoch']}: train loss {row['train_loss_epoch/weighted_sum']:.6e}, "
                   f"val loss {row['val0_epoch/weighted_sum']:.6e}", flush=True)
         print(f"phase 15b {label} launches {launches}", flush=True)
+        if label == "reduce_on_plateau":
+            plateau_state = module.optimizer.chain_states[0]["states"][0]
+            print(f"phase 15b {label}: scale after {trainer.global_step} steps {float(plateau_state['scale']):g}, "
+                  f"best loss {float(plateau_state['best_value']):.6e}", flush=True)
         for name in FR_CHUNKED_KERNELS if label.endswith("_fr") else TRAINING_KERNELS:
             if launches[name] == 0:
                 raise RuntimeError(f"phase 15b: kernel {name} was not launched by {label}")

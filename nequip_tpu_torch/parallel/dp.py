@@ -5,7 +5,8 @@ rank runs the same seeded loader and ``group_batches`` hands rank r the
 r-th micro-batch of each group of ``n_devices``; inside the step
 (``NequIPTrainModule.training_step(..., group=)``) the masked loss sums are
 merged over the ranks before the loss is formed and the gradients are
-all-reduced after the backward.  So every rank takes the exact global-batch
+all-reduced after the backward; that merged loss is the value an optimizer
+reading it (``polyak_sgd``, ``reduce_on_plateau``) is handed on every rank.  So every rank takes the exact global-batch
 step, the JAX ``DataParallel`` step, which is the single-device step over
 the same frames (no loss * world_size compensation, cf. DDP), and the
 replicated parameters stay equal on every rank.  Metric sums merge the

@@ -12,7 +12,8 @@ axes gives the global loss gradient.
 ``training_step`` and ``evaluation_step``) and accumulates the same
 running loss and metric sums as ``EnergyForceLoss(per_atom_energy=True)``
 over the same frames, so losses, epoch metrics, checkpoints and LR
-scheduling work unchanged; ``SpatialFrameDataModule`` and
+scheduling work unchanged; the optimizer is handed the loss formed from
+the merged sums (JAX ``value=loss``); ``SpatialFrameDataModule`` and
 ``SpatialFrameLoader`` hand each rank its slab of its frame.
 """
 
@@ -213,8 +214,8 @@ class SpatialTrainModule(NequIPTrainModule):
         self.optimizer.zero_grad(set_to_none=True)
         coeffs = self._coeffs(loss_coeffs)
         bs = self._device_sums(self.model, batch, self.loss, with_grads=True, coeffs=coeffs)
-        _, values = self.loss.values(bs, coeffs)
-        return self._apply_update(bs, values)
+        loss, values = self.loss.values(bs, coeffs)  # the merged loss, which the optimizer may read
+        return self._apply_update(bs, values, loss.detach())
 
     def evaluation_step(self, metrics, state, batch: dict, group=None):
         self._check_entries(metrics, is_loss=False)

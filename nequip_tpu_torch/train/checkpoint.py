@@ -5,7 +5,9 @@ package's ``TrainState`` and checkpoint hold together:
 
 * ``state``: the model's and the EMA model's tensors under their JAX dotted
   paths (``jax_named_tensors``: parameters and the frozen buffers), the
-  optimizer's ``state_dict``, ``ema_step`` and the running loss sums;
+  optimizer's ``state_dict`` (an optax chain's block states under
+  ``chains``, a generator's state among them), ``ema_step`` and the
+  running loss sums;
 * ``config``: the run's resolved config (the training module's
   ``hyperparameters()`` among it), enough to rebuild every object;
 * ``meta``: the trainer's bookkeeping (epoch, global step, best monitored

@@ -20,7 +20,9 @@ One step:
 * the module's clip (``gradient_clip_algorithm``): ``"norm"`` scales by
   ``min(1, c / (||g|| + 1e-12))``, ``"value"`` clamps to ``[-c, c]``; then,
   as the JAX module's optimizer chain has it, the base module's global-norm
-  clip at the same value, the optimizer and the EMA.
+  clip at the same value, the optimizer and the EMA.  The optimizer is
+  handed no loss value, as in the JAX package, so the ones that read it
+  (``polyak_sgd``, ``reduce_on_plateau``) are refused.
 
 With a process ``group`` (data parallel) the loss sums are merged over its
 ranks before the k passes (``psum_batch``: the value global, the gradient
@@ -43,6 +45,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from .optim import needs_value
 from .training_module import EMATrainModule, NequIPTrainModule
 
 
@@ -83,6 +86,9 @@ class ConFIGTrainModule(NequIPTrainModule):
         self._component_index = [i for i, e in enumerate(self.loss.entries) if self.loss.coeffs[e["name"]] is not None]
         if not self._component_index:
             raise ValueError("ConFIG needs at least one loss entry with a coefficient")
+        if needs_value(self.optimizer):
+            raise ValueError("ConFIG's update hands the optimizer no loss value (as in the JAX package), so it cannot "
+                             "run optax.polyak_sgd or optax.contrib.reduce_on_plateau")
 
     def component_grads(self, batch: dict, group=None):
         """``(A_raw, batch loss sums, loss values)``: the k components'

@@ -18,7 +18,10 @@ rate.  Evaluation (validation, test, predict, and a checkpoint's
 ``eval_params``, which ``ModelFromCheckpoint`` reads) runs ``x = (y - (1 -
 b1) z) / b1``: ``evaluation_model()`` is a copy of the model holding it.
 
-The base module's clip and per-step schedule act on the base updates
+The base optimizer may be any the base module takes (``optim.py``); it
+reads the step's loss where it needs it (``polyak_sgd``,
+``reduce_on_plateau``), as optax's ``schedule_free`` hands its extra
+arguments on.  The base module's clip and per-step schedule act on the base updates
 (inside schedule-free), over the trainable parameters.  The JAX module
 applies them, inside, only when its model has frozen leaves, and wraps the
 bare base optimizer otherwise.
@@ -58,12 +61,12 @@ class ScheduleFreeTrainModule(NequIPTrainModule):
         return 1.0 if self._step_schedule is None else float(self._step_schedule(self.update_count))
 
     @torch.no_grad()
-    def _optimizer_step(self) -> None:
+    def _optimizer_step(self, loss=None) -> None:
         params = [p for _, p in self.named_trainable()]
         y = [p.detach().clone() for p in params]
         if self.z is None:
             self.z = [t.clone() for t in y]
-        super()._optimizer_step()  # p = y + u
+        super()._optimizer_step(loss)  # p = y + u
         lr = float(self._sf_lr(self.step_count))
         max_lr = max(self.max_lr, lr)
         weight = max_lr**2

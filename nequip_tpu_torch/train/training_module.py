@@ -47,14 +47,22 @@ update.  ``gradient_clip_val`` clips by the global norm as
 epsilon), over the trainable parameters only (the JAX module's norm also
 counts its frozen leaves' gradients).
 
-The optimizer config is the JAX package's (``optax.adam``, ``optax.adamw``,
-``optax.sgd``, ``muon``/``muon_adam``; ``optim.py``), with ``param_groups``
-(``[{paths: [dotted prefix, ...], <overrides>}, ...]``, first match wins):
-each group's merged config builds its own torch groups.  A per-step optax
-schedule as ``lr_scheduler`` (``{_target_: optax.<schedule>, ...}``,
-``schedules.py``) multiplies update ``count`` (0 first) by its value, on
-top of the epoch scale; the module sets every group's rate to its base rate
-times both before each update.  A mapping ``name -> model config`` as
+The optimizer config is the JAX package's (any optax optimizer,
+``optax.contrib.reduce_on_plateau``, ``muon``/``muon_adam``; ``optim.py``),
+with ``param_groups`` (``[{paths: [dotted prefix, ...], <overrides>}, ...]``,
+first match wins): each group's merged config builds its own torch groups,
+which are the JAX ``multi_transform``'s transforms (one per entry and the
+base, frozen leaves outside).  The update is composed as the JAX trainer's:
+the global-norm clip, the optimizer (which reads the step's loss where it
+needs it: ``polyak_sgd``, ``reduce_on_plateau``), a per-step optax schedule
+given as ``lr_scheduler`` (``{_target_: optax.<schedule>, ...}``,
+``schedules.py``), whose value at update ``count`` (0 first) multiplies
+the update, and the epoch scale.  The module sets every group's rate to its
+base rate times both before each update: the learning rate of a torch
+class, whose update is proportional to it, and the factor on the final
+update of an optax chain.  Under data parallel and on the 2-D mesh the
+loss handed over is the one formed from the sums merged over the ranks.
+A mapping ``name -> model config`` as
 ``model`` builds ``models`` (one ``type_names``); ``model`` is the first,
 the state holds every model's tensors by name, and the training step
 refuses, as the JAX package's does.
@@ -78,7 +86,7 @@ from ..utils.device import resolve_device
 from .ema import ema_update
 from .lr_scheduler import LRScheduler, build_scheduler
 from .metrics_manager import MetricsManager
-from .optim import build_optimizer, param_groups
+from .optim import build_optimizer, param_groups, step_optimizer
 from .schedules import build_step_schedule
 
 # the reference's single-model key (the JAX package's SOLE_MODEL_KEY)
@@ -247,11 +255,12 @@ class NequIPTrainModule:
         cfg = dict(cfg)
         entries = [dict(g) for g in cfg.pop("param_groups", None) or []]
         paths = [tuple(g.pop("paths")) for g in entries]
-        members: List[List[torch.Tensor]] = [[] for _ in range(len(entries) + 1)]
+        members: List[List[tuple]] = [[] for _ in range(len(entries) + 1)]
         for path, p in self.named_trainable():
-            members[next((i + 1 for i, ps in enumerate(paths) if _path_matches(path, ps)), 0)].append(p)
+            members[next((i + 1 for i, ps in enumerate(paths) if _path_matches(path, ps)), 0)].append((path, p))
         specs = [cfg] + [{**cfg, **g} for g in entries]
-        return build_optimizer([group for spec, ps in zip(specs, members) for group in param_groups(spec, ps)])
+        return build_optimizer([group for spec, named in zip(specs, members)
+                                for group in param_groups(spec, [p for _, p in named], [k for k, _ in named])])
 
     def set_lr_scale(self, scale: float) -> None:
         """Set the epoch LR scale, rounded to float32 (the JAX trainer's
@@ -355,7 +364,7 @@ class NequIPTrainModule:
             loss.backward()
         if group is not None:
             self._all_reduce_grads(group)
-        return self._apply_update(bs, values)
+        return self._apply_update(bs, values, loss.detach())
 
     def _all_reduce_grads(self, group) -> None:
         """Sum every trainable parameter's ``.grad`` over ``group`` in place
@@ -374,20 +383,21 @@ class NequIPTrainModule:
             raise RuntimeError("the training step serves the sole model; a module of several models needs a "
                                "step of its own, as in the JAX package")
 
-    def _apply_update(self, bs, values) -> Dict[str, torch.Tensor]:
-        """The global-norm clip, the optimizer's update, the running loss
-        sums and the post-update hook, on the gradients in ``.grad``."""
+    def _apply_update(self, bs, values, loss=None) -> Dict[str, torch.Tensor]:
+        """The global-norm clip, the optimizer's update (handed the step's
+        ``loss``), the running loss sums and the post-update hook, on the
+        gradients in ``.grad``."""
         if self.gradient_clip_val is not None:
             clip_grad_global_norm_([p for _, p in self.named_trainable()], self.gradient_clip_val)
-        self._optimizer_step()
+        self._optimizer_step(loss)
         self.loss_state = self.loss.accumulate(self.loss_state, bs)
         self._post_optimizer_step()
         return {f"train_loss_step/{k}": v.detach() for k, v in values.items()}
 
-    def _optimizer_step(self) -> None:
+    def _optimizer_step(self, loss=None) -> None:
         if self._step_schedule is not None:
             self._set_rates()
-        self.optimizer.step()
+        step_optimizer(self.optimizer, loss)
         self.update_count += 1
 
     def _post_optimizer_step(self) -> None:

@@ -157,6 +157,19 @@ TRAJECTORY_CASES = {
         {},
     ),
 }
+# optax.lion with a schedule as its rate on the convolutions, the bare reduce_on_plateau (it reads each step's
+# loss) on the readout: the nearest config JAX accepts to a plateau in a param_groups entry, since an entry is
+# merged over the base config and lion and reduce_on_plateau share no argument
+LION_PLATEAU = {"_target_": "optax.contrib.reduce_on_plateau", "param_groups": [{
+    "paths": ["type_embed", "layer0_convnet", "layer1_convnet"], "_target_": "optax.lion", "learning_rate": {
+        "_target_": "optax.warmup_cosine_decay_schedule", "init_value": 1e-4, "peak_value": 5e-3, "warmup_steps": 2,
+        "decay_steps": 9}}]}
+TRAJECTORY_CASES["lion_schedule_plateau_groups"] = (
+    {"run": ["train", "val", "test"], "trainer.max_epochs": 3, "trainer.callbacks": _callbacks("epoch", 1),
+     "training_module.lr_scheduler": _epoch_scheduler("StepLR", step_size=1, gamma=0.5),
+     "training_module.optimizer": LION_PLATEAU},
+    {},
+)
 PORT_MODEL = {"training_module.model.tp_impl": "fused"}
 
 
@@ -230,7 +243,27 @@ def test_binding_clip_scales_the_trainable_gradients(tmp_path):
         assert float((p - q).abs().max()) <= 1e-12 * float(q.abs().max()), name
 
 
-RESTART_CASES = {"full_epochs": {}, "partial_sampler": {"data.train_dataloader.num_samples_per_epoch": 4}}
+RESTART_CASES = {"full_epochs": {}, "partial_sampler": {"data.train_dataloader.num_samples_per_epoch": 4},
+                 "lion_schedule_plateau_groups": {"training_module.optimizer": LION_PLATEAU}}
+
+
+def _assert_states_close(got, want, where=""):
+    """Optimizer states alike: tensors to rtol 1e-14, everything else equal."""
+    if isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype, where
+        np.testing.assert_allclose(got.float().numpy() if want.dtype == torch.bfloat16 else got.numpy(),
+                                   want.float().numpy() if want.dtype == torch.bfloat16 else want.numpy(),
+                                   rtol=1e-14, atol=1e-300, err_msg=where)
+    elif isinstance(want, dict):
+        assert sorted(got) == sorted(want), where
+        for k in want:
+            _assert_states_close(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_states_close(g, w, f"{where}[{i}]")
+    else:
+        assert got == want, where
 
 
 @pytest.mark.parametrize("case", sorted(RESTART_CASES))
@@ -254,11 +287,10 @@ def test_restart_equivalence(case, tmp_path):
         for name, t in a["state"][key].items():
             np.testing.assert_allclose(b["state"][key][name].numpy(), t.numpy(), rtol=1e-14, atol=1e-14, err_msg=name)
     assert a["state"]["ema_step"] == b["state"]["ema_step"]
-    opt_a, opt_b = a["state"]["optimizer"]["state"], b["state"]["optimizer"]["state"]
-    assert sorted(opt_a) == sorted(opt_b)
-    for i in opt_a:
-        for k in ("step", "exp_avg", "exp_avg_sq"):
-            np.testing.assert_allclose(opt_b[i][k].numpy(), opt_a[i][k].numpy(), rtol=1e-14, atol=1e-300)
+    # torch Adam's step/exp_avg/exp_avg_sq per parameter, or the optax chains' states
+    _assert_states_close(b["state"]["optimizer"], a["state"]["optimizer"], "optimizer")
+    if case != "lion_schedule_plateau_groups":
+        assert all(sorted(s) == ["exp_avg", "exp_avg_sq", "step"] for s in a["state"]["optimizer"]["state"].values())
     for key in ("lr_scale", "loss_coeffs", "loss_manager_state", "dataloader_state", "lr_scheduler_state"):
         assert b["meta"][key] == a["meta"][key], key
     soft_a, soft_b = a["meta"]["callback_states"][1], b["meta"]["callback_states"][1]

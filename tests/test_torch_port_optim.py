@@ -111,15 +111,30 @@ def test_optimizer_matches_optax(case):
 
 
 def test_optimizer_config_errors():
+    """What stays refused: optax.lbfgs, a callable mask, an unknown name or
+    argument, a schedule where optax takes a number, and ConFIG with an
+    optimizer that reads the loss value."""
+    from nequip_tpu_torch.train import ConFIGTrainModule
+
     ps = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(ValueError, match="optax.sgd"):
-        param_groups({"_target_": "optax.lion", "learning_rate": 0.1}, ps)
-    with pytest.raises(ValueError, match="supported optimizers"):
-        param_groups({"_target_": "optax.adam", "learning_rate": 0.1, "mu_dtype": "bfloat16"}, ps)
+    with pytest.raises(ValueError, match="line search"):
+        param_groups({"_target_": "optax.lbfgs", "learning_rate": 0.1}, ps)
+    with pytest.raises(ValueError, match="callable mask"):
+        param_groups({"_target_": "optax.adamw", "learning_rate": 0.1, "mask": {"_target_": "f", "_partial_": True}},
+                     ps)
+    with pytest.raises(ValueError, match="supported optimizers are .*optax.lion"):
+        param_groups({"_target_": "optax.not_an_optimizer", "learning_rate": 0.1}, ps)
     with pytest.raises(ValueError, match="unknown arguments"):
         param_groups({"_target_": "optax.adam", "learning_rate": 0.1, "momentum": 0.9}, ps)
-    with pytest.raises(ValueError, match="lr_scheduler"):
-        param_groups({"_target_": "optax.adam", "learning_rate": {"_target_": "optax.constant_schedule"}}, ps)
+    with pytest.raises(ValueError, match="unknown arguments"):
+        param_groups({"_target_": "optax.lion", "learning_rate": 0.1, "momentum": 0.9}, ps)
+    with pytest.raises(ValueError, match="sm3 takes learning_rate as a number"):
+        param_groups({"_target_": "optax.sm3", "learning_rate": {"_target_": "optax.constant_schedule", "value": 1}},
+                     ps)
+    for target in ("optax.polyak_sgd", "optax.contrib.reduce_on_plateau"):
+        with pytest.raises(ValueError, match="ConFIG.*polyak_sgd"):
+            ConFIGTrainModule(NequIPGNNModel(**TINY), loss=EnergyForceLoss(), optimizer={"_target_": target},
+                              device="cpu")
 
 
 SCHEDULE_ARGS = {
@@ -133,7 +148,33 @@ SCHEDULE_ARGS = {
     "exponential_decay": {"init_value": 1.0, "transition_steps": 3, "decay_rate": 0.5, "transition_begin": 2,
                           "end_value": 0.1},
     "piecewise_constant_schedule": {"init_value": 1.0, "boundaries_and_scales": {3: 0.5, 8: 0.1}},
+    "cosine_onecycle_schedule": {"transition_steps": 30, "peak_value": 0.8, "pct_start": 0.25, "div_factor": 10.0,
+                                 "final_div_factor": 100.0},
+    "join_schedules": {"schedules": [
+        {"_target_": "optax.linear_schedule", "init_value": 0.0, "end_value": 1.0, "transition_steps": 4},
+        {"_target_": "optax.exponential_decay", "init_value": 1.0, "transition_steps": 3, "decay_rate": 0.5}],
+        "boundaries": [6]},
+    "linear_onecycle_schedule": {"transition_steps": 33, "peak_value": 0.5},
+    "piecewise_interpolate_schedule": {"interpolate_type": "cosine", "init_value": 1.0,
+                                       "boundaries_and_scales": {5: 0.5, 12: 3.0, 30: 0.1}},
+    "sgdr_schedule": {"cosine_kwargs": [
+        {"init_value": 0.0, "peak_value": 1.0, "warmup_steps": 3, "decay_steps": 10},
+        {"init_value": 0.1, "peak_value": 0.5, "warmup_steps": 2, "decay_steps": 15, "end_value": 0.05}]},
+    "warmup_constant_schedule": {"init_value": 0.1, "peak_value": 0.9, "warmup_steps": 7},
+    "warmup_exponential_decay_schedule": {"init_value": 0.0, "peak_value": 1.0, "warmup_steps": 5,
+                                          "transition_steps": 4, "decay_rate": 0.7, "transition_begin": 3,
+                                          "end_value": 0.2},
 }
+
+
+def optax_schedule(name: str, kwargs: dict):
+    """optax's schedule of a config's arguments (``join_schedules`` builds its
+    nested configs)."""
+    if name == "join_schedules":
+        kwargs = dict(kwargs, schedules=[optax_schedule(c["_target_"].rpartition(".")[2],
+                                                        {k: v for k, v in c.items() if k != "_target_"})
+                                         for c in kwargs["schedules"]])
+    return getattr(optax.schedules, name)(**kwargs)
 
 
 @pytest.mark.parametrize("spelling", ["optax", "optax.schedules"])
@@ -141,9 +182,9 @@ SCHEDULE_ARGS = {
 def test_schedule_matches_optax(name, spelling):
     assert sorted(SCHEDULES) == sorted(SCHEDULE_ARGS)
     kwargs = SCHEDULE_ARGS[name]
-    want = getattr(optax.schedules, name)(**kwargs)
+    want = optax_schedule(name, kwargs)
     got = build_step_schedule({"_target_": f"{spelling}.{name}", **kwargs})
-    for count in range(20):
+    for count in range(41):
         w = float(np.asarray(want(jnp.asarray(count, dtype=jnp.int64))))
         assert got(count) == pytest.approx(w, rel=1e-12, abs=1e-300), count
     if name == "exponential_decay":
@@ -154,8 +195,10 @@ def test_schedule_matches_optax(name, spelling):
 
 
 def test_unsupported_schedule_names_the_list():
-    with pytest.raises(ValueError, match="warmup_cosine_decay_schedule"):
-        build_step_schedule({"_target_": "optax.sgdr_schedule"})
+    with pytest.raises(ValueError, match="warmup_exponential_decay_schedule"):
+        build_step_schedule({"_target_": "optax.not_a_schedule"})
+    with pytest.raises(ValueError, match="sgdr_schedule"):
+        build_step_schedule({"_target_": "torch.optim.lr_scheduler.sgdr_schedule"})
 
 
 @pytest.mark.parametrize("shape", [(16, 8), (8, 16), (5, 5)])

@@ -2,7 +2,8 @@
 
 ``Trainer(devices=2)`` over two gloo ranks (spawned processes,
 ``torch_port_parallel_ranks``) trains one epoch with batch 1 over three LJ
-frames, shuffle off, in rr and in fr: two steps, the second on the third
+frames, shuffle off, in rr, in fr and in rr under ``optax.polyak_sgd``
+(whose step reads the loss: the one formed from the merged sums): two steps, the second on the third
 frame and a fully masked filler.  Each step's loss and parameters, the
 epoch's train and val metrics and the final parameters equal those of
 JAX's ``Trainer(devices=2)`` (its ``DataParallel`` step on a 2-device mesh)
@@ -45,7 +46,7 @@ from nequip_tpu_torch.scripts.train import main as train_main
 from nequip_tpu_torch.train import load_checkpoint
 
 from torch_port_parallel_ranks import (
-    DP_MODEL, METRIC_KEYS, OPT, R_MAX, JaxStepRecorder, cli_args, close_params, config_fit, dp_checks,
+    DP_MODEL, METRIC_KEYS, MODES, R_MAX, JaxStepRecorder, cli_args, close_params, config_fit, dp_checks,
     run_ranks,
 )
 
@@ -56,12 +57,12 @@ N_FRAMES = 3  # odd: the second step's second micro-batch is a masked filler
 def jax_fits(tmp_path_factory):
     params = flatten_tree(jax.tree.map(np.asarray, JModel(**DP_MODEL).init_params()))
     out = {"params": params}
-    for mode in ("rr", "fr"):
+    for mode, (force_grad_mode, optimizer) in MODES.items():
         ds = JLJ(num_frames=N_FRAMES, seed=7, transforms=[JMapper(chemical_symbols=["Cu"]), JNL(r_max=R_MAX)])
         dm = JDataModule(seed=0, train_dataset=ds, val_dataset=ds, train_dataloader={"batch_size": 1, "shuffle": False},
                          val_dataloader={"batch_size": 1})
         module = JModule(model=JModel(**DP_MODEL), loss=JLoss(per_atom_energy=True), val_metrics=JMetrics(),
-                         optimizer=OPT, force_grad_mode=mode)
+                         optimizer=optimizer, force_grad_mode=force_grad_mode)
         rec = JaxStepRecorder()
         trainer = JTrainer(max_epochs=1, devices=2, callbacks=[rec], ckpt_dir=str(tmp_path_factory.mktemp(mode)))
         trainer.fit(module, dm)
@@ -76,7 +77,7 @@ def ranks(jax_fits, tmp_path_factory):
     return run_ranks(dp_checks, 2, root, jax_fits["params"], N_FRAMES, str(root / "ckpt"))
 
 
-@pytest.mark.parametrize("mode", ["rr", "fr"])
+@pytest.mark.parametrize("mode", ["rr", "fr", "polyak"])
 def test_dp_trainer_steps_match_jax(jax_fits, ranks, mode):
     want = jax_fits[mode]
     for res in ranks:
@@ -91,7 +92,7 @@ def test_dp_trainer_steps_match_jax(jax_fits, ranks, mode):
             np.testing.assert_array_equal(a["params"][k], b["params"][k])
 
 
-@pytest.mark.parametrize("mode", ["rr", "fr"])
+@pytest.mark.parametrize("mode", ["rr", "fr", "polyak"])
 def test_dp_trainer_epoch_metrics_match_jax(jax_fits, ranks, mode):
     want = {k: v for k, v in jax_fits[mode]["metrics"].items() if k.startswith(METRIC_KEYS)}
     assert len(want) > 4

@@ -3,7 +3,9 @@
 ``SpatialTrainModule`` on a (2, 2) mesh of four gloo ranks (spawned
 processes, ``torch_port_parallel_ranks``): one epoch through the port's
 ``Trainer`` over four 64-atom LJ frames (two steps of two frames, each
-frame in two slabs), val on the same frames, in rr and in fr.  Each step's
+frame in two slabs), val on the same frames, in rr, in fr and in rr
+under ``optax.polyak_sgd`` (whose step reads the loss formed from the sums
+merged over the mesh).  Each step's
 loss, the epoch's train and val metrics and the parameters after every
 step equal those of JAX's ``SpatialTrainModule`` on ``make_2d_mesh(2, 2)``
 through its ``Trainer`` to 1e-10 (relative for losses and metrics, of the
@@ -37,7 +39,7 @@ from nequip_tpu_torch.parallel import (
 from nequip_tpu_torch.train import EMATrainModule, EnergyForceLoss
 
 from torch_port_parallel_ranks import (
-    METRIC_KEYS, OPT, R_MAX, SPATIAL_MODEL, JaxStepRecorder, close_params, lj_dataset, run_ranks, spatial_checks,
+    METRIC_KEYS, MODES, OPT, R_MAX, SPATIAL_MODEL, JaxStepRecorder, close_params, lj_dataset, run_ranks, spatial_checks,
     tensors_np,
 )
 
@@ -46,12 +48,12 @@ from torch_port_parallel_ranks import (
 def jax_fits(tmp_path_factory):
     params = flatten_tree(jax.tree.map(np.asarray, JModel(**SPATIAL_MODEL).init_params()))
     out = {"params": params}
-    for mode in ("rr", "fr"):
+    for mode, (force_grad_mode, optimizer) in MODES.items():
         ds = JLJ(supercell=(4, 2, 2), num_frames=4, seed=3,
                  transforms=[JMapper(chemical_symbols=["Cu"]), JNL(r_max=R_MAX)])
         mesh = j_make_2d_mesh(2, 2)
         module = JSpatialModule(model=JModel(**SPATIAL_MODEL), loss=JLoss(per_atom_energy=True), val_metrics=JMetrics(),
-                                optimizer=OPT, mesh=mesh, force_grad_mode=mode)
+                                optimizer=optimizer, mesh=mesh, force_grad_mode=force_grad_mode)
         rec = JaxStepRecorder()
         trainer = JTrainer(max_epochs=1, callbacks=[rec], ckpt_dir=str(tmp_path_factory.mktemp(mode)))
         trainer.fit(module, JSpatialDM(train_dataset=ds, val_dataset=ds, mesh=mesh, r_max=R_MAX, shuffle=False))
@@ -65,9 +67,9 @@ def ranks(jax_fits, tmp_path_factory):
     return run_ranks(spatial_checks, 4, root, jax_fits["params"], str(root / "ckpt"))
 
 
-@pytest.mark.parametrize("mode", ["rr", "fr", "fr2"])
+@pytest.mark.parametrize("mode", ["rr", "fr", "fr2", "polyak"])
 def test_2d_mesh_steps_match_jax(jax_fits, ranks, mode):
-    want = jax_fits[mode[:2]]
+    want = jax_fits["fr" if mode == "fr2" else mode]
     assert sorted((r["coords"]["dp"], r["coords"]["graph"]) for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
     for res in ranks:
         got = res[mode]
@@ -77,9 +79,9 @@ def test_2d_mesh_steps_match_jax(jax_fits, ranks, mode):
             close_params(g["params"], w["params"], "step")
 
 
-@pytest.mark.parametrize("mode", ["rr", "fr", "fr2"])
+@pytest.mark.parametrize("mode", ["rr", "fr", "fr2", "polyak"])
 def test_2d_mesh_epoch_metrics_match_jax(jax_fits, ranks, mode):
-    want = {k: v for k, v in jax_fits[mode[:2]]["metrics"].items() if k.startswith(METRIC_KEYS)}
+    want = {k: v for k, v in jax_fits["fr" if mode == "fr2" else mode]["metrics"].items() if k.startswith(METRIC_KEYS)}
     assert len(want) > 4
     for res in ranks:
         got = res[mode]["metrics"]

@@ -129,14 +129,19 @@ MODULE_CASES = {
                                   SOFTADAPT_COEFFS, 0.5),
     "schedule_free_warmup": (JaxScheduleFree, ScheduleFreeTrainModule, dict(warmup_steps=2), None, 0.5),
     "schedule_free": (JaxScheduleFree, ScheduleFreeTrainModule, dict(), None, None),
+    # a base optimizer that reads the loss: optax's schedule_free hands its extra arguments on
+    "schedule_free_polyak": (JaxScheduleFree, ScheduleFreeTrainModule, dict(
+        optimizer={"_target_": "optax.polyak_sgd", "max_learning_rate": 1e3, "scaling": 0.5}), None, 0.5),
 }
 
 
 @pytest.mark.parametrize("case", list(MODULE_CASES))
 def test_module_matches_jax(case, jax_setup, port_batch):
     jax_cls, port_cls, kwargs, coeffs, scale = MODULE_CASES[case]
+    kwargs = dict(kwargs)
+    optimizer = kwargs.pop("optimizer", ADAM)
     model, jitted, batch, init = jax_setup
-    jax_module = jax_cls(model=model, loss=JaxLoss(type_names=["Cu"]), optimizer=ADAM, **kwargs)
+    jax_module = jax_cls(model=model, loss=JaxLoss(type_names=["Cu"]), optimizer=optimizer, **kwargs)
     state = jax_module.init_state()
     if jax_cls is JaxScheduleFree:  # a first-order step: the shared jitted model's derivatives serve
         jax_module.model = jitted
@@ -150,7 +155,7 @@ def test_module_matches_jax(case, jax_setup, port_batch):
         jax_logs.append({k: float(v) for k, v in logs.items()})
 
     port_model = load_jax_params(NequIPGNNModel(tp_impl="fused", **TINY, **ALL_TRAINABLE), init)
-    module = port_cls(port_model, loss=EnergyForceLoss(type_names=["Cu"]), optimizer=ADAM, device="cpu", **kwargs)
+    module = port_cls(port_model, loss=EnergyForceLoss(type_names=["Cu"]), optimizer=optimizer, device="cpu", **kwargs)
     assert not module.frozen_paths
     if hasattr(module, "ema_model"):
         module.ema_model.load_state_dict(port_model.state_dict())

@@ -1,6 +1,8 @@
 """Writer of ``tests/data/torch_port_optim_golden.npz``: three training steps
-of the JAX package's ConFIG, Muon, schedule-free and Adam variants, for the
-card, which has no JAX.
+of the JAX package's ConFIG, Muon, schedule-free and Adam variants and of
+optax's Lion (a schedule as rate), Adafactor (factored leaves), LAMB (a
+dict mask), Polyak SGD and ``reduce_on_plateau`` (both reading the loss),
+for the card, which has no JAX.
 
 A small model with every leaf trainable (1 layer, l_max 1, 8 features,
 trainable Bessel weights and per-type scales and shifts; its
@@ -56,6 +58,27 @@ CASES = {
     "adam_warmup_cosine": {"module": "NequIPTrainModule", "optimizer": ADAM, "kwargs": {"lr_scheduler": {
         "_target_": "optax.warmup_cosine_decay_schedule", "init_value": 0.1, "peak_value": 1.0, "warmup_steps": 1,
         "decay_steps": 4}}},
+    # optax's other optimizers on the port's optax chains
+    "lion_warmup_cosine": {"module": "NequIPTrainModule", "kwargs": {}, "optimizer": {
+        "_target_": "optax.lion", "learning_rate": {
+            "_target_": "optax.warmup_cosine_decay_schedule", "init_value": 0.0005, "peak_value": 0.002,
+            "warmup_steps": 1, "decay_steps": 4}}},
+    # every 2-D leaf but the readout's (8, 1) and the embedding's (1, 8) is factored
+    "adafactor_factored": {"module": "NequIPTrainModule", "kwargs": {}, "optimizer": {
+        "_target_": "optax.adafactor", "learning_rate": 0.01, "min_dim_size_to_factor": 8}},
+    "lamb_mask": {"module": "NequIPTrainModule", "kwargs": {}, "optimizer": {
+        "_target_": "optax.lamb", "learning_rate": 0.005, "weight_decay": 0.1, "mask": {
+            "type_embed": True, "bessel_encode": False,
+            "layer0_convnet": {"conv": {"linear_1": True, "edge_mlp": False, "linear_2": True}},
+            "per_atom_energy_readout": True, "per_type_energy_scale_shift": False}}},
+    # f_min near the loss (4.80): a step of (loss - f_min) / ||g||^2 ~ 0.01, set by the loss the module hands over
+    "polyak_sgd": {"module": "NequIPTrainModule", "kwargs": {}, "optimizer": {
+        "_target_": "optax.polyak_sgd", "max_learning_rate": 1.0, "f_min": 4.75}},
+    # the bare plateau scale times a negative constant schedule: SGD at 0.005 times a scale that halves at
+    # steps 2 and 3 (rtol 0.5: the loss never halves)
+    "reduce_on_plateau": {"module": "NequIPTrainModule", "optimizer": {
+        "_target_": "optax.contrib.reduce_on_plateau", "factor": 0.5, "patience": 1, "rtol": 0.5}, "kwargs": {
+        "lr_scheduler": {"_target_": "optax.constant_schedule", "value": -0.005}}},
 }
 
 

@@ -95,6 +95,10 @@ GHOST_MODEL = dict(seed=0, model_dtype="float64", type_names=["Cu"], r_max=R_MAX
 DP_MODEL = dict(GHOST_MODEL, seed=1, avg_num_neighbors=12.0, per_type_energy_shifts={"Cu": -0.3})
 SPATIAL_MODEL = dict(GHOST_MODEL, seed=11, avg_num_neighbors=12.0, per_type_energy_shifts={"Cu": -0.5})
 OPT = {"_target_": "optax.adam", "learning_rate": 1e-2}
+# an update that reads the loss: under data parallel and on the 2-D mesh the one merged over the ranks
+POLYAK = {"_target_": "optax.polyak_sgd", "max_learning_rate": 100.0, "f_min": 0.0}  # the loss sets the step
+# mode: (force_grad_mode, optimizer)
+MODES = {"rr": ("rr", OPT), "fr": ("fr", OPT), "polyak": ("rr", POLYAK)}
 
 
 def _model(kw: dict, params: dict, tp_impl: str):
@@ -208,8 +212,10 @@ def dp_fit(rank: int, params: dict, n_frames: int, mode: str, ckpt_root: str) ->
     dm = NequIPDataModule(seed=0, train_dataset=ds, val_dataset=ds, device="cpu",
                           train_dataloader={"batch_size": 1, "shuffle": False},
                           val_dataloader={"batch_size": 1})
+    force_grad_mode, optimizer = MODES[mode]
     module = NequIPTrainModule(_model(DP_MODEL, params, "fused"), loss=EnergyForceLoss(per_atom_energy=True),
-                               val_metrics=EnergyForceMetrics(), optimizer=OPT, force_grad_mode=mode, device="cpu")
+                               val_metrics=EnergyForceMetrics(), optimizer=optimizer, force_grad_mode=force_grad_mode,
+                               device="cpu")
     ckpt = Path(ckpt_root) / f"rank{rank}"
     steps = _StepRecorder()
     trainer = Trainer(max_epochs=1, devices=2, ckpt_dir=str(ckpt), callbacks=[steps])
@@ -256,7 +262,7 @@ def dp_checks(rank: int, params: dict, n_frames: int, ckpt_root: str) -> dict:
     ``Trainer(devices=3)`` under a group of two, which raises by name."""
     from nequip_tpu_torch.train import Trainer
 
-    out = {mode: dp_fit(rank, params, n_frames, mode, str(Path(ckpt_root) / mode)) for mode in ("rr", "fr")}
+    out = {mode: dp_fit(rank, params, n_frames, mode, str(Path(ckpt_root) / mode)) for mode in MODES}
     out["config"] = config_fit(rank, params, n_frames, str(Path(ckpt_root) / "config"))
     out["cli_dir"] = str(Path(ckpt_root) / "cli")
     dp_cli(out["cli_dir"])
@@ -279,8 +285,10 @@ def spatial_fit(rank: int, params: dict, mode: str, ckpt_root: str, fr_edge_chun
 
     ds = lj_dataset(4, seed=3, supercell=(4, 2, 2))
     mesh = make_2d_mesh(2, 2)
+    force_grad_mode, optimizer = MODES[mode]
     module = SpatialTrainModule(_model(SPATIAL_MODEL, params, "fused"), loss=EnergyForceLoss(per_atom_energy=True),
-                                val_metrics=EnergyForceMetrics(), optimizer=OPT, force_grad_mode=mode, mesh=mesh,
+                                val_metrics=EnergyForceMetrics(), optimizer=optimizer, force_grad_mode=force_grad_mode,
+                                mesh=mesh,
                                 fr_edge_chunks=fr_edge_chunks, device="cpu")
     steps = _StepRecorder()
     trainer = Trainer(max_epochs=1, save_last=False, save_best=False, callbacks=[steps],
@@ -291,8 +299,8 @@ def spatial_fit(rank: int, params: dict, mode: str, ckpt_root: str, fr_edge_chun
 
 
 def spatial_checks(rank: int, params: dict, ckpt_root: str) -> dict:
-    out = {mode: spatial_fit(rank, params, mode[:2], str(Path(ckpt_root) / mode), chunks)
-           for mode, chunks in (("rr", 0), ("fr", 0), ("fr2", 2))}  # fr2: fr over 2 edge slices of each slab
+    out = {label: spatial_fit(rank, params, mode, str(Path(ckpt_root) / label), chunks)  # fr2: over 2 edge slices
+           for label, mode, chunks in (("rr", "rr", 0), ("fr", "fr", 0), ("fr2", "fr", 2), ("polyak", "polyak", 0))}
     out["coords"] = out["rr"]["coords"]
     return out
 
